@@ -25,7 +25,25 @@ stamped with the card's name and power limit):
    fresh engine must give the same tokens; prints prefill ms, decode
    tokens/s and peak memory;
 6. paged decode logits vs fixed-slot decode logits on one shared state
-   at full width in f32 (the kernel path against the composed path).
+   at full width in f32 (the kernel path against the composed path);
+7. flash-attention backward vs its plain version, causal, bf16 and f32,
+   at the training shape (4, 16, 2048, 128), a ragged (1, 16, 100, 128)
+   and gpt_small's (1, 12, 1024, 64): max |Δdq|, |Δdk|, |Δdv|, kernel /
+   plain / scaled_dot_product_attention-backward / bound times;
+8. fused LN-MLP forward and backward (and the dW2 kernel alone) vs their
+   plain versions, gelu, bf16 and f32, at one gpt_1p3b layer
+   (R = 8192, H = 2048, M = 8192) and a ragged R = 100: errors, kernel /
+   plain / bound times, and the composed cuBLAS MLP's forward and
+   backward times as a yardstick;
+9. training at full gpt_1p3b width and depth (remat, fused MLP, random
+   weights from a seed) through DistributedTrainStep: AdamW at lr 1e-4,
+   batch 4 x 2048, loss_chunk 256, 6 steps on one repeated batch; every
+   loss and grad norm finite, the last loss below the first, every
+   training kernel's launch count rising; step ms, tokens/s, model
+   FLOP/s share and peak memory;
+10. one step's loss and every gradient at full gpt_1p3b width and 2
+    layers, f32, fused MLP, batch 1 x 256, on the card (the kernels)
+    against the CPU (the plain versions): max relative error per leaf.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -53,6 +71,17 @@ PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # round the hidden state to bf16 before the logits matmul, so a last-bit
 # difference in the hidden state can move a logit by ~1e-4
 LOGITS_TOL = 2e-3
+# backward kernels vs their plain versions, max |Δ| / max |plain| per
+# output: f32 sums (and dQ's atomics) in another order; bf16 with the
+# same roundings at the same points, but an f32 sum in another order can
+# cross a bf16 rounding boundary (3.9e-3 of a value)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FMLP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# phase 10, per leaf: both heads round the logits' operands and their
+# cotangents to bf16 (as the JAX head does), so a last-bit difference
+# upstream can flip one bf16 rounding: 3.9e-3 of one element of the
+# tied embedding's gradient, far less of every other leaf's
+TRAIN_GRAD_TOL = {"wte": 5e-3, "other": 1e-3}
 
 
 def emit(obj):
@@ -310,6 +339,282 @@ def logits_phase(dev, params, stamp):
         raise AssertionError(f"paged and fixed decode disagree: {row}")
 
 
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def flash_bwd_phase(dev, fa, stamp):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows = {}
+    shapes = [("gpt_1p3b_train", 4, 16, 2048, 128),
+              ("ragged", 1, 16, 100, 128), ("gpt_small", 1, 12, 1024, 64)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for model, b, h, s, d in shapes:
+            q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            scale = 1.0 / math.sqrt(d)
+            o, lse = fa._launch(q, k, v, True, scale)
+            got = fa._flash_backward(q, k, v, o, lse, do, True, scale)
+            want = fa._flash_backward_reference(q, k, v, o, lse, do, True,
+                                                scale)
+            torch.cuda.synchronize()
+            errs = {n: (g.float() - w.float()).abs().max().item()
+                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            rel = max(_rel(g, w) for g, w in zip(got, want))
+            ok = rel <= GRAD_TOL[dtype] and all(
+                bool(torch.isfinite(g).all()) for g in got)
+            del got, want
+            pairs = b * h * s * (s + 1) // 2   # causal (q, k) pairs
+            flops = 10 * d * pairs             # s, dp, dV, dK, dQ
+            es = q.element_size()
+            # read q, k, v, o, dO, lse; write dq, dk, dv
+            nbytes = b * h * (8 * s * d * es + s * 4)
+            b_ms, b_by = bound(flops, nbytes, dtype)
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  scale=scale)
+            row = {
+                "phase": "flash_attention_bwd", "model": model,
+                "shape": [b, h, s, d], "dtype": str(dtype)[6:],
+                "max_abs_err": errs, "max_rel_err": rel,
+                "tol_rel": GRAD_TOL[dtype], "ok": ok,
+                "ms": time_ms(lambda: fa._flash_backward(
+                    q, k, v, o, lse, do, True, scale)),
+                "plain_ms": time_ms(lambda: fa._flash_backward_reference(
+                    q, k, v, o, lse, do, True, scale), max_reps=10),
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    sdpa, (qs, ks, vs), do, retain_graph=True)),
+                "library": "scaled_dot_product_attention backward",
+                "bound_ms": b_ms, "bound_by": b_by, **stamp}
+            emit(row)
+            if not ok:
+                raise AssertionError(f"flash backward disagrees: {row}")
+            rows[(model, dtype)] = row
+            del q, k, v, do, o, lse, qs, ks, vs, sdpa
+            torch.cuda.empty_cache()
+    return rows
+
+
+def fmlp_phase(dev, fk, stamp):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rows = {}
+    H, M = 2048, 8192
+    for dtype in (torch.bfloat16, torch.float32):
+        for R in (8192, 100):
+            def n(*sh, sc=1.0):
+                return torch.randn(sh, generator=gen, device=dev) * sc
+
+            x, dy = n(R, H).to(dtype), n(R, H).to(dtype)
+            w1, w2 = n(H, M, sc=0.02).to(dtype), n(M, H, sc=0.02).to(dtype)
+            b1, b2 = n(M, sc=0.02).to(dtype), n(H, sc=0.02).to(dtype)
+            lns, lnb = 1.0 + n(H, sc=0.1), n(H, sc=0.1)
+            fargs = (x, lns, lnb, w1, b1, w2, b2, None, None, "gelu", True,
+                     True, 1e-5)
+            y, mu, rstd = fk._fmlp_forward(*fargs)
+            y_ref, mu_ref, rstd_ref = fk._fmlp_forward_reference(*fargs)
+            bargs = (x, lns, lnb, w1, b1, w2, None, None, mu_ref, rstd_ref,
+                     dy, "gelu", True, True)
+            got = fk._fmlp_backward(*bargs)
+            want = fk._fmlp_backward_reference(*bargs)
+            # the dW2 kernel alone, on the activation the backward uses
+            lnx = fk._lnx(x, lns, lnb, mu_ref, rstd_ref)
+            a = fk._act(fk._mm32(lnx, w1) + b1.float(), "gelu").to(dtype)
+            dw2 = fk._launch_dw2(a, dy)
+            dw2_ref = fk._mm32(a.t(), dy)
+            torch.cuda.synchronize()
+            names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+            rel_f = _rel(y, y_ref)
+            rel_b = {nm: _rel(g, w) for nm, g, w in zip(names, got, want)}
+            rel_dw2 = _rel(dw2, dw2_ref)
+            dabs = lambda g, w: (g.float() - w.float()).abs().max().item()
+            abs_f, abs_dw2 = dabs(y, y_ref), dabs(dw2, dw2_ref)
+            abs_b = {nm: dabs(g, w) for nm, g, w in zip(names, got, want)}
+            ok = max([rel_f, rel_dw2, *rel_b.values()]) <= FMLP_TOL[dtype]
+            del got, want, y_ref, dw2, dw2_ref
+            rhm = R * H * M
+            es = x.element_size()
+            # forward: read x, W1, b1, W2, b2, LN params; write y, mu, rstd
+            f_bytes = (2 * R * H + 2 * H * M + M + H) * es \
+                + 4 * (2 * H + 2 * R)
+            # backward: read x, dy, W1, b1, W2, LN params, mu, rstd; write
+            # dx, dW1, dW2 (f32), db1, db2, dscale, dbias
+            b_bytes = (2 * R * H + 2 * H * M + M) * es \
+                + 4 * (2 * H + 2 * R) + 4 * (R * H + 2 * H * M + M + 3 * H)
+            fb_ms, fb_by = bound(4 * rhm, f_bytes, dtype)
+            bb_ms, bb_by = bound(8 * rhm, b_bytes, dtype)
+            db_ms, db_by = bound(2 * rhm, (R * M + R * H) * es + 4 * M * H,
+                                 dtype)
+            # yardstick: the same MLP as composed PyTorch ops (cuBLAS
+            # matmuls), forward and autograd backward
+            xs = x.detach().requires_grad_(True)
+            ws = [t.detach().requires_grad_(True)
+                  for t in (w1, b1, w2, b2, lns, lnb)]
+
+            def composed():
+                return fk._ln_mlp_reference(xs, ws[4], ws[5], ws[0], ws[1],
+                                            ws[2], ws[3], None, None, "gelu",
+                                            True, True, 1e-5)
+
+            y_c = composed()
+            row = {
+                "phase": "fused_ln_mlp", "act": "gelu", "R": R, "H": H,
+                "M": M, "dtype": str(dtype)[6:],
+                "max_abs_err_y": abs_f, "max_abs_err_grads": abs_b,
+                "max_abs_err_dw2": abs_dw2,
+                "max_rel_err_y": rel_f, "max_rel_err_grads": rel_b,
+                "max_rel_err_dw2": rel_dw2, "tol_rel": FMLP_TOL[dtype],
+                "ok": ok,
+                "fwd_ms": time_ms(lambda: fk._fmlp_forward(*fargs)),
+                "fwd_plain_ms": time_ms(
+                    lambda: fk._fmlp_forward_reference(*fargs), max_reps=10),
+                "fwd_bound_ms": fb_ms, "fwd_bound_by": fb_by,
+                "bwd_ms": time_ms(lambda: fk._fmlp_backward(*bargs)),
+                "bwd_plain_ms": time_ms(
+                    lambda: fk._fmlp_backward_reference(*bargs),
+                    max_reps=10),
+                "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by,
+                "dw2_ms": time_ms(lambda: fk._launch_dw2(a, dy)),
+                "dw2_plain_ms": time_ms(lambda: fk._mm32(a.t(), dy)),
+                "dw2_bound_ms": db_ms, "dw2_bound_by": db_by,
+                "composed_cublas_fwd_ms": time_ms(composed),
+                "composed_cublas_bwd_ms": time_ms(
+                    lambda: torch.autograd.grad(y_c, [xs] + ws, dy,
+                                                retain_graph=True)),
+                **stamp}
+            emit(row)
+            if not ok:
+                raise AssertionError(f"fused LN-MLP disagrees: {row}")
+            rows[(R, dtype)] = row
+            del x, dy, w1, w2, a, y_c, xs, ws, lnx
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _training_counts(fa, fk):
+    return {"flash_attention_fwd": fa.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "fused_ln_mlp_fwd": fk.FWD_LAUNCHES,
+            "fused_ln_mlp_bwd": fk.BWD_LAUNCHES,
+            "fused_ln_mlp_bwd_dw2": fk.DW2_LAUNCHES}
+
+
+def _reset_training_counts(fa, fk):
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    fk.FWD_LAUNCHES = fk.BWD_LAUNCHES = fk.DW2_LAUNCHES = 0
+
+
+def train_phase(dev, fa, fk, stamp, steps=6):
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import DistributedTrainStep
+    from paddle_tpu_torch.parallel import train_step as TS
+
+    cfg = G.gpt_1p3b(remat=True, fused_mlp=True)
+    B, S, chunk = 4, cfg.seq_len, 256
+    rng = np.random.default_rng(9)
+    batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))),
+             torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))))
+    norms = []
+
+    def update(params, grads, state, lr, **kw):
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for _, g in TS._paths(grads))
+        norms.append(torch.sqrt(sq))
+        return TS.pure_adamw_update(params, grads, state, lr, **kw)
+
+    step = DistributedTrainStep(
+        lambda p, b: G.gpt_loss(cfg, p, b, loss_chunk=chunk),
+        G.gpt_init(cfg, seed=0, device=dev),
+        optimizer=(TS.pure_adamw_init, update), lr=1e-4, device=dev)
+    n_params = sum(t.numel() for _, t in TS._paths(step.params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    _reset_training_counts(fa, fk)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = float(step(batch))     # the host read syncs the step
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launches = _training_counts(fa, fk)
+    peak = torch.cuda.max_memory_allocated(dev)
+    gnorms = [float(x) for x in norms]
+    step_ms = float(np.median(times[-3:]))
+    tokens = B * S
+    ok = all(math.isfinite(x) for x in losses + gnorms) \
+        and losses[-1] < losses[0] and all(n > 0 for n in launches.values())
+    row = {"phase": "train", "model": "gpt_1p3b", "layers": cfg.n_layers,
+           "hidden": cfg.hidden, "remat": True, "fused_mlp": True,
+           "optimizer": "adamw", "lr": 1e-4, "batch": [B, S],
+           "loss_chunk": chunk, "params": n_params, "steps": steps,
+           "losses": losses, "grad_norms": gnorms, "step_ms": times,
+           "step_ms_median_last3": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "model_flops_share": 6.0 * n_params * tokens
+           / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "peak_mem_gib": peak / 2**30, "launches": launches, "ok": ok,
+           **stamp}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"training phase failed: {row}")
+    del step
+    torch.cuda.empty_cache()
+    return row
+
+
+def grads_phase(dev, stamp):
+    """One step's loss and grads, kernels on the card vs plain on the CPU."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import train_step as TS
+
+    cfg = G.gpt_1p3b(n_layers=2, dtype=torch.float32, fused_mlp=True,
+                     remat=True)
+    params = G.gpt_init(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(10)
+    batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))),
+             torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))))
+
+    def run(device):
+        p = {k: ({kk: vv.to(device).requires_grad_(True)
+                  for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(device).requires_grad_(True))
+             for k, v in params.items()}
+        loss = G.gpt_loss(cfg, p, batch, loss_chunk=128)
+        loss.backward()
+        return float(loss.detach()), {path: t.grad.cpu()
+                                      for path, t in TS._paths(p)}
+
+    t0 = time.perf_counter()
+    l_card, g_card = run(dev)
+    t1 = time.perf_counter()
+    l_cpu, g_cpu = run("cpu")
+    t2 = time.perf_counter()
+    rel = {"/".join(path): _rel(g_card[path], g)
+           for path, g in g_cpu.items()}
+    tol = {k: TRAIN_GRAD_TOL["wte" if k == "wte" else "other"] for k in rel}
+    ok = abs(l_card - l_cpu) <= 1e-4 and all(rel[k] <= tol[k] for k in rel)
+    row = {"phase": "train_grads", "model": "gpt_1p3b", "layers": 2,
+           "dtype": "float32", "batch": [1, 256], "loss_card": l_card,
+           "loss_cpu": l_cpu, "max_rel_err": rel, "tol_rel": tol,
+           "card_s": t1 - t0, "cpu_s": t2 - t1, "ok": ok, **stamp}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"card and CPU gradients disagree: {row}")
+    return row
+
+
+def _kernel(name, source, replaces, launches, row, err, keys, library):
+    ms, plain, bnd, by = keys
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": row[ms], "plain_ms": row[plain],
+            "bound_ms": row[bnd], "bound_by": row[by],
+            "library_ms": row[library] if library else None}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -341,30 +646,67 @@ def main():
     flash = flash_phase(dev, fa, stamp)
     paged = paged_phase(dev, pa, stamp)
 
+    from paddle_tpu_torch.ops import fused_kernels as fk
+
     cfg = G.gpt_1p3b()
     params = G.gpt_init(cfg, seed=0, device=dev)
     runs = {m: engine_phase(dev, cfg, params, m, fa, pa, stamp)
             for m in (False, True)}
     logits_phase(dev, params, stamp)
+    del params
+    torch.cuda.empty_cache()
+
+    flash_bwd = flash_bwd_phase(dev, fa, stamp)
+    fmlp = fmlp_phase(dev, fk, stamp)
+    train = train_phase(dev, fa, fk, stamp)
+    grads_phase(dev, stamp)
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     p = paged[torch.bfloat16]
+    fb = flash_bwd[("gpt_1p3b_train", torch.bfloat16)]
+    fm = fmlp[(8192, torch.bfloat16)]
+    tl = train["launches"]
+    plain = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-         "replaces": "paddle_tpu/ops/flash_attention.py:88",
-         "launches": runs[False]["launches"]["flash_attention_fwd"],
-         "max_abs_err": f["max_abs_err_o"], "ms": f["ms"],
-         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-         "bound_by": f["bound_by"], "library_ms": f["library_ms"]},
-        {"name": "paged_attention_decode", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-         "replaces": "paddle_tpu/ops/paged_attention.py:77",
-         "launches": runs[True]["launches"]["paged_attention_decode"],
-         "max_abs_err": p["max_abs_err"], "ms": p["ms"],
-         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-         "bound_by": p["bound_by"], "library_ms": None},
+        _kernel("flash_attention_fwd",
+                "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+                "paddle_tpu/ops/flash_attention.py:88",
+                runs[False]["launches"]["flash_attention_fwd"], f,
+                f["max_abs_err_o"], plain, "library_ms"),
+        _kernel("paged_attention_decode",
+                "paddle_tpu_torch/csrc/paged_attention.cu",
+                "paddle_tpu/ops/paged_attention.py:77",
+                runs[True]["launches"]["paged_attention_decode"], p,
+                p["max_abs_err"], plain, None),
+        _kernel("flash_attention_bwd",
+                "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                "paddle_tpu/ops/flash_attention.py:200",
+                tl["flash_attention_bwd"], fb,
+                max(fb["max_abs_err"].values()), plain, "library_ms"),
+        _kernel("fused_ln_mlp_fwd", "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
+                "paddle_tpu/ops/fused_kernels.py:104",
+                tl["fused_ln_mlp_fwd"], fm, fm["max_abs_err_y"],
+                ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "fwd_bound_by"),
+                None),
+        _kernel("fused_ln_mlp_bwd", "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
+                "paddle_tpu/ops/fused_kernels.py:155",
+                tl["fused_ln_mlp_bwd"], fm,
+                max(fm["max_abs_err_grads"].values()),
+                ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by"),
+                None),
+        _kernel("fused_ln_mlp_bwd_dw2",
+                "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
+                "paddle_tpu/ops/fused_kernels.py:220",
+                tl["fused_ln_mlp_bwd_dw2"], fm, fm["max_abs_err_dw2"],
+                ("dw2_ms", "dw2_plain_ms", "dw2_bound_ms", "dw2_bound_by"),
+                None),
     ]
+    # launches on each path, every count set to 0 just before its run
+    paths = {"serving_fixed": runs[False]["launches"],
+             "serving_paged": runs[True]["launches"], "training": tl}
+    for k in kernels:
+        k["launches_by_path"] = {name: counts.get(k["name"], 0)
+                                 for name, counts in paths.items()}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,15 +1,25 @@
-"""Env-flag mirrors the ported serving slice reads.
+"""Env-flag mirrors the ported slices read.
 
-Own copy of the ``_truthy`` cells of ``paddle_tpu/core/native.py`` for
-``FLAGS_paged_kv`` (the engine's default cache mode) and
-``FLAGS_ragged_decode`` (the paged decode's ``ragged`` default). Each is a
-one-element list so callers can flip it at run time.
+Own copy of the ``_truthy`` cells of ``paddle_tpu/core/native.py``:
+
+- ``FLAGS_paged_kv``: the engine's default cache mode;
+- ``FLAGS_ragged_decode``: the paged decode's ``ragged`` default;
+- ``FLAGS_fused_kernels``: the fused LN-MLP in the block's MLP half when
+  ``GPTConfig.fused_mlp`` is None (the serving engine pins it at
+  construction);
+- ``FLAGS_fused_optimizer``: flat-bucket AdamW/LAMB kernels, not ported
+  yet (``DistributedTrainStep`` raises while it is set);
+- ``FLAGS_fault_inject``: the fault-injection spec string, not ported yet
+  (``DistributedTrainStep`` raises while it is non-empty).
+
+Each is a one-element list so callers can flip it at run time.
 """
 from __future__ import annotations
 
 import os
 
-__all__ = ["paged_kv", "ragged_decode"]
+__all__ = ["paged_kv", "ragged_decode", "fused_kernels", "fused_optimizer",
+           "fault_inject"]
 
 
 def _truthy(value) -> bool:
@@ -23,3 +33,13 @@ paged_kv = [_truthy(os.environ.get("FLAGS_paged_kv", "0"))]
 # a slot's live blocks, so both settings give bit-identical output; the
 # flag is kept for signature parity with the JAX package.
 ragged_decode = [_truthy(os.environ.get("FLAGS_ragged_decode", "0"))]
+
+# transformer block: the MLP half through the fused LN-MLP kernels
+# (ops/fused_kernels.py) when the config leaves fused_mlp unset
+fused_kernels = [_truthy(os.environ.get("FLAGS_fused_kernels", "0"))]
+
+# train step: fused flat-bucket optimizer kernels (not ported yet)
+fused_optimizer = [_truthy(os.environ.get("FLAGS_fused_optimizer", "0"))]
+
+# train step: deterministic fault injection spec (not ported yet)
+fault_inject = [os.environ.get("FLAGS_fault_inject", "")]

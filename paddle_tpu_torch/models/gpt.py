@@ -1,5 +1,5 @@
-"""GPT-family decoder LM on PyTorch: the dense serving subset of
-``paddle_tpu/models/gpt.py``.
+"""GPT-family decoder LM on PyTorch: the dense serving and training
+subsets of ``paddle_tpu/models/gpt.py``.
 
 Same parameter tree (a dict of tensors with the same keys and shapes,
 block leaves stacked on a leading layer dim), same numerics (compute
@@ -14,13 +14,21 @@ Where the JAX package returns updated cache buffers from a pure
 function (and the engine donates them), the port writes the same rows
 in place and returns the same tensors.
 
+Training: :func:`gpt_loss` (causal-LM cross entropy, optionally
+sequence-chunked by :func:`_chunked_ce`) is differentiated by autograd.
+``remat`` wraps each block in ``torch.utils.checkpoint`` (the JAX
+package's ``jax.checkpoint``; its save policy is a memory/speed choice
+that does not change the numbers and is not copied).
+
 The ``lax.scan`` over layers is a Python loop over the leading layer
-dim. Prefill attention is the flash-attention kernel on a CUDA tensor
-(``ops/flash_attention.py``), the paged decode's attention the
-paged-attention kernel (``ops/paged_attention.py``); on a CPU tensor both
-run their plain PyTorch versions. The MoE, fp8, int8, fused-MLP,
-ring-attention, pipeline, verify and prefix branches are not ported yet
-and raise ``NotImplementedError`` where a config or weight asks for one.
+dim. Attention is the flash-attention kernels on a CUDA tensor
+(``ops/flash_attention.py``, forward and backward), the paged decode's
+attention the paged-attention kernel (``ops/paged_attention.py``), and
+with ``fused_mlp`` the MLP half is the fused LN-MLP kernels
+(``ops/fused_kernels.py``); on a CPU tensor each runs its plain PyTorch
+version. The MoE, fp8, int8, ring-attention, pipeline, verify and
+prefix branches are not ported yet and raise ``NotImplementedError``
+where a config or weight asks for one.
 """
 from __future__ import annotations
 
@@ -31,14 +39,18 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..core import flags
 from ..ops.flash_attention import NEG_INF, flash_attention_arrays
+from ..ops.fused_kernels import fused_ln_mlp
 from ..ops.paged_attention import paged_attention_arrays
 
-__all__ = ["GPTConfig", "gpt_init", "gpt_forward", "gpt_tiny", "gpt_small",
-           "gpt_1p3b", "gpt_nano", "gpt_prefill", "gpt_decode_step",
-           "gpt_decode_step_paged", "gpt_prefill_chunk", "params_from_jax"]
+__all__ = ["GPTConfig", "gpt_init", "gpt_forward", "gpt_loss", "gpt_tiny",
+           "gpt_small", "gpt_1p3b", "gpt_nano", "gpt_prefill",
+           "gpt_decode_step", "gpt_decode_step_paged", "gpt_prefill_chunk",
+           "params_from_jax"]
 
 
 @dataclasses.dataclass
@@ -60,8 +72,9 @@ class GPTConfig:
     scan_unroll: Optional[int] = None
     ring_attention: bool = False
     seq_axis: str = "sharding"
-    # fused LN-MLP, fp8 MLP and mixture of experts: not ported yet; the
-    # fields keep the config's shape, and asking for one raises
+    # fused LN-MLP kernels in the MLP half (None follows
+    # FLAGS_fused_kernels); fp8 MLP and mixture of experts are not ported
+    # yet: the fields keep the config's shape, and asking for one raises
     fused_mlp: Optional[bool] = None
     fp8: Optional[bool] = None
     moe_experts: int = 0
@@ -117,8 +130,6 @@ def _check_dense(cfg: GPTConfig) -> None:
         _unported("mixture of experts (moe_experts > 0)")
     if cfg.fp8:
         _unported("the fp8 MLP (fp8=True)")
-    if cfg.fused_mlp:
-        _unported("the fused LN-MLP kernel (fused_mlp=True)")
     if cfg.ring_attention:
         _unported("ring attention")
     if cfg.n_stages > 1:
@@ -245,12 +256,21 @@ def _attn_half(cfg: GPTConfig, p, x):
 
 
 def _mlp_half(cfg: GPTConfig, p, x):
-    """Dense MLP half of a block (LN2 → gelu MLP + residual)."""
+    """Dense MLP half of a block (LN2 → gelu MLP + residual); with
+    ``fused_mlp`` (None follows FLAGS_fused_kernels) one fused LN-MLP
+    call, its weights cast to the compute dtype."""
     if cfg.fp8:
         _unported("the fp8 MLP (fp8=True)")
-    if cfg.fused_mlp:
-        _unported("the fused LN-MLP kernel (fused_mlp=True)")
     cd = cfg.dtype
+    fused = (cfg.fused_mlp if cfg.fused_mlp is not None
+             else flags.fused_kernels[0])
+    if fused:
+        if isinstance(p["fc_w"], dict) or isinstance(p["out_w"], dict):
+            _unported("int8 weight decode (quantize_gpt_weights)")
+        return fused_ln_mlp(x, p["fc_w"].to(cd), p["fc_b"].to(cd),
+                            p["out_w"].to(cd), p["out_b"].to(cd),
+                            ln_scale=p["ln2_s"], ln_bias=p["ln2_b"],
+                            residual=True, act="gelu")
     h = _layer_norm(x, p["ln2_s"], p["ln2_b"])
     h = F.gelu(_mm(h, p["fc_w"], cd) + p["fc_b"].to(cd), approximate="tanh")
     return x + _mm(h, p["out_w"], cd) + p["out_b"].to(cd)
@@ -262,10 +282,11 @@ def _block_kv(cfg: GPTConfig, p, x):
     return _mlp_half(cfg, p, x), (kh, vh)
 
 
-def _layer(blocks, i):
-    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-                else v[i])
-            for k, v in blocks.items()}
+def _block(cfg: GPTConfig, p, x):
+    """One transformer block without its K/V, so a training stack keeps
+    no layer's K/V alive beyond what the attention's backward saves."""
+    x, _ = _attn_half(cfg, p, x)
+    return _mlp_half(cfg, p, x)
 
 
 def _embed(cfg: GPTConfig, params, tokens):
@@ -278,7 +299,8 @@ def _logits(params, x, compute_dtype=torch.bfloat16):
     # tied head: bf16 operands, f32 accumulation, f32 logits (the JAX
     # einsum with preferred_element_type=f32). A product of two bf16
     # values is exact in f32, so an f32 matmul of the bf16-rounded
-    # operands is that same computation.
+    # operands is that same computation; its backward rounds the
+    # cotangents of x and the weight to bf16, as jax.grad does.
     w = params["wte"].to(compute_dtype).float()
     return x.to(compute_dtype).float() @ w.t()
 
@@ -288,22 +310,101 @@ def _head(cfg: GPTConfig, params, x):
     return _logits(params, x)
 
 
+def _unstack(blocks, n_layers):
+    """Per-layer views of the stacked block leaves, taken with one
+    ``unbind`` per leaf: its backward stacks every layer's gradient in
+    one op, where indexing layer by layer would add each layer's
+    gradient into a zero-filled full-size (L, ...) buffer (L full
+    passes per leaf)."""
+    cols = {k: ({kk: vv.unbind(0) for kk, vv in v.items()}
+                if isinstance(v, dict) else v.unbind(0))
+            for k, v in blocks.items()}
+    return [{k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
+                 else v[i]) for k, v in cols.items()}
+            for i in range(n_layers)]
+
+
+def _block_stack(cfg: GPTConfig, blocks, x):
+    """Block stack over the leading layer dim; with ``cfg.remat`` each
+    block is a non-reentrant checkpoint (its activations are recomputed
+    in the backward), the counterpart of ``jax.checkpoint``."""
+    _check_dense(cfg)
+    for p in _unstack(blocks, cfg.n_layers):
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_block, cfg, p, x, use_reentrant=False)
+        else:
+            x = _block(cfg, p, x)
+    return x
+
+
 def _stack(cfg: GPTConfig, params, x):
     """Block stack over the leading layer dim; returns (x, ks, vs) with
     one (B, nh, S, hd) K/V per layer."""
     _check_dense(cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (kh, vh) = _block_kv(cfg, _layer(params["blocks"], i), x)
+    for p in _unstack(params["blocks"], cfg.n_layers):
+        x, (kh, vh) = _block_kv(cfg, p, x)
         ks.append(kh)
         vs.append(vh)
     return x, ks, vs
 
 
 def gpt_forward(cfg: GPTConfig, params, tokens):
-    """tokens (B, S) int → logits (B, S, V) f32."""
-    x, _, _ = _stack(cfg, params, _embed(cfg, params, tokens))
+    """tokens (B, S) int → logits (B, S, V) f32; differentiable."""
+    x = _block_stack(cfg, params["blocks"], _embed(cfg, params, tokens))
     return _head(cfg, params, x)
+
+
+def _chunk_nll(wte, xs, ls, compute_dtype):
+    """Summed negative log-likelihood of one sequence chunk. The tied
+    weight is cast inside the chunk, as the JAX scan body does, so each
+    chunk's weight cotangent is rounded to the compute dtype before the
+    chunks are summed."""
+    logp = torch.log_softmax(_logits({"wte": wte}, xs, compute_dtype),
+                             dim=-1)
+    return -logp.gather(-1, ls[..., None]).sum()
+
+
+def _chunked_ce(params, x, labels, chunk: int,
+                compute_dtype=torch.bfloat16):
+    """Cross entropy without materializing (B, S, V) logits: the final
+    LN'd hiddens go through the head in sequence chunks, each chunk a
+    checkpoint whose (B, chunk, V) logits are recomputed in the backward,
+    so peak memory holds one chunk's logits."""
+    B, S, _ = x.shape
+    total = sum(checkpoint(_chunk_nll, params["wte"], x[:, c:c + chunk],
+                           labels[:, c:c + chunk], compute_dtype,
+                           use_reentrant=False)
+                for c in range(0, S, chunk))
+    return total / (B * S)
+
+
+def gpt_loss(cfg: GPTConfig, params, batch, n_micro: int = 1,
+             loss_chunk: Optional[int] = None):
+    """Causal-LM cross entropy (a 0-dim f32 tensor, differentiable with
+    respect to every param). batch = (tokens, labels), both (B, S) int.
+
+    ``loss_chunk``: sequence-chunked CE (:func:`_chunked_ce`), the peak
+    memory saver for a large vocabulary; it must divide S. Dense models
+    with ``n_stages == 1`` only: the MoE and pipeline branches raise
+    ``NotImplementedError``; ``n_micro`` is the pipeline's and is
+    unused here."""
+    tokens, labels = batch
+    dev = params["wte"].device
+    tokens = torch.as_tensor(tokens).to(dev, torch.long)
+    labels = torch.as_tensor(labels).to(dev, torch.long)
+    x = _block_stack(cfg, params["blocks"], _embed(cfg, params, tokens))
+    x = _layer_norm(x, params["lnf_s"], params["lnf_b"])
+    S = tokens.shape[1]
+    if loss_chunk and S > loss_chunk:
+        if S % loss_chunk != 0:
+            raise ValueError(
+                f"loss_chunk={loss_chunk} must divide seq_len={S} (the "
+                "memory saver would otherwise be silently disabled)")
+        return _chunked_ce(params, x, labels, loss_chunk)
+    logp = torch.log_softmax(_logits(params, x), dim=-1)
+    ll = logp.gather(-1, labels[..., None])[..., 0]
+    return -ll.mean()
 
 
 # --------------------------------------------------------------------------
@@ -379,8 +480,7 @@ def gpt_decode_step(cfg: GPTConfig, params, cache, positions, tokens):
     _check_dense(cfg)
     k_cache, v_cache = cache
     x = _dec_embed(cfg, params, positions, tokens)
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         x, _, _ = _dec_attn(cfg, p, x, k_cache[:, i], v_cache[:, i],
                             positions)
         x = _dec_mlp(cfg, p, x)
@@ -434,8 +534,7 @@ def gpt_decode_step_paged(cfg: GPTConfig, params, pool, tables, positions,
     _check_dense(cfg)
     kb, vb = pool
     x = _dec_embed(cfg, params, positions, tokens)
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         x, _, _ = _dec_attn_paged(cfg, p, x, kb, vb, i, tables, positions)
         x = _dec_mlp(cfg, p, x)
     return _head(cfg, params, x)[:, 0], (kb, vb)
@@ -493,9 +592,8 @@ def prefill_chunk_hidden(cfg: GPTConfig, params, pool, table_row, tokens,
     cd = cfg.dtype
     x = params["wte"].to(cd)[tokens.long()] \
         + params["wpe"][start:start + C].to(cd)[None]
-    for i in range(cfg.n_layers):
-        x, _, _ = _block_chunk(cfg, _layer(params["blocks"], i), x, kb, vb,
-                               i, table_row, start)
+    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+        x, _, _ = _block_chunk(cfg, p, x, kb, vb, i, table_row, start)
     return x
 
 

@@ -1,5 +1,6 @@
 """Minimal gauge registry: the serving and KV-pool gauges the ported
-engine and cache set (a subset of ``paddle_tpu/monitor/stats.py``).
+engine and cache set, and the ``train_steps`` counter the train step
+bumps (a subset of ``paddle_tpu/monitor/stats.py``).
 
 A :class:`Stat` is a named int64 gauge; :class:`StatRegistry` is the
 process-wide thread-safe registry. Tracing spans and latency histograms
@@ -67,3 +68,4 @@ SERVING_DEADLINE_SHEDS = _registry.get_stat("serving_deadline_sheds")
 KV_BLOCKS_FREE = _registry.get_stat("kv_blocks_free")
 KV_BLOCKS_USED = _registry.get_stat("kv_blocks_used")
 KV_FRAGMENTATION = _registry.get_stat("kv_fragmentation")
+TRAIN_STEPS = _registry.get_stat("train_steps")

@@ -33,7 +33,8 @@ BUILD = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("flash_attention_fwd", "paged_attention")
+SOURCES = ("flash_attention_fwd", "paged_attention", "flash_attention_bwd",
+           "fused_ln_mlp")
 
 _lock = threading.Lock()
 _libs: dict = {}

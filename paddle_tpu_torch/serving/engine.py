@@ -222,9 +222,11 @@ class InferenceEngine:
                  device=None):
         self.device = resolve_device(device)
         if cfg.fused_mlp is None:
-            # the JAX engine pins FLAGS_fused_kernels here; its port has
-            # no fused MLP yet, so the composed path is the only one
-            cfg = dataclasses.replace(cfg, fused_mlp=False)
+            # pin the fused-MLP choice now, as the JAX engine does: a
+            # FLAGS_fused_kernels flip mid-serving would otherwise split
+            # one engine's calls between the fused and composed MLPs
+            cfg = dataclasses.replace(
+                cfg, fused_mlp=bool(flags.fused_kernels[0]))
         _check_dense(cfg)
         self.cfg = cfg
         self._params = _serving_params(cfg, params, self.device)

@@ -1,0 +1,93 @@
+"""Where a training step's time goes, at full gpt_1p3b width on the card.
+
+    python -m paddle_tpu_torch.tools.profile_train [--steps 3] [--layers 24]
+
+Builds the training state chip_smoke.py's training phase drives
+(gpt_1p3b with remat and the fused LN-MLP, random weights from a seed,
+AdamW with f32 moments, batch 4 x 2048 tokens, loss_chunk 256), runs two
+warm-up steps, times ``--steps`` steps on the host clock (each ends in
+the loss's host read, which waits for the device), then profiles one
+step under torch.profiler and prints one JSON line: host ms per step,
+device ms per step (the sum of kernel times), the device's idle share
+(1 - device / host), and the kernels that take the most device time.
+Every time is the card's own; the card's name and power limit are
+printed beside them. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..models import gpt as G
+from ..parallel import DistributedTrainStep
+from .profile_decode import _device_us
+
+
+def profile(steps: int, layers: int, dev) -> dict:
+    cfg = G.gpt_1p3b(remat=True, fused_mlp=True, n_layers=layers)
+    B, S, chunk = 4, cfg.seq_len, 256
+    rng = np.random.default_rng(9)
+    batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))),
+             torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))))
+    step = DistributedTrainStep(
+        lambda p, b: G.gpt_loss(cfg, p, b, loss_chunk=chunk),
+        G.gpt_init(cfg, seed=0, device=dev), optimizer="adamw", lr=1e-4,
+        device=dev)
+    for _ in range(2):
+        float(step(batch))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        float(step(batch))
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        float(step(batch))
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us, evt.key, evt.count))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    return {
+        "model": "gpt_1p3b", "layers": layers, "remat": True,
+        "fused_mlp": True, "optimizer": "adamw", "batch": [B, S],
+        "loss_chunk": chunk, "host_ms_per_step": host_ms,
+        "device_ms_per_step": device_ms,
+        "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
+        "tokens_per_s": B * S / host_ms * 1e3,
+        "top_kernels": [
+            {"name": k[:80], "ms_per_step": us / 1e3, "calls_per_step": c}
+            for us, k, c in rows[:15]],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--layers", type=int, default=24)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    row = profile(args.steps, args.layers, dev)
+    row["card"] = smi
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

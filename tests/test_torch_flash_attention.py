@@ -1,18 +1,23 @@
-"""paddle_tpu_torch flash-attention forward against paddle_tpu.
+"""paddle_tpu_torch flash attention, forward and backward, against
+paddle_tpu.
 
-The port's plain version (what a CPU tensor runs, and what chip_smoke.py
-holds the CUDA kernel against on the card) is compared with the JAX
-package's Pallas forward kernel run in interpret mode and with its
+The port's plain versions (what a CPU tensor runs, and what
+chip_smoke.py holds the CUDA kernels against on the card) are compared
+with the JAX package's Pallas kernels run in interpret mode and with its
 composed reference, on the same numpy inputs.
 
-Tolerances: f32 1e-5 (the same math, summed in another order); bf16
-2e-2 on o (scores and probabilities are rounded to bf16 at different
-points in the two packages) and 1e-3 on lse (taken from f32 scores of
-the same bf16 inputs in both).
+Tolerances: f32 1e-5 (the same math, summed in another order); forward
+bf16 2e-2 on o (scores and probabilities are rounded to bf16 at
+different points in the two packages) and 1e-3 on lse (taken from f32
+scores of the same bf16 inputs in both); backward bf16 5e-3 of the
+largest gradient (the same roundings as the TPU kernel at the same
+points; a different summation order can move an f32 value across a bf16
+rounding boundary).
 """
 import importlib
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +28,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 F32_TOL = 1e-5
 BF16_TOL_O = 2e-2
 BF16_TOL_LSE = 1e-3
+BF16_TOL_GRAD = 5e-3
 
 # the module (paddle_tpu.ops re-exports a function of the same name)
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
@@ -120,3 +126,102 @@ def test_lse_is_logsumexp_of_masked_scores():
     for r in range(8):
         want = torch.logsumexp(s[r, :r + 1], 0)
         assert abs(float(lse[0, r, 0]) - float(want)) < 1e-5
+
+
+def _grads_jax(arrs, do, causal, scale, dtype):
+    q, k, v = _jax(arrs, dtype)
+    o, lse = jfa._flash_forward(q, k, v, causal=causal, scale=scale,
+                                block_q=128, block_k=128, interpret=True)
+    grads = jfa._flash_backward(q, k, v, o, lse, jnp.asarray(do, dtype),
+                                causal=causal, scale=scale, block_q=128,
+                                block_k=128, interpret=True)
+    return o, lse, grads
+
+
+def _rel(want, got):
+    want, got = _np(want), _np(got)
+    assert want.shape == got.shape
+    return float(np.abs(want - got).max() / np.abs(want).max())
+
+
+# (b, h, sq, sk, d, causal): S >= 128 and 128-divisible for the kernel's
+# block grid in interpret mode; sq < sk exercises the causal offset
+BWD_CASES = [
+    (1, 2, 128, 128, 64, True),
+    (1, 2, 128, 256, 64, True),
+    (1, 2, 256, 256, 64, False),
+    (1, 1, 128, 128, 128, True),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,dt",
+                         [c + ("f32",) for c in BWD_CASES]
+                         + [BWD_CASES[1] + ("bf16",),
+                            BWD_CASES[2] + ("bf16",)])
+def test_plain_backward_matches_pallas_interpret(b, h, sq, sk, d, causal,
+                                                 dt):
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    arrs = _inputs(b, h, sq, sk, d, seed=5)
+    do = np.random.default_rng(6).standard_normal((b, h, sq, d)).astype(
+        np.float32)
+    scale = 1.0 / math.sqrt(d)
+    o, lse, want = _grads_jax(arrs, do, causal, scale, jdt)
+    q, k, v = _torch(arrs, tdt)
+    got = tfa._flash_backward_reference(
+        q, k, v, torch.from_numpy(np.array(_np(o))).to(tdt),
+        torch.from_numpy(np.array(lse)), torch.from_numpy(do).to(tdt),
+        causal, scale)
+    for name, w, g in zip(("dq", "dk", "dv"), want, got):
+        assert g.dtype == tdt and tuple(g.shape) == w.shape, name
+        if dt == "f32":
+            np.testing.assert_allclose(_np(g), _np(w), atol=F32_TOL,
+                                       rtol=F32_TOL, err_msg=name)
+        else:
+            assert _rel(w, g) <= BF16_TOL_GRAD, name
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(128, 128, True),
+                                          (128, 256, True),
+                                          (128, 128, False)])
+def test_plain_backward_matches_grad_of_composed_reference(sq, sk, causal):
+    """In f32 the kernel's backward (p from lse, the delta trick) is the
+    exact gradient of the composed attention: held against jax.grad."""
+    arrs = _inputs(1, 2, sq, sk, 64, seed=7)
+    do = np.random.default_rng(8).standard_normal((1, 2, sq, 64)).astype(
+        np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jfa._attention_reference(q, k, v, causal, 0.125)
+                       * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_jax(arrs, jnp.float32))
+    q, k, v = _torch(arrs, torch.float32)
+    o, lse = tfa.flash_attention_forward(q, k, v, causal=causal,
+                                         scale=0.125)
+    got = tfa._flash_backward_reference(q, k, v, o, lse,
+                                        torch.from_numpy(do), causal, 0.125)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(_np(g), _np(w), atol=F32_TOL,
+                                   rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("sq,sk", [(20, 20), (7, 33)])
+def test_arrays_is_differentiable_on_cpu(sq, sk):
+    """The model's entry carries gradients on a CPU tensor (autograd
+    through the plain forward) equal to jax.grad of the composed path."""
+    arrs = _inputs(2, 3, sq, sk, 64, seed=9)
+    do = np.random.default_rng(10).standard_normal((2, 3, sq, 64)).astype(
+        np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jfa._attention_reference(q, k, v, True, 0.125)
+                       * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_jax(arrs, jnp.float32))
+    ts = [t.requires_grad_(True) for t in _torch(arrs, torch.float32)]
+    out = tfa.flash_attention_arrays(*ts, causal=True, scale=0.125)
+    out.backward(torch.from_numpy(do))
+    for w, t in zip(want, ts):
+        np.testing.assert_allclose(_np(t.grad), _np(w), atol=F32_TOL,
+                                   rtol=F32_TOL)

@@ -220,7 +220,7 @@ def test_paged_decode_equals_fixed_decode():
 
 
 @pytest.mark.parametrize("field,value", [("moe_experts", 2),
-                                         ("fused_mlp", True), ("fp8", True),
+                                         ("fp8", True),
                                          ("ring_attention", True),
                                          ("n_stages", 2)])
 def test_unported_branches_raise(field, value):
@@ -244,3 +244,21 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a GPU is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         tg.gpt_init(tg.gpt_tiny())
+
+
+@pytest.mark.parametrize("name", ["tiny", "hd64"])
+def test_fused_mlp_forward_and_prefill_match_jax(name):
+    """fused_mlp=True routes the MLP half through the fused LN-MLP (its
+    plain version on the CPU; JAX's fused entry runs the composed math
+    off-TPU): f32 logits and K/V agree as the composed path's do."""
+    cfg_j = jg.GPTConfig(dtype=jnp.float32, fused_mlp=True, **CONFIGS[name])
+    cfg_t = tg.GPTConfig(dtype=torch.float32, fused_mlp=True,
+                         **CONFIGS[name])
+    _, _, pj, pt = _pair(name, "f32")
+    toks = _tokens((2, 24), seed=5)
+    with torch.inference_mode():
+        lg, (k, v) = tg.gpt_prefill(cfg_t, pt, torch.from_numpy(toks))
+    lg_j, (k_j, v_j) = jg.gpt_prefill(cfg_j, pj, jnp.asarray(toks))
+    _close(lg, lg_j, "f32", F32_LOGITS_TOL)
+    _close(k, k_j, "f32")
+    _close(v, v_j, "f32")

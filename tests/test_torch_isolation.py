@@ -44,7 +44,9 @@ def test_scan_sees_every_module():
     for want in ("paddle_tpu_torch/ops/flash_attention.py",
                  "paddle_tpu_torch/ops/paged_attention.py",
                  "paddle_tpu_torch/serving/engine.py",
-                 "paddle_tpu_torch/models/gpt.py", "chip_smoke.py"):
+                 "paddle_tpu_torch/models/gpt.py",
+                 "paddle_tpu_torch/ops/fused_kernels.py",
+                 "paddle_tpu_torch/parallel/train_step.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -54,7 +56,9 @@ def test_imports_without_triton_nvcc_or_jax():
         "sys.modules['triton'] = None\n"
         "import paddle_tpu_torch, paddle_tpu_torch.models,"
         " paddle_tpu_torch.serving, paddle_tpu_torch.ops.flash_attention,"
-        " paddle_tpu_torch.ops.paged_attention, paddle_tpu_torch.ops._build\n"
+        " paddle_tpu_torch.ops.paged_attention, paddle_tpu_torch.ops._build,"
+        " paddle_tpu_torch.ops.fused_kernels, paddle_tpu_torch.parallel,"
+        " paddle_tpu_torch.tools.profile_train\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"

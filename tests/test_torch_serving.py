@@ -85,6 +85,40 @@ def test_greedy_streams_match_jax_engine(paged):
     assert len({tok for t in got for tok in t}) > NEW_TOKENS  # not stuck
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_fused_mlp_engine_matches_jax_engine(paged):
+    """An engine with fused_mlp=True (the fused LN-MLP in every block, its
+    plain version on the CPU) gives the JAX fused engine's greedy
+    stream (f32; off-TPU the JAX fused entry is the composed math)."""
+    import dataclasses
+
+    tree, params = _params()
+    cfg_j = dataclasses.replace(CFG_J, fused_mlp=True)
+    cfg_t = dataclasses.replace(CFG, fused_mlp=True)
+    want = _run(JaxEngine(cfg_j, jax.tree.map(jnp.asarray, tree),
+                          paged=paged, **ENGINE_KW), _prompts())
+    eng = InferenceEngine(cfg_t, params, paged=paged, device="cpu",
+                          **ENGINE_KW)
+    assert eng.cfg.fused_mlp is True
+    assert _run(eng, _prompts()) == want
+
+
+def test_engine_pins_fused_kernels_flag():
+    from paddle_tpu_torch.core import flags
+
+    _, params = _params()
+    old = flags.fused_kernels[0]
+    try:
+        flags.fused_kernels[0] = True
+        eng = InferenceEngine(CFG, params, device="cpu", **ENGINE_KW)
+    finally:
+        flags.fused_kernels[0] = old
+    try:
+        assert CFG.fused_mlp is None and eng.cfg.fused_mlp is True
+    finally:
+        eng.shutdown()
+
+
 def test_paged_equals_fixed():
     assert _port_streams(True) == _port_streams(False)
 
