@@ -43,7 +43,30 @@ stamped with the card's name and power limit):
    FLOP/s share and peak memory;
 10. one step's loss and every gradient at full gpt_1p3b width and 2
     layers, f32, fused MLP, batch 1 x 256, on the card (the kernels)
-    against the CPU (the plain versions): max relative error per leaf.
+    against the CPU (the plain versions): max relative error per leaf;
+11. the fused AdamW and LAMB kernels against their plain versions
+    (bit-identical) on a bucket of every gpt_1p3b parameter leaf (f32
+    params and moments, then bf16 moments) and on a small ragged bucket
+    with an unaligned leaf: kernel / plain / torch._fused_adamw_ / bound
+    (28 bytes per f32 parameter) times;
+12. training with FLAGS_fused_optimizer=1: phase 9's configuration, seed
+    and batch with AdamW through the fused kernel (the first loss equal
+    to phase 9's, each later one within TRAIN_LOSS_REL of it; step ms,
+    tokens/s, peak memory); then LAMB, fused against pure, at full width
+    and 2 layers for 3 steps fed the same gradients: max relative error
+    per param leaf;
+13. the int8 matmul kernel against its plain version (bit-identical) at
+    M = 8 and M = 1 for each gpt_1p3b decode (K, N), and at a ragged
+    M = 100, K = 64, N = 192 (with a bias): kernel / plain / bound times,
+    torch._int_mm (rows padded to 32) and a bf16 matmul as yardsticks;
+14. the engine phase again with int8_weights=True, fixed and paged: the
+    same checks (but the sampled replay is held against a second lone
+    replay: the per-tensor activation scale spans every slot of a tick,
+    so an int8 stream depends on its batch), the int8 kernel's launches,
+    and the share of greedy tokens equal to the bf16 run's
+    (informational);
+15. one int8 decode step at full gpt_1p3b width, 2 layers, f32, on the
+    card (the kernels) against the CPU (the plain versions).
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -62,7 +85,8 @@ import torch.nn.functional as F
 
 # published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data
 # sheet): bf16 tensor cores, f32 outside the tensor cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-3)}
@@ -82,6 +106,21 @@ FMLP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # upstream can flip one bf16 rounding: 3.9e-3 of one element of the
 # tied embedding's gradient, far less of every other leaf's
 TRAIN_GRAD_TOL = {"wte": 5e-3, "other": 1e-3}
+# phase 12: fused against pure AdamW over 6 steps. The first loss is the
+# same computation on the same params (exactly equal); later ones differ
+# by the optimizers' last bits (the pure update folds lr * wd in double,
+# the kernel in f32) and by the flash backward's dQ atomics, which sum in
+# a different order on every run. Adam turns such noise in a near-zero
+# gradient into a whole ±lr step, and the step after phase 9's gradient
+# spike (norm ~73 at step 3) moved by 9.6e-4 in the first run. The loss
+# falls by 1-4% a step, so 5e-3 stays below one step's move
+TRAIN_LOSS_REL = 5e-3
+# phase 12, LAMB fused vs pure fed the same gradients: the same f32
+# operations in the same order
+LAMB_PARAM_TOL = 1e-6
+# phase 15: the activations on the card and the CPU agree up to f32
+# summation order, which can move one quantized activation by one step
+INT8_LOGITS_REL = 1e-2
 
 
 def emit(obj):
@@ -228,7 +267,12 @@ def paged_phase(dev, pa, stamp):
     return rows
 
 
-def engine_phase(dev, cfg, params, paged, fa, pa, stamp):
+def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
+                 int8=False, fp_outs=None):
+    """The serving phase; with ``int8`` the engine decodes with int8
+    weights (``im``: the int8 module, whose launches are counted) and
+    ``fp_outs`` (the same mode's bf16 streams) gives the share of greedy
+    tokens that the int8 run repeats."""
     from paddle_tpu_torch.monitor.stats import stat_get
     from paddle_tpu_torch.serving import InferenceEngine
 
@@ -244,9 +288,12 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp):
     torch.cuda.reset_peak_memory_stats(dev)
     ms0 = {k: stat_get(k) for k in ("serving_prefill_ms",
                                     "serving_decode_ms")}
-    eng = InferenceEngine(cfg, params, n_slots=8, seed=5, paged=paged)
+    eng = InferenceEngine(cfg, params, n_slots=8, seed=5, paged=paged,
+                          int8_weights=int8)
     fa.LAUNCHES = 0
     pa.LAUNCHES = 0
+    if im is not None:
+        im.LAUNCHES = 0
     t0 = time.perf_counter()
     reqs = [eng.submit(s1, max_new_tokens=new, **sampled)]
     reqs += [eng.submit(p, max_new_tokens=new) for p in prompts]
@@ -255,6 +302,8 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp):
     wall = time.perf_counter() - t0
     launches = {"flash_attention_fwd": fa.LAUNCHES,
                 "paged_attention_decode": pa.LAUNCHES}
+    if im is not None:
+        launches["int8_matmul"] = im.LAUNCHES
     eng.shutdown()
     prefill_ms = stat_get("serving_prefill_ms") - ms0["serving_prefill_ms"]
     decode_ms = stat_get("serving_decode_ms") - ms0["serving_decode_ms"]
@@ -265,6 +314,9 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp):
             raise AssertionError(f"request {r.rid} finished badly: "
                                  f"{r.finish_reason} {out}")
     want = "paged_attention_decode" if paged else "flash_attention_fwd"
+    if int8 and launches.get("int8_matmul", 0) <= 0:
+        raise AssertionError("int8_matmul never launched in the int8 "
+                             "engine run")
     if launches[want] <= 0:
         raise AssertionError(f"{want} never launched in the "
                              f"{'paged' if paged else 'fixed'} engine run")
@@ -272,17 +324,33 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp):
     # replay the first sampled request alone on a fresh engine (same
     # seed, same request id): the stream must repeat exactly; then time
     # one 1500-token prompt's prefill on that warm engine
-    eng = InferenceEngine(cfg, params, n_slots=8, seed=5, paged=paged)
+    eng = InferenceEngine(cfg, params, n_slots=8, seed=5, paged=paged,
+                          int8_weights=int8)
     replay = eng.generate(s1, max_new_tokens=new, **sampled)
     t1 = time.perf_counter()
     eng.generate(prompts[-1], max_new_tokens=1)
     ttft_1500 = (time.perf_counter() - t1) * 1e3
     eng.shutdown()
-    if replay != outs[0]:
-        raise AssertionError(f"sampled replay differs: {replay} vs "
-                             f"{outs[0]}")
+    want = outs[0]
+    if int8:
+        # the activations' int8 scale is one abs-max over every slot of a
+        # tick (per tensor, as in JAX), so an int8 stream depends on the
+        # batch it decoded in, and the batch depends on when requests were
+        # admitted: a lone replay is held against a second lone replay
+        eng = InferenceEngine(cfg, params, n_slots=8, seed=5, paged=paged,
+                              int8_weights=int8)
+        want = eng.generate(s1, max_new_tokens=new, **sampled)
+        eng.shutdown()
+    if replay != want:
+        raise AssertionError(f"sampled replay differs: {replay} vs {want}")
     decode_tokens = sum(len(o) for o in outs) - len(outs)
-    row = {"phase": "engine", "mode": "paged" if paged else "fixed",
+    greedy_equal = None
+    if fp_outs is not None:
+        pairs = [(a, b) for o, f in zip(outs[1:-1], fp_outs[1:-1])
+                 for a, b in zip(o, f)]
+        greedy_equal = sum(a == b for a, b in pairs) / len(pairs)
+    row = {"phase": "engine_int8" if int8 else "engine",
+           "mode": "paged" if paged else "fixed",
            "model": "gpt_1p3b", "layers": cfg.n_layers,
            "hidden": cfg.hidden, "requests": len(reqs),
            "new_tokens": new, "launches": launches, "wall_s": wall,
@@ -290,8 +358,12 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp):
            "decode_tokens": decode_tokens,
            "decode_tok_s": decode_tokens / max(decode_ms, 1) * 1e3,
            "prefill_1500_ms": ttft_1500, "peak_mem_gib": peak / 2**30,
-           "sampled_replay_identical": True, **stamp}
+           "sampled_replay_identical": True,
+           "sampled_replay_of": "a second lone run" if int8
+           else "the batched run",
+           "greedy_tokens_equal_to_bf16_share": greedy_equal, **stamp}
     emit(row)
+    row["outs"] = outs
     return row
 
 
@@ -507,7 +579,11 @@ def _reset_training_counts(fa, fk):
     fk.FWD_LAUNCHES = fk.BWD_LAUNCHES = fk.DW2_LAUNCHES = 0
 
 
-def train_phase(dev, fa, fk, stamp, steps=6):
+def train_phase(dev, fa, fk, stamp, steps=6, fo=None, ref=None):
+    """Phase 9; with ``fo`` (the fused-optimizer module) phase 12's AdamW
+    run: the same configuration with FLAGS_fused_optimizer=1, its losses
+    held against ``ref`` (phase 9's row)."""
+    from paddle_tpu_torch.core import flags
     from paddle_tpu_torch.models import gpt as G
     from paddle_tpu_torch.parallel import DistributedTrainStep
     from paddle_tpu_torch.parallel import train_step as TS
@@ -525,38 +601,60 @@ def train_phase(dev, fa, fk, stamp, steps=6):
         norms.append(torch.sqrt(sq))
         return TS.pure_adamw_update(params, grads, state, lr, **kw)
 
-    step = DistributedTrainStep(
-        lambda p, b: G.gpt_loss(cfg, p, b, loss_chunk=chunk),
-        G.gpt_init(cfg, seed=0, device=dev),
-        optimizer=(TS.pure_adamw_init, update), lr=1e-4, device=dev)
+    old = flags.fused_optimizer[0]
+    flags.fused_optimizer[0] = fo is not None
+    try:
+        step = DistributedTrainStep(
+            lambda p, b: G.gpt_loss(cfg, p, b, loss_chunk=chunk),
+            G.gpt_init(cfg, seed=0, device=dev),
+            optimizer="adamw" if fo is not None
+            else (TS.pure_adamw_init, update), lr=1e-4, device=dev)
+    finally:
+        flags.fused_optimizer[0] = old
+    if fo is not None and step._update_fn is not fo.fused_adamw_update:
+        raise AssertionError("FLAGS_fused_optimizer=1 did not select the "
+                             "fused AdamW update")
     n_params = sum(t.numel() for _, t in TS._paths(step.params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, times = [], []
     _reset_training_counts(fa, fk)
+    if fo is not None:
+        fo.ADAMW_LAUNCHES = 0
     for _ in range(steps):
         t0 = time.perf_counter()
         loss = float(step(batch))     # the host read syncs the step
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
     launches = _training_counts(fa, fk)
+    if fo is not None:
+        launches["fused_adamw"] = fo.ADAMW_LAUNCHES
     peak = torch.cuda.max_memory_allocated(dev)
     gnorms = [float(x) for x in norms]
     step_ms = float(np.median(times[-3:]))
     tokens = B * S
     ok = all(math.isfinite(x) for x in losses + gnorms) \
         and losses[-1] < losses[0] and all(n > 0 for n in launches.values())
-    row = {"phase": "train", "model": "gpt_1p3b", "layers": cfg.n_layers,
+    row = {"phase": "train_fused_adamw" if fo is not None else "train",
+           "model": "gpt_1p3b", "layers": cfg.n_layers,
            "hidden": cfg.hidden, "remat": True, "fused_mlp": True,
-           "optimizer": "adamw", "lr": 1e-4, "batch": [B, S],
+           "optimizer": "adamw", "fused_optimizer": fo is not None,
+           "lr": 1e-4, "batch": [B, S],
            "loss_chunk": chunk, "params": n_params, "steps": steps,
            "losses": losses, "grad_norms": gnorms, "step_ms": times,
            "step_ms_median_last3": step_ms,
            "tokens_per_s": tokens / step_ms * 1e3,
            "model_flops_share": 6.0 * n_params * tokens
            / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
-           "peak_mem_gib": peak / 2**30, "launches": launches, "ok": ok,
-           **stamp}
+           "peak_mem_gib": peak / 2**30, "launches": launches}
+    if ref is not None:
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+        row.update({"ref_losses": ref["losses"], "loss_rel_err": rel,
+                    "tol_rel": TRAIN_LOSS_REL,
+                    "first_loss_equal": losses[0] == ref["losses"][0]})
+        ok = ok and losses[0] == ref["losses"][0] \
+            and max(rel) <= TRAIN_LOSS_REL
+    row.update({"ok": ok, **stamp})
     emit(row)
     if not ok:
         raise AssertionError(f"training phase failed: {row}")
@@ -603,6 +701,287 @@ def grads_phase(dev, stamp):
     emit(row)
     if not ok:
         raise AssertionError(f"card and CPU gradients disagree: {row}")
+    return row
+
+
+def _opt_bytes(ps, gs, ms, lamb):
+    """Bytes the update must move: read p, g, m, v; write p, m, v
+    (AdamW) or m, v and an f32 r (LAMB)."""
+    total = 0
+    for p, g, m in zip(ps, gs, ms):
+        n = p.numel()
+        reads = n * (p.element_size() + g.element_size()
+                     + 2 * m.element_size())
+        writes = n * (2 * m.element_size()
+                      + (4 if lamb else p.element_size()))
+        total += reads + writes
+    return total
+
+
+def _opt_bucket(name, ps, mdt, gen):
+    gs = [torch.randn(p.shape, generator=gen, device=p.device) * 0.01
+          for p in ps]
+    ms = [(torch.randn(p.shape, generator=gen, device=p.device) * 1e-3)
+          .to(mdt) for p in ps]
+    vs = [(torch.rand(p.shape, generator=gen, device=p.device) * 1e-5)
+          .to(mdt) for p in ps]
+    return name, ps, gs, ms, vs
+
+
+def opt_phase(dev, fo, stamp):
+    """Phase 11: the fused AdamW and LAMB kernels against their plain
+    versions on whole-model and ragged buckets."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import train_step as TS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    full = [t for _, t in TS._paths(G.gpt_init(G.gpt_1p3b(), seed=0,
+                                               device=dev))]
+    ragged = [torch.randn(n, generator=gen, device=dev)
+              for n in (1, 3, 1000, 4099, 20000)]
+    ragged.append(torch.randn(1001, generator=gen, device=dev)[1:])
+    sc = torch.tensor([1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    akw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, l2=0.0,
+               eager_form=False)
+    lkw = dict(b1=0.9, b2=0.999, eps=1e-6, wd=0.01)
+    rows = {}
+    for bucket in ("gpt_1p3b_f32", "gpt_1p3b_bf16_moments", "ragged_f32",
+                   "ragged_bf16_moments"):
+        leaves = full if bucket.startswith("gpt") else ragged
+        mdt = torch.bfloat16 if "bf16" in bucket else torch.float32
+        name, ps, gs, ms, vs = _opt_bucket(bucket, leaves, mdt, gen)
+        n = sum(p.numel() for p in ps)
+        # AdamW: the kernel on copies, in place; the plain version leaf by
+        # leaf from the originals
+        cp = [t.clone() for t in ps]
+        cm = [t.clone() for t in ms]
+        cv = [t.clone() for t in vs]
+        fo._bucket_adamw(cp, gs, cm, cv, sc, **akw)
+        torch.cuda.synchronize()
+        err, identical = 0.0, True
+        for i in range(len(ps)):
+            want = fo._adamw_flat_reference(ps[i], gs[i], ms[i], vs[i],
+                                            sc[0], sc[1], sc[2], **akw)
+            for got, w in zip((cp[i], cm[i], cv[i]), want):
+                identical &= bool(torch.equal(got, w))
+                err = max(err, (got.float() - w.float()).abs().max().item())
+            del want
+        a_ms = time_ms(lambda: fo._bucket_adamw(cp, gs, cm, cv, sc, **akw))
+        def adamw_plain():
+            for p, g, m, v in zip(ps, gs, ms, vs):
+                fo._adamw_flat_reference(p, g, m, v, sc[0], sc[1], sc[2],
+                                         **akw)
+
+        a_plain = time_ms(adamw_plain, max_reps=3)
+        steps = [torch.full((), 3.0, device=dev) for _ in ps]
+        lib = None
+        if mdt == torch.float32:
+            lib = time_ms(lambda: torch._fused_adamw_(
+                cp, gs, cm, cv, [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+                weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False))
+        del cp, cm, cv
+        torch.cuda.empty_cache()
+        ab_ms, ab_by = bound(15 * n, _opt_bytes(ps, gs, ms, False),
+                             torch.float32)
+        # LAMB: groups of leaves share one r buffer; each group's r is
+        # held against the plain version before the next group reuses it
+        cm = [t.clone() for t in ms]
+        cv = [t.clone() for t in vs]
+        l_err, l_identical, groups = 0.0, True, 0
+        for idx, rs in fo._bucket_lamb(ps, gs, cm, cv, sc, **lkw):
+            groups += 1
+            for j, r in zip(idx, rs):
+                want = fo._lamb_flat_reference(ps[j], gs[j], ms[j], vs[j],
+                                               sc[1], sc[2], **lkw)
+                for got, w in zip((cm[j], cv[j], r), want):
+                    l_identical &= bool(torch.equal(got, w))
+                    l_err = max(l_err,
+                                (got.float() - w.float()).abs().max().item())
+                del want
+        l_ms = time_ms(lambda: list(fo._bucket_lamb(ps, gs, cm, cv, sc,
+                                                    **lkw)))
+        def lamb_plain():
+            for p, g, m, v in zip(ps, gs, ms, vs):
+                fo._lamb_flat_reference(p, g, m, v, sc[1], sc[2], **lkw)
+
+        l_plain = time_ms(lamb_plain, max_reps=3)
+        lb_ms, lb_by = bound(12 * n, _opt_bytes(ps, gs, ms, True),
+                             torch.float32)
+        del cm, cv
+        ok = identical and l_identical
+        row = {"phase": "fused_optimizer", "bucket": name, "leaves": len(ps),
+               "params": n, "moments": str(mdt)[6:],
+               "adamw_bit_identical": identical, "adamw_max_abs_err": err,
+               "adamw_ms": a_ms, "adamw_plain_ms": a_plain,
+               "adamw_library_ms": lib,
+               "library": "torch._fused_adamw_" if lib is not None else None,
+               "adamw_bound_ms": ab_ms, "adamw_bound_by": ab_by,
+               "lamb_bit_identical": l_identical, "lamb_max_abs_err": l_err,
+               "lamb_launches_per_call": groups,
+               "lamb_ms": l_ms, "lamb_plain_ms": l_plain,
+               "lamb_bound_ms": lb_ms, "lamb_bound_by": lb_by,
+               "ok": ok, **stamp}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"fused optimizer kernels disagree: {row}")
+        rows[name] = row
+        del ps, gs, ms, vs
+        torch.cuda.empty_cache()
+    del full, ragged
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lamb_train_phase(dev, fo, stamp, steps=3):
+    """Phase 12 (LAMB): fused against pure at full width, 2 layers, both
+    fed the gradients of the fused trajectory, so that the params differ
+    only by the optimizers."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import train_step as TS
+
+    cfg = G.gpt_1p3b(n_layers=2, remat=True, fused_mlp=True)
+    rng = np.random.default_rng(12)
+    batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2048))),
+             torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2048))))
+    fused = G.gpt_init(cfg, seed=4, device=dev)
+    pure = TS._map(lambda t: t.clone(), fused)
+    leaves = [t.requires_grad_(True) for _, t in TS._paths(fused)]
+    s_f, s_p = TS.pure_lamb_init(fused), TS.pure_lamb_init(pure)
+    fo.LAMB_LAUNCHES = 0
+    losses, rel = [], {}
+    for _ in range(steps):
+        loss = G.gpt_loss(cfg, fused, batch, loss_chunk=256)
+        grads = torch.autograd.grad(loss, leaves)
+        gtree = TS._map(lambda t: t, fused)
+        for (path, _), g in zip(TS._paths(fused), grads):
+            TS._put(gtree, path, g)
+        losses.append(float(loss.detach()))
+        fo.fused_lamb_update(fused, gtree, s_f, 1e-3)
+        TS.pure_lamb_update(pure, gtree, s_p, 1e-3)
+        del grads, gtree
+        for path, t in TS._paths(pure):
+            key = "/".join(path)
+            rel[key] = max(rel.get(key, 0.0),
+                           _rel(TS._get(fused, path).detach(), t))
+    launches = fo.LAMB_LAUNCHES
+    ok = all(math.isfinite(x) for x in losses) and launches > 0 \
+        and max(rel.values()) <= LAMB_PARAM_TOL
+    row = {"phase": "train_fused_lamb", "model": "gpt_1p3b", "layers": 2,
+           "batch": [2, 2048], "steps": steps, "losses": losses,
+           "max_rel_err_per_leaf": rel, "tol_rel": LAMB_PARAM_TOL,
+           "launches": {"fused_lamb": launches}, "ok": ok, **stamp}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"fused and pure LAMB disagree: {row}")
+    del fused, pure, leaves, s_f, s_p
+    torch.cuda.empty_cache()
+    return row
+
+
+def int8_phase(dev, im, stamp):
+    """Phase 13: the int8 matmul kernel against its plain version."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    shapes = [(m, k, n, False) for m in (8, 1)
+              for k, n in ((2048, 6144), (2048, 2048), (2048, 8192),
+                           (8192, 2048))] + [(100, 64, 192, True)]
+    rows = {}
+    for M, K, N, with_bias in shapes:
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ws = torch.rand(N, generator=gen, device=dev) * 1e-3 + 1e-5
+        xs = torch.rand((), generator=gen, device=dev) * 0.05 + 1e-3
+        b = torch.randn(N, generator=gen, device=dev) if with_bias else None
+        out = torch.bfloat16
+        got = im.int8_matmul_arrays(xq, wq, ws, xs, bias=b, out_dtype=out)
+        want = im._int8_matmul_reference(xq, wq, ws, xs, b, out)
+        torch.cuda.synchronize()
+        identical = bool(torch.equal(got, want))
+        err = (got.float() - want.float()).abs().max().item()
+        Mp = -(-M // 32) * 32
+        xpad = torch.zeros((Mp, K), dtype=torch.int8, device=dev)
+        xpad[:M] = xq
+        xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+        nbytes = M * K + K * N + 4 * N + 4 + M * N * 2 \
+            + (4 * N if with_bias else 0)
+        b_ms, b_by = bound(2 * M * K * N, nbytes, torch.int8)
+        row = {"phase": "int8_matmul", "M": M, "K": K, "N": N,
+               "bias": with_bias, "out_dtype": "bfloat16",
+               "bit_identical": identical, "max_abs_err": err,
+               "ms": time_ms(lambda: im.int8_matmul_arrays(
+                   xq, wq, ws, xs, bias=b, out_dtype=out),
+                   flush=flush_buf.zero_),
+               "plain_ms": time_ms(lambda: im._int8_matmul_reference(
+                   xq, wq, ws, xs, b, out), flush=flush_buf.zero_),
+               "library_ms": time_ms(lambda: torch._int_mm(xpad, wq),
+                                     flush=flush_buf.zero_),
+               "library": "torch._int_mm, rows padded to 32",
+               "bf16_matmul_ms": time_ms(lambda: xb @ wb,
+                                         flush=flush_buf.zero_),
+               "bound_ms": b_ms, "bound_by": b_by, "ok": identical,
+               **stamp}
+        emit(row)
+        if not identical:
+            raise AssertionError(f"int8 kernel disagrees: {row}")
+        rows[(M, K, N)] = row
+        del xq, wq, xpad, xb, wb
+    del flush_buf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_decode_phase(dev, stamp):
+    """Phase 15: one int8 decode step, kernels on the card against the
+    plain versions on the CPU."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.serving import KVCache, cache_insert
+
+    cfg = G.gpt_1p3b(n_layers=2, dtype=torch.float32)
+    params = G.gpt_init(cfg, seed=6, device="cpu")
+    qparams = G.quantize_gpt_weights(params)
+    rng = np.random.default_rng(15)
+    lens = [300, 47, 1]
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)))
+               for n in lens]
+    to = lambda t, d: ({k: to(v, d) for k, v in t.items()}
+                       if isinstance(t, dict) else t.to(d))
+
+    def run(device):
+        p, q = to(params, device), to(qparams, device)
+        cache = KVCache(cfg, n_slots=3, max_len=512, device=device)
+        with torch.inference_mode():
+            for slot, toks in enumerate(prompts):
+                _, (ke, ve) = G.gpt_prefill(cfg, p, toks.to(device))
+                cache_insert(cache.k, cache.v, slot, ke[0], ve[0])
+            pos = torch.tensor(lens, dtype=torch.int32, device=device)
+            tok = torch.tensor([11, 22, 33], dtype=torch.int32,
+                               device=device)
+            logits, _ = G.gpt_decode_step(cfg, q, (cache.k, cache.v), pos,
+                                          tok)
+        return logits.cpu()
+
+    t0 = time.perf_counter()
+    card = run(dev)
+    t1 = time.perf_counter()
+    cpu = run("cpu")
+    t2 = time.perf_counter()
+    rel = _rel(card, cpu)
+    ok = bool(torch.isfinite(card).all()) and rel <= INT8_LOGITS_REL \
+        and card.shape == (3, cfg.vocab_size)
+    row = {"phase": "int8_decode_logits", "model": "gpt_1p3b", "layers": 2,
+           "dtype": "float32", "lengths": lens, "max_rel_err": rel,
+           "max_abs_err": (card - cpu).abs().max().item(),
+           "max_abs_logit": cpu.abs().max().item(),
+           "tol_rel": INT8_LOGITS_REL, "card_s": t1 - t0, "cpu_s": t2 - t1,
+           "ok": ok, **stamp}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"int8 decode on the card and the CPU "
+                             f"disagree: {row}")
     return row
 
 
@@ -661,11 +1040,28 @@ def main():
     train = train_phase(dev, fa, fk, stamp)
     grads_phase(dev, stamp)
 
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    opt = opt_phase(dev, fo, stamp)
+    train_f = train_phase(dev, fa, fk, stamp, fo=fo, ref=train)
+    lamb = lamb_train_phase(dev, fo, stamp)
+    i8 = int8_phase(dev, im, stamp)
+    params = G.gpt_init(cfg, seed=0, device=dev)
+    runs8 = {m: engine_phase(dev, cfg, params, m, fa, pa, stamp, im=im,
+                             int8=True, fp_outs=runs[m]["outs"])
+             for m in (False, True)}
+    del params
+    torch.cuda.empty_cache()
+    int8_decode_phase(dev, stamp)
+
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     p = paged[torch.bfloat16]
     fb = flash_bwd[("gpt_1p3b_train", torch.bfloat16)]
     fm = fmlp[(8192, torch.bfloat16)]
     tl = train["launches"]
+    ob = opt["gpt_1p3b_f32"]
+    i8r = i8[(8, 2048, 8192)]
     plain = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         _kernel("flash_attention_fwd",
@@ -700,10 +1096,29 @@ def main():
                 tl["fused_ln_mlp_bwd_dw2"], fm, fm["max_abs_err_dw2"],
                 ("dw2_ms", "dw2_plain_ms", "dw2_bound_ms", "dw2_bound_by"),
                 None),
+        _kernel("fused_adamw", "paddle_tpu_torch/csrc/fused_optimizer.cu",
+                "paddle_tpu/ops/fused_optimizer.py:113",
+                train_f["launches"]["fused_adamw"], ob,
+                ob["adamw_max_abs_err"],
+                ("adamw_ms", "adamw_plain_ms", "adamw_bound_ms",
+                 "adamw_bound_by"), "adamw_library_ms"),
+        _kernel("fused_lamb", "paddle_tpu_torch/csrc/fused_optimizer.cu",
+                "paddle_tpu/ops/fused_optimizer.py:209",
+                lamb["launches"]["fused_lamb"], ob, ob["lamb_max_abs_err"],
+                ("lamb_ms", "lamb_plain_ms", "lamb_bound_ms",
+                 "lamb_bound_by"), None),
+        _kernel("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
+                "paddle_tpu/ops/int8_matmul.py:44",
+                runs8[False]["launches"]["int8_matmul"], i8r,
+                i8r["max_abs_err"], plain, "library_ms"),
     ]
     # launches on each path, every count set to 0 just before its run
     paths = {"serving_fixed": runs[False]["launches"],
-             "serving_paged": runs[True]["launches"], "training": tl}
+             "serving_paged": runs[True]["launches"], "training": tl,
+             "training_fused_adamw": train_f["launches"],
+             "training_fused_lamb": lamb["launches"],
+             "serving_int8_fixed": runs8[False]["launches"],
+             "serving_int8_paged": runs8[True]["launches"]}
     for k in kernels:
         k["launches_by_path"] = {name: counts.get(k["name"], 0)
                                  for name, counts in paths.items()}

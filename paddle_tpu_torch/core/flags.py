@@ -7,8 +7,9 @@ Own copy of the ``_truthy`` cells of ``paddle_tpu/core/native.py``:
 - ``FLAGS_fused_kernels``: the fused LN-MLP in the block's MLP half when
   ``GPTConfig.fused_mlp`` is None (the serving engine pins it at
   construction);
-- ``FLAGS_fused_optimizer``: flat-bucket AdamW/LAMB kernels, not ported
-  yet (``DistributedTrainStep`` raises while it is set);
+- ``FLAGS_fused_optimizer``: ``DistributedTrainStep`` with ``"adamw"`` or
+  ``"lamb"`` takes the fused AdamW/LAMB kernels
+  (``ops/fused_optimizer.py``);
 - ``FLAGS_fault_inject``: the fault-injection spec string, not ported yet
   (``DistributedTrainStep`` raises while it is non-empty).
 
@@ -38,7 +39,7 @@ ragged_decode = [_truthy(os.environ.get("FLAGS_ragged_decode", "0"))]
 # (ops/fused_kernels.py) when the config leaves fused_mlp unset
 fused_kernels = [_truthy(os.environ.get("FLAGS_fused_kernels", "0"))]
 
-# train step: fused flat-bucket optimizer kernels (not ported yet)
+# train step: the fused multi-tensor AdamW/LAMB kernels
 fused_optimizer = [_truthy(os.environ.get("FLAGS_fused_optimizer", "0"))]
 
 # train step: deterministic fault injection spec (not ported yet)

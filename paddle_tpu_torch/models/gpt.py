@@ -24,11 +24,21 @@ The ``lax.scan`` over layers is a Python loop over the leading layer
 dim. Attention is the flash-attention kernels on a CUDA tensor
 (``ops/flash_attention.py``, forward and backward), the paged decode's
 attention the paged-attention kernel (``ops/paged_attention.py``), and
-with ``fused_mlp`` the MLP half is the fused LN-MLP kernels
-(``ops/fused_kernels.py``); on a CPU tensor each runs its plain PyTorch
-version. The MoE, fp8, int8, ring-attention, pipeline, verify and
-prefix branches are not ported yet and raise ``NotImplementedError``
-where a config or weight asks for one.
+with ``fused_mlp`` the MLP half of the prefill and training blocks is the
+fused LN-MLP kernels (``ops/fused_kernels.py``); on a CPU tensor each
+runs its plain PyTorch version. The one-token decode and the chunked
+prefill always run the composed MLP, whatever ``fused_mlp`` says, as in
+JAX.
+
+int8 weights (:func:`quantize_gpt_weights`) feed the decode steps only:
+each block matmul with a ``{"q", "s"}`` weight goes through
+``ops/int8_matmul.py`` (the int8 kernel on the card) with dynamic
+per-tensor activation quantization. Prefill, chunked prefill and
+training raise on them, as JAX never feeds them there.
+
+The MoE, fp8, ring-attention, pipeline, verify and prefix branches are
+not ported yet and raise ``NotImplementedError`` where a config asks for
+one.
 """
 from __future__ import annotations
 
@@ -45,12 +55,13 @@ from .. import resolve_device
 from ..core import flags
 from ..ops.flash_attention import NEG_INF, flash_attention_arrays
 from ..ops.fused_kernels import fused_ln_mlp
+from ..ops.int8_matmul import _quant_scale, _quantize, dynamic_int8_matmul
 from ..ops.paged_attention import paged_attention_arrays
 
 __all__ = ["GPTConfig", "gpt_init", "gpt_forward", "gpt_loss", "gpt_tiny",
            "gpt_small", "gpt_1p3b", "gpt_nano", "gpt_prefill",
            "gpt_decode_step", "gpt_decode_step_paged", "gpt_prefill_chunk",
-           "params_from_jax"]
+           "params_from_jax", "quantize_gpt_weights"]
 
 
 @dataclasses.dataclass
@@ -227,10 +238,11 @@ def _attention(cfg: GPTConfig, q, k, v):
 
 
 def _mm(x, w, cd):
-    """x @ w in the compute dtype (int8-quantized dict weights are not
-    ported yet)."""
+    """x @ w in the compute dtype. int8-quantized dict weights feed the
+    decode steps only (:func:`_dec_mm`)."""
     if isinstance(w, dict):
-        _unported("int8 weight decode (quantize_gpt_weights)")
+        _unported("int8 weights outside the decode steps "
+                  "(quantize_gpt_weights feeds gpt_decode_step only)")
     return x @ w.to(cd)
 
 
@@ -255,6 +267,15 @@ def _attn_half(cfg: GPTConfig, p, x):
     return x + _mm(o, p["proj_w"], cd) + p["proj_b"].to(cd), (kh, vh)
 
 
+def _composed_mlp(cfg: GPTConfig, p, x, mm):
+    """LN2 → gelu MLP + residual as separate ops; ``mm`` is :func:`_mm`,
+    or :func:`_dec_mm` where the weights may be int8-quantized."""
+    cd = cfg.dtype
+    h = _layer_norm(x, p["ln2_s"], p["ln2_b"])
+    h = F.gelu(mm(h, p["fc_w"], cd) + p["fc_b"].to(cd), approximate="tanh")
+    return x + mm(h, p["out_w"], cd) + p["out_b"].to(cd)
+
+
 def _mlp_half(cfg: GPTConfig, p, x):
     """Dense MLP half of a block (LN2 → gelu MLP + residual); with
     ``fused_mlp`` (None follows FLAGS_fused_kernels) one fused LN-MLP
@@ -266,14 +287,13 @@ def _mlp_half(cfg: GPTConfig, p, x):
              else flags.fused_kernels[0])
     if fused:
         if isinstance(p["fc_w"], dict) or isinstance(p["out_w"], dict):
-            _unported("int8 weight decode (quantize_gpt_weights)")
+            _unported("int8 weights outside the decode steps "
+                      "(quantize_gpt_weights feeds gpt_decode_step only)")
         return fused_ln_mlp(x, p["fc_w"].to(cd), p["fc_b"].to(cd),
                             p["out_w"].to(cd), p["out_b"].to(cd),
                             ln_scale=p["ln2_s"], ln_bias=p["ln2_b"],
                             residual=True, act="gelu")
-    h = _layer_norm(x, p["ln2_s"], p["ln2_b"])
-    h = F.gelu(_mm(h, p["fc_w"], cd) + p["fc_b"].to(cd), approximate="tanh")
-    return x + _mm(h, p["out_w"], cd) + p["out_b"].to(cd)
+    return _composed_mlp(cfg, p, x, _mm)
 
 
 def _block_kv(cfg: GPTConfig, p, x):
@@ -426,6 +446,35 @@ def gpt_prefill(cfg: GPTConfig, params, tokens):
     return _head(cfg, params, x), kv
 
 
+def quantize_gpt_weights(params, names=("qkv_w", "proj_w", "fc_w",
+                                        "out_w")):
+    """Per-channel int8 weight quantization of the block matmuls.
+
+    Each named (L, K, N) block weight becomes ``{"q": int8 (L, K, N),
+    "s": f32 (L, N)}``: s = max(|w| over K, 1e-8) / 127 from the f32
+    master weight, q = round(w / s) (half to even) clipped to ±127. The
+    tree feeds :func:`gpt_decode_step` / :func:`gpt_decode_step_paged`
+    only; embeddings and the head stay fp. Returns a new tree on the
+    params' device; the other leaves are the caller's tensors."""
+    out = dict(params)
+    blocks = dict(params["blocks"])
+    for name in names:
+        w = blocks[name].float()
+        s = _quant_scale(w.abs().amax(dim=1))
+        blocks[name] = {"q": _quantize(w, s[:, None, :]), "s": s}
+    out["blocks"] = blocks
+    return out
+
+
+def _dec_mm(x, w, cd):
+    """x @ w for a maybe-int8-quantized decode weight: a ``{"q", "s"}``
+    dict goes through the int8 matmul with dynamic per-tensor activation
+    quantization."""
+    if isinstance(w, dict):
+        return dynamic_int8_matmul(x, w["q"], w["s"]).to(cd)
+    return x @ w.to(cd)
+
+
 def _dec_attn(cfg: GPTConfig, p, x, kc_l, vc_l, positions):
     """Attention half of the one-token block step. x (B, 1, H); kc_l/vc_l
     (B, nh, max_len, hd) views of one layer of the cache, written in
@@ -435,7 +484,7 @@ def _dec_attn(cfg: GPTConfig, p, x, kc_l, vc_l, positions):
     cd = cfg.dtype
 
     h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
-    qkv = _mm(h, p["qkv_w"], cd) + p["qkv_b"].to(cd)
+    qkv = _dec_mm(h, p["qkv_w"], cd) + p["qkv_b"].to(cd)
     q, k, v = (t.reshape(B, nh, hd) for t in qkv.split(H, dim=-1))
 
     pos = positions.long()
@@ -454,13 +503,15 @@ def _dec_attn(cfg: GPTConfig, p, x, kc_l, vc_l, positions):
     w = torch.softmax(s.float(), dim=-1).to(q.dtype)
     o = torch.einsum("bhk,bhkd->bhd", w, vc_l).reshape(B, 1, H)
 
-    x = x + _mm(o, p["proj_w"], cd) + p["proj_b"].to(cd)
+    x = x + _dec_mm(o, p["proj_w"], cd) + p["proj_b"].to(cd)
     return x, kc_l, vc_l
 
 
 def _dec_mlp(cfg: GPTConfig, p, x):
-    """Dense MLP half of the one-token block step (x (B, 1, H))."""
-    return _mlp_half(cfg, p, x)
+    """Dense MLP half of the one-token block step (x (B, 1, H)): LN2 →
+    gelu MLP + residual, always composed (as in JAX, whatever
+    ``fused_mlp`` says); weights may be int8-quantized dicts."""
+    return _composed_mlp(cfg, p, x, _dec_mm)
 
 
 def _dec_embed(cfg: GPTConfig, params, positions, tokens):
@@ -503,7 +554,7 @@ def _dec_attn_paged(cfg: GPTConfig, p, x, kb, vb, layer, tables, positions):
     cd = cfg.dtype
 
     h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
-    qkv = _mm(h, p["qkv_w"], cd) + p["qkv_b"].to(cd)
+    qkv = _dec_mm(h, p["qkv_w"], cd) + p["qkv_b"].to(cd)
     q, k, v = (t.reshape(B, nh, hd) for t in qkv.split(H, dim=-1))
 
     # slots own their blocks exclusively, so the only index collisions
@@ -517,7 +568,8 @@ def _dec_attn_paged(cfg: GPTConfig, p, x, kb, vb, layer, tables, positions):
     o = paged_attention_arrays(q.contiguous(), kb, vb, tables,
                                positions + 1, scale=1.0 / math.sqrt(hd),
                                layer=layer)
-    x = x + _mm(o.reshape(B, 1, H), p["proj_w"], cd) + p["proj_b"].to(cd)
+    x = x + _dec_mm(o.reshape(B, 1, H), p["proj_w"], cd) \
+        + p["proj_b"].to(cd)
     return x, kb, vb
 
 
@@ -576,9 +628,10 @@ def _chunk_attn(cfg: GPTConfig, p, x, kb, vb, layer, table_row, start):
 
 
 def _block_chunk(cfg: GPTConfig, p, x, kb, vb, layer, table_row, start):
-    """One transformer block over one prefill chunk against the pool."""
+    """One transformer block over one prefill chunk against the pool; the
+    MLP half is always composed, as in JAX."""
     x, kb, vb = _chunk_attn(cfg, p, x, kb, vb, layer, table_row, start)
-    return _mlp_half(cfg, p, x), kb, vb
+    return _composed_mlp(cfg, p, x, _mm), kb, vb
 
 
 def prefill_chunk_hidden(cfg: GPTConfig, params, pool, table_row, tokens,

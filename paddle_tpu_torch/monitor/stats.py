@@ -1,6 +1,8 @@
 """Minimal gauge registry: the serving and KV-pool gauges the ported
-engine and cache set, and the ``train_steps`` counter the train step
-bumps (a subset of ``paddle_tpu/monitor/stats.py``).
+engine and cache set, the ``train_steps`` counter the train step bumps,
+and the ``fused_optimizer_steps`` / ``int8_matmul_calls`` counters of the
+fused optimizer and the int8 matmul (a subset of
+``paddle_tpu/monitor/stats.py``, with its names).
 
 A :class:`Stat` is a named int64 gauge; :class:`StatRegistry` is the
 process-wide thread-safe registry. Tracing spans and latency histograms
@@ -69,3 +71,5 @@ KV_BLOCKS_FREE = _registry.get_stat("kv_blocks_free")
 KV_BLOCKS_USED = _registry.get_stat("kv_blocks_used")
 KV_FRAGMENTATION = _registry.get_stat("kv_fragmentation")
 TRAIN_STEPS = _registry.get_stat("train_steps")
+FUSED_OPTIMIZER_STEPS = _registry.get_stat("fused_optimizer_steps")
+INT8_MATMUL_CALLS = _registry.get_stat("int8_matmul_calls")

@@ -24,8 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "load", "build_all", "check",
-           "build_log"]
+__all__ = ["NVCC_FLAGS", "EXTRA_FLAGS", "SOURCES", "load", "build_all",
+           "check", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,7 +34,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 SOURCES = ("flash_attention_fwd", "paged_attention", "flash_attention_bwd",
-           "fused_ln_mlp")
+           "fused_ln_mlp", "fused_optimizer", "int8_matmul")
+# per-source flags on top of NVCC_FLAGS. -fmad=false: no multiply-add is
+# contracted into an FMA, so every f32 operation rounds where the plain
+# PyTorch version's separate operations round, and the kernels' outputs
+# are bit-identical to those versions'
+EXTRA_FLAGS = {"fused_optimizer": ["-fmad=false"],
+               "int8_matmul": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -56,7 +62,7 @@ def _target(name: str) -> Path:
     h.update((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, [])).encode())
     return BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -75,7 +81,8 @@ def _start(name: str):
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target

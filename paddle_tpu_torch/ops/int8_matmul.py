@@ -1,0 +1,156 @@
+"""int8 weight-quantized matmul: the hand-written CUDA kernel
+(``csrc/int8_matmul.cu``) and its plain PyTorch version.
+
+Counterpart of ``paddle_tpu/ops/int8_matmul.py``: int8 activations times
+int8 weights with int32 accumulation, the per-channel dequant and the
+bias applied in f32 in the kernel's epilogue, ``acc * (xscale *
+wscale[n]) + bias``, then the cast to the output dtype.
+
+Entry points:
+
+- :func:`int8_matmul_arrays` — already-quantized operands;
+- :func:`dynamic_int8_matmul` — fp activations, quantized per tensor on
+  the fly (abs-max, round half to even, clip to ±127, all in f32): the
+  serving engine's int8 decode (``InferenceEngine(int8_weights=True)``).
+
+CUDA tensors launch the kernel, at any M, K and N; CPU tensors run the
+plain version. The activation scale stays a device tensor: reading it on
+the host would sync once per matmul.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..monitor.stats import INT8_MATMUL_CALLS
+from . import _build
+
+__all__ = ["int8_matmul_arrays", "dynamic_int8_matmul", "LAUNCHES"]
+
+# kernel launches since the last reset (the wrapper adds one per launch)
+LAUNCHES = 0
+
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def _int8_matmul_reference(xq, wq, wscale, xscale, bias, out_dtype):
+    """Plain version. The int32 sum is exact: on the CPU an int32 matmul;
+    on the card (no int32 matmul there) an f64 one, exact while |acc| <
+    2**53 (|acc| <= K * 127**2). xscale: a 0-dim tensor, or one scale per
+    row of xq's leading dims."""
+    if xq.device.type == "cuda":
+        acc = xq.double() @ wq.double()
+    else:
+        acc = xq.int() @ wq.int()
+    xs = xscale.float()
+    if xs.numel() != 1:
+        xs = xs.reshape(*xq.shape[:-1], 1)
+    else:
+        xs = xs.reshape(())
+    out = acc.float() * (xs * wscale.float())
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("int8_matmul")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.int8_matmul.argtypes = [p, p, p, i, p, p, p, p] + [i] * 4 + [p]
+        lib.int8_matmul.restype = i
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _launch(x2, wq, wscale, xs, bias, out_dtype):
+    global LAUNCHES
+    M, K = x2.shape
+    if wq.dim() != 2 or wq.shape[0] != K:
+        raise ValueError(f"wq {tuple(wq.shape)} is not (K={K}, N)")
+    N = wq.shape[1]
+    if x2.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"int8 matmul takes int8 operands, got "
+                        f"{x2.dtype}/{wq.dtype}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"int8 matmul writes f32 or bf16, not {out_dtype}")
+    if wscale.shape != (N,) or wscale.dtype != torch.float32:
+        raise ValueError(f"wscale must be f32 ({N},), got "
+                         f"{wscale.dtype} {tuple(wscale.shape)}")
+    if xs.numel() not in (1, M) or xs.dtype != torch.float32:
+        raise ValueError(f"xscale must be f32 with 1 or {M} values, got "
+                         f"{xs.dtype} {tuple(xs.shape)}")
+    if bias is not None and (bias.shape != (N,)
+                             or bias.dtype != torch.float32):
+        raise ValueError(f"bias must be f32 ({N},)")
+    for t in (wq, wscale, xs) + ((bias,) if bias is not None else ()):
+        if t.device != x2.device:
+            raise ValueError("int8 matmul operands must lie on one device")
+        if not t.is_contiguous():
+            raise ValueError("int8 matmul needs contiguous operands")
+    lib = _load()
+    out = torch.empty((M, N), dtype=out_dtype, device=x2.device)
+    acc = torch.empty((M, N), dtype=torch.int32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        err = lib.int8_matmul(
+            x2.data_ptr(), wq.data_ptr(), xs.data_ptr(),
+            int(xs.numel() != 1), wscale.data_ptr(),
+            bias.data_ptr() if bias is not None else None, acc.data_ptr(),
+            out.data_ptr(), M, K, N, _OUT_DTYPES[out_dtype], stream)
+    _build.check(lib, err, "int8_matmul")
+    LAUNCHES += 1
+    return out
+
+
+def int8_matmul_arrays(xq, wq, wscale, xscale, bias=None,
+                       out_dtype=torch.float32):
+    """``dequant(xq @ wq)``: xq int8 [..., K]; wq int8 [K, N]; wscale [N]
+    (the dequant multiplier, scale/qmax); xscale a float, a 0-dim tensor
+    or one scale per row of xq; bias [N] or None. Returns [..., N] in
+    ``out_dtype``."""
+    dev = xq.device
+    if not isinstance(xscale, torch.Tensor):
+        xscale = torch.full((), float(xscale), dtype=torch.float32,
+                            device=dev)
+    INT8_MATMUL_CALLS.add()
+    if dev.type != "cuda":
+        return _int8_matmul_reference(xq, wq, wscale, xscale, bias,
+                                      out_dtype)
+    lead = xq.shape[:-1]
+    K = xq.shape[-1]
+    xs = xscale.to(torch.float32).reshape(-1).contiguous()
+    b = bias.to(torch.float32).contiguous() if bias is not None else None
+    out = _launch(xq.reshape(-1, K).contiguous(), wq.contiguous(),
+                  wscale.to(torch.float32).contiguous(), xs, b, out_dtype)
+    return out.reshape(*lead, wq.shape[1])
+
+
+def _quant_scale(amax):
+    """max(amax, 1e-8) / 127 in f32, a true division on every device (a
+    CUDA tensor divided by a Python number multiplies by its reciprocal,
+    which can differ from JAX's division in the last bit)."""
+    return torch.clamp(amax, min=1e-8) / torch.full(
+        (), 127.0, dtype=torch.float32, device=amax.device)
+
+
+def _quantize(x32, scale):
+    """round(x / scale) clipped to ±127 as int8 (round half to even, as
+    jnp.round); ``scale`` broadcasts against ``x32``."""
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+
+
+def dynamic_int8_matmul(x, wq, wscale, bias=None):
+    """Weight-only int8 matmul for fp activations: per-tensor abs-max
+    activation quantization (f32), then the int8 matmul with its dequant
+    epilogue; the output has x's dtype."""
+    x32 = x.float()
+    xscale = _quant_scale(x32.abs().max())
+    xq = _quantize(x32, xscale)
+    return int8_matmul_arrays(xq, wq, wscale, xscale, bias=bias,
+                              out_dtype=x.dtype)

@@ -13,10 +13,12 @@ parity. Trees are nested dicts of tensors.
 :class:`DistributedTrainStep` is the JAX class's one-device case (the
 JAX step sets ``zero_level = 0`` when the sharding degree is 1): loss and
 grads by autograd, the optional global-norm clip, the optimizer update.
-A mesh of more than one device, ``aux`` state, dynamic loss scaling,
-the sentinel, fault injection and ``FLAGS_fused_optimizer`` raise
-``NotImplementedError`` until the multi-GPU and fused-optimizer slices
-(ROADMAP.md Queue 1 items 3 and 7, Queue 2 rows 7-8).
+With ``FLAGS_fused_optimizer`` set, ``"adamw"`` and ``"lamb"`` take the
+fused kernels' updates (``ops/fused_optimizer.py``), with the same state
+layout, as the JAX step does. A mesh of more than one device, ``aux``
+state, dynamic loss scaling, the sentinel and fault injection raise
+``NotImplementedError`` until the multi-GPU slice (ROADMAP.md Queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from .. import resolve_device
 from ..core import flags
 from ..monitor.stats import TRAIN_STEPS
+from ..ops.fused_optimizer import fused_adamw_update, fused_lamb_update
 
 __all__ = ["DistributedTrainStep", "pure_adamw_init", "pure_adamw_update",
            "pure_sgd_init", "pure_sgd_update", "pure_momentum_init",
@@ -303,10 +306,12 @@ class DistributedTrainStep:
         if sentinel:
             _unported("the health sentinel")
         if isinstance(optimizer, str):
-            if flags.fused_optimizer[0] and optimizer in ("adamw", "lamb"):
-                _unported("FLAGS_fused_optimizer (the fused AdamW/LAMB "
-                          "kernels)")
             init_fn, update_fn = _OPTS[optimizer]
+            if flags.fused_optimizer[0] and optimizer in ("adamw", "lamb"):
+                # same init and state layout, the update as one fused
+                # kernel pass per bucket
+                update_fn = (fused_adamw_update if optimizer == "adamw"
+                             else fused_lamb_update)
         else:
             init_fn, update_fn = optimizer
         self.device = resolve_device(device)

@@ -29,10 +29,15 @@ later resumes by re-prefilling prompt + generated tokens (its stream is
 unaffected). The decode's attention is the paged-attention kernel on the
 card.
 
+int8 weights (``int8_weights=True``): the block matmul weights are
+quantized once, per channel, into a second tree that only the decode
+tick uses (the int8 matmul kernel on the card); prefill and chunked
+prefill keep the fp weights.
+
 Not ported yet (see ROADMAP.md): speculative decoding, the serving
-mesh, int8 weights, the prefix cache, the watchdog, overload control,
-tokenizer and constrained masks, KV export/import, the ranker, the
-flight recorder and tracing spans.
+mesh, the prefix cache, the watchdog, overload control, tokenizer and
+constrained masks, KV export/import, the ranker, the flight recorder and
+tracing spans.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ from .. import resolve_device
 from ..core import flags
 from ..models.gpt import (_check_dense, _head, gpt_decode_step,
                           gpt_decode_step_paged, prefill_chunk_hidden,
-                          prefill_hidden)
+                          prefill_hidden, quantize_gpt_weights)
 from ..monitor.stats import (SERVING_DEADLINE_SHEDS, SERVING_DECODE_MS,
                              SERVING_EVICTIONS, SERVING_PREEMPTIONS,
                              SERVING_PREFILL_MS, SERVING_QUEUE_DEPTH,
@@ -174,13 +179,15 @@ def _serving_params(cfg, params, device):
     """Params on ``device`` with the leaves every call casts to the
     compute dtype (block matmul weights and biases, wte, wpe) cast once
     here; LayerNorm leaves keep their dtype. The model functions' own
-    casts are then no-ops, so the numbers are unchanged."""
+    casts are then no-ops, so the numbers are unchanged. An int8 weight
+    (``{"q", "s"}``, see ``quantize_gpt_weights``) keeps ``q`` int8 and
+    ``s`` f32."""
     cd = cfg.dtype
 
     def put(t, cast):
         if isinstance(t, dict):
-            raise NotImplementedError("int8-quantized weights are not "
-                                      "ported to paddle_tpu_torch yet")
+            return {"q": torch.as_tensor(t["q"]).to(device, torch.int8),
+                    "s": torch.as_tensor(t["s"]).to(device, torch.float32)}
         t = torch.as_tensor(t).to(device)
         return t.to(cd) if cast else t
 
@@ -212,14 +219,32 @@ class InferenceEngine:
     defaults to the worst case (every slot at seq_len; size it smaller to
     overcommit), prompts prefill ``prefill_chunk`` tokens per tick.
     Greedy output is token-identical to ``paged=False``.
+
+    ``int8_weights=True`` quantizes the block matmul weights to int8 per
+    channel (``models.gpt.quantize_gpt_weights``, from the caller's f32
+    weights) for the decode tick only, which then runs the int8 matmul
+    kernel; prefill keeps the fp weights. Decode tokens are close to the
+    fp engine's but not pinned to them (weight rounding). It does not
+    combine with MoE or a mesh (``ValueError``, as in JAX).
     """
 
     def __init__(self, cfg, params, n_slots: int = 4,
                  max_len: Optional[int] = None, queue_size: int = 64,
                  eos_id: Optional[int] = None, seed: int = 0,
-                 paged: Optional[bool] = None, block_size: int = 16,
-                 n_blocks: Optional[int] = None, prefill_chunk: int = 64,
-                 device=None):
+                 int8_weights: bool = False, paged: Optional[bool] = None,
+                 block_size: int = 16, n_blocks: Optional[int] = None,
+                 prefill_chunk: int = 64, mesh=None, device=None):
+        if mesh is not None:
+            if int8_weights:
+                raise ValueError("int8_weights and mesh are not yet "
+                                 "combinable (no spec table for the "
+                                 "quantized pytree)")
+            raise NotImplementedError("the serving mesh is not ported to "
+                                      "paddle_tpu_torch yet (see "
+                                      "ROADMAP.md)")
+        if int8_weights and cfg.moe_experts > 0:
+            raise ValueError("int8_weights and MoE are not combinable (no "
+                             "quantized layout for the expert pytree)")
         self.device = resolve_device(device)
         if cfg.fused_mlp is None:
             # pin the fused-MLP choice now, as the JAX engine does: a
@@ -230,6 +255,18 @@ class InferenceEngine:
         _check_dense(cfg)
         self.cfg = cfg
         self._params = _serving_params(cfg, params, self.device)
+        self.int8_weights = bool(int8_weights)
+        if self.int8_weights:
+            # quantized once from the caller's weights, on the device;
+            # only the decode tick reads this tree
+            dev_blocks = {k: torch.as_tensor(v).to(self.device)
+                          for k, v in params["blocks"].items()}
+            self._decode_params = _serving_params(
+                cfg, quantize_gpt_weights({**params, "blocks": dev_blocks}),
+                self.device)
+            del dev_blocks
+        else:
+            self._decode_params = self._params
         self.paged = flags.paged_kv[0] if paged is None else bool(paged)
         if self.paged:
             self.cache = PagedKVCache(cfg, n_slots, n_blocks=n_blocks,
@@ -685,12 +722,13 @@ class InferenceEngine:
             tables = tables[:, :self._width_bucket(
                 max(len(self.cache.block_tables[s]) for s in active))]
             logits, _ = gpt_decode_step_paged(
-                self.cfg, self._params, (self.cache.kb, self.cache.vb),
+                self.cfg, self._decode_params,
+                (self.cache.kb, self.cache.vb),
                 torch.from_numpy(np.ascontiguousarray(tables)).to(dev),
                 pos_t, tok_t)
         else:
             logits, _ = gpt_decode_step(
-                self.cfg, self._params, (self.cache.k, self.cache.v),
+                self.cfg, self._decode_params, (self.cache.k, self.cache.v),
                 pos_t, tok_t)
         out = sample_tokens_streams(logits, temps, top_ks, top_ps,
                                     self.seed, rids, draws).cpu().numpy()

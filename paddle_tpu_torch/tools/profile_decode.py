@@ -1,6 +1,6 @@
 """Where a decode tick's time goes, at full gpt_1p3b width on the card.
 
-    python -m paddle_tpu_torch.tools.profile_decode [--steps 20]
+    python -m paddle_tpu_torch.tools.profile_decode [--steps 20] [--int8]
 
 Builds the serving state the engine would hold with 8 live slots (prompts
 of 40 to 1500 tokens already cached, random weights from a seed) in both
@@ -8,8 +8,10 @@ cache modes, runs the engine's tick body (decode step, sampling, tokens
 back to the host) and prints one JSON line per mode: the host-clock ms of
 a tick (ending in the device sync of the tokens' copy), the device ms of
 a tick (sum of kernel times from torch.profiler), the device's idle share
-(1 - device / host) and the kernels that take the most device time per
-tick. Every time is the card's own; the card's name and power limit are
+(1 - device / host), the device kernels launched per tick and the kernels
+that take the most device time per tick. ``--int8`` decodes with the
+int8-quantized block weights, as ``InferenceEngine(int8_weights=True)``
+does. Every time is the card's own; the card's name and power limit are
 printed beside them. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -56,9 +58,12 @@ def _state(cfg, dev, paged):
     return cache, tables
 
 
-def profile(mode: str, steps: int, dev) -> dict:
+def profile(mode: str, steps: int, dev, int8: bool = False) -> dict:
     cfg = G.gpt_1p3b()
-    params = _serving_params(cfg, G.gpt_init(cfg, seed=0, device=dev), dev)
+    params = G.gpt_init(cfg, seed=0, device=dev)
+    if int8:
+        params = G.quantize_gpt_weights(params)
+    params = _serving_params(cfg, params, dev)
     paged = mode == "paged"
     cache, tables = _state(cfg, dev, paged)
     B = len(LENGTHS)
@@ -99,10 +104,11 @@ def profile(mode: str, steps: int, dev) -> dict:
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / n_prof
     return {
-        "mode": mode, "model": "gpt_1p3b", "slots": B,
+        "mode": mode, "int8_weights": int8, "model": "gpt_1p3b", "slots": B,
         "lengths": list(LENGTHS), "host_ms_per_tick": host_ms,
         "device_ms_per_tick": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
+        "kernel_launches_per_tick": sum(r[2] for r in rows) / n_prof,
         "top_kernels": [
             {"name": k[:80], "ms_per_tick": us / 1e3 / n_prof,
              "calls_per_tick": c / n_prof} for us, k, c in rows[:12]],
@@ -114,6 +120,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--mode", choices=("fixed", "paged", "both"),
                     default="both")
+    ap.add_argument("--int8", action="store_true",
+                    help="decode with int8-quantized block weights")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -124,7 +132,7 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     modes = ("fixed", "paged") if args.mode == "both" else (args.mode,)
     for mode in modes:
-        row = profile(mode, args.steps, dev)
+        row = profile(mode, args.steps, dev, int8=args.int8)
         row["card"] = smi
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

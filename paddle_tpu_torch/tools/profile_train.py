@@ -10,7 +10,9 @@ the loss's host read, which waits for the device), then profiles one
 step under torch.profiler and prints one JSON line: host ms per step,
 device ms per step (the sum of kernel times), the device's idle share
 (1 - device / host), and the kernels that take the most device time.
-Every time is the card's own; the card's name and power limit are
+With ``FLAGS_fused_optimizer=1`` in the environment the AdamW update is
+the fused kernel (``ops/fused_optimizer.py``) instead of the per-leaf
+PyTorch ops; the line says which ran. Every time is the card's own; the card's name and power limit are
 printed beside them. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -23,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import flags
 from ..models import gpt as G
 from ..parallel import DistributedTrainStep
 from .profile_decode import _device_us
@@ -59,14 +62,15 @@ def profile(steps: int, layers: int, dev) -> dict:
     device_ms = sum(r[0] for r in rows) / 1e3
     return {
         "model": "gpt_1p3b", "layers": layers, "remat": True,
-        "fused_mlp": True, "optimizer": "adamw", "batch": [B, S],
+        "fused_mlp": True, "optimizer": "adamw",
+        "fused_optimizer": flags.fused_optimizer[0], "batch": [B, S],
         "loss_chunk": chunk, "host_ms_per_step": host_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
         "tokens_per_s": B * S / host_ms * 1e3,
         "top_kernels": [
             {"name": k[:80], "ms_per_step": us / 1e3, "calls_per_step": c}
-            for us, k, c in rows[:15]],
+            for us, k, c in rows[:25]],
     }
 
 

@@ -7,6 +7,11 @@ not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
+The fused AdamW/LAMB and int8 matmul kernels are held bit-identical to
+their plain versions (built with -fmad=false, they round where the plain
+versions' separate operations round; an int32 sum is exact in any
+order).
+
 Tolerances: f32 1e-4 (f32 sums in another order, atomics in any order);
 bf16 2e-2 on forward outputs (the plain versions round scores to bf16
 where the kernels keep f32); lse 1e-3; bf16 gradients 2e-2 of the
@@ -22,9 +27,12 @@ import torch
 from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import fused_kernels as tfk
+from paddle_tpu_torch.ops import fused_optimizer as tfo
+from paddle_tpu_torch.ops import int8_matmul as tim
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.parallel import DistributedTrainStep
-from paddle_tpu_torch.serving import InferenceEngine
+from paddle_tpu_torch.parallel.train_step import pure_adamw_init
+from paddle_tpu_torch.serving import InferenceEngine, KVCache
 from torch_port_util import cuda_device  # noqa: F401 (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -267,3 +275,142 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert tfa.LAUNCHES > f0
     assert run(True, cuda_device) == want
     assert tpa.LAUNCHES > p0
+
+
+def _opt_leaves(pdt, mdt, dev, seed):
+    """A bucket of ragged leaves, one of them an unaligned view (the
+    kernel's scalar path)."""
+    sizes = (1, 3, 1000, 4099, 20000)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda n, sc, dt: (torch.randn(n, generator=gen) * sc).to(dt).to(dev)
+    ps = [mk(n, 1.0, pdt) for n in sizes]
+    ps.append(mk(1001, 1.0, pdt)[1:])          # offset by one element
+    gs = [mk(p.numel(), 0.1, pdt) for p in ps]
+    ms = [mk(p.numel(), 0.01, mdt) for p in ps]
+    vs = [mk(p.numel(), 1e-3, mdt).abs() for p in ps]
+    return ps, gs, ms, vs
+
+
+@pytest.mark.parametrize("pdt,mdt,l2,eager", [
+    (torch.float32, torch.float32, 0.0, False),
+    (torch.float32, torch.bfloat16, 0.01, False),
+    (torch.bfloat16, torch.float32, 0.0, True),
+    (torch.bfloat16, torch.bfloat16, 0.01, True)])
+def test_fused_adamw_kernel_matches_plain(cuda_device, pdt, mdt, l2, eager):
+    ps, gs, ms, vs = _opt_leaves(pdt, mdt, cuda_device, 21)
+    sc = torch.tensor([3e-3, 1 - 0.9 ** 3, 1 - 0.999 ** 3],
+                      device=cuda_device)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05, l2=l2, eager_form=eager)
+    want = [tfo._adamw_flat_reference(p, g, m, v, sc[0], sc[1], sc[2], **kw)
+            for p, g, m, v in zip(ps, gs, ms, vs)]
+    before = tfo.ADAMW_LAUNCHES
+    tfo._bucket_adamw(ps, gs, ms, vs, sc, **kw)
+    torch.cuda.synchronize()
+    assert tfo.ADAMW_LAUNCHES == before + 1        # one launch per bucket
+    for (wp, wm, wv), p, m, v in zip(want, ps, ms, vs):
+        assert torch.equal(p, wp) and torch.equal(m, wm) \
+            and torch.equal(v, wv)
+
+
+@pytest.mark.parametrize("pdt,mdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_fused_lamb_kernel_matches_plain(cuda_device, pdt, mdt):
+    ps, gs, ms, vs = _opt_leaves(pdt, mdt, cuda_device, 22)
+    sc = torch.tensor([0.0, 1 - 0.9 ** 2, 1 - 0.999 ** 2],
+                      device=cuda_device)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-6, wd=0.01)
+    want = [tfo._lamb_flat_reference(p, g, m, v, sc[1], sc[2], **kw)
+            for p, g, m, v in zip(ps, gs, ms, vs)]
+    old = tfo._R_CAP
+    try:
+        tfo._R_CAP = 5000            # groups of leaves share one r buffer
+        before = tfo.LAMB_LAUNCHES
+        got = {}
+        for idx, rs in tfo._bucket_lamb(ps, gs, ms, vs, sc, **kw):
+            got.update({i: r.clone() for i, r in zip(idx, rs)})
+        torch.cuda.synchronize()
+        assert tfo.LAMB_LAUNCHES - before == len(tfo._lamb_groups(ps)[0]) > 1
+    finally:
+        tfo._R_CAP = old
+    for i, (wm, wv, wr) in enumerate(want):
+        assert torch.equal(ms[i], wm) and torch.equal(vs[i], wv)
+        assert torch.equal(got[i], wr)
+
+
+def test_fused_updates_on_card_match_cpu(cuda_device):
+    """fused_adamw_update / fused_lamb_update on the card (kernels) and
+    the CPU (plain versions): 3 steps of a small tree, params to 1e-6."""
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    tree = {"w": torch.randn(64, 48, generator=gen),
+            "blk": {"b": torch.randn(48, generator=gen)}}
+    grads = [{"w": torch.randn(64, 48, generator=gen) * 0.1,
+              "blk": {"b": torch.randn(48, generator=gen) * 0.1}}
+             for _ in range(3)]
+    mv = lambda t, d: {k: mv(v, d) if isinstance(v, dict) else v.to(d)
+                       for k, v in t.items()}
+    for upd in (tfo.fused_adamw_update, tfo.fused_lamb_update):
+        out = {}
+        for dev in (cuda_device, "cpu"):
+            p = mv(tree, dev)
+            st = pure_adamw_init(p)
+            for g in grads:
+                upd(p, mv(g, dev), st, 1e-2, weight_decay=0.1)
+            out[str(torch.device(dev).type)] = mv(p, "cpu")
+        assert _rel(out["cuda"]["w"], out["cpu"]["w"]) <= 1e-6
+        assert _rel(out["cuda"]["blk"]["b"], out["cpu"]["blk"]["b"]) <= 1e-6
+
+
+@pytest.mark.parametrize("M,K,N,per_row,bias,out", [
+    (8, 256, 384, False, False, torch.float32),
+    (1, 2048, 2048, False, False, torch.bfloat16),
+    (100, 64, 192, False, True, torch.float32),
+    (3, 50, 37, True, True, torch.bfloat16),
+    (9, 130, 20, True, False, torch.float32)])
+def test_int8_kernel_matches_plain(cuda_device, M, K, N, per_row, bias, out):
+    gen = torch.Generator(device="cpu").manual_seed(M * K)
+    xq = torch.randint(-127, 128, (M, K), generator=gen,
+                       dtype=torch.int8).to(cuda_device)
+    wq = torch.randint(-127, 128, (K, N), generator=gen,
+                       dtype=torch.int8).to(cuda_device)
+    ws = (torch.rand(N, generator=gen) * 0.02 + 1e-4).to(cuda_device)
+    xs = (torch.rand((M, 1) if per_row else (), generator=gen) * 0.05
+          + 1e-3).to(cuda_device)
+    b = torch.randn(N, generator=gen).to(cuda_device) if bias else None
+    before = tim.LAUNCHES
+    got = tim.int8_matmul_arrays(xq, wq, ws, xs, bias=b, out_dtype=out)
+    torch.cuda.synchronize()
+    assert tim.LAUNCHES == before + 1
+    want = tim._int8_matmul_reference(xq, wq, ws, xs, b, out)
+    assert got.dtype == out and torch.equal(got, want)
+    # the int32 sum itself, checked on the CPU
+    acc = (xq.cpu().int() @ wq.cpu().int()).double()
+    assert torch.equal((xq.double() @ wq.double()).cpu(), acc)
+
+
+def test_int8_decode_on_card_matches_cpu(cuda_device):
+    """One int8 decode step (f32, head_dim 64) with the kernels on the
+    card and the plain versions on the CPU. The activations agree up to
+    f32 summation order, which can move one quantized activation by one
+    step: logits within 1e-2 of the largest."""
+    cfg = tg.GPTConfig(vocab_size=512, hidden=128, n_layers=2, n_heads=2,
+                       seq_len=64, dtype=torch.float32)
+    params = tg.gpt_init(cfg, seed=1, device="cpu")
+    q = tg.quantize_gpt_weights(params)
+    pos = torch.tensor([0, 5, 9], dtype=torch.int32)
+    tok = torch.tensor([1, 2, 3], dtype=torch.int32)
+
+    def run(dev):
+        qd = {k: ({kk: ({a: b.to(dev) for a, b in vv.items()}
+                        if isinstance(vv, dict) else vv.to(dev))
+                   for kk, vv in v.items()} if isinstance(v, dict)
+                  else v.to(dev)) for k, v in q.items()}
+        c = KVCache(cfg, n_slots=3, device=dev)
+        with torch.inference_mode():
+            lg, _ = tg.gpt_decode_step(cfg, qd, (c.k, c.v), pos.to(dev),
+                                       tok.to(dev))
+        return lg.cpu()
+
+    before = tim.LAUNCHES
+    card = run(cuda_device)
+    assert tim.LAUNCHES == before + 4 * cfg.n_layers
+    assert _rel(card, run("cpu")) <= 1e-2

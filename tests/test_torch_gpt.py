@@ -230,13 +230,25 @@ def test_unported_branches_raise(field, value):
         tg.gpt_forward(cfg, pt, torch.zeros((1, 4), dtype=torch.int64))
 
 
-def test_int8_weights_raise():
+def test_int8_weights_decode_and_raise_in_forward():
+    """int8 dict weights (quantize_gpt_weights) feed the decode step; the
+    forward and prefill, which JAX never feeds them, still raise."""
     _, cfg, _, pt = _pair("tiny", "f32")
-    blocks = dict(pt["blocks"])
-    blocks["fc_w"] = {"q": blocks["fc_w"], "s": blocks["fc_b"]}
-    with pytest.raises(NotImplementedError):
-        tg.gpt_forward(cfg, {**pt, "blocks": blocks},
-                       torch.zeros((1, 4), dtype=torch.int64))
+    qt = tg.quantize_gpt_weights(pt)
+    ct = KVCache(cfg, n_slots=2, device="cpu")
+    with torch.inference_mode():
+        logits, _ = tg.gpt_decode_step(
+            cfg, qt, (ct.k, ct.v), torch.tensor([0, 3], dtype=torch.int32),
+            torch.tensor([5, 6], dtype=torch.int32))
+    assert logits.shape == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    for fused in (False, True):
+        cfg_f = tg.GPTConfig(**{**CONFIGS["tiny"], "fused_mlp": fused})
+        with pytest.raises(NotImplementedError, match="int8"):
+            tg.gpt_forward(cfg_f, qt, toks)
+        with pytest.raises(NotImplementedError, match="int8"):
+            tg.gpt_prefill(cfg_f, qt, toks)
 
 
 def test_entry_points_default_to_the_card():
@@ -262,3 +274,62 @@ def test_fused_mlp_forward_and_prefill_match_jax(name):
     _close(lg, lg_j, "f32", F32_LOGITS_TOL)
     _close(k, k_j, "f32")
     _close(v, v_j, "f32")
+
+
+def _decode_paths(cfg_t, pt):
+    """Logits of the three paths that run the composed MLP whatever
+    fused_mlp says: fixed decode, chunked prefill and paged decode."""
+    prompt = _tokens((1, 16), seed=8)
+    with torch.inference_mode():
+        _, (ke, ve) = tg.gpt_prefill(
+            tg.GPTConfig(**{**CONFIGS["tiny"], "dtype": cfg_t.dtype}), pt,
+            torch.from_numpy(prompt))
+        fixed = KVCache(cfg_t, n_slots=2, device="cpu")
+        cache_insert(fixed.k, fixed.v, 0, ke[0], ve[0])
+        pos = torch.tensor([16, 0], dtype=torch.int32)
+        tok = torch.tensor([3, 0], dtype=torch.int32)
+        dec, _ = tg.gpt_decode_step(cfg_t, pt, (fixed.k, fixed.v), pos, tok)
+        pool = PagedKVCache(cfg_t, n_slots=2, block_size=8, device="cpu")
+        assert pool.grow(0, 24)
+        chunk, _ = tg.gpt_prefill_chunk(
+            cfg_t, pt, (pool.kb, pool.vb),
+            torch.from_numpy(pool.table_row(0)), torch.from_numpy(prompt), 0)
+        paged, _ = tg.gpt_decode_step_paged(
+            cfg_t, pt, (pool.kb, pool.vb),
+            torch.from_numpy(pool.tables_array([0])), pos, tok)
+    return {"decode": dec, "chunk": chunk, "paged": paged}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_and_chunk_ignore_fused_mlp_as_jax_does(dt):
+    """The one-token decode and the chunked prefill run the composed MLP
+    whatever fused_mlp says, as in JAX: the port's logits with
+    fused_mlp=True are bit-identical to those with False, and match JAX's
+    with fused_mlp=True to the decode tests' tolerance."""
+    cfg_j, _, pj, pt = _pair("tiny", dt)
+    tdt = DTYPES[dt][1]
+    got = {f: _decode_paths(tg.GPTConfig(dtype=tdt, fused_mlp=f,
+                                         **CONFIGS["tiny"]), pt)
+           for f in (False, True)}
+    for path in got[True]:
+        assert torch.equal(got[True][path], got[False][path]), path
+
+    cfg_jf = jg.GPTConfig(dtype=DTYPES[dt][0], fused_mlp=True,
+                          **CONFIGS["tiny"])
+    prompt = _tokens((1, 16), seed=8)
+    _, (ke, ve) = jg.gpt_prefill(cfg_j, pj, jnp.asarray(prompt))
+    cj = JKVCache(cfg_jf, n_slots=2)
+    kj, vj = j_cache_insert(cj.k, cj.v, 0, ke[0], ve[0])
+    pos = jnp.asarray([16, 0], jnp.int32)
+    tok = jnp.asarray([3, 0], jnp.int32)
+    dec, _ = jg.gpt_decode_step(cfg_jf, pj, (kj, vj), pos, tok)
+    pool = JPagedKVCache(cfg_jf, n_slots=2, block_size=8)
+    assert pool.grow(0, 24)
+    chunk, (kb, vb) = jg.gpt_prefill_chunk(
+        cfg_jf, pj, (pool.kb, pool.vb), jnp.asarray(pool.table_row(0)),
+        jnp.asarray(prompt), jnp.int32(0))
+    paged, _ = jg.gpt_decode_step_paged(
+        cfg_jf, pj, (kb, vb), jnp.asarray(pool.tables_array([0])), pos, tok)
+    _close(got[True]["decode"][0], dec[0], dt, F32_LOGITS_TOL)
+    _close(got[True]["chunk"], chunk, dt, F32_LOGITS_TOL)
+    _close(got[True]["paged"][0], paged[0], dt, F32_LOGITS_TOL)

@@ -46,7 +46,9 @@ def test_scan_sees_every_module():
                  "paddle_tpu_torch/serving/engine.py",
                  "paddle_tpu_torch/models/gpt.py",
                  "paddle_tpu_torch/ops/fused_kernels.py",
-                 "paddle_tpu_torch/parallel/train_step.py", "chip_smoke.py"):
+                 "paddle_tpu_torch/parallel/train_step.py",
+                 "paddle_tpu_torch/ops/fused_optimizer.py",
+                 "paddle_tpu_torch/ops/int8_matmul.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -58,6 +60,8 @@ def test_imports_without_triton_nvcc_or_jax():
         " paddle_tpu_torch.serving, paddle_tpu_torch.ops.flash_attention,"
         " paddle_tpu_torch.ops.paged_attention, paddle_tpu_torch.ops._build,"
         " paddle_tpu_torch.ops.fused_kernels, paddle_tpu_torch.parallel,"
+        " paddle_tpu_torch.ops.fused_optimizer,"
+        " paddle_tpu_torch.ops.int8_matmul,"
         " paddle_tpu_torch.tools.profile_train\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"

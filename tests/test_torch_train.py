@@ -20,6 +20,7 @@ arithmetic on the same inputs). Trajectory: each of the 30 losses
 within 1e-4.
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from paddle_tpu.parallel import train_step as jts
 from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.monitor.stats import stat_get
+from paddle_tpu_torch.ops import fused_optimizer as tfo
 from paddle_tpu_torch.parallel import DistributedTrainStep
 from paddle_tpu_torch.parallel import train_step as tts
 
@@ -284,14 +286,25 @@ def test_unported_train_step_options_raise(kw):
 
 
 def test_fused_optimizer_and_fault_flags_raise():
+    """FLAGS_fused_optimizer now builds a fused step (adamw and lamb; the
+    other optimizers keep their pure update); fault injection still
+    raises."""
     cfg = tg.gpt_nano(dtype=torch.float32)
     params = tg.gpt_init(cfg, seed=0, device="cpu")
     loss_fn = lambda p, b: tg.gpt_loss(cfg, p, b)
     old = flags.fused_optimizer[0], flags.fault_inject[0]
     try:
         flags.fused_optimizer[0] = True
-        with pytest.raises(NotImplementedError, match="fused"):
-            DistributedTrainStep(loss_fn, params, device="cpu")
+        for name, want in (("adamw", tfo.fused_adamw_update),
+                           ("lamb", tfo.fused_lamb_update),
+                           ("sgd", tts.pure_sgd_update)):
+            ts = DistributedTrainStep(loss_fn, params, optimizer=name,
+                                      device="cpu")
+            assert ts._update_fn is want, name
+        before = stat_get("fused_optimizer_steps")
+        ts = DistributedTrainStep(loss_fn, params, device="cpu")
+        assert math.isfinite(float(ts(_batch(8, (1, 16)))))
+        assert stat_get("fused_optimizer_steps") == before + 1
         flags.fused_optimizer[0] = False
         ts = DistributedTrainStep(loss_fn, params, device="cpu")
         flags.fault_inject[0] = "nan_grad@step=0"
