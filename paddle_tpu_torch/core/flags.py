@@ -10,6 +10,8 @@ Own copy of the ``_truthy`` cells of ``paddle_tpu/core/native.py``:
 - ``FLAGS_fused_optimizer``: ``DistributedTrainStep`` with ``"adamw"`` or
   ``"lamb"`` takes the fused AdamW/LAMB kernels
   (``ops/fused_optimizer.py``);
+- ``FLAGS_fp8_matmul``: the fp8 (e4m3) MLP in the block's MLP half when
+  ``GPTConfig.fp8`` is None (the serving engine pins it at construction);
 - ``FLAGS_fault_inject``: the fault-injection spec string, not ported yet
   (``DistributedTrainStep`` raises while it is non-empty).
 
@@ -20,7 +22,7 @@ from __future__ import annotations
 import os
 
 __all__ = ["paged_kv", "ragged_decode", "fused_kernels", "fused_optimizer",
-           "fault_inject"]
+           "fp8_matmul", "fault_inject"]
 
 
 def _truthy(value) -> bool:
@@ -41,6 +43,10 @@ fused_kernels = [_truthy(os.environ.get("FLAGS_fused_kernels", "0"))]
 
 # train step: the fused multi-tensor AdamW/LAMB kernels
 fused_optimizer = [_truthy(os.environ.get("FLAGS_fused_optimizer", "0"))]
+
+# transformer block: the MLP matmuls in fp8 (e4m3) when the config leaves
+# fp8 unset (amp/fp8.py, ops/fp8_matmul.py)
+fp8_matmul = [_truthy(os.environ.get("FLAGS_fp8_matmul", "0"))]
 
 # train step: deterministic fault injection spec (not ported yet)
 fault_inject = [os.environ.get("FLAGS_fault_inject", "")]

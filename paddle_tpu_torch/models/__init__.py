@@ -1,4 +1,5 @@
-"""Models of the port: the GPT decoder's dense serving subset."""
+"""Models of the port: the GPT decoder (dense and MoE, serving and
+training)."""
 from .gpt import (GPTConfig, gpt_1p3b, gpt_decode_step,
                   gpt_decode_step_paged, gpt_forward, gpt_init, gpt_nano,
                   gpt_prefill, gpt_prefill_chunk, gpt_small, gpt_tiny,

@@ -1,5 +1,5 @@
-"""GPT-family decoder LM on PyTorch: the dense serving and training
-subsets of ``paddle_tpu/models/gpt.py``.
+"""GPT-family decoder LM on PyTorch: the serving and training subsets
+of ``paddle_tpu/models/gpt.py``, dense and mixture-of-experts.
 
 Same parameter tree (a dict of tensors with the same keys and shapes,
 block leaves stacked on a leading layer dim), same numerics (compute
@@ -36,9 +36,24 @@ each block matmul with a ``{"q", "s"}`` weight goes through
 per-tensor activation quantization. Prefill, chunked prefill and
 training raise on them, as JAX never feeds them there.
 
-The MoE, fp8, ring-attention, pipeline, verify and prefix branches are
-not ported yet and raise ``NotImplementedError`` where a config asks for
-one.
+fp8 (``GPTConfig.fp8``, None following ``FLAGS_fp8_matmul``): the MLP
+half of the training and fixed-slot prefill blocks runs both matmuls
+through ``amp/fp8.py``'s ``fp8_linear`` (the e4m3 kernel on the card),
+taking precedence over ``fused_mlp``, as in JAX; the decode steps and
+the chunked prefill stay composed.
+
+Mixture of experts (``GPTConfig.moe_experts > 0``): every
+``moe_every``-th block's MLP is the routed expert FFN of ``nn/moe.py``
+(the dispatch-gather kernel on the card), with its own ``params["moe"]``
+subtree (leading dim: the MoE layers) while the dense MLP leaves stack
+only the other layers. Training routes with the capacity factor (drops
+pass the residual through) and adds the router's aux and z losses;
+every inference path routes droplessly, and the decode steps return the
+router's ``(counts, dropped)`` as a third element.
+
+The expert-parallel, ring-attention, pipeline, verify and prefix
+branches are not ported yet and raise ``NotImplementedError`` where a
+config asks for one.
 """
 from __future__ import annotations
 
@@ -52,7 +67,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..amp.fp8 import fp8_linear
 from ..core import flags
+from ..nn.moe import moe_ffn
 from ..ops.flash_attention import NEG_INF, flash_attention_arrays
 from ..ops.fused_kernels import fused_ln_mlp
 from ..ops.int8_matmul import _quant_scale, _quantize, dynamic_int8_matmul
@@ -84,16 +101,22 @@ class GPTConfig:
     ring_attention: bool = False
     seq_axis: str = "sharding"
     # fused LN-MLP kernels in the MLP half (None follows
-    # FLAGS_fused_kernels); fp8 MLP and mixture of experts are not ported
-    # yet: the fields keep the config's shape, and asking for one raises
+    # FLAGS_fused_kernels)
     fused_mlp: Optional[bool] = None
+    # fp8 (e4m3) MLP matmuls (None follows FLAGS_fp8_matmul); takes the
+    # unfused MLP when both fp8 and fused_mlp are on, as in JAX
     fp8: Optional[bool] = None
+    # mixture of experts: moe_experts=E routes every moe_every-th block's
+    # MLP through an E-expert top-k MoE; 0 keeps the dense model
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_every: int = 2
+    # training dispatch capacity (C = ceil(cf·k·T/E), overflow dropped
+    # with residual passthrough); inference paths are always dropless
     moe_capacity_factor: float = 1.25
-    moe_aux_weight: float = 1e-2
-    moe_z_weight: float = 1e-3
+    moe_aux_weight: float = 1e-2     # load-balance loss weight in gpt_loss
+    moe_z_weight: float = 1e-3       # router z-loss weight in gpt_loss
+    # expert-parallel mesh axis: not ported (raises when set)
     moe_axis: Optional[str] = None
 
     @property
@@ -103,6 +126,15 @@ class GPTConfig:
     @property
     def mlp_hidden(self):
         return self.hidden * self.mlp_ratio
+
+    @property
+    def moe_layer_ids(self):
+        """Indices of MoE blocks: every moe_every-th layer (1-based), so
+        moe_every=2 → layers 1, 3, 5, ...; moe_every=1 → all layers."""
+        if self.moe_experts <= 0:
+            return ()
+        n = max(1, int(self.moe_every))
+        return tuple(i for i in range(self.n_layers) if i % n == n - 1)
 
 
 def gpt_tiny(**kw):
@@ -135,12 +167,10 @@ def _unported(what: str):
         f"{what} is not ported to paddle_tpu_torch yet (see ROADMAP.md)")
 
 
-def _check_dense(cfg: GPTConfig) -> None:
+def _check_ported(cfg: GPTConfig) -> None:
     """Raise for every config branch the port does not have yet."""
-    if cfg.moe_experts > 0:
-        _unported("mixture of experts (moe_experts > 0)")
-    if cfg.fp8:
-        _unported("the fp8 MLP (fp8=True)")
+    if cfg.moe_layer_ids and cfg.moe_axis is not None:
+        _unported("expert parallelism (moe_axis)")
     if cfg.ring_attention:
         _unported("ring attention")
     if cfg.n_stages > 1:
@@ -156,8 +186,13 @@ def gpt_init(cfg: GPTConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     (normal, std 0.02; the residual projections scaled by 1/sqrt(2L);
     wpe std 0.01; LayerNorm ones/zeros), drawn from one
     ``torch.Generator`` seeded with ``seed`` on ``device`` (None: the
-    card). The values differ from the JAX package's ``gpt_init``."""
-    _check_dense(cfg)
+    card). The values differ from the JAX package's ``gpt_init``.
+
+    With ``moe_experts=E`` the dense MLP leaves stack the non-MoE layers
+    only and ``params["moe"]`` (leading dim: the MoE layers) holds the
+    router and expert weights, drawn after every dense leaf, so the
+    dense leaves of a ``moe_experts=0`` config are unchanged."""
+    _check_ported(cfg)
     dev = resolve_device(device)
     H, L, M, V, S = (cfg.hidden, cfg.n_layers, cfg.mlp_hidden,
                      cfg.vocab_size, cfg.seq_len)
@@ -176,6 +211,8 @@ def gpt_init(cfg: GPTConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     def zeros(shape):
         return torch.zeros(shape, dtype=pd, device=dev)
 
+    moe_ids = cfg.moe_layer_ids
+    Ld = L - len(moe_ids)                 # dense-MLP layer count
     blocks = {
         "ln1_s": ones((L, H)),
         "ln1_b": zeros((L, H)),
@@ -185,18 +222,28 @@ def gpt_init(cfg: GPTConfig, seed: int = 0, device=None) -> Dict[str, Any]:
         "proj_b": zeros((L, H)),
         "ln2_s": ones((L, H)),
         "ln2_b": zeros((L, H)),
-        "fc_w": nrm((L, H, M)),
-        "fc_b": zeros((L, M)),
-        "out_w": nrm((L, M, H), std / math.sqrt(2 * L)),
-        "out_b": zeros((L, H)),
+        "fc_w": nrm((Ld, H, M)),
+        "fc_b": zeros((Ld, M)),
+        "out_w": nrm((Ld, M, H), std / math.sqrt(2 * L)),
+        "out_b": zeros((Ld, H)),
     }
-    return {
+    out = {
         "wte": nrm((V, H)),
         "wpe": nrm((S, H), 0.01),
         "blocks": blocks,
         "lnf_s": ones((H,)),
         "lnf_b": zeros((H,)),
     }
+    if moe_ids:
+        Lm, E = len(moe_ids), cfg.moe_experts
+        out["moe"] = {
+            "router_w": nrm((Lm, H, E)),
+            "w_in": nrm((Lm, E, H, M)),
+            "b_in": zeros((Lm, E, M)),
+            "w_out": nrm((Lm, E, M, H), std / math.sqrt(2 * L)),
+            "b_out": zeros((Lm, E, H)),
+        }
+    return out
 
 
 def _tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -211,7 +258,8 @@ def _tensor_from_numpy(arr, device) -> torch.Tensor:
 def params_from_jax(tree, device=None):
     """The JAX ``gpt_init`` pytree, given as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's params: the
-    same keys, shapes and values, on ``device`` (None: the card)."""
+    same keys, shapes and values (the MoE ``moe`` subtree included), on
+    ``device`` (None: the card)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
@@ -277,18 +325,26 @@ def _composed_mlp(cfg: GPTConfig, p, x, mm):
 
 
 def _mlp_half(cfg: GPTConfig, p, x):
-    """Dense MLP half of a block (LN2 → gelu MLP + residual); with
-    ``fused_mlp`` (None follows FLAGS_fused_kernels) one fused LN-MLP
-    call, its weights cast to the compute dtype."""
-    if cfg.fp8:
-        _unported("the fp8 MLP (fp8=True)")
+    """Dense MLP half of a block (LN2 → gelu MLP + residual). With
+    ``fp8`` (None follows FLAGS_fp8_matmul) both matmuls go through
+    ``fp8_linear``, their weights cast to the compute dtype before they
+    are quantized and the biases added outside the kernel; otherwise
+    with ``fused_mlp`` (None follows FLAGS_fused_kernels) one fused
+    LN-MLP call. fp8 wins when both are on, as in JAX."""
     cd = cfg.dtype
+    fp8 = cfg.fp8 if cfg.fp8 is not None else flags.fp8_matmul[0]
     fused = (cfg.fused_mlp if cfg.fused_mlp is not None
              else flags.fused_kernels[0])
+    if (fp8 or fused) and (isinstance(p["fc_w"], dict)
+                           or isinstance(p["out_w"], dict)):
+        _unported("int8 weights outside the decode steps "
+                  "(quantize_gpt_weights feeds gpt_decode_step only)")
+    if fp8:
+        h = _layer_norm(x, p["ln2_s"], p["ln2_b"])
+        h = F.gelu(fp8_linear(h, p["fc_w"].to(cd), p["fc_b"].to(cd)),
+                   approximate="tanh")
+        return x + fp8_linear(h, p["out_w"].to(cd), p["out_b"].to(cd))
     if fused:
-        if isinstance(p["fc_w"], dict) or isinstance(p["out_w"], dict):
-            _unported("int8 weights outside the decode steps "
-                      "(quantize_gpt_weights feeds gpt_decode_step only)")
         return fused_ln_mlp(x, p["fc_w"].to(cd), p["fc_b"].to(cd),
                             p["out_w"].to(cd), p["out_b"].to(cd),
                             ln_scale=p["ln2_s"], ln_bias=p["ln2_b"],
@@ -296,17 +352,29 @@ def _mlp_half(cfg: GPTConfig, p, x):
     return _composed_mlp(cfg, p, x, _mm)
 
 
-def _block_kv(cfg: GPTConfig, p, x):
-    """One transformer block; also returns its per-head K/V."""
-    x, (kh, vh) = _attn_half(cfg, p, x)
-    return _mlp_half(cfg, p, x), (kh, vh)
-
-
 def _block(cfg: GPTConfig, p, x):
     """One transformer block without its K/V, so a training stack keeps
     no layer's K/V alive beyond what the attention's backward saves."""
     x, _ = _attn_half(cfg, p, x)
     return _mlp_half(cfg, p, x)
+
+
+def _moe_mlp_half(cfg: GPTConfig, p, pm, x, capacity_factor):
+    """MoE MLP half (LN2 → routed expert FFN + residual). x (B, S, H);
+    returns (x, aux, z, counts (E,), dropped). Dropped assignments add
+    nothing to y, so the residual passes those tokens through."""
+    B, S, H = x.shape
+    h = _layer_norm(x, p["ln2_s"], p["ln2_b"])
+    y, aux, z, counts, dropped = moe_ffn(
+        pm, h.reshape(B * S, H), top_k=cfg.moe_top_k,
+        capacity_factor=capacity_factor, expert_axis=cfg.moe_axis)
+    return x + y.reshape(B, S, H), aux, z, counts, dropped
+
+
+def _block_moe(cfg: GPTConfig, p, pm, x, capacity_factor):
+    """One MoE transformer block (attention half + routed MLP half)."""
+    x, _ = _attn_half(cfg, p, x)
+    return _moe_mlp_half(cfg, p, pm, x, capacity_factor)
 
 
 def _embed(cfg: GPTConfig, params, tokens):
@@ -330,48 +398,91 @@ def _head(cfg: GPTConfig, params, x):
     return _logits(params, x)
 
 
-def _unstack(blocks, n_layers):
-    """Per-layer views of the stacked block leaves, taken with one
+_ATTN_KEYS = ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
+              "ln2_s", "ln2_b")
+_MLP_KEYS = ("fc_w", "fc_b", "out_w", "out_b")
+
+
+def _unbind(tree):
+    return {k: (_unbind(v) if isinstance(v, dict) else v.unbind(0))
+            for k, v in tree.items()}
+
+
+def _row(cols, i):
+    return {k: (_row(v, i) if isinstance(v, dict) else v[i])
+            for k, v in cols.items()}
+
+
+def _unstack(cfg: GPTConfig, params):
+    """Per-layer params ``[(p, pm), ...]`` for the ``n_layers`` blocks:
+    ``p`` the layer's attention/LN leaves plus, on a dense layer, its MLP
+    leaves; ``pm`` the MoE layer's router and expert leaves, or None.
+    Attention leaves stack L layers, dense MLP leaves the non-MoE layers
+    and ``params["moe"]`` the MoE layers. The views are taken with one
     ``unbind`` per leaf: its backward stacks every layer's gradient in
     one op, where indexing layer by layer would add each layer's
     gradient into a zero-filled full-size (L, ...) buffer (L full
     passes per leaf)."""
-    cols = {k: ({kk: vv.unbind(0) for kk, vv in v.items()}
-                if isinstance(v, dict) else v.unbind(0))
-            for k, v in blocks.items()}
-    return [{k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-                 else v[i]) for k, v in cols.items()}
-            for i in range(n_layers)]
-
-
-def _block_stack(cfg: GPTConfig, blocks, x):
-    """Block stack over the leading layer dim; with ``cfg.remat`` each
-    block is a non-reentrant checkpoint (its activations are recomputed
-    in the backward), the counterpart of ``jax.checkpoint``."""
-    _check_dense(cfg)
-    for p in _unstack(blocks, cfg.n_layers):
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_block, cfg, p, x, use_reentrant=False)
+    blocks = _unbind(params["blocks"])
+    moe_ids = set(cfg.moe_layer_ids)
+    if not moe_ids:
+        return [(_row(blocks, i), None) for i in range(cfg.n_layers)]
+    attn = {k: blocks[k] for k in _ATTN_KEYS}
+    mlp = {k: blocks[k] for k in _MLP_KEYS}
+    moe = _unbind(params["moe"])
+    out, di, mi = [], 0, 0
+    for i in range(cfg.n_layers):
+        if i in moe_ids:
+            out.append((_row(attn, i), _row(moe, mi)))
+            mi += 1
         else:
-            x = _block(cfg, p, x)
-    return x
+            out.append(({**_row(attn, i), **_row(mlp, di)}, None))
+            di += 1
+    return out
+
+
+def _hidden(cfg: GPTConfig, params, x, capacity_factor=None):
+    """The block stack: (x, aux, z), aux and z the router losses SUMMED
+    over the MoE layers (None for a dense model). ``capacity_factor``
+    None routes droplessly (inference). With ``cfg.remat`` each block is
+    a non-reentrant checkpoint (its activations are recomputed in the
+    backward), the counterpart of ``jax.checkpoint``."""
+    _check_ported(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = zl = None
+    for p, pm in _unstack(cfg, params):
+        if pm is None:
+            x = (checkpoint(_block, cfg, p, x, use_reentrant=False) if remat
+                 else _block(cfg, p, x))
+            continue
+        args = (cfg, p, pm, x, capacity_factor)
+        x, a, z, _, _ = (checkpoint(_block_moe, *args, use_reentrant=False)
+                         if remat else _block_moe(*args))
+        aux = a if aux is None else aux + a
+        zl = z if zl is None else zl + z
+    return x, aux, zl
 
 
 def _stack(cfg: GPTConfig, params, x):
-    """Block stack over the leading layer dim; returns (x, ks, vs) with
-    one (B, nh, S, hd) K/V per layer."""
-    _check_dense(cfg)
+    """Block stack for the prefill (MoE layers dropless); returns
+    (x, ks, vs) with one (B, nh, S, hd) K/V per layer."""
+    _check_ported(cfg)
     ks, vs = [], []
-    for p in _unstack(params["blocks"], cfg.n_layers):
-        x, (kh, vh) = _block_kv(cfg, p, x)
+    for p, pm in _unstack(cfg, params):
+        x, (kh, vh) = _attn_half(cfg, p, x)
+        if pm is None:
+            x = _mlp_half(cfg, p, x)
+        else:
+            x = _moe_mlp_half(cfg, p, pm, x, None)[0]
         ks.append(kh)
         vs.append(vh)
     return x, ks, vs
 
 
 def gpt_forward(cfg: GPTConfig, params, tokens):
-    """tokens (B, S) int → logits (B, S, V) f32; differentiable."""
-    x = _block_stack(cfg, params["blocks"], _embed(cfg, params, tokens))
+    """tokens (B, S) int → logits (B, S, V) f32; differentiable. MoE
+    blocks route droplessly here (inference semantics)."""
+    x, _, _ = _hidden(cfg, params, _embed(cfg, params, tokens))
     return _head(cfg, params, x)
 
 
@@ -405,15 +516,18 @@ def gpt_loss(cfg: GPTConfig, params, batch, n_micro: int = 1,
     respect to every param). batch = (tokens, labels), both (B, S) int.
 
     ``loss_chunk``: sequence-chunked CE (:func:`_chunked_ce`), the peak
-    memory saver for a large vocabulary; it must divide S. Dense models
-    with ``n_stages == 1`` only: the MoE and pipeline branches raise
-    ``NotImplementedError``; ``n_micro`` is the pipeline's and is
-    unused here."""
+    memory saver for a large vocabulary; it must divide S. MoE configs
+    route with ``moe_capacity_factor`` (drops pass the residual through)
+    and add ``moe_aux_weight · mean-layer aux + moe_z_weight ·
+    mean-layer z`` to the CE. ``n_stages == 1`` only (the pipeline
+    raises ``NotImplementedError``); ``n_micro`` is the pipeline's and
+    is unused here."""
     tokens, labels = batch
     dev = params["wte"].device
     tokens = torch.as_tensor(tokens).to(dev, torch.long)
     labels = torch.as_tensor(labels).to(dev, torch.long)
-    x = _block_stack(cfg, params["blocks"], _embed(cfg, params, tokens))
+    x, aux, zl = _hidden(cfg, params, _embed(cfg, params, tokens),
+                         cfg.moe_capacity_factor)
     x = _layer_norm(x, params["lnf_s"], params["lnf_b"])
     S = tokens.shape[1]
     if loss_chunk and S > loss_chunk:
@@ -421,10 +535,15 @@ def gpt_loss(cfg: GPTConfig, params, batch, n_micro: int = 1,
             raise ValueError(
                 f"loss_chunk={loss_chunk} must divide seq_len={S} (the "
                 "memory saver would otherwise be silently disabled)")
-        return _chunked_ce(params, x, labels, loss_chunk)
-    logp = torch.log_softmax(_logits(params, x), dim=-1)
-    ll = logp.gather(-1, labels[..., None])[..., 0]
-    return -ll.mean()
+        ce = _chunked_ce(params, x, labels, loss_chunk)
+    else:
+        logp = torch.log_softmax(_logits(params, x), dim=-1)
+        ce = -logp.gather(-1, labels[..., None])[..., 0].mean()
+    if aux is not None:
+        n = len(cfg.moe_layer_ids)
+        ce = ce + cfg.moe_aux_weight * (aux / n) \
+            + cfg.moe_z_weight * (zl / n)
+    return ce
 
 
 # --------------------------------------------------------------------------
@@ -514,6 +633,23 @@ def _dec_mlp(cfg: GPTConfig, p, x):
     return _composed_mlp(cfg, p, x, _dec_mm)
 
 
+def _dec_layers(cfg: GPTConfig, params, x, attn):
+    """The one-token block stack shared by both decode steps: ``attn(i,
+    p, x)`` is layer i's attention half. Returns (x, moe_stats), the
+    stats ``(counts (E,) int32, dropped int32)`` summed over the MoE
+    layers (None for a dense model); MoE layers route droplessly, so
+    decode never depends on which requests share the tick."""
+    stats = None
+    for i, (p, pm) in enumerate(_unstack(cfg, params)):
+        x = attn(i, p, x)
+        if pm is None:
+            x = _dec_mlp(cfg, p, x)
+            continue
+        x, _, _, c, d = _moe_mlp_half(cfg, p, pm, x, None)
+        stats = (c, d) if stats is None else (stats[0] + c, stats[1] + d)
+    return x, stats
+
+
 def _dec_embed(cfg: GPTConfig, params, positions, tokens):
     cd = cfg.dtype
     return (params["wte"].to(cd)[tokens.long()]
@@ -527,15 +663,17 @@ def gpt_decode_step(cfg: GPTConfig, params, cache, positions, tokens):
     where each slot's incoming token lands; tokens (B,) int. Returns
     (logits (B, V) f32, cache) with the new K/V written in place at
     ``positions``. Stale slots compute garbage that a later prefill
-    overwrites."""
-    _check_dense(cfg)
+    overwrites. MoE configs return a third element ``(counts (E,)
+    int32, dropped int32)``, the tick's router load summed over the MoE
+    layers (dropless routing: dropped stays 0)."""
+    _check_ported(cfg)
     k_cache, v_cache = cache
     x = _dec_embed(cfg, params, positions, tokens)
-    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        x, _, _ = _dec_attn(cfg, p, x, k_cache[:, i], v_cache[:, i],
-                            positions)
-        x = _dec_mlp(cfg, p, x)
-    return _head(cfg, params, x)[:, 0], (k_cache, v_cache)
+    x, stats = _dec_layers(
+        cfg, params, x, lambda i, p, x: _dec_attn(
+            cfg, p, x, k_cache[:, i], v_cache[:, i], positions)[0])
+    out = (_head(cfg, params, x)[:, 0], (k_cache, v_cache))
+    return out if stats is None else out + (stats,)
 
 
 # --------------------------------------------------------------------------
@@ -582,14 +720,16 @@ def gpt_decode_step_paged(cfg: GPTConfig, params, pool, tables, positions,
     block 0); positions/tokens (B,) int32. Returns (logits (B, V) f32,
     pool) with each new K/V written in place at block
     ``tables[b, positions[b] // block_size]``, offset
-    ``positions[b] % block_size``."""
-    _check_dense(cfg)
+    ``positions[b] % block_size``. MoE configs return the same third
+    ``(counts, dropped)`` element gpt_decode_step does."""
+    _check_ported(cfg)
     kb, vb = pool
     x = _dec_embed(cfg, params, positions, tokens)
-    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        x, _, _ = _dec_attn_paged(cfg, p, x, kb, vb, i, tables, positions)
-        x = _dec_mlp(cfg, p, x)
-    return _head(cfg, params, x)[:, 0], (kb, vb)
+    x, stats = _dec_layers(
+        cfg, params, x, lambda i, p, x: _dec_attn_paged(
+            cfg, p, x, kb, vb, i, tables, positions)[0])
+    out = (_head(cfg, params, x)[:, 0], (kb, vb))
+    return out if stats is None else out + (stats,)
 
 
 def _chunk_attn(cfg: GPTConfig, p, x, kb, vb, layer, table_row, start):
@@ -627,10 +767,14 @@ def _chunk_attn(cfg: GPTConfig, p, x, kb, vb, layer, table_row, start):
     return x + _mm(o, p["proj_w"], cd) + p["proj_b"].to(cd), kb, vb
 
 
-def _block_chunk(cfg: GPTConfig, p, x, kb, vb, layer, table_row, start):
-    """One transformer block over one prefill chunk against the pool; the
-    MLP half is always composed, as in JAX."""
+def _block_chunk(cfg: GPTConfig, p, pm, x, kb, vb, layer, table_row,
+                 start):
+    """One transformer block over one prefill chunk against the pool; a
+    dense MLP half is always composed, as in JAX, and a MoE one routes
+    droplessly."""
     x, kb, vb = _chunk_attn(cfg, p, x, kb, vb, layer, table_row, start)
+    if pm is not None:
+        return _moe_mlp_half(cfg, p, pm, x, None)[0], kb, vb
     return _composed_mlp(cfg, p, x, _mm), kb, vb
 
 
@@ -638,15 +782,15 @@ def prefill_chunk_hidden(cfg: GPTConfig, params, pool, table_row, tokens,
                          start):
     """gpt_prefill_chunk before the head: the chunk's hidden states
     (1, C, H); the pool is written in place."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     kb, vb = pool
     start = int(start)
     C = tokens.shape[1]
     cd = cfg.dtype
     x = params["wte"].to(cd)[tokens.long()] \
         + params["wpe"][start:start + C].to(cd)[None]
-    for i, p in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        x, _, _ = _block_chunk(cfg, p, x, kb, vb, i, table_row, start)
+    for i, (p, pm) in enumerate(_unstack(cfg, params)):
+        x, _, _ = _block_chunk(cfg, p, pm, x, kb, vb, i, table_row, start)
     return x
 
 

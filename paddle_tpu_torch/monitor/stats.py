@@ -1,7 +1,9 @@
 """Minimal gauge registry: the serving and KV-pool gauges the ported
 engine and cache set, the ``train_steps`` counter the train step bumps,
-and the ``fused_optimizer_steps`` / ``int8_matmul_calls`` counters of the
-fused optimizer and the int8 matmul (a subset of
+the ``fused_optimizer_steps`` / ``int8_matmul_calls`` /
+``fp8_matmul_calls`` counters of the fused optimizer and the int8 and
+fp8 matmuls, and the MoE router's ``moe_expert_load`` gauge and
+``moe_tokens_dropped`` counter (a subset of
 ``paddle_tpu/monitor/stats.py``, with its names).
 
 A :class:`Stat` is a named int64 gauge; :class:`StatRegistry` is the
@@ -73,3 +75,8 @@ KV_FRAGMENTATION = _registry.get_stat("kv_fragmentation")
 TRAIN_STEPS = _registry.get_stat("train_steps")
 FUSED_OPTIMIZER_STEPS = _registry.get_stat("fused_optimizer_steps")
 INT8_MATMUL_CALLS = _registry.get_stat("int8_matmul_calls")
+FP8_MATMUL_CALLS = _registry.get_stat("fp8_matmul_calls")
+# busiest expert's share of the routed tokens of the last decode tick, ppm
+MOE_EXPERT_LOAD = _registry.get_stat("moe_expert_load")
+# routed assignments dropped past expert capacity
+MOE_TOKENS_DROPPED = _registry.get_stat("moe_tokens_dropped")

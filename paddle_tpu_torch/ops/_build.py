@@ -34,13 +34,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 SOURCES = ("flash_attention_fwd", "paged_attention", "flash_attention_bwd",
-           "fused_ln_mlp", "fused_optimizer", "int8_matmul")
+           "fused_ln_mlp", "fused_optimizer", "int8_matmul", "moe_dispatch",
+           "fp8_matmul")
 # per-source flags on top of NVCC_FLAGS. -fmad=false: no multiply-add is
 # contracted into an FMA, so every f32 operation rounds where the plain
 # PyTorch version's separate operations round, and the kernels' outputs
 # are bit-identical to those versions'
 EXTRA_FLAGS = {"fused_optimizer": ["-fmad=false"],
-               "int8_matmul": ["-fmad=false"]}
+               "int8_matmul": ["-fmad=false"],
+               "fp8_matmul": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -34,6 +34,14 @@ quantized once, per channel, into a second tree that only the decode
 tick uses (the int8 matmul kernel on the card); prefill and chunked
 prefill keep the fp weights.
 
+Mixture of experts (``cfg.moe_experts > 0``): every path routes
+droplessly (the dispatch-gather kernel on the card); each decode tick's
+router counts ride back to the host in the same copy as the sampled
+tokens, and set the ``moe_expert_load`` gauge (the busiest expert's
+share of the tick's routed tokens, ppm) and the ``moe_tokens_dropped``
+counter. fp8 (``cfg.fp8``, or ``FLAGS_fp8_matmul`` pinned at
+construction) runs the fixed-slot prefill's MLP matmuls in e4m3.
+
 Not ported yet (see ROADMAP.md): speculative decoding, the serving
 mesh, the prefix cache, the watchdog, overload control, tokenizer and
 constrained masks, KV export/import, the ranker, the flight recorder and
@@ -52,10 +60,11 @@ import torch
 
 from .. import resolve_device
 from ..core import flags
-from ..models.gpt import (_check_dense, _head, gpt_decode_step,
+from ..models.gpt import (_check_ported, _head, gpt_decode_step,
                           gpt_decode_step_paged, prefill_chunk_hidden,
                           prefill_hidden, quantize_gpt_weights)
-from ..monitor.stats import (SERVING_DEADLINE_SHEDS, SERVING_DECODE_MS,
+from ..monitor.stats import (MOE_EXPERT_LOAD, MOE_TOKENS_DROPPED,
+                             SERVING_DEADLINE_SHEDS, SERVING_DECODE_MS,
                              SERVING_EVICTIONS, SERVING_PREEMPTIONS,
                              SERVING_PREFILL_MS, SERVING_QUEUE_DEPTH,
                              SERVING_SLOT_OCCUPANCY, SERVING_TOKENS_PER_S)
@@ -173,15 +182,17 @@ class _Slot:
 
 _MATMUL_LEAVES = ("qkv_w", "qkv_b", "proj_w", "proj_b", "fc_w", "fc_b",
                   "out_w", "out_b")
+# the expert weights; the router weight stays f32 (routing upcasts it)
+_EXPERT_LEAVES = ("w_in", "b_in", "w_out", "b_out")
 
 
 def _serving_params(cfg, params, device):
     """Params on ``device`` with the leaves every call casts to the
-    compute dtype (block matmul weights and biases, wte, wpe) cast once
-    here; LayerNorm leaves keep their dtype. The model functions' own
-    casts are then no-ops, so the numbers are unchanged. An int8 weight
-    (``{"q", "s"}``, see ``quantize_gpt_weights``) keeps ``q`` int8 and
-    ``s`` f32."""
+    compute dtype (block matmul weights and biases, expert weights, wte,
+    wpe) cast once here; LayerNorm leaves and the MoE router keep their
+    dtype. The model functions' own casts are then no-ops, so the
+    numbers are unchanged. An int8 weight (``{"q", "s"}``, see
+    ``quantize_gpt_weights``) keeps ``q`` int8 and ``s`` f32."""
     cd = cfg.dtype
 
     def put(t, cast):
@@ -193,9 +204,13 @@ def _serving_params(cfg, params, device):
 
     blocks = {k: put(v, k in _MATMUL_LEAVES)
               for k, v in params["blocks"].items()}
-    return {"wte": put(params["wte"], True), "wpe": put(params["wpe"], True),
-            "blocks": blocks, "lnf_s": put(params["lnf_s"], False),
-            "lnf_b": put(params["lnf_b"], False)}
+    out = {"wte": put(params["wte"], True), "wpe": put(params["wpe"], True),
+           "blocks": blocks, "lnf_s": put(params["lnf_s"], False),
+           "lnf_b": put(params["lnf_b"], False)}
+    if "moe" in params:
+        out["moe"] = {k: put(v, k in _EXPERT_LEAVES)
+                      for k, v in params["moe"].items()}
+    return out
 
 
 class InferenceEngine:
@@ -226,6 +241,10 @@ class InferenceEngine:
     kernel; prefill keeps the fp weights. Decode tokens are close to the
     fp engine's but not pinned to them (weight rounding). It does not
     combine with MoE or a mesh (``ValueError``, as in JAX).
+
+    A MoE config serves with dropless routing in both cache modes; its
+    router load per decode tick goes to the ``moe_expert_load`` gauge
+    and ``moe_tokens_dropped`` counter.
     """
 
     def __init__(self, cfg, params, n_slots: int = 4,
@@ -252,7 +271,15 @@ class InferenceEngine:
             # one engine's calls between the fused and composed MLPs
             cfg = dataclasses.replace(
                 cfg, fused_mlp=bool(flags.fused_kernels[0]))
-        _check_dense(cfg)
+        if cfg.fp8 is None:
+            # the fp8 MLP choice too, for the same reason
+            cfg = dataclasses.replace(cfg,
+                                      fp8=bool(flags.fp8_matmul[0]))
+        self._moe = bool(cfg.moe_layer_ids)
+        if self._moe:
+            # no mesh: the single-device dispatch (as the JAX engine)
+            cfg = dataclasses.replace(cfg, moe_axis=None)
+        _check_ported(cfg)
         self.cfg = cfg
         self._params = _serving_params(cfg, params, self.device)
         self.int8_weights = bool(int8_weights)
@@ -721,17 +748,26 @@ class InferenceEngine:
             tables = self.cache.tables_array(active)
             tables = tables[:, :self._width_bucket(
                 max(len(self.cache.block_tables[s]) for s in active))]
-            logits, _ = gpt_decode_step_paged(
+            got = gpt_decode_step_paged(
                 self.cfg, self._decode_params,
                 (self.cache.kb, self.cache.vb),
                 torch.from_numpy(np.ascontiguousarray(tables)).to(dev),
                 pos_t, tok_t)
         else:
-            logits, _ = gpt_decode_step(
+            got = gpt_decode_step(
                 self.cfg, self._decode_params, (self.cache.k, self.cache.v),
                 pos_t, tok_t)
-        out = sample_tokens_streams(logits, temps, top_ks, top_ps,
-                                    self.seed, rids, draws).cpu().numpy()
+        toks = sample_tokens_streams(got[0], temps, top_ks, top_ps,
+                                     self.seed, rids, draws)
+        if self._moe:
+            # the router stats ride in the tokens' device-to-host copy
+            counts, dropped = got[2]
+            host = torch.cat([toks.long(), counts.long(),
+                              dropped.long().reshape(1)]).cpu().numpy()
+            out = host[:self.n_slots]
+            self._note_moe(host[self.n_slots:-1], int(host[-1]))
+        else:
+            out = toks.cpu().numpy()
         self._note_ms(SERVING_DECODE_MS, "_decode_ms",
                       (time.perf_counter() - t0) * 1e3)
         emitted = 0
@@ -771,6 +807,17 @@ class InferenceEngine:
         st.req._finish(reason)
 
     # -- gauges --------------------------------------------------------------
+    def _note_moe(self, counts, dropped: int) -> None:
+        """Publish a tick's router stats: the busiest expert's share of
+        the routed tokens (ppm gauge) and the dropped assignments
+        (cumulative counter; decode is dropless, so it stays 0 there).
+        Stale slots route too, as in JAX."""
+        total = int(counts.sum())
+        if total > 0:
+            MOE_EXPERT_LOAD.set(int(float(counts.max() / total) * 1e6))
+        if dropped:
+            MOE_TOKENS_DROPPED.add(dropped)
+
     def _note_ms(self, gauge, attr: str, ms: float) -> None:
         old = getattr(self, attr)
         new = old + ms

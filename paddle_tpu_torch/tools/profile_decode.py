@@ -1,6 +1,7 @@
 """Where a decode tick's time goes, at full gpt_1p3b width on the card.
 
     python -m paddle_tpu_torch.tools.profile_decode [--steps 20] [--int8]
+        [--moe]
 
 Builds the serving state the engine would hold with 8 live slots (prompts
 of 40 to 1500 tokens already cached, random weights from a seed) in both
@@ -11,8 +12,10 @@ a tick (sum of kernel times from torch.profiler), the device's idle share
 (1 - device / host), the device kernels launched per tick and the kernels
 that take the most device time per tick. ``--int8`` decodes with the
 int8-quantized block weights, as ``InferenceEngine(int8_weights=True)``
-does. Every time is the card's own; the card's name and power limit are
-printed beside them. Needs a CUDA device.
+does; ``--moe`` serves gpt_1p3b with ``moe_experts=8`` (top-2, every 2nd
+layer, dropless), its router counts copied to the host with the tokens,
+as the engine's tick does. Every time is the card's own; the card's
+name and power limit are printed beside them. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -58,8 +61,9 @@ def _state(cfg, dev, paged):
     return cache, tables
 
 
-def profile(mode: str, steps: int, dev, int8: bool = False) -> dict:
-    cfg = G.gpt_1p3b()
+def profile(mode: str, steps: int, dev, int8: bool = False,
+            moe: bool = False) -> dict:
+    cfg = G.gpt_1p3b(moe_experts=8 if moe else 0)
     params = G.gpt_init(cfg, seed=0, device=dev)
     if int8:
         params = G.quantize_gpt_weights(params)
@@ -73,13 +77,18 @@ def profile(mode: str, steps: int, dev, int8: bool = False) -> dict:
 
     def tick():
         if paged:
-            logits, _ = G.gpt_decode_step_paged(
+            got = G.gpt_decode_step_paged(
                 cfg, params, (cache.kb, cache.vb), tables, pos, tok)
         else:
-            logits, _ = G.gpt_decode_step(cfg, params, (cache.k, cache.v),
-                                          pos, tok)
-        return sample_tokens_streams(logits, *greedy, 0, list(range(B)),
-                                     [1] * B).cpu()
+            got = G.gpt_decode_step(cfg, params, (cache.k, cache.v), pos,
+                                    tok)
+        toks = sample_tokens_streams(got[0], *greedy, 0, list(range(B)),
+                                     [1] * B)
+        if moe:
+            counts, dropped = got[2]
+            toks = torch.cat([toks.long(), counts.long(),
+                              dropped.long().reshape(1)])
+        return toks.cpu()
 
     with torch.inference_mode():
         for _ in range(3):
@@ -104,7 +113,8 @@ def profile(mode: str, steps: int, dev, int8: bool = False) -> dict:
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / n_prof
     return {
-        "mode": mode, "int8_weights": int8, "model": "gpt_1p3b", "slots": B,
+        "mode": mode, "int8_weights": int8, "model": "gpt_1p3b",
+        "moe_experts": cfg.moe_experts, "slots": B,
         "lengths": list(LENGTHS), "host_ms_per_tick": host_ms,
         "device_ms_per_tick": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
@@ -122,6 +132,8 @@ def main(argv=None) -> int:
                     default="both")
     ap.add_argument("--int8", action="store_true",
                     help="decode with int8-quantized block weights")
+    ap.add_argument("--moe", action="store_true",
+                    help="serve gpt_1p3b with 8 experts (top-2)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -132,7 +144,7 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     modes = ("fixed", "paged") if args.mode == "both" else (args.mode,)
     for mode in modes:
-        row = profile(mode, args.steps, dev, int8=args.int8)
+        row = profile(mode, args.steps, dev, int8=args.int8, moe=args.moe)
         row["card"] = smi
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 """Where a training step's time goes, at full gpt_1p3b width on the card.
 
     python -m paddle_tpu_torch.tools.profile_train [--steps 3] [--layers 24]
+        [--fp8 | --moe]
 
 Builds the training state chip_smoke.py's training phase drives
 (gpt_1p3b with remat and the fused LN-MLP, random weights from a seed,
@@ -12,8 +13,13 @@ device ms per step (the sum of kernel times), the device's idle share
 (1 - device / host), and the kernels that take the most device time.
 With ``FLAGS_fused_optimizer=1`` in the environment the AdamW update is
 the fused kernel (``ops/fused_optimizer.py``) instead of the per-leaf
-PyTorch ops; the line says which ran. Every time is the card's own; the card's name and power limit are
-printed beside them. Needs a CUDA device.
+PyTorch ops; the line says which ran. ``--fp8`` trains with
+``fp8=True`` (the fp8 MLP, taking precedence over the fused one);
+``--moe`` with ``moe_experts=8`` (top-2, every 2nd layer, capacity
+factor 1.25), 8 layers unless ``--layers`` says otherwise (24 MoE
+layers' f32 params, grads and moments alone would need ~66 GB). Every
+time is the card's own; the card's name and power limit are printed
+beside them. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ from ..parallel import DistributedTrainStep
 from .profile_decode import _device_us
 
 
-def profile(steps: int, layers: int, dev) -> dict:
-    cfg = G.gpt_1p3b(remat=True, fused_mlp=True, n_layers=layers)
+def profile(steps: int, layers: int, dev, fp8: bool = False,
+            moe: bool = False) -> dict:
+    cfg = G.gpt_1p3b(remat=True, fused_mlp=True, n_layers=layers, fp8=fp8,
+                     moe_experts=8 if moe else 0)
     B, S, chunk = 4, cfg.seq_len, 256
     rng = np.random.default_rng(9)
     batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))),
@@ -62,7 +70,8 @@ def profile(steps: int, layers: int, dev) -> dict:
     device_ms = sum(r[0] for r in rows) / 1e3
     return {
         "model": "gpt_1p3b", "layers": layers, "remat": True,
-        "fused_mlp": True, "optimizer": "adamw",
+        "fused_mlp": True, "fp8": fp8, "moe_experts": cfg.moe_experts,
+        "optimizer": "adamw",
         "fused_optimizer": flags.fused_optimizer[0], "batch": [B, S],
         "loss_chunk": chunk, "host_ms_per_step": host_ms,
         "device_ms_per_step": device_ms,
@@ -77,8 +86,15 @@ def profile(steps: int, layers: int, dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--layers", type=int, default=24)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default 24; 8 with --moe)")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--fp8", action="store_true",
+                      help="the fp8 MLP (GPTConfig.fp8=True)")
+    kind.add_argument("--moe", action="store_true",
+                      help="8 experts, top-2, every 2nd layer")
     args = ap.parse_args(argv)
+    layers = args.layers or (8 if args.moe else 24)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -87,7 +103,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    row = profile(args.steps, args.layers, dev)
+    row = profile(args.steps, layers, dev, fp8=args.fp8, moe=args.moe)
     row["card"] = smi
     print(json.dumps(row), flush=True)
     return 0

@@ -10,7 +10,10 @@ not installed:
 The fused AdamW/LAMB and int8 matmul kernels are held bit-identical to
 their plain versions (built with -fmad=false, they round where the plain
 versions' separate operations round; an int32 sum is exact in any
-order).
+order), and so is the MoE dispatch gather (a copy). The fp8 matmul:
+f32 output 1e-4 of the largest value (exact products, f32 sums in
+another order), bf16 output 1e-2 (a sum in another order can cross a
+bf16 rounding, 3.9e-3 of a value).
 
 Tolerances: f32 1e-4 (f32 sums in another order, atomics in any order);
 bf16 2e-2 on forward outputs (the plain versions round scores to bf16
@@ -28,7 +31,10 @@ from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import fused_kernels as tfk
 from paddle_tpu_torch.ops import fused_optimizer as tfo
+from paddle_tpu_torch.amp import fp8 as tf8
+from paddle_tpu_torch.ops import fp8_matmul as tfm
 from paddle_tpu_torch.ops import int8_matmul as tim
+from paddle_tpu_torch.ops import moe_dispatch as tmd
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.parallel import DistributedTrainStep
 from paddle_tpu_torch.parallel.train_step import pure_adamw_init
@@ -414,3 +420,129 @@ def test_int8_decode_on_card_matches_cpu(cuda_device):
     card = run(cuda_device)
     assert tim.LAUNCHES == before + 4 * cfg.n_layers
     assert _rel(card, run("cpu")) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,N,H", [(8, 64, 2048), (50, 96, 64),
+                                   (100, 300, 100), (7, 13, 3)])
+def test_moe_gather_kernel_matches_plain(cuda_device, dtype, T, N, H):
+    x = _randn((T, H), dtype, cuda_device, 31)
+    gen = torch.Generator(device="cpu").manual_seed(T * N)
+    src = torch.randint(-1, T, (N,), generator=gen, dtype=torch.int32)
+    src[:2] = -1
+    src = src.to(cuda_device)
+    before = tmd.LAUNCHES
+    got = tmd.moe_dispatch_gather(x, src)
+    torch.cuda.synchronize()
+    assert tmd.LAUNCHES == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, tmd._gather_reference(x, src))
+    assert not got[:2].any()
+
+
+def test_moe_gather_backward_on_card_matches_cpu(cuda_device):
+    """The transpose scatter-add (index_add_) on the card: each token fills
+    two slots, so each row's sum rounds once in any order."""
+    T, N, H = 40, 96, 64
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    src = torch.cat([torch.randperm(T, generator=gen),
+                     torch.randperm(T, generator=gen),
+                     torch.full((N - 2 * T,), -1)]).int()
+    src = src[torch.randperm(N, generator=gen)]
+    x = torch.randn((T, H), generator=gen).to(torch.bfloat16)
+    dy = torch.randn((N, H), generator=gen).to(torch.bfloat16)
+
+    def grad(dev):
+        xs = x.to(dev).requires_grad_(True)
+        out = tmd.moe_dispatch_gather(xs, src.to(dev))
+        return torch.autograd.grad(out, xs, dy.to(dev))[0].cpu()
+
+    assert torch.equal(grad(cuda_device), grad("cpu"))
+
+
+@pytest.mark.parametrize("out,tol", [(torch.float32, 1e-4),
+                                     (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("M,K,N,bias", [(100, 64, 192, True),
+                                        (256, 512, 384, False),
+                                        (1, 2048, 128, False),
+                                        (130, 96, 130, True),
+                                        (37, 40, 24, True)])
+def test_fp8_kernel_matches_plain(cuda_device, out, tol, M, K, N, bias):
+    x = _randn((M, K), torch.float32, cuda_device, 41)
+    w = _randn((K, N), torch.float32, cuda_device, 42) * 0.05
+    b = _randn((N,), torch.float32, cuda_device, 43) if bias else None
+    sx, sw = tf8._jit_scale(x), tf8._jit_scale(w)
+    xq, wq = tf8.quantize_fp8(x, sx), tf8.quantize_fp8(w, sw)
+    before = tfm.LAUNCHES
+    got = tfm.fp8_matmul_arrays(xq, wq, sx, sw, b, out_dtype=out)
+    torch.cuda.synchronize()
+    assert tfm.LAUNCHES == before + 1
+    want = tfm._fp8_matmul_ref(xq, wq, sx, sw, b, out)
+    assert got.dtype == out and got.shape == (M, N)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= tol
+
+
+def test_fp8_linear_grads_on_card_match_cpu(cuda_device):
+    """fp8_linear's forward (the kernel) and STE backward (bf16 GEMMs with
+    f32 output on the card, f32 matmuls of the bf16 operands on the CPU):
+    the same quantized codes, sums in another order."""
+    x = _randn((64, 256), torch.bfloat16, "cpu", 44)
+    w = (_randn((256, 192), torch.float32, "cpu", 45) * 0.05).to(
+        torch.bfloat16)
+    dy = _randn((64, 192), torch.bfloat16, "cpu", 46)
+
+    def run(dev):
+        xs, ws = (t.to(dev).requires_grad_(True) for t in (x, w))
+        y = tf8.fp8_linear(xs, ws)
+        gx, gw = torch.autograd.grad(y, (xs, ws), dy.to(dev))
+        return y.cpu(), gx.cpu(), gw.cpu()
+
+    before = tfm.LAUNCHES
+    card = run(cuda_device)
+    assert tfm.LAUNCHES == before + 1
+    for c, w_ in zip(card, run("cpu")):
+        assert c.dtype == torch.bfloat16
+        assert _rel(c, w_) <= 1e-2
+
+
+def test_moe_fp8_engine_and_loss_on_card_match_cpu(cuda_device):
+    """A small MoE GPT with fp8 dense MLPs (f32, head_dim 64, matrices
+    scaled so tokens vary): greedy streams on the card (the gather, fp8,
+    flash and paged kernels) equal the CPU's in each cache mode (the two
+    modes differ from each other: only the fixed-slot prefill runs the
+    fp8 MLP, the chunked prefill is composed, as in JAX), and one
+    training loss agrees to 1e-4."""
+    cfg = tg.GPTConfig(vocab_size=512, hidden=128, n_layers=2, n_heads=2,
+                       seq_len=128, dtype=torch.float32, moe_experts=4,
+                       moe_top_k=2, moe_every=2, fp8=True)
+    params = tg.gpt_init(cfg, seed=2, device="cpu")
+    for k in ("qkv_w", "proj_w", "fc_w", "out_w"):
+        params["blocks"][k] *= 4.0
+    for k in ("router_w", "w_in", "w_out"):
+        params["moe"][k] *= 4.0
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n) for n in (5, 40, 77)]
+
+    def run(paged, device):
+        eng = InferenceEngine(cfg, params, n_slots=2, paged=paged,
+                              device=device)
+        try:
+            return [eng.generate(p, max_new_tokens=12) for p in prompts]
+        finally:
+            eng.shutdown()
+
+    g0, f0 = tmd.LAUNCHES, tfm.LAUNCHES
+    assert run(False, cuda_device) == run(False, "cpu")
+    assert tmd.LAUNCHES > g0 and tfm.LAUNCHES > f0
+    assert run(True, cuda_device) == run(True, "cpu")
+
+    batch = (torch.from_numpy(rng.integers(0, 512, (2, 64))),
+             torch.from_numpy(rng.integers(0, 512, (2, 64))))
+    losses = [float(tg.gpt_loss(cfg, {k: ({kk: vv.to(d) for kk, vv in
+                                          v.items()} if isinstance(v, dict)
+                                         else v.to(d))
+                                      for k, v in params.items()},
+                                tuple(t.to(d) for t in batch)))
+              for d in (cuda_device, "cpu")]
+    assert abs(losses[0] - losses[1]) <= 1e-4

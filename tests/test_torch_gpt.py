@@ -224,8 +224,14 @@ def test_paged_decode_equals_fixed_decode():
                                          ("ring_attention", True),
                                          ("n_stages", 2)])
 def test_unported_branches_raise(field, value):
+    """MoE and fp8 are ported; what stays unported of them raises: MoE's
+    expert-parallel axis, and fp8 on int8-quantized weights (which feed
+    the decode steps only)."""
     _, cfg, _, pt = _pair("tiny", "f32")
-    cfg = tg.GPTConfig(**{**CONFIGS["tiny"], field: value})
+    extra = {"moe_experts": {"moe_axis": "model"}}.get(field, {})
+    cfg = tg.GPTConfig(**{**CONFIGS["tiny"], field: value, **extra})
+    if field == "fp8":
+        pt = tg.quantize_gpt_weights(pt)
     with pytest.raises(NotImplementedError):
         tg.gpt_forward(cfg, pt, torch.zeros((1, 4), dtype=torch.int64))
 

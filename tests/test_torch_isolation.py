@@ -48,7 +48,11 @@ def test_scan_sees_every_module():
                  "paddle_tpu_torch/ops/fused_kernels.py",
                  "paddle_tpu_torch/parallel/train_step.py",
                  "paddle_tpu_torch/ops/fused_optimizer.py",
-                 "paddle_tpu_torch/ops/int8_matmul.py", "chip_smoke.py"):
+                 "paddle_tpu_torch/ops/int8_matmul.py",
+                 "paddle_tpu_torch/ops/moe_dispatch.py",
+                 "paddle_tpu_torch/ops/fp8_matmul.py",
+                 "paddle_tpu_torch/nn/moe.py", "paddle_tpu_torch/amp/fp8.py",
+                 "chip_smoke.py"):
         assert want in names
 
 
@@ -62,6 +66,8 @@ def test_imports_without_triton_nvcc_or_jax():
         " paddle_tpu_torch.ops.fused_kernels, paddle_tpu_torch.parallel,"
         " paddle_tpu_torch.ops.fused_optimizer,"
         " paddle_tpu_torch.ops.int8_matmul,"
+        " paddle_tpu_torch.ops.moe_dispatch, paddle_tpu_torch.ops.fp8_matmul,"
+        " paddle_tpu_torch.nn, paddle_tpu_torch.amp,"
         " paddle_tpu_torch.tools.profile_train\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"

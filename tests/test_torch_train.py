@@ -140,9 +140,10 @@ def test_loss_chunk_must_divide_seq_and_moe_raises():
     batch = tuple(torch.from_numpy(b) for b in _batch(4, (1, 64)))
     with pytest.raises(ValueError, match="loss_chunk"):
         tg.gpt_loss(cfg, pt, batch, loss_chunk=24)
-    for field, value in (("moe_experts", 2), ("n_stages", 2)):
+    # MoE is ported; its expert-parallel axis is not
+    for kw in ({"moe_experts": 2, "moe_axis": "model"}, {"n_stages": 2}):
         with pytest.raises(NotImplementedError):
-            tg.gpt_loss(tg.gpt_tiny(**{field: value}), pt, batch)
+            tg.gpt_loss(tg.gpt_tiny(**kw), pt, batch)
 
 
 # -- pure optimizers ----------------------------------------------------------
