@@ -13,14 +13,19 @@ Device rule: entry points run on the card. ``device=None`` resolves to
 ``cuda``; without a GPU that raises unless the caller asked for the CPU
 (``device="cpu"``), where every kernel wrapper runs its plain PyTorch
 version instead.
+
+The package is also the eager Paddle surface (``import paddle_tpu_torch
+as paddle``): ``paddle.to_tensor``, ``Tensor``, ``nn``,
+``nn.functional``, ``optimizer``, ``ops`` (the fused transformer ops),
+``seed``, ``set_flags`` / ``get_flags`` and ``set_device``. Its tensors
+and parameters go to the card unless ``paddle.set_device("cpu")`` was
+called. Importing it builds nothing.
 """
 from __future__ import annotations
 
 import torch
 
 __version__ = "0.1.0"
-
-__all__ = ["resolve_device", "__version__"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -32,8 +37,50 @@ def resolve_device(device=None) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "paddle_tpu_torch runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "versions on the CPU")
+                "available; pass device='cpu' (or call "
+                "paddle_tpu_torch.set_device('cpu')) to run the plain "
+                "PyTorch versions on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# the Paddle surface (imported after resolve_device, which it uses)
+from . import device, nn, ops, optimizer, regularizer, tensor  # noqa: E402
+from .core.flags import get_flag as _get_flag  # noqa: E402
+from .core.flags import set_flag as _set_flag  # noqa: E402
+from .device import (device_count, get_device,  # noqa: E402
+                     is_compiled_with_cuda, set_device)
+from .framework.core import (Parameter, Tensor, enable_grad,  # noqa: E402
+                             grad, is_grad_enabled, no_grad,
+                             set_grad_enabled)
+from .framework.dtype import (bfloat16, bool, float16,  # noqa: E402,A004
+                              float32, float64, get_default_dtype, int8,
+                              int16, int32, int64, set_default_dtype, uint8)
+from .framework.param_attr import ParamAttr  # noqa: E402
+from .framework.random import get_rng_state, seed, set_rng_state  # noqa: E402
+from .tensor import *  # noqa: E402,F401,F403
+
+
+def set_flags(flags):
+    """paddle.set_flags parity: a dict of ``FLAGS_*`` names to values,
+    written into ``core/flags.py``'s cells (an unknown name raises)."""
+    for k, v in dict(flags).items():
+        _set_flag(k, v)
+
+
+def get_flags(flags):
+    if isinstance(flags, str):
+        flags = [flags]
+    return {k: _get_flag(k) for k in flags}
+
+
+__all__ = ["resolve_device", "__version__", "device", "nn", "ops",
+           "optimizer", "regularizer", "tensor", "set_flags", "get_flags",
+           "set_device", "get_device", "device_count",
+           "is_compiled_with_cuda", "Tensor", "Parameter", "no_grad",
+           "enable_grad", "grad", "is_grad_enabled", "set_grad_enabled",
+           "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
+           "bfloat16", "float32", "float64", "set_default_dtype",
+           "get_default_dtype", "ParamAttr", "seed", "get_rng_state",
+           "set_rng_state"] + tensor.__all__

@@ -6,23 +6,26 @@ Own copy of the ``_truthy`` cells of ``paddle_tpu/core/native.py``:
 - ``FLAGS_ragged_decode``: the paged decode's ``ragged`` default;
 - ``FLAGS_fused_kernels``: the fused LN-MLP in the block's MLP half when
   ``GPTConfig.fused_mlp`` is None (the serving engine pins it at
-  construction);
+  construction), and the fused kernels in ``ops/fused.py``'s
+  ``fused_feedforward``;
 - ``FLAGS_fused_optimizer``: ``DistributedTrainStep`` with ``"adamw"`` or
-  ``"lamb"`` takes the fused AdamW/LAMB kernels
-  (``ops/fused_optimizer.py``);
+  ``"lamb"``, and the Paddle optimizers' ``Adam``/``AdamW``/``Lamb.step()``,
+  take the fused AdamW/LAMB kernels (``ops/fused_optimizer.py``);
 - ``FLAGS_fp8_matmul``: the fp8 (e4m3) MLP in the block's MLP half when
   ``GPTConfig.fp8`` is None (the serving engine pins it at construction);
 - ``FLAGS_fault_inject``: the fault-injection spec string, not ported yet
   (``DistributedTrainStep`` raises while it is non-empty).
 
-Each is a one-element list so callers can flip it at run time.
+Each is a one-element list so callers can flip it at run time;
+:func:`set_flag` / :func:`get_flag` (``paddle.set_flags`` /
+``get_flags``) write and read them by their ``FLAGS_*`` names.
 """
 from __future__ import annotations
 
 import os
 
 __all__ = ["paged_kv", "ragged_decode", "fused_kernels", "fused_optimizer",
-           "fp8_matmul", "fault_inject"]
+           "fp8_matmul", "fault_inject", "set_flag", "get_flag"]
 
 
 def _truthy(value) -> bool:
@@ -50,3 +53,26 @@ fp8_matmul = [_truthy(os.environ.get("FLAGS_fp8_matmul", "0"))]
 
 # train step: deterministic fault injection spec (not ported yet)
 fault_inject = [os.environ.get("FLAGS_fault_inject", "")]
+
+
+def _cell(name: str) -> list:
+    key = name[len("FLAGS_"):] if name.startswith("FLAGS_") else name
+    cell = {"paged_kv": paged_kv, "ragged_decode": ragged_decode,
+            "fused_kernels": fused_kernels,
+            "fused_optimizer": fused_optimizer, "fp8_matmul": fp8_matmul,
+            "fault_inject": fault_inject}.get(key)
+    if cell is None:
+        raise ValueError(f"{name} is not a flag of paddle_tpu_torch (it "
+                         f"has FLAGS_paged_kv, FLAGS_ragged_decode, "
+                         f"FLAGS_fused_kernels, FLAGS_fused_optimizer, "
+                         f"FLAGS_fp8_matmul, FLAGS_fault_inject)")
+    return cell
+
+
+def set_flag(name: str, value) -> None:
+    cell = _cell(name)
+    cell[0] = str(value) if cell is fault_inject else _truthy(value)
+
+
+def get_flag(name: str):
+    return _cell(name)[0]

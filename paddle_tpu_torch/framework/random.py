@@ -1,0 +1,54 @@
+"""Seeded random generators, one explicit ``torch.Generator`` per
+device.
+
+Counterpart of ``paddle_tpu/framework/random.py``. Where the JAX package
+splits one global key, the port keeps a generator for each device the
+Paddle surface has drawn on (initializers, dropout), all seeded by
+:func:`seed`. The two packages give different numbers from one seed:
+tests carry weights across instead.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from ..device import current_device
+
+__all__ = ["seed", "get_rng_state", "set_rng_state", "generator"]
+
+_lock = threading.Lock()
+_seed = [0]
+_generators: dict = {}
+
+
+def generator(device=None) -> torch.Generator:
+    """The generator of ``device`` (default: the current device), made
+    and seeded on first use."""
+    dev = torch.device(device) if device is not None else current_device()
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _lock:
+        gen = _generators.get(dev)
+        if gen is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(_seed[0])
+            _generators[dev] = gen
+        return gen
+
+
+def seed(s: int):
+    """paddle.seed parity: reseed every device's generator."""
+    with _lock:
+        _seed[0] = int(s)
+        for gen in _generators.values():
+            gen.manual_seed(_seed[0])
+
+
+def get_rng_state():
+    """The current device's generator state."""
+    return generator().get_state()
+
+
+def set_rng_state(state):
+    generator().set_state(state)

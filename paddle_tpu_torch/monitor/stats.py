@@ -2,8 +2,9 @@
 engine and cache set, the ``train_steps`` counter the train step bumps,
 the ``fused_optimizer_steps`` / ``int8_matmul_calls`` /
 ``fp8_matmul_calls`` counters of the fused optimizer and the int8 and
-fp8 matmuls, and the MoE router's ``moe_expert_load`` gauge and
-``moe_tokens_dropped`` counter (a subset of
+fp8 matmuls, the MoE router's ``moe_expert_load`` gauge and
+``moe_tokens_dropped`` counter, and the ``fused_kernel_calls`` counter of
+``ops/fused.py`` (a subset of
 ``paddle_tpu/monitor/stats.py``, with its names).
 
 A :class:`Stat` is a named int64 gauge; :class:`StatRegistry` is the
@@ -80,3 +81,5 @@ FP8_MATMUL_CALLS = _registry.get_stat("fp8_matmul_calls")
 MOE_EXPERT_LOAD = _registry.get_stat("moe_expert_load")
 # routed assignments dropped past expert capacity
 MOE_TOKENS_DROPPED = _registry.get_stat("moe_tokens_dropped")
+# fused_feedforward calls that took the fused kernels (FLAGS_fused_kernels)
+FUSED_KERNEL_CALLS = _registry.get_stat("fused_kernel_calls")

@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v"]
 SOURCES = ("flash_attention_fwd", "paged_attention", "flash_attention_bwd",
            "fused_ln_mlp", "fused_optimizer", "int8_matmul", "moe_dispatch",
-           "fp8_matmul")
+           "fp8_matmul", "fused_add_ln")
 # per-source flags on top of NVCC_FLAGS. -fmad=false: no multiply-add is
 # contracted into an FMA, so every f32 operation rounds where the plain
 # PyTorch version's separate operations round, and the kernels' outputs

@@ -1,5 +1,6 @@
-"""Fused pre-LN residual MLP, forward and backward: the hand-written CUDA
-kernels (``csrc/fused_ln_mlp.cu``) and their plain PyTorch versions.
+"""Fused pre-LN residual MLP and fused residual add + LayerNorm, forward
+and backward: the hand-written CUDA kernels (``csrc/fused_ln_mlp.cu``,
+``csrc/fused_add_ln.cu``) and their plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/fused_kernels.py``'s
 :func:`fused_ln_mlp`::
@@ -27,6 +28,15 @@ rounds after every op in the compute dtype, so the two differ in bf16
 
 Outside the kernels, as the JAX package does them in ``jnp``: ``db2``,
 the LayerNorm backward from ``dlnx`` and the residual add.
+
+:func:`fused_add_layernorm` is the counterpart of the JAX function of
+the same name: ``LN(x + y)``, the post-LN residual pattern, with the
+residual add in f32 and the row statistics ``mu``/``rstd`` saved in f32
+(:class:`_FusedAddLn`; its backward gives the same ``dx`` for x and y
+and the f32 column sums ``ds``/``db``). On a CUDA tensor it launches the
+add-LN kernels (or raises: f32 or bf16, H at most ``ADDLN_MAX_H``); on a
+CPU tensor it runs :func:`_addln_forward_reference` /
+:func:`_addln_backward_reference`, which follow the kernels' numerics.
 """
 from __future__ import annotations
 
@@ -37,17 +47,26 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_ln_mlp", "FWD_LAUNCHES", "BWD_LAUNCHES", "DW2_LAUNCHES"]
+__all__ = ["fused_ln_mlp", "fused_add_layernorm", "FWD_LAUNCHES",
+           "BWD_LAUNCHES", "DW2_LAUNCHES", "ADDLN_FWD_LAUNCHES",
+           "ADDLN_BWD_LAUNCHES", "ADDLN_MAX_H"]
 
 # kernel launches since the last reset (each wrapper adds one per launch)
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 DW2_LAUNCHES = 0
+ADDLN_FWD_LAUNCHES = 0
+ADDLN_BWD_LAUNCHES = 0
+
+# widest row the add-LN kernels take (256 threads of 32 values: MAX_H in
+# csrc/fused_add_ln.cu, which refuses wider rows too)
+ADDLN_MAX_H = 8192
 
 _SQRT_2_PI = math.sqrt(2.0 / math.pi)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"gelu": 0, "relu": 1, "swiglu": 2}
 _lib = None
+_addln_lib = None
 
 
 # --------------------------------------------------------------------------
@@ -425,3 +444,171 @@ def fused_ln_mlp(x, w1, b1, w2, b2, *, ln_scale=None, ln_bias=None,
         y = _fmlp_forward(*args, act, bool(residual), has_ln,
                           float(eps))[0]
     return y.reshape(*lead, H)
+
+
+# --------------------------------------------------------------------------
+# fused residual add + LayerNorm: LN(x + y)
+# --------------------------------------------------------------------------
+
+def _addln_forward_reference(x2, y2, s, b, eps):
+    """Plain version of the forward kernel: x2, y2 (R, H) in one dtype;
+    s, b (H,) f32. Returns (out (R, H) in x2's dtype, mu (R, 1) f32,
+    rstd (R, 1) f32), with the add in f32 and the two-pass variance."""
+    t = x2.float() + y2.float()
+    mu = t.mean(-1, keepdim=True)
+    var = (t - mu).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return ((t - mu) * rstd * s + b).to(x2.dtype), mu, rstd
+
+
+def _addln_backward_reference(x2, y2, s, mu, rstd, do):
+    """Plain version of the backward kernels: (dx in x2's dtype, ds f32,
+    db f32), with the cotangent first rounded to x2's dtype."""
+    xhat = (x2.float() + y2.float() - mu) * rstd
+    do = do.to(x2.dtype).float()
+    ds = (do * xhat).sum(0)
+    db = do.sum(0)
+    dxhat = do * s
+    mean1 = dxhat.mean(-1, keepdim=True)
+    mean2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return (rstd * (dxhat - mean1 - xhat * mean2)).to(x2.dtype), ds, db
+
+
+def _addln_load():
+    global _addln_lib
+    if _addln_lib is None:
+        lib = _build.load("fused_add_ln")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_add_ln_fwd.argtypes = [p] * 7 + [i, i, ctypes.c_float,
+                                                   i, p]
+        lib.fused_add_ln_bwd.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.fused_add_ln_bwd_blocks.argtypes = [i, i, i]
+        for fn in (lib.fused_add_ln_fwd, lib.fused_add_ln_bwd,
+                   lib.fused_add_ln_bwd_blocks):
+            fn.restype = ctypes.c_int
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+        _addln_lib = lib
+    return _addln_lib
+
+
+def _addln_check(x2, y2, *ln):
+    """The kernels' contract, checked before anything is launched; ``ln``
+    is the LayerNorm scale (and bias)."""
+    if x2.dtype not in _DTYPES:
+        raise TypeError(f"fused_add_layernorm takes f32 or bf16, got "
+                        f"{x2.dtype}")
+    if y2.dtype != x2.dtype or y2.shape != x2.shape:
+        raise ValueError(f"x {tuple(x2.shape)}/{x2.dtype} and y "
+                         f"{tuple(y2.shape)}/{y2.dtype} must match")
+    R, H = x2.shape
+    if not 0 < H <= ADDLN_MAX_H:
+        raise ValueError(f"fused_add_layernorm kernels take rows of 1 to "
+                         f"{ADDLN_MAX_H} values, got H={H}")
+    for t in ln:
+        if t.dtype != torch.float32 or t.shape != (H,):
+            raise ValueError("LayerNorm scale and bias must be f32 (H,)")
+    if any(t.device != x2.device for t in (y2, *ln)):
+        raise ValueError("fused_add_layernorm inputs must lie on one device")
+    if not all(t.is_contiguous() for t in (x2, y2, *ln)):
+        raise ValueError("fused_add_layernorm needs contiguous inputs")
+
+
+def _addln_launch_fwd(x2, y2, s, b, eps):
+    """Forward kernel on CUDA tensors: (out, mu, rstd)."""
+    global ADDLN_FWD_LAUNCHES
+    _addln_check(x2, y2, s, b)
+    lib = _addln_load()
+    R, H = x2.shape
+    out = torch.empty_like(x2)
+    mu = torch.empty((R, 1), dtype=torch.float32, device=x2.device)
+    rstd = torch.empty((R, 1), dtype=torch.float32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        err = lib.fused_add_ln_fwd(
+            x2.data_ptr(), y2.data_ptr(), s.data_ptr(), b.data_ptr(),
+            out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), R, H,
+            float(eps), _DTYPES[x2.dtype], _stream(x2))
+    _build.check(lib, err, "fused_add_ln_fwd")
+    ADDLN_FWD_LAUNCHES += 1
+    return out, mu, rstd
+
+
+def _addln_launch_bwd(x2, y2, s, mu, rstd, do):
+    """Backward kernels on CUDA tensors: (dx, ds f32, db f32). One C
+    call: the row pass writes dx and one partial (ds, db) row per block
+    into a scratch buffer, a second launch sums the partials."""
+    global ADDLN_BWD_LAUNCHES
+    _addln_check(x2, y2, s)
+    do = do.to(x2.dtype).contiguous()
+    mu, rstd = mu.contiguous(), rstd.contiguous()
+    if do.shape != x2.shape or mu.numel() != x2.shape[0] \
+            or rstd.numel() != x2.shape[0]:
+        raise ValueError("dout must match x and mu/rstd hold one value a "
+                         "row")
+    lib = _addln_load()
+    R, H = x2.shape
+    dev = x2.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = lib.fused_add_ln_bwd_blocks(R, H, sms)
+    dx = torch.empty_like(x2)
+    part = torch.empty((2, max(G, 1), H), dtype=torch.float32, device=dev)
+    ds = torch.empty(H, dtype=torch.float32, device=dev)
+    db = torch.empty(H, dtype=torch.float32, device=dev)
+    if R == 0:
+        return dx, ds.zero_(), db.zero_()
+    with torch.cuda.device(dev):
+        err = lib.fused_add_ln_bwd(
+            x2.data_ptr(), y2.data_ptr(), s.data_ptr(), mu.data_ptr(),
+            rstd.data_ptr(), do.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            ds.data_ptr(), db.data_ptr(), G, R, H, _DTYPES[x2.dtype],
+            _stream(x2))
+    _build.check(lib, err, "fused_add_ln_bwd")
+    ADDLN_BWD_LAUNCHES += 1
+    return dx, ds, db
+
+
+def _addln_forward(x2, y2, s, b, eps):
+    if x2.device.type == "cuda":
+        return _addln_launch_fwd(x2, y2, s, b, eps)
+    return _addln_forward_reference(x2, y2, s, b, eps)
+
+
+def _addln_backward(x2, y2, s, mu, rstd, do):
+    if x2.device.type == "cuda":
+        return _addln_launch_bwd(x2, y2, s, mu, rstd, do)
+    return _addln_backward_reference(x2, y2, s, mu, rstd, do)
+
+
+class _FusedAddLn(torch.autograd.Function):
+    """LN(x + y); saves mu and rstd, and the backward kernels give dx
+    (for both x and y) and the f32 ds and db (the JAX package's
+    ``_addln`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x2, y2, s, b, eps):
+        out, mu, rstd = _addln_forward(x2, y2, s, b, eps)
+        ctx.save_for_backward(x2, y2, s, mu, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        x2, y2, s, mu, rstd = ctx.saved_tensors
+        dx, ds, db = _addln_backward(x2, y2, s, mu, rstd, do)
+        return dx, dx, ds, db, None
+
+
+def fused_add_layernorm(x, y, scale, bias, eps=1e-5):
+    """``LN(x + y)`` over the last axis, fused: the post-LN residual
+    pattern. x and y [..., H] in one dtype (f32 or bf16), scale and bias
+    (H,) (used in f32). Differentiable: the backward is the backward
+    kernels (the plain version on a CPU tensor)."""
+    H = x.shape[-1]
+    lead = x.shape[:-1]
+    args = (x.reshape(-1, H).contiguous(), y.reshape(-1, H).contiguous(),
+            scale.float().reshape(H).contiguous(),
+            bias.float().reshape(H).contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = _FusedAddLn.apply(*args, float(eps))
+    else:
+        out = _addln_forward(*args, float(eps))[0]
+    return out.reshape(*lead, H)

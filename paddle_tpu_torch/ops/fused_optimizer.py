@@ -21,6 +21,11 @@ copied into the leaf.
 :func:`adamw_flat` / :func:`lamb_moments_flat` keep the JAX signatures
 for one flat buffer; :func:`flatten_bucket` / :func:`unflatten_bucket`
 are the JAX helpers, for callers that want one.
+
+:func:`fused_eager_step` is the eager entry of the Paddle optimizers
+(``optimizer/optimizer.py``: ``Adam``/``AdamW``/``Lamb.step()`` with
+``FLAGS_fused_optimizer=1``): the optimizer's own per-parameter slots
+are the kernel's leaves, updated in place, one launch per bucket.
 """
 from __future__ import annotations
 
@@ -30,11 +35,12 @@ from typing import List
 import torch
 
 from ..monitor.stats import FUSED_OPTIMIZER_STEPS
+from ..regularizer import L1Decay, L2Decay
 from . import _build
 
 __all__ = ["adamw_flat", "lamb_moments_flat", "fused_adamw_update",
            "fused_lamb_update", "flatten_bucket", "unflatten_bucket",
-           "ADAMW_LAUNCHES", "LAMB_LAUNCHES"]
+           "fused_eager_step", "ADAMW_LAUNCHES", "LAMB_LAUNCHES"]
 
 # kernel launches since the last reset (the wrappers add one per launch)
 ADAMW_LAUNCHES = 0
@@ -251,6 +257,17 @@ def _lamb_groups(ps):
     return groups, cap
 
 
+def _apply_trust(p, r, lr):
+    """LAMB's per-leaf step, in place: p -= lr · ‖p‖/‖r‖ · r (the ratio
+    is 1 when either norm is 0)."""
+    p32 = p.float()
+    p_norm = torch.sqrt(torch.sum(torch.square(p32)))
+    r_norm = torch.sqrt(torch.sum(torch.square(r)))
+    trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                        torch.ones_like(p_norm))
+    p.copy_(p32 - lr * trust * r)
+
+
 def _bucket_lamb(ps, gs, ms, vs, sc, *, b1, b2, eps, wd):
     """LAMB moments over one bucket, in place; yields (leaf indices, their
     r tensors) group by group. On the card every group is one launch into
@@ -391,12 +408,108 @@ def fused_lamb_update(params, grads, state, lr, beta1=0.9, beta2=0.999,
                 [flat_v[i] for i in idx], sc, b1=beta1, b2=beta2, eps=eps,
                 wd=wd):
             for j, r in zip(group, rs):
-                p = ps[j]
-                p32 = p.float()
-                p_norm = torch.sqrt(torch.sum(torch.square(p32)))
-                r_norm = torch.sqrt(torch.sum(torch.square(r)))
-                trust = torch.where((p_norm > 0) & (r_norm > 0),
-                                    p_norm / r_norm, torch.ones_like(p_norm))
-                p.copy_(p32 - lr * trust * r)
+                _apply_trust(ps[j], r, lr)
     FUSED_OPTIMIZER_STEPS.add()
     return params, state
+
+
+# -- eager Optimizer.step (the Paddle surface) --------------------------------
+
+class _FusedEagerState:
+    """Per-optimizer bucket layout over the optimizer's own slots.
+
+    Built from the optimizer's per-parameter slots (so a half-trained
+    optimizer can switch the flag on mid-run). Buckets are keyed as the
+    JAX package keys them: (param dtype, moment dtype, decay coefficient,
+    eps, L2 coefficient, lr multiplier). The kernels update the params
+    and the moment slots in place, so the moments in
+    ``opt._accumulators`` stay current; the step keeps one beta-pow pair
+    (the first parameter's, as in JAX), which :meth:`sync_slots` writes
+    back into every parameter's slots for ``state_dict()``."""
+
+    def __init__(self, opt, params_grads, kind):
+        self.kind = kind                      # "adam" | "lamb"
+        self.params = [p for p, _ in params_grads]
+        self.sig = _signature(params_grads)
+        buckets: dict = {}
+        for i, p in enumerate(self.params):
+            h = opt._hyper(p)
+            reg = (p.regularizer if p.regularizer is not None
+                   else opt._weight_decay)
+            l2 = (float(reg.coeff) if isinstance(reg, L2Decay)
+                  and not opt._decoupled_wd() else 0.0)
+            m = opt._get_slots(p)[0]
+            key = (p.dtype, m.dtype, float(h.get("coeff", h.get("wd", 0.0))),
+                   float(h["eps"]), l2,
+                   float(p.optimize_attr.get("learning_rate", 1.0)))
+            buckets.setdefault(key, []).append(i)
+        self.buckets = list(buckets.items())
+        self.b1, self.b2 = float(opt._beta1), float(opt._beta2)
+        self.ms, self.vs = [], []
+        for _, idx in self.buckets:
+            slots = [opt._get_slots(self.params[i]) for i in idx]
+            self.ms.append([s[0] for s in slots])
+            self.vs.append([s[1] for s in slots])
+        s0 = opt._get_slots(self.params[0])
+        self.b1p, self.b2p = s0[2].clone(), s0[3].clone()
+
+    def step(self, grads, lr):
+        """One fused step; ``b1p``/``b2p`` hold βᵗ when it runs."""
+        bc1, bc2 = 1.0 - self.b1p, 1.0 - self.b2p
+        for bi, ((_, _, wd, eps, l2, lr_mult), idx) in enumerate(
+                self.buckets):
+            ps = [self.params[i]._data for i in idx]
+            gs = [grads[i] for i in idx]
+            blr = lr * lr_mult
+            sc = _scalars(blr, bc1, bc2, ps[0].device)
+            if self.kind == "adam":
+                _bucket_adamw(ps, gs, self.ms[bi], self.vs[bi], sc,
+                              b1=self.b1, b2=self.b2, eps=eps, wd=wd, l2=l2,
+                              eager_form=True)
+                continue
+            for group, rs in _bucket_lamb(ps, gs, self.ms[bi], self.vs[bi],
+                                          sc, b1=self.b1, b2=self.b2,
+                                          eps=eps, wd=wd):
+                for j, r in zip(group, rs):
+                    _apply_trust(ps[j], r, blr)
+        self.b1p.mul_(self.b1)
+        self.b2p.mul_(self.b2)
+
+    def sync_slots(self, opt):
+        """Write the shared beta-pow pair into every parameter's slots
+        (the moments are the slots themselves)."""
+        for p in self.params:
+            slots = opt._get_slots(p)
+            slots[2].copy_(self.b1p)
+            slots[3].copy_(self.b2p)
+
+
+def _signature(params_grads):
+    return tuple((id(p), tuple(p.shape), p.dtype) for p, _ in params_grads)
+
+
+@torch.no_grad()
+def fused_eager_step(opt, params_grads, lr) -> bool:
+    """The fused step of an eager Adam/AdamW/Lamb ``step()``: params and
+    moments updated in place, one kernel launch per bucket on the card.
+    Returns False (the caller runs its per-parameter loop) when a
+    parameter carries an L1 regularizer, which the kernels do not
+    cover."""
+    if not params_grads:
+        return True
+    for p, _ in params_grads:
+        reg = p.regularizer if p.regularizer is not None else \
+            opt._weight_decay
+        if isinstance(reg, L1Decay):
+            return False
+    kind = "lamb" if type(opt).__name__ == "Lamb" else "adam"
+    st = opt._fused_state
+    if st is None or st.sig != _signature(params_grads):
+        if st is not None and opt._slots_stale:
+            st.sync_slots(opt)
+        st = _FusedEagerState(opt, params_grads, kind)
+        opt._fused_state = st
+    st.step([g._data.contiguous() for _, g in params_grads], lr)
+    FUSED_OPTIMIZER_STEPS.add()
+    opt._slots_stale = True
+    return True

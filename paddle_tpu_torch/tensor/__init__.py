@@ -1,0 +1,62 @@
+"""paddle_tpu_torch.tensor — the op namespace, plus the Tensor methods
+and arithmetic operators (as ``paddle_tpu/tensor/__init__.py`` attaches
+them)."""
+from __future__ import annotations
+
+import torch
+
+from ..framework.core import Tensor, _unwrap, apply_op
+from . import creation, manipulation, math  # noqa: F401
+from .creation import *  # noqa: F401,F403
+from .manipulation import *  # noqa: F401,F403
+from .math import *  # noqa: F401,F403
+
+__all__ = creation.__all__ + math.__all__ + manipulation.__all__
+
+
+def _index(idx):
+    if isinstance(idx, tuple):
+        return tuple(_unwrap(i) for i in idx)
+    return _unwrap(idx)
+
+
+def _getitem(x, idx):
+    return x[idx]
+
+
+def _tensor_getitem(self, idx):
+    return apply_op(_getitem, self, idx=_index(idx))
+
+
+def _tensor_setitem(self, idx, value):
+    value = _unwrap(value)
+    self._data[_index(idx)] = (value.to(self.dtype)
+                               if isinstance(value, torch.Tensor) else value)
+
+
+def _binop(fn):
+    return lambda self, other: fn(self, other)
+
+
+def _rbinop(fn):
+    return lambda self, other: fn(other, self)
+
+
+_DUNDERS = {
+    "__add__": _binop(add), "__radd__": _rbinop(add),
+    "__sub__": _binop(subtract), "__rsub__": _rbinop(subtract),
+    "__mul__": _binop(multiply), "__rmul__": _rbinop(multiply),
+    "__truediv__": _binop(divide), "__rtruediv__": _rbinop(divide),
+    "__pow__": _binop(pow), "__rpow__": _rbinop(pow),
+    "__matmul__": _binop(matmul), "__rmatmul__": _rbinop(matmul),
+    "__neg__": neg,
+    "__getitem__": _tensor_getitem, "__setitem__": _tensor_setitem,
+}
+for _name, _fn in _DUNDERS.items():
+    setattr(Tensor, _name, _fn)
+
+# t.sum(), t.reshape(...), ...: every op of this namespace that takes the
+# tensor first, unless Tensor defines it itself
+for _name in math.__all__ + manipulation.__all__:
+    if not hasattr(Tensor, _name):
+        setattr(Tensor, _name, globals()[_name])

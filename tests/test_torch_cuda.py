@@ -15,6 +15,9 @@ f32 output 1e-4 of the largest value (exact products, f32 sums in
 another order), bf16 output 1e-2 (a sum in another order can cross a
 bf16 rounding, 3.9e-3 of a value).
 
+The add-LN kernels: f32 1e-4 (sums in another order), bf16 2e-2 (such
+a sum can cross one bf16 rounding of out or dx, 3.9e-3 of a value).
+
 Tolerances: f32 1e-4 (f32 sums in another order, atomics in any order);
 bf16 2e-2 on forward outputs (the plain versions round scores to bf16
 where the kernels keep f32); lse 1e-3; bf16 gradients 2e-2 of the
@@ -546,3 +549,84 @@ def test_moe_fp8_engine_and_loss_on_card_match_cpu(cuda_device):
                                 tuple(t.to(d) for t in batch)))
               for d in (cuda_device, "cpu")]
     assert abs(losses[0] - losses[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("R,H", [(100, 768), (37, 130), (64, 2048),
+                                 (5, 8192), (1, 100)])
+def test_addln_kernels_match_plain(cuda_device, dtype, tol, R, H):
+    """The add-LN forward (out, mu, rstd) and backward (dx, ds, db)
+    against their plain versions, vectorised and element-wise rows, one
+    to eight warps a row; through the autograd entry each kernel
+    launches once."""
+    x, y, do = (_randn((R, H), dtype, cuda_device, i) for i in (1, 2, 3))
+    s = 1.0 + 0.1 * _randn((H,), torch.float32, cuda_device, 4)
+    b = 0.1 * _randn((H,), torch.float32, cuda_device, 5)
+    got = tfk._addln_launch_fwd(x, y, s, b, 1e-5)
+    want = tfk._addln_forward_reference(x, y, s, b, 1e-5)
+    got_b = tfk._addln_launch_bwd(x, y, s, want[1], want[2], do)
+    want_b = tfk._addln_backward_reference(x, y, s, want[1], want[2], do)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for g, w in zip(got + got_b, want + want_b):
+        assert g.shape == w.shape
+        assert _rel(g, w) <= tol
+    before = (tfk.ADDLN_FWD_LAUNCHES, tfk.ADDLN_BWD_LAUNCHES)
+    xs, ys = (t.clone().requires_grad_(True) for t in (x, y))
+    tfk.fused_add_layernorm(xs, ys, s, b).backward(do)
+    torch.cuda.synchronize()
+    assert (tfk.ADDLN_FWD_LAUNCHES, tfk.ADDLN_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert _rel(xs.grad, want_b[0]) <= tol
+    assert torch.equal(xs.grad, ys.grad)
+
+
+def test_addln_refuses_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros(4, tfk.ADDLN_MAX_H + 8, device=cuda_device)
+    ones = torch.ones(x.shape[1], device=cuda_device)
+    with pytest.raises(ValueError):
+        tfk.fused_add_layernorm(x, x, ones, ones)
+    h = torch.zeros(4, 64, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError):
+        tfk.fused_add_layernorm(h, h, ones[:64], ones[:64])
+
+
+def test_paddle_bert_on_card_matches_cpu(cuda_device):
+    """A small fused BERT-style encoder through the Paddle surface
+    (FLAGS_fused_kernels=1: flash, fused LN-MLP and add-LN kernels): one
+    step's loss and every parameter's gradient on the card against the
+    CPU, f32, within 1e-4 of each gradient's largest value."""
+    import chip_smoke
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+
+    cfg = dict(vocab=512, hidden=128, layers=2, heads=4, ffn=512, seq=64)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg["vocab"], (2, cfg["seq"]))
+    old = (tdevice._current[0], paddle.get_flags("FLAGS_fused_kernels"))
+    paddle.set_flags({"FLAGS_fused_kernels": 1})
+    try:
+        paddle.set_device("cpu")
+        paddle.seed(1)
+        model = chip_smoke.bert_fused_model(
+            paddle, chip_smoke.bert_model(paddle, **cfg))
+        out = {}
+        for where in ("cpu", "gpu"):
+            paddle.set_device(where)
+            model.to(device=where)
+            before = tfk.ADDLN_FWD_LAUNCHES
+            loss = paddle.nn.functional.cross_entropy(
+                model(paddle.to_tensor(ids)), paddle.to_tensor(ids))
+            loss.backward()
+            out[where] = (float(loss), {n: p.grad._data.cpu() for n, p
+                                        in model.named_parameters()})
+            model.clear_gradients()
+            assert tfk.ADDLN_FWD_LAUNCHES - before == (
+                cfg["layers"] if where == "gpu" else 0)
+    finally:
+        tdevice._current[0] = old[0]
+        paddle.set_flags(old[1])
+    assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for name, g in out["cpu"][1].items():
+        assert _rel(out["gpu"][1][name], g) <= 1e-4, name
