@@ -9,11 +9,19 @@ stamped with the card's name and power limit):
 1. device: torch's device name and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA kernel built from ``paddle_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ptxas' register/spill lines;
+   for the Hopper kernels (``csrc/hopper.cuh``: the fp8 matmul and the
+   bf16 flash forward) each function's registers, spills and dynamic
+   shared memory, and, where ``cuobjdump`` exists, the count of wgmma
+   (HGMMA, QGMMA) and TMA load (UTMALDG) instructions in its SASS (none
+   fails the run);
 3. flash-attention forward vs its plain PyTorch version, causal, bf16
    and f32, at gpt_1p3b prefill shapes (1, 16, S, 128) for S in 16, 128
    (the bucket of a 100-token prompt), 2048, and at one gpt_small shape
-   (1, 12, 1024, 64): max |Δo|, max |Δlse|, kernel / plain /
-   scaled_dot_product_attention / bound times;
+   (1, 12, 1024, 64); bf16 only at the training shape (4, 16, 2048,
+   128), a non-causal (1, 12, 512, 64) and a ragged causal Sq 100 /
+   Sk 612: max |Δo|, max |Δlse|, kernel / plain /
+   scaled_dot_product_attention / bound times and the kernel's ratio
+   to the library call;
 4. paged-attention decode vs its plain version at B=8, nh=16, hd=128,
    bs=16, W=128 over a 24-layer pool, ragged lengths with stale
    sink-only lanes; ``ragged`` True and False bit-identical;
@@ -68,17 +76,25 @@ stamped with the card's name and power limit):
 15. one int8 decode step at full gpt_1p3b width, 2 layers, f32, on the
     card (the kernels) against the CPU (the plain versions);
 16. the fp8 (e4m3) matmul kernel against its plain version at the fp8
-    training shapes (8192, 2048, 8192) and (8192, 8192, 2048), a 1500-row
-    prefill (2048, 8192) and a ragged (100, 64, 192) with a bias, out
-    bf16 and f32: errors, kernel / plain / bound times and
-    torch._scaled_mm's as the yardstick; and the STE backward's bf16 GEMM
-    with f32 output against the f32 GEMM it replaces;
+    training shapes (8192, 2048, 8192) and (8192, 8192, 2048) with the
+    weight column-major (read in place) and row-major (transposed in the
+    call), a 1500-row prefill (2048, 8192), a ragged (1000, 2048, 1000),
+    a ragged (100, 64, 192) with a bias and a (100, 100, 192) whose K is
+    zero-padded to 112, out bf16 and f32: errors, kernel / plain / bound
+    times, torch._scaled_mm's time, error and the kernel's ratio to it,
+    and at the training shapes the error and time of the e4m3 wgmma
+    variant with its sum promoted to f32 every 32 or 128 of K or never
+    (measurements only: the kernel ships exact f16 products); and the STE
+    backward's bf16 GEMM with f32 output against the f32 GEMM it
+    replaces;
 17. phase 9's training again with fp8=True (the fp8 MLP wins over the
     fused one): every loss within FP8_TRAIN_LOSS_REL of phase 9's, the
     fp8 kernel's launches per step, step ms, tokens/s, peak memory;
 18. an fp8 training step's loss and gradients and the prefill's logits
     at full width, 2 layers, f32, on the card against the CPU, with the
-    share of e4m3 activation codes that differ;
+    share of e4m3 activation codes that differ; and the same drift with
+    the kernel's e4m3-wgmma variant (promoted every 32 of K), measured
+    only;
 19. the MoE dispatch gather against its plain version (bit-identical)
     at the decode (8 tokens, 64 slots), training (8192 tokens, 20480
     slots) and a ragged (H = 100, f32) shape, with the src of a real
@@ -127,6 +143,9 @@ without a CUDA device the script exits 2 and prints no result.
 """
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -216,6 +235,71 @@ BERT_FIRST_LOSS_REL = 1e-3
 BERT_CHECK_TOL = {"loss": 1e-5, "grad": 1e-4}
 
 
+# the warp-specialised Hopper kernels (wgmma + TMA) of phase 2's report:
+# source -> the kernel functions' name stems
+HOPPER_KERNELS = {"fp8_matmul": ("fp8_mm_exact", "fp8_mm_e4m3"),
+                  "flash_attention_fwd": ("flash_fwd_wgmma",)}
+
+
+def hopper_report(_build):
+    """Per Hopper kernel function: ptxas' registers and spill bytes, the
+    dynamic shared memory a block takes, and, where cuobjdump exists, the
+    wgmma (HGMMA bf16, QGMMA e4m3) and TMA load (UTMALDG) instructions in
+    its SASS. Raises when such a kernel has none of either."""
+    smem = {"fp8_matmul": lambda lib: {
+                shape: lib.fp8_matmul_smem_bytes(tall)
+                for shape, tall in (("192x128", 0), ("128x256", 1))},
+            "flash_attention_fwd": lambda lib: {
+                d: lib.flash_attention_fwd_smem_bytes(d) for d in (64, 128)}}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        cuobjdump = None
+    kernels = []
+    for src, stems in HOPPER_KERNELS.items():
+        entry = None
+        props = {}
+        for ln in _build.build_log(src).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = m.group(1) if any(
+                    st in m.group(1) for st in stems) else None
+                if entry:
+                    props[entry] = {}
+            elif entry and "spill stores" in ln:
+                props[entry]["spill_bytes"] = sum(
+                    int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+            elif entry and "Used" in ln and "registers" in ln:
+                props[entry]["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+        sass = {}
+        if cuobjdump:
+            out = subprocess.run([cuobjdump, "-sass",
+                                  str(_build._target(src))],
+                                 capture_output=True, text=True,
+                                 timeout=120).stdout
+            fn = None
+            for ln in out.splitlines():
+                if "Function :" in ln:
+                    fn = ln.split("Function :")[1].strip()
+                    sass[fn] = {"HGMMA": 0, "QGMMA": 0, "UTMALDG": 0}
+                elif fn:
+                    for key in sass[fn]:
+                        sass[fn][key] += key in ln
+        lib = _build.load(src)
+        for name, p in props.items():
+            row = {"source": f"paddle_tpu_torch/csrc/{src}.cu",
+                   "kernel": name, **p,
+                   "dynamic_smem_bytes": smem[src](lib)}
+            if cuobjdump:
+                counts = sass.get(name, {})
+                row.update({k.lower(): v for k, v in counts.items()})
+                if not (counts.get("HGMMA") or counts.get("QGMMA")) \
+                        or not counts.get("UTMALDG"):
+                    raise AssertionError(f"no wgmma or TMA load in {row}")
+            kernels.append(row)
+    return {"sass_checked": cuobjdump is not None, "hopper_kernels": kernels}
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -257,44 +341,91 @@ def bound(flops, nbytes, dtype):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def flash_phase(dev, fa, stamp):
+# phase 3: (name, batch, heads, Sq, Sk, head_dim, causal, dtypes)
+FLASH_SHAPES = (
+    [("gpt_1p3b", 1, 16, sq, sq, 128, True, (torch.bfloat16, torch.float32))
+     for sq in (16, 128, 2048)]
+    + [("gpt_small", 1, 12, 1024, 1024, 64, True,
+        (torch.bfloat16, torch.float32)),
+       ("gpt_1p3b_train", 4, 16, 2048, 2048, 128, True, (torch.bfloat16,)),
+       ("gpt_small_noncausal", 1, 12, 512, 512, 64, False,
+        (torch.bfloat16,)),
+       ("ragged", 1, 16, 100, 612, 128, True, (torch.bfloat16,))])
+
+
+def batch_ms(fn, reps=20):
+    """Time per call of ``reps`` calls issued back to back, CUDA events
+    around the batch: the host enqueues ahead of the card, so for a call
+    that runs longer than its host work this is the device's time alone,
+    without the round trip that time_ms's events around a lone call hold
+    (torch.profiler lost the cuBLAS kernels of torch._scaled_mm)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _attention_pairs(sq, sk, causal):
+    """(q, k) pairs the mask leaves, q_pos + (Sk - Sq) >= k_pos."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(sk, max(0, i + off + 1)) for i in range(sq))
+
+
+def flash_phase(dev, fa, stamp, shapes=FLASH_SHAPES):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = {}
-    shapes = [("gpt_1p3b", 16, s, 128) for s in (16, 128, 2048)] \
-        + [("gpt_small", 12, 1024, 64)]
-    for dtype in (torch.bfloat16, torch.float32):
-        for model, h, s, d in shapes:
-            q, k, v = (torch.randn((1, h, s, d), generator=gen, device=dev)
-                       .to(dtype) for _ in range(3))
+    for model, b, h, sq, sk, d, causal, dtypes in shapes:
+        for dtype in dtypes:
+            q = torch.randn((b, h, sq, d), generator=gen, device=dev) \
+                .to(dtype)
+            k, v = (torch.randn((b, h, sk, d), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
             scale = 1.0 / math.sqrt(d)
-            o, lse = fa.flash_attention_forward(q, k, v, True, scale)
-            o_ref, lse_ref = fa._flash_forward_reference(q, k, v, True, scale)
+            o, lse = fa.flash_attention_forward(q, k, v, causal, scale)
+            o_ref, lse_ref = fa._flash_forward_reference(q, k, v, causal,
+                                                         scale)
             torch.cuda.synchronize()
             err_o = (o.float() - o_ref.float()).abs().max().item()
             err_lse = (lse - lse_ref).abs().max().item()
             tol_o, tol_lse = FLASH_TOL[dtype]
             ok = err_o <= tol_o and err_lse <= tol_lse
-            pairs = s * (s + 1) // 2          # causal (q, k) pairs, Sq == Sk
-            flops = 4 * d * h * pairs
-            nbytes = 4 * h * s * d * q.element_size() + h * s * 4
+            flops = 4 * d * b * h * _attention_pairs(sq, sk, causal)
+            nbytes = b * h * (2 * sq * d + 2 * sk * d) * q.element_size() \
+                + b * h * sq * 4
             b_ms, b_by = bound(flops, nbytes, dtype)
+            call = lambda: fa.flash_attention_forward(  # noqa: E731
+                q, k, v, causal, scale)
+            lib_call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, scale=scale)
+            ms, lib = time_ms(call), time_ms(lib_call)
+            b_call, b_lib = batch_ms(call), batch_ms(lib_call)
             row = {
                 "phase": "flash_attention", "model": model,
-                "shape": [1, h, s, d], "dtype": str(dtype)[6:],
+                "shape": [b, h, sq, d], "sk": sk, "causal": causal,
+                "dtype": str(dtype)[6:],
                 "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-                "tol_o": tol_o, "tol_lse": tol_lse, "ok": ok,
-                "ms": time_ms(lambda: fa.flash_attention_forward(
-                    q, k, v, True, scale)),
+                "tol_o": tol_o, "tol_lse": tol_lse, "ok": ok, "ms": ms,
                 "plain_ms": time_ms(lambda: fa._flash_forward_reference(
-                    q, k, v, True, scale)),
-                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, scale=scale)),
+                    q, k, v, causal, scale), max_reps=10),
+                "library_ms": lib, "ratio_to_library": ms / lib,
+                "batch_ms": b_call, "library_batch_ms": b_lib,
+                "batch_ratio_to_library": b_call / b_lib,
                 "bound_ms": b_ms, "bound_by": b_by, **stamp}
             emit(row)
             if not ok:
                 raise AssertionError(f"flash kernel disagrees: {row}")
-            rows[(model, s, dtype)] = row
+            rows[(model, sq, dtype)] = row
+            del q, k, v, o, lse, o_ref, lse_ref
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1126,8 +1257,19 @@ def int8_decode_phase(dev, stamp):
     return row
 
 
-FP8_SHAPES = ((8192, 2048, 8192, False), (8192, 8192, 2048, False),
-              (1500, 2048, 8192, False), (100, 64, 192, True))
+# phase 16: (M, K, N, bias, weight layout). "col" is the (K, N) view of an
+# (N, K)-contiguous buffer, as amp/fp8.py quantizes the weight (the
+# kernel reads it in place); "row" a row-major wq, which the wrapper
+# transposes once per call (its time includes that copy)
+FP8_SHAPES = ((8192, 2048, 8192, False, "col"),
+              (8192, 2048, 8192, False, "row"),
+              (8192, 8192, 2048, False, "col"),
+              (8192, 8192, 2048, False, "row"),
+              (1500, 2048, 8192, False, "col"),
+              (1000, 2048, 1000, False, "col"),
+              (100, 64, 192, True, "col"), (100, 100, 192, True, "row"))
+# shapes at which the e4m3 wgmma's error is measured (f32 out)
+FP8_PROMOTION = ((8192, 2048, 8192), (8192, 8192, 2048))
 # (name, tokens, hidden, capacity factor) of phase 19; 8 experts, top-2
 GATHER_SHAPES = (("decode", 8, 2048, None), ("training", 8192, 2048, 1.25),
                  ("ragged", 100, 100, 1.25))
@@ -1135,20 +1277,25 @@ GATHER_SHAPES = (("decode", 8, 2048, None), ("training", 8192, 2048, 1.25),
 
 def fp8_phase(dev, fm, f8, stamp, shapes=FP8_SHAPES, ste=(8192, 8192, 2048)):
     """Phase 16: the fp8 matmul kernel against its plain version at the
-    fp8 training path's shapes, a prefill length and a ragged shape, out
-    bf16 and f32; torch._scaled_mm as the library yardstick; then the
-    STE backward's two routes for one of its products."""
+    fp8 training path's shapes (both weight layouts), a prefill length,
+    ragged M, N and K, out bf16 and f32; torch._scaled_mm as the library
+    yardstick; the error and time of the e4m3 wgmma variant, its sum
+    promoted into f32 every 32 or 128 of K or never (measurements only:
+    the kernel ships f16 products, exact); then the STE backward's two
+    routes for one of its products."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
     rows = {}
-    for M, K, N, with_bias in shapes:
+    for M, K, N, with_bias, layout in shapes:
         x = torch.randn((M, K), generator=gen, device=dev)
         w = torch.randn((K, N), generator=gen, device=dev) * 0.02
         b = torch.randn(N, generator=gen, device=dev) if with_bias else None
         sx, sw = f8._jit_scale(x), f8._jit_scale(w)
-        xq, wq = f8.quantize_fp8(x, sx), f8.quantize_fp8(w, sw)
+        xq = f8.quantize_fp8(x, sx)
+        wq = f8._quantize_fp8_kn(w, sw) if layout == "col" \
+            else f8.quantize_fp8(w, sw)
         del x, w
-        wcol = wq.t().contiguous().t()     # _scaled_mm takes B column-major
+        wcol = wq if layout == "col" else wq.t().contiguous().t()
         for out in (torch.bfloat16, torch.float32):
             got = fm.fp8_matmul_arrays(xq, wq, sx, sw, b, out_dtype=out)
             want = fm._fp8_matmul_ref(xq, wq, sx, sw, b, out)
@@ -1156,33 +1303,52 @@ def fp8_phase(dev, fm, f8, stamp, shapes=FP8_SHAPES, ste=(8192, 8192, 2048)):
             err = (got.float() - want.float()).abs().max().item()
             rel = _rel(got, want)
             ok = rel <= FP8_TOL[out] and bool(torch.isfinite(got).all())
-            del got, want
+            extra = {}
+            if out == torch.float32 and (M, K, N) in FP8_PROMOTION:
+                for k_int in (32, 128, 0):
+                    alt = lambda: fm._launch(  # noqa: E731
+                        xq, wq, sx.reshape(-1), sw.reshape(-1), b, out,
+                        accum=k_int)
+                    extra[f"e4m3_promote_{k_int}_max_rel_err"] = \
+                        _rel(alt(), want)
+                    extra[f"e4m3_promote_{k_int}_ms"] = time_ms(alt)
+            del got
             es = torch.finfo(out).bits // 8
             nbytes = M * K + K * N + M * N * es + 8 \
                 + (4 * N if with_bias else 0)
             b_ms, b_by = bound(2 * M * K * N, nbytes, torch.float8_e4m3fn)
-            lib, lib_note = None, "torch._scaled_mm"
+            lib, b_lib, lib_note = None, None, "torch._scaled_mm"
             try:
                 lib_b = b.to(out) if b is not None else None
-                lib = time_ms(lambda: torch._scaled_mm(
+                lib_call = lambda: torch._scaled_mm(  # noqa: E731
                     xq, wcol, scale_a=sx, scale_b=sw, bias=lib_b,
-                    out_dtype=out))
+                    out_dtype=out)
+                ref = lib_call()
+                extra["library_max_rel_err"] = _rel(ref, want)
+                del ref
+                lib, b_lib = time_ms(lib_call), batch_ms(lib_call)
             except RuntimeError as e:     # the yardstick only
                 lib_note = f"torch._scaled_mm refused: {str(e)[:120]}"
+            del want
+            call = lambda: fm.fp8_matmul_arrays(  # noqa: E731
+                xq, wq, sx, sw, b, out_dtype=out)
+            ms, b_call = time_ms(call), batch_ms(call)
             row = {"phase": "fp8_matmul", "M": M, "K": K, "N": N,
-                   "bias": with_bias, "out_dtype": str(out)[6:],
+                   "bias": with_bias, "weight_layout": layout,
+                   "out_dtype": str(out)[6:],
                    "max_abs_err": err, "max_rel_err": rel,
-                   "tol_rel": FP8_TOL[out], "ok": ok,
-                   "ms": time_ms(lambda: fm.fp8_matmul_arrays(
-                       xq, wq, sx, sw, b, out_dtype=out)),
+                   "tol_rel": FP8_TOL[out], "ok": ok, "ms": ms,
                    "plain_ms": time_ms(lambda: fm._fp8_matmul_ref(
                        xq, wq, sx, sw, b, out), max_reps=10),
                    "library_ms": lib, "library": lib_note,
-                   "bound_ms": b_ms, "bound_by": b_by, **stamp}
+                   "ratio_to_library": ms / lib if lib else None,
+                   "batch_ms": b_call, "library_batch_ms": b_lib,
+                   "batch_ratio_to_library": b_call / b_lib if b_lib else None,
+                   "bound_ms": b_ms, "bound_by": b_by, **extra, **stamp}
             emit(row)
             if not ok:
                 raise AssertionError(f"fp8 kernel disagrees: {row}")
-            rows[(M, K, N, out)] = row
+            rows[(M, K, N, out, layout)] = row
         del xq, wq, wcol
         torch.cuda.empty_cache()
     # the STE backward's dx product at the MLP's down projection, g
@@ -1226,7 +1392,8 @@ def _card_and_cpu(dev, cfg, params, batch, prompt):
 
     out = {}
     for device in (dev, "cpu"):
-        p = TS._map(lambda t: t.to(device).requires_grad_(True), params)
+        p = TS._map(lambda t: t.detach().to(device).requires_grad_(True),
+                    params)
         t0 = time.perf_counter()
         loss = G.gpt_loss(cfg, p, tuple(t.to(device) for t in batch),
                           loss_chunk=128)
@@ -1242,23 +1409,16 @@ def _card_and_cpu(dev, cfg, params, batch, prompt):
     return out[str(dev)], out["cpu"]
 
 
-def fp8_check_phase(dev, stamp):
-    """Phase 18: an fp8 training step's loss and gradients, and the
-    fixed-slot prefill's logits, on the card (the fp8 kernel) against the
-    CPU (its plain version), full gpt_1p3b width, 2 layers, f32; with
-    the share of e4m3 activation codes that differ."""
+def _fp8_drift(dev, cfg, params, batch, prompt):
+    """One fp8 training step's loss and gradients and the fixed-slot
+    prefill's logits on the card and on the CPU, and the e4m3 activation
+    codes the two quantized."""
     from paddle_tpu_torch.amp import fp8 as F8
-    from paddle_tpu_torch.models import gpt as G
 
-    cfg = G.gpt_1p3b(n_layers=2, dtype=torch.float32, fp8=True, remat=True)
-    params = G.gpt_init(cfg, seed=8, device="cpu")
-    rng = np.random.default_rng(18)
-    batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))),
-             torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))))
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
-    # per fp8 matmul the activation is quantized first, then the weight:
-    # 2 layers x 2 matmuls x (forward, remat recompute, prefill) on each
-    # device, the card's calls first
+    # per fp8 matmul the activation is quantized first (quantize_fp8),
+    # then the weight (_quantize_fp8_kn, into its (N, K) buffer): 2 layers
+    # x 2 matmuls x (forward, remat recompute, prefill) on each device,
+    # the card's calls first
     half = 2 * 2 * 3 * 2
     codes, first_cpu = [], []
 
@@ -1268,10 +1428,12 @@ def fp8_check_phase(dev, stamp):
             first_cpu.extend(a.detach().cpu() for a in args)
 
     restore = _recording(F8, "quantize_fp8", record)
+    restore_w = _recording(F8, "_quantize_fp8_kn", record)
     try:
         (l_card, g_card, lg_card, t_card), (l_cpu, g_cpu, lg_cpu, t_cpu) = \
             _card_and_cpu(dev, cfg, params, batch, prompt)
     finally:
+        restore_w()
         restore()
     if len(codes) != 2 * half:
         raise AssertionError(f"{len(codes)} fp8 quantizations, not "
@@ -1285,21 +1447,64 @@ def fp8_check_phase(dev, stamp):
     same_codes = torch.equal(
         F8.quantize_fp8(x_cpu.to(dev), s_cpu.to(dev)).view(torch.uint8)
         .cpu(), codes[half])
-    rel = {k: _rel(g_card[k], g) for k, g in g_cpu.items()}
-    rel_logits = _rel(lg_card, lg_cpu)
+    return {"loss_card": l_card, "loss_cpu": l_cpu,
+            "max_rel_err": {k: _rel(g_card[k], g) for k, g in g_cpu.items()},
+            "prefill_logits_rel_err": _rel(lg_card, lg_cpu),
+            "same_input_same_codes": same_codes,
+            "activation_codes_compared": total,
+            "activation_codes_differing_share": differ / max(total, 1),
+            "differing_share_by_call": share, "card_s": t_card,
+            "cpu_s": t_cpu}
+
+
+def fp8_check_phase(dev, stamp):
+    """Phase 18: an fp8 training step's loss and gradients, and the
+    fixed-slot prefill's logits, on the card (the fp8 kernel) against the
+    CPU (its plain version), full gpt_1p3b width, 2 layers, f32; with
+    the share of e4m3 activation codes that differ. Then the same with
+    the kernel's e4m3-wgmma variant (its sum promoted to f32 every 32 of
+    K), as a measurement: why the kernel ships f16 products."""
+    from paddle_tpu_torch.amp import fp8 as F8
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.ops import fp8_matmul as FM
+
+    cfg = G.gpt_1p3b(n_layers=2, dtype=torch.float32, fp8=True, remat=True)
+    params = G.gpt_init(cfg, seed=8, device="cpu")
+    rng = np.random.default_rng(18)
+    batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))),
+             torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
+    d = _fp8_drift(dev, cfg, params, batch, prompt)
     tol = FP8_CHECK_TOL
-    ok = abs(l_card - l_cpu) <= tol["loss"] \
-        and all(r <= tol["grad"] for r in rel.values()) \
-        and rel_logits <= tol["logits"] and same_codes
+    ok = abs(d["loss_card"] - d["loss_cpu"]) <= tol["loss"] \
+        and all(r <= tol["grad"] for r in d["max_rel_err"].values()) \
+        and d["prefill_logits_rel_err"] <= tol["logits"] \
+        and d["same_input_same_codes"]
+
+    shipped = F8.fp8_matmul_arrays
+
+    def e4m3_variant(xq, wq, sx, sw, bias=None, out_dtype=torch.float32):
+        if xq.device.type != "cuda":
+            return shipped(xq, wq, sx, sw, bias, out_dtype)
+        sx, sw = FM._scalar(sx, xq.device), FM._scalar(sw, xq.device)
+        out = FM._launch(xq.reshape(-1, xq.shape[-1]), wq, sx.reshape(-1),
+                         sw.reshape(-1), bias, out_dtype, accum=32)
+        return out.reshape(*xq.shape[:-1], wq.shape[1])
+
+    F8.fp8_matmul_arrays = e4m3_variant
+    try:
+        v = _fp8_drift(dev, cfg, params, batch, prompt)
+    finally:
+        F8.fp8_matmul_arrays = shipped
     row = {"phase": "fp8_grads", "model": "gpt_1p3b", "layers": 2,
-           "dtype": "float32", "batch": [1, 256], "loss_card": l_card,
-           "loss_cpu": l_cpu, "max_rel_err": rel,
-           "prefill_logits_rel_err": rel_logits,
-           "same_input_same_codes": same_codes,
-           "activation_codes_compared": total,
-           "activation_codes_differing_share": differ / max(total, 1),
-           "differing_share_by_call": share,
-           "tol": tol, "card_s": t_card, "cpu_s": t_cpu, "ok": ok, **stamp}
+           "dtype": "float32", "batch": [1, 256], **d, "tol": tol, "ok": ok,
+           "e4m3_promote_32": {
+               "loss_abs_err": abs(v["loss_card"] - v["loss_cpu"]),
+               "max_grad_rel_err": max(v["max_rel_err"].values()),
+               "prefill_logits_rel_err": v["prefill_logits_rel_err"],
+               "activation_codes_differing_share":
+                   v["activation_codes_differing_share"]},
+           **stamp}
     emit(row)
     if not ok:
         raise AssertionError(f"fp8 on the card and the CPU disagree: {row}")
@@ -1830,6 +2035,16 @@ def _kernel(name, source, replaces, launches, row, err, keys, library):
             "library_ms": row[library] if library else None}
 
 
+_BATCH_KEYS = ("batch_ms", "plain_ms", "bound_ms", "bound_by")
+
+
+def _shape_keys(row):
+    """A phase-3 row's shape and times, for the kernels line."""
+    return {k: row[k] for k in ("shape", "ms", "batch_ms", "library_ms",
+                                "library_batch_ms", "ratio_to_library",
+                                "batch_ratio_to_library", "bound_ms")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1856,7 +2071,7 @@ def main():
              for ln in _build.build_log(n).splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "ptxas": ptxas, **hopper_report(_build)})
 
     flash = flash_phase(dev, fa, stamp)
     paged = paged_phase(dev, pa, stamp)
@@ -1920,23 +2135,30 @@ def main():
     bert_check_phase(dev, stamp)
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
+    ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
     p = paged[torch.bfloat16]
     fb = flash_bwd[("gpt_1p3b_train", torch.bfloat16)]
     fm = fmlp[(8192, torch.bfloat16)]
     tl = train["launches"]
     ob = opt["gpt_1p3b_f32"]
     i8r = i8[(8, 2048, 8192)]
-    f8r = fp8[(8192, 2048, 8192, torch.bfloat16)]
+    f8r = fp8[(8192, 2048, 8192, torch.bfloat16, "col")]
     gr = gather[("training", torch.bfloat16)]
     al = addln[(16384, 768, torch.float32)]    # BERT-base's shape and dtype
     bl = bert["fused"]["launches"]
     plain = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
-        _kernel("flash_attention_fwd",
-                "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                "paddle_tpu/ops/flash_attention.py:88",
-                runs[False]["launches"]["flash_attention_fwd"], f,
-                f["max_abs_err_o"], plain, "library_ms"),
+        # the Hopper kernels: "ms" and "library_ms" are batch_ms
+        # times (calls back to back: the device's time) of the call and
+        # of the library call; "call_ms" / "library_call_ms" the CUDA-event
+        # times around each lone call (time_ms), host round trip held
+        dict(_kernel("flash_attention_fwd",
+                     "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+                     "paddle_tpu/ops/flash_attention.py:88",
+                     runs[False]["launches"]["flash_attention_fwd"], f,
+                     f["max_abs_err_o"], _BATCH_KEYS, "library_batch_ms"),
+             call_ms=f["ms"], library_call_ms=f["library_ms"],
+             training_shape=_shape_keys(ft)),
         _kernel("paged_attention_decode",
                 "paddle_tpu_torch/csrc/paged_attention.cu",
                 "paddle_tpu/ops/paged_attention.py:77",
@@ -1979,10 +2201,11 @@ def main():
                 "paddle_tpu/ops/int8_matmul.py:44",
                 runs8[False]["launches"]["int8_matmul"], i8r,
                 i8r["max_abs_err"], plain, "library_ms"),
-        _kernel("fp8_matmul", "paddle_tpu_torch/csrc/fp8_matmul.cu",
-                "paddle_tpu/ops/fp8_matmul.py:51",
-                train_fp8["launches"]["fp8_matmul"], f8r,
-                f8r["max_abs_err"], plain, "library_ms"),
+        dict(_kernel("fp8_matmul", "paddle_tpu_torch/csrc/fp8_matmul.cu",
+                     "paddle_tpu/ops/fp8_matmul.py:51",
+                     train_fp8["launches"]["fp8_matmul"], f8r,
+                     f8r["max_abs_err"], _BATCH_KEYS, "library_batch_ms"),
+             call_ms=f8r["ms"], library_call_ms=f8r["library_ms"]),
         _kernel("moe_dispatch_gather",
                 "paddle_tpu_torch/csrc/moe_dispatch.cu",
                 "paddle_tpu/ops/moe_dispatch.py:55",

@@ -48,6 +48,19 @@ def quantize_fp8(x, scale):
     return q.to(torch.float8_e4m3fn)
 
 
+def _quantize_fp8_kn(w, scale):
+    """``quantize_fp8(w, scale)`` for a weight w (K, N), its codes written
+    straight into an (N, K)-contiguous buffer by the same cast: the values
+    are bit-identical, and the result is the (K, N) column-major view that
+    the fp8 kernel reads in place (it takes the weight K-major)."""
+    s = torch.clamp(_f32(scale, w.device), min=1e-12)
+    q = torch.clamp(w.float() / s, -E4M3_MAX, E4M3_MAX)
+    buf = torch.empty((w.shape[1], w.shape[0]), dtype=torch.float8_e4m3fn,
+                      device=w.device)
+    buf.t().copy_(q)
+    return buf.t()
+
+
 def _amax(t):
     return t.detach().float().abs().max()
 
@@ -75,7 +88,7 @@ class _Fp8MM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, sx, sw):
         xq = quantize_fp8(x, sx)
-        wq = quantize_fp8(w, sw)
+        wq = _quantize_fp8_kn(w, sw)
         ctx.save_for_backward(xq, wq, sx, sw)
         ctx.dtypes = (x.dtype, w.dtype)
         return fp8_matmul_arrays(xq, wq, sx, sw, out_dtype=x.dtype)

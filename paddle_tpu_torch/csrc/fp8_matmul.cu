@@ -1,61 +1,117 @@
 // fp8 (e4m3) matmul with the dequant epilogue, for Hopper (sm_90a):
 //   out[m, n] = (sum_k xq[m, k] * wq[k, n]) * (sx * sw) (+ b[n])
-// xq (M, K) and wq (K, N) float8_e4m3fn, row-major; sx, sw f32 per-tensor
-// scales read from device memory; the sum in f32; b f32 (N) or none; out
-// bf16 or f32.
+// xq (M, K) float8_e4m3fn row-major; the weight as wt = wqᵀ (N, K)
+// row-major (a column-major wq (K, N) is that array); sx, sw f32
+// per-tensor scales read from device memory; the sum in f32; b f32 (N)
+// or none; out bf16 or f32.
 //
 // Replaces: paddle_tpu/ops/fp8_matmul.py `_fp8_kernel` (launched by
-// `_fp8_matmul_2d`, pallas_call at :98). Same numerics: each operand is
-// upcast from e4m3 to a 16-bit float that holds it exactly (the TPU
-// kernel takes bf16, this one f16: both hold every e4m3 value), so every
-// product is exact and the sums are f32; the epilogue is
+// `_fp8_matmul_2d`, pallas_call at :98). Same function: every product of
+// two e4m3 values is exact, the sums are f32, and the epilogue is
 // `acc * (sx * sw)`, then `+ b`, each rounded once (built with
-// -fmad=false, and written with __fmul_rn/__fadd_rn), then the cast. Any
-// M, K and N: ragged tiles are zero-filled on load and masked on store;
-// the TPU wrapper's untileable fallback to XLA has no counterpart.
+// -fmad=false, and written with __fmul_rn/__fadd_rn), then the cast.
+// Any M and N; K a multiple of 16 and 16-byte-aligned bases (TMA's
+// stride rule: the wrapper pads K with zeros, which is exact, and copies
+// an unaligned operand).
 //
 // What bounds it on an H100: on the fp8 training path M = 8192 tokens and
 // (K, N) = (2048, 8192) or (8192, 2048), 2*M*K*N = 275 GFLOP against
 // ~100 MB of operands, far above the ~590 operations per byte at which
-// the e4m3 tensor-core rate (1979 TFLOP/s) would take over from memory:
-// the bound is that rate. This kernel runs its products at the 16-bit
-// rate (989 TFLOP/s), half of that bound, by design (below).
+// the e4m3 tensor-core rate (1979 TFLOP/s) takes over from memory: the
+// bound is that rate, 0.139 ms.
 //
-// Design (a simple, right first kernel). A 128x128 output tile per block
-// of 8 warps (2 along m x 4 along n), 64-deep K steps. The e4m3 tiles
-// (128x64 bytes of xq, 64x128 of wq) stream through a 3-stage cp.async
-// ring in shared memory, 16 bytes (16 values) per copy; at each step the
-// block converts the landed stage into f16 tiles (one `cvt.rn.f16x2.
-// e4m3x2` per two values, through cuda_fp8.h), and the warps run
-// mma.sync m16n8k16 f16 x f16 -> f32 on them with ldmatrix loads (the
-// (K, N) weight tile is read transposed with ldmatrix.trans, on the
-// converted 16-bit values, so the weight is never transposed in memory).
-// Native e4m3 mma/wgmma at twice the rate is the later redesign; its
-// accumulator precision has to be measured against the plain version
-// first. Shapes whose rows are not 16-byte multiples (K or N not a
-// multiple of 16) load their tiles with plain byte loads instead of
-// cp.async.
+// Why the shipped products are f16, not e4m3. Hopper's e4m3 wgmma sums
+// its products in reduced precision. Measured on the H100 against the
+// plain version (f32 out, max |Δ| / max |plain|; chip_smoke.py phase 16):
+// the whole K in the wgmma sum ~3e-3 (K = 2048) and ~8e-3 (K = 8192);
+// that sum promoted into f32 every 128 of K (what torch._scaled_mm's
+// default does, and its error is the same) 1.4e-4 to 2e-4, above the 1e-4
+// the f32 plain version is held to; every 32 (each k32 wgmma a fresh sum)
+// ~5e-5, and then the fp8 training step on the card drifts from the CPU's
+// past the bound of phase 18, which measures it. So the shipped path
+// converts each e4m3 operand to f16 (exact: f16 holds every e4m3 value)
+// and runs f16 wgmma with f32 sums, at the 16-bit rate, half the bound's;
+// `accum` 32, 128 and 0 still run the e4m3 wgmma, its sum promoted every
+// 32 or 128 of K or never, to measure those errors.
+//
+// Design. First a small kernel writes wt into an f16 scratch (N, K) (the
+// wrapper allocates it), once a call: converting it inside the GEMM would
+// repeat the work for every row of output tiles. Then a persistent grid
+// (one block an SM) walks the output tiles, rastered in groups of 8 along
+// M so that neighbouring blocks share their operand tiles in L2. A block
+// is a producer warpgroup (setmaxnreg cuts its registers) whose one
+// thread keeps TMA loads in flight (a stage is the e4m3 tile of xq and the
+// f16 tile of wt, 128-byte swizzle; full/empty mbarriers; it runs on into
+// the next output tile while the consumers finish the last one) and
+// consumer warpgroups (raised registers), each owning 64 rows of the
+// output tile: per stage each loads its e4m3 rows with ldmatrix, converts
+// them in registers into the A operand of eight f16 wgmma m64nNk16 (B:
+// the wt tile, K-major in shared memory), and converts the next stage's
+// while those run. ldmatrix hands a thread four consecutive bytes of a
+// row where the A fragment wants k pairs (2t, 2t+1) and (2t+8, 2t+9); a
+// sum does not care about the order of k inside a k16 step, so the f16 wt
+// is written in the same permuted order (byte p of each 16 at k
+// 8·((p/2)%2) + 2·(p/4) + p%2). Two tile shapes, chosen per call from the
+// output's shape: 192x128 (three consumers, a ring of 4 stages of 56 KB),
+// and 128x256 (two consumers with 128 accumulators, wgmma m64n256, 2
+// stages of 80 KB) where its tiles fill the SMs' waves clearly better
+// (the (8192, 8192, 2048) product: 512 tiles in 3.9 waves of 132 against
+// 688 in 5.2). The epilogue scales and adds the bias in registers;
+// neighbouring lanes swap column pairs so that each stores four
+// consecutive outputs at once (the consumers store together while the
+// tensor cores idle, so fewer, wider stores are time back), masked at the
+// ragged edge (TMA zero-fills tiles past M, N and K).
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int STAGES = 3;
-constexpr int NT = 256;                        // 8 warps, 2 (m) x 4 (n)
-constexpr int A_RAW = BM * BK;                 // e4m3 bytes of one A tile
-constexpr int B_RAW = BK * BN;                 // ... of one B tile
-constexpr int STAGE_RAW = A_RAW + B_RAW;
-// converted f16 tiles, rows padded by 16 bytes so that the 8 row
-// addresses of an ldmatrix fall in distinct banks
-constexpr int LDA = BK + 8;                    // A stored [m][k]
-constexpr int LDB = BN + 8;                    // B stored [k][n]
-constexpr int A16 = BM * LDA;
-constexpr int B16 = BK * LDB;
-constexpr int SMEM = STAGES * STAGE_RAW + (A16 + B16) * 2;
-constexpr int ACC = BM * BN / NT;              // accumulators per thread
+namespace hp = ptt::hopper;
+
+constexpr int BK = 128;                        // k a stage (bytes = values)
+constexpr int GROUP_M = 8;
+constexpr int SMEM_MAX = 227 * 1024;           // a block's shared memory
+// accum modes: EXACT (f16 products, shipped) or the e4m3 wgmma sum
+// promoted every 32 / 128 of K, or never (measurements only)
+constexpr int EXACT = -1;
+
+// a tile shape: NC consumer warpgroups of 64 rows each, BN columns;
+// F16 = the wt tile in f16 (the shipped path) or e4m3
+template <int NC_, int BN_, bool F16>
+struct Tile {
+  static constexpr int NC = NC_, BM = 64 * NC_, BN = BN_;
+  static constexpr int A_BYTES = BM * BK;               // xq tile, e4m3
+  static constexpr int BOX = BN * 128;                  // a 128-byte-wide
+                                                        // box of wt rows
+  static constexpr int B_BYTES = F16 ? 2 * BOX : BOX;   // wt tile
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int STAGES = (SMEM_MAX - 2048) / STAGE < 4
+      ? (SMEM_MAX - 2048) / STAGE : 4;
+  static constexpr int NT = 128 * (NC + 1);             // + the producer
+  static constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8;
+  // registers a thread after setmaxnreg (128 x REG_P + 128 NC x REG_C
+  // within the SM's 65536): the consumers hold BN / 2 accumulators
+  static constexpr int REG_P = NC == 3 ? 24 : 40;
+  static constexpr int REG_C = NC == 3 ? 160 : 232;
+};
+// the shipped tiles: 192x128 (three consumers) where the output tiles
+// fill the SMs' waves evenly, 128x256 (two) where they fill them better
+using Wide = Tile<3, 128, true>;
+using Tall = Tile<2, 256, true>;
+using E4m3 = Tile<3, 128, false>;          // the e4m3 measurement kernel
+
+// tile t of the grouped raster -> (m block, n block)
+__device__ __forceinline__ void tile_coords(int t, int mt, int nt, int& bm,
+                                            int& bn) {
+  const int in_group = GROUP_M * nt;
+  const int first_m = (t / in_group) * GROUP_M;
+  const int rows = min(mt - first_m, GROUP_M);
+  bm = first_m + (t % in_group) % rows;
+  bn = (t % in_group) / rows;
+}
 
 // two e4m3 values (low byte first) -> two f16 values (low half first)
 __device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t two) {
@@ -64,99 +120,27 @@ __device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t two) {
   return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
 }
 
-// c (4 floats) += a (16x16, row) . b (16x8, col); f16 in, f32 accumulate
-__device__ __forceinline__ void mma_f16(float* c, const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// the f16 image of a 16-byte e4m3 chunk in the permuted k order: the low
+// byte pair of each 4-byte word to the first 16 bytes, the high pair to
+// the second
+__device__ __forceinline__ void convert_chunk(uint4 v, uint4& lo, uint4& hi) {
+  lo = make_uint4(e4m3x2_to_f16x2(v.x), e4m3x2_to_f16x2(v.y),
+                  e4m3x2_to_f16x2(v.z), e4m3x2_to_f16x2(v.w));
+  hi = make_uint4(e4m3x2_to_f16x2(v.x >> 16), e4m3x2_to_f16x2(v.y >> 16),
+                  e4m3x2_to_f16x2(v.z >> 16), e4m3x2_to_f16x2(v.w >> 16));
 }
 
-// rows [r0, r0 + TR) x byte columns [c0, c0 + TC) of a row-major (rows,
-// cols) e4m3 array with leading dimension ld into dst (TR x TC bytes);
-// bytes past rows or cols are zero. ALIGNED: cols and ld are multiples
-// of 16 and the base is 16-byte aligned, so each 16-byte chunk is wholly
-// inside or wholly outside and goes by cp.async
-template <int TR, int TC, bool ALIGNED>
-__device__ __forceinline__ void load_raw(uint8_t* dst, const uint8_t* g,
-                                         int ld, int rows, int cols, int r0,
-                                         int c0) {
-  constexpr int CPR = TC / 16;
-  for (int ch = threadIdx.x; ch < TR * CPR; ch += NT) {
-    const int r = ch / CPR, c = (ch % CPR) * 16;
-    const int gr = r0 + r, gc = c0 + c;
-    uint8_t* d = dst + r * TC + c;
-    if constexpr (ALIGNED) {
-      const bool in = gr < rows && gc < cols;
-      ptt::cp_async_16(d, g + (in ? (size_t)gr * ld + gc : 0), in ? 16 : 0);
-    } else {
-      uint32_t w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t v = 0u;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int cc = gc + 4 * q + j;
-          if (gr < rows && cc < cols)
-            v |= static_cast<uint32_t>(g[(size_t)gr * ld + cc]) << (8 * j);
-        }
-        w[q] = v;
-      }
-      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-// a landed TR x TC e4m3 tile -> f16 tile with rows of LD halves
-template <int TR, int TC, int LD>
-__device__ __forceinline__ void convert_tile(const uint8_t* raw,
-                                             uint16_t* dst) {
-  constexpr int CPR = TC / 16;
-  for (int ch = threadIdx.x; ch < TR * CPR; ch += NT) {
-    const int r = ch / CPR, c = (ch % CPR) * 16;
-    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * TC + c);
-    const uint32_t in[4] = {v.x, v.y, v.z, v.w};
-    uint32_t o[8];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      o[2 * q] = e4m3x2_to_f16x2(in[q]);
-      o[2 * q + 1] = e4m3x2_to_f16x2(in[q] >> 16);
-    }
-    uint4* d = reinterpret_cast<uint4*>(dst + r * LD + c);
-    d[0] = make_uint4(o[0], o[1], o[2], o[3]);
-    d[1] = make_uint4(o[4], o[5], o[6], o[7]);
-  }
-}
-
-// acc += sA (BM x BK, [m][k]) . sB (BK x BN, [k][n]) for this warp's
-// 64 x 32 part: index i = (mi * NI + ni) * 4 + e over its m16n8 tiles
-__device__ __forceinline__ void tile_product(float* acc, const uint16_t* sA,
-                                             const uint16_t* sB) {
-  constexpr int MI = BM / 32, NI = BN / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int mat = lane >> 3, mrow = lane & 7;
-  const int wm = (warp & 1) * (BM / 2), wn = (warp >> 1) * (BN / 4);
-#pragma unroll
-  for (int ks = 0; ks < BK / 16; ++ks) {
-    uint32_t a[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-      ptt::ldsm_x4(a[mi], sA + (wm + mi * 16 + (lane & 15)) * LDA + ks * 16
-                              + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < NI / 2; ++np) {
-      uint32_t b[4];
-      ptt::ldsm_x4_t(b, sB + (ks * 16 + (mat & 1) * 8 + mrow) * LDB + wn
-                            + np * 16 + (mat >> 1) * 8);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        mma_f16(acc + (mi * NI + 2 * np) * 4, a[mi], b[0], b[1]);
-        mma_f16(acc + (mi * NI + 2 * np + 1) * 4, a[mi], b[2], b[3]);
-      }
-    }
-  }
+// wt (N, K) e4m3 -> w16 (N, K) f16 with the k of every 16 permuted as the
+// consumers' A fragments expect; one 16-byte chunk a thread
+__global__ void __launch_bounds__(256)
+weight_to_f16(const uint4* __restrict__ wt, uint4* __restrict__ w16,
+              long long chunks) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= chunks) return;
+  uint4 lo, hi;
+  convert_chunk(wt[i], lo, hi);
+  w16[2 * i] = lo;
+  w16[2 * i + 1] = hi;
 }
 
 template <typename T>
@@ -168,122 +152,457 @@ __device__ __forceinline__ void store2<float>(float* p, float lo, float hi) {
 template <>
 __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
                                                       float lo, float hi) {
-  ptt::store_bf16x2(p, lo, hi);
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
 
-template <typename T, bool ALIGNED>
-__global__ void __launch_bounds__(NT)
-fp8_mm(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-       const float* __restrict__ sx, const float* __restrict__ sw,
-       const float* __restrict__ b, T* __restrict__ out, int M, int K,
-       int N) {
-  extern __shared__ __align__(16) unsigned char fp8_smem[];
-  uint8_t* raw = fp8_smem;
-  uint16_t* sA = reinterpret_cast<uint16_t*>(fp8_smem + STAGES * STAGE_RAW);
-  uint16_t* sB = sA + A16;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int KT = (K + BK - 1) / BK;
-
-  float acc[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-
-  auto load = [&](int kt) {
-    uint8_t* st = raw + (kt % STAGES) * STAGE_RAW;
-    load_raw<BM, BK, ALIGNED>(st, x, K, M, K, m0, kt * BK);
-    load_raw<BK, BN, ALIGNED>(st + A_RAW, w, N, K, N, kt * BK, n0);
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load(s);
-    ptt::cp_async_commit();
+// the two outputs of this thread at n8 block j of row half h (columns
+// col0 + 8j, + 1): total * (sx * sw) (+ b), each rounded once
+template <int R>
+__device__ __forceinline__ float2 scaled(const float (&total)[R], int j,
+                                         int h, float scale, const float* b,
+                                         int gn) {
+  float v0 = __fmul_rn(total[4 * j + 2 * h], scale);
+  float v1 = __fmul_rn(total[4 * j + 2 * h + 1], scale);
+  if (b != nullptr) {
+    v0 = __fadd_rn(v0, b[gn]);
+    v1 = __fadd_rn(v1, b[gn + 1]);
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    ptt::cp_async_wait<STAGES - 2>();   // step kt has landed
-    __syncthreads();                    // ... for every thread; step kt - 1's
-                                        // stage and f16 tiles are read
-    if (kt + STAGES - 1 < KT) load(kt + STAGES - 1);
-    ptt::cp_async_commit();
-    const uint8_t* st = raw + (kt % STAGES) * STAGE_RAW;
-    convert_tile<BM, BK, LDA>(st, sA);
-    convert_tile<BK, BN, LDB>(st + A_RAW, sB);
-    __syncthreads();
-    tile_product(acc, sA, sB);
-  }
-  ptt::cp_async_wait<0>();
+  return make_float2(v0, v1);
+}
 
-  // epilogue: acc * (sx * sw) (+ b), each rounded once, then the cast;
-  // the accumulator pairs (e, e + 1) are neighbouring columns of one row
-  const float s = __fmul_rn(sx[0], sw[0]);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int NI = BN / 32;
+// four consecutive outputs in one store: 8 bytes of bf16, 16 of f32
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float2 a, float2 c) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(a.x, a.y);
+  const __nv_bfloat162 y = __floats2bfloat162_rn(c.x, c.y);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&x),
+                 *reinterpret_cast<const uint32_t*>(&y));
+}
+__device__ __forceinline__ void store4(float* p, float2 a, float2 c) {
+  *reinterpret_cast<float4*>(p) = make_float4(a.x, a.y, c.x, c.y);
+}
+
+// this thread's outputs from the 64 x (R / 2) f32 sum `total` (the wgmma
+// accumulator layout): total * (sx * sw) (+ b), each rounded once, cast
+template <typename T, int R>
+__device__ __forceinline__ void epilogue(const float (&total)[R], T* out,
+                                         const float* b, float scale,
+                                         int row0, int col0, int M, int N) {
+  constexpr int NB = R / 4, W = 8 * NB;        // n8 blocks, tile width
+  const int t4 = threadIdx.x % 4;
+  if ((N & 3) == 0 && col0 - 2 * t4 + W <= N) {
+    // the whole tile width lies inside N: neighbouring lanes swap one of
+    // their two column pairs of n8 blocks j and j + 1, so that each stores
+    // four consecutive columns at once (the stores cost the consumers
+    // their tensor time; half as many of them, twice as wide)
+    const bool odd = t4 & 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = row0 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        const float2 a = scaled(total, j, h, scale, b, col0 + 8 * j);
+        const float2 c = scaled(total, j + 1, h, scale, b, col0 + 8 * j + 8);
+        const float2 send = odd ? a : c;
+        const float2 got = make_float2(
+            __shfl_xor_sync(0xffffffffu, send.x, 1),
+            __shfl_xor_sync(0xffffffffu, send.y, 1));
+        if (gm >= M) continue;
+        if (!odd)            // columns 8j + 2t4 .. + 3
+          store4(out + (size_t)gm * N + col0 + 8 * j, a, got);
+        else                 // columns 8(j + 1) + 2(t4 - 1) .. + 3
+          store4(out + (size_t)gm * N + col0 + 8 * j + 6, got, c);
+      }
+    }
+    return;
+  }
   const bool pairs = (N & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < ACC; i += 2) {
-    const int mi = i / (4 * NI), ni = (i >> 2) % NI, e = i & 3;
-    const int gm = m0 + (warp & 1) * (BM / 2) + mi * 16 + (lane >> 2)
-        + (e >> 1) * 8;
-    const int gn = n0 + (warp >> 1) * (BN / 4) + ni * 8 + 2 * (lane & 3);
-    if (gm >= M || gn >= N) continue;
-    float v0 = __fmul_rn(acc[i], s), v1 = __fmul_rn(acc[i + 1], s);
+  for (int j = 0; j < NB; ++j) {
+    const int gn = col0 + 8 * j;
+    if (gn >= N) continue;
+    const bool two = gn + 1 < N;
+    float b0 = 0.f, b1 = 0.f;
     if (b != nullptr) {
-      v0 = __fadd_rn(v0, b[gn]);
-      if (gn + 1 < N) v1 = __fadd_rn(v1, b[gn + 1]);
+      b0 = b[gn];
+      if (two) b1 = b[gn + 1];
     }
-    T* o = out + (size_t)gm * N + gn;
-    if (pairs && gn + 1 < N) {
-      store2<T>(o, v0, v1);
-    } else {
-      o[0] = ptt::from_f<T>(v0);
-      if (gn + 1 < N) o[1] = ptt::from_f<T>(v1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = row0 + 8 * h;
+      if (gm >= M) continue;
+      float v0 = __fmul_rn(total[4 * j + 2 * h], scale);
+      float v1 = __fmul_rn(total[4 * j + 2 * h + 1], scale);
+      if (b != nullptr) {
+        v0 = __fadd_rn(v0, b0);
+        v1 = __fadd_rn(v1, b1);
+      }
+      T* o = out + (size_t)gm * N + gn;
+      if (pairs && two) {
+        store2<T>(o, v0, v1);
+      } else {
+        o[0] = ptt::from_f<T>(v0);
+        if (two) o[1] = ptt::from_f<T>(v1);
+      }
     }
   }
 }
 
-template <typename T, bool ALIGNED>
-cudaError_t launch(const uint8_t* x, const uint8_t* w, const float* sx,
-                   const float* sw, const float* b, T* out, int M, int K,
-                   int N, cudaStream_t s) {
-  static bool configured = false;   // the attribute is per kernel, once
+// the shared start of both kernels: barriers initialised, the producer's
+// TMA loop, then control to the consumers; `load` issues one stage's
+// copies into `st` for k block kb of output tile (bm, bn)
+template <typename C, typename Load>
+__device__ __forceinline__ void produce(uint64_t* full, uint64_t* empty,
+                                        unsigned char* smem, int tiles,
+                                        int mt, int nt, int KT, Load load) {
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int bm, bn;
+    tile_coords(t, mt, nt, bm, bn);
+    for (int kb = 0; kb < KT; ++kb, ++it) {
+      const int s = it % C::STAGES;
+      hp::mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+      hp::mbar_arrive_expect_tx(&full[s], C::STAGE);
+      load(smem + s * C::STAGE, &full[s], kb, bm, bn);
+    }
+  }
+}
+
+// the shipped kernel: e4m3 xq converted in registers, f16 wt from TMA,
+// f16 wgmma m64nBNk16 with A in registers, exact f32 sums
+template <typename T, typename C>
+__global__ void __launch_bounds__(C::NT, 1)
+fp8_mm_exact(const __grid_constant__ CUtensorMap map_x,
+             const __grid_constant__ CUtensorMap map_w,
+             const float* __restrict__ sx, const float* __restrict__ sw,
+             const float* __restrict__ b, T* __restrict__ out, int M, int K,
+             int N) {
+  extern __shared__ unsigned char fp8_smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(fp8_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+  const int mt = (M + C::BM - 1) / C::BM, nt = (N + C::BN - 1) / C::BN;
+  const int tiles = mt * nt;
+  const int KT = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], C::NC);      // one arrival per consumer
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: TMA loads of every output tile's stages, in order ----
+    hp::setmaxnreg_dec<C::REG_P>();
+    if (threadIdx.x == 0) {
+      hp::tma_prefetch_map(&map_x);
+      hp::tma_prefetch_map(&map_w);
+      produce<C>(full, empty, smem, tiles, mt, nt, KT,
+                 [&](unsigned char* st, uint64_t* bar, int kb, int bm,
+                     int bn) {
+                   hp::tma_load_2d(st, &map_x, bar, kb * BK, bm * C::BM);
+                   // the f16 wt tile: two boxes of 64 k, BN rows each
+                   hp::tma_load_2d(st + C::A_BYTES, &map_w, bar, kb * BK,
+                                   bn * C::BN);
+                   hp::tma_load_2d(st + C::A_BYTES + C::BOX, &map_w, bar,
+                                   kb * BK + 64, bn * C::BN);
+                 });
+    }
+  } else {
+    // ---- consumers: warpgroup c owns rows [64c, 64c + 64) of a tile ----
+    hp::setmaxnreg_inc<C::REG_C>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const float scale = __fmul_rn(sx[0], sw[0]);
+    float acc[C::BN / 2];
+    // the row this lane addresses for ldmatrix: its matrices are (rows
+    // 0-7, chunk 2q), (rows 8-15, 2q), (rows 0-7, 2q + 1) and (rows 8-15,
+    // 2q + 1) of the warp's 16 rows
+    const int lr = c * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int lc = lane >> 4;
+    // the A operand of stage `i`, converted while the wgmmas of the stage
+    // before run: two register sets, taken in turn
+    uint32_t pa0[8][4], pa1[8][4];
+    auto load_a = [&](uint32_t (&pa)[8][4], int i) {
+      const int s = i % C::STAGES;
+      hp::mbar_wait(&full[s], (i / C::STAGES) & 1);
+      const unsigned char* row = smem + s * C::STAGE + lr * 128;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t r[4];
+        ptt::ldsm_x4(r, row + (((2 * q + lc) ^ (lr & 7)) * 16));
+        // r[0], r[1]: rows g, g + 8 at k step 2q; r[2], r[3]: 2q + 1
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          pa[2 * q + h][0] = e4m3x2_to_f16x2(r[2 * h]);
+          pa[2 * q + h][1] = e4m3x2_to_f16x2(r[2 * h + 1]);
+          pa[2 * q + h][2] = e4m3x2_to_f16x2(r[2 * h] >> 16);
+          pa[2 * q + h][3] = e4m3x2_to_f16x2(r[2 * h + 1] >> 16);
+        }
+      }
+    };
+    // the eight wgmmas of stage `i` on A operand `pa`; the next stage's A
+    // is loaded before their wait
+    auto step = [&](uint32_t (&pa)[8][4], uint32_t (&next)[8][4], int i,
+                    int kb) {
+      const int s = i % C::STAGES;
+      const uint64_t db =
+          hp::desc_sw128(smem + s * C::STAGE + C::A_BYTES, 16, 1024);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t d =
+            hp::desc_advance(db, (kk / 4) * C::BOX + (kk % 4) * 32);
+        if constexpr (C::BN == 256)
+          hp::wgmma_m64n256k16_f16_rs(acc, pa[kk], d, kb > 0 || kk > 0);
+        else
+          hp::wgmma_m64n128k16_f16_rs(acc, pa[kk], d, kb > 0 || kk > 0);
+      }
+      hp::wgmma_commit();
+      if (kb + 1 < KT) load_a(next, i + 1);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+      if (tid == 0) hp::mbar_arrive(&empty[s]);
+    };
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int bm, bn;
+      tile_coords(t, mt, nt, bm, bn);
+      if (KT > 0) load_a(pa0, it);
+      for (int kb = 0; kb < KT; kb += 2, it += 2) {
+        step(pa0, pa1, it, kb);
+        if (kb + 1 < KT) step(pa1, pa0, it + 1, kb + 1);
+      }
+      it -= (KT & 1);         // an odd KT took one stage, not two, last
+      if (KT == 0) {
+#pragma unroll
+        for (int i = 0; i < C::BN / 2; ++i) acc[i] = 0.f;
+      }
+      epilogue<T>(acc, out, b, scale, bm * C::BM + c * 64 + warp * 16
+                  + lane / 4, bn * C::BN + 2 * (lane % 4), M, N);
+    }
+  }
+}
+
+// the measurement kernel: e4m3 wgmma m64n128k32 on TMA-loaded e4m3
+// tiles, P k32 wgmmas per f32 promotion (1 or 4: every 32 or 128 of K),
+// or 0 for none
+template <typename T, int P>
+__global__ void __launch_bounds__(E4m3::NT, 1)
+fp8_mm_e4m3(const __grid_constant__ CUtensorMap map_x,
+            const __grid_constant__ CUtensorMap map_w,
+            const float* __restrict__ sx, const float* __restrict__ sw,
+            const float* __restrict__ b, T* __restrict__ out, int M, int K,
+            int N) {
+  using C = E4m3;
+  extern __shared__ unsigned char fp8_smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(fp8_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+  const int mt = (M + C::BM - 1) / C::BM, nt = (N + C::BN - 1) / C::BN;
+  const int tiles = mt * nt;
+  const int KT = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], C::NC);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hp::setmaxnreg_dec<C::REG_P>();
+    if (threadIdx.x == 0)
+      produce<C>(full, empty, smem, tiles, mt, nt, KT,
+                 [&](unsigned char* st, uint64_t* bar, int kb, int bm,
+                     int bn) {
+                   hp::tma_load_2d(st, &map_x, bar, kb * BK, bm * C::BM);
+                   hp::tma_load_2d(st + C::A_BYTES, &map_w, bar, kb * BK,
+                                   bn * C::BN);
+                 });
+  } else {
+    hp::setmaxnreg_inc<C::REG_C>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const float scale = __fmul_rn(sx[0], sw[0]);
+    float acc[64], total[64];
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int bm, bn;
+      tile_coords(t, mt, nt, bm, bn);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) total[i] = 0.f;
+      for (int kb = 0; kb < KT; ++kb, ++it) {
+        const int s = it % C::STAGES;
+        hp::mbar_wait(&full[s], (it / C::STAGES) & 1);
+        const unsigned char* st = smem + s * C::STAGE;
+        const uint64_t da = hp::desc_sw128(st + c * 64 * 128, 16, 1024);
+        const uint64_t db = hp::desc_sw128(st + C::A_BYTES, 16, 1024);
+        // groups of P k32 wgmmas into a fresh sum, each added into the f32
+        // total once it has completed (P = 0: one sum over all K)
+        constexpr int G = P == 0 ? BK / 32 : P;
+#pragma unroll
+        for (int k0 = 0; k0 < BK / 32; k0 += G) {
+          hp::wgmma_fence();
+#pragma unroll
+          for (int k = k0; k < k0 + G; ++k)
+            hp::wgmma_m64n128k32_e4m3(acc, hp::desc_advance(da, 32 * k),
+                                      hp::desc_advance(db, 32 * k),
+                                      k > k0 || (P == 0 && kb > 0));
+          hp::wgmma_commit();
+          hp::wgmma_wait<0>();
+          hp::fence_regs(acc);
+          if (k0 + G == BK / 32 && tid == 0) hp::mbar_arrive(&empty[s]);
+          if constexpr (P != 0) {
+#pragma unroll
+            for (int i = 0; i < 64; ++i)
+              total[i] = __fadd_rn(total[i], acc[i]);
+          }
+        }
+      }
+      if constexpr (P == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) total[i] = KT > 0 ? acc[i] : 0.f;
+      }
+      epilogue<T>(total, out, b, scale, bm * C::BM + c * 64 + warp * 16
+                  + lane / 4, bn * C::BN + 2 * (lane % 4), M, N);
+    }
+  }
+}
+
+// one launch of `kernel`, a block of `nt` threads and `smem` bytes of
+// dynamic shared memory (the attribute is per kernel: set at its first
+// launch; `configured` is one flag per kernel)
+template <typename T, typename Kernel>
+cudaError_t launch(Kernel kernel, bool& configured, int nt, int smem,
+                   int grid, const CUtensorMap& mx, const CUtensorMap& mw,
+                   const float* sx, const float* sw, const float* b, void* out,
+                   int M, int K, int N, cudaStream_t s) {
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fp8_mm<T, ALIGNED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
-    if (err != cudaSuccess) return err;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fp8_mm<T, ALIGNED><<<grid, NT, SMEM, s>>>(x, w, sx, sw, b, out, M, K, N);
+  kernel<<<grid, nt, smem, s>>>(mx, mw, sx, sw, b, static_cast<T*>(out), M,
+                                K, N);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(bool exact, bool tall, int accum, int grid,
+                     const CUtensorMap& mx, const CUtensorMap& mw,
+                     const float* sx, const float* sw, const float* b,
+                     void* out, int M, int K, int N, cudaStream_t s) {
+  static bool set[5] = {false, false, false, false, false};
+  if (exact && tall)
+    return launch<T>(fp8_mm_exact<T, Tall>, set[0], Tall::NT, Tall::SMEM,
+                     grid, mx, mw, sx, sw, b, out, M, K, N, s);
+  if (exact)
+    return launch<T>(fp8_mm_exact<T, Wide>, set[1], Wide::NT, Wide::SMEM,
+                     grid, mx, mw, sx, sw, b, out, M, K, N, s);
+  if (accum == 32)
+    return launch<T>(fp8_mm_e4m3<T, 1>, set[2], E4m3::NT, E4m3::SMEM, grid,
+                     mx, mw, sx, sw, b, out, M, K, N, s);
+  if (accum == 128)
+    return launch<T>(fp8_mm_e4m3<T, 4>, set[3], E4m3::NT, E4m3::SMEM, grid,
+                     mx, mw, sx, sw, b, out, M, K, N, s);
+  return launch<T>(fp8_mm_e4m3<T, 0>, set[4], E4m3::NT, E4m3::SMEM, grid, mx,
+                   mw, sx, sw, b, out, M, K, N, s);
+}
+
+// the share of the SMs' waves that `tiles` output tiles fill
+double wave_fill(long long tiles, int sms) {
+  const long long waves = (tiles + sms - 1) / sms;
+  return waves > 0 ? double(tiles) / double(waves * sms) : 0.0;
+}
+
+// the shipped tile for an (M, N) output: Tall where its tiles fill the
+// waves clearly better than Wide's (at (8192, 8192, 2048) on 132 SMs:
+// 512 tiles in 3.88 waves against 688 in 5.21) and make at least one
+// wave, else Wide
+bool use_tall(int M, int N, int sms) {
+  const long long wide = (long long)((M + Wide::BM - 1) / Wide::BM)
+      * ((N + Wide::BN - 1) / Wide::BN);
+  const long long tall = (long long)((M + Tall::BM - 1) / Tall::BM)
+      * ((N + Tall::BN - 1) / Tall::BN);
+  return tall >= sms && wave_fill(tall, sms) > wave_fill(wide, sms) + 0.05;
 }
 
 }  // namespace
 
-// xq (M, K) and wq (K, N) e4m3 row-major; sx, sw f32 device scalars; b f32
-// (N) or null; out (M, N) in `dtype` (0 f32, 1 bf16). Returns
-// cudaGetLastError() after the launch.
-extern "C" int fp8_matmul(const void* xq, const void* wq, const float* sx,
-                          const float* sw, const float* b, void* out, int M,
-                          int K, int N, int dtype, void* stream) {
-  if (M < 0 || K < 0 || N < 0 || (dtype != ptt::kF32 && dtype != ptt::kBF16))
+// xq (M, K) and wt (N, K) e4m3 row-major (wt is wqᵀ), K a multiple of 16,
+// both bases 16-byte aligned; w16 an (N, K) f16 scratch the shipped path
+// writes wt into (null for the others); sx, sw f32 device scalars; b f32
+// (N) or null; out (M, N) in `dtype` (0 f32, 1 bf16); `accum` -1 for the
+// f16 products (shipped), or 32, 128 or 0 for the e4m3 wgmma sum
+// promoted every 32 or 128 of K or never (measurements). Returns a CUDA
+// error code: cudaGetLastError() after the launches, or the refusal of
+// the arguments or of the tensor maps.
+extern "C" int fp8_matmul(const void* xq, const void* wt, void* w16,
+                          const float* sx, const float* sw, const float* b,
+                          void* out, int M, int K, int N, int dtype,
+                          int accum, void* stream) {
+  const bool exact = accum == EXACT;
+  if (M < 0 || K < 0 || N < 0 || K % 16 != 0
+      || (dtype != ptt::kF32 && dtype != ptt::kBF16)
+      || (accum != EXACT && accum != 32 && accum != 128 && accum != 0)
+      || ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wt)
+           | reinterpret_cast<uintptr_t>(w16)) & 15) != 0
+      || (exact && w16 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
+  if (K == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* x = static_cast<const uint8_t*>(xq);
-  const uint8_t* w = static_cast<const uint8_t*>(wq);
-  const bool aligned = K % 16 == 0 && N % 16 == 0
-      && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w))
-          & 15) == 0;
-  cudaError_t err;
-  if (dtype == ptt::kBF16) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    err = aligned ? launch<__nv_bfloat16, true>(x, w, sx, sw, b, o, M, K, N, s)
-                  : launch<__nv_bfloat16, false>(x, w, sx, sw, b, o, M, K, N,
-                                                 s);
-  } else {
-    float* o = static_cast<float*>(out);
-    err = aligned ? launch<float, true>(x, w, sx, sw, b, o, M, K, N, s)
-                  : launch<float, false>(x, w, sx, sw, b, o, M, K, N, s);
+  const int sms = hp::sm_count();
+  const bool tall = exact && use_tall(M, N, sms);
+  const int bm = tall ? Tall::BM : Wide::BM, bn = tall ? Tall::BN : Wide::BN;
+  CUtensorMap mx, mw;
+  const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t dw[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t stride[1] = {(cuuint64_t)K};
+  const cuuint64_t stride16[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box_x[2] = {BK, (cuuint32_t)bm};
+  const cuuint32_t box_w[2] = {BK, (cuuint32_t)bn};      // e4m3 rows
+  const cuuint32_t box_w16[2] = {64, (cuuint32_t)bn};    // 64 f16 = 128 B
+  int err = hp::make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, dx,
+                         stride, box_x);
+  if (err == 0)
+    err = exact ? hp::make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, w16,
+                               dw, stride16, box_w16)
+                : hp::make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wt, dw,
+                               stride, box_w);
+  if (err != 0) return err;
+  if (exact) {
+    const long long chunks = (long long)N * K / 16;
+    weight_to_f16<<<(unsigned)((chunks + 255) / 256), 256, 0, s>>>(
+        static_cast<const uint4*>(wt), static_cast<uint4*>(w16), chunks);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(err);
+  const long long tiles =
+      (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  const cudaError_t e = dtype == ptt::kBF16
+      ? dispatch<__nv_bfloat16>(exact, tall, accum, grid, mx, mw, sx, sw, b,
+                                out, M, K, N, s)
+      : dispatch<float>(exact, tall, accum, grid, mx, mw, sx, sw, b, out, M,
+                        K, N, s);
+  return static_cast<int>(e);
+}
+
+// dynamic shared memory a block of each shipped tile shape takes, bytes
+extern "C" int fp8_matmul_smem_bytes(int tall) {
+  return tall ? Tall::SMEM : Wide::SMEM;
 }

@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the training kernels
 // (flash_attention_bwd.cu, fused_ln_mlp.cu): ldmatrix loads from shared
 // memory and the mma.sync m16n8k16 bf16 product with f32 accumulation.
+// fp8_matmul.cu loads its e4m3 A rows with ldsm_x4 too.
 //
 // Fragment layout of the accumulator c[0..3] for lane (g = lane / 4,
 // t = lane % 4): c0 (row g, col 2t), c1 (g, 2t+1), c2 (g+8, 2t),

@@ -115,6 +115,10 @@ def _launch(q, k, v, causal, scale):
     _check(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if q.dtype == torch.bfloat16 and d in (64, 128):
+        # the TMA kernel's tensor maps need 16-byte-aligned bases
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
     if _lib is None:

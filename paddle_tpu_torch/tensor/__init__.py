@@ -6,12 +6,14 @@ from __future__ import annotations
 import torch
 
 from ..framework.core import Tensor, _unwrap, apply_op
-from . import creation, manipulation, math  # noqa: F401
+from . import creation, logic, manipulation, math  # noqa: F401
 from .creation import *  # noqa: F401,F403
+from .logic import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 
-__all__ = creation.__all__ + math.__all__ + manipulation.__all__
+__all__ = creation.__all__ + math.__all__ + manipulation.__all__ \
+    + logic.__all__
 
 
 def _index(idx):
@@ -42,21 +44,34 @@ def _rbinop(fn):
     return lambda self, other: fn(other, self)
 
 
+# the reference's table: comparisons give bool Tensors, and & | ^ ~ are
+# the logical ops
 _DUNDERS = {
     "__add__": _binop(add), "__radd__": _rbinop(add),
     "__sub__": _binop(subtract), "__rsub__": _rbinop(subtract),
     "__mul__": _binop(multiply), "__rmul__": _rbinop(multiply),
     "__truediv__": _binop(divide), "__rtruediv__": _rbinop(divide),
+    "__floordiv__": _binop(floor_divide),
+    "__rfloordiv__": _rbinop(floor_divide),
+    "__mod__": _binop(remainder), "__rmod__": _rbinop(remainder),
     "__pow__": _binop(pow), "__rpow__": _rbinop(pow),
     "__matmul__": _binop(matmul), "__rmatmul__": _rbinop(matmul),
-    "__neg__": neg,
+    "__eq__": _binop(equal), "__ne__": _binop(not_equal),
+    "__lt__": _binop(less_than), "__le__": _binop(less_equal),
+    "__gt__": _binop(greater_than), "__ge__": _binop(greater_equal),
+    "__and__": _binop(logical_and), "__or__": _binop(logical_or),
+    "__xor__": _binop(logical_xor),
+    "__neg__": neg, "__abs__": abs, "__invert__": logical_not,
     "__getitem__": _tensor_getitem, "__setitem__": _tensor_setitem,
 }
 for _name, _fn in _DUNDERS.items():
     setattr(Tensor, _name, _fn)
+# __hash__ stays framework/core.py's identity: a Tensor is a dict key and a
+# set member by identity while == compares elements, so membership tests
+# on Tensors in this package go by id()
 
 # t.sum(), t.reshape(...), ...: every op of this namespace that takes the
 # tensor first, unless Tensor defines it itself
-for _name in math.__all__ + manipulation.__all__:
-    if not hasattr(Tensor, _name):
+for _name in math.__all__ + manipulation.__all__ + logic.__all__:
+    if _name != "is_tensor" and not hasattr(Tensor, _name):
         setattr(Tensor, _name, globals()[_name])

@@ -1,6 +1,8 @@
 """Math ops (a subset of ``paddle_tpu/tensor/math.py``): elementwise
-arithmetic with broadcasting, ``matmul`` with Paddle's
-``transpose_x``/``transpose_y``, ``sum``, ``mean`` and ``scale``."""
+arithmetic with broadcasting (``floor_divide`` and ``remainder`` round
+toward minus infinity, as Python's ``//`` and ``%``), ``abs``,
+``matmul`` with Paddle's ``transpose_x``/``transpose_y``, ``sum``,
+``mean`` and ``scale``."""
 from __future__ import annotations
 
 import torch
@@ -8,8 +10,9 @@ import torch
 from ..framework import dtype as dtypes
 from ..framework.core import Tensor, _as_torch, apply_op
 
-__all__ = ["add", "subtract", "multiply", "divide", "pow", "matmul", "sum",
-           "mean", "scale", "neg"]
+__all__ = ["add", "subtract", "multiply", "divide", "floor_divide",
+           "remainder", "mod", "pow", "matmul", "sum", "mean", "scale", "neg",
+           "abs"]
 
 
 def _operand(v, like):
@@ -33,6 +36,9 @@ add = _binary(torch.add)
 subtract = _binary(torch.sub)
 multiply = _binary(torch.mul)
 divide = _binary(torch.true_divide)
+floor_divide = _binary(torch.floor_divide)
+remainder = _binary(torch.remainder)
+mod = remainder
 pow = _binary(torch.pow)  # noqa: A001
 
 
@@ -103,3 +109,7 @@ def _neg(x):
 
 def neg(x, name=None):
     return apply_op(_neg, x)
+
+
+def abs(x, name=None):  # noqa: A001
+    return apply_op(torch.abs, x)

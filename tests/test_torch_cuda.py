@@ -57,9 +57,17 @@ def _randn(shape, dtype, dev, seed):
 @pytest.mark.parametrize("sq,sk,d,causal", [(100, 100, 128, True),
                                             (16, 16, 64, True),
                                             (33, 97, 64, True),
-                                            (70, 70, 128, False)])
+                                            (70, 70, 128, False),
+                                            (200, 333, 128, True),
+                                            (130, 300, 64, False),
+                                            (300, 130, 128, True),
+                                            (257, 129, 64, True)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, tol, sq, sk, d,
                                     causal):
+    """bf16 at D 64 and 128 runs the TMA/wgmma kernel: Sq != Sk with a
+    ragged S at B·H = 8 puts tiles across the heads' boundaries of its 3D
+    tensor maps; Sq > Sk causal has rows that see no key (uniform over
+    every key, as in the plain version)."""
     q = _randn((2, 4, sq, d), dtype, cuda_device, 1)
     k = _randn((2, 4, sk, d), dtype, cuda_device, 2)
     v = _randn((2, 4, sk, d), dtype, cuda_device, 3)
@@ -469,13 +477,22 @@ def test_moe_gather_backward_on_card_matches_cpu(cuda_device):
                                         (256, 512, 384, False),
                                         (1, 2048, 128, False),
                                         (130, 96, 130, True),
-                                        (37, 40, 24, True)])
-def test_fp8_kernel_matches_plain(cuda_device, out, tol, M, K, N, bias):
+                                        (37, 40, 24, True),
+                                        (40, 8192, 72, False),
+                                        (100, 100, 192, True)])
+@pytest.mark.parametrize("layout", ["row", "col"])
+def test_fp8_kernel_matches_plain(cuda_device, out, tol, M, K, N, bias,
+                                  layout):
+    """Both weight layouts (a column-major wq is read in place, a
+    row-major one transposed first); K = 8192 at small M and N holds the
+    promoted f32 sum over 256 k32 steps; K = 100 is zero-padded to 112."""
     x = _randn((M, K), torch.float32, cuda_device, 41)
     w = _randn((K, N), torch.float32, cuda_device, 42) * 0.05
     b = _randn((N,), torch.float32, cuda_device, 43) if bias else None
     sx, sw = tf8._jit_scale(x), tf8._jit_scale(w)
-    xq, wq = tf8.quantize_fp8(x, sx), tf8.quantize_fp8(w, sw)
+    xq = tf8.quantize_fp8(x, sx)
+    wq = tf8.quantize_fp8(w, sw) if layout == "row" \
+        else tf8._quantize_fp8_kn(w, sw)
     before = tfm.LAUNCHES
     got = tfm.fp8_matmul_arrays(xq, wq, sx, sw, b, out_dtype=out)
     torch.cuda.synchronize()

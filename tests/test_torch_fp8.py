@@ -143,6 +143,42 @@ def test_plain_matmul_matches_reference_at_ragged_shapes(out, M, K, N):
     assert torch.equal(got3[0], got)
 
 
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N", [(32, 128, 256), (7, 100, 24)])
+def test_plain_matmul_is_bit_identical_for_either_weight_layout(out, M, K,
+                                                                N):
+    """The kernel reads a column-major wq in place and transposes a
+    row-major one; the plain version gives the same bits for both."""
+    _, (xt, wt, sxt, swt, bt) = _operands(M, K, N, seed=4)
+    col = wt.t().contiguous().t()
+    assert col.t().is_contiguous() and not col.is_contiguous()
+    assert torch.equal(col.view(torch.uint8), wt.view(torch.uint8))
+    row_out = tfm.fp8_matmul_arrays(xt, wt, sxt, swt, bt,
+                                    out_dtype=OUT[out][1])
+    col_out = tfm.fp8_matmul_arrays(xt, col, sxt, swt, bt,
+                                    out_dtype=OUT[out][1])
+    assert torch.equal(row_out, col_out)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_weight_quantized_into_an_nk_buffer(dtype):
+    """_Fp8MM writes the weight's e4m3 codes straight into an (N, K)
+    buffer (the kernel's K-major operand): the same codes as
+    quantize_fp8, and the STE backward reads the (K, N) view unchanged."""
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy((rng.standard_normal((128, 96)) * 0.1)
+                         .astype(np.float32)).to(OUT[dtype][1])
+    sw = tf._jit_scale(w)
+    col = tf._quantize_fp8_kn(w, sw)
+    assert col.shape == (128, 96) and col.t().is_contiguous()
+    assert torch.equal(col.view(torch.uint8),
+                       tf.quantize_fp8(w, sw).view(torch.uint8))
+    want = _codes(jf.quantize_fp8(jnp.asarray(w.float().numpy()).astype(
+        jnp.float32 if dtype == "f32" else jnp.bfloat16), float(sw)))
+    np.testing.assert_array_equal(col.contiguous().view(torch.uint8).numpy(),
+                                  want)
+
+
 # -- fp8_linear and delayed scaling ----------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
