@@ -12,8 +12,8 @@ stamped with the card's name and power limit):
    for the Hopper kernels (``csrc/hopper.cuh``: the fp8 matmul and the
    bf16 flash forward) each function's registers, spills and dynamic
    shared memory, and, where ``cuobjdump`` exists, the count of wgmma
-   (HGMMA, QGMMA) and TMA load (UTMALDG) instructions in its SASS (none
-   fails the run);
+   (HGMMA) and TMA load (UTMALDG) instructions in its SASS (none fails
+   the run);
 3. flash-attention forward vs its plain PyTorch version, causal, bf16
    and f32, at gpt_1p3b prefill shapes (1, 16, S, 128) for S in 16, 128
    (the bucket of a 100-token prompt), 2048, and at one gpt_small shape
@@ -21,7 +21,9 @@ stamped with the card's name and power limit):
    128), a non-causal (1, 12, 512, 64) and a ragged causal Sq 100 /
    Sk 612: max |Δo|, max |Δlse|, kernel / plain /
    scaled_dot_product_attention / bound times and the kernel's ratio
-   to the library call;
+   to the library call, each of the kernel's and the library's times
+   taken both around a lone call (``ms``) and per call of 20 issued back
+   to back (``batch_ms``);
 4. paged-attention decode vs its plain version at B=8, nh=16, hd=128,
    bs=16, W=128 over a 24-layer pool, ragged lengths with stale
    sink-only lanes; ``ragged`` True and False bit-identical;
@@ -81,20 +83,15 @@ stamped with the card's name and power limit):
     call), a 1500-row prefill (2048, 8192), a ragged (1000, 2048, 1000),
     a ragged (100, 64, 192) with a bias and a (100, 100, 192) whose K is
     zero-padded to 112, out bf16 and f32: errors, kernel / plain / bound
-    times, torch._scaled_mm's time, error and the kernel's ratio to it,
-    and at the training shapes the error and time of the e4m3 wgmma
-    variant with its sum promoted to f32 every 32 or 128 of K or never
-    (measurements only: the kernel ships exact f16 products); and the STE
-    backward's bf16 GEMM with f32 output against the f32 GEMM it
-    replaces;
+    times, torch._scaled_mm's time, error and the kernel's ratio to it
+    (lone call and back to back, as in phase 3); and the STE backward's
+    bf16 GEMM with f32 output against the f32 GEMM it replaces;
 17. phase 9's training again with fp8=True (the fp8 MLP wins over the
     fused one): every loss within FP8_TRAIN_LOSS_REL of phase 9's, the
     fp8 kernel's launches per step, step ms, tokens/s, peak memory;
 18. an fp8 training step's loss and gradients and the prefill's logits
     at full width, 2 layers, f32, on the card against the CPU, with the
-    share of e4m3 activation codes that differ; and the same drift with
-    the kernel's e4m3-wgmma variant (promoted every 32 of K), measured
-    only;
+    share of e4m3 activation codes that differ;
 19. the MoE dispatch gather against its plain version (bit-identical)
     at the decode (8 tokens, 64 slots), training (8192 tokens, 20480
     slots) and a ragged (H = 100, f32) shape, with the src of a real
@@ -237,18 +234,16 @@ BERT_CHECK_TOL = {"loss": 1e-5, "grad": 1e-4}
 
 # the warp-specialised Hopper kernels (wgmma + TMA) of phase 2's report:
 # source -> the kernel functions' name stems
-HOPPER_KERNELS = {"fp8_matmul": ("fp8_mm_exact", "fp8_mm_e4m3"),
+HOPPER_KERNELS = {"fp8_matmul": ("fp8_mm",),
                   "flash_attention_fwd": ("flash_fwd_wgmma",)}
 
 
 def hopper_report(_build):
     """Per Hopper kernel function: ptxas' registers and spill bytes, the
     dynamic shared memory a block takes, and, where cuobjdump exists, the
-    wgmma (HGMMA bf16, QGMMA e4m3) and TMA load (UTMALDG) instructions in
-    its SASS. Raises when such a kernel has none of either."""
-    smem = {"fp8_matmul": lambda lib: {
-                shape: lib.fp8_matmul_smem_bytes(tall)
-                for shape, tall in (("192x128", 0), ("128x256", 1))},
+    wgmma (HGMMA) and TMA load (UTMALDG) instructions in its SASS. Raises
+    when such a kernel has none of either."""
+    smem = {"fp8_matmul": lambda lib: lib.fp8_matmul_smem_bytes(),
             "flash_attention_fwd": lambda lib: {
                 d: lib.flash_attention_fwd_smem_bytes(d) for d in (64, 128)}}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -281,7 +276,7 @@ def hopper_report(_build):
             for ln in out.splitlines():
                 if "Function :" in ln:
                     fn = ln.split("Function :")[1].strip()
-                    sass[fn] = {"HGMMA": 0, "QGMMA": 0, "UTMALDG": 0}
+                    sass[fn] = {"HGMMA": 0, "UTMALDG": 0}
                 elif fn:
                     for key in sass[fn]:
                         sass[fn][key] += key in ln
@@ -293,8 +288,7 @@ def hopper_report(_build):
             if cuobjdump:
                 counts = sass.get(name, {})
                 row.update({k.lower(): v for k, v in counts.items()})
-                if not (counts.get("HGMMA") or counts.get("QGMMA")) \
-                        or not counts.get("UTMALDG"):
+                if not counts.get("HGMMA") or not counts.get("UTMALDG"):
                     raise AssertionError(f"no wgmma or TMA load in {row}")
             kernels.append(row)
     return {"sass_checked": cuobjdump is not None, "hopper_kernels": kernels}
@@ -1268,8 +1262,6 @@ FP8_SHAPES = ((8192, 2048, 8192, False, "col"),
               (1500, 2048, 8192, False, "col"),
               (1000, 2048, 1000, False, "col"),
               (100, 64, 192, True, "col"), (100, 100, 192, True, "row"))
-# shapes at which the e4m3 wgmma's error is measured (f32 out)
-FP8_PROMOTION = ((8192, 2048, 8192), (8192, 8192, 2048))
 # (name, tokens, hidden, capacity factor) of phase 19; 8 experts, top-2
 GATHER_SHAPES = (("decode", 8, 2048, None), ("training", 8192, 2048, 1.25),
                  ("ragged", 100, 100, 1.25))
@@ -1279,10 +1271,8 @@ def fp8_phase(dev, fm, f8, stamp, shapes=FP8_SHAPES, ste=(8192, 8192, 2048)):
     """Phase 16: the fp8 matmul kernel against its plain version at the
     fp8 training path's shapes (both weight layouts), a prefill length,
     ragged M, N and K, out bf16 and f32; torch._scaled_mm as the library
-    yardstick; the error and time of the e4m3 wgmma variant, its sum
-    promoted into f32 every 32 or 128 of K or never (measurements only:
-    the kernel ships f16 products, exact); then the STE backward's two
-    routes for one of its products."""
+    yardstick; then the STE backward's two routes for one of its
+    products."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
     rows = {}
@@ -1292,8 +1282,7 @@ def fp8_phase(dev, fm, f8, stamp, shapes=FP8_SHAPES, ste=(8192, 8192, 2048)):
         b = torch.randn(N, generator=gen, device=dev) if with_bias else None
         sx, sw = f8._jit_scale(x), f8._jit_scale(w)
         xq = f8.quantize_fp8(x, sx)
-        wq = f8._quantize_fp8_kn(w, sw) if layout == "col" \
-            else f8.quantize_fp8(w, sw)
+        wq = f8.quantize_fp8(w, sw, k_major=layout == "col")
         del x, w
         wcol = wq if layout == "col" else wq.t().contiguous().t()
         for out in (torch.bfloat16, torch.float32):
@@ -1304,14 +1293,6 @@ def fp8_phase(dev, fm, f8, stamp, shapes=FP8_SHAPES, ste=(8192, 8192, 2048)):
             rel = _rel(got, want)
             ok = rel <= FP8_TOL[out] and bool(torch.isfinite(got).all())
             extra = {}
-            if out == torch.float32 and (M, K, N) in FP8_PROMOTION:
-                for k_int in (32, 128, 0):
-                    alt = lambda: fm._launch(  # noqa: E731
-                        xq, wq, sx.reshape(-1), sw.reshape(-1), b, out,
-                        accum=k_int)
-                    extra[f"e4m3_promote_{k_int}_max_rel_err"] = \
-                        _rel(alt(), want)
-                    extra[f"e4m3_promote_{k_int}_ms"] = time_ms(alt)
             del got
             es = torch.finfo(out).bits // 8
             nbytes = M * K + K * N + M * N * es + 8 \
@@ -1392,8 +1373,7 @@ def _card_and_cpu(dev, cfg, params, batch, prompt):
 
     out = {}
     for device in (dev, "cpu"):
-        p = TS._map(lambda t: t.detach().to(device).requires_grad_(True),
-                    params)
+        p = TS._map(lambda t: t.to(device).requires_grad_(True), params)
         t0 = time.perf_counter()
         loss = G.gpt_loss(cfg, p, tuple(t.to(device) for t in batch),
                           loss_chunk=128)
@@ -1409,16 +1389,23 @@ def _card_and_cpu(dev, cfg, params, batch, prompt):
     return out[str(dev)], out["cpu"]
 
 
-def _fp8_drift(dev, cfg, params, batch, prompt):
-    """One fp8 training step's loss and gradients and the fixed-slot
-    prefill's logits on the card and on the CPU, and the e4m3 activation
-    codes the two quantized."""
+def fp8_check_phase(dev, stamp):
+    """Phase 18: an fp8 training step's loss and gradients, and the
+    fixed-slot prefill's logits, on the card (the fp8 kernel) against the
+    CPU (its plain version), full gpt_1p3b width, 2 layers, f32; with
+    the share of e4m3 activation codes that differ."""
     from paddle_tpu_torch.amp import fp8 as F8
+    from paddle_tpu_torch.models import gpt as G
 
-    # per fp8 matmul the activation is quantized first (quantize_fp8),
-    # then the weight (_quantize_fp8_kn, into its (N, K) buffer): 2 layers
-    # x 2 matmuls x (forward, remat recompute, prefill) on each device,
-    # the card's calls first
+    cfg = G.gpt_1p3b(n_layers=2, dtype=torch.float32, fp8=True, remat=True)
+    params = G.gpt_init(cfg, seed=8, device="cpu")
+    rng = np.random.default_rng(18)
+    batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))),
+             torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
+    # per fp8 matmul the activation is quantized first, then the weight:
+    # 2 layers x 2 matmuls x (forward, remat recompute, prefill) on each
+    # device, the card's calls first
     half = 2 * 2 * 3 * 2
     codes, first_cpu = [], []
 
@@ -1428,12 +1415,10 @@ def _fp8_drift(dev, cfg, params, batch, prompt):
             first_cpu.extend(a.detach().cpu() for a in args)
 
     restore = _recording(F8, "quantize_fp8", record)
-    restore_w = _recording(F8, "_quantize_fp8_kn", record)
     try:
         (l_card, g_card, lg_card, t_card), (l_cpu, g_cpu, lg_cpu, t_cpu) = \
             _card_and_cpu(dev, cfg, params, batch, prompt)
     finally:
-        restore_w()
         restore()
     if len(codes) != 2 * half:
         raise AssertionError(f"{len(codes)} fp8 quantizations, not "
@@ -1447,64 +1432,21 @@ def _fp8_drift(dev, cfg, params, batch, prompt):
     same_codes = torch.equal(
         F8.quantize_fp8(x_cpu.to(dev), s_cpu.to(dev)).view(torch.uint8)
         .cpu(), codes[half])
-    return {"loss_card": l_card, "loss_cpu": l_cpu,
-            "max_rel_err": {k: _rel(g_card[k], g) for k, g in g_cpu.items()},
-            "prefill_logits_rel_err": _rel(lg_card, lg_cpu),
-            "same_input_same_codes": same_codes,
-            "activation_codes_compared": total,
-            "activation_codes_differing_share": differ / max(total, 1),
-            "differing_share_by_call": share, "card_s": t_card,
-            "cpu_s": t_cpu}
-
-
-def fp8_check_phase(dev, stamp):
-    """Phase 18: an fp8 training step's loss and gradients, and the
-    fixed-slot prefill's logits, on the card (the fp8 kernel) against the
-    CPU (its plain version), full gpt_1p3b width, 2 layers, f32; with
-    the share of e4m3 activation codes that differ. Then the same with
-    the kernel's e4m3-wgmma variant (its sum promoted to f32 every 32 of
-    K), as a measurement: why the kernel ships f16 products."""
-    from paddle_tpu_torch.amp import fp8 as F8
-    from paddle_tpu_torch.models import gpt as G
-    from paddle_tpu_torch.ops import fp8_matmul as FM
-
-    cfg = G.gpt_1p3b(n_layers=2, dtype=torch.float32, fp8=True, remat=True)
-    params = G.gpt_init(cfg, seed=8, device="cpu")
-    rng = np.random.default_rng(18)
-    batch = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))),
-             torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))))
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
-    d = _fp8_drift(dev, cfg, params, batch, prompt)
+    rel = {k: _rel(g_card[k], g) for k, g in g_cpu.items()}
+    rel_logits = _rel(lg_card, lg_cpu)
     tol = FP8_CHECK_TOL
-    ok = abs(d["loss_card"] - d["loss_cpu"]) <= tol["loss"] \
-        and all(r <= tol["grad"] for r in d["max_rel_err"].values()) \
-        and d["prefill_logits_rel_err"] <= tol["logits"] \
-        and d["same_input_same_codes"]
-
-    shipped = F8.fp8_matmul_arrays
-
-    def e4m3_variant(xq, wq, sx, sw, bias=None, out_dtype=torch.float32):
-        if xq.device.type != "cuda":
-            return shipped(xq, wq, sx, sw, bias, out_dtype)
-        sx, sw = FM._scalar(sx, xq.device), FM._scalar(sw, xq.device)
-        out = FM._launch(xq.reshape(-1, xq.shape[-1]), wq, sx.reshape(-1),
-                         sw.reshape(-1), bias, out_dtype, accum=32)
-        return out.reshape(*xq.shape[:-1], wq.shape[1])
-
-    F8.fp8_matmul_arrays = e4m3_variant
-    try:
-        v = _fp8_drift(dev, cfg, params, batch, prompt)
-    finally:
-        F8.fp8_matmul_arrays = shipped
+    ok = abs(l_card - l_cpu) <= tol["loss"] \
+        and all(r <= tol["grad"] for r in rel.values()) \
+        and rel_logits <= tol["logits"] and same_codes
     row = {"phase": "fp8_grads", "model": "gpt_1p3b", "layers": 2,
-           "dtype": "float32", "batch": [1, 256], **d, "tol": tol, "ok": ok,
-           "e4m3_promote_32": {
-               "loss_abs_err": abs(v["loss_card"] - v["loss_cpu"]),
-               "max_grad_rel_err": max(v["max_rel_err"].values()),
-               "prefill_logits_rel_err": v["prefill_logits_rel_err"],
-               "activation_codes_differing_share":
-                   v["activation_codes_differing_share"]},
-           **stamp}
+           "dtype": "float32", "batch": [1, 256], "loss_card": l_card,
+           "loss_cpu": l_cpu, "max_rel_err": rel,
+           "prefill_logits_rel_err": rel_logits,
+           "same_input_same_codes": same_codes,
+           "activation_codes_compared": total,
+           "activation_codes_differing_share": differ / max(total, 1),
+           "differing_share_by_call": share,
+           "tol": tol, "card_s": t_card, "cpu_s": t_cpu, "ok": ok, **stamp}
     emit(row)
     if not ok:
         raise AssertionError(f"fp8 on the card and the CPU disagree: {row}")
@@ -2035,14 +1977,20 @@ def _kernel(name, source, replaces, launches, row, err, keys, library):
             "library_ms": row[library] if library else None}
 
 
-_BATCH_KEYS = ("batch_ms", "plain_ms", "bound_ms", "bound_by")
+def _batch_keys(row):
+    """A phase-3 or phase-16 row's back-to-back times, for the kernels
+    line beside the lone-call "ms" and "library_ms" of every kernel."""
+    return {"batch_ms": row["batch_ms"],
+            "library_batch_ms": row["library_batch_ms"]}
 
 
 def _shape_keys(row):
-    """A phase-3 row's shape and times, for the kernels line."""
-    return {k: row[k] for k in ("shape", "ms", "batch_ms", "library_ms",
-                                "library_batch_ms", "ratio_to_library",
-                                "batch_ratio_to_library", "bound_ms")}
+    """A phase-3 or phase-16 row's shape ((B, H, S, D) or (M, K, N)) and
+    times, for the kernels line."""
+    shape = row["shape"] if "shape" in row else [row[k] for k in "MKN"]
+    return {"shape": shape, **{k: row[k] for k in (
+        "ms", "batch_ms", "library_ms", "library_batch_ms",
+        "ratio_to_library", "batch_ratio_to_library", "bound_ms")}}
 
 
 def main():
@@ -2148,17 +2096,15 @@ def main():
     bl = bert["fused"]["launches"]
     plain = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
-        # the Hopper kernels: "ms" and "library_ms" are batch_ms
-        # times (calls back to back: the device's time) of the call and
-        # of the library call; "call_ms" / "library_call_ms" the CUDA-event
-        # times around each lone call (time_ms), host round trip held
+        # the Hopper kernels also carry their and the library call's
+        # times per call of 20 issued back to back ("batch_ms",
+        # "library_batch_ms"), beside the lone-call times of every kernel
         dict(_kernel("flash_attention_fwd",
                      "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
                      "paddle_tpu/ops/flash_attention.py:88",
                      runs[False]["launches"]["flash_attention_fwd"], f,
-                     f["max_abs_err_o"], _BATCH_KEYS, "library_batch_ms"),
-             call_ms=f["ms"], library_call_ms=f["library_ms"],
-             training_shape=_shape_keys(ft)),
+                     f["max_abs_err_o"], plain, "library_ms"),
+             **_batch_keys(f), training_shape=_shape_keys(ft)),
         _kernel("paged_attention_decode",
                 "paddle_tpu_torch/csrc/paged_attention.cu",
                 "paddle_tpu/ops/paged_attention.py:77",
@@ -2204,8 +2150,10 @@ def main():
         dict(_kernel("fp8_matmul", "paddle_tpu_torch/csrc/fp8_matmul.cu",
                      "paddle_tpu/ops/fp8_matmul.py:51",
                      train_fp8["launches"]["fp8_matmul"], f8r,
-                     f8r["max_abs_err"], _BATCH_KEYS, "library_batch_ms"),
-             call_ms=f8r["ms"], library_call_ms=f8r["library_ms"]),
+                     f8r["max_abs_err"], plain, "library_ms"),
+             **_batch_keys(f8r),
+             second_shape=_shape_keys(fp8[(8192, 8192, 2048, torch.bfloat16,
+                                           "col")])),
         _kernel("moe_dispatch_gather",
                 "paddle_tpu_torch/csrc/moe_dispatch.cu",
                 "paddle_tpu/ops/moe_dispatch.py:55",

@@ -40,23 +40,20 @@ def _f32(value, device):
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
 
-def quantize_fp8(x, scale):
+def quantize_fp8(x, scale, *, k_major=False):
     """x / scale in f32, saturated to the e4m3 range, cast to
-    float8_e4m3fn (round half to even). ``scale`` is floored at 1e-12."""
+    float8_e4m3fn (round half to even). ``scale`` is floored at 1e-12.
+
+    ``k_major=True``, for a weight x (K, N): the same cast writes the
+    codes straight into an (N, K)-contiguous buffer, and the result is its
+    (K, N) column-major view, which the fp8 kernel reads in place (it
+    takes the weight K-major). The values are bit-identical."""
     s = torch.clamp(_f32(scale, x.device), min=1e-12)
     q = torch.clamp(x.float() / s, -E4M3_MAX, E4M3_MAX)
-    return q.to(torch.float8_e4m3fn)
-
-
-def _quantize_fp8_kn(w, scale):
-    """``quantize_fp8(w, scale)`` for a weight w (K, N), its codes written
-    straight into an (N, K)-contiguous buffer by the same cast: the values
-    are bit-identical, and the result is the (K, N) column-major view that
-    the fp8 kernel reads in place (it takes the weight K-major)."""
-    s = torch.clamp(_f32(scale, w.device), min=1e-12)
-    q = torch.clamp(w.float() / s, -E4M3_MAX, E4M3_MAX)
-    buf = torch.empty((w.shape[1], w.shape[0]), dtype=torch.float8_e4m3fn,
-                      device=w.device)
+    if not k_major:
+        return q.to(torch.float8_e4m3fn)
+    buf = torch.empty((x.shape[1], x.shape[0]), dtype=torch.float8_e4m3fn,
+                      device=x.device)
     buf.t().copy_(q)
     return buf.t()
 
@@ -88,7 +85,7 @@ class _Fp8MM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, sx, sw):
         xq = quantize_fp8(x, sx)
-        wq = _quantize_fp8_kn(w, sw)
+        wq = quantize_fp8(w, sw, k_major=True)
         ctx.save_for_backward(xq, wq, sx, sw)
         ctx.dtypes = (x.dtype, w.dtype)
         return fp8_matmul_arrays(xq, wq, sx, sw, out_dtype=x.dtype)

@@ -20,47 +20,43 @@
 // the e4m3 tensor-core rate (1979 TFLOP/s) takes over from memory: the
 // bound is that rate, 0.139 ms.
 //
-// Why the shipped products are f16, not e4m3. Hopper's e4m3 wgmma sums
-// its products in reduced precision. Measured on the H100 against the
-// plain version (f32 out, max |Δ| / max |plain|; chip_smoke.py phase 16):
-// the whole K in the wgmma sum ~3e-3 (K = 2048) and ~8e-3 (K = 8192);
-// that sum promoted into f32 every 128 of K (what torch._scaled_mm's
-// default does, and its error is the same) 1.4e-4 to 2e-4, above the 1e-4
-// the f32 plain version is held to; every 32 (each k32 wgmma a fresh sum)
-// ~5e-5, and then the fp8 training step on the card drifts from the CPU's
-// past the bound of phase 18, which measures it. So the shipped path
-// converts each e4m3 operand to f16 (exact: f16 holds every e4m3 value)
-// and runs f16 wgmma with f32 sums, at the 16-bit rate, half the bound's;
-// `accum` 32, 128 and 0 still run the e4m3 wgmma, its sum promoted every
-// 32 or 128 of K or never, to measure those errors.
+// Why the products are f16, not e4m3. Hopper's e4m3 wgmma sums its
+// products in reduced precision. Measured on the H100 against the plain
+// version (f32 out, max |Δ| / max |plain|; PERF.md §6 has the readings
+// and how to rebuild that variant): the whole K in the wgmma sum ~3e-3
+// (K = 2048) and ~8e-3 (K = 8192); that sum promoted into f32 every 128
+// of K (what torch._scaled_mm's default does, and its error is the same)
+// 1.5e-4 to 2e-4, above the 1e-4 the f32 plain version is held to; every
+// 32 ~5e-5, but then the fp8 training step on the card flips twice as
+// many e4m3 activation codes as with exact sums and drifts from the
+// CPU's past the bound of chip_smoke.py's phase 18 on one seed of four.
+// So each e4m3 operand is converted to f16 (exact: f16 holds every e4m3
+// value) and the products run on f16 wgmma with f32 sums, at the 16-bit
+// rate, half the bound's.
 //
 // Design. First a small kernel writes wt into an f16 scratch (N, K) (the
 // wrapper allocates it), once a call: converting it inside the GEMM would
 // repeat the work for every row of output tiles. Then a persistent grid
-// (one block an SM) walks the output tiles, rastered in groups of 8 along
-// M so that neighbouring blocks share their operand tiles in L2. A block
-// is a producer warpgroup (setmaxnreg cuts its registers) whose one
-// thread keeps TMA loads in flight (a stage is the e4m3 tile of xq and the
-// f16 tile of wt, 128-byte swizzle; full/empty mbarriers; it runs on into
-// the next output tile while the consumers finish the last one) and
-// consumer warpgroups (raised registers), each owning 64 rows of the
-// output tile: per stage each loads its e4m3 rows with ldmatrix, converts
-// them in registers into the A operand of eight f16 wgmma m64nNk16 (B:
-// the wt tile, K-major in shared memory), and converts the next stage's
-// while those run. ldmatrix hands a thread four consecutive bytes of a
-// row where the A fragment wants k pairs (2t, 2t+1) and (2t+8, 2t+9); a
-// sum does not care about the order of k inside a k16 step, so the f16 wt
-// is written in the same permuted order (byte p of each 16 at k
-// 8·((p/2)%2) + 2·(p/4) + p%2). Two tile shapes, chosen per call from the
-// output's shape: 192x128 (three consumers, a ring of 4 stages of 56 KB),
-// and 128x256 (two consumers with 128 accumulators, wgmma m64n256, 2
-// stages of 80 KB) where its tiles fill the SMs' waves clearly better
-// (the (8192, 8192, 2048) product: 512 tiles in 3.9 waves of 132 against
-// 688 in 5.2). The epilogue scales and adds the bias in registers;
-// neighbouring lanes swap column pairs so that each stores four
-// consecutive outputs at once (the consumers store together while the
-// tensor cores idle, so fewer, wider stores are time back), masked at the
-// ragged edge (TMA zero-fills tiles past M, N and K).
+// (one block an SM) walks the 192x128 output tiles, rastered in groups of
+// 8 along M so that neighbouring blocks share their operand tiles in L2.
+// A block is a producer warpgroup (setmaxnreg cuts its registers) whose
+// one thread keeps TMA loads in flight (a stage is the e4m3 tile of xq and
+// the f16 tile of wt, 128 of K, 128-byte swizzle, 56 KB; a ring of 4;
+// full/empty mbarriers; it runs on into the next output tile while the
+// consumers finish the last one) and three consumer warpgroups (raised
+// registers), each owning 64 rows of the output tile: per stage each
+// loads its e4m3 rows with ldmatrix, converts them in registers into the
+// A operand of eight f16 wgmma m64n128k16 (B: the wt tile, K-major in
+// shared memory), and converts the next stage's while those run.
+// ldmatrix hands a thread four consecutive bytes of a row where the A
+// fragment wants k pairs (2t, 2t+1) and (2t+8, 2t+9); a sum does not care
+// about the order of k inside a k16 step, so the f16 wt is written in the
+// same permuted order (byte p of each 16 at k 8·((p/2)%2) + 2·(p/4) +
+// p%2). The epilogue scales and adds the bias in registers; neighbouring
+// lanes swap column pairs so that each stores four consecutive outputs at
+// once (the consumers store together while the tensor cores idle, so
+// fewer, wider stores are time back), masked at the ragged edge (TMA
+// zero-fills tiles past M, N and K).
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
@@ -71,37 +67,21 @@ namespace {
 
 namespace hp = ptt::hopper;
 
+constexpr int NC = 3;                          // consumer warpgroups
+constexpr int BM = 64 * NC, BN = 128;          // an output tile
 constexpr int BK = 128;                        // k a stage (bytes = values)
 constexpr int GROUP_M = 8;
-constexpr int SMEM_MAX = 227 * 1024;           // a block's shared memory
-// accum modes: EXACT (f16 products, shipped) or the e4m3 wgmma sum
-// promoted every 32 / 128 of K, or never (measurements only)
-constexpr int EXACT = -1;
-
-// a tile shape: NC consumer warpgroups of 64 rows each, BN columns;
-// F16 = the wt tile in f16 (the shipped path) or e4m3
-template <int NC_, int BN_, bool F16>
-struct Tile {
-  static constexpr int NC = NC_, BM = 64 * NC_, BN = BN_;
-  static constexpr int A_BYTES = BM * BK;               // xq tile, e4m3
-  static constexpr int BOX = BN * 128;                  // a 128-byte-wide
-                                                        // box of wt rows
-  static constexpr int B_BYTES = F16 ? 2 * BOX : BOX;   // wt tile
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int STAGES = (SMEM_MAX - 2048) / STAGE < 4
-      ? (SMEM_MAX - 2048) / STAGE : 4;
-  static constexpr int NT = 128 * (NC + 1);             // + the producer
-  static constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8;
-  // registers a thread after setmaxnreg (128 x REG_P + 128 NC x REG_C
-  // within the SM's 65536): the consumers hold BN / 2 accumulators
-  static constexpr int REG_P = NC == 3 ? 24 : 40;
-  static constexpr int REG_C = NC == 3 ? 160 : 232;
-};
-// the shipped tiles: 192x128 (three consumers) where the output tiles
-// fill the SMs' waves evenly, 128x256 (two) where they fill them better
-using Wide = Tile<3, 128, true>;
-using Tall = Tile<2, 256, true>;
-using E4m3 = Tile<3, 128, false>;          // the e4m3 measurement kernel
+constexpr int A_BYTES = BM * BK;               // the xq tile, e4m3
+constexpr int BOX = BN * 128;                  // a 128-byte-wide box of
+                                               // wt rows (64 f16 values)
+constexpr int STAGE = A_BYTES + 2 * BOX;       // + the f16 wt tile: 56 KB
+constexpr int STAGES = 4;
+constexpr int NT = 128 * (NC + 1);             // + the producer
+constexpr int SMEM = STAGES * STAGE + 1024 + 2 * STAGES * 8;
+static_assert(SMEM <= 227 * 1024, "a block's shared memory");
+// registers a thread after setmaxnreg (128 x REG_P + 128 NC x REG_C within
+// the SM's 65536): each consumer thread holds 64 accumulators
+constexpr int REG_P = 24, REG_C = 160;
 
 // tile t of the grouped raster -> (m block, n block)
 __device__ __forceinline__ void tile_coords(int t, int mt, int nt, int& bm,
@@ -248,31 +228,11 @@ __device__ __forceinline__ void epilogue(const float (&total)[R], T* out,
   }
 }
 
-// the shared start of both kernels: barriers initialised, the producer's
-// TMA loop, then control to the consumers; `load` issues one stage's
-// copies into `st` for k block kb of output tile (bm, bn)
-template <typename C, typename Load>
-__device__ __forceinline__ void produce(uint64_t* full, uint64_t* empty,
-                                        unsigned char* smem, int tiles,
-                                        int mt, int nt, int KT, Load load) {
-  int it = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    int bm, bn;
-    tile_coords(t, mt, nt, bm, bn);
-    for (int kb = 0; kb < KT; ++kb, ++it) {
-      const int s = it % C::STAGES;
-      hp::mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
-      hp::mbar_arrive_expect_tx(&full[s], C::STAGE);
-      load(smem + s * C::STAGE, &full[s], kb, bm, bn);
-    }
-  }
-}
-
-// the shipped kernel: e4m3 xq converted in registers, f16 wt from TMA,
-// f16 wgmma m64nBNk16 with A in registers, exact f32 sums
-template <typename T, typename C>
-__global__ void __launch_bounds__(C::NT, 1)
-fp8_mm_exact(const __grid_constant__ CUtensorMap map_x,
+// the kernel: e4m3 xq converted in registers, f16 wt from TMA, f16
+// wgmma m64n128k16 with A in registers, exact f32 sums
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+fp8_mm(const __grid_constant__ CUtensorMap map_x,
              const __grid_constant__ CUtensorMap map_w,
              const float* __restrict__ sx, const float* __restrict__ sw,
              const float* __restrict__ b, T* __restrict__ out, int M, int K,
@@ -280,17 +240,17 @@ fp8_mm_exact(const __grid_constant__ CUtensorMap map_x,
   extern __shared__ unsigned char fp8_smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(fp8_smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
-  uint64_t* empty = full + C::STAGES;
-  const int mt = (M + C::BM - 1) / C::BM, nt = (N + C::BN - 1) / C::BN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int mt = (M + BM - 1) / BM, nt = (N + BN - 1) / BN;
   const int tiles = mt * nt;
   const int KT = (K + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       hp::mbar_init(&full[s], 1);
-      hp::mbar_init(&empty[s], C::NC);      // one arrival per consumer
+      hp::mbar_init(&empty[s], NC);      // one arrival per consumer
     }
     hp::mbar_fence_init();
   }
@@ -298,29 +258,35 @@ fp8_mm_exact(const __grid_constant__ CUtensorMap map_x,
 
   if (wg == 0) {
     // ---- producer: TMA loads of every output tile's stages, in order ----
-    hp::setmaxnreg_dec<C::REG_P>();
+    hp::setmaxnreg_dec<REG_P>();
     if (threadIdx.x == 0) {
       hp::tma_prefetch_map(&map_x);
       hp::tma_prefetch_map(&map_w);
-      produce<C>(full, empty, smem, tiles, mt, nt, KT,
-                 [&](unsigned char* st, uint64_t* bar, int kb, int bm,
-                     int bn) {
-                   hp::tma_load_2d(st, &map_x, bar, kb * BK, bm * C::BM);
-                   // the f16 wt tile: two boxes of 64 k, BN rows each
-                   hp::tma_load_2d(st + C::A_BYTES, &map_w, bar, kb * BK,
-                                   bn * C::BN);
-                   hp::tma_load_2d(st + C::A_BYTES + C::BOX, &map_w, bar,
-                                   kb * BK + 64, bn * C::BN);
-                 });
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int bm, bn;
+        tile_coords(t, mt, nt, bm, bn);
+        for (int kb = 0; kb < KT; ++kb, ++it) {
+          const int s = it % STAGES;
+          unsigned char* st = smem + s * STAGE;
+          hp::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          hp::mbar_arrive_expect_tx(&full[s], STAGE);
+          hp::tma_load_2d(st, &map_x, &full[s], kb * BK, bm * BM);
+          // the f16 wt tile: two boxes of 64 k, BN rows each
+          hp::tma_load_2d(st + A_BYTES, &map_w, &full[s], kb * BK, bn * BN);
+          hp::tma_load_2d(st + A_BYTES + BOX, &map_w, &full[s],
+                          kb * BK + 64, bn * BN);
+        }
+      }
     }
   } else {
     // ---- consumers: warpgroup c owns rows [64c, 64c + 64) of a tile ----
-    hp::setmaxnreg_inc<C::REG_C>();
+    hp::setmaxnreg_inc<REG_C>();
     const int c = wg - 1;
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const float scale = __fmul_rn(sx[0], sw[0]);
-    float acc[C::BN / 2];
+    float acc[BN / 2];
     // the row this lane addresses for ldmatrix: its matrices are (rows
     // 0-7, chunk 2q), (rows 8-15, 2q), (rows 0-7, 2q + 1) and (rows 8-15,
     // 2q + 1) of the warp's 16 rows
@@ -330,9 +296,9 @@ fp8_mm_exact(const __grid_constant__ CUtensorMap map_x,
     // before run: two register sets, taken in turn
     uint32_t pa0[8][4], pa1[8][4];
     auto load_a = [&](uint32_t (&pa)[8][4], int i) {
-      const int s = i % C::STAGES;
-      hp::mbar_wait(&full[s], (i / C::STAGES) & 1);
-      const unsigned char* row = smem + s * C::STAGE + lr * 128;
+      const int s = i % STAGES;
+      hp::mbar_wait(&full[s], (i / STAGES) & 1);
+      const unsigned char* row = smem + s * STAGE + lr * 128;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         uint32_t r[4];
@@ -351,18 +317,15 @@ fp8_mm_exact(const __grid_constant__ CUtensorMap map_x,
     // is loaded before their wait
     auto step = [&](uint32_t (&pa)[8][4], uint32_t (&next)[8][4], int i,
                     int kb) {
-      const int s = i % C::STAGES;
+      const int s = i % STAGES;
       const uint64_t db =
-          hp::desc_sw128(smem + s * C::STAGE + C::A_BYTES, 16, 1024);
+          hp::desc_sw128(smem + s * STAGE + A_BYTES, 16, 1024);
       hp::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         const uint64_t d =
-            hp::desc_advance(db, (kk / 4) * C::BOX + (kk % 4) * 32);
-        if constexpr (C::BN == 256)
-          hp::wgmma_m64n256k16_f16_rs(acc, pa[kk], d, kb > 0 || kk > 0);
-        else
-          hp::wgmma_m64n128k16_f16_rs(acc, pa[kk], d, kb > 0 || kk > 0);
+            hp::desc_advance(db, (kk / 4) * BOX + (kk % 4) * 32);
+        hp::wgmma_m64n128k16_f16_rs(acc, pa[kk], d, kb > 0 || kk > 0);
       }
       hp::wgmma_commit();
       if (kb + 1 < KT) load_a(next, i + 1);
@@ -382,227 +345,77 @@ fp8_mm_exact(const __grid_constant__ CUtensorMap map_x,
       it -= (KT & 1);         // an odd KT took one stage, not two, last
       if (KT == 0) {
 #pragma unroll
-        for (int i = 0; i < C::BN / 2; ++i) acc[i] = 0.f;
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       }
-      epilogue<T>(acc, out, b, scale, bm * C::BM + c * 64 + warp * 16
-                  + lane / 4, bn * C::BN + 2 * (lane % 4), M, N);
+      epilogue<T>(acc, out, b, scale, bm * BM + c * 64 + warp * 16
+                  + lane / 4, bn * BN + 2 * (lane % 4), M, N);
     }
   }
-}
-
-// the measurement kernel: e4m3 wgmma m64n128k32 on TMA-loaded e4m3
-// tiles, P k32 wgmmas per f32 promotion (1 or 4: every 32 or 128 of K),
-// or 0 for none
-template <typename T, int P>
-__global__ void __launch_bounds__(E4m3::NT, 1)
-fp8_mm_e4m3(const __grid_constant__ CUtensorMap map_x,
-            const __grid_constant__ CUtensorMap map_w,
-            const float* __restrict__ sx, const float* __restrict__ sw,
-            const float* __restrict__ b, T* __restrict__ out, int M, int K,
-            int N) {
-  using C = E4m3;
-  extern __shared__ unsigned char fp8_smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(fp8_smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
-  uint64_t* empty = full + C::STAGES;
-  const int mt = (M + C::BM - 1) / C::BM, nt = (N + C::BN - 1) / C::BN;
-  const int tiles = mt * nt;
-  const int KT = (K + BK - 1) / BK;
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      hp::mbar_init(&full[s], 1);
-      hp::mbar_init(&empty[s], C::NC);
-    }
-    hp::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    hp::setmaxnreg_dec<C::REG_P>();
-    if (threadIdx.x == 0)
-      produce<C>(full, empty, smem, tiles, mt, nt, KT,
-                 [&](unsigned char* st, uint64_t* bar, int kb, int bm,
-                     int bn) {
-                   hp::tma_load_2d(st, &map_x, bar, kb * BK, bm * C::BM);
-                   hp::tma_load_2d(st + C::A_BYTES, &map_w, bar, kb * BK,
-                                   bn * C::BN);
-                 });
-  } else {
-    hp::setmaxnreg_inc<C::REG_C>();
-    const int c = wg - 1;
-    const int tid = threadIdx.x % 128;
-    const int warp = tid / 32, lane = tid % 32;
-    const float scale = __fmul_rn(sx[0], sw[0]);
-    float acc[64], total[64];
-    int it = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      int bm, bn;
-      tile_coords(t, mt, nt, bm, bn);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) total[i] = 0.f;
-      for (int kb = 0; kb < KT; ++kb, ++it) {
-        const int s = it % C::STAGES;
-        hp::mbar_wait(&full[s], (it / C::STAGES) & 1);
-        const unsigned char* st = smem + s * C::STAGE;
-        const uint64_t da = hp::desc_sw128(st + c * 64 * 128, 16, 1024);
-        const uint64_t db = hp::desc_sw128(st + C::A_BYTES, 16, 1024);
-        // groups of P k32 wgmmas into a fresh sum, each added into the f32
-        // total once it has completed (P = 0: one sum over all K)
-        constexpr int G = P == 0 ? BK / 32 : P;
-#pragma unroll
-        for (int k0 = 0; k0 < BK / 32; k0 += G) {
-          hp::wgmma_fence();
-#pragma unroll
-          for (int k = k0; k < k0 + G; ++k)
-            hp::wgmma_m64n128k32_e4m3(acc, hp::desc_advance(da, 32 * k),
-                                      hp::desc_advance(db, 32 * k),
-                                      k > k0 || (P == 0 && kb > 0));
-          hp::wgmma_commit();
-          hp::wgmma_wait<0>();
-          hp::fence_regs(acc);
-          if (k0 + G == BK / 32 && tid == 0) hp::mbar_arrive(&empty[s]);
-          if constexpr (P != 0) {
-#pragma unroll
-            for (int i = 0; i < 64; ++i)
-              total[i] = __fadd_rn(total[i], acc[i]);
-          }
-        }
-      }
-      if constexpr (P == 0) {
-#pragma unroll
-        for (int i = 0; i < 64; ++i) total[i] = KT > 0 ? acc[i] : 0.f;
-      }
-      epilogue<T>(total, out, b, scale, bm * C::BM + c * 64 + warp * 16
-                  + lane / 4, bn * C::BN + 2 * (lane % 4), M, N);
-    }
-  }
-}
-
-// one launch of `kernel`, a block of `nt` threads and `smem` bytes of
-// dynamic shared memory (the attribute is per kernel: set at its first
-// launch; `configured` is one flag per kernel)
-template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, bool& configured, int nt, int smem,
-                   int grid, const CUtensorMap& mx, const CUtensorMap& mw,
-                   const float* sx, const float* sw, const float* b, void* out,
-                   int M, int K, int N, cudaStream_t s) {
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  kernel<<<grid, nt, smem, s>>>(mx, mw, sx, sw, b, static_cast<T*>(out), M,
-                                K, N);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(bool exact, bool tall, int accum, int grid,
-                     const CUtensorMap& mx, const CUtensorMap& mw,
-                     const float* sx, const float* sw, const float* b,
-                     void* out, int M, int K, int N, cudaStream_t s) {
-  static bool set[5] = {false, false, false, false, false};
-  if (exact && tall)
-    return launch<T>(fp8_mm_exact<T, Tall>, set[0], Tall::NT, Tall::SMEM,
-                     grid, mx, mw, sx, sw, b, out, M, K, N, s);
-  if (exact)
-    return launch<T>(fp8_mm_exact<T, Wide>, set[1], Wide::NT, Wide::SMEM,
-                     grid, mx, mw, sx, sw, b, out, M, K, N, s);
-  if (accum == 32)
-    return launch<T>(fp8_mm_e4m3<T, 1>, set[2], E4m3::NT, E4m3::SMEM, grid,
-                     mx, mw, sx, sw, b, out, M, K, N, s);
-  if (accum == 128)
-    return launch<T>(fp8_mm_e4m3<T, 4>, set[3], E4m3::NT, E4m3::SMEM, grid,
-                     mx, mw, sx, sw, b, out, M, K, N, s);
-  return launch<T>(fp8_mm_e4m3<T, 0>, set[4], E4m3::NT, E4m3::SMEM, grid, mx,
-                   mw, sx, sw, b, out, M, K, N, s);
-}
-
-// the share of the SMs' waves that `tiles` output tiles fill
-double wave_fill(long long tiles, int sms) {
-  const long long waves = (tiles + sms - 1) / sms;
-  return waves > 0 ? double(tiles) / double(waves * sms) : 0.0;
-}
-
-// the shipped tile for an (M, N) output: Tall where its tiles fill the
-// waves clearly better than Wide's (at (8192, 8192, 2048) on 132 SMs:
-// 512 tiles in 3.88 waves against 688 in 5.21) and make at least one
-// wave, else Wide
-bool use_tall(int M, int N, int sms) {
-  const long long wide = (long long)((M + Wide::BM - 1) / Wide::BM)
-      * ((N + Wide::BN - 1) / Wide::BN);
-  const long long tall = (long long)((M + Tall::BM - 1) / Tall::BM)
-      * ((N + Tall::BN - 1) / Tall::BN);
-  return tall >= sms && wave_fill(tall, sms) > wave_fill(wide, sms) + 0.05;
 }
 
 }  // namespace
 
 // xq (M, K) and wt (N, K) e4m3 row-major (wt is wqᵀ), K a multiple of 16,
-// both bases 16-byte aligned; w16 an (N, K) f16 scratch the shipped path
-// writes wt into (null for the others); sx, sw f32 device scalars; b f32
-// (N) or null; out (M, N) in `dtype` (0 f32, 1 bf16); `accum` -1 for the
-// f16 products (shipped), or 32, 128 or 0 for the e4m3 wgmma sum
-// promoted every 32 or 128 of K or never (measurements). Returns a CUDA
-// error code: cudaGetLastError() after the launches, or the refusal of
-// the arguments or of the tensor maps.
+// all three bases 16-byte aligned; w16 an (N, K) f16 scratch that wt is
+// written into first; sx, sw f32 device scalars; b f32 (N) or null; out
+// (M, N) in `dtype` (0 f32, 1 bf16). Returns a CUDA error code:
+// cudaGetLastError() after the launches, or the refusal of the arguments
+// or of the tensor maps.
 extern "C" int fp8_matmul(const void* xq, const void* wt, void* w16,
                           const float* sx, const float* sw, const float* b,
                           void* out, int M, int K, int N, int dtype,
-                          int accum, void* stream) {
-  const bool exact = accum == EXACT;
+                          void* stream) {
   if (M < 0 || K < 0 || N < 0 || K % 16 != 0
       || (dtype != ptt::kF32 && dtype != ptt::kBF16)
-      || (accum != EXACT && accum != 32 && accum != 128 && accum != 0)
       || ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wt)
            | reinterpret_cast<uintptr_t>(w16)) & 15) != 0
-      || (exact && w16 == nullptr))
+      || w16 == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   if (K == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int sms = hp::sm_count();
-  const bool tall = exact && use_tall(M, N, sms);
-  const int bm = tall ? Tall::BM : Wide::BM, bn = tall ? Tall::BN : Wide::BN;
   CUtensorMap mx, mw;
   const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t dw[2] = {(cuuint64_t)K, (cuuint64_t)N};
   const cuuint64_t stride[1] = {(cuuint64_t)K};
   const cuuint64_t stride16[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box_x[2] = {BK, (cuuint32_t)bm};
-  const cuuint32_t box_w[2] = {BK, (cuuint32_t)bn};      // e4m3 rows
-  const cuuint32_t box_w16[2] = {64, (cuuint32_t)bn};    // 64 f16 = 128 B
+  const cuuint32_t box_x[2] = {BK, BM};
+  const cuuint32_t box_w16[2] = {64, BN};        // 64 f16 = 128 bytes
   int err = hp::make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, dx,
                          stride, box_x);
   if (err == 0)
-    err = exact ? hp::make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, w16,
-                               dw, stride16, box_w16)
-                : hp::make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wt, dw,
-                               stride, box_w);
+    err = hp::make_map(&mw, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, w16, dw,
+                       stride16, box_w16);
   if (err != 0) return err;
-  if (exact) {
-    const long long chunks = (long long)N * K / 16;
-    weight_to_f16<<<(unsigned)((chunks + 255) / 256), 256, 0, s>>>(
-        static_cast<const uint4*>(wt), static_cast<uint4*>(w16), chunks);
-    const cudaError_t e = cudaGetLastError();
+  const long long chunks = (long long)N * K / 16;
+  weight_to_f16<<<(unsigned)((chunks + 255) / 256), 256, 0, s>>>(
+      static_cast<const uint4*>(wt), static_cast<uint4*>(w16), chunks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the attribute is per kernel: set at each one's first launch
+  static bool configured[2] = {false, false};
+  const bool bf16 = dtype == ptt::kBF16;
+  const void* kernel = bf16
+      ? reinterpret_cast<const void*>(fp8_mm<__nv_bfloat16>)
+      : reinterpret_cast<const void*>(fp8_mm<float>);
+  if (!configured[bf16]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
+    configured[bf16] = true;
   }
-  const long long tiles =
-      (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+  const int sms = hp::sm_count();
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = (int)(tiles < sms ? tiles : sms);
-  const cudaError_t e = dtype == ptt::kBF16
-      ? dispatch<__nv_bfloat16>(exact, tall, accum, grid, mx, mw, sx, sw, b,
-                                out, M, K, N, s)
-      : dispatch<float>(exact, tall, accum, grid, mx, mw, sx, sw, b, out, M,
-                        K, N, s);
-  return static_cast<int>(e);
+  if (bf16)
+    fp8_mm<__nv_bfloat16><<<grid, NT, SMEM, s>>>(
+        mx, mw, sx, sw, b, static_cast<__nv_bfloat16*>(out), M, K, N);
+  else
+    fp8_mm<float><<<grid, NT, SMEM, s>>>(
+        mx, mw, sx, sw, b, static_cast<float*>(out), M, K, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// dynamic shared memory a block of each shipped tile shape takes, bytes
-extern "C" int fp8_matmul_smem_bytes(int tall) {
-  return tall ? Tall::SMEM : Wide::SMEM;
-}
+// dynamic shared memory a block takes, bytes
+extern "C" int fp8_matmul_smem_bytes() { return SMEM; }

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
 // (fp8_matmul.cu, flash_attention_fwd.cu): mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and products (bf16 and f16 with A from
-// shared memory or registers, e4m3), register rebalancing, and the
-// host-side encoding of TMA tensor maps.
+// wgmma shared-memory descriptors and products (bf16 with A from shared
+// memory or registers, f16 with A from registers), register rebalancing,
+// and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory layout every descriptor here assumes: a tile of R rows
 // whose rows are exactly 128 bytes (64 bf16 or 128 e4m3 values), written
@@ -172,20 +172,6 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
 
-// d (64 x 128 f32) (+)= a (64 x 32 e4m3, K-major) · b (32 x 128 e4m3,
-// K-major), both from shared memory; accumulate = 0 overwrites d
-__device__ __forceinline__ void wgmma_m64n128k32_e4m3(float (&d)[64],
-                                                      uint64_t da,
-                                                      uint64_t db,
-                                                      int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 " PTT_D64
-      ", %64, %65, p, 1, 1;\n}\n"
-      : PTT_R32(0), PTT_R32(32)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 // d (64 x 128 f32) (+)= a (64 x 16 bf16, K-major) · b (16 x 128 bf16,
 // K-major), both from shared memory
 __device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64],
@@ -224,31 +210,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_f16_rs(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }
-
-// d (64 x 256 f32) (+)= a (64 x 16 f16, registers) · b (16 x 256 f16,
-// K-major in shared memory)
-#define PTT_D128 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
-  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
-  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
-  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
-  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
-  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
-  "%122, %123, %124, %125, %126, %127}"
-__device__ __forceinline__ void wgmma_m64n256k16_f16_rs(
-    float (&d)[128], const uint32_t (&a)[4], uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 " PTT_D128
-      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : PTT_R32(0), PTT_R32(32), PTT_R32(64), PTT_R32(96)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-#undef PTT_D128
 
 __device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(
     float (&d)[32], const uint32_t (&a)[4], uint64_t db) {

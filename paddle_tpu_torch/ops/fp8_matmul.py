@@ -10,11 +10,9 @@ per matmul). Scale management lives in ``amp/fp8.py``.
 The kernel reads the weight K-major, as ``wqᵀ`` (N, K) row-major: a
 column-major ``wq`` (``wq.t()`` contiguous, as ``amp/fp8.py`` writes it)
 goes straight in, a row-major one is transposed once here. Its products
-run on f16 wgmma (exact for e4m3, f32 sums); the e4m3 wgmma, whose sums
-are not exact, is built beside it only to measure that error
-(``_launch(..., accum=32 / 128 / 0)``). TMA needs 16-byte row strides
-and bases, so a K that is not a multiple of 16 is zero-padded (exact)
-and an unaligned operand is copied.
+run on f16 wgmma (exact for e4m3, f32 sums). TMA needs 16-byte row
+strides and bases, so a K that is not a multiple of 16 is zero-padded
+(exact) and an unaligned operand is copied.
 
 CUDA tensors launch the kernel at any M, K and N; CPU tensors run the
 plain version.
@@ -57,7 +55,7 @@ def _load():
     if _lib is None:
         lib = _build.load("fp8_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fp8_matmul.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.fp8_matmul.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         lib.fp8_matmul.restype = i
         lib.ptt_error_string.argtypes = [ctypes.c_int]
         lib.ptt_error_string.restype = ctypes.c_char_p
@@ -80,11 +78,8 @@ def _k_major(t, kp):
     return out.view(torch.float8_e4m3fn)
 
 
-def _launch(x2, wq, sx, sw, bias, out_dtype, accum=-1):
-    """The kernel on CUDA tensors: x2 (M, K), wq (K, N) in either layout.
-    ``accum`` -1 runs the shipped f16 products; 32, 128 or 0 the e4m3
-    wgmma with its sum promoted to f32 every 32 or 128 of K or never,
-    only to measure those errors."""
+def _launch(x2, wq, sx, sw, bias, out_dtype):
+    """The kernel on CUDA tensors: x2 (M, K), wq (K, N) in either layout."""
     global LAUNCHES
     M, K = x2.shape
     if wq.dim() != 2 or wq.shape[0] != K:
@@ -113,17 +108,14 @@ def _launch(x2, wq, sx, sw, bias, out_dtype, accum=-1):
     wt = _k_major(wq.t(), kp)        # (N, K): no copy for a column-major wq
     lib = _load()
     out = torch.empty((M, N), dtype=out_dtype, device=x2.device)
-    # the f16 image of wt the shipped path converts it into first
-    w16 = torch.empty((N, kp), dtype=torch.float16, device=x2.device) \
-        if accum == -1 else None
+    # the f16 image of wt the kernel converts it into first
+    w16 = torch.empty((N, kp), dtype=torch.float16, device=x2.device)
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.fp8_matmul(
-            xk.data_ptr(), wt.data_ptr(),
-            w16.data_ptr() if w16 is not None else None, sx.data_ptr(),
+            xk.data_ptr(), wt.data_ptr(), w16.data_ptr(), sx.data_ptr(),
             sw.data_ptr(), bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), M, kp, N, _OUT_DTYPES[out_dtype], int(accum),
-            stream)
+            out.data_ptr(), M, kp, N, _OUT_DTYPES[out_dtype], stream)
     _build.check(lib, err, "fp8_matmul")
     LAUNCHES += 1
     return out

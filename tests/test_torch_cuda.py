@@ -485,14 +485,15 @@ def test_fp8_kernel_matches_plain(cuda_device, out, tol, M, K, N, bias,
                                   layout):
     """Both weight layouts (a column-major wq is read in place, a
     row-major one transposed first); K = 8192 at small M and N holds the
-    promoted f32 sum over 256 k32 steps; K = 100 is zero-padded to 112."""
+    f32 sum over 64 pipeline stages of 128 k; K = 100 is zero-padded to
+    112."""
     x = _randn((M, K), torch.float32, cuda_device, 41)
     w = _randn((K, N), torch.float32, cuda_device, 42) * 0.05
     b = _randn((N,), torch.float32, cuda_device, 43) if bias else None
     sx, sw = tf8._jit_scale(x), tf8._jit_scale(w)
     xq = tf8.quantize_fp8(x, sx)
     wq = tf8.quantize_fp8(w, sw) if layout == "row" \
-        else tf8._quantize_fp8_kn(w, sw)
+        else tf8.quantize_fp8(w, sw, k_major=True)
     before = tfm.LAUNCHES
     got = tfm.fp8_matmul_arrays(xq, wq, sx, sw, b, out_dtype=out)
     torch.cuda.synchronize()

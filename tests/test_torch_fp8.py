@@ -162,14 +162,15 @@ def test_plain_matmul_is_bit_identical_for_either_weight_layout(out, M, K,
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_weight_quantized_into_an_nk_buffer(dtype):
-    """_Fp8MM writes the weight's e4m3 codes straight into an (N, K)
-    buffer (the kernel's K-major operand): the same codes as
-    quantize_fp8, and the STE backward reads the (K, N) view unchanged."""
+    """quantize_fp8(k_major=True), as _Fp8MM quantizes the weight, writes
+    its e4m3 codes straight into an (N, K) buffer (the kernel's K-major
+    operand): the same codes as the row-major cast and as JAX's, and the
+    STE backward reads the (K, N) view unchanged."""
     rng = np.random.default_rng(5)
     w = torch.from_numpy((rng.standard_normal((128, 96)) * 0.1)
                          .astype(np.float32)).to(OUT[dtype][1])
     sw = tf._jit_scale(w)
-    col = tf._quantize_fp8_kn(w, sw)
+    col = tf.quantize_fp8(w, sw, k_major=True)
     assert col.shape == (128, 96) and col.t().is_contiguous()
     assert torch.equal(col.view(torch.uint8),
                        tf.quantize_fp8(w, sw).view(torch.uint8))
