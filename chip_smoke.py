@@ -9,8 +9,9 @@ stamped with the card's name and power limit):
 1. device: torch's device name and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA kernel built from ``paddle_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ptxas' register/spill lines;
-   for the Hopper kernels (``csrc/hopper.cuh``: the fp8 matmul and the
-   bf16 flash forward) each function's registers, spills and dynamic
+   for the Hopper kernels (``csrc/hopper.cuh``: the fp8 matmul, the bf16
+   flash forward and backward, and the bf16 LN-MLP backward GEMMs of
+   ``csrc/gemm_sm90.cuh``) each function's registers, spills and dynamic
    shared memory, and, where ``cuobjdump`` exists, the count of wgmma
    (HGMMA) and TMA load (UTMALDG) instructions in its SASS (none fails
    the run);
@@ -39,12 +40,15 @@ stamped with the card's name and power limit):
 7. flash-attention backward vs its plain version, causal, bf16 and f32,
    at the training shape (4, 16, 2048, 128), a ragged (1, 16, 100, 128)
    and gpt_small's (1, 12, 1024, 64): max |Δdq|, |Δdk|, |Δdv|, kernel /
-   plain / scaled_dot_product_attention-backward / bound times;
+   plain / scaled_dot_product_attention-backward / bound times, the
+   kernel's and the library's also per call of 20 back to back
+   (``batch_ms``), and their ratios;
 8. fused LN-MLP forward and backward (and the dW2 kernel alone) vs their
    plain versions, gelu, bf16 and f32, at one gpt_1p3b layer
    (R = 8192, H = 2048, M = 8192) and a ragged R = 100: errors, kernel /
-   plain / bound times, and the composed cuBLAS MLP's forward and
-   backward times as a yardstick;
+   plain / bound times, the composed cuBLAS MLP's forward and backward
+   times as a yardstick, and each backward kernel's own device time
+   from one torch.profiler pass (``bwd_kernels_ms``);
 9. training at full gpt_1p3b width and depth (remat, fused MLP, random
    weights from a seed) through DistributedTrainStep: AdamW at lr 1e-4,
    batch 4 x 2048, loss_chunk 256, 6 steps on one repeated batch; every
@@ -235,7 +239,17 @@ BERT_CHECK_TOL = {"loss": 1e-5, "grad": 1e-4}
 # the warp-specialised Hopper kernels (wgmma + TMA) of phase 2's report:
 # source -> the kernel functions' name stems
 HOPPER_KERNELS = {"fp8_matmul": ("fp8_mm",),
-                  "flash_attention_fwd": ("flash_fwd_wgmma",)}
+                  "flash_attention_fwd": ("flash_fwd_wgmma",),
+                  "flash_attention_bwd": ("flash_bwd_wgmma",),
+                  "fused_ln_mlp": ("gemm_ws",)}
+
+
+def _template_int(name, stem):
+    """The first int template argument of a mangled kernel name after
+    ``stem`` (``..stemILi128E..`` -> 128): the head dim or the tile width
+    a Hopper kernel was instantiated for."""
+    m = re.search(stem + r"ILi(\d+)E", name)
+    return int(m.group(1)) if m else None
 
 
 def hopper_report(_build):
@@ -243,9 +257,14 @@ def hopper_report(_build):
     dynamic shared memory a block takes, and, where cuobjdump exists, the
     wgmma (HGMMA) and TMA load (UTMALDG) instructions in its SASS. Raises
     when such a kernel has none of either."""
-    smem = {"fp8_matmul": lambda lib: lib.fp8_matmul_smem_bytes(),
-            "flash_attention_fwd": lambda lib: {
-                d: lib.flash_attention_fwd_smem_bytes(d) for d in (64, 128)}}
+    smem = {"fp8_matmul": lambda lib, name: lib.fp8_matmul_smem_bytes(),
+            "flash_attention_fwd": lambda lib, name: {
+                d: lib.flash_attention_fwd_smem_bytes(d) for d in (64, 128)},
+            "flash_attention_bwd": lambda lib, name:
+                lib.flash_attention_bwd_smem_bytes(
+                    _template_int(name, "flash_bwd_wgmma")),
+            "fused_ln_mlp": lambda lib, name: lib.fmlp_gemm_smem_bytes(
+                _template_int(name, "gemm_ws"))}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         cuobjdump = None
@@ -284,7 +303,7 @@ def hopper_report(_build):
         for name, p in props.items():
             row = {"source": f"paddle_tpu_torch/csrc/{src}.cu",
                    "kernel": name, **p,
-                   "dynamic_smem_bytes": smem[src](lib)}
+                   "dynamic_smem_bytes": smem[src](lib, name)}
             if cuobjdump:
                 counts = sass.get(name, {})
                 row.update({k.lower(): v for k, v in counts.items()})
@@ -663,12 +682,16 @@ def _rel(got, want):
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-def flash_bwd_phase(dev, fa, stamp):
+# phase 7: (name, batch, heads, S, head_dim), causal
+FLASH_BWD_SHAPES = (("gpt_1p3b_train", 4, 16, 2048, 128),
+                    ("ragged", 1, 16, 100, 128),
+                    ("gpt_small", 1, 12, 1024, 64))
+
+
+def flash_bwd_phase(dev, fa, stamp, shapes=FLASH_BWD_SHAPES):
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     rows = {}
-    shapes = [("gpt_1p3b_train", 4, 16, 2048, 128),
-              ("ragged", 1, 16, 100, 128), ("gpt_small", 1, 12, 1024, 64)]
     for dtype in (torch.bfloat16, torch.float32):
         for model, b, h, s, d in shapes:
             q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
@@ -695,17 +718,23 @@ def flash_bwd_phase(dev, fa, stamp):
             qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
             sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                                   scale=scale)
+            call = lambda: fa._flash_backward(  # noqa: E731
+                q, k, v, o, lse, do, True, scale)
+            lib_call = lambda: torch.autograd.grad(  # noqa: E731
+                sdpa, (qs, ks, vs), do, retain_graph=True)
+            ms, lib = time_ms(call), time_ms(lib_call)
+            b_call, b_lib = batch_ms(call), batch_ms(lib_call)
             row = {
                 "phase": "flash_attention_bwd", "model": model,
                 "shape": [b, h, s, d], "dtype": str(dtype)[6:],
+                "kernel": fa.kernel_for(dtype, d),
                 "max_abs_err": errs, "max_rel_err": rel,
-                "tol_rel": GRAD_TOL[dtype], "ok": ok,
-                "ms": time_ms(lambda: fa._flash_backward(
-                    q, k, v, o, lse, do, True, scale)),
+                "tol_rel": GRAD_TOL[dtype], "ok": ok, "ms": ms,
                 "plain_ms": time_ms(lambda: fa._flash_backward_reference(
                     q, k, v, o, lse, do, True, scale), max_reps=10),
-                "library_ms": time_ms(lambda: torch.autograd.grad(
-                    sdpa, (qs, ks, vs), do, retain_graph=True)),
+                "library_ms": lib, "ratio_to_library": ms / lib,
+                "batch_ms": b_call, "library_batch_ms": b_lib,
+                "batch_ratio_to_library": b_call / b_lib,
                 "library": "scaled_dot_product_attention backward",
                 "bound_ms": b_ms, "bound_by": b_by, **stamp}
             emit(row)
@@ -717,13 +746,12 @@ def flash_bwd_phase(dev, fa, stamp):
     return rows
 
 
-def fmlp_phase(dev, fk, stamp):
+def fmlp_phase(dev, fk, stamp, H=2048, M=8192, row_counts=(8192, 100)):
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     rows = {}
-    H, M = 2048, 8192
     for dtype in (torch.bfloat16, torch.float32):
-        for R in (8192, 100):
+        for R in row_counts:
             def n(*sh, sc=1.0):
                 return torch.randn(sh, generator=gen, device=dev) * sc
 
@@ -803,6 +831,9 @@ def fmlp_phase(dev, fk, stamp):
                 "composed_cublas_bwd_ms": time_ms(
                     lambda: torch.autograd.grad(y_c, [xs] + ws, dy,
                                                 retain_graph=True)),
+                "bwd_kernel": fk.mlp_bwd_kernel_for(dtype),
+                "bwd_kernels_ms": _fmlp_bwd_breakdown(
+                    lambda: fk._fmlp_backward(*bargs)),
                 **stamp}
             emit(row)
             if not ok:
@@ -811,6 +842,48 @@ def fmlp_phase(dev, fk, stamp):
             del x, dy, w1, w2, a, y_c, xs, ws, lnx
             torch.cuda.empty_cache()
     return rows
+
+
+# phase 8: a backward kernel's label from its (demangled) name, the
+# first match in this order
+FMLP_BWD_KERNELS = (("(1') ln_rows", ("ln_rows",)),
+                    ("(4a) da", ("EpiStashF32",)),
+                    ("(4b) z -> dz, a, db1", ("EpiActBwd", "fmlp_act_bwd")),
+                    ("(5) dW1 + (7) dW2", ("Prod<1,1,0>", "fmlp_wgrad")),
+                    ("(6) dlnx", ("EpiStoreF32", "fmlp_dx")))
+
+
+def _fmlp_bwd_breakdown(fn, reps=3):
+    """Device ms per call of each kernel of the fused LN-MLP backward
+    (``FMLP_BWD_KERNELS``; (5) and (7) are one kernel, two launches a
+    call) and of the PyTorch work around them (LN backward, db2, the
+    casts), from one torch.profiler pass over ``reps`` calls; None when
+    the trace has no device time."""
+    from paddle_tpu_torch.tools.profile_decode import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {label: 0.0 for label, _ in FMLP_BWD_KERNELS}
+    out["pytorch"] = 0.0
+    seen = False
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = _device_us(e)
+        if us <= 0:
+            continue
+        seen = True
+        key = e.key.replace(" ", "")
+        label = next((lb for lb, stems in FMLP_BWD_KERNELS
+                      if any(st in key for st in stems)), "pytorch")
+        out[label] += us / reps / 1e3
+    return out if seen else None
 
 
 def _training_counts(fa, fk):
@@ -1978,7 +2051,7 @@ def _kernel(name, source, replaces, launches, row, err, keys, library):
 
 
 def _batch_keys(row):
-    """A phase-3 or phase-16 row's back-to-back times, for the kernels
+    """A phase-3, -7 or -16 row's back-to-back times, for the kernels
     line beside the lone-call "ms" and "library_ms" of every kernel."""
     return {"batch_ms": row["batch_ms"],
             "library_batch_ms": row["library_batch_ms"]}
@@ -2096,9 +2169,10 @@ def main():
     bl = bert["fused"]["launches"]
     plain = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
-        # the Hopper kernels also carry their and the library call's
-        # times per call of 20 issued back to back ("batch_ms",
-        # "library_batch_ms"), beside the lone-call times of every kernel
+        # the Hopper flash and fp8 kernels also carry their and the
+        # library call's times per call of 20 issued back to back
+        # ("batch_ms", "library_batch_ms"), beside the lone-call times of
+        # every kernel
         dict(_kernel("flash_attention_fwd",
                      "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
                      "paddle_tpu/ops/flash_attention.py:88",
@@ -2110,22 +2184,29 @@ def main():
                 "paddle_tpu/ops/paged_attention.py:77",
                 runs[True]["launches"]["paged_attention_decode"], p,
                 p["max_abs_err"], plain, None),
-        _kernel("flash_attention_bwd",
-                "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                "paddle_tpu/ops/flash_attention.py:200",
-                tl["flash_attention_bwd"], fb,
-                max(fb["max_abs_err"].values()), plain, "library_ms"),
+        dict(_kernel("flash_attention_bwd",
+                     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                     "paddle_tpu/ops/flash_attention.py:200",
+                     tl["flash_attention_bwd"], fb,
+                     max(fb["max_abs_err"].values()), plain, "library_ms"),
+             **_batch_keys(fb)),
         _kernel("fused_ln_mlp_fwd", "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
                 "paddle_tpu/ops/fused_kernels.py:104",
                 tl["fused_ln_mlp_fwd"], fm, fm["max_abs_err_y"],
                 ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "fwd_bound_by"),
                 None),
-        _kernel("fused_ln_mlp_bwd", "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
-                "paddle_tpu/ops/fused_kernels.py:155",
-                tl["fused_ln_mlp_bwd"], fm,
-                max(fm["max_abs_err_grads"].values()),
-                ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by"),
-                None),
+        # no single PyTorch call computes the MLP's backward: the composed
+        # cuBLAS backward is the yardstick ("composed_ms"); "kernels_ms" is
+        # each of its kernels' own device time (torch.profiler)
+        dict(_kernel("fused_ln_mlp_bwd",
+                     "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
+                     "paddle_tpu/ops/fused_kernels.py:155",
+                     tl["fused_ln_mlp_bwd"], fm,
+                     max(fm["max_abs_err_grads"].values()),
+                     ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+                      "bwd_bound_by"), None),
+             composed_ms=fm["composed_cublas_bwd_ms"],
+             kernels_ms=fm["bwd_kernels_ms"]),
         _kernel("fused_ln_mlp_bwd_dw2",
                 "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
                 "paddle_tpu/ops/fused_kernels.py:220",

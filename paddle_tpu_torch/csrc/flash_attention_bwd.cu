@@ -12,252 +12,489 @@
 //
 // What bounds it on an H100: five products of 2·D operations for every
 // live (q, k) pair (the two score recomputations s and dp, and dV, dK,
-// dQ) against ~7·S·D bytes per head, so at training lengths (S = 2048,
-// D = 128) the bound is arithmetic (tensor-core rate, 989 TFLOP/s bf16).
+// dQ) against ~8·S·D bytes per head, so at training lengths (S = 2048,
+// D = 128) the bound is arithmetic: 171.9 GFLOP at (4, 16, 2048, 128)
+// causal, 0.174 ms at the bf16 tensor-core rate (989 TFLOP/s), which
+// only wgmma reaches.
 //
-// What this design does about it. It is not a copy of the TPU grid,
-// whose sequential q sweep carried dK/dV in scratch and wrote dQ
-// partials per kv block for XLA to sum. Here one block of 8 warps owns
-// (one batch·head, a 64-row K/V tile): K and V stay in shared memory and
-// dK, dV in registers while the block loops over the live 64-row q
-// tiles (the causal bound starts the loop at the diagonal). Each q tile:
-// the warps take Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ on mma.sync m16n8k16 (bf16 in,
-// f32 accumulate; warp (r, c) owns kv rows 16r.. and q columns 32c..),
-// turn them into pᵀ and dSᵀ in registers and exchange them through
-// shared memory as bf16 (the TPU's roundings); then dV += pᵀ·dO and
-// dK += dSᵀ·Q (warp (r, c): kv rows 16r.., head columns c·D/2..), and
-// dQ = dS·K for the tile, added into an f32 (B·H, Sq, D) buffer with
-// atomicAdd (the wrapper casts it). The ragged edge (any Sq, Sk) is
-// masked in the kernel. f32 inputs (and other head dims up to 128) run
-// a plain FMA kernel of the same structure on 32x32 tiles. Still to
-// come: wgmma with TMA staging and a pipelined q-tile ring.
-#include "mma.cuh"
+// What this design does about it (bf16, D of 64 or 128: training). It is
+// not a copy of the TPU grid, whose sequential q sweep carried dK/dV in
+// scratch and wrote dQ partials per kv block for XLA to sum. A persistent
+// grid, one block an SM, each block three warpgroups. A work item is one
+// batch·head's kv tiles p and n_kt - 1 - p (128 rows each), the longer
+// first: under the causal mask their q tiles add up to a constant, so a
+// static round-robin keeps the blocks even, and the items of one head run
+// side by side, sharing its Q and dO in L2. The producer warpgroup
+// (registers cut to 24 by setmaxnreg) has one thread issue TMA loads
+// through (D, S, B·H) 3D tensor maps with a 128-byte swizzle (a tile past
+// a head's end zero-fills): the tile's K and V once, then 64-row Q and dO
+// tiles with their lse and delta rows (1D maps) into a 2-stage ring with
+// full/empty mbarriers, running on into the next item while the
+// consumers finish. Two consumer warpgroups (registers raised to 240),
+// each owning 64 kv rows, per q tile:
+//   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ by wgmma m64n64k16, both operands K-major
+//   in shared memory; pᵀ = exp2(sᵀ·scale·log2e - lse·log2e) and
+//   dSᵀ = pᵀ·(dPᵀ - delta)·scale in registers (the mask only on diagonal
+//   and ragged tiles), packed to bf16 they are already the register A
+//   operands of dV += pᵀ·dO and dK += dSᵀ·Q (wgmma m64nDk16, dO and Q as
+//   MN-major B through the transpose bit), so dK and dV (2·64·D f32) live
+//   in registers for the whole kv tile;
+//   dSᵀ also goes to shared memory in the 128-byte swizzle (two buffers,
+//   alternating), and dQ = dS·K is a wgmma with both operands MN-major
+//   (dS read through its transpose, K as stored): at D = 128 each
+//   consumer takes 64 of the head columns over all 128 kv rows (one
+//   named barrier joins the two consumers' dS halves), at D = 64 all
+//   columns over its own 64 rows. Each consumer stages its 64x64 f32 dQ
+//   part in shared memory and one thread adds it into the zeroed f32 dq
+//   buffer with one TMA reduce-add (cp.reduce.async.bulk.tensor .add)
+//   through a (D, Sq, B·H) map, which runs while the next tile computes.
+// The causal loop starts at the first q tile that sees the kv tile.
+// What still bounds it: those reduce-adds. With 128-row kv tiles every
+// dq element takes one f32 add per kv tile that sees it, 570 MB of adds
+// at (4, 16, 2048, 128) causal, which the L2's reduction units take
+// longer to absorb than the tensor cores take for the five products
+// (PERF.md §6, PR 7).
+// dQ's sums arrive in a different order on every run (the reduce-adds of
+// different blocks race), so its low bits vary from run to run.
+// f32 inputs (the BERT path) and bf16 with other head dims run a plain
+// FMA kernel of the same contract on 32x32 tiles.
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------
-// tensor-core kernel: bf16, D in {64, 128}
+// Hopper kernel: bf16, D in {64, 128}; wgmma with TMA staging
 // ---------------------------------------------------------------------
-constexpr int MQ = 64;     // q rows per inner tile
-constexpr int MK = 64;     // k/v rows per block
-constexpr int MT = 256;    // threads: 8 warps
+namespace hp = ptt::hopper;
+
+constexpr int WKV = 128;                // kv rows a tile (64 a consumer)
+constexpr int WQ = 64;                  // q rows a tile of the ring
+constexpr int WT = 384;                 // producer + 2 consumer warpgroups
+constexpr int WSTAGES = 2;              // q-tile ring
+constexpr int KBOX = WKV * 128;         // bytes of a (128 rows, 64 d) box
+constexpr int QBOX = WQ * 128;          // bytes of a (64 rows, 64 d) box
+constexpr int DS_BYTES = WKV * WQ * 2;  // a dSᵀ tile (kv rows, 64 q), bf16
+constexpr int LD_N = WQ + 4;            // lse or delta floats a stage: a
+                                        // tile's 64 rows from a 16-byte-
+                                        // aligned start (TMA's rule), so
+                                        // up to 3 more in front
+constexpr int LD_SLOT = 96;             // floats between two such boxes:
+                                        // each 128-byte aligned
+constexpr int DQ_BYTES = WQ * 64 * 4;   // a consumer's dQ part, f32
+constexpr float LOG2E = 1.4426950408889634f;
+#ifndef PTT_FB_DQ_OUT
+#define PTT_FB_DQ_OUT 1
+#endif
 
 template <int D>
-constexpr int mma_smem_bytes() {
-  // sK, sV, sQ, sdO (rows padded by 16 bytes so ldmatrix is
-  // conflict-free), sP and sdS (kv x q), lse and delta of the q tile
-  return 4 * 64 * (D + 8) * 2 + 2 * MK * (MQ + 8) * 2 + 2 * MQ * 4;
+__host__ __device__ constexpr int kv_bytes() { return (D / 64) * KBOX; }
+
+template <int D>
+__host__ __device__ constexpr int q_bytes() { return (D / 64) * QBOX; }
+
+template <int D>
+constexpr int wgmma_smem_bytes() {
+  // K, V; the ring of Q and dO tiles; two dSᵀ tiles; two consumers' dQ
+  // staging tiles; lse and delta a stage; the barriers; 1024 of
+  // alignment slack
+  return 2 * kv_bytes<D>() + WSTAGES * 2 * q_bytes<D>() + 2 * DS_BYTES
+      + 2 * DQ_BYTES + WSTAGES * 2 * LD_SLOT * 4 + (2 + 2 * WSTAGES) * 8
+      + 1024;
 }
 
-// rows [r0, r0 + n) of a (S, D) bf16 matrix into shared memory with row
-// stride D + 8; rows past S are zero-filled
-template <int D>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           int r0, int n, int S) {
-  constexpr int CPR = D / 8;            // 16-byte chunks per row
-  for (int c = threadIdx.x; c < n * CPR; c += MT) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + col) = val;
-  }
+// 2^x by the MUFU unit alone (ex2.approx, flushing denormal results to
+// zero: a probability below 2^-126 is lost either way in bf16)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float ld_shared_volatile(const float* p) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(hp::smem_addr(p)));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the first q tile that sees kv rows from k0 (q_pos + off >= k_pos), and
+// how many q tiles the loop takes from there
+__device__ __forceinline__ int q_tiles(int k0, int Sq, int Sk, int causal,
+                                       int& qt0) {
+  qt0 = causal ? max(0, k0 - (Sk - Sq)) / WQ : 0;
+  return max(0, (Sq + WQ - 1) / WQ - qt0);
+}
+
+// kv tile of work item half `half`: p, then n_kt - 1 - p
+__device__ __forceinline__ int item_kt(int p, int half, int n_kt) {
+  return half == 0 ? p : n_kt - 1 - p;
 }
 
 template <int D>
-__global__ void __launch_bounds__(MT)
-flash_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, bf16* __restrict__ dk,
-              bf16* __restrict__ dv, int Sq, int Sk, float scale,
-              int causal) {
-  constexpr int LDS = D + 8;
-  constexpr int LDP = MQ + 8;
-  constexpr int DH = D / 2;             // head columns per warp
-  constexpr int NDH = DH / 8;           // their n-tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + MK * LDS;
-  bf16* sQ = sV + MK * LDS;
-  bf16* sdO = sQ + MQ * LDS;
-  bf16* sP = sdO + MQ * LDS;            // pᵀ  (kv rows, q columns)
-  bf16* sdS = sP + MK * LDP;            // dSᵀ (kv rows, q columns)
-  float* sL = reinterpret_cast<float*>(sdS + MK * LDP);
-  float* sDl = sL + MQ;
+__global__ void __launch_bounds__(WT, 1)
+flash_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_do,
+                const __grid_constant__ CUtensorMap map_lse,
+                const __grid_constant__ CUtensorMap map_delta,
+                const __grid_constant__ CUtensorMap map_dq,
+                float* __restrict__ dq, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int BH, int Sq, int Sk, float scale,
+                int causal) {
+  constexpr int KVB = kv_bytes<D>();
+  constexpr int QB = q_bytes<D>();
+  extern __shared__ unsigned char fb_smem_raw[];
+  unsigned char* sK = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(fb_smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sV = sK + KVB;
+  unsigned char* sQ = sV + KVB;          // stage s: Q at sQ + 2·s·QB,
+                                         // dO right after it
+  unsigned char* sdS = sQ + WSTAGES * 2 * QB;        // two dSᵀ tiles
+  float* sdQ = reinterpret_cast<float*>(sdS + 2 * DS_BYTES);  // consumer c
+                                         // at c·WQ·64, (64 q, 64 d) f32
+  float* sLD = sdQ + 2 * WQ * 64;        // stage s: lse at 2·s·LD_SLOT,
+                                         // delta LD_SLOT on
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sLD + WSTAGES * 2 * LD_SLOT);
+  uint64_t* full_kv = bar;
+  uint64_t* empty_kv = bar + 1;
+  uint64_t* full = bar + 2;
+  uint64_t* empty = full + WSTAGES;
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * MK;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp & 3, wc = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  const int mat = lane >> 3, mrow = lane & 7;
+  const int n_kt = (Sk + WKV - 1) / WKV;
+  const int n_pairs = (n_kt + 1) / 2;
+  const int items = n_pairs * BH;
   const int off = Sk - Sq;
-  const bf16* qb = q + (size_t)bh * Sq * D;
-  const bf16* dob = dout + (size_t)bh * Sq * D;
-  const float* lb = lse + (size_t)bh * Sq;
-  const float* db = delta + (size_t)bh * Sq;
-  float* dqb = dq + (size_t)bh * Sq * D;
+  const int wg = threadIdx.x / 128;
 
-  stage_tile<D>(sK, k + (size_t)bh * Sk * D, k0, MK, Sk);
-  stage_tile<D>(sV, v + (size_t)bh * Sk * D, k0, MK, Sk);
-
-  float dk_acc[NDH][4], dv_acc[NDH][4];
-#pragma unroll
-  for (int nd = 0; nd < NDH; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
-
-  // q rows that can see this kv tile: q + off >= k0 (causal)
-  const int q_begin = causal ? (max(0, k0 - off) / MQ) * MQ : 0;
-  for (int q0 = q_begin; q0 < Sq; q0 += MQ) {
-    __syncthreads();   // the previous tile's shared-memory reads are done
-    stage_tile<D>(sQ, qb, q0, MQ, Sq);
-    stage_tile<D>(sdO, dob, q0, MQ, Sq);
-    if (tid < MQ) {
-      const bool in = q0 + tid < Sq;
-      sL[tid] = in ? lb[q0 + tid] : 0.f;
-      sDl[tid] = in ? db[q0 + tid] : 0.f;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(full_kv, 1);
+    hp::mbar_init(empty_kv, 2);          // one arrival per consumer
+    for (int s = 0; s < WSTAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 2);
     }
-    __syncthreads();
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: kv rows 16wr.., q columns 32wc..
-    float st[4][4], dpt[4][4];
+  if (wg == 0) {
+    // ---- producer: per kv tile K and V once, then its q tiles (Q, dO,
+    // lse, delta) through the ring ----
+    hp::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hp::tma_prefetch_map(&map_q);
+      hp::tma_prefetch_map(&map_k);
+      hp::tma_prefetch_map(&map_v);
+      hp::tma_prefetch_map(&map_do);
+      int it = 0, n = 0;                   // q tiles, kv tiles loaded
+      for (int item = blockIdx.x; item < items; item += gridDim.x)
+      for (int half = 0; half < 2; ++half) {
+        const int bh = item / n_pairs, p = item % n_pairs;
+        if (half == 1 && 2 * p + 1 == n_kt) break;   // the middle tile
+        const int k0 = item_kt(p, half, n_kt) * WKV;
+        int qt0;
+        const int n_q = q_tiles(k0, Sq, Sk, causal, qt0);
+        if (n_q == 0) continue;
+        hp::mbar_wait(empty_kv, (n++ & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(full_kv, 2 * KVB);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+        for (int b = 0; b < D / 64; ++b) {
+          hp::tma_load_3d(sK + b * KBOX, &map_k, full_kv, 64 * b, k0, bh);
+          hp::tma_load_3d(sV + b * KBOX, &map_v, full_kv, 64 * b, k0, bh);
+        }
+        for (int j = 0; j < n_q; ++j, ++it) {
+          const int s = it % WSTAGES;
+          const int q0 = (qt0 + j) * WQ;
+          hp::mbar_wait(&empty[s], ((it / WSTAGES) & 1) ^ 1);
+          hp::mbar_arrive_expect_tx(&full[s], 2 * QB + 2 * LD_N * 4);
+          unsigned char* sq = sQ + 2 * s * QB;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      const int arow = (wr * 16 + (lane & 15)) * LDS + kk * 16
-          + (lane >> 4) * 8;
-      ptt::ldsm_x4(ak, sK + arow);
-      ptt::ldsm_x4(av, sV + arow);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int brow = (wc * 32 + np * 16 + (mat >> 1) * 8 + mrow) * LDS
-            + kk * 16 + (mat & 1) * 8;
-        uint32_t b[4];
-        ptt::ldsm_x4(b, sQ + brow);
-        ptt::mma_16816(st[2 * np], ak, b[0], b[1]);
-        ptt::mma_16816(st[2 * np + 1], ak, b[2], b[3]);
-        ptt::ldsm_x4(b, sdO + brow);
-        ptt::mma_16816(dpt[2 * np], av, b[0], b[1]);
-        ptt::mma_16816(dpt[2 * np + 1], av, b[2], b[3]);
+          for (int b = 0; b < D / 64; ++b) {
+            hp::tma_load_3d(sq + b * QBOX, &map_q, &full[s], 64 * b, q0, bh);
+            hp::tma_load_3d(sq + QB + b * QBOX, &map_do, &full[s], 64 * b,
+                            q0, bh);
+          }
+          // (B·H·Sq) rows of lse and delta from the 16-byte boundary at or
+          // before the tile's first row; past a head's end the box holds
+          // the next head's rows, which the mask zeroes
+          float* ld = sLD + 2 * s * LD_SLOT;
+          const int r0 = (bh * Sq + q0) & ~3;
+          hp::tma_load_1d(ld, &map_lse, &full[s], r0);
+          hp::tma_load_1d(ld + LD_SLOT, &map_delta, &full[s], r0);
+        }
       }
     }
+  } else {
+    // ---- consumers: warpgroup c owns kv rows [k0 + 64c, k0 + 64c + 64) --
+    hp::setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const float sl2 = scale * LOG2E;          // scores in log2 units
+    float* sdQc = sdQ + c * WQ * 64;
+    const int dcol0 = D == 128 ? 64 * c : 0;  // this consumer's dQ columns
+    // this consumer's K and V rows as K-major A operands
+    const uint64_t dka_desc = hp::desc_sw128(sK + c * 64 * 128, 16, 1024);
+    const uint64_t dva_desc = hp::desc_sw128(sV + c * 64 * 128, 16, 1024);
+    // dQ's operands, both MN-major: dSᵀ (kv rows, 64 q) read as dS, and K
+    // (kv rows, d) as stored. D = 128: all 128 kv rows, this consumer's 64
+    // head columns (its box of K); D = 64: its own 64 kv rows, every column
+    constexpr int DQ_STEPS = D == 128 ? WKV / 16 : 64 / 16;
+    const int ds_off = D == 128 ? 0 : c * 64 * 128;
+    const uint64_t dqb_desc = hp::desc_sw128(
+        sK + (D == 128 ? c * KBOX : c * 64 * 128), QBOX, 1024);
+    int it = 0, n = 0;                        // q tiles, kv tiles read
+    for (int item = blockIdx.x; item < items; item += gridDim.x)
+    for (int half = 0; half < 2; ++half) {
+      const int bh = item / n_pairs, p = item % n_pairs;
+      if (half == 1 && 2 * p + 1 == n_kt) break;     // the middle tile
+      const int k0 = item_kt(p, half, n_kt) * WKV;
+      const int kr0 = k0 + 64 * c;                   // this consumer's rows
+      int qt0;
+      const int n_q = q_tiles(k0, Sq, Sk, causal, qt0);
+      float dka[D / 2], dva[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 
-    // pᵀ = exp(sᵀ·scale - lse) (masked), dSᵀ = pᵀ·(dPᵀ - delta)·scale,
-    // each rounded to bf16 into shared memory
+      if (n_q > 0) hp::mbar_wait(full_kv, n++ & 1);
+      for (int j = 0; j < n_q; ++j, ++it) {
+        const int s = it % WSTAGES;
+        const int q0 = (qt0 + j) * WQ;
+        unsigned char* sq = sQ + 2 * s * QB;
+        unsigned char* sdo = sq + QB;
+        // this tile's lse and delta: rows from (bh·Sq + q0) % 4 on
+        const float* sl = sLD + 2 * s * LD_SLOT + ((bh * Sq + q0) & 3);
+        hp::mbar_wait(&full[s], (it / WSTAGES) & 1);
+
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 64 kv x 64 q f32 each, K-major
+        // operands, 16 of the head dim a step
+        float st[32], dpt[32];
+        const uint64_t dqs = hp::desc_sw128(sq, 16, 1024);
+        const uint64_t ddo = hp::desc_sw128(sdo, 16, 1024);
+        hp::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t sa = (kk / 4) * KBOX + (kk % 4) * 32;
+          const uint32_t sb = (kk / 4) * QBOX + (kk % 4) * 32;
+          hp::wgmma_m64n64k16_bf16_ss(st, hp::desc_advance(dka_desc, sa),
+                                      hp::desc_advance(dqs, sb), kk > 0);
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kv = wr * 16 + g + (e >> 1) * 8;
-        const int qc = wc * 32 + nt * 8 + 2 * t + (e & 1);
-        const int qp = q0 + qc, kp = k0 + kv;
-        const bool live = qp < Sq && kp < Sk && (!causal || qp + off >= kp);
-        const float p = live ? expf(st[nt][e] * scale - sL[qc]) : 0.f;
-        dpt[nt][e] = p * (dpt[nt][e] - sDl[qc]) * scale;
-        st[nt][e] = p;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t sa = (kk / 4) * KBOX + (kk % 4) * 32;
+          const uint32_t sb = (kk / 4) * QBOX + (kk % 4) * 32;
+          hp::wgmma_m64n64k16_bf16_ss(dpt, hp::desc_advance(dva_desc, sa),
+                                      hp::desc_advance(ddo, sb), kk > 0);
+        }
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(st);
+        hp::fence_regs(dpt);
+
+        // pᵀ and dSᵀ in registers; element i: kv row
+        // 16·warp + g + 8·((i / 2) % 2), q column 8·(i / 4) + 2·t4 + i % 2
+        const bool masked = q0 + WQ > Sq || kr0 + 64 > Sk
+            || (causal && q0 + off < kr0 + 63);
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * jb + e;
+            const int col = 8 * jb + 2 * t4 + (e & 1);
+            // read at the point of use (volatile: not hoisted into 32
+            // registers held across the loop)
+            const float lse_l2 = ld_shared_volatile(sl + col) * LOG2E;
+            const float delta = ld_shared_volatile(sl + LD_SLOT + col);
+            float pv = exp2_approx(fmaf(st[i], sl2, -lse_l2));
+            if (masked) {
+              const int qp = q0 + col;
+              const int kp = kr0 + 16 * warp + g + 8 * (e >> 1);
+              if (qp >= Sq || kp >= Sk || (causal && qp + off < kp))
+                pv = 0.f;
+            }
+            st[i] = pv;
+            dpt[i] = pv * (dpt[i] - delta) * scale;
+          }
+        }
+        // bf16 pairs: q block kk's two n8 blocks are one k16 A step
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+            da[kk][r] = pack_bf16(dpt[8 * kk + 2 * r],
+                                  dpt[8 * kk + 2 * r + 1]);
+          }
+
+        // dV += pᵀ·dO and dK += dSᵀ·Q: dO and Q MN-major, 16 q rows a step
+        const uint64_t bdo = hp::desc_sw128(sdo, QBOX, 1024);
+        const uint64_t bq = hp::desc_sw128(sq, QBOX, 1024);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (D == 128) {
+            hp::wgmma_m64n128k16_bf16_rs(dva, pa[kk],
+                                         hp::desc_advance(bdo, kk * 2048));
+            hp::wgmma_m64n128k16_bf16_rs(dka, da[kk],
+                                         hp::desc_advance(bq, kk * 2048));
+          } else {
+            hp::wgmma_m64n64k16_bf16_rs(dva, pa[kk],
+                                        hp::desc_advance(bdo, kk * 2048));
+            hp::wgmma_m64n64k16_bf16_rs(dka, da[kk],
+                                        hp::desc_advance(bq, kk * 2048));
+          }
+        }
+        hp::wgmma_commit();
+
+        // dSᵀ into shared memory (row = kv, 128 bytes of q), chunk j of
+        // row r at j ^ (r % 8): the 128-byte swizzle the descriptor reads
+        unsigned char* sds = sdS + (it & 1) * DS_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = 64 * c + 16 * warp + g + 8 * (r & 1);
+            const int chunk = 2 * kk + (r >> 1);
+            *reinterpret_cast<uint32_t*>(
+                sds + row * 128 + ((chunk ^ (row & 7)) << 4) + 4 * t4) =
+                da[kk][r];
+          }
+        hp::fence_proxy_async();
+        if constexpr (D == 128) hp::named_bar_sync(1, 256);   // both halves
+        else hp::named_bar_sync(2 + c, 128);
+
+        // dQ (this consumer's part) = dS·K: 64 q x 64 d
+        float dqa[32];
+        const uint64_t ads = hp::desc_sw128(sds + ds_off, QBOX, 1024);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_STEPS; ++kk)
+          hp::wgmma_m64n64k16_bf16_ss<1, 1>(
+              dqa, hp::desc_advance(ads, kk * 2048),
+              hp::desc_advance(dqb_desc, kk * 2048), kk > 0);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(dva);
+        hp::fence_regs(dka);
+        hp::fence_regs(dqa);
+        if (tid == 0) hp::mbar_arrive(&empty[s]);    // Q, dO, lse read
+
+        // dQ out: staged in shared memory once the last tile's reduce-add
+        // has read it, then added into dq as one (64 d, 64 q) box of its
+        // tensor map (rows past Sq are left alone). PTT_FB_DQ_OUT=0 builds
+        // a measurement variant that skips it (tools/flash_bwd_study.py)
+        if constexpr (PTT_FB_DQ_OUT) {
+        if (tid == 0) hp::bulk_wait_read<0>();
+        hp::named_bar_sync(2 + c, 128);
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(
+                sdQc + (16 * warp + g + 8 * h) * 64 + 8 * jb + 2 * t4) =
+                make_float2(dqa[4 * jb + 2 * h], dqa[4 * jb + 2 * h + 1]);
+        hp::fence_proxy_async();
+        hp::named_bar_sync(2 + c, 128);
+        if (tid == 0) {
+          hp::tma_reduce_add_3d(&map_dq, sdQc, dcol0, q0, bh);
+          hp::bulk_commit();
+        }
+        }
       }
+      if (n_q > 0 && tid == 0) hp::mbar_arrive(empty_kv);  // K, V read
+
+      // dK, dV of this consumer's 64 rows (zero where no q row sees them)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int idx = (wr * 16 + g + h * 8) * LDP + wc * 32 + nt * 8 + 2 * t;
-        ptt::store_bf16x2(sP + idx, st[nt][2 * h], st[nt][2 * h + 1]);
-        ptt::store_bf16x2(sdS + idx, dpt[nt][2 * h], dpt[nt][2 * h + 1]);
+        const int row = kr0 + 16 * warp + g + 8 * h;
+        if (row >= Sk) continue;
+        bf16* dkr = dk + ((size_t)bh * Sk + row) * D;
+        bf16* dvr = dv + ((size_t)bh * Sk + row) * D;
+#pragma unroll
+        for (int jd = 0; jd < D / 8; ++jd) {
+          *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * jd + 2 * t4) =
+              __floats2bfloat162_rn(dka[4 * jd + 2 * h],
+                                    dka[4 * jd + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * jd + 2 * t4) =
+              __floats2bfloat162_rn(dva[4 * jd + 2 * h],
+                                    dva[4 * jd + 2 * h + 1]);
+        }
       }
     }
-    __syncthreads();
-
-    // dV += pᵀ·dO and dK += dSᵀ·Q: kv rows 16wr.., head columns DH·wc..
-#pragma unroll
-    for (int kq = 0; kq < MQ / 16; ++kq) {
-      uint32_t ap[4], as[4];
-      const int arow = (wr * 16 + (lane & 15)) * LDP + kq * 16
-          + (lane >> 4) * 8;
-      ptt::ldsm_x4(ap, sP + arow);
-      ptt::ldsm_x4(as, sdS + arow);
-#pragma unroll
-      for (int np = 0; np < NDH / 2; ++np) {
-        const int brow = (kq * 16 + (mat & 1) * 8 + mrow) * LDS + wc * DH
-            + np * 16 + (mat >> 1) * 8;
-        uint32_t b[4];
-        ptt::ldsm_x4_t(b, sdO + brow);
-        ptt::mma_16816(dv_acc[2 * np], ap, b[0], b[1]);
-        ptt::mma_16816(dv_acc[2 * np + 1], ap, b[2], b[3]);
-        ptt::ldsm_x4_t(b, sQ + brow);
-        ptt::mma_16816(dk_acc[2 * np], as, b[0], b[1]);
-        ptt::mma_16816(dk_acc[2 * np + 1], as, b[2], b[3]);
-      }
-    }
-
-    // dQ (this kv tile's part) = dS·K: q rows 16wr.., head columns DH·wc..
-    float dqa[NDH][4];
-#pragma unroll
-    for (int nd = 0; nd < NDH; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dqa[nd][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < MK / 16; ++kk) {
-      uint32_t a[4];
-      ptt::ldsm_x4_t(a, sdS + (kk * 16 + (mat >> 1) * 8 + mrow) * LDP
-                            + wr * 16 + (mat & 1) * 8);
-#pragma unroll
-      for (int np = 0; np < NDH / 2; ++np) {
-        uint32_t b[4];
-        ptt::ldsm_x4_t(b, sK + (kk * 16 + (mat & 1) * 8 + mrow) * LDS
-                              + wc * DH + np * 16 + (mat >> 1) * 8);
-        ptt::mma_16816(dqa[2 * np], a, b[0], b[1]);
-        ptt::mma_16816(dqa[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int nd = 0; nd < NDH; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + wr * 16 + g + (e >> 1) * 8;
-        if (row < Sq)
-          atomicAdd(dqb + (size_t)row * D + wc * DH + nd * 8 + 2 * t
-                        + (e & 1), dqa[nd][e]);
-      }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = k0 + wr * 16 + g + h * 8;
-    if (row >= Sk) continue;
-    bf16* dkr = dk + ((size_t)bh * Sk + row) * D + wc * DH;
-    bf16* dvr = dv + ((size_t)bh * Sk + row) * D + wc * DH;
-#pragma unroll
-    for (int nd = 0; nd < NDH; ++nd) {
-      ptt::store_bf16x2(dkr + nd * 8 + 2 * t, dk_acc[nd][2 * h],
-                        dk_acc[nd][2 * h + 1]);
-      ptt::store_bf16x2(dvr + nd * 8 + 2 * t, dv_acc[nd][2 * h],
-                        dv_acc[nd][2 * h + 1]);
-    }
+    if (tid == 0) hp::bulk_wait<0>();        // the last reduce-add done
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, float* dq, void* dk,
-               void* dv, int BH, int Sq, int Sk, float scale, int causal,
-               cudaStream_t stream) {
-  auto kern = flash_bwd_mma<D>;
-  constexpr int smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sk + MK - 1) / MK, BH);
-  kern<<<grid, MT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, dq, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk,
-      scale, causal);
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 float* dq, void* dk, void* dv, int BH, int Sq, int Sk,
+                 float scale, int causal, cudaStream_t stream) {
+  if (Sq == 0) {   // no q row: dk and dv are zero, dq is empty
+    const size_t bytes = (size_t)BH * Sk * D * sizeof(bf16);
+    cudaError_t e = cudaMemsetAsync(dk, 0, bytes, stream);
+    if (e == cudaSuccess) e = cudaMemsetAsync(dv, 0, bytes, stream);
+    return static_cast<int>(e);
+  }
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
+        | reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)
+        | reinterpret_cast<uintptr_t>(lse)
+        | reinterpret_cast<uintptr_t>(delta)) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // (D, S, BH) maps: a box past the end of one head zero-fills instead of
+  // reading the next head's rows; lse and delta as (BH·Sq) rows
+  CUtensorMap mq, mk, mv, mdo, ml, mdl, mdq;
+  const cuuint32_t qbox[3] = {64, WQ, 1};
+  const cuuint32_t kbox[3] = {64, WKV, 1};
+  const cuuint64_t dq_[3] = {(cuuint64_t)D, (cuuint64_t)Sq, (cuuint64_t)BH};
+  const cuuint64_t dkv[3] = {(cuuint64_t)D, (cuuint64_t)Sk, (cuuint64_t)BH};
+  const cuuint64_t sq[2] = {(cuuint64_t)D * 2, (cuuint64_t)Sq * D * 2};
+  const cuuint64_t skv[2] = {(cuuint64_t)D * 2, (cuuint64_t)Sk * D * 2};
+  const cuuint64_t drow[1] = {(cuuint64_t)BH * Sq};
+  const cuuint32_t rbox[1] = {LD_N};
+  const auto BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = hp::make_map(&mq, BF, 3, q, dq_, sq, qbox);
+  if (err == 0) err = hp::make_map(&mdo, BF, 3, dout, dq_, sq, qbox);
+  if (err == 0) err = hp::make_map(&mk, BF, 3, k, dkv, skv, kbox);
+  if (err == 0) err = hp::make_map(&mv, BF, 3, v, dkv, skv, kbox);
+  if (err == 0)
+    err = hp::make_map(&ml, F32, 1, lse, drow, skv, rbox,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == 0)
+    err = hp::make_map(&mdl, F32, 1, delta, drow, skv, rbox,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == 0) {
+    const cuuint32_t dqbox[3] = {64, WQ, 1};
+    const cuuint64_t sdq[2] = {(cuuint64_t)D * 4, (cuuint64_t)Sq * D * 4};
+    err = hp::make_map(&mdq, F32, 3, dq, dq_, sdq, dqbox,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != 0) return err;
+  auto kern = flash_bwd_wgmma<D>;
+  constexpr int smem = wgmma_smem_bytes<D>();
+  static bool configured = false;   // the attribute is per kernel, once
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const int items = BH * (((Sk + WKV - 1) / WKV + 1) / 2);
+  const int grid = min(items, hp::sm_count());
+  kern<<<grid, WT, smem, stream>>>(mq, mk, mv, mdo, ml, mdl, mdq, dq,
+                                   static_cast<bf16*>(dk),
+                                   static_cast<bf16*>(dv), BH, Sq, Sk, scale,
+                                   causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,8 +653,10 @@ int launch_fma(const void* q, const void* k, const void* v, const void* dout,
 
 // q, dout (BH, Sq, D), k/v (BH, Sk, D) contiguous in `dtype`; lse, delta
 // (BH, Sq) f32; dq (BH, Sq, D) f32, ZEROED by the caller (the kernel adds
-// into it); dk/dv like k. D <= 128. Returns cudaGetLastError() after the
-// launch.
+// into it); dk/dv like k. D <= 128. bf16 at D 64 or 128 runs the TMA/wgmma
+// kernel (every pointer 16-byte aligned, else cudaErrorInvalidValue), f32
+// and bf16 at any other D the FMA kernel. Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
@@ -430,11 +669,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kBF16) {
     if (D == 128)
-      return launch_mma<128>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq,
-                             Sk, scale, causal, s);
+      return launch_wgmma<128>(q, k, v, dout, lse, delta, dq, dk, dv, BH,
+                               Sq, Sk, scale, causal, s);
     if (D == 64)
-      return launch_mma<64>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq,
-                            Sk, scale, causal, s);
+      return launch_wgmma<64>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq,
+                              Sk, scale, causal, s);
     return D <= 64
         ? launch_fma<bf16, 64>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq,
                                Sk, D, scale, causal, s)
@@ -449,4 +688,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                  Sq, Sk, D, scale, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dynamic shared memory a block of the TMA/wgmma kernel takes at head dim
+// D (64 or 128), in bytes
+extern "C" int flash_attention_bwd_smem_bytes(int D) {
+  return D == 64 ? wgmma_smem_bytes<64>() : wgmma_smem_bytes<128>();
 }

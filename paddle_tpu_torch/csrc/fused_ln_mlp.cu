@@ -17,16 +17,15 @@
 // What bounds it on an H100: at one gpt_1p3b layer (R = 8192 tokens,
 // H = 2048, M = 8192) the forward is 4·R·H·M = 550 GFLOP against ~100 MB
 // of operands, far above the card's ~295 operations per byte: the bound
-// is the tensor-core rate (989 TFLOP/s bf16).
+// is the tensor-core rate (989 TFLOP/s bf16), which only wgmma reaches;
+// the backward with dW2 is 8·R·H·M (1.112 ms) without the recompute of z,
+// 10·R·H·M with it.
 //
 // What this design does about it. The TPU kernel keeps a (rows, H) LN'd
 // input and a (rows, H) f32 accumulator resident across the whole M
 // sweep; at H = 2048 even 64 rows make that accumulator 512 KB, past an
 // SM's 228 KB. So each product is a tiled GEMM with the TPU kernel's
-// elementwise work fused into its epilogue: a 128x128 (or 128x64) output
-// tile per block of 8 warps, 32-deep K steps streamed through a 3-stage
-// cp.async ring in shared memory, mma.sync m16n8k16 bf16 with f32
-// accumulation (an FMA mainloop on the same ring for f32):
+// elementwise work fused into its epilogue:
 //   forward  (1) one pass over the rows: mu, rstd and lnx (R, H) in x's
 //                dtype (a quarter of the (R, M) buffer the forward
 //                writes anyway), so every GEMM operand streams raw;
@@ -45,11 +44,27 @@
 // from forward to backward, while the recompute is one more GEMM over
 // data the kernel reads anyway, and it keeps the forward's residuals to
 // mu and rstd as the TPU kernel's are. Transposed operands (lnxᵀ, aᵀ,
-// W2ᵀ, W1ᵀ) are never copied: the tile is staged as stored and
-// ldmatrix.trans (or the FMA loop's indexing) reads it transposed. H and
-// M must be multiples of 64; R is any (ragged tiles are zero-filled on
-// load and masked on store). Still to come: wgmma with TMA staging and
-// a persistent, warp-specialised schedule.
+// W2ᵀ, W1ᵀ) are never copied. H and M must be multiples of 64; R is any
+// (ragged tiles are zero-filled on load and masked on store).
+//
+// The bf16 backward, (4)-(7), runs on one persistent, warp-specialised
+// TMA + wgmma mainloop (gemm_sm90.cuh: a producer warpgroup, two
+// consumers, a 4-6 stage ring), each product an epilogue of it: (4) as
+// two products into two accumulators on 128x192 tiles (three on 128x64
+// for swiglu: registers), its epilogue the activation's backward, the
+// dz / a stores and the column sums (per warp by shuffles, over the
+// warps in shared memory, one f32 atomic a column a tile: their order,
+// and db1's low bits, vary from run to run); (5), (6), (7) on 128x256
+// tiles, the f32 result stored from the registers. Each operand is read
+// as stored, K-major or MN-major through the wgmma transpose bits.
+// The forward (2), (3) and the whole f32 path run the older cp.async
+// mainloop: a 128x128 (or 128x64) output tile per block of 8 warps,
+// 32-deep K steps through a 3-stage ring, mma.sync m16n8k16 (bf16 with
+// f32 accumulation; an FMA loop for f32), the transposed operands read
+// through ldmatrix.trans (or the FMA loop's indexing).
+#include <initializer_list>
+
+#include "gemm_sm90.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -382,41 +397,20 @@ fmlp_down(const T* __restrict__ a, const T* __restrict__ w2,
   }
 }
 
-// col[c] += the sum over this thread's rows of v at column c. bf16: the
-// thread's 2·MI rows of each column are summed in registers, then over
-// the 8 lanes that share the column (lane bits 2-4), and one lane of
-// them adds to shared memory; f32: one shared-memory add per element.
+// col[c] += the sum over this thread's rows of v at column c (the f32
+// FMA path; one shared-memory add per element)
 template <typename T, int BM, int BN>
 __device__ __forceinline__ void col_sums(const float* v, float* col) {
   constexpr int ACC = BM * BN / NT;
-  if constexpr (sizeof(T) == 2) {
-    constexpr int MI = BM / 32, NI = BN / 32;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e1 = 0; e1 < 2; ++e1) {
-        float t = 0.f;
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-          t += v[(mi * NI + ni) * 4 + e1] + v[(mi * NI + ni) * 4 + 2 + e1];
-        t += __shfl_xor_sync(0xffffffffu, t, 4);
-        t += __shfl_xor_sync(0xffffffffu, t, 8);
-        t += __shfl_xor_sync(0xffffffffu, t, 16);
-        if (lane < 4)
-          atomicAdd(&col[(warp >> 1) * (BN / 4) + ni * 8 + 2 * lane + e1], t);
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) {
-      int r, c;
-      coord<T, BM, BN>(i, r, c);
-      atomicAdd(&col[c], v[i]);
-    }
+  for (int i = 0; i < ACC; ++i) {
+    int r, c;
+    coord<T, BM, BN>(i, r, c);
+    atomicAdd(&col[c], v[i]);
   }
 }
 
-// ---- (4) dz (dzg), a and db1 (dbg) ---------------------------------------
+// ---- (4) dz (dzg), a and db1 (dbg); f32 -----------------------------------
 template <typename T, int ACT, int BM, int BN>
 __global__ void __launch_bounds__(NT)
 fmlp_act_bwd(const T* __restrict__ lnx, const T* __restrict__ w1,
@@ -484,7 +478,7 @@ fmlp_act_bwd(const T* __restrict__ lnx, const T* __restrict__ w1,
   }
 }
 
-// ---- (5), (7) C0 (C1) = Aᵀ·B0 (Aᵀ·B1) over the R rows, f32 out ------------
+// ---- (5), (7) C0 (C1) = Aᵀ·B0 (Aᵀ·B1) over the R rows, f32 out; f32 ------
 // A (R, MD), B (R, N); C (MD, N)
 template <typename T, bool DUAL, int BM, int BN>
 __global__ void __launch_bounds__(NT)
@@ -512,7 +506,7 @@ fmlp_wgrad(const T* __restrict__ A, const T* __restrict__ B0,
   }
 }
 
-// ---- (6) dlnx = dz·W1ᵀ (+ dzg·Wgᵀ), f32 out --------------------------------
+// ---- (6) dlnx = dz·W1ᵀ (+ dzg·Wgᵀ), f32 out; f32 --------------------------
 template <typename T, bool DUAL, int BM, int BN>
 __global__ void __launch_bounds__(NT)
 fmlp_dx(const T* __restrict__ dz, const T* __restrict__ w1,
@@ -541,8 +535,7 @@ fmlp_dx(const T* __restrict__ dz, const T* __restrict__ w1,
 // ---- host-side launchers -------------------------------------------------
 constexpr int TM = 128;                 // block tile rows
 constexpr int TN = 128;                 // block tile cols (64 for the
-                                        // two- and three-product
-                                        // backward, (4): registers)
+                                        // f32 backward's (4): registers)
 
 dim3 grid_of(int rows, int cols, int bm, int bn) {
   return dim3((cols + bn - 1) / bn, (rows + bm - 1) / bm);
@@ -670,6 +663,226 @@ int dw2_impl(const void* a, const void* dy, float* dw2, int R, int H, int M,
                 dw2, static_cast<float*>(nullptr), R, M, H);
 }
 
+// ---- the bf16 backward on the TMA + wgmma mainloop (gemm_sm90.cuh) -------
+namespace g90 = ptt::gemm90;
+namespace hp = ptt::hopper;
+
+// (5), (6), (7): the f32 product stored from the registers, (Mdim, Ndim)
+// row-major, masked at the ragged edges (Ndim is even: pairs are whole)
+struct EpiStoreF32 {
+  float* c;
+
+  template <int BN, int NACC>
+  __device__ __forceinline__ void apply(
+      float (&acc)[NACC][g90::AccShape<BN>::NH][g90::AccShape<BN>::HW],
+      int m0, int n0, int Mdim, int Ndim, int cw, int tid, float*) const {
+#pragma unroll
+    for (int h = 0; h < g90::AccShape<BN>::NH; ++h)
+#pragma unroll
+      for (int i = 0; i < g90::AccShape<BN>::HW; i += 2) {
+        int r, col;
+        g90::acc_coord(cw, tid, h, i, r, col);
+        r += m0;
+        col += n0;
+        if (r < Mdim && col < Ndim)
+          *reinterpret_cast<float2*>(c + (size_t)r * Ndim + col) =
+              make_float2(acc[0][h][i], acc[0][h][i + 1]);
+      }
+  }
+};
+
+// (4): acc[0] = da = dy·W2ᵀ, acc[1] = z = lnx·W1 (acc[2] = zg = lnx·Wg)
+// -> dz (dzg) and a in bf16, and the f32 column sums of dz (dzg) added
+// into db1 (dbg): per warp over its 16 rows by shuffles, over the four
+// warps in shared memory, one atomic a column a consumer
+template <int ACT>
+struct EpiActBwd {
+  const bf16* b1;
+  const bf16* bg;
+  bf16* dz;
+  bf16* dzg;
+  bf16* a;
+  float* db1;
+  float* dbg;
+
+  template <int BN, int NACC>
+  __device__ __forceinline__ void apply(
+      float (&acc)[NACC][1][BN / 2], int m0, int n0, int R, int M, int cw,
+      int tid, float* scratch) const {
+    constexpr bool SW = ACT == ACT_SWIGLU;
+    const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+    for (int i = 0; i < BN / 2; i += 2) {
+      int r, col;
+      g90::acc_coord(cw, tid, 0, i, r, col);
+      r += m0;
+      col += n0;
+      const bool in = r < R && col < M;      // M even: the pair is whole
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float da = acc[0][0][i + e];
+        float dzv = 0.f, av = 0.f;
+        if (in) {
+          const float zf = acc[1][0][i + e] + ptt::to_f(b1[col + e]);
+          if constexpr (SW) {
+            const float zgf = acc[2][0][i + e] + ptt::to_f(bg[col + e]);
+            const float sgm = sigmoid_f(zgf);
+            const float sg = zgf * sgm;
+            acc[2][0][i + e] = da * zf * (sgm * (1.f + zgf * (1.f - sgm)));
+            dzv = da * sg;
+            av = sg * zf;
+          } else {
+            av = act_f<ACT>(zf);
+            dzv = da * act_grad<ACT>(zf);
+          }
+        } else if constexpr (SW) {
+          acc[2][0][i + e] = 0.f;
+        }
+        acc[0][0][i + e] = dzv;
+        acc[1][0][i + e] = av;
+      }
+      if (in) {
+        const size_t o = (size_t)r * M + col;
+        *reinterpret_cast<__nv_bfloat162*>(dz + o) =
+            __floats2bfloat162_rn(acc[0][0][i], acc[0][0][i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(a + o) =
+            __floats2bfloat162_rn(acc[1][0][i], acc[1][0][i + 1]);
+        if constexpr (SW)
+          *reinterpret_cast<__nv_bfloat162*>(dzg + o) =
+              __floats2bfloat162_rn(acc[2][0][i], acc[2][0][i + 1]);
+      }
+    }
+    // column sums: [warp][column] per consumer, dz's then dzg's
+    float* cs = scratch + cw * 1024;
+#pragma unroll
+    for (int jb = 0; jb < BN / 8; ++jb)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1)
+#pragma unroll
+        for (int v = 0; v < (SW ? 2 : 1); ++v) {
+          const float* d = acc[v == 0 ? 0 : NACC - 1][0];
+          float t = d[4 * jb + e1] + d[4 * jb + 2 + e1];
+          t += __shfl_xor_sync(0xffffffffu, t, 4);
+          t += __shfl_xor_sync(0xffffffffu, t, 8);
+          t += __shfl_xor_sync(0xffffffffu, t, 16);
+          if (lane < 4)
+            cs[(v * 4 + warp) * BN + 8 * jb + 2 * lane + e1] = t;
+        }
+    hp::named_bar_sync(2 + cw, 128);
+    for (int col = tid; col < BN; col += 128) {
+      if (n0 + col >= M) continue;
+      atomicAdd(db1 + n0 + col, cs[col] + cs[BN + col] + cs[2 * BN + col]
+                                    + cs[3 * BN + col]);
+      if constexpr (SW)
+        atomicAdd(dbg + n0 + col, cs[4 * BN + col] + cs[5 * BN + col]
+                                      + cs[6 * BN + col] + cs[7 * BN + col]);
+    }
+    hp::named_bar_sync(2 + cw, 128);   // cs is free for the next tile
+  }
+};
+
+using KK = g90::Prod<0, 0, 0>;   // A and B K-major, into acc 0
+using NoP = g90::NoProd;
+
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  return true;
+}
+
+// (4) for one activation: (4a) da = dy·W2ᵀ (W2 (M, H) is B stored (N, K)),
+// (4b) z = lnx·W1 (W1 (H, M) is B stored (K, N)), (4c) zg = lnx·Wg
+template <int ACT>
+int act_bwd_wgmma(const bf16* h, const bf16* w1, const bf16* b1,
+                  const bf16* w2, const bf16* wg, const bf16* bg,
+                  const bf16* dy, bf16* dz, bf16* dzg, bf16* a, float* db1,
+                  float* dbg, int R, int H, int M, cudaStream_t s) {
+  constexpr int BN = ACT == ACT_SWIGLU ? 64 : 192;
+  using P1 = g90::Prod<0, 1, 1>;
+  g90::Maps maps{};
+  int err = g90::map_prod<BN, KK>(maps, 0, dy, w2, R, M, H);
+  if (err == 0) err = g90::map_prod<BN, P1>(maps, 1, h, w1, R, M, H);
+  const EpiActBwd<ACT> epi{b1, bg, dz, dzg, a, db1, dbg};
+  if constexpr (ACT == ACT_SWIGLU) {
+    using P2 = g90::Prod<0, 1, 2>;
+    if (err == 0) err = g90::map_prod<BN, P2>(maps, 2, h, wg, R, M, H);
+    if (err) return err;
+    return g90::launch<BN, 3, KK, P1, P2>(maps, epi, R, M, H, s);
+  } else {
+    if (err) return err;
+    return g90::launch<BN, 2, KK, P1, NoP>(maps, epi, R, M, H, s);
+  }
+}
+
+// C (Md, Nd) f32 = Aᵀ·B over the R rows of A (R, Md) and B (R, Nd): both
+// MN-major ((5) dW1 = lnxᵀ·dz, dWg = lnxᵀ·dzg; (7) dW2 = aᵀ·dy)
+int wgrad_wgmma(const bf16* A, const bf16* B, float* C, int R, int Md,
+                int Nd, cudaStream_t s) {
+  if (R == 0)   // no rows: the gradient is zero
+    return static_cast<int>(
+        cudaMemsetAsync(C, 0, (size_t)Md * Nd * sizeof(float), s));
+  using TT = g90::Prod<1, 1, 0>;
+  g90::Maps maps{};
+  const int err = g90::map_prod<256, TT>(maps, 0, A, B, Md, Nd, R);
+  if (err) return err;
+  return g90::launch<256, 1, TT, NoP, NoP>(maps, EpiStoreF32{C}, Md, Nd, R,
+                                           s);
+}
+
+int backward_wgmma(const void* xv, const float* lns, const float* lnb,
+                   const void* w1v, const void* b1v, const void* w2v,
+                   const void* wgv, const void* bgv, float* mu, float* rstd,
+                   const void* dyv, void* lnxv, void* dzv, void* dzgv,
+                   void* av, float* db1, float* dbg, float* dw1, float* dwg,
+                   float* dlnx, int R, int H, int M, int act, int has_ln,
+                   cudaStream_t s) {
+  const bf16* x = static_cast<const bf16*>(xv);
+  const bf16* dy = static_cast<const bf16*>(dyv);
+  const bf16 *w1 = static_cast<const bf16*>(w1v);
+  const bf16 *b1 = static_cast<const bf16*>(b1v);
+  const bf16* w2 = static_cast<const bf16*>(w2v);
+  const bf16 *wg = static_cast<const bf16*>(wgv);
+  const bf16 *bg = static_cast<const bf16*>(bgv);
+  bf16 *dz = static_cast<bf16*>(dzv), *dzg = static_cast<bf16*>(dzgv);
+  bf16* a = static_cast<bf16*>(av);
+  bf16* lnx = static_cast<bf16*>(lnxv);
+  const bool swiglu = act == ACT_SWIGLU;
+  const bf16* h = has_ln ? lnx : x;
+  if (!aligned16({x, dy, w1, w2, wg, dz, dzg, a, lnx}))
+    return static_cast<int>(cudaErrorInvalidValue);   // TMA's base rule
+  int err = 0;
+  if (has_ln && R > 0)
+    err = ln_launch<bf16>(x, lns, lnb, R, H, 0.f, 2, mu, rstd, lnx, s);
+  if (err) return err;
+  if (R > 0) {
+    if (act == ACT_GELU)
+      err = act_bwd_wgmma<ACT_GELU>(h, w1, b1, w2, wg, bg, dy, dz, dzg, a,
+                                    db1, dbg, R, H, M, s);
+    else if (act == ACT_RELU)
+      err = act_bwd_wgmma<ACT_RELU>(h, w1, b1, w2, wg, bg, dy, dz, dzg, a,
+                                    db1, dbg, R, H, M, s);
+    else
+      err = act_bwd_wgmma<ACT_SWIGLU>(h, w1, b1, w2, wg, bg, dy, dz, dzg, a,
+                                      db1, dbg, R, H, M, s);
+    if (err) return err;
+  }
+  err = wgrad_wgmma(h, dz, dw1, R, H, M, s);
+  if (err == 0 && swiglu) err = wgrad_wgmma(h, dzg, dwg, R, H, M, s);
+  if (err || R == 0) return err;
+  // (6) dlnx = dz·W1ᵀ (+ dzg·Wgᵀ): W1 (H, M) is B stored (N, K)
+  g90::Maps maps{};
+  err = g90::map_prod<256, KK>(maps, 0, dz, w1, R, H, M);
+  if (swiglu) {
+    if (err == 0) err = g90::map_prod<256, KK>(maps, 1, dzg, wg, R, H, M);
+    if (err) return err;
+    return g90::launch<256, 1, KK, KK, NoP>(maps, EpiStoreF32{dlnx}, R, H,
+                                            M, s);
+  }
+  if (err) return err;
+  return g90::launch<256, 1, KK, NoP, NoP>(maps, EpiStoreF32{dlnx}, R, H, M,
+                                           s);
+}
+
 bool shapes_ok(int R, int H, int M) {
   return R >= 0 && H > 0 && M > 0 && H % 64 == 0 && M % 64 == 0;
 }
@@ -705,8 +918,10 @@ extern "C" int fmlp_forward(const void* x, const float* lns, const float* lnb,
 // Main backward: dz, a (and dzg) (R, M) in x's dtype; db1 (and dbg) (M)
 // f32, ZEROED by the caller (the kernel adds into them); dw1 (and dwg)
 // (H, M) f32; dlnx (R, H) f32; lnx (R, H) scratch in x's dtype. dy
-// (R, H) already in x's dtype. Four launches; returns the first CUDA
-// error.
+// (R, H) already in x's dtype. bf16 runs the TMA/wgmma kernels (every
+// bf16 pointer 16-byte aligned, else cudaErrorInvalidValue), f32 the FMA
+// kernels. Four launches (five for swiglu in bf16: dWg is its own);
+// returns the first CUDA error.
 extern "C" int fmlp_backward(const void* x, const float* lns,
                              const float* lnb, const void* w1, const void* b1,
                              const void* w2, const void* wg, const void* bg,
@@ -720,9 +935,9 @@ extern "C" int fmlp_backward(const void* x, const float* lns,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kBF16)
-    return backward_impl<bf16>(x, lns, lnb, w1, b1, w2, wg, bg, mu, rstd, dy,
-                               lnx, dz, dzg, a, db1, dbg, dw1, dwg, dlnx, R,
-                               H, M, act, has_ln, s);
+    return backward_wgmma(x, lns, lnb, w1, b1, w2, wg, bg, mu, rstd, dy, lnx,
+                          dz, dzg, a, db1, dbg, dw1, dwg, dlnx, R, H, M, act,
+                          has_ln, s);
   if (dtype == ptt::kF32)
     return backward_impl<float>(x, lns, lnb, w1, b1, w2, wg, bg, mu, rstd,
                                 dy, lnx, dz, dzg, a, db1, dbg, dw1, dwg, dlnx,
@@ -730,13 +945,25 @@ extern "C" int fmlp_backward(const void* x, const float* lns,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dW2 = aᵀ·dy (M, H) f32 from the main backward's a (R, M) and dy (R, H).
+// dW2 = aᵀ·dy (M, H) f32 from the main backward's a (R, M) and dy (R, H);
+// bf16 on the TMA/wgmma mainloop (16-byte-aligned a and dy), f32 on FMA.
 extern "C" int fmlp_backward_dw2(const void* a, const void* dy, float* dw2,
                                  int R, int H, int M, int dtype,
                                  void* stream) {
   if (!shapes_ok(R, H, M)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBF16) return dw2_impl<bf16>(a, dy, dw2, R, H, M, s);
+  if (dtype == ptt::kBF16) {
+    if (!aligned16({a, dy})) return static_cast<int>(cudaErrorInvalidValue);
+    return wgrad_wgmma(static_cast<const bf16*>(a),
+                       static_cast<const bf16*>(dy), dw2, R, M, H, s);
+  }
   if (dtype == ptt::kF32) return dw2_impl<float>(a, dy, dw2, R, H, M, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dynamic shared memory a block of the TMA/wgmma GEMM takes with a
+// 128 x BN output tile (BN 64, 192 or 256: the tiles it runs), in bytes
+extern "C" int fmlp_gemm_smem_bytes(int BN) {
+  return BN == 64 ? g90::smem_bytes<64>()
+       : BN == 192 ? g90::smem_bytes<192>() : g90::smem_bytes<256>();
 }

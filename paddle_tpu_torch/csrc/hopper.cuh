@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
-// (fp8_matmul.cu, flash_attention_fwd.cu): mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and products (bf16 with A from shared
-// memory or registers, f16 with A from registers), register rebalancing,
-// and the host-side encoding of TMA tensor maps.
+// (fp8_matmul.cu, flash_attention_fwd.cu, flash_attention_bwd.cu,
+// fused_ln_mlp.cu through gemm_sm90.cuh): mbarriers, TMA tile loads and
+// reduce-adds into device memory, named barriers, wgmma shared-memory
+// descriptors and products (bf16 with A from shared memory or registers,
+// either operand K-major or MN-major; f16 with A from registers),
+// register rebalancing, and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory layout every descriptor here assumes: a tile of R rows
 // whose rows are exactly 128 bytes (64 bf16 or 128 e4m3 values), written
@@ -16,9 +18,12 @@
 //   tile's base plus 32·k bytes (the hardware applies the swizzle to the
 //   address it computes, which is why the base must be 1024-aligned).
 // - MN-major operand (the output dimension along the row, as v (S, D)
-//   used as the B of P·V): SBO = 1024 bytes between 8-row groups along
-//   the reduction dimension, LBO = the byte distance between two
-//   64-value column blocks (two TMA boxes stored one after the other).
+//   used as the B of P·V, or dS stored transposed as the A of dS·K): SBO =
+//   1024 bytes between 8-row groups along the reduction dimension, LBO =
+//   the byte distance between two 64-value column blocks (two TMA boxes
+//   stored one after the other); the k-th 16-deep step is the base plus
+//   16 rows (2048 bytes). The wgmma takes it through its transpose bit
+//   (tnspA / tnspB = 1); an A operand spans 64 rows, one column block.
 //
 // Accumulator layout of wgmma m64nN (f32): thread t of the warpgroup,
 // w = t / 32, g = (t % 32) / 4, c = t % 4, holds for n8 block j
@@ -79,6 +84,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // -- TMA tile loads ----------------------------------------------------
 
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -103,6 +118,50 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// -- bulk reduce-add shared -> device memory, and proxy fences ---------
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, bulk copies) that reads them next
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the box of `map` at (c0, c1, c2) += the f32 tile at src (laid out as
+// the box, 128-byte aligned), asynchronously, in this thread's bulk group;
+// elements past the array's edges are left alone
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk groups but the newest N have read their sources
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// ... and completed
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 // -- register rebalancing between warpgroups ---------------------------
@@ -165,6 +224,14 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define PTT_D96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 #define PTT_D64 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -172,8 +239,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
 
-// d (64 x 128 f32) (+)= a (64 x 16 bf16, K-major) · b (16 x 128 bf16,
-// K-major), both from shared memory
+// d (64 x 128 f32) (+)= a (64 x 16 bf16) · b (16 x 128 bf16), both from
+// shared memory; TA / TB = 1: that operand is MN-major (transpose bit)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64],
                                                          uint64_t da,
                                                          uint64_t db,
@@ -181,9 +249,37 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64],
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PTT_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
       : PTT_R32(0), PTT_R32(32)
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// the same at N = 192
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_m64n192k16_bf16_ss(float (&d)[96],
+                                                         uint64_t da,
+                                                         uint64_t db,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " PTT_D96
+      ", %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : PTT_R32(0), PTT_R32(32), PTT_R32(64)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// the same at N = 64
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32],
+                                                        uint64_t da,
+                                                        uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PTT_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : PTT_R32(0)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d (64 x N f32) += a (64 x 16 bf16, registers) · b (16 x N bf16,
@@ -225,6 +321,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(
 #undef PTT_R32
 #undef PTT_D32
 #undef PTT_D64
+#undef PTT_D96
 
 // -- host: TMA tensor maps ---------------------------------------------
 
@@ -258,18 +355,19 @@ inline EncodeTiled encode_tiled() {
 }
 
 // a tiled map of a `rank`-dimensional array (dims and box innermost
-// first, strides in bytes of dims 1..rank-1), 128-byte swizzle, zero
-// fill past every edge; returns a CUDA runtime error code (0 on success)
+// first, strides in bytes of dims 1..rank-1), 128-byte swizzle unless
+// told otherwise, zero fill past every edge; returns a CUDA runtime error
+// code (0 on success)
 inline int make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                     const void* base, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+                    const cuuint64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t ones[3] = {1, 1, 1};
   const CUresult r = enc(map, type, static_cast<cuuint32_t>(rank),
                          const_cast<void*>(base), dims, strides, box, ones,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -13,6 +13,14 @@ differentiable: it saves ``(q, k, v, o, lse)`` and its backward launches
 the backward kernel, which recomputes the probabilities from ``lse``
 (the JAX package's custom VJP). :func:`_flash_backward_reference` is
 that backward's plain version, with the TPU kernel's roundings.
+
+Each CUDA source holds two kernels, and :func:`kernel_for` is the rule
+that picks one (the C entry points apply the same rule): bf16 at head
+dim 64 or 128 (serving and training) runs the Hopper kernel (TMA loads
+into an mbarrier ring, wgmma; its tensor maps need 16-byte-aligned
+bases, so the wrappers copy an unaligned operand), f32 (the BERT path)
+and every other head dim up to 128 the FMA kernel. Nothing else is
+taken: a wider head, another dtype, mixed dtypes or devices raise.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the Hopper (TMA + wgmma) kernels take, in bf16
+HOPPER_HEAD_DIMS = (64, 128)
 _lib = None
 _bwd_lib = None
 
@@ -90,6 +100,26 @@ def _flash_backward_reference(q, k, v, o, lse, do, causal, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def kernel_for(dtype, head_dim):
+    """Which kernel a CUDA call of either direction launches: "wgmma"
+    (the Hopper kernel: bf16, head dim 64 or 128) or "fma" (f32, and bf16
+    at any other head dim up to 128). Raises for what neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash attention takes f32 or bf16, got {dtype}")
+    if not 0 < head_dim <= 128:
+        raise ValueError(f"head_dim {head_dim} > 128 is not supported by "
+                         f"the kernel")
+    if dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
+
+
+def _aligned(*ts):
+    """The tensors with any whose base is not 16-byte aligned copied (the
+    Hopper kernels' tensor maps need aligned bases)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def _check(q, k, v):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention takes f32 or bf16 q/k/v of one "
@@ -115,10 +145,8 @@ def _launch(q, k, v, causal, scale):
     _check(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if q.dtype == torch.bfloat16 and d in (64, 128):
-        # the TMA kernel's tensor maps need 16-byte-aligned bases
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
+    if kernel_for(q.dtype, d) == "wgmma":
+        q, k, v = _aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
     if _lib is None:
@@ -145,7 +173,8 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     """Backward kernel on CUDA tensors: (dq, dk, dv) in the input dtypes.
     ``delta = rowsum(dO·O)`` is one PyTorch reduction (the JAX package
     computes it outside its kernel too); dQ accumulates in an f32
-    (B·H, Sq, D) buffer, then is cast."""
+    (B·H, Sq, D) buffer zeroed here (the kernels add into it), then is
+    cast. :func:`kernel_for` picks the kernel."""
     global _bwd_lib, BWD_LAUNCHES
     _check(q, k, v)
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype \
@@ -159,7 +188,11 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     lse = lse.contiguous()
     if lse.dtype != torch.float32 or lse.numel() != b * h * sq:
         raise ValueError("lse must be f32 (B·H, Sq, 1)")
-    delta = (do.float() * o.float()).sum(-1).contiguous()
+    # rowsum(dO·O) in f32: the product of the upcast operands, in place
+    # on a copy of dO in f32 (one pass fewer than upcasting both)
+    delta = do.to(torch.float32, copy=True).mul_(o).sum(-1)
+    if kernel_for(q.dtype, d) == "wgmma":
+        q, k, v, do, lse = _aligned(q, k, v, do, lse)
     dq32 = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -18,6 +18,12 @@ LN scale/bias, w1, b1, w2, b2 and the gate weights in their input dtypes
 On a CUDA tensor the wrappers launch the kernels (or raise: H and the
 MLP width must be multiples of 64); on a CPU tensor they run
 :func:`_fmlp_forward_reference` / :func:`_fmlp_backward_reference`.
+:func:`mlp_bwd_kernel_for` is the rule the backward's C entry points
+apply too: bf16 runs the Hopper GEMMs (TMA loads into an mbarrier ring,
+wgmma; every activation, gelu and relu on 128x128 tiles, swiglu on
+128x64; their tensor maps need 16-byte-aligned bases, so the wrapper
+copies an unaligned operand), f32 the FMA mainloop. The forward runs
+the mma.sync mainloop in bf16 and the FMA one in f32.
 Those plain versions carry the KERNEL's numerics, not the composed
 path's (:func:`_ln_mlp_reference`, the unfused model code): the LN in
 f32 with ``lnx`` stored in x's dtype, ``z = lnx·w1`` accumulated in f32
@@ -241,6 +247,22 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def mlp_bwd_kernel_for(dtype):
+    """Which mainloop the backward kernels (and dW2's) run on a CUDA
+    tensor: "wgmma" (bf16: the Hopper GEMMs, every activation) or "fma"
+    (f32). Raises for another dtype."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"fused_ln_mlp takes f32 or bf16, got {dtype}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def _aligned(*ts):
+    """The tensors (None passes) with any whose base is not 16-byte
+    aligned copied: the Hopper GEMMs' tensor maps need aligned bases."""
+    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                 for t in ts)
+
+
 def _check_card(x2, w1, w2, wg):
     R, H = x2.shape
     M = w1.shape[1]
@@ -298,7 +320,8 @@ def _launch_bwd(x2, lns, lnb, w1, b1, w2, wg, bg, mu, rstd, dy, act,
     ``z = lnx·w1`` in one kernel with the ``act'(z)`` epilogue, which
     also writes ``a`` and the f32 column sums db1/dbg; then
     dW1/dWg = lnxᵀ·dz and dlnx = dz·w1ᵀ) and the dW2 = aᵀ·dy kernel (the
-    TPU's separate ``_fmlp_bwd_dw2_kernel``)."""
+    TPU's separate ``_fmlp_bwd_dw2_kernel``). :func:`mlp_bwd_kernel_for`
+    picks their mainloop."""
     global BWD_LAUNCHES
     _check_card(x2, w1, w2, wg)
     lib = _load()
@@ -307,6 +330,8 @@ def _launch_bwd(x2, lns, lnb, w1, b1, w2, wg, bg, mu, rstd, dy, act,
     dev = x2.device
     dt = x2.dtype
     dy = dy.to(dt).contiguous()
+    if mlp_bwd_kernel_for(dt) == "wgmma":
+        x2, w1, w2, wg, dy = _aligned(x2, w1, w2, wg, dy)
     f32 = dict(dtype=torch.float32, device=dev)
     swiglu = act == "swiglu"
     dz = torch.empty((R, M), dtype=dt, device=dev)
@@ -342,12 +367,18 @@ def _launch_dw2(a, dy):
     main backward's activation buffer a (R, M) and dy (R, H), both in the
     compute dtype."""
     global DW2_LAUNCHES
-    lib = _load()
     R, M = a.shape
     H = dy.shape[1]
     if dy.shape[0] != R or dy.dtype != a.dtype or a.dtype not in _DTYPES:
         raise ValueError(f"a {tuple(a.shape)}/{a.dtype} and dy "
                          f"{tuple(dy.shape)}/{dy.dtype} do not fit")
+    if H % 64 or M % 64:
+        raise ValueError(f"the dW2 kernel needs hidden and MLP widths that "
+                         f"are multiples of 64, got H={H}, M={M}")
+    a, dy = a.contiguous(), dy.contiguous()
+    if mlp_bwd_kernel_for(a.dtype) == "wgmma":
+        a, dy = _aligned(a, dy)
+    lib = _load()
     dw2 = torch.empty((M, H), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         err = lib.fmlp_backward_dw2(a.data_ptr(), dy.data_ptr(),

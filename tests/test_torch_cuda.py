@@ -18,6 +18,11 @@ bf16 rounding, 3.9e-3 of a value).
 The add-LN kernels: f32 1e-4 (sums in another order), bf16 2e-2 (such
 a sum can cross one bf16 rounding of out or dx, 3.9e-3 of a value).
 
+The Hopper flash backward adds dQ with reduce-adds whose order between
+blocks changes from run to run, and the Hopper LN-MLP backward sums db1
+with atomics: the low bits of those outputs vary between runs, inside
+the bf16 gradient tolerance below.
+
 Tolerances: f32 1e-4 (f32 sums in another order, atomics in any order);
 bf16 2e-2 on forward outputs (the plain versions round scores to bf16
 where the kernels keep f32); lse 1e-3; bf16 gradients 2e-2 of the
@@ -113,6 +118,36 @@ def test_flash_backward_kernel_matches_plain(cuda_device, dtype, tol, sq,
         assert _rel(g, w) <= tol
 
 
+# the Hopper (TMA + wgmma) backward: bf16 at D 64 and 128, causal and
+# not, Sq != Sk both ways, lengths off its 128-row kv and 64-row q tiles,
+# and B·H = 144 > 132 SMs so that the persistent grid's loop wraps
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [
+    (1, 2, 100, 612, 128, True), (1, 2, 612, 100, 128, True),
+    (1, 2, 100, 612, 64, False), (1, 2, 612, 100, 64, True),
+    (2, 3, 257, 257, 128, False), (2, 3, 200, 333, 64, True),
+    (3, 48, 130, 130, 128, True), (3, 48, 70, 190, 64, False),
+    (2, 2, 1, 300, 128, True), (1, 3, 2048, 2048, 128, True)])
+def test_flash_backward_hopper_kernel_matches_plain(cuda_device, b, h, sq,
+                                                    sk, d, causal):
+    assert tfa.kernel_for(torch.bfloat16, d) == "wgmma"
+    dt = torch.bfloat16
+    q = _randn((b, h, sq, d), dt, cuda_device, 41)
+    k = _randn((b, h, sk, d), dt, cuda_device, 42)
+    v = _randn((b, h, sk, d), dt, cuda_device, 43)
+    do = _randn((b, h, sq, d), dt, cuda_device, 44)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tfa.flash_attention_forward(q, k, v, causal=causal)
+    before = tfa.BWD_LAUNCHES
+    got = tfa._flash_backward(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert tfa.BWD_LAUNCHES == before + 1
+    want = tfa._flash_backward_reference(q, k, v, o, lse, do, causal, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dt and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) <= 2e-2, name
+
+
 def test_flash_autograd_on_card(cuda_device):
     """flash_attention_arrays is differentiable on a CUDA tensor: the
     backward kernel gives the gradient the plain forward's autograd
@@ -176,6 +211,36 @@ def test_fused_mlp_kernels_match_plain(cuda_device, dtype, tol, act, R, H,
             continue
         assert g.shape == w.shape, name
         assert _rel(g, w) <= tol, name
+
+
+# the Hopper (TMA + wgmma) backward GEMMs: ragged R (a partial last
+# 64-deep step of the weight gradients and a partial row tile), H and M
+# multiples of 64 but not of 128 (partial column tiles), every activation
+@pytest.mark.parametrize("act", ["gelu", "relu", "swiglu"])
+@pytest.mark.parametrize("R,H,M", [(100, 192, 320), (8191, 192, 320)])
+def test_fused_mlp_hopper_backward_matches_plain(cuda_device, act, R, H, M):
+    assert tfk.mlp_bwd_kernel_for(torch.bfloat16) == "wgmma"
+    t = _fmlp_inputs(R, H, M, torch.bfloat16, cuda_device, 32)
+    gate = act == "swiglu"
+    wg, bg = (t["wg"], t["bg"]) if gate else (None, None)
+    args = (t["x"], t["lns"], t["lnb"], t["w1"], t["b1"], t["w2"], t["b2"],
+            wg, bg, act, True, True, 1e-5)
+    _, mu, rstd = tfk._fmlp_forward_reference(*args)
+    bargs = (t["x"], t["lns"], t["lnb"], t["w1"], t["b1"], t["w2"], wg, bg,
+             mu, rstd, t["dy"], act, True, True)
+    b0 = (tfk.BWD_LAUNCHES, tfk.DW2_LAUNCHES)
+    got = tfk._fmlp_backward(*bargs)
+    torch.cuda.synchronize()
+    assert (tfk.BWD_LAUNCHES, tfk.DW2_LAUNCHES) == (b0[0] + 1, b0[1] + 1)
+    want = tfk._fmlp_backward_reference(*bargs)
+    names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2", "dwg",
+             "dbg")
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) <= 2e-2, name
 
 
 def test_fused_mlp_refuses_untileable_widths(cuda_device):

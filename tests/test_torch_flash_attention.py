@@ -128,13 +128,13 @@ def test_lse_is_logsumexp_of_masked_scores():
         assert abs(float(lse[0, r, 0]) - float(want)) < 1e-5
 
 
-def _grads_jax(arrs, do, causal, scale, dtype):
+def _grads_jax(arrs, do, causal, scale, dtype, block=128):
     q, k, v = _jax(arrs, dtype)
     o, lse = jfa._flash_forward(q, k, v, causal=causal, scale=scale,
-                                block_q=128, block_k=128, interpret=True)
+                                block_q=block, block_k=block, interpret=True)
     grads = jfa._flash_backward(q, k, v, o, lse, jnp.asarray(do, dtype),
-                                causal=causal, scale=scale, block_q=128,
-                                block_k=128, interpret=True)
+                                causal=causal, scale=scale, block_q=block,
+                                block_k=block, interpret=True)
     return o, lse, grads
 
 
@@ -179,6 +179,69 @@ def test_plain_backward_matches_pallas_interpret(b, h, sq, sk, d, causal,
                                        rtol=F32_TOL, err_msg=name)
         else:
             assert _rel(w, g) <= BF16_TOL_GRAD, name
+
+
+# lengths that are not multiples of 128 (the Pallas grid takes them with
+# 64-row blocks, or one block of the whole length)
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,dt,block", [
+    (1, 2, 96, 96, 64, True, "f32", 128),
+    (1, 2, 192, 320, 64, True, "f32", 64),
+    (1, 1, 192, 192, 128, False, "bf16", 64)])
+def test_plain_backward_matches_pallas_interpret_unaligned_lengths(
+        b, h, sq, sk, d, causal, dt, block):
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    arrs = _inputs(b, h, sq, sk, d, seed=15)
+    do = np.random.default_rng(16).standard_normal((b, h, sq, d)).astype(
+        np.float32)
+    scale = 1.0 / math.sqrt(d)
+    o, lse, want = _grads_jax(arrs, do, causal, scale, jdt, block)
+    q, k, v = _torch(arrs, tdt)
+    got = tfa._flash_backward_reference(
+        q, k, v, torch.from_numpy(np.array(_np(o))).to(tdt),
+        torch.from_numpy(np.array(lse)), torch.from_numpy(do).to(tdt),
+        causal, scale)
+    for name, w, g in zip(("dq", "dk", "dv"), want, got):
+        assert g.dtype == tdt and tuple(g.shape) == w.shape, name
+        if dt == "f32":
+            np.testing.assert_allclose(_np(g), _np(w), atol=F32_TOL,
+                                       rtol=F32_TOL, err_msg=name)
+        else:
+            assert _rel(w, g) <= BF16_TOL_GRAD, name
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "fma"), (torch.bfloat16, 96, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 128, "fma")])
+def test_kernel_for_routes_by_dtype_and_head_dim(dtype, d, kernel):
+    """bf16 at head dim 64 or 128 goes to the Hopper kernels, f32 and
+    every other head dim to the FMA ones: the rule both C entry points
+    apply, decided without a card."""
+    assert tfa.kernel_for(dtype, d) == kernel
+
+
+def test_kernel_for_refuses_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        tfa.kernel_for(torch.float16, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.kernel_for(torch.bfloat16, 256)
+    q = torch.zeros(1, 1, 4, 256)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._check(q, q, q)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        tfa._check(q.half(), q.half(), q.half())
+
+
+def test_aligned_copies_only_unaligned_bases():
+    """The Hopper kernels' tensor maps need 16-byte-aligned bases: an
+    unaligned view is copied, an aligned tensor passes as it is."""
+    buf = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)
+    aligned = buf[:4 * 64].view(1, 1, 4, 64)
+    unaligned = buf[1:].view(1, 1, 4, 64)
+    a, u = tfa._aligned(aligned, unaligned)
+    assert a is aligned and u is not unaligned
+    assert u.data_ptr() % 16 == 0 and torch.equal(u, unaligned)
 
 
 @pytest.mark.parametrize("sq,sk,causal", [(128, 128, True),

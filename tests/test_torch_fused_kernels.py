@@ -178,3 +178,37 @@ def test_bad_activation_and_missing_gate_raise():
         tfk.fused_ln_mlp(x, w1, b1, w2, b2, act="tanh")
     with pytest.raises(ValueError, match="w_gate"):
         tfk.fused_ln_mlp(x, w1, b1, w2, b2, act="swiglu")
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "wgmma"),
+                                          (torch.float32, "fma")])
+def test_backward_kernel_rule(dtype, kernel):
+    """bf16 backward (every activation) runs the Hopper GEMMs, f32 the FMA
+    mainloop: the rule the C entry points apply, decided without a card."""
+    assert tfk.mlp_bwd_kernel_for(dtype) == kernel
+
+
+def test_backward_kernel_rule_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        tfk.mlp_bwd_kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("a_shape,dy_shape,dtypes,match", [
+    ((10, 96), (10, 128), (torch.bfloat16,) * 2, "multiples of 64"),
+    ((10, 128), (10, 96), (torch.bfloat16,) * 2, "multiples of 64"),
+    ((10, 128), (11, 128), (torch.bfloat16,) * 2, "do not fit"),
+    ((10, 128), (10, 128), (torch.bfloat16, torch.float32), "do not fit")])
+def test_dw2_kernel_refuses_before_any_launch(a_shape, dy_shape, dtypes,
+                                              match):
+    a = torch.zeros(a_shape, dtype=dtypes[0])
+    dy = torch.zeros(dy_shape, dtype=dtypes[1])
+    with pytest.raises(ValueError, match=match):
+        tfk._launch_dw2(a, dy)
+
+
+def test_aligned_copies_unaligned_operands_and_passes_none():
+    buf = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16)
+    ok, bad = buf[:64 * 64].view(64, 64), buf[1:].view(64, 64)
+    got = tfk._aligned(ok, None, bad)
+    assert got[0] is ok and got[1] is None and got[2] is not bad
+    assert got[2].data_ptr() % 16 == 0 and torch.equal(got[2], bad)
