@@ -847,8 +847,7 @@ def fmlp_phase(dev, fk, stamp, H=2048, M=8192, row_counts=(8192, 100)):
 # phase 8: a backward kernel's label from its (demangled) name, the
 # first match in this order
 FMLP_BWD_KERNELS = (("(1') ln_rows", ("ln_rows",)),
-                    ("(4a) da", ("EpiStashF32",)),
-                    ("(4b) z -> dz, a, db1", ("EpiActBwd", "fmlp_act_bwd")),
+                    ("(4) da, z -> dz, a, db1", ("EpiActBwd", "fmlp_act_bwd")),
                     ("(5) dW1 + (7) dW2", ("Prod<1,1,0>", "fmlp_wgrad")),
                     ("(6) dlnx", ("EpiStoreF32", "fmlp_dx")))
 

@@ -84,9 +84,6 @@ constexpr int LD_SLOT = 96;             // floats between two such boxes:
                                         // each 128-byte aligned
 constexpr int DQ_BYTES = WQ * 64 * 4;   // a consumer's dQ part, f32
 constexpr float LOG2E = 1.4426950408889634f;
-#ifndef PTT_FB_DQ_OUT
-#define PTT_FB_DQ_OUT 1
-#endif
 
 template <int D>
 __host__ __device__ constexpr int kv_bytes() { return (D / 64) * KBOX; }
@@ -145,9 +142,8 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_lse,
                 const __grid_constant__ CUtensorMap map_delta,
                 const __grid_constant__ CUtensorMap map_dq,
-                float* __restrict__ dq, bf16* __restrict__ dk,
-                bf16* __restrict__ dv, int BH, int Sq, int Sk, float scale,
-                int causal) {
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int Sq,
+                int Sk, float scale, int causal) {
   constexpr int KVB = kv_bytes<D>();
   constexpr int QB = q_bytes<D>();
   extern __shared__ unsigned char fb_smem_raw[];
@@ -159,7 +155,7 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   unsigned char* sdS = sQ + WSTAGES * 2 * QB;        // two dSᵀ tiles
   float* sdQ = reinterpret_cast<float*>(sdS + 2 * DS_BYTES);  // consumer c
                                          // at c·WQ·64, (64 q, 64 d) f32
-  float* sLD = sdQ + 2 * WQ * 64;        // stage s: lse at 2·s·LD_SLOT,
+  float* sLD = sdQ + 2 * DQ_BYTES / 4;   // stage s: lse at 2·s·LD_SLOT,
                                          // delta LD_SLOT on
   uint64_t* bar = reinterpret_cast<uint64_t*>(sLD + WSTAGES * 2 * LD_SLOT);
   uint64_t* full_kv = bar;
@@ -390,9 +386,7 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
 
         // dQ out: staged in shared memory once the last tile's reduce-add
         // has read it, then added into dq as one (64 d, 64 q) box of its
-        // tensor map (rows past Sq are left alone). PTT_FB_DQ_OUT=0 builds
-        // a measurement variant that skips it (tools/flash_bwd_study.py)
-        if constexpr (PTT_FB_DQ_OUT) {
+        // tensor map (rows past Sq are left alone)
         if (tid == 0) hp::bulk_wait_read<0>();
         hp::named_bar_sync(2 + c, 128);
 #pragma unroll
@@ -407,7 +401,6 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
         if (tid == 0) {
           hp::tma_reduce_add_3d(&map_dq, sdQc, dcol0, q0, bh);
           hp::bulk_commit();
-        }
         }
       }
       if (n_q > 0 && tid == 0) hp::mbar_arrive(empty_kv);  // K, V read
@@ -447,11 +440,12 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   }
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
         | reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)
-        | reinterpret_cast<uintptr_t>(lse)
-        | reinterpret_cast<uintptr_t>(delta)) & 15) != 0)
+        | reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta)
+        | reinterpret_cast<uintptr_t>(dq)) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // (D, S, BH) maps: a box past the end of one head zero-fills instead of
-  // reading the next head's rows; lse and delta as (BH·Sq) rows
+  // reading the next head's rows (and a reduce-add past it into dq writes
+  // nothing); lse and delta as (BH·Sq) rows
   CUtensorMap mq, mk, mv, mdo, ml, mdl, mdq;
   const cuuint32_t qbox[3] = {64, WQ, 1};
   const cuuint32_t kbox[3] = {64, WKV, 1};
@@ -473,12 +467,10 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   if (err == 0)
     err = hp::make_map(&mdl, F32, 1, delta, drow, skv, rbox,
                        CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (err == 0) {
-    const cuuint32_t dqbox[3] = {64, WQ, 1};
-    const cuuint64_t sdq[2] = {(cuuint64_t)D * 4, (cuuint64_t)Sq * D * 4};
-    err = hp::make_map(&mdq, F32, 3, dq, dq_, sdq, dqbox,
+  const cuuint64_t sdq[2] = {(cuuint64_t)D * 4, (cuuint64_t)Sq * D * 4};
+  if (err == 0)
+    err = hp::make_map(&mdq, F32, 3, dq, dq_, sdq, qbox,
                        CU_TENSOR_MAP_SWIZZLE_NONE);
-  }
   if (err != 0) return err;
   auto kern = flash_bwd_wgmma<D>;
   constexpr int smem = wgmma_smem_bytes<D>();
@@ -491,7 +483,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   }
   const int items = BH * (((Sk + WKV - 1) / WKV + 1) / 2);
   const int grid = min(items, hp::sm_count());
-  kern<<<grid, WT, smem, stream>>>(mq, mk, mv, mdo, ml, mdl, mdq, dq,
+  kern<<<grid, WT, smem, stream>>>(mq, mk, mv, mdo, ml, mdl, mdq,
                                    static_cast<bf16*>(dk),
                                    static_cast<bf16*>(dv), BH, Sq, Sk, scale,
                                    causal);

@@ -12,7 +12,9 @@ fallback.
 Calling convention of every entry point: device pointers and the CUDA
 stream are ``c_void_p`` (the stream is PyTorch's current stream), sizes
 are ``c_int``, and the return value is ``cudaGetLastError()`` right after
-the launch, which :func:`check` turns into an exception.
+the launch, which :func:`check` turns into an exception. The Hopper
+kernels' TMA tensor maps need 16-byte-aligned bases: :func:`aligned16`
+copies an operand that is not.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "EXTRA_FLAGS", "SOURCES", "load", "build_all",
-           "check", "build_log"]
+           "check", "build_log", "aligned16"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -135,3 +137,10 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.ptt_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+def aligned16(*ts):
+    """The tensors (None passes) with each whose base is not 16-byte
+    aligned replaced by an aligned copy."""
+    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                 for t in ts)

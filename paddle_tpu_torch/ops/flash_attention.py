@@ -41,8 +41,6 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the Hopper (TMA + wgmma) kernels take, in bf16
-HOPPER_HEAD_DIMS = (64, 128)
 _lib = None
 _bwd_lib = None
 
@@ -109,15 +107,9 @@ def kernel_for(dtype, head_dim):
     if not 0 < head_dim <= 128:
         raise ValueError(f"head_dim {head_dim} > 128 is not supported by "
                          f"the kernel")
-    if dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS:
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
         return "wgmma"
     return "fma"
-
-
-def _aligned(*ts):
-    """The tensors with any whose base is not 16-byte aligned copied (the
-    Hopper kernels' tensor maps need aligned bases)."""
-    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
 def _check(q, k, v):
@@ -146,7 +138,7 @@ def _launch(q, k, v, causal, scale):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if kernel_for(q.dtype, d) == "wgmma":
-        q, k, v = _aligned(q, k, v)
+        q, k, v = _build.aligned16(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
     if _lib is None:
@@ -192,7 +184,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     # on a copy of dO in f32 (one pass fewer than upcasting both)
     delta = do.to(torch.float32, copy=True).mul_(o).sum(-1)
     if kernel_for(q.dtype, d) == "wgmma":
-        q, k, v, do, lse = _aligned(q, k, v, do, lse)
+        q, k, v, do, lse = _build.aligned16(q, k, v, do, lse)
     dq32 = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -256,13 +256,6 @@ def mlp_bwd_kernel_for(dtype):
     return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
-def _aligned(*ts):
-    """The tensors (None passes) with any whose base is not 16-byte
-    aligned copied: the Hopper GEMMs' tensor maps need aligned bases."""
-    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-                 for t in ts)
-
-
 def _check_card(x2, w1, w2, wg):
     R, H = x2.shape
     M = w1.shape[1]
@@ -331,7 +324,7 @@ def _launch_bwd(x2, lns, lnb, w1, b1, w2, wg, bg, mu, rstd, dy, act,
     dt = x2.dtype
     dy = dy.to(dt).contiguous()
     if mlp_bwd_kernel_for(dt) == "wgmma":
-        x2, w1, w2, wg, dy = _aligned(x2, w1, w2, wg, dy)
+        x2, w1, w2, wg, dy = _build.aligned16(x2, w1, w2, wg, dy)
     f32 = dict(dtype=torch.float32, device=dev)
     swiglu = act == "swiglu"
     dz = torch.empty((R, M), dtype=dt, device=dev)
@@ -377,7 +370,7 @@ def _launch_dw2(a, dy):
                          f"are multiples of 64, got H={H}, M={M}")
     a, dy = a.contiguous(), dy.contiguous()
     if mlp_bwd_kernel_for(a.dtype) == "wgmma":
-        a, dy = _aligned(a, dy)
+        a, dy = _build.aligned16(a, dy)
     lib = _load()
     dw2 = torch.empty((M, H), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):

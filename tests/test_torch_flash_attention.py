@@ -233,17 +233,6 @@ def test_kernel_for_refuses_what_no_kernel_takes():
         tfa._check(q.half(), q.half(), q.half())
 
 
-def test_aligned_copies_only_unaligned_bases():
-    """The Hopper kernels' tensor maps need 16-byte-aligned bases: an
-    unaligned view is copied, an aligned tensor passes as it is."""
-    buf = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)
-    aligned = buf[:4 * 64].view(1, 1, 4, 64)
-    unaligned = buf[1:].view(1, 1, 4, 64)
-    a, u = tfa._aligned(aligned, unaligned)
-    assert a is aligned and u is not unaligned
-    assert u.data_ptr() % 16 == 0 and torch.equal(u, unaligned)
-
-
 @pytest.mark.parametrize("sq,sk,causal", [(128, 128, True),
                                           (128, 256, True),
                                           (128, 128, False)])

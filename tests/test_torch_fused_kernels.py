@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import fused_kernels as tfk
 
 # the module (paddle_tpu.ops re-exports a function of the same name)
@@ -206,9 +207,12 @@ def test_dw2_kernel_refuses_before_any_launch(a_shape, dy_shape, dtypes,
         tfk._launch_dw2(a, dy)
 
 
-def test_aligned_copies_unaligned_operands_and_passes_none():
+def test_aligned16_copies_unaligned_operands_and_passes_none():
+    """The Hopper kernels' tensor maps need 16-byte-aligned bases: an
+    unaligned view is copied, an aligned tensor and None pass as they
+    are."""
     buf = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16)
     ok, bad = buf[:64 * 64].view(64, 64), buf[1:].view(64, 64)
-    got = tfk._aligned(ok, None, bad)
+    got = _build.aligned16(ok, None, bad)
     assert got[0] is ok and got[1] is None and got[2] is not bad
     assert got[2].data_ptr() % 16 == 0 and torch.equal(got[2], bad)
