@@ -20,10 +20,10 @@ MLP width must be multiples of 64); on a CPU tensor they run
 :func:`_fmlp_forward_reference` / :func:`_fmlp_backward_reference`.
 :func:`mlp_bwd_kernel_for` is the rule the backward's C entry points
 apply too: bf16 runs the Hopper GEMMs (TMA loads into an mbarrier ring,
-wgmma; every activation, gelu and relu on 128x128 tiles, swiglu on
-128x64; their tensor maps need 16-byte-aligned bases, so the wrapper
-copies an unaligned operand), f32 the FMA mainloop. The forward runs
-the mma.sync mainloop in bf16 and the FMA one in f32.
+wgmma; every activation: kernel (4) on 128x192 tiles for gelu and relu,
+128x64 for swiglu; their tensor maps need 16-byte-aligned bases, so the
+wrapper copies an unaligned operand), f32 the FMA mainloop. The forward
+runs the mma.sync mainloop in bf16 and the FMA one in f32.
 Those plain versions carry the KERNEL's numerics, not the composed
 path's (:func:`_ln_mlp_reference`, the unfused model code): the LN in
 f32 with ``lnx`` stored in x's dtype, ``z = lnx·w1`` accumulated in f32
