@@ -120,7 +120,7 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// -- bulk reduce-add shared -> device memory, and proxy fences ---------
+// -- TMA reduce-adds into device memory, bulk groups, proxy fences ------
 
 // make this thread's generic-proxy writes to shared memory visible to the
 // async proxy (wgmma operands, bulk copies) that reads them next
