@@ -44,10 +44,12 @@
 //   (dS read through its transpose, K as stored): at D = 128 each
 //   consumer takes 64 of the head columns over all 128 kv rows (one
 //   named barrier joins the two consumers' dS halves), at D = 64 all
-//   columns over its own 64 rows. Each consumer stages its 64x64 f32 dQ
-//   part in shared memory and one thread adds it into the zeroed f32 dq
-//   buffer with one TMA reduce-add (cp.reduce.async.bulk.tensor .add)
-//   through a (D, Sq, B·H) map, which runs while the next tile computes.
+//   columns over its own 64 rows. The f32 dQ part is staged in shared
+//   memory and added into the zeroed f32 dq buffer by one TMA reduce-add
+//   (cp.reduce.async.bulk.tensor .add) through a (D, Sq, B·H) map, which
+//   runs while the next tile computes: at D 128 the two consumers' halves
+//   side by side as one contiguous (64 q, 128 d) tile, at D 64 one
+//   (64 q, 64 d) tile per consumer.
 // The causal loop starts at the first q tile that sees the kv tile.
 // What still bounds it: those reduce-adds. With 128-row kv tiles every
 // dq element takes one f32 add per kv tile that sees it, 570 MB of adds
@@ -82,7 +84,7 @@ constexpr int LD_N = WQ + 4;            // lse or delta floats a stage: a
                                         // up to 3 more in front
 constexpr int LD_SLOT = 96;             // floats between two such boxes:
                                         // each 128-byte aligned
-constexpr int DQ_BYTES = WQ * 64 * 4;   // a consumer's dQ part, f32
+constexpr int DQ_BYTES = WQ * 64 * 4;   // (64 q, 64 d) of dQ, f32
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
@@ -93,9 +95,8 @@ __host__ __device__ constexpr int q_bytes() { return (D / 64) * QBOX; }
 
 template <int D>
 constexpr int wgmma_smem_bytes() {
-  // K, V; the ring of Q and dO tiles; two dSᵀ tiles; two consumers' dQ
-  // staging tiles; lse and delta a stage; the barriers; 1024 of
-  // alignment slack
+  // K, V; the ring of Q and dO tiles; two dSᵀ tiles; dQ out (64 x 128
+  // f32); lse and delta a stage; the barriers; 1024 of alignment slack
   return 2 * kv_bytes<D>() + WSTAGES * 2 * q_bytes<D>() + 2 * DS_BYTES
       + 2 * DQ_BYTES + WSTAGES * 2 * LD_SLOT * 4 + (2 + 2 * WSTAGES) * 8
       + 1024;
@@ -153,8 +154,9 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   unsigned char* sQ = sV + KVB;          // stage s: Q at sQ + 2·s·QB,
                                          // dO right after it
   unsigned char* sdS = sQ + WSTAGES * 2 * QB;        // two dSᵀ tiles
-  float* sdQ = reinterpret_cast<float*>(sdS + 2 * DS_BYTES);  // consumer c
-                                         // at c·WQ·64, (64 q, 64 d) f32
+  float* sdQ = reinterpret_cast<float*>(sdS + 2 * DS_BYTES);  // dQ out,
+                                         // f32: one (64, 128) tile or two
+                                         // (64, 64)
   float* sLD = sdQ + 2 * DQ_BYTES / 4;   // stage s: lse at 2·s·LD_SLOT,
                                          // delta LD_SLOT on
   uint64_t* bar = reinterpret_cast<uint64_t*>(sLD + WSTAGES * 2 * LD_SLOT);
@@ -235,8 +237,6 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t4 = lane % 4;
     const float sl2 = scale * LOG2E;          // scores in log2 units
-    float* sdQc = sdQ + c * WQ * 64;
-    const int dcol0 = D == 128 ? 64 * c : 0;  // this consumer's dQ columns
     // this consumer's K and V rows as K-major A operands
     const uint64_t dka_desc = hp::desc_sw128(sK + c * 64 * 128, 16, 1024);
     const uint64_t dva_desc = hp::desc_sw128(sV + c * 64 * 128, 16, 1024);
@@ -384,22 +384,29 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
         hp::fence_regs(dqa);
         if (tid == 0) hp::mbar_arrive(&empty[s]);    // Q, dO, lse read
 
-        // dQ out: staged in shared memory once the last tile's reduce-add
-        // has read it, then added into dq as one (64 d, 64 q) box of its
-        // tensor map (rows past Sq are left alone)
-        if (tid == 0) hp::bulk_wait_read<0>();
-        hp::named_bar_sync(2 + c, 128);
+        // dQ out, staged in shared memory once the last tile's reduce-add
+        // has read it, then added into dq by one TMA reduce-add through its
+        // tensor map (rows past Sq are left alone). D 128: the consumers'
+        // 64-column halves side by side, one contiguous (64 q, 128 d) tile;
+        // D 64: each consumer's own (64 q, 64 d) part over its kv rows
+        // (summing the two first costs more than the second add)
+        float* tile = sdQ + (D == 128 ? 0 : c * WQ * 64);
+        const int bar_id = D == 128 ? 1 : 2 + c;
+        const bool issuer = tid == 0 && (D == 64 || c == 0);
+        if (issuer) hp::bulk_wait_read<0>();
+        hp::named_bar_sync(bar_id, D == 128 ? 256 : 128);
+        float* dqrow = tile + (16 * warp + g) * D + (D == 128 ? 64 * c : 0)
+            + 2 * t4;
 #pragma unroll
         for (int jb = 0; jb < 8; ++jb)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(
-                sdQc + (16 * warp + g + 8 * h) * 64 + 8 * jb + 2 * t4) =
+            *reinterpret_cast<float2*>(dqrow + 8 * h * D + 8 * jb) =
                 make_float2(dqa[4 * jb + 2 * h], dqa[4 * jb + 2 * h + 1]);
         hp::fence_proxy_async();
-        hp::named_bar_sync(2 + c, 128);
-        if (tid == 0) {
-          hp::tma_reduce_add_3d(&map_dq, sdQc, dcol0, q0, bh);
+        hp::named_bar_sync(bar_id, D == 128 ? 256 : 128);
+        if (issuer) {
+          hp::tma_reduce_add_3d(&map_dq, tile, 0, q0, bh);
           hp::bulk_commit();
         }
       }
@@ -468,8 +475,9 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     err = hp::make_map(&mdl, F32, 1, delta, drow, skv, rbox,
                        CU_TENSOR_MAP_SWIZZLE_NONE);
   const cuuint64_t sdq[2] = {(cuuint64_t)D * 4, (cuuint64_t)Sq * D * 4};
+  const cuuint32_t dqbox[3] = {D, WQ, 1};
   if (err == 0)
-    err = hp::make_map(&mdq, F32, 3, dq, dq_, sdq, qbox,
+    err = hp::make_map(&mdq, F32, 3, dq, dq_, sdq, dqbox,
                        CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err;
   auto kern = flash_bwd_wgmma<D>;
