@@ -53,9 +53,8 @@
 // The causal loop starts at the first q tile that sees the kv tile.
 // What still bounds it: those reduce-adds. With 128-row kv tiles every
 // dq element takes one f32 add per kv tile that sees it, 570 MB of adds
-// at (4, 16, 2048, 128) causal, which the L2's reduction units take
-// longer to absorb than the tensor cores take for the five products
-// (PERF.md §6, PR 7).
+// at (4, 16, 2048, 128) causal, and they cost about a third of the
+// kernel's time on an H100 (PERF.md §6, PR 7).
 // dQ's sums arrive in a different order on every run (the reduce-adds of
 // different blocks race), so its low bits vary from run to run.
 // f32 inputs (the BERT path) and bf16 with other head dims run a plain
