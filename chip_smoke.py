@@ -682,16 +682,12 @@ def _rel(got, want):
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-# phase 7: (name, batch, heads, S, head_dim), causal
-FLASH_BWD_SHAPES = (("gpt_1p3b_train", 4, 16, 2048, 128),
-                    ("ragged", 1, 16, 100, 128),
-                    ("gpt_small", 1, 12, 1024, 64))
-
-
-def flash_bwd_phase(dev, fa, stamp, shapes=FLASH_BWD_SHAPES):
+def flash_bwd_phase(dev, fa, stamp):
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     rows = {}
+    shapes = [("gpt_1p3b_train", 4, 16, 2048, 128),
+              ("ragged", 1, 16, 100, 128), ("gpt_small", 1, 12, 1024, 64)]
     for dtype in (torch.bfloat16, torch.float32):
         for model, b, h, s, d in shapes:
             q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
@@ -746,12 +742,13 @@ def flash_bwd_phase(dev, fa, stamp, shapes=FLASH_BWD_SHAPES):
     return rows
 
 
-def fmlp_phase(dev, fk, stamp, H=2048, M=8192, row_counts=(8192, 100)):
+def fmlp_phase(dev, fk, stamp):
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     rows = {}
+    H, M = 2048, 8192
     for dtype in (torch.bfloat16, torch.float32):
-        for R in row_counts:
+        for R in (8192, 100):
             def n(*sh, sc=1.0):
                 return torch.randn(sh, generator=gen, device=dev) * sc
 
@@ -852,12 +849,28 @@ FMLP_BWD_KERNELS = (("(1') ln_rows", ("ln_rows",)),
                     ("(6) dlnx", ("EpiStoreF32", "fmlp_dx")))
 
 
+def _pytorch_kernel_label(key):
+    """A PyTorch kernel's name, shortened: its namespaces and argument
+    list dropped, at most 100 characters."""
+    key = re.sub(r"^void |at::native::|\(anonymous namespace\)::|"
+                 r"c10::|std::", "", key)
+    depth = 0
+    for i, ch in enumerate(key):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            key = key[:i]
+            break
+    return key.strip()[:100]
+
+
 def _fmlp_bwd_breakdown(fn, reps=3):
     """Device ms per call of each kernel of the fused LN-MLP backward
     (``FMLP_BWD_KERNELS``; (5) and (7) are one kernel, two launches a
-    call) and of the PyTorch work around them (LN backward, db2, the
-    casts), from one torch.profiler pass over ``reps`` calls; None when
-    the trace has no device time."""
+    call) and of the PyTorch work around them (the LN backward, db2, the
+    residual add and the zeroing of db1): ``pytorch`` their sum,
+    ``pytorch_kernels`` each PyTorch kernel by its name. From one
+    torch.profiler pass over ``reps`` calls; None when the trace has no
+    device time."""
     from paddle_tpu_torch.tools.profile_decode import _device_us
 
     fn()
@@ -870,6 +883,7 @@ def _fmlp_bwd_breakdown(fn, reps=3):
         torch.cuda.synchronize()
     out = {label: 0.0 for label, _ in FMLP_BWD_KERNELS}
     out["pytorch"] = 0.0
+    each = {}
     seen = False
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -882,6 +896,10 @@ def _fmlp_bwd_breakdown(fn, reps=3):
         label = next((lb for lb, stems in FMLP_BWD_KERNELS
                       if any(st in key for st in stems)), "pytorch")
         out[label] += us / reps / 1e3
+        if label == "pytorch":
+            name = _pytorch_kernel_label(e.key)
+            each[name] = each.get(name, 0.0) + us / reps / 1e3
+    out["pytorch_kernels"] = dict(sorted(each.items(), key=lambda kv: -kv[1]))
     return out if seen else None
 
 

@@ -86,13 +86,26 @@ __device__ __forceinline__ float act_f(float z) {
   return 0.5f * z * (1.f + tanhf(u));
 }
 
+// act_f(z) and its derivative, with gelu's tanh taken once
 template <int ACT>
-__device__ __forceinline__ float act_grad(float z) {
-  if (ACT == ACT_RELU) return z > 0.f ? 1.f : 0.f;
+__device__ __forceinline__ void act_and_grad(float z, float& a, float& g) {
+  if (ACT == ACT_RELU) {
+    a = fmaxf(z, 0.f);
+    g = z > 0.f ? 1.f : 0.f;
+    return;
+  }
   const float u = kSqrt2Pi * (z + 0.044715f * z * z * z);
   const float t = tanhf(u);
   const float du = kSqrt2Pi * (1.f + 0.134145f * z * z);
-  return 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
+  a = 0.5f * z * (1.f + t);
+  g = 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_grad(float z) {
+  float a, g;
+  act_and_grad<ACT>(z, a, g);
+  return g;
 }
 
 __device__ __forceinline__ float sigmoid_f(float z) {
@@ -711,45 +724,62 @@ struct EpiActBwd {
       int tid, float* scratch) const {
     constexpr bool SW = ACT == ACT_SWIGLU;
     const int warp = tid / 32, lane = tid % 32;
+    // a thread's elements come in groups of 8 columns (jb): the same two
+    // columns (a pair) in rows r and r + 8, so each bias pair is read
+    // once for both rows
 #pragma unroll
-    for (int i = 0; i < BN / 2; i += 2) {
+    for (int jb = 0; jb < BN / 8; ++jb) {
       int r, col;
-      g90::acc_coord(cw, tid, 0, i, r, col);
+      g90::acc_coord(cw, tid, 0, 4 * jb, r, col);
       r += m0;
       col += n0;
-      const bool in = r < R && col < M;      // M even: the pair is whole
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float da = acc[0][0][i + e];
-        float dzv = 0.f, av = 0.f;
-        if (in) {
-          const float zf = acc[1][0][i + e] + ptt::to_f(b1[col + e]);
-          if constexpr (SW) {
-            const float zgf = acc[2][0][i + e] + ptt::to_f(bg[col + e]);
-            const float sgm = sigmoid_f(zgf);
-            const float sg = zgf * sgm;
-            acc[2][0][i + e] = da * zf * (sgm * (1.f + zgf * (1.f - sgm)));
-            dzv = da * sg;
-            av = sg * zf;
-          } else {
-            av = act_f<ACT>(zf);
-            dzv = da * act_grad<ACT>(zf);
-          }
-        } else if constexpr (SW) {
-          acc[2][0][i + e] = 0.f;
-        }
-        acc[0][0][i + e] = dzv;
-        acc[1][0][i + e] = av;
-      }
-      if (in) {
-        const size_t o = (size_t)r * M + col;
-        *reinterpret_cast<__nv_bfloat162*>(dz + o) =
-            __floats2bfloat162_rn(acc[0][0][i], acc[0][0][i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(a + o) =
-            __floats2bfloat162_rn(acc[1][0][i], acc[1][0][i + 1]);
+      const bool cin = col < M;               // M even: the pair is whole
+      float2 bb1 = make_float2(0.f, 0.f), bbg = bb1;
+      if (cin) {
+        bb1 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(b1 + col));
         if constexpr (SW)
-          *reinterpret_cast<__nv_bfloat162*>(dzg + o) =
-              __floats2bfloat162_rn(acc[2][0][i], acc[2][0][i + 1]);
+          bbg = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(bg + col));
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = 4 * jb + 2 * rr;
+        const bool in = cin && r + 8 * rr < R;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float da = acc[0][0][i + e];
+          float dzv = 0.f, av = 0.f;
+          if (in) {
+            const float zf = acc[1][0][i + e] + (e ? bb1.y : bb1.x);
+            if constexpr (SW) {
+              const float zgf = acc[2][0][i + e] + (e ? bbg.y : bbg.x);
+              const float sgm = sigmoid_f(zgf);
+              const float sg = zgf * sgm;
+              acc[2][0][i + e] = da * zf * (sgm * (1.f + zgf * (1.f - sgm)));
+              dzv = da * sg;
+              av = sg * zf;
+            } else {
+              float g;
+              act_and_grad<ACT>(zf, av, g);
+              dzv = da * g;
+            }
+          } else if constexpr (SW) {
+            acc[2][0][i + e] = 0.f;
+          }
+          acc[0][0][i + e] = dzv;
+          acc[1][0][i + e] = av;
+        }
+        if (in) {
+          const size_t o = (size_t)(r + 8 * rr) * M + col;
+          *reinterpret_cast<__nv_bfloat162*>(dz + o) =
+              __floats2bfloat162_rn(acc[0][0][i], acc[0][0][i + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(a + o) =
+              __floats2bfloat162_rn(acc[1][0][i], acc[1][0][i + 1]);
+          if constexpr (SW)
+            *reinterpret_cast<__nv_bfloat162*>(dzg + o) =
+                __floats2bfloat162_rn(acc[2][0][i], acc[2][0][i + 1]);
+        }
       }
     }
     // column sums: [warp][column] per consumer, dz's then dzg's
@@ -848,7 +878,7 @@ int backward_wgmma(const void* xv, const float* lns, const float* lnb,
   bf16* lnx = static_cast<bf16*>(lnxv);
   const bool swiglu = act == ACT_SWIGLU;
   const bf16* h = has_ln ? lnx : x;
-  if (!aligned16({x, dy, w1, w2, wg, dz, dzg, a, lnx}))
+  if (!aligned16({x, dy, w1, b1, w2, wg, bg, dz, dzg, a, lnx}))
     return static_cast<int>(cudaErrorInvalidValue);   // TMA's base rule
   int err = 0;
   if (has_ln && R > 0)

@@ -14,11 +14,11 @@ the backward kernel, which recomputes the probabilities from ``lse``
 (the JAX package's custom VJP). :func:`_flash_backward_reference` is
 that backward's plain version, with the TPU kernel's roundings.
 
-Each CUDA source holds two kernels, and :func:`kernel_for` is the rule
-that picks one (the C entry points apply the same rule): bf16 at head
+Each CUDA source holds two kernels, and its C entry point picks one
+(:func:`kernel_for` states the rule for reports and tests): bf16 at head
 dim 64 or 128 (serving and training) runs the Hopper kernel (TMA loads
 into an mbarrier ring, wgmma; its tensor maps need 16-byte-aligned
-bases, so the wrappers copy an unaligned operand), f32 (the BERT path)
+bases, so the wrappers copy any unaligned operand), f32 (the BERT path)
 and every other head dim up to 128 the FMA kernel. Nothing else is
 taken: a wider head, another dtype, mixed dtypes or devices raise.
 """
@@ -101,7 +101,9 @@ def _flash_backward_reference(q, k, v, o, lse, do, causal, scale):
 def kernel_for(dtype, head_dim):
     """Which kernel a CUDA call of either direction launches: "wgmma"
     (the Hopper kernel: bf16, head dim 64 or 128) or "fma" (f32, and bf16
-    at any other head dim up to 128). Raises for what neither takes."""
+    at any other head dim up to 128). Raises for what neither takes. The
+    C entry points own this rule and apply it themselves; this copy names
+    the route for reports and tests."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention takes f32 or bf16, got {dtype}")
     if not 0 < head_dim <= 128:
@@ -137,8 +139,7 @@ def _launch(q, k, v, causal, scale):
     _check(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if kernel_for(q.dtype, d) == "wgmma":
-        q, k, v = _build.aligned16(q, k, v)
+    q, k, v = _build.aligned16(q, k, v)   # the Hopper kernel's tensor maps
     o = torch.empty_like(q)
     lse = torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
     if _lib is None:
@@ -166,7 +167,8 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     ``delta = rowsum(dO·O)`` is one PyTorch reduction (the JAX package
     computes it outside its kernel too); dQ accumulates in an f32
     (B·H, Sq, D) buffer zeroed here (the kernels add into it), then is
-    cast. :func:`kernel_for` picks the kernel."""
+    cast. The C entry point picks the kernel (:func:`kernel_for` states
+    its rule)."""
     global _bwd_lib, BWD_LAUNCHES
     _check(q, k, v)
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype \
@@ -183,8 +185,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal, scale):
     # rowsum(dO·O) in f32: the product of the upcast operands, in place
     # on a copy of dO in f32 (one pass fewer than upcasting both)
     delta = do.to(torch.float32, copy=True).mul_(o).sum(-1)
-    if kernel_for(q.dtype, d) == "wgmma":
-        q, k, v, do, lse = _build.aligned16(q, k, v, do, lse)
+    q, k, v, do, lse = _build.aligned16(q, k, v, do, lse)
     dq32 = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -18,11 +18,12 @@ LN scale/bias, w1, b1, w2, b2 and the gate weights in their input dtypes
 On a CUDA tensor the wrappers launch the kernels (or raise: H and the
 MLP width must be multiples of 64); on a CPU tensor they run
 :func:`_fmlp_forward_reference` / :func:`_fmlp_backward_reference`.
-:func:`mlp_bwd_kernel_for` is the rule the backward's C entry points
-apply too: bf16 runs the Hopper GEMMs (TMA loads into an mbarrier ring,
-wgmma; every activation: kernel (4) on 128x192 tiles for gelu and relu,
-128x64 for swiglu; their tensor maps need 16-byte-aligned bases, so the
-wrapper copies an unaligned operand), f32 the FMA mainloop. The forward
+The backward's C entry points pick its mainloop
+(:func:`mlp_bwd_kernel_for` states their rule for reports and tests):
+bf16 runs the Hopper GEMMs (TMA loads into an mbarrier ring, wgmma;
+every activation: kernel (4) on 128x192 tiles for gelu and relu, 128x64
+for swiglu; their tensor maps need 16-byte-aligned bases, so the wrapper
+copies any unaligned operand), f32 the FMA mainloop. The forward
 runs the mma.sync mainloop in bf16 and the FMA one in f32.
 Those plain versions carry the KERNEL's numerics, not the composed
 path's (:func:`_ln_mlp_reference`, the unfused model code): the LN in
@@ -33,7 +34,9 @@ rounds after every op in the compute dtype, so the two differ in bf16
 (by a few bf16 ulps) and agree in f32 to the summation order.
 
 Outside the kernels, as the JAX package does them in ``jnp``: ``db2``,
-the LayerNorm backward from ``dlnx`` and the residual add.
+the LayerNorm backward from ``dlnx`` and the residual add (on a CUDA
+tensor in fewer passes, the LayerNorm backward as aten's one op:
+:func:`_bwd_rows`).
 
 :func:`fused_add_layernorm` is the counterpart of the JAX function of
 the same name: ``LN(x + y)``, the post-LN residual pattern, with the
@@ -186,6 +189,27 @@ def _ln_backward(dlnx, x2, lns, mu, rstd, has_ln):
     return rstd * (dxhat - mean1 - xhat * mean2), dscale, dbias
 
 
+def _bwd_rows(dlnx, x2, lns, lnb, mu, rstd, dy, residual, has_ln):
+    """The kernel path's PyTorch work after the GEMMs: (dx, dscale,
+    dbias, db2) in f32 from the kernels' f32 ``dlnx`` (which it may
+    overwrite), as :func:`_fmlp_backward_reference` computes them, in
+    fewer passes over (R, H): the LayerNorm backward is one aten op
+    (``native_layer_norm_backward`` on x in f32: dx, then the column sums
+    dscale and dbias), db2 sums dy in f32 without an f32 copy, and the
+    residual adds dy in place. The same functions up to f32 summation
+    order."""
+    db2 = dy.sum(0, dtype=torch.float32)
+    if has_ln:
+        dx, dscale, dbias = torch.ops.aten.native_layer_norm_backward(
+            dlnx, x2.float(), [x2.shape[-1]], mu, rstd, lns, lnb,
+            [True, True, True])
+    else:
+        dx, dscale, dbias = _ln_backward(dlnx, x2, lns, mu, rstd, has_ln)
+    if residual:
+        dx.add_(dy)
+    return dx, dscale, dbias, db2
+
+
 def _fmlp_backward_reference(x2, lns, lnb, w1, b1, w2, wg, bg, mu, rstd,
                              dy, act, residual, has_ln):
     """Plain version of the backward kernels. Returns f32
@@ -250,7 +274,9 @@ def _ptr(t):
 def mlp_bwd_kernel_for(dtype):
     """Which mainloop the backward kernels (and dW2's) run on a CUDA
     tensor: "wgmma" (bf16: the Hopper GEMMs, every activation) or "fma"
-    (f32). Raises for another dtype."""
+    (f32). Raises for another dtype. The C entry points own this rule and
+    apply it themselves; this copy names the route for reports and
+    tests."""
     if dtype not in _DTYPES:
         raise TypeError(f"fused_ln_mlp takes f32 or bf16, got {dtype}")
     return "wgmma" if dtype == torch.bfloat16 else "fma"
@@ -313,8 +339,12 @@ def _launch_bwd(x2, lns, lnb, w1, b1, w2, wg, bg, mu, rstd, dy, act,
     ``z = lnx·w1`` in one kernel with the ``act'(z)`` epilogue, which
     also writes ``a`` and the f32 column sums db1/dbg; then
     dW1/dWg = lnxᵀ·dz and dlnx = dz·w1ᵀ) and the dW2 = aᵀ·dy kernel (the
-    TPU's separate ``_fmlp_bwd_dw2_kernel``). :func:`mlp_bwd_kernel_for`
-    picks their mainloop."""
+    TPU's separate ``_fmlp_bwd_dw2_kernel``); then db2, the LN backward
+    and the residual add in PyTorch (:func:`_bwd_rows`). The C
+    entry points pick the kernels' mainloop (:func:`mlp_bwd_kernel_for`
+    states their rule); the bf16 one reads its operands through tensor
+    maps and its biases in pairs, from 16-byte-aligned bases, so an
+    unaligned operand is copied whatever the dtype."""
     global BWD_LAUNCHES
     _check_card(x2, w1, w2, wg)
     lib = _load()
@@ -323,8 +353,8 @@ def _launch_bwd(x2, lns, lnb, w1, b1, w2, wg, bg, mu, rstd, dy, act,
     dev = x2.device
     dt = x2.dtype
     dy = dy.to(dt).contiguous()
-    if mlp_bwd_kernel_for(dt) == "wgmma":
-        x2, w1, w2, wg, dy = _build.aligned16(x2, w1, w2, wg, dy)
+    x2, w1, b1, w2, wg, bg, dy = _build.aligned16(x2, w1, b1, w2, wg, bg,
+                                                  dy)
     f32 = dict(dtype=torch.float32, device=dev)
     swiglu = act == "swiglu"
     dz = torch.empty((R, M), dtype=dt, device=dev)
@@ -348,10 +378,8 @@ def _launch_bwd(x2, lns, lnb, w1, b1, w2, wg, bg, mu, rstd, dy, act,
     _build.check(lib, err, "fmlp_backward")
     BWD_LAUNCHES += 1
     dw2 = _launch_dw2(a, dy)
-    db2 = dy.float().sum(0)
-    dx, dscale, dbias = _ln_backward(dlnx, x2, lns, mu, rstd, has_ln)
-    if residual:
-        dx = dx + dy.float()
+    dx, dscale, dbias, db2 = _bwd_rows(dlnx, x2, lns, lnb, mu, rstd, dy,
+                                       residual, has_ln)
     return dx, dscale, dbias, dw1, db1, dw2, db2, dwg, dbg
 
 
@@ -368,9 +396,7 @@ def _launch_dw2(a, dy):
     if H % 64 or M % 64:
         raise ValueError(f"the dW2 kernel needs hidden and MLP widths that "
                          f"are multiples of 64, got H={H}, M={M}")
-    a, dy = a.contiguous(), dy.contiguous()
-    if mlp_bwd_kernel_for(a.dtype) == "wgmma":
-        a, dy = _build.aligned16(a, dy)
+    a, dy = _build.aligned16(a.contiguous(), dy.contiguous())
     lib = _load()
     dw2 = torch.empty((M, H), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):

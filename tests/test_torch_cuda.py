@@ -243,6 +243,43 @@ def test_fused_mlp_hopper_backward_matches_plain(cuda_device, act, R, H, M):
         assert _rel(g, w) <= 2e-2, name
 
 
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+def test_fused_mlp_hopper_backward_copies_unaligned_operands(cuda_device,
+                                                              act):
+    """x, dy, the weights and the biases as views off a 16-byte boundary:
+    the wrapper copies them for the tensor maps and the paired bias
+    reads, and the grads are those of the aligned tensors."""
+    t = _fmlp_inputs(100, 192, 320, torch.bfloat16, cuda_device, 33)
+
+    def unaligned(v):
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        assert out.data_ptr() % 16 != 0
+        return out
+
+    gate = act == "swiglu"
+    names = ("x", "w1", "b1", "w2", "wg", "bg", "dy")
+    u = {k: unaligned(t[k]) for k in names}
+
+    def bargs(d):
+        wg, bg = (d["wg"], d["bg"]) if gate else (None, None)
+        _, mu, rstd = tfk._fmlp_forward_reference(
+            d["x"], t["lns"], t["lnb"], d["w1"], d["b1"], d["w2"], t["b2"],
+            wg, bg, act, True, True, 1e-5)
+        return (d["x"], t["lns"], t["lnb"], d["w1"], d["b1"], d["w2"], wg,
+                bg, mu, rstd, d["dy"], act, True, True)
+
+    got = tfk._fmlp_backward(*bargs(u))
+    want = tfk._fmlp_backward_reference(*bargs(t))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert bool(torch.isfinite(g).all()) and _rel(g, w) <= 2e-2
+
+
 def test_fused_mlp_refuses_untileable_widths(cuda_device):
     x = torch.zeros(4, 96, device=cuda_device)
     with pytest.raises(ValueError, match="multiples of 64"):

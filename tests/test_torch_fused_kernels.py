@@ -216,3 +216,34 @@ def test_aligned16_copies_unaligned_operands_and_passes_none():
     got = _build.aligned16(ok, None, bad)
     assert got[0] is ok and got[1] is None and got[2] is not bad
     assert got[2].data_ptr() % 16 == 0 and torch.equal(got[2], bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual,has_ln", [(True, True), (False, True),
+                                             (True, False)])
+def test_kernel_path_rows_match_the_plain_ln_backward(dtype, residual,
+                                                      has_ln):
+    """The PyTorch work the kernel path runs after its GEMMs (aten's LN
+    backward, db2, the residual add in place) gives the plain version's
+    dx, dscale, dbias and db2, to f32 summation order (1e-5 of each
+    output's largest value)."""
+    g = torch.Generator().manual_seed(3)
+    R, H = 37, 192
+    x2 = (torch.randn(R, H, generator=g) * 2 + 0.3).to(dtype)
+    dy = torch.randn(R, H, generator=g).to(dtype)
+    dlnx = torch.randn(R, H, generator=g)
+    lns = 1.0 + 0.1 * torch.randn(H, generator=g)
+    lnb = 0.1 * torch.randn(H, generator=g)
+    x32 = x2.float()
+    mu = x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x32 - mu).square().mean(-1, keepdim=True) + 1e-5)
+    dx, dscale, dbias = tfk._ln_backward(dlnx, x2, lns, mu, rstd, has_ln)
+    if residual:
+        dx = dx + dy.float()
+    want = (dx, dscale, dbias, dy.float().sum(0))
+    got = tfk._bwd_rows(dlnx.clone(), x2, lns, lnb, mu, rstd, dy, residual,
+                        has_ln)
+    for w, o in zip(want, got):
+        assert o.dtype == torch.float32 and o.shape == w.shape
+        scale = max(w.abs().max().item(), 1e-6)
+        assert (o - w).abs().max().item() <= 1e-5 * scale
