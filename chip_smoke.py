@@ -253,10 +253,11 @@ def _template_int(name, stem):
 
 
 def hopper_report(_build):
-    """Per Hopper kernel function: ptxas' registers and spill bytes, the
-    dynamic shared memory a block takes, and, where cuobjdump exists, the
-    wgmma (HGMMA) and TMA load (UTMALDG) instructions in its SASS. Raises
-    when such a kernel has none of either."""
+    """Per Hopper kernel function: ptxas' registers, its spill stores and
+    spill loads in bytes (as ptxas gives them), the dynamic shared memory
+    a block takes, and, where cuobjdump exists, the wgmma (HGMMA) and TMA
+    load (UTMALDG) instructions in its SASS. Raises when such a kernel has
+    none of either."""
     smem = {"fp8_matmul": lambda lib, name: lib.fp8_matmul_smem_bytes(),
             "flash_attention_fwd": lambda lib, name: {
                 d: lib.flash_attention_fwd_smem_bytes(d) for d in (64, 128)},
@@ -280,8 +281,10 @@ def hopper_report(_build):
                 if entry:
                     props[entry] = {}
             elif entry and "spill stores" in ln:
-                props[entry]["spill_bytes"] = sum(
-                    int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+                st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                   r"spill loads", ln).groups()
+                props[entry]["spill_store_bytes"] = int(st)
+                props[entry]["spill_load_bytes"] = int(ld)
             elif entry and "Used" in ln and "registers" in ln:
                 props[entry]["registers"] = int(
                     re.search(r"Used (\d+) registers", ln).group(1))
