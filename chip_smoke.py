@@ -10,11 +10,12 @@ stamped with the card's name and power limit):
 2. build: every CUDA kernel built from ``paddle_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with ptxas' register/spill lines;
    for the Hopper kernels (``csrc/hopper.cuh``: the fp8 matmul, the bf16
-   flash forward and backward, and the bf16 LN-MLP backward GEMMs of
-   ``csrc/gemm_sm90.cuh``) each function's registers, spills and dynamic
-   shared memory, and, where ``cuobjdump`` exists, the count of wgmma
-   (HGMMA) and TMA load (UTMALDG) instructions in its SASS (none fails
-   the run);
+   flash forward and backward, and the bf16 LN-MLP forward and backward
+   GEMMs of ``csrc/gemm_sm90.cuh``) each function's registers, spills
+   and dynamic shared memory, and, where ``cuobjdump`` exists, the count
+   of wgmma (HGMMA) and TMA load (UTMALDG) instructions in its SASS (none
+   fails the run); the int8 matmul kernels' registers, spills and
+   dynamic shared memory;
 3. flash-attention forward vs its plain PyTorch version, causal, bf16
    and f32, at gpt_1p3b prefill shapes (1, 16, S, 128) for S in 16, 128
    (the bucket of a 100-token prompt), 2048, and at one gpt_small shape
@@ -47,8 +48,11 @@ stamped with the card's name and power limit):
    plain versions, gelu, bf16 and f32, at one gpt_1p3b layer
    (R = 8192, H = 2048, M = 8192) and a ragged R = 100: errors, kernel /
    plain / bound times, the composed cuBLAS MLP's forward and backward
-   times as a yardstick, and each backward kernel's own device time
-   from one torch.profiler pass (``bwd_kernels_ms``);
+   times as a yardstick, the route of each (``fwd_kernel``,
+   ``bwd_kernel``), each forward and backward kernel's own device time
+   from one torch.profiler pass (``fwd_kernels_ms``,
+   ``bwd_kernels_ms``); in bf16 also the forward for relu and swiglu
+   (``fwd_other_acts``: errors, times, kernels);
 9. training at full gpt_1p3b width and depth (remat, fused MLP, random
    weights from a seed) through DistributedTrainStep: AdamW at lr 1e-4,
    batch 4 x 2048, loss_chunk 256, 6 steps on one repeated batch; every
@@ -70,9 +74,17 @@ stamped with the card's name and power limit):
     and 2 layers for 3 steps fed the same gradients: max relative error
     per param leaf;
 13. the int8 matmul kernel against its plain version (bit-identical) at
-    M = 8 and M = 1 for each gpt_1p3b decode (K, N), and at a ragged
-    M = 100, K = 64, N = 192 (with a bias): kernel / plain / bound times,
-    torch._int_mm (rows padded to 32) and a bf16 matmul as yardsticks;
+    M = 8 and M = 1 for each gpt_1p3b decode (K, N), and at ragged
+    shapes with a bias, per-row scales, f32 output and a K that takes
+    the kernel two passes: the lone call's time (``ms``), the kernel's
+    own device time (``kernel_ms``, torch.profiler), plain and bound
+    times, torch._int_mm (rows padded to 32) and a bf16 matmul as
+    yardsticks, and ``batch_ms`` (20 calls back to back); and the
+    quantizing entry (``dynamic_int8_matmul`` on bf16 activations,
+    bit-identical to its plain version: its quantizing kernel, then the
+    product behind it) beside the composed quantization plus the kernel;
+    each entry's launches a call (the run fails on more than one, or two
+    with quantization);
 14. the engine phase again with int8_weights=True, fixed and paged: the
     same checks (but the sampled replay is held against a second lone
     replay: the per-tensor activation scale spans every slot of a tick,
@@ -252,6 +264,39 @@ def _template_int(name, stem):
     return int(m.group(1)) if m else None
 
 
+def _ptxas_props(_build, src, stems):
+    """Per kernel function of ``src`` whose name holds one of ``stems``:
+    ptxas' registers and its spill stores and spill loads in bytes."""
+    entry = None
+    props = {}
+    for ln in _build.build_log(src).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = m.group(1) if any(
+                st in m.group(1) for st in stems) else None
+            if entry:
+                props[entry] = {}
+        elif entry and "spill stores" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", ln).groups()
+            props[entry]["spill_store_bytes"] = int(st)
+            props[entry]["spill_load_bytes"] = int(ld)
+        elif entry and "Used" in ln and "registers" in ln:
+            props[entry]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return props
+
+
+def int8_report(_build):
+    """The int8 matmul kernels' ptxas registers and spills and the
+    dynamic shared memory a block takes."""
+    smem = _build.load("int8_matmul").int8_matmul_smem_bytes()
+    return [{"source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+             "kernel": name, **p, "dynamic_smem_bytes": smem}
+            for name, p in _ptxas_props(_build, "int8_matmul",
+                                        ("int8_mm",)).items()]
+
+
 def hopper_report(_build):
     """Per Hopper kernel function: ptxas' registers, its spill stores and
     spill loads in bytes (as ptxas gives them), the dynamic shared memory
@@ -271,23 +316,7 @@ def hopper_report(_build):
         cuobjdump = None
     kernels = []
     for src, stems in HOPPER_KERNELS.items():
-        entry = None
-        props = {}
-        for ln in _build.build_log(src).splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", ln)
-            if m:
-                entry = m.group(1) if any(
-                    st in m.group(1) for st in stems) else None
-                if entry:
-                    props[entry] = {}
-            elif entry and "spill stores" in ln:
-                st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                                   r"spill loads", ln).groups()
-                props[entry]["spill_store_bytes"] = int(st)
-                props[entry]["spill_load_bytes"] = int(ld)
-            elif entry and "Used" in ln and "registers" in ln:
-                props[entry]["registers"] = int(
-                    re.search(r"Used (\d+) registers", ln).group(1))
+        props = _ptxas_props(_build, src, stems)
         sass = {}
         if cuobjdump:
             out = subprocess.run([cuobjdump, "-sass",
@@ -831,10 +860,26 @@ def fmlp_phase(dev, fk, stamp):
                 "composed_cublas_bwd_ms": time_ms(
                     lambda: torch.autograd.grad(y_c, [xs] + ws, dy,
                                                 retain_graph=True)),
+                "fwd_kernel": fk.mlp_fwd_kernel_for(dtype),
+                "fwd_kernels_ms": _fmlp_breakdown(
+                    lambda: fk._fmlp_forward(*fargs), FMLP_FWD_KERNELS),
                 "bwd_kernel": fk.mlp_bwd_kernel_for(dtype),
-                "bwd_kernels_ms": _fmlp_bwd_breakdown(
-                    lambda: fk._fmlp_backward(*bargs)),
+                "bwd_kernels_ms": _fmlp_breakdown(
+                    lambda: fk._fmlp_backward(*bargs), FMLP_BWD_KERNELS),
                 **stamp}
+            row["fwd_ratio_to_composed"] = \
+                row["fwd_ms"] / row["composed_cublas_fwd_ms"]
+            if dtype == torch.bfloat16:
+                # the Hopper forward's other epilogues: relu, and swiglu's
+                # two products into two accumulators
+                row["fwd_other_acts"] = {
+                    act: _fmlp_fwd_check(fk, x, lns, lnb, w1, b1, w2, b2,
+                                         act, n(H, M, sc=0.02).to(dtype),
+                                         n(M, sc=0.02).to(dtype))
+                    for act in ("relu", "swiglu")}
+                ok = ok and all(v["ok"]
+                                for v in row["fwd_other_acts"].values())
+                row["ok"] = ok
             emit(row)
             if not ok:
                 raise AssertionError(f"fused LN-MLP disagrees: {row}")
@@ -844,8 +889,28 @@ def fmlp_phase(dev, fk, stamp):
     return rows
 
 
-# phase 8: a backward kernel's label from its (demangled) name, the
-# first match in this order
+def _fmlp_fwd_check(fk, x, lns, lnb, w1, b1, w2, b2, act, wg, bg):
+    """The fused LN-MLP forward for ``act`` (wg/bg swiglu's gate) against
+    its plain version: errors, the lone call's and each kernel's time."""
+    gate = act == "swiglu"
+    fargs = (x, lns, lnb, w1, b1, w2, b2, wg if gate else None,
+             bg if gate else None, act, True, True, 1e-5)
+    y = fk._fmlp_forward(*fargs)[0]
+    y_ref = fk._fmlp_forward_reference(*fargs)[0]
+    torch.cuda.synchronize()
+    rel = _rel(y, y_ref)
+    return {"max_abs_err_y": (y.float() - y_ref.float()).abs().max().item(),
+            "max_rel_err_y": rel, "ok": rel <= FMLP_TOL[x.dtype],
+            "fwd_ms": time_ms(lambda: fk._fmlp_forward(*fargs)),
+            "fwd_kernels_ms": _fmlp_breakdown(
+                lambda: fk._fmlp_forward(*fargs), FMLP_FWD_KERNELS)}
+
+
+# phase 8: a forward or backward kernel's label from its (demangled)
+# name, the first match in this order
+FMLP_FWD_KERNELS = (("(1) ln_rows", ("ln_rows",)),
+                    ("(2) lnx·W1 -> a", ("EpiUp", "fmlp_up")),
+                    ("(3) a·W2 -> y", ("EpiDown", "fmlp_down")))
 FMLP_BWD_KERNELS = (("(1') ln_rows", ("ln_rows",)),
                     ("(4) da, z -> dz, a, db1", ("EpiActBwd", "fmlp_act_bwd")),
                     ("(5) dW1 + (7) dW2", ("Prod<1,1,0>", "fmlp_wgrad")),
@@ -866,10 +931,11 @@ def _pytorch_kernel_label(key):
     return key.strip()[:100]
 
 
-def _fmlp_bwd_breakdown(fn, reps=3):
-    """Device ms per call of each kernel of the fused LN-MLP backward
-    (``FMLP_BWD_KERNELS``; (5) and (7) are one kernel, two launches a
-    call) and of the PyTorch work around them (the LN backward, db2, the
+def _fmlp_breakdown(fn, kernels, reps=3):
+    """Device ms per call of each kernel of the fused LN-MLP forward or
+    backward (``FMLP_FWD_KERNELS`` / ``FMLP_BWD_KERNELS``; the
+    backward's (5) and (7) are one kernel, two launches a call) and of
+    the PyTorch work around them (the backward's LN backward, db2, the
     residual add and the zeroing of db1): ``pytorch`` their sum,
     ``pytorch_kernels`` each PyTorch kernel by its name. From one
     torch.profiler pass over ``reps`` calls; None when the trace has no
@@ -884,7 +950,7 @@ def _fmlp_bwd_breakdown(fn, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {label: 0.0 for label, _ in FMLP_BWD_KERNELS}
+    out = {label: 0.0 for label, _ in kernels}
     out["pytorch"] = 0.0
     each = {}
     seen = False
@@ -896,7 +962,7 @@ def _fmlp_bwd_breakdown(fn, reps=3):
             continue
         seen = True
         key = e.key.replace(" ", "")
-        label = next((lb for lb, stems in FMLP_BWD_KERNELS
+        label = next((lb for lb, stems in kernels
                       if any(st in key for st in stems)), "pytorch")
         out[label] += us / reps / 1e3
         if label == "pytorch":
@@ -1238,56 +1304,121 @@ def lamb_train_phase(dev, fo, stamp, steps=3):
     return row
 
 
+# phase 13: (M, K, N, bias, per-row scales, out dtype) beyond the decode
+# shapes; K = 33000 takes a block of its clusters past one 4096-deep pass
+INT8_EXTRA_SHAPES = ((100, 64, 192, True, False, torch.bfloat16),
+                     (3, 50, 37, True, True, torch.bfloat16),
+                     (9, 130, 20, False, True, torch.float32),
+                     (2, 33000, 48, True, False, torch.float32))
+
+
 def int8_phase(dev, im, stamp):
-    """Phase 13: the int8 matmul kernel against its plain version."""
+    """Phase 13: the int8 matmul kernel against its plain version, both
+    entries."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    shapes = [(m, k, n, False) for m in (8, 1)
+    flush = flush_buf.zero_
+    shapes = [(m, k, n, False, False, torch.bfloat16) for m in (8, 1)
               for k, n in ((2048, 6144), (2048, 2048), (2048, 8192),
-                           (8192, 2048))] + [(100, 64, 192, True)]
+                           (8192, 2048))] + list(INT8_EXTRA_SHAPES)
     rows = {}
-    for M, K, N, with_bias in shapes:
+
+    def launches(fn):
+        """Kernel launches of one call of fn."""
+        before = im.LAUNCHES
+        fn()
+        return im.LAUNCHES - before
+
+    for M, K, N, with_bias, per_row, out in shapes:
         xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                            dtype=torch.int8)
         wq = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
                            dtype=torch.int8)
         ws = torch.rand(N, generator=gen, device=dev) * 1e-3 + 1e-5
-        xs = torch.rand((), generator=gen, device=dev) * 0.05 + 1e-3
+        xs = torch.rand((M, 1) if per_row else (), generator=gen,
+                        device=dev) * 0.05 + 1e-3
         b = torch.randn(N, generator=gen, device=dev) if with_bias else None
-        out = torch.bfloat16
-        got = im.int8_matmul_arrays(xq, wq, ws, xs, bias=b, out_dtype=out)
+        # the fused entry's activations, in the decode path's bf16
+        xf = torch.randn((M, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def call():
+            return im.int8_matmul_arrays(xq, wq, ws, xs, bias=b,
+                                         out_dtype=out)
+
+        def dyn():
+            return im.dynamic_int8_matmul(xf, wq, ws, bias=b)
+
+        def composed():
+            x32 = xf.float()
+            s = im._quant_scale(x32.abs().max())
+            return im.int8_matmul_arrays(im._quantize(x32, s), wq, ws, s,
+                                         bias=b, out_dtype=xf.dtype)
+
+        got = call()
         want = im._int8_matmul_reference(xq, wq, ws, xs, b, out)
+        got_d, want_d = dyn(), im._dynamic_int8_reference(xf, wq, ws, b)
         torch.cuda.synchronize()
         identical = bool(torch.equal(got, want))
+        identical_d = bool(torch.equal(got_d, want_d)) \
+            and bool(torch.equal(composed(), want_d))
         err = (got.float() - want.float()).abs().max().item()
+        err_d = (got_d.float() - want_d.float()).abs().max().item()
+        n_call, n_dyn = launches(call), launches(dyn)
         Mp = -(-M // 32) * 32
         xpad = torch.zeros((Mp, K), dtype=torch.int8, device=dev)
         xpad[:M] = xq
         xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
-        nbytes = M * K + K * N + 4 * N + 4 + M * N * 2 \
+        ob = torch.tensor([], dtype=out).element_size()
+        nbytes = M * K + K * N + 4 * N + 4 * xs.numel() + M * N * ob \
             + (4 * N if with_bias else 0)
         b_ms, b_by = bound(2 * M * K * N, nbytes, torch.int8)
+        # the fused entry reads bf16 activations and writes bf16
+        db_ms, db_by = bound(2 * M * K * N, 2 * M * K + K * N + 4 * N
+                             + 2 * M * N + (4 * N if with_bias else 0),
+                             torch.int8)
+        ok = identical and identical_d and n_call == 1 and n_dyn <= 2
         row = {"phase": "int8_matmul", "M": M, "K": K, "N": N,
-               "bias": with_bias, "out_dtype": "bfloat16",
+               "bias": with_bias, "per_row_scales": per_row,
+               "out_dtype": str(out)[6:],
                "bit_identical": identical, "max_abs_err": err,
-               "ms": time_ms(lambda: im.int8_matmul_arrays(
-                   xq, wq, ws, xs, bias=b, out_dtype=out),
-                   flush=flush_buf.zero_),
+               "ms": time_ms(call, flush=flush),
+               "kernel_ms": _kernel_device_ms(call, ("int8_mm",), flush),
+               "batch_ms": batch_ms(call),
                "plain_ms": time_ms(lambda: im._int8_matmul_reference(
-                   xq, wq, ws, xs, b, out), flush=flush_buf.zero_),
+                   xq, wq, ws, xs, b, out), flush=flush),
+               # torch._int_mm takes K and N that are multiples of 8
                "library_ms": time_ms(lambda: torch._int_mm(xpad, wq),
-                                     flush=flush_buf.zero_),
+                                     flush=flush)
+               if K % 8 == 0 and N % 8 == 0 else None,
                "library": "torch._int_mm, rows padded to 32",
-               "bf16_matmul_ms": time_ms(lambda: xb @ wb,
-                                         flush=flush_buf.zero_),
-               "bound_ms": b_ms, "bound_by": b_by, "ok": identical,
-               **stamp}
+               "bf16_matmul_ms": time_ms(lambda: xb @ wb, flush=flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "launches_per_call": n_call,
+               "fused_quant": {
+                   "x_dtype": "bfloat16", "bit_identical": identical_d,
+                   "max_abs_err": err_d, "launches_per_call": n_dyn,
+                   "ms": time_ms(dyn, flush=flush),
+                   # each kernel's own time; they overlap (the product's
+                   # weight loads start while the codes are made)
+                   "kernels_ms": {
+                       k: _kernel_device_ms(dyn, (k,), flush)
+                       for k in ("int8_quantize", "int8_mm")},
+                   "batch_ms": batch_ms(dyn),
+                   "composed_ms": time_ms(composed, flush=flush),
+                   "composed_batch_ms": batch_ms(composed),
+                   "plain_ms": time_ms(lambda: im._dynamic_int8_reference(
+                       xf, wq, ws, b), flush=flush),
+                   "bound_ms": db_ms, "bound_by": db_by},
+               "ok": ok, **stamp}
+        row["ratio_to_library"] = (row["ms"] / row["library_ms"]
+                                   if row["library_ms"] else None)
         emit(row)
-        if not identical:
+        if not ok:
             raise AssertionError(f"int8 kernel disagrees: {row}")
         rows[(M, K, N)] = row
-        del xq, wq, xpad, xb, wb
+        del xq, wq, xpad, xb, wb, xf
     del flush_buf
     torch.cuda.empty_cache()
     return rows
@@ -2112,7 +2243,8 @@ def main():
              for ln in _build.build_log(n).splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas, **hopper_report(_build)})
+          "ptxas": ptxas, **hopper_report(_build),
+          "int8_kernels": int8_report(_build)})
 
     flash = flash_phase(dev, fa, stamp)
     paged = paged_phase(dev, pa, stamp)
@@ -2210,11 +2342,16 @@ def main():
                      tl["flash_attention_bwd"], fb,
                      max(fb["max_abs_err"].values()), plain, "library_ms"),
              **_batch_keys(fb)),
-        _kernel("fused_ln_mlp_fwd", "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
-                "paddle_tpu/ops/fused_kernels.py:104",
-                tl["fused_ln_mlp_fwd"], fm, fm["max_abs_err_y"],
-                ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "fwd_bound_by"),
-                None),
+        # no single PyTorch call computes the MLP either way: the composed
+        # cuBLAS forward is the forward's yardstick ("composed_ms")
+        dict(_kernel("fused_ln_mlp_fwd",
+                     "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
+                     "paddle_tpu/ops/fused_kernels.py:104",
+                     tl["fused_ln_mlp_fwd"], fm, fm["max_abs_err_y"],
+                     ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
+                      "fwd_bound_by"), None),
+             composed_ms=fm["composed_cublas_fwd_ms"],
+             kernels_ms=fm["fwd_kernels_ms"]),
         # no single PyTorch call computes the MLP's backward: the composed
         # cuBLAS backward is the yardstick ("composed_ms"); "kernels_ms" is
         # each of its kernels' own device time (torch.profiler)
@@ -2244,10 +2381,15 @@ def main():
                 lamb["launches"]["fused_lamb"], ob, ob["lamb_max_abs_err"],
                 ("lamb_ms", "lamb_plain_ms", "lamb_bound_ms",
                  "lamb_bound_by"), None),
-        _kernel("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
-                "paddle_tpu/ops/int8_matmul.py:44",
-                runs8[False]["launches"]["int8_matmul"], i8r,
-                i8r["max_abs_err"], plain, "library_ms"),
+        # "kernel_ms": the kernel's own device time; "fused_quant": the
+        # entry that quantizes bf16 activations on the card (the
+        # engine's), beside the composed quantization plus the kernel
+        dict(_kernel("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
+                     "paddle_tpu/ops/int8_matmul.py:44",
+                     runs8[False]["launches"]["int8_matmul"], i8r,
+                     i8r["max_abs_err"], plain, "library_ms"),
+             kernel_ms=i8r["kernel_ms"], batch_ms=i8r["batch_ms"],
+             fused_quant=i8r["fused_quant"]),
         dict(_kernel("fp8_matmul", "paddle_tpu_torch/csrc/fp8_matmul.cu",
                      "paddle_tpu/ops/fp8_matmul.py:51",
                      train_fp8["launches"]["fp8_matmul"], f8r,

@@ -47,21 +47,26 @@
 // W2ᵀ, W1ᵀ) are never copied. H and M must be multiples of 64; R is any
 // (ragged tiles are zero-filled on load and masked on store).
 //
-// The bf16 backward, (4)-(7), runs on one persistent, warp-specialised
-// TMA + wgmma mainloop (gemm_sm90.cuh: a producer warpgroup, two
-// consumers, a 4-6 stage ring), each product an epilogue of it: (4) as
-// two products into two accumulators on 128x192 tiles (three on 128x64
-// for swiglu: registers), its epilogue the activation's backward, the
-// dz / a stores and the column sums (per warp by shuffles, over the
-// warps in shared memory, one f32 atomic a column a tile: their order,
-// and db1's low bits, vary from run to run); (5), (6), (7) on 128x256
-// tiles, the f32 result stored from the registers. Each operand is read
-// as stored, K-major or MN-major through the wgmma transpose bits.
-// The forward (2), (3) and the whole f32 path run the older cp.async
-// mainloop: a 128x128 (or 128x64) output tile per block of 8 warps,
-// 32-deep K steps through a 3-stage ring, mma.sync m16n8k16 (bf16 with
-// f32 accumulation; an FMA loop for f32), the transposed operands read
-// through ldmatrix.trans (or the FMA loop's indexing).
+// The bf16 path runs on one persistent, warp-specialised TMA + wgmma
+// mainloop (gemm_sm90.cuh: a producer warpgroup, two consumers, a 4-6
+// stage ring), each product an epilogue of it; each operand is read as
+// stored, K-major or MN-major through the wgmma transpose bits:
+//   (2) lnx (K-major) · W1 (MN-major) on 128x256 tiles, its epilogue +b1
+//       and the activation in f32, a rounded once to bf16; swiglu as two
+//       products into two accumulators (z, zg) on 128x192 tiles;
+//   (3) a (K-major) · W2 (MN-major) on 128x256 tiles, its epilogue +b2
+//       and +x in f32, y rounded once;
+//   (4) as two products into two accumulators on 128x192 tiles (three on
+//       128x64 for swiglu: registers), its epilogue the activation's
+//       backward, the dz / a stores and the column sums (per warp by
+//       shuffles, over the warps in shared memory, one f32 atomic a
+//       column a tile: their order, and db1's low bits, vary from run to
+//       run);
+//   (5), (6), (7) on 128x256 tiles, the f32 result stored from the
+//       registers.
+// The f32 path runs the older cp.async mainloop: a 128x128 (or 128x64)
+// output tile per block of 8 warps, 32-deep K steps through a 3-stage
+// ring, an FMA loop.
 #include <initializer_list>
 
 #include "gemm_sm90.cuh"
@@ -130,7 +135,7 @@ __host__ __device__ constexpr int vec() {
 }
 
 // shared-memory elements of one staged operand tile, stored (rows, cols)
-// with a 16-byte row pad (ldmatrix row addresses in distinct banks)
+// with a 16-byte row pad (row starts in distinct banks)
 template <typename T, int ROWS, int COLS>
 __host__ __device__ constexpr int tile_elems() {
   return ROWS * (COLS + vec<T>());
@@ -166,23 +171,15 @@ __device__ __forceinline__ void load_tile(T* dst, const Opnd<T>& o, int r0,
 }
 
 // ---- per-thread accumulator: BM·BN/256 floats of the output tile -------
-// bf16 (mma): warp (wm, wn) = (warp % 2, warp / 2) owns rows wm·BM/2..,
-// cols wn·BN/4..; index i = (mi · NI + ni) · 4 + e over its m16n8 tiles.
-// f32 (FMA): thread (tm, tn) = (tid / 16, tid % 16) owns rows tm + 16·ii,
-// cols tn + 16·j; index i = ii · (BN / 16) + j.
+// thread (tm, tn) = (tid / 16, tid % 16) owns rows tm + 16·ii, cols
+// tn + 16·j; index i = ii · (BN / 16) + j. (f32: the bf16 products run on
+// gemm_sm90.cuh.)
 template <typename T, int BM, int BN>
 __device__ __forceinline__ void coord(int i, int& r, int& c) {
+  static_assert(sizeof(T) == 4, "the FMA mainloop is the f32 path");
   const int tid = threadIdx.x;
-  if constexpr (sizeof(T) == 2) {
-    constexpr int NI = BN / 32;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int mi = i / (4 * NI), ni = (i >> 2) % NI, e = i & 3;
-    r = (warp & 1) * (BM / 2) + mi * 16 + (lane >> 2) + (e >> 1) * 8;
-    c = (warp >> 1) * (BN / 4) + ni * 8 + 2 * (lane & 3) + (e & 1);
-  } else {
-    r = (tid >> 4) + 16 * (i / (BN / 16));
-    c = (tid & 15) + 16 * (i % (BN / 16));
-  }
+  r = (tid >> 4) + 16 * (i / (BN / 16));
+  c = (tid & 15) + 16 * (i % (BN / 16));
 }
 
 template <typename T, int BM, int BN, bool A_K, bool B_K>
@@ -190,65 +187,27 @@ __device__ __forceinline__ void tile_product(float* acc, const T* sA,
                                              const T* sB) {
   constexpr int LDA = (A_K ? BK : BM) + vec<T>();
   constexpr int LDB = (B_K ? BK : BN) + vec<T>();
+  constexpr int IM = BM / 16, JN = BN / 16;
   const int tid = threadIdx.x;
-  if constexpr (sizeof(T) == 2) {
-    constexpr int MI = BM / 32, NI = BN / 32;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int mat = lane >> 3, mrow = lane & 7;
-    const int wm = (warp & 1) * (BM / 2), wn = (warp >> 1) * (BN / 4);
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int m = wm + mi * 16;
-        if (A_K)
-          ptt::ldsm_x4(a[mi], sA + (m + (lane & 15)) * LDA + ks * 16
-                                  + (lane >> 4) * 8);
-        else
-          ptt::ldsm_x4_t(a[mi], sA + (ks * 16 + (mat >> 1) * 8 + mrow) * LDA
-                                    + m + (mat & 1) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < NI / 2; ++np) {
-        const int n = wn + np * 16;
-        uint32_t b[4];
-        if (B_K)
-          ptt::ldsm_x4(b, sB + (n + (mat >> 1) * 8 + mrow) * LDB + ks * 16
-                             + (mat & 1) * 8);
-        else
-          ptt::ldsm_x4_t(b, sB + (ks * 16 + (mat & 1) * 8 + mrow) * LDB + n
-                               + (mat >> 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          ptt::mma_16816(acc + (mi * NI + 2 * np) * 4, a[mi], b[0], b[1]);
-          ptt::mma_16816(acc + (mi * NI + 2 * np + 1) * 4, a[mi], b[2],
-                         b[3]);
-        }
-      }
-    }
-  } else {
-    constexpr int IM = BM / 16, JN = BN / 16;
-    const int tm = tid >> 4, tn = tid & 15;
+  const int tm = tid >> 4, tn = tid & 15;
 #pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[IM], b[JN];
+  for (int kk = 0; kk < BK; ++kk) {
+    float a[IM], b[JN];
 #pragma unroll
-      for (int i = 0; i < IM; ++i) {
-        const int m = tm + 16 * i;
-        a[i] = A_K ? sA[m * LDA + kk] : sA[kk * LDA + m];
-      }
-#pragma unroll
-      for (int j = 0; j < JN; ++j) {
-        const int n = tn + 16 * j;
-        b[j] = B_K ? sB[n * LDB + kk] : sB[kk * LDB + n];
-      }
-#pragma unroll
-      for (int i = 0; i < IM; ++i)
-#pragma unroll
-        for (int j = 0; j < JN; ++j)
-          acc[i * JN + j] = fmaf(a[i], b[j], acc[i * JN + j]);
+    for (int i = 0; i < IM; ++i) {
+      const int m = tm + 16 * i;
+      a[i] = A_K ? sA[m * LDA + kk] : sA[kk * LDA + m];
     }
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const int n = tn + 16 * j;
+      b[j] = B_K ? sB[n * LDB + kk] : sB[kk * LDB + n];
+    }
+#pragma unroll
+    for (int i = 0; i < IM; ++i)
+#pragma unroll
+      for (int j = 0; j < JN; ++j)
+        acc[i * JN + j] = fmaf(a[i], b[j], acc[i * JN + j]);
   }
 }
 
@@ -811,6 +770,98 @@ struct EpiActBwd {
   }
 };
 
+// (2): acc[0] = z = lnx·W1 (acc[1] = zg = lnx·Wg) -> a = act(z + b1)
+// (swiglu: silu(zg + bg) · (z + b1)) in f32, stored once as bf16; each
+// bias pair read once for the thread's two rows
+template <int ACT>
+struct EpiUp {
+  const bf16* b1;
+  const bf16* bg;
+  bf16* a;
+
+  template <int BN, int NACC>
+  __device__ __forceinline__ void apply(
+      float (&acc)[NACC][g90::AccShape<BN>::NH][g90::AccShape<BN>::HW],
+      int m0, int n0, int R, int M, int cw, int tid, float*) const {
+#pragma unroll
+    for (int h = 0; h < g90::AccShape<BN>::NH; ++h)
+#pragma unroll
+      for (int jb = 0; jb < g90::AccShape<BN>::HW / 4; ++jb) {
+        int r, col;
+        g90::acc_coord(cw, tid, h, 4 * jb, r, col);
+        r += m0;
+        col += n0;
+        if (col >= M) continue;              // M even: the pair is whole
+        const float2 bb1 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(b1 + col));
+        float2 bbg = bb1;
+        if constexpr (ACT == ACT_SWIGLU)
+          bbg = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(bg + col));
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          if (r + 8 * rr >= R) continue;
+          const int i = 4 * jb + 2 * rr;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float zf = acc[0][h][i + e] + (e ? bb1.y : bb1.x);
+            if constexpr (ACT == ACT_SWIGLU) {
+              const float zgf = acc[1][h][i + e] + (e ? bbg.y : bbg.x);
+              v[e] = zgf * sigmoid_f(zgf) * zf;
+            } else {
+              v[e] = act_f<ACT>(zf);
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(a + (size_t)(r + 8 * rr) * M
+                                             + col) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
+  }
+};
+
+// (3): acc[0] = a·W2 -> y = acc + b2 (+ x) in f32, stored once as bf16
+struct EpiDown {
+  const bf16* b2;
+  const bf16* x;
+  bf16* y;
+  int residual;
+
+  template <int BN, int NACC>
+  __device__ __forceinline__ void apply(
+      float (&acc)[NACC][g90::AccShape<BN>::NH][g90::AccShape<BN>::HW],
+      int m0, int n0, int R, int H, int cw, int tid, float*) const {
+#pragma unroll
+    for (int h = 0; h < g90::AccShape<BN>::NH; ++h)
+#pragma unroll
+      for (int jb = 0; jb < g90::AccShape<BN>::HW / 4; ++jb) {
+        int r, col;
+        g90::acc_coord(cw, tid, h, 4 * jb, r, col);
+        r += m0;
+        col += n0;
+        if (col >= H) continue;              // H even: the pair is whole
+        const float2 bb = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(b2 + col));
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          if (r + 8 * rr >= R) continue;
+          const int i = 4 * jb + 2 * rr;
+          const size_t o = (size_t)(r + 8 * rr) * H + col;
+          float v0 = acc[0][h][i] + bb.x, v1 = acc[0][h][i + 1] + bb.y;
+          if (residual) {
+            const float2 xr = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(x + o));
+            v0 += xr.x;
+            v1 += xr.y;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(y + o) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+  }
+};
+
 using KK = g90::Prod<0, 0, 0>;   // A and B K-major, into acc 0
 using NoP = g90::NoProd;
 
@@ -857,6 +908,65 @@ int wgrad_wgmma(const bf16* A, const bf16* B, float* C, int R, int Md,
   if (err) return err;
   return g90::launch<256, 1, TT, NoP, NoP>(maps, EpiStoreF32{C}, Md, Nd, R,
                                            s);
+}
+
+// (2) for one activation: z = lnx·W1 (W1 (H, M) is B stored (K, N)),
+// zg = lnx·Wg for swiglu
+template <int ACT>
+int up_wgmma(const bf16* h, const bf16* w1, const bf16* b1, const bf16* wg,
+             const bf16* bg, bf16* a, int R, int H, int M, cudaStream_t s) {
+  using KT = g90::Prod<0, 1, 0>;
+  const EpiUp<ACT> epi{b1, bg, a};
+  g90::Maps maps{};
+  if constexpr (ACT == ACT_SWIGLU) {
+    using KT1 = g90::Prod<0, 1, 1>;
+    int err = g90::map_prod<192, KT>(maps, 0, h, w1, R, M, H);
+    if (err == 0) err = g90::map_prod<192, KT1>(maps, 1, h, wg, R, M, H);
+    if (err) return err;
+    return g90::launch<192, 2, KT, KT1, NoP>(maps, epi, R, M, H, s);
+  } else {
+    const int err = g90::map_prod<256, KT>(maps, 0, h, w1, R, M, H);
+    if (err) return err;
+    return g90::launch<256, 1, KT, NoP, NoP>(maps, epi, R, M, H, s);
+  }
+}
+
+// the bf16 forward: (1) the row pass, (2) a = act(lnx·W1 + b1),
+// (3) y = a·W2 + b2 (+ x), W2 (M, H) being B stored (K, N)
+int forward_wgmma(const void* xv, const float* lns, const float* lnb,
+                  const void* w1v, const void* b1v, const void* w2v,
+                  const void* b2v, const void* wgv, const void* bgv,
+                  void* yv, float* mu, float* rstd, void* lnxv, void* av,
+                  int R, int H, int M, float eps, int act, int residual,
+                  int has_ln, cudaStream_t s) {
+  const bf16* x = static_cast<const bf16*>(xv);
+  const bf16* w1 = static_cast<const bf16*>(w1v);
+  const bf16* b1 = static_cast<const bf16*>(b1v);
+  const bf16* w2 = static_cast<const bf16*>(w2v);
+  const bf16* b2 = static_cast<const bf16*>(b2v);
+  const bf16* wg = static_cast<const bf16*>(wgv);
+  const bf16* bg = static_cast<const bf16*>(bgv);
+  bf16* lnx = static_cast<bf16*>(lnxv);
+  bf16* a = static_cast<bf16*>(av);
+  if (!aligned16({x, w1, b1, w2, b2, wg, bg, yv, lnx, a}))
+    return static_cast<int>(cudaErrorInvalidValue);   // TMA's base rule
+  int err = ln_launch<bf16>(x, lns, lnb, R, H, eps, has_ln ? 1 : 0, mu,
+                            rstd, lnx, s);
+  if (err) return err;
+  const bf16* h = has_ln ? lnx : x;
+  if (act == ACT_GELU)
+    err = up_wgmma<ACT_GELU>(h, w1, b1, wg, bg, a, R, H, M, s);
+  else if (act == ACT_RELU)
+    err = up_wgmma<ACT_RELU>(h, w1, b1, wg, bg, a, R, H, M, s);
+  else
+    err = up_wgmma<ACT_SWIGLU>(h, w1, b1, wg, bg, a, R, H, M, s);
+  if (err) return err;
+  using KT = g90::Prod<0, 1, 0>;
+  g90::Maps maps{};
+  err = g90::map_prod<256, KT>(maps, 0, a, w2, R, H, M);
+  if (err) return err;
+  return g90::launch<256, 1, KT, NoP, NoP>(
+      maps, EpiDown{b2, x, static_cast<bf16*>(yv), residual}, R, H, M, s);
 }
 
 int backward_wgmma(const void* xv, const float* lns, const float* lnb,
@@ -921,8 +1031,9 @@ bool shapes_ok(int R, int H, int M) {
 
 // Forward: y (R, H), mu/rstd (R) f32; lnx (R, H) and a (R, M) are
 // scratch in x's dtype. lns/lnb (H) f32; wg/bg only for act 2 (swiglu).
-// act: 0 gelu, 1 relu, 2 swiglu. Three launches; returns the first CUDA
-// error.
+// act: 0 gelu, 1 relu, 2 swiglu. bf16 runs the TMA/wgmma kernels (every
+// bf16 pointer 16-byte aligned, else cudaErrorInvalidValue), f32 the FMA
+// kernels. Three launches; returns the first CUDA error.
 extern "C" int fmlp_forward(const void* x, const float* lns, const float* lnb,
                             const void* w1, const void* b1, const void* w2,
                             const void* b2, const void* wg, const void* bg,
@@ -935,9 +1046,8 @@ extern "C" int fmlp_forward(const void* x, const float* lns, const float* lnb,
   if (R == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kBF16)
-    return forward_impl<bf16>(x, lns, lnb, w1, b1, w2, b2, wg, bg, y, mu,
-                              rstd, lnx, a, R, H, M, eps, act, residual,
-                              has_ln, s);
+    return forward_wgmma(x, lns, lnb, w1, b1, w2, b2, wg, bg, y, mu, rstd,
+                         lnx, a, R, H, M, eps, act, residual, has_ln, s);
   if (dtype == ptt::kF32)
     return forward_impl<float>(x, lns, lnb, w1, b1, w2, b2, wg, bg, y, mu,
                                rstd, lnx, a, R, H, M, eps, act, residual,

@@ -18,13 +18,14 @@ LN scale/bias, w1, b1, w2, b2 and the gate weights in their input dtypes
 On a CUDA tensor the wrappers launch the kernels (or raise: H and the
 MLP width must be multiples of 64); on a CPU tensor they run
 :func:`_fmlp_forward_reference` / :func:`_fmlp_backward_reference`.
-The backward's C entry points pick its mainloop
-(:func:`mlp_bwd_kernel_for` states their rule for reports and tests):
+The C entry points pick the mainloop (:func:`mlp_fwd_kernel_for` and
+:func:`mlp_bwd_kernel_for` state their rule for reports and tests):
 bf16 runs the Hopper GEMMs (TMA loads into an mbarrier ring, wgmma;
-every activation: kernel (4) on 128x192 tiles for gelu and relu, 128x64
-for swiglu; their tensor maps need 16-byte-aligned bases, so the wrapper
-copies any unaligned operand), f32 the FMA mainloop. The forward
-runs the mma.sync mainloop in bf16 and the FMA one in f32.
+every activation: the forward's (2) on 128x256 tiles, 128x192 for
+swiglu's two products, (3) on 128x256; the backward's kernel (4) on
+128x192 tiles for gelu and relu, 128x64 for swiglu; their tensor maps
+need 16-byte-aligned bases, so the wrappers copy any unaligned
+operand), f32 the FMA mainloop.
 Those plain versions carry the KERNEL's numerics, not the composed
 path's (:func:`_ln_mlp_reference`, the unfused model code): the LN in
 f32 with ``lnx`` stored in x's dtype, ``z = lnx·w1`` accumulated in f32
@@ -271,6 +272,16 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def mlp_fwd_kernel_for(dtype):
+    """Which mainloop the forward's two GEMMs run on a CUDA tensor:
+    "wgmma" (bf16: the Hopper GEMMs, every activation) or "fma" (f32).
+    Raises for another dtype. The C entry point owns this rule and
+    applies it itself; this copy names the route for reports and tests."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"fused_ln_mlp takes f32 or bf16, got {dtype}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
 def mlp_bwd_kernel_for(dtype):
     """Which mainloop the backward kernels (and dW2's) run on a CUDA
     tensor: "wgmma" (bf16: the Hopper GEMMs, every activation) or "fma"
@@ -306,9 +317,15 @@ def _launch_fwd(x2, lns, lnb, w1, b1, w2, b2, wg, bg, act, residual, has_ln,
     one C call: the row pass (mu, rstd and lnx in x's dtype), then
     ``a = act(lnx·w1 + b1)`` (the bias and activation in the GEMM's
     epilogue) into an (R, M) buffer in x's dtype, then
-    ``y = a·w2 + b2 + x``."""
+    ``y = a·w2 + b2 + x``. The C entry point picks the GEMMs' mainloop
+    (:func:`mlp_fwd_kernel_for` states its rule); the bf16 one reads its
+    operands through tensor maps and its biases and x in pairs, from
+    16-byte-aligned bases, so an unaligned operand is copied whatever
+    the dtype."""
     global FWD_LAUNCHES
     _check_card(x2, w1, w2, wg)
+    x2, w1, b1, w2, b2, wg, bg = _build.aligned16(x2, w1, b1, w2, b2, wg,
+                                                  bg)
     lib = _load()
     R, H = x2.shape
     M = w1.shape[1]

@@ -13,9 +13,12 @@ Entry points:
   the fly (abs-max, round half to even, clip to ±127, all in f32): the
   serving engine's int8 decode (``InferenceEngine(int8_weights=True)``).
 
-CUDA tensors launch the kernel, at any M, K and N; CPU tensors run the
-plain version. The activation scale stays a device tensor: reading it on
-the host would sync once per matmul.
+CUDA tensors launch the kernel, at any M, K and N: one launch a call;
+:func:`dynamic_int8_matmul` adds one before it that quantizes the
+activations (bf16 or f32) once, so the scale never leaves the card, and
+the product's weight loads overlap it. CPU tensors run the plain versions
+(:func:`_int8_matmul_reference`, :func:`_dynamic_int8_reference`),
+bit-identical to the kernels'.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ __all__ = ["int8_matmul_arrays", "dynamic_int8_matmul", "LAUNCHES"]
 # kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
 
-_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# output dtypes, and the activations the quantizing entry takes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
 
@@ -60,8 +64,11 @@ def _load():
     if _lib is None:
         lib = _build.load("int8_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_matmul.argtypes = [p, p, p, i, p, p, p, p] + [i] * 4 + [p]
-        lib.int8_matmul.restype = i
+        lib.int8_matmul.argtypes = [p, p, p, i, p, p, p] + [i] * 4 + [p]
+        lib.int8_matmul_quantized.argtypes = [p, i, p, p, p, p, p, p] + [
+            i] * 4 + [p]
+        for fn in (lib.int8_matmul, lib.int8_matmul_quantized):
+            fn.restype = i
         lib.ptt_error_string.argtypes = [ctypes.c_int]
         lib.ptt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -69,43 +76,63 @@ def _load():
 
 
 def _launch(x2, wq, wscale, xs, bias, out_dtype):
+    """The kernel on x2 (M, K): int8 with ``xs`` its f32 scales (1 or M
+    values), one launch; or f32/bf16 with ``xs`` None, quantized per
+    tensor by a launch before the product's."""
     global LAUNCHES
     M, K = x2.shape
-    if wq.dim() != 2 or wq.shape[0] != K:
-        raise ValueError(f"wq {tuple(wq.shape)} is not (K={K}, N)")
+    if wq.dim() != 2 or wq.shape[0] != K or wq.dtype != torch.int8:
+        raise ValueError(f"wq {wq.dtype} {tuple(wq.shape)} is not int8 "
+                         f"(K={K}, N)")
     N = wq.shape[1]
-    if x2.dtype != torch.int8 or wq.dtype != torch.int8:
-        raise TypeError(f"int8 matmul takes int8 operands, got "
-                        f"{x2.dtype}/{wq.dtype}")
-    if out_dtype not in _OUT_DTYPES:
+    quantize = xs is None
+    if x2.dtype != torch.int8 and not (quantize and x2.dtype in _DTYPES):
+        raise TypeError(f"int8 matmul takes int8 activations with their "
+                        f"scales or f32/bf16 ones without, got {x2.dtype}")
+    if out_dtype not in _DTYPES:
         raise TypeError(f"int8 matmul writes f32 or bf16, not {out_dtype}")
     if wscale.shape != (N,) or wscale.dtype != torch.float32:
         raise ValueError(f"wscale must be f32 ({N},), got "
                          f"{wscale.dtype} {tuple(wscale.shape)}")
-    if xs.numel() not in (1, M) or xs.dtype != torch.float32:
+    if not quantize and (xs.numel() not in (1, M)
+                         or xs.dtype != torch.float32):
         raise ValueError(f"xscale must be f32 with 1 or {M} values, got "
                          f"{xs.dtype} {tuple(xs.shape)}")
     if bias is not None and (bias.shape != (N,)
                              or bias.dtype != torch.float32):
         raise ValueError(f"bias must be f32 ({N},)")
-    for t in (wq, wscale, xs) + ((bias,) if bias is not None else ()):
-        if t.device != x2.device:
-            raise ValueError("int8 matmul operands must lie on one device")
-        if not t.is_contiguous():
-            raise ValueError("int8 matmul needs contiguous operands")
+    dev = x2.device
+    for t in (wq, wscale, xs, bias):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError("int8 matmul operands must be contiguous on "
+                             "one device")
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(x2, wq, wscale, xs, bias, out_dtype)
     lib = _load()
-    out = torch.empty((M, N), dtype=out_dtype, device=x2.device)
-    acc = torch.empty((M, N), dtype=torch.int32, device=x2.device)
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    b = None if bias is None else bias.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if quantize:
+        xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+        scale = torch.empty(1, dtype=torch.float32, device=dev)
+        err = lib.int8_matmul_quantized(
+            x2.data_ptr(), _DTYPES[x2.dtype], xq.data_ptr(),
+            scale.data_ptr(), wq.data_ptr(), wscale.data_ptr(), b,
+            out.data_ptr(), M, K, N, _DTYPES[out_dtype], stream)
+    else:
         err = lib.int8_matmul(
-            x2.data_ptr(), wq.data_ptr(), xs.data_ptr(),
-            int(xs.numel() != 1), wscale.data_ptr(),
-            bias.data_ptr() if bias is not None else None, acc.data_ptr(),
-            out.data_ptr(), M, K, N, _OUT_DTYPES[out_dtype], stream)
+            x2.data_ptr(), wq.data_ptr(), xs.data_ptr(), int(xs.numel() != 1),
+            wscale.data_ptr(), b, out.data_ptr(), M, K, N,
+            _DTYPES[out_dtype], stream)
     _build.check(lib, err, "int8_matmul")
-    LAUNCHES += 1
+    if M and N:
+        LAUNCHES += 2 if quantize else 1
     return out
+
+
+def _f32(t):
+    return None if t is None else t.to(torch.float32).contiguous()
 
 
 def int8_matmul_arrays(xq, wq, wscale, xscale, bias=None,
@@ -122,13 +149,11 @@ def int8_matmul_arrays(xq, wq, wscale, xscale, bias=None,
     if dev.type != "cuda":
         return _int8_matmul_reference(xq, wq, wscale, xscale, bias,
                                       out_dtype)
-    lead = xq.shape[:-1]
     K = xq.shape[-1]
-    xs = xscale.to(torch.float32).reshape(-1).contiguous()
-    b = bias.to(torch.float32).contiguous() if bias is not None else None
     out = _launch(xq.reshape(-1, K).contiguous(), wq.contiguous(),
-                  wscale.to(torch.float32).contiguous(), xs, b, out_dtype)
-    return out.reshape(*lead, wq.shape[1])
+                  _f32(wscale), _f32(xscale).reshape(-1), _f32(bias),
+                  out_dtype)
+    return out.reshape(*xq.shape[:-1], wq.shape[1])
 
 
 def _quant_scale(amax):
@@ -145,12 +170,25 @@ def _quantize(x32, scale):
     return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
 
 
+def _dynamic_int8_reference(x, wq, wscale, bias=None):
+    """Plain version of :func:`dynamic_int8_matmul`'s kernel: the
+    per-tensor abs-max quantization in f32, then
+    :func:`_int8_matmul_reference`; the output has x's dtype."""
+    x32 = x.float()
+    xscale = _quant_scale(x32.abs().max())
+    return _int8_matmul_reference(_quantize(x32, xscale), wq, wscale, xscale,
+                                  bias, x.dtype)
+
+
 def dynamic_int8_matmul(x, wq, wscale, bias=None):
     """Weight-only int8 matmul for fp activations: per-tensor abs-max
     activation quantization (f32), then the int8 matmul with its dequant
-    epilogue; the output has x's dtype."""
-    x32 = x.float()
-    xscale = _quant_scale(x32.abs().max())
-    xq = _quantize(x32, xscale)
-    return int8_matmul_arrays(xq, wq, wscale, xscale, bias=bias,
-                              out_dtype=x.dtype)
+    epilogue; the output has x's dtype. On the card two launches do both
+    (x in f32 or bf16)."""
+    INT8_MATMUL_CALLS.add()
+    if x.device.type != "cuda":
+        return _dynamic_int8_reference(x, wq, wscale, bias)
+    K = x.shape[-1]
+    out = _launch(x.reshape(-1, K).contiguous(), wq.contiguous(),
+                  _f32(wscale), None, _f32(bias), x.dtype)
+    return out.reshape(*x.shape[:-1], wq.shape[1])

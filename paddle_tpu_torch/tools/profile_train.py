@@ -10,7 +10,8 @@ warm-up steps, times ``--steps`` steps on the host clock (each ends in
 the loss's host read, which waits for the device), then profiles one
 step under torch.profiler and prints one JSON line: host ms per step,
 device ms per step (the sum of kernel times), the device's idle share
-(1 - device / host), and the kernels that take the most device time.
+(1 - device / host), and the kernels that take the most device time
+(the fused LN-MLP's GEMMs named by the product each computes).
 With ``FLAGS_fused_optimizer=1`` in the environment the AdamW update is
 the fused kernel (``ops/fused_optimizer.py``) instead of the per-leaf
 PyTorch ops; the line says which ran. ``--fp8`` trains with
@@ -35,6 +36,28 @@ from ..core import flags
 from ..models import gpt as G
 from ..parallel import DistributedTrainStep
 from .profile_decode import _device_us
+
+
+# the fused LN-MLP's bf16 GEMMs are launches of one template
+# (csrc/gemm_sm90.cuh's gemm_ws); its epilogue and products name each:
+# (stems, all in the kernel's name without spaces) -> label
+FMLP_GEMMS = ((("EpiUp",), "fused LN-MLP fwd (2) a = act(lnx·W1 + b1)"),
+              (("EpiDown",), "fused LN-MLP fwd (3) y = a·W2 + b2 (+ x)"),
+              (("EpiActBwd",), "fused LN-MLP bwd (4) dz, a, db1"),
+              (("EpiStoreF32", "Prod<1,1,0>"),
+               "fused LN-MLP bwd (5) dW1, (7) dW2"),
+              (("EpiStoreF32",), "fused LN-MLP bwd (6) dlnx"))
+
+
+def kernel_name(key: str) -> str:
+    """A device kernel's name for the report: the fused LN-MLP's GEMMs by
+    what they compute, every other kernel's first 80 characters."""
+    flat = key.replace(" ", "")
+    if "gemm_ws" in flat:
+        for stems, label in FMLP_GEMMS:
+            if all(st in flat for st in stems):
+                return label
+    return key[:80]
 
 
 def profile(steps: int, layers: int, dev, fp8: bool = False,
@@ -78,7 +101,8 @@ def profile(steps: int, layers: int, dev, fp8: bool = False,
         "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
         "tokens_per_s": B * S / host_ms * 1e3,
         "top_kernels": [
-            {"name": k[:80], "ms_per_step": us / 1e3, "calls_per_step": c}
+            {"name": kernel_name(k), "ms_per_step": us / 1e3,
+             "calls_per_step": c}
             for us, k, c in rows[:25]],
     }
 

@@ -7,8 +7,9 @@ not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-The fused AdamW/LAMB and int8 matmul kernels are held bit-identical to
-their plain versions (built with -fmad=false, they round where the plain
+The fused AdamW/LAMB and int8 matmul kernels (both int8 entries: the
+pre-quantized one and the one that quantizes in the same launch) are
+held bit-identical to their plain versions (built with -fmad=false, they round where the plain
 versions' separate operations round; an int32 sum is exact in any
 order), and so is the MoE dispatch gather (a copy). The fp8 matmul:
 f32 output 1e-4 of the largest value (exact products, f32 sums in
@@ -241,6 +242,64 @@ def test_fused_mlp_hopper_backward_matches_plain(cuda_device, act, R, H, M):
             continue
         assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
         assert _rel(g, w) <= 2e-2, name
+
+
+# the Hopper (TMA + wgmma) forward GEMMs: ragged R (a partial row tile),
+# H and M multiples of 64 but not of the 256- and 192-wide tiles (partial
+# column tiles), every activation, with and without the residual and LN
+@pytest.mark.parametrize("act", ["gelu", "relu", "swiglu"])
+@pytest.mark.parametrize("R,H,M", [(100, 192, 320), (8191, 192, 320)])
+@pytest.mark.parametrize("residual,has_ln", [(True, True), (False, True),
+                                             (True, False)])
+def test_fused_mlp_hopper_forward_matches_plain(cuda_device, act, R, H, M,
+                                                residual, has_ln):
+    assert tfk.mlp_fwd_kernel_for(torch.bfloat16) == "wgmma"
+    t = _fmlp_inputs(R, H, M, torch.bfloat16, cuda_device, 34)
+    if not has_ln:   # the plain version's identity LN, as fused_ln_mlp's
+        t["lns"], t["lnb"] = torch.ones_like(t["lns"]), torch.zeros_like(
+            t["lnb"])
+    gate = act == "swiglu"
+    wg, bg = (t["wg"], t["bg"]) if gate else (None, None)
+    args = (t["x"], t["lns"], t["lnb"], t["w1"], t["b1"], t["w2"], t["b2"],
+            wg, bg, act, residual, has_ln, 1e-5)
+    f0 = tfk.FWD_LAUNCHES
+    y, mu, rstd = tfk._fmlp_forward(*args)
+    torch.cuda.synchronize()
+    assert tfk.FWD_LAUNCHES == f0 + 1
+    y_ref, mu_ref, rstd_ref = tfk._fmlp_forward_reference(*args)
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    assert _rel(y, y_ref) <= 2e-2
+    assert _rel(mu, mu_ref) <= 1e-5 and _rel(rstd, rstd_ref) <= 1e-5
+
+
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+def test_fused_mlp_hopper_forward_copies_unaligned_operands(cuda_device,
+                                                             act):
+    """x, the weights and the biases as views off a 16-byte boundary:
+    the forward wrapper copies them for the tensor maps and the paired
+    reads, and y is that of the aligned tensors."""
+    t = _fmlp_inputs(100, 192, 320, torch.bfloat16, cuda_device, 35)
+
+    def unaligned(v):
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        assert out.data_ptr() % 16 != 0
+        return out
+
+    gate = act == "swiglu"
+    u = {k: unaligned(t[k]) for k in ("x", "w1", "b1", "w2", "b2", "wg",
+                                      "bg")}
+
+    def args(d):
+        wg, bg = (d["wg"], d["bg"]) if gate else (None, None)
+        return (d["x"], t["lns"], t["lnb"], d["w1"], d["b1"], d["w2"],
+                d["b2"], wg, bg, act, True, True, 1e-5)
+
+    y = tfk._fmlp_forward(*args(u))[0]
+    y_ref = tfk._fmlp_forward_reference(*args(t))[0]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and _rel(y, y_ref) <= 2e-2
 
 
 @pytest.mark.parametrize("act", ["gelu", "swiglu"])
@@ -484,7 +543,9 @@ def test_fused_updates_on_card_match_cpu(cuda_device):
     (1, 2048, 2048, False, False, torch.bfloat16),
     (100, 64, 192, False, True, torch.float32),
     (3, 50, 37, True, True, torch.bfloat16),
-    (9, 130, 20, True, False, torch.float32)])
+    (9, 130, 20, True, False, torch.float32),
+    (17, 4100, 40, False, True, torch.bfloat16),
+    (2, 33000, 48, True, False, torch.float32)])
 def test_int8_kernel_matches_plain(cuda_device, M, K, N, per_row, bias, out):
     gen = torch.Generator(device="cpu").manual_seed(M * K)
     xq = torch.randint(-127, 128, (M, K), generator=gen,
@@ -504,6 +565,39 @@ def test_int8_kernel_matches_plain(cuda_device, M, K, N, per_row, bias, out):
     # the int32 sum itself, checked on the CPU
     acc = (xq.cpu().int() @ wq.cpu().int()).double()
     assert torch.equal((xq.double() @ wq.double()).cpu(), acc)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["random", "zeros", "halves"])
+@pytest.mark.parametrize("M,K,N,bias", [
+    (8, 2048, 384, False), (1, 256, 128, True), (3, 50, 37, True),
+    (17, 4100, 40, False), (2, 33000, 48, True)])
+def test_int8_fused_quantization_matches_plain(cuda_device, xdt, case, M,
+                                               K, N, bias):
+    """dynamic_int8_matmul on the card quantizes the activations in a
+    launch of its own before the product's: bit-identical to its plain version (the abs-max scale
+    with its 1e-8 floor, true division, round half to even, clip, then
+    the product) for both activation dtypes, with and without a bias,
+    ragged shapes, M > 8 (row groups) and K past one pass."""
+    gen = torch.Generator(device="cpu").manual_seed(M * K + N)
+    if case == "zeros":
+        x = torch.zeros(M, K)
+    elif case == "halves":
+        x = torch.randint(-126, 126, (M, K), generator=gen) + 0.5
+        x[0, 0] = -127.0
+    else:
+        x = torch.randn(M, K, generator=gen) * 3
+    x = x.to(xdt).to(cuda_device)
+    wq = torch.randint(-127, 128, (K, N), generator=gen,
+                       dtype=torch.int8).to(cuda_device)
+    ws = (torch.rand(N, generator=gen) * 0.02 + 1e-4).to(cuda_device)
+    b = torch.randn(N, generator=gen).to(cuda_device) if bias else None
+    before = tim.LAUNCHES
+    got = tim.dynamic_int8_matmul(x, wq, ws, b)
+    torch.cuda.synchronize()
+    assert tim.LAUNCHES == before + 2       # the quantizing kernel, the product
+    want = tim._dynamic_int8_reference(x, wq, ws, b)
+    assert got.dtype == xdt and torch.equal(got, want)
 
 
 def test_int8_decode_on_card_matches_cpu(cuda_device):
@@ -531,7 +625,8 @@ def test_int8_decode_on_card_matches_cpu(cuda_device):
 
     before = tim.LAUNCHES
     card = run(cuda_device)
-    assert tim.LAUNCHES == before + 4 * cfg.n_layers
+    # 4 weight-only matmuls a layer, each a quantizing launch and a product
+    assert tim.LAUNCHES == before + 2 * 4 * cfg.n_layers
     assert _rel(card, run("cpu")) <= 1e-2
 
 

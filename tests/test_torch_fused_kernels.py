@@ -14,6 +14,7 @@ f32 math, summed in another order); bf16 1e-2 (the same roundings at the
 same points; a different summation order can move an f32 sum across a
 bf16 rounding boundary, about 4e-3 of a value).
 """
+import contextlib
 import importlib
 
 import jax
@@ -192,6 +193,101 @@ def test_backward_kernel_rule(dtype, kernel):
 def test_backward_kernel_rule_refuses_other_dtypes():
     with pytest.raises(TypeError, match="f32 or bf16"):
         tfk.mlp_bwd_kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "wgmma"),
+                                          (torch.float32, "fma")])
+def test_forward_kernel_rule(dtype, kernel):
+    """bf16 forward (every activation) runs the Hopper GEMMs, f32 the FMA
+    mainloop: the rule the C entry point applies, decided without a
+    card."""
+    assert tfk.mlp_fwd_kernel_for(dtype) == kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_forward_kernel_rule_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        tfk.mlp_fwd_kernel_for(dtype)
+
+
+def _fwd_operands(R, H, M, dtype=torch.bfloat16, gate=False):
+    g = torch.Generator().manual_seed(R + H + M)
+    n = lambda *s: (0.1 * torch.randn(s, generator=g)).to(dtype)
+    return {"x2": n(R, H), "lns": torch.ones(H), "lnb": torch.zeros(H),
+            "w1": n(H, M), "b1": n(M), "w2": n(M, H), "b2": n(H),
+            "wg": n(H, M) if gate else None, "bg": n(M) if gate else None}
+
+
+@pytest.mark.parametrize("change,err,match", [
+    (dict(x2=(8, 96), w1=(96, 256), w2=(256, 96), b2=(96,)), ValueError,
+     "multiples of 64"),
+    (dict(w1=(64, 200), b1=(200,), w2=(200, 64)), ValueError,
+     "multiples of 64"),
+    (dict(w2=(256, 128)), ValueError, "do not fit"),
+    (dict(wg=(128, 256)), ValueError, "do not fit"),
+    (dict(dtype=torch.float16), TypeError, "f32 or bf16")])
+def test_forward_launch_refuses_before_any_launch(change, err, match):
+    """The forward wrapper checks widths, weight shapes and the dtype
+    before it loads or launches anything (so here, without nvcc)."""
+    ops = _fwd_operands(8, 64, 256, dtype=change.pop("dtype",
+                                                     torch.bfloat16))
+    for k, shape in change.items():
+        ops[k] = torch.zeros(shape, dtype=ops["x2"].dtype)
+    before = tfk.FWD_LAUNCHES
+    with pytest.raises(err, match=match):
+        tfk._launch_fwd(ops["x2"], ops["lns"], ops["lnb"], ops["w1"],
+                        ops["b1"], ops["w2"], ops["b2"], ops["wg"],
+                        ops["bg"], "gelu", True, True, 1e-5)
+    assert tfk.FWD_LAUNCHES == before
+
+
+class _FakeForwardLib:
+    """Stands in for the built library: records fmlp_forward's pointer
+    arguments and reports success."""
+
+    def __init__(self):
+        self.args = None
+
+    def fmlp_forward(self, *args):
+        self.args = args
+        return 0
+
+
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+def test_forward_launch_copies_unaligned_operands(monkeypatch, act):
+    """x, the weights and the biases as views off a 16-byte boundary: the
+    forward wrapper hands the C entry point (whose tensor maps and paired
+    reads need 16-byte-aligned bases) an aligned copy of each, and every
+    buffer it allocates is aligned too."""
+    gate = act == "swiglu"
+    ops = _fwd_operands(37, 64, 128, gate=gate)
+
+    def unaligned(v):
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        assert out.data_ptr() % 16 != 0
+        return out
+
+    names = ("x2", "w1", "b1", "w2", "b2") + (("wg", "bg") if gate else ())
+    for k in names:
+        ops[k] = unaligned(ops[k])
+    lib = _FakeForwardLib()
+    monkeypatch.setattr(tfk, "_load", lambda: lib)
+    monkeypatch.setattr(tfk, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    before = tfk.FWD_LAUNCHES
+    tfk._launch_fwd(ops["x2"], ops["lns"], ops["lnb"], ops["w1"],
+                    ops["b1"], ops["w2"], ops["b2"], ops["wg"], ops["bg"],
+                    act, True, True, 1e-5)
+    assert tfk.FWD_LAUNCHES == before + 1
+    # x, lns, lnb, w1, b1, w2, b2, wg, bg, y, mu, rstd, lnx, a
+    ptrs = lib.args[:14]
+    for i in (0, 3, 4, 5, 6, 9, 12, 13) + ((7, 8) if gate else ()):
+        assert ptrs[i] % 16 == 0, i
+    if not gate:
+        assert ptrs[7] == 0 and ptrs[8] == 0
 
 
 @pytest.mark.parametrize("a_shape,dy_shape,dtypes,match", [

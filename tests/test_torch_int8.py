@@ -128,6 +128,59 @@ def test_dynamic_int8_matmul_matches_jax(dt):
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
+def _dynamic_x(case, M, K, seed):
+    """Activations for the fused-quantization entry: "random"; "zeros"
+    (the scale's 1e-8 floor); "halves" (max |x| = 127, so the scale is 1
+    and every other value, k + 0.5, sits on a round-half boundary)."""
+    rng = np.random.default_rng(seed)
+    if case == "zeros":
+        return np.zeros((M, K), np.float32)
+    if case == "halves":
+        x = rng.integers(-126, 126, (M, K)) + 0.5
+        x[0, 0] = -127.0
+        return x.astype(np.float32)
+    return rng.standard_normal((M, K)).astype(np.float32) * 3
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["random", "zeros", "halves"])
+@pytest.mark.parametrize("M,K,N,bias", [(3, 50, 37, True),
+                                        (13, 130, 20, False)])
+def test_fused_quantization_plain_path_matches_jax(dt, case, M, K, N, bias):
+    """The fused-quantization entry's plain version (what a CPU tensor
+    runs, and what the kernel is held to on the card) is bit-identical to
+    JAX's dynamic_int8_matmul at ragged M, K and N (sent to XLA there):
+    the scale, the quantized codes (round half to even) and the
+    product."""
+    jdt, tdt = DTYPES[dt]
+    x = _dynamic_x(case, M, K, seed=M + K)
+    _, wq, ws, _, b = _operands(M, K, N, seed=N)
+    b = b if bias else None
+    want = ji.dynamic_int8_matmul(
+        jnp.asarray(x, jdt), jnp.asarray(wq), jnp.asarray(ws),
+        bias=None if b is None else jnp.asarray(b))
+    xt = torch.from_numpy(x).to(tdt)
+    got = ti._dynamic_int8_reference(
+        xt, torch.from_numpy(wq), torch.from_numpy(ws),
+        None if b is None else torch.from_numpy(b))
+    assert got.dtype == tdt and got.shape == (M, N)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    # and the entry itself takes that path on the CPU
+    entry = ti.dynamic_int8_matmul(
+        xt, torch.from_numpy(wq), torch.from_numpy(ws),
+        None if b is None else torch.from_numpy(b))
+    assert torch.equal(entry, got)
+    if case == "halves":
+        # the codes themselves: half to even on both sides
+        x32 = xt.float()
+        s = ti._quant_scale(x32.abs().max())
+        assert float(s) == 1.0
+        jq = jnp.clip(jnp.round(jnp.asarray(x, jdt).astype(jnp.float32)
+                                / 1.0), -127, 127).astype(jnp.int8)
+        np.testing.assert_array_equal(ti._quantize(x32, s).numpy(),
+                                      np.asarray(jq))
+
+
 @pytest.mark.parametrize("param_dtype", ["f32", "bf16"])
 def test_quantize_gpt_weights_matches_jax(param_dtype):
     pj = jg.gpt_init(jg.gpt_tiny(param_dtype=DTYPES[param_dtype][0]),
