@@ -288,13 +288,14 @@ def _ptxas_props(_build, src, stems):
 
 
 def int8_report(_build):
-    """The int8 matmul kernels' ptxas registers and spills and the
-    dynamic shared memory a block takes."""
+    """The int8 matmul kernels' ptxas registers and spills, and the
+    dynamic shared memory a block of the product takes."""
     smem = _build.load("int8_matmul").int8_matmul_smem_bytes()
     return [{"source": "paddle_tpu_torch/csrc/int8_matmul.cu",
-             "kernel": name, **p, "dynamic_smem_bytes": smem}
+             "kernel": name, **p,
+             "dynamic_smem_bytes": smem if "int8_mm" in name else 0}
             for name, p in _ptxas_props(_build, "int8_matmul",
-                                        ("int8_mm",)).items()]
+                                        ("int8_mm", "int8_quantize")).items()]
 
 
 def hopper_report(_build):
