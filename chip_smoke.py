@@ -28,7 +28,9 @@ stamped with the card's name and power limit):
    to back (``batch_ms``);
 4. paged-attention decode vs its plain version at B=8, nh=16, hd=128,
    bs=16, W=128 over a 24-layer pool, ragged lengths with stale
-   sink-only lanes; ``ragged`` True and False bit-identical;
+   sink-only lanes; ``ragged`` True and False bit-identical; the lone
+   call's time (``ms``) and the split and merge kernels' own device time
+   (``kernel_ms``, torch.profiler);
 5. the serving engine at full gpt_1p3b width and depth (random weights
    from a seed), fixed slots and paged: 8 greedy requests with prompts
    of 40 to 1500 tokens and 2 sampled ones, 32 new tokens each; every
@@ -149,6 +151,30 @@ stamped with the card's name and power limit):
     one step on the card (the kernels) against the CPU (the plain
     versions): the loss and every parameter's gradient.
 
+26. speculative decoding's identity: gpt_1p3b's full width at 4 layers,
+    f32 with TF32 off, block matrices scaled x4 (so greedy tokens vary),
+    8 slots, phase 5's greedy prompts, 32 new tokens: the engine with a
+    2-layer ``gpt_truncate`` draft and spec_k 4 gives the plain engine's
+    greedy streams in both cache modes; a stream that parts must part
+    where the target's top-2 logit gap is below TIE_REL of the top logit;
+27. phase 5's run again without and with that draft (bf16, full depth,
+    both cache modes) in this one phase: decode tokens/s of each, the
+    acceptance rate, the sampled replay, and the device kernels per tick
+    of each (torch.profiler over 10 ticks of a live engine);
+28. the radix prefix cache, paged: 8 prompts on one 1024-token prefix
+    with 64-400-token tails (one keeps only the first 1000 prefix
+    tokens: a copy-on-write), the first alone, then the rest at once;
+    f32 (4 layers, as phase 26) greedy streams equal the cold engine's;
+    bf16 at full depth: the seven's prefill ms with and without the
+    cache, the hit rate, copy-on-writes, and a second pass with a
+    161-block pool and one more prompt on another prefix that must evict
+    tree leaves; after shutdown every refcount is the tree's own;
+29. text and constraints (bf16, full depth, both cache modes): a
+    ByteTokenizer over a literal merge list, ``submit(text=...)``, and
+    the bounded regex ``(yes|no), [0-9]{1,3}\\.``: 4 greedy and 4 sampled
+    streams each end with "stop" within 16 tokens, their bytes a full
+    match of the DFA.
+
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
@@ -161,6 +187,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -516,15 +543,21 @@ def paged_phase(dev, pa, stamp):
             + tables.nbytes + lengths.nbytes
         flops = 4 * live * nh * hd
         b_ms, b_by = bound(flops, nbytes, dtype)
+        call = lambda: pa.paged_attention_arrays(  # noqa: E731
+            q, kb, vb, tab, lens, scale, layer=layer)
         row = {
             "phase": "paged_attention", "B": B, "nh": nh, "hd": hd,
             "block_size": bs, "W": W, "layers": L,
             "lengths": lengths.tolist(), "dtype": str(dtype)[6:],
             "max_abs_err": err, "tol": PAGED_TOL[dtype],
             "ragged_bit_identical": identical, "ok": ok,
-            "ms": time_ms(lambda: pa.paged_attention_arrays(
-                q, kb, vb, tab, lens, scale, layer=layer),
-                flush=flush_buf.zero_),
+            # "ms": CUDA events around a lone call (the wrapper's host
+            # work and both launches held); "kernel_ms": the split and
+            # merge kernels' own device time (torch.profiler)
+            "ms": time_ms(call, flush=flush_buf.zero_),
+            "kernel_ms": _kernel_device_ms(
+                call, ("paged_decode_split", "paged_decode_merge"),
+                flush_buf.zero_),
             "plain_ms": time_ms(lambda: pa._paged_attention_reference(
                 q, kb[:, layer], vb[:, layer], tab, lens, scale),
                 flush=flush_buf.zero_),
@@ -538,13 +571,15 @@ def paged_phase(dev, pa, stamp):
 
 
 def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
-                 int8=False, fp_outs=None, md=None):
+                 int8=False, fp_outs=None, md=None, draft=None):
     """The serving phase; with ``int8`` the engine decodes with int8
     weights (``im``: the int8 module, whose launches are counted) and
     ``fp_outs`` (the same mode's bf16 streams) gives the share of greedy
     tokens that the int8 run repeats. ``md`` (the MoE dispatch module)
     counts the gather kernel's launches of a MoE config's run and reads
-    the router gauges."""
+    the router gauges. ``draft`` (a ``(cfg, params)`` pair) serves with
+    speculative decoding, SPEC_K proposals a tick, and reports the
+    acceptance of the batched run."""
     from paddle_tpu_torch.monitor.stats import stat_get
     from paddle_tpu_torch.serving import InferenceEngine
 
@@ -557,12 +592,14 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
     prompts = [rng.integers(0, V, n).astype(np.int32) for n in greedy_lens]
     new = 32
 
+    spec = {} if draft is None else {"draft": draft, "spec_k": SPEC_K}
     torch.cuda.reset_peak_memory_stats(dev)
     ms0 = {k: stat_get(k) for k in ("serving_prefill_ms",
                                     "serving_decode_ms",
-                                    "moe_tokens_dropped")}
+                                    "moe_tokens_dropped", "spec_proposed",
+                                    "spec_accepted")}
     eng = InferenceEngine(cfg, params, n_slots=8, seed=5, paged=paged,
-                          int8_weights=int8)
+                          int8_weights=int8, **spec)
     fa.LAUNCHES = 0
     pa.LAUNCHES = 0
     if im is not None:
@@ -582,6 +619,8 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
     if md is not None:
         launches["moe_dispatch_gather"] = md.LAUNCHES
     moe_load = stat_get("moe_expert_load")
+    proposed = stat_get("spec_proposed") - ms0["spec_proposed"]
+    accepted = stat_get("spec_accepted") - ms0["spec_accepted"]
     eng.shutdown()
     prefill_ms = stat_get("serving_prefill_ms") - ms0["serving_prefill_ms"]
     decode_ms = stat_get("serving_decode_ms") - ms0["serving_decode_ms"]
@@ -591,11 +630,16 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
                 or not all(0 <= t < V for t in out):
             raise AssertionError(f"request {r.rid} finished badly: "
                                  f"{r.finish_reason} {out}")
-    want = "paged_attention_decode" if paged else "flash_attention_fwd"
+    # a speculative paged run attends in composed PyTorch on every tick
+    # (the verify's multi-query shape, as in JAX) and prefills in composed
+    # chunks: it launches the paged kernel only on one-token fallback
+    # ticks, which this run's headroom never forces
+    want = None if draft is not None and paged else \
+        "paged_attention_decode" if paged else "flash_attention_fwd"
     if int8 and launches.get("int8_matmul", 0) <= 0:
         raise AssertionError("int8_matmul never launched in the int8 "
                              "engine run")
-    if launches[want] <= 0:
+    if want is not None and launches[want] <= 0:
         raise AssertionError(f"{want} never launched in the "
                              f"{'paged' if paged else 'fixed'} engine run")
     if md is not None and launches["moe_dispatch_gather"] <= 0:
@@ -606,7 +650,7 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
     # seed, same request id): the stream must repeat exactly; then time
     # one 1500-token prompt's prefill on that warm engine
     eng = InferenceEngine(cfg, params, n_slots=8, seed=5, paged=paged,
-                          int8_weights=int8)
+                          int8_weights=int8, **spec)
     replay = eng.generate(s1, max_new_tokens=new, **sampled)
     t1 = time.perf_counter()
     eng.generate(prompts[-1], max_new_tokens=1)
@@ -630,8 +674,12 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
         pairs = [(a, b) for o, f in zip(outs[1:-1], fp_outs[1:-1])
                  for a, b in zip(o, f)]
         greedy_equal = sum(a == b for a, b in pairs) / len(pairs)
+    if draft is not None and not 0 < accepted <= proposed:
+        raise AssertionError(f"speculative run proposed {proposed}, "
+                             f"accepted {accepted}")
     row = {"phase": ("engine_int8" if int8 else
-                     "engine_moe" if md is not None else "engine"),
+                     "engine_moe" if md is not None else
+                     "engine_spec" if draft is not None else "engine"),
            "mode": "paged" if paged else "fixed",
            "model": "gpt_1p3b", "layers": cfg.n_layers,
            "hidden": cfg.hidden, "moe_experts": cfg.moe_experts,
@@ -647,6 +695,10 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
            "sampled_replay_of": "a second lone run" if int8
            else "the batched run",
            "greedy_tokens_equal_to_bf16_share": greedy_equal, **stamp}
+    if draft is not None:
+        row.update(spec_k=SPEC_K, draft_layers=draft[0].n_layers,
+                   spec_proposed=proposed, spec_accepted=accepted,
+                   spec_acceptance_rate=accepted / proposed)
     if md is not None:
         row["moe_expert_load_ppm"] = moe_load
         row["moe_tokens_dropped"] = (stat_get("moe_tokens_dropped")
@@ -2193,6 +2245,351 @@ def bert_check_phase(dev, stamp, layers=2, batch=2):
     return row
 
 
+# --------------------------------------------------------------------------
+# phases 26-29: speculative decoding, the prefix cache, text and constraints
+# --------------------------------------------------------------------------
+
+SPEC_K = 4
+# the f32 identity checks run gpt_1p3b's full width at this depth
+IDENTITY_LAYERS = 4
+# phases 26 and 28: two f32 engines' greedy streams may part only at a
+# near-tie, where the target's top two logits lie within this share of
+# the top logit (f32 sums in another order can flip such an argmax)
+TIE_REL = 1e-4
+# phase 29: the text front end's merges and one bounded constraint (its
+# automaton must finish within TEXT_NEW tokens)
+TEXT_MERGES = ["yes", "no", ", ", "the ", "ing", "and", "er", "Answer"]
+TEXT_REGEX = r"(yes|no), [0-9]{1,3}\."
+TEXT_NEW = 16
+
+
+def _scaled_params(G, cfg, dev):
+    """gpt_init from seed 0 with the block matrices scaled x4, so that
+    random-weight greedy streams vary from token to token."""
+    params = G.gpt_init(cfg, seed=0, device=dev)
+    for k in ("qkv_w", "proj_w", "fc_w", "out_w"):
+        params["blocks"][k] *= 4.0
+    return params
+
+
+def _streams_equal(G, cfg, params, prompts, want, got, dev):
+    """Compare two engines' greedy streams; a stream pair that parts must
+    part at a near-tie of the f32 target (TIE_REL), else the run fails.
+    Returns (equal streams, [(request, index, relative top-2 gap)])."""
+    ties = []
+    for r, (prompt, a, b) in enumerate(zip(prompts, want, got)):
+        if a == b:
+            continue
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        toks = np.concatenate([prompt, np.asarray(a[:i], np.int32)])
+        with torch.inference_mode():
+            x, _ = G.prefill_hidden(cfg, params, torch.from_numpy(
+                toks[None].astype(np.int64)).to(dev))
+            top = G._head(cfg, params, x[:, -1])[0].topk(2).values
+        gap = float((top[0] - top[1]) / top[0].abs())
+        ties.append((r, i, gap))
+        if gap >= TIE_REL:
+            raise AssertionError(
+                f"streams of request {r} part at token {i}, where the "
+                f"target's top-2 gap is {gap:.3e} of the top logit")
+    return len(prompts) - len(ties), ties
+
+
+def _generate(eng, prompts, new, **kw):
+    reqs = [eng.submit(p, max_new_tokens=new, **kw) for p in prompts]
+    try:
+        return [r.result(timeout=600) for r in reqs]
+    finally:
+        eng.shutdown()
+
+
+def spec_identity_phase(dev, stamp):
+    """Phase 26: greedy streams of the speculative engine equal the
+    non-speculative engine's, f32 (TF32 off), gpt_1p3b's full width at
+    IDENTITY_LAYERS layers, both cache modes."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    cfg = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
+    params = _scaled_params(G, cfg, dev)
+    draft = G.gpt_truncate(cfg, params, 2)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 100, 200, 400, 700, 1000, 1300, 1500)]
+    new = 32
+    rows = {}
+    for paged in (False, True):
+        want = _generate(InferenceEngine(cfg, params, n_slots=8,
+                                         paged=paged), prompts, new)
+        s0 = (stat_get("spec_proposed"), stat_get("spec_accepted"))
+        got = _generate(InferenceEngine(cfg, params, n_slots=8, paged=paged,
+                                        draft=draft, spec_k=SPEC_K),
+                        prompts, new)
+        proposed = stat_get("spec_proposed") - s0[0]
+        accepted = stat_get("spec_accepted") - s0[1]
+        equal, ties = _streams_equal(G, cfg, params, prompts, want, got, dev)
+        row = {"phase": "spec_identity", "mode": "paged" if paged
+               else "fixed", "model": "gpt_1p3b", "dtype": "float32",
+               "layers": cfg.n_layers, "hidden": cfg.hidden,
+               "draft_layers": 2, "spec_k": SPEC_K, "requests": len(prompts),
+               "new_tokens": new, "streams_equal": equal,
+               "near_ties": ties, "tie_rel": TIE_REL,
+               "distinct_tokens": len({t for o in want for t in o}),
+               "spec_acceptance_rate": accepted / max(proposed, 1), **stamp}
+        emit(row)
+        rows[paged] = row
+    del params, draft
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _launches_per_tick(make_engine, prompts, ticks=10):
+    """Device kernels launched per decode tick of a live engine, from
+    torch.profiler over ``ticks`` ticks once every request has its first
+    token (prefill done): every kernel of the tick, the PyTorch ones
+    included. The profiler starts and stops on the scheduler thread,
+    around its own ticks (profiling it from another thread while it
+    launches crashed the process on the card). None when the trace holds
+    no device kernel."""
+    from paddle_tpu_torch.tools.profile_decode import _device_us
+
+    eng = make_engine()
+    reqs = [eng.submit(p, max_new_tokens=256) for p in prompts]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    state = {"prof": None, "n": 0}
+    done = threading.Event()
+    tick = eng._decode_tick
+
+    def profiled_tick():
+        if state["prof"] is None and all(r.tokens for r in reqs):
+            state["prof"] = torch.profiler.profile(activities=acts)
+            state["prof"].__enter__()
+        tick()
+        if state["prof"] is not None and not done.is_set():
+            state["n"] += 1
+            if state["n"] == ticks:
+                torch.cuda.synchronize()
+                state["prof"].__exit__(None, None, None)
+                done.set()
+
+    eng._decode_tick = profiled_tick
+    try:
+        if not done.wait(300):
+            raise AssertionError("the profiled ticks did not run")
+    finally:
+        for r in reqs:
+            r.cancel()
+        eng.shutdown()
+    n = sum(e.count for e in state["prof"].key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _device_us(e) > 0)
+    return n / ticks if n else None
+
+
+def spec_phase(dev, cfg, params, fa, pa, stamp):
+    """Phase 27: phase 5's serving run, without and with a 2-layer
+    gpt_truncate draft (SPEC_K), bf16 at full depth, both cache modes, in
+    this one phase: decode tokens/s, acceptance, launches per tick."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    draft = G.gpt_truncate(cfg, params, 2)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 100, 200, 400, 700, 1000, 1300, 1500)]
+    runs = {}
+    for paged in (False, True):
+        base = engine_phase(dev, cfg, params, paged, fa, pa, stamp)
+        run = engine_phase(dev, cfg, params, paged, fa, pa, stamp,
+                           fp_outs=base["outs"], draft=draft)
+        per_tick = {
+            name: _launches_per_tick(lambda kw=kw: InferenceEngine(
+                cfg, params, n_slots=8, paged=paged, **kw), prompts)
+            for name, kw in (("plain", {}),
+                             ("spec", {"draft": draft, "spec_k": SPEC_K}))}
+        row = {"phase": "spec_serving", "mode": "paged" if paged
+               else "fixed", "model": "gpt_1p3b", "layers": cfg.n_layers,
+               "draft_layers": 2, "spec_k": SPEC_K,
+               "decode_tok_s": run["decode_tok_s"],
+               "plain_decode_tok_s": base["decode_tok_s"],
+               "speedup": run["decode_tok_s"] / base["decode_tok_s"],
+               "spec_acceptance_rate": run["spec_acceptance_rate"],
+               "launches_per_tick": per_tick["spec"],
+               "plain_launches_per_tick": per_tick["plain"],
+               "prefill_1500_ms": run["prefill_1500_ms"],
+               "plain_prefill_1500_ms": base["prefill_1500_ms"],
+               "greedy_tokens_equal_to_plain_share":
+                   run["greedy_tokens_equal_to_bf16_share"], **stamp}
+        emit(row)
+        runs[paged] = run
+    return runs
+
+
+def _prefix_prompts(V):
+    """Eight prompts on one 1024-token prefix with 64-400-token tails; the
+    sixth keeps only the prefix's first 1000 tokens, so its match ends
+    mid-block (a copy-on-write)."""
+    rng = np.random.default_rng(6)
+    head = rng.integers(0, V, 1024).astype(np.int32)
+    tails = (64, 100, 150, 200, 250, 300, 350, 400)
+    prompts = [np.concatenate([head, rng.integers(0, V, n).astype(np.int32)])
+               for n in tails]
+    prompts[5] = np.concatenate([head[:1000], prompts[5][1024:]])
+    return prompts
+
+
+def _prefix_run(eng, prompts, new):
+    """The first prompt alone (it fills the tree), then the other seven at
+    once. Returns (streams, prefill ms of the seven)."""
+    from paddle_tpu_torch.monitor.stats import stat_get
+
+    try:
+        first = eng.generate(prompts[0], max_new_tokens=new)
+        ms0 = stat_get("serving_prefill_ms")
+        reqs = [eng.submit(p, max_new_tokens=new) for p in prompts[1:]]
+        outs = [first] + [r.result(timeout=600) for r in reqs]
+        return outs, stat_get("serving_prefill_ms") - ms0
+    finally:
+        eng.shutdown()
+
+
+def _tree_refs_only(eng):
+    blocks = eng._prefix.blocks()
+    return eng.cache._refs == {b: 1 for b in blocks}
+
+
+def prefix_phase(dev, cfg, params, fa, pa, stamp):
+    """Phase 28: the radix prefix cache, paged. f32 identity against the
+    cold engine (full width, IDENTITY_LAYERS layers); then bf16 at full
+    depth: the wave's prefill ms with and without the cache, the hit
+    rate, copy-on-writes, and a second pass on a pool small enough to
+    evict tree leaves; every refcount the tree's own after shutdown."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    new = 32
+    prompts = _prefix_prompts(cfg.vocab_size)
+    cfg32 = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
+    p32 = _scaled_params(G, cfg32, dev)
+    want, _ = _prefix_run(InferenceEngine(cfg32, p32, n_slots=8, paged=True,
+                                          prefix_cache=False), prompts, new)
+    eng = InferenceEngine(cfg32, p32, n_slots=8, paged=True,
+                          prefix_cache=True)
+    got, _ = _prefix_run(eng, prompts, new)
+    equal, ties = _streams_equal(G, cfg32, p32, prompts, want, got, dev)
+    ident = {"streams_equal": equal, "near_ties": ties,
+             "distinct_tokens": len({t for o in want for t in o}),
+             "refcounts_tree_only": _tree_refs_only(eng)}
+    del p32, eng
+    torch.cuda.empty_cache()
+
+    keys = ("prefix_matched_tokens", "prefix_lookup_tokens",
+            "prefix_cow_copies", "prefix_evictions", "serving_preemptions")
+    cold, cold_ms = _prefix_run(InferenceEngine(
+        cfg, params, n_slots=8, paged=True, prefix_cache=False), prompts, new)
+    s0 = {k: stat_get(k) for k in keys}
+    fa.LAUNCHES = 0
+    pa.LAUNCHES = 0
+    eng = InferenceEngine(cfg, params, n_slots=8, paged=True,
+                          prefix_cache=True)
+    warm, warm_ms = _prefix_run(eng, prompts, new)
+    launches = {"flash_attention_fwd": fa.LAUNCHES,
+                "paged_attention_decode": pa.LAUNCHES}
+    d = {k: stat_get(k) - s0[k] for k in keys}
+    refs_ok = _tree_refs_only(eng)
+    tree_blocks = eng._prefix.block_count
+    # the second pass: 64 blocks for the shared prefix and 96 for the
+    # rest, then a prompt on another prefix — the tree must give leaves
+    # back to the pool
+    s1 = {k: stat_get(k) for k in keys}
+    small = InferenceEngine(cfg, params, n_slots=8, paged=True,
+                            prefix_cache=True, n_blocks=1 + 64 + 96)
+    other = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, 1200).astype(np.int32)
+    pressed, _ = _prefix_run(small, prompts + [other], new)
+    d2 = {k: stat_get(k) - s1[k] for k in keys}
+    refs_ok = refs_ok and _tree_refs_only(small)
+    row = {"phase": "prefix_serving", "mode": "paged", "model": "gpt_1p3b",
+           "layers": cfg.n_layers, "prefix_tokens": 1024,
+           "prompt_tokens": [int(p.size) for p in prompts],
+           "requests": len(prompts), "new_tokens": new,
+           "identity_f32": {"layers": IDENTITY_LAYERS, **ident},
+           "prefill_ms_wave": warm_ms, "cold_prefill_ms_wave": cold_ms,
+           "prefill_ratio": warm_ms / max(cold_ms, 1),
+           "prefix_hit_rate": d["prefix_matched_tokens"]
+           / max(d["prefix_lookup_tokens"], 1),
+           "prefix_cow_copies": d["prefix_cow_copies"],
+           "prefix_evictions": d2["prefix_evictions"],
+           "small_pool_preemptions": d2["serving_preemptions"],
+           "small_pool_blocks": small.cache.n_blocks,
+           "tree_blocks": tree_blocks, "refcounts_tree_only": refs_ok,
+           "bf16_greedy_equal_to_cold_share": sum(
+               a == b for o, c in zip(warm, cold) for a, b in zip(o, c))
+           / sum(len(o) for o in cold),
+           "launches": launches, **stamp}
+    emit(row)
+    bad = [o for o in warm + pressed
+           if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o)]
+    if bad or not ident["refcounts_tree_only"] or not refs_ok \
+            or row["prefix_hit_rate"] <= 0 or row["prefix_cow_copies"] < 1 \
+            or row["prefix_evictions"] < 1 \
+            or launches["paged_attention_decode"] <= 0:
+        raise AssertionError(f"prefix cache run is off: {row}")
+    return row
+
+
+def text_phase(dev, cfg, params, stamp):
+    """Phase 29: a ByteTokenizer over TEXT_MERGES, ``submit(text=...)``
+    and the bounded TEXT_REGEX constraint, greedy and sampled, both cache
+    modes: every constrained stream ends with "stop" within TEXT_NEW
+    tokens and its bytes fully match the DFA."""
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.serving import InferenceEngine
+    from paddle_tpu_torch.serving.constrained import (compile_constraint,
+                                                      compile_regex)
+    from paddle_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(merges=TEXT_MERGES)
+    con = compile_constraint(tokenizer=tok, regex=TEXT_REGEX,
+                             vocab_size=cfg.vocab_size)
+    dfa = compile_regex(TEXT_REGEX)
+    rows = {}
+    for paged in (False, True):
+        c0 = stat_get("constrained_requests")
+        eng = InferenceEngine(cfg, params, n_slots=8, paged=paged, seed=7,
+                              tokenizer=tok)
+        try:
+            reqs = [eng.submit(text=f"Question {i}: is it so? Answer: ",
+                               max_new_tokens=TEXT_NEW, constraint=con,
+                               temperature=0.0 if i < 4 else 0.9)
+                    for i in range(8)]
+            outs = [(r.text(timeout=600), r.finish_reason, r.tokens)
+                    for r in reqs]
+        finally:
+            eng.shutdown()
+        for text, reason, ids in outs:
+            data = b"".join(tok.token_bytes(t) or b"" for t in ids)
+            if reason != "stop" or len(ids) > TEXT_NEW \
+                    or not dfa.matches(data) or data.decode() != text:
+                raise AssertionError(
+                    f"constrained stream off: {reason} {ids} {data!r}")
+        row = {"phase": "text_constrained", "mode": "paged" if paged
+               else "fixed", "model": "gpt_1p3b", "layers": cfg.n_layers,
+               "regex": TEXT_REGEX, "tokenizer_vocab": tok.vocab_size,
+               "texts": [o[0] for o in outs],
+               "finish_reasons": [o[1] for o in outs],
+               "tokens": [len(o[2]) for o in outs],
+               "constrained_requests": stat_get("constrained_requests") - c0,
+               **stamp}
+        emit(row)
+        rows[paged] = row
+    return rows
+
+
 def _kernel(name, source, replaces, launches, row, err, keys, library):
     ms, plain, bnd, by = keys
     return {"name": name, "route": "cuda", "source": source,
@@ -2308,6 +2705,14 @@ def main():
     bert = bert_train_phase(dev, fa, fk, fo, stamp)
     bert_check_phase(dev, stamp)
 
+    spec_identity_phase(dev, stamp)
+    params = G.gpt_init(cfg, seed=0, device=dev)
+    runs_spec = spec_phase(dev, cfg, params, fa, pa, stamp)
+    prefix = prefix_phase(dev, cfg, params, fa, pa, stamp)
+    text_phase(dev, cfg, params, stamp)
+    del params
+    torch.cuda.empty_cache()
+
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
     p = paged[torch.bfloat16]
@@ -2332,11 +2737,18 @@ def main():
                      runs[False]["launches"]["flash_attention_fwd"], f,
                      f["max_abs_err_o"], plain, "library_ms"),
              **_batch_keys(f), training_shape=_shape_keys(ft)),
-        _kernel("paged_attention_decode",
-                "paddle_tpu_torch/csrc/paged_attention.cu",
-                "paddle_tpu/ops/paged_attention.py:77",
-                runs[True]["launches"]["paged_attention_decode"], p,
-                p["max_abs_err"], plain, None),
+        # "ms" is the split and merge kernels' own device time
+        # (torch.profiler) where the trace has it; "call_ms" the lone
+        # call's (CUDA events around the wrapper: its host work and both
+        # launches held), as add-LN's rows below
+        dict(_kernel("paged_attention_decode",
+                     "paddle_tpu_torch/csrc/paged_attention.cu",
+                     "paddle_tpu/ops/paged_attention.py:77",
+                     runs[True]["launches"]["paged_attention_decode"], p,
+                     p["max_abs_err"],
+                     ("kernel_ms" if p["kernel_ms"] else "ms", "plain_ms",
+                      "bound_ms", "bound_by"), None),
+             call_ms=p["ms"]),
         dict(_kernel("flash_attention_bwd",
                      "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                      "paddle_tpu/ops/flash_attention.py:200",
@@ -2436,7 +2848,10 @@ def main():
              "serving_moe_paged": runs_moe[True]["launches"],
              "training_moe": train_moe["launches"],
              "training_paddle_bert_composed": bert["composed"]["launches"],
-             "training_paddle_bert_fused": bl}
+             "training_paddle_bert_fused": bl,
+             "serving_spec_fixed": runs_spec[False]["launches"],
+             "serving_spec_paged": runs_spec[True]["launches"],
+             "serving_prefix_paged": prefix["launches"]}
     for k in kernels:
         k["launches_by_path"] = {name: counts.get(k["name"], 0)
                                  for name, counts in paths.items()}

@@ -13,6 +13,8 @@ Own copy of the ``_truthy`` cells of ``paddle_tpu/core/native.py``:
   take the fused AdamW/LAMB kernels (``ops/fused_optimizer.py``);
 - ``FLAGS_fp8_matmul``: the fp8 (e4m3) MLP in the block's MLP half when
   ``GPTConfig.fp8`` is None (the serving engine pins it at construction);
+- ``FLAGS_prefix_cache``: the engine's radix prefix cache when
+  ``InferenceEngine(prefix_cache=None)`` (paged mode only);
 - ``FLAGS_fault_inject``: the fault-injection spec string, not ported yet
   (``DistributedTrainStep`` raises while it is non-empty).
 
@@ -25,7 +27,8 @@ from __future__ import annotations
 import os
 
 __all__ = ["paged_kv", "ragged_decode", "fused_kernels", "fused_optimizer",
-           "fp8_matmul", "fault_inject", "set_flag", "get_flag"]
+           "fp8_matmul", "prefix_cache", "fault_inject", "set_flag",
+           "get_flag"]
 
 
 def _truthy(value) -> bool:
@@ -51,6 +54,10 @@ fused_optimizer = [_truthy(os.environ.get("FLAGS_fused_optimizer", "0"))]
 # fp8 unset (amp/fp8.py, ops/fp8_matmul.py)
 fp8_matmul = [_truthy(os.environ.get("FLAGS_fp8_matmul", "0"))]
 
+# serving engine: radix-tree prefix sharing over the paged block pool
+# when the engine leaves prefix_cache unset
+prefix_cache = [_truthy(os.environ.get("FLAGS_prefix_cache", "0"))]
+
 # train step: deterministic fault injection spec (not ported yet)
 fault_inject = [os.environ.get("FLAGS_fault_inject", "")]
 
@@ -60,12 +67,14 @@ def _cell(name: str) -> list:
     cell = {"paged_kv": paged_kv, "ragged_decode": ragged_decode,
             "fused_kernels": fused_kernels,
             "fused_optimizer": fused_optimizer, "fp8_matmul": fp8_matmul,
+            "prefix_cache": prefix_cache,
             "fault_inject": fault_inject}.get(key)
     if cell is None:
         raise ValueError(f"{name} is not a flag of paddle_tpu_torch (it "
                          f"has FLAGS_paged_kv, FLAGS_ragged_decode, "
                          f"FLAGS_fused_kernels, FLAGS_fused_optimizer, "
-                         f"FLAGS_fp8_matmul, FLAGS_fault_inject)")
+                         f"FLAGS_fp8_matmul, FLAGS_prefix_cache, "
+                         f"FLAGS_fault_inject)")
     return cell
 
 

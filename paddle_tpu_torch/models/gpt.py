@@ -51,9 +51,18 @@ pass the residual through) and adds the router's aux and z losses;
 every inference path routes droplessly, and the decode steps return the
 router's ``(counts, dropped)`` as a third element.
 
-The expert-parallel, ring-attention, pipeline, verify and prefix
-branches are not ported yet and raise ``NotImplementedError`` where a
-config asks for one.
+Speculative decoding and the prefix cache: :func:`gpt_truncate` builds
+a layer-truncated draft that shares the target's embeddings and final
+LN; :func:`gpt_verify_step` / :func:`gpt_verify_step_paged` score C
+tokens per row in one pass over either cache (the draft's proposals
+plus the bonus position), and :func:`gpt_prefill_prefix` continues a
+paged prefill from an unaligned cached length. Their attention is
+composed PyTorch, as in JAX (a multi-query shape the decode kernel does
+not cover), and their MLP the composed one (int8 weights allowed); MoE
+configs raise, as in JAX.
+
+The expert-parallel, ring-attention and pipeline branches are not ported
+yet and raise ``NotImplementedError`` where a config asks for one.
 """
 from __future__ import annotations
 
@@ -78,7 +87,8 @@ from ..ops.paged_attention import paged_attention_arrays
 __all__ = ["GPTConfig", "gpt_init", "gpt_forward", "gpt_loss", "gpt_tiny",
            "gpt_small", "gpt_1p3b", "gpt_nano", "gpt_prefill",
            "gpt_decode_step", "gpt_decode_step_paged", "gpt_prefill_chunk",
-           "params_from_jax", "quantize_gpt_weights"]
+           "gpt_truncate", "gpt_verify_step", "gpt_verify_step_paged",
+           "gpt_prefill_prefix", "params_from_jax", "quantize_gpt_weights"]
 
 
 @dataclasses.dataclass
@@ -160,6 +170,27 @@ def gpt_nano(**kw):
     d = dict(vocab_size=512, hidden=64, n_layers=2, n_heads=4, seq_len=64)
     d.update(kw)
     return GPTConfig(**d)
+
+
+def gpt_truncate(cfg: GPTConfig, params, n_layers: int):
+    """Layer-truncated draft model: the first ``n_layers`` blocks of
+    ``params`` (views of the target's leaves) with wte, wpe and the final
+    LN SHARED with the target (the same tensors). Returns ``(draft_cfg,
+    draft_params)`` for ``serving.InferenceEngine(draft=...)``.
+    ``params`` must be the plain gpt_init layout (quantize after
+    truncation, not before); MoE configs raise, as in JAX."""
+    if not 1 <= n_layers <= cfg.n_layers:
+        raise ValueError(
+            f"n_layers={n_layers} outside [1, {cfg.n_layers}]")
+    if cfg.moe_layer_ids:
+        raise ValueError(
+            "gpt_truncate does not support MoE configs: the dense-MLP "
+            "and expert subtrees stack over different layer subsets, so "
+            "a [:n_layers] slice has no single meaning")
+    draft = dict(params)
+    draft["blocks"] = {name: leaf[:n_layers]
+                       for name, leaf in params["blocks"].items()}
+    return dataclasses.replace(cfg, n_layers=n_layers), draft
 
 
 def _unported(what: str):
@@ -676,6 +707,84 @@ def gpt_decode_step(cfg: GPTConfig, params, cache, positions, tokens):
     return out if stats is None else out + (stats,)
 
 
+def _no_moe(cfg: GPTConfig, what: str) -> None:
+    if cfg.moe_layer_ids:
+        raise ValueError(
+            f"{what} does not support MoE configs (the engine rejects "
+            "speculative decoding and prefix caching with moe_experts > 0)")
+
+
+def _verify_embed(cfg: GPTConfig, params, positions, tokens):
+    """(B, C, H) embeddings of C tokens per row, token j of row b at
+    position ``positions[b] + j``; returns (x, qpos (B, C) int64)."""
+    cd = cfg.dtype
+    qpos = positions.long()[:, None] \
+        + torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    return params["wte"].to(cd)[tokens.long()] \
+        + params["wpe"].to(cd)[qpos], qpos
+
+
+def _verify_attend(cfg: GPTConfig, p, x, q, kc, vc, qpos):
+    """Composed multi-query attention of a verify block: q (B, nh, C,
+    hd) over kc/vc (B, nh, T, hd), query j of row b masked to keys at
+    ``pos <= qpos[b, j]``; scores in the compute dtype, softmax in f32.
+    Returns x plus the projected attention output (B, C, H)."""
+    B, nh, C, hd = q.shape
+    cd = cfg.dtype
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kc.to(q.dtype)) \
+        * (1.0 / math.sqrt(hd))
+    live = torch.arange(kc.shape[2], device=x.device)[None, None, :] \
+        <= qpos[:, :, None]
+    s = torch.where(live[:, None], s, NEG_INF)
+    w = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", w, vc.to(q.dtype))
+    o = o.transpose(1, 2).reshape(B, C, nh * hd)
+    return x + _dec_mm(o, p["proj_w"], cd) + p["proj_b"].to(cd)
+
+
+def _verify_qkv(cfg: GPTConfig, p, x):
+    """LN1 → QKV of a verify block; each (B, C, nh, hd)."""
+    B, C, H = x.shape
+    cd = cfg.dtype
+    h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
+    qkv = _dec_mm(h, p["qkv_w"], cd) + p["qkv_b"].to(cd)
+    return (t.reshape(B, C, cfg.n_heads, cfg.head_dim)
+            for t in qkv.split(H, dim=-1))
+
+
+def _block_verify(cfg: GPTConfig, p, x, kc_l, vc_l, qpos):
+    """Attention half of the C-token block step against one layer of the
+    slotted cache: kc_l/vc_l (B, nh, max_len, hd) views, the C new K/V
+    rows of row b written in place at ``qpos[b]``; query j attends over
+    the slot masked to ``pos <= qpos[b, j]`` — per query the math of the
+    one-token step run token by token."""
+    q, k, v = _verify_qkv(cfg, p, x)
+    lanes = torch.arange(x.shape[0], device=x.device)[:, None]
+    kc_l[lanes, :, qpos] = k.to(kc_l.dtype)
+    vc_l[lanes, :, qpos] = v.to(vc_l.dtype)
+    return _verify_attend(cfg, p, x, q.transpose(1, 2), kc_l, vc_l, qpos)
+
+
+def gpt_verify_step(cfg: GPTConfig, params, cache, positions, tokens):
+    """Batched MULTI-token decode against a slotted KV cache.
+
+    cache = (k, v), each (B, L, nh, max_len, hd); positions (B,) int —
+    where each row's FIRST token lands (token j at ``positions + j``);
+    tokens (B, C) int. Returns (logits (B, C, V) f32, cache): logits[:,
+    j] is the next-token distribution after consuming tokens ``[..j]``,
+    what gpt_decode_step returns fed the same tokens one at a time — the
+    speculative-decoding verify pass, and the draft cache's chunk
+    append. The caller guarantees ``positions + C <= max_len``; rejected
+    rows leave stale K/V past the accepted length, which the position
+    mask hides until a later step overwrites them."""
+    _no_moe(cfg, "gpt_verify_step")
+    k_cache, v_cache = cache
+    x, qpos = _verify_embed(cfg, params, positions, tokens)
+    x, _ = _dec_layers(cfg, params, x, lambda i, p, x: _block_verify(
+        cfg, p, x, k_cache[:, i], v_cache[:, i], qpos))
+    return _head(cfg, params, x), (k_cache, v_cache)
+
+
 # --------------------------------------------------------------------------
 # paged KV cache variants
 # --------------------------------------------------------------------------
@@ -805,3 +914,68 @@ def gpt_prefill_chunk(cfg: GPTConfig, params, pool, table_row, tokens,
     at position i equal gpt_prefill's at global position start + i."""
     x = prefill_chunk_hidden(cfg, params, pool, table_row, tokens, start)
     return _head(cfg, params, x), pool
+
+
+def _block_verify_paged(cfg: GPTConfig, p, x, kb, vb, layer, tables, qpos):
+    """Attention half of the C-token block step against the WHOLE pool
+    (n_blocks, L, nh, bs, hd) at layer ``layer``: token j of row b is
+    stored in place at block ``tables[b, qpos[b, j] // bs]``, offset
+    ``qpos[b, j] % bs``; the queries attend over the gathered table in
+    composed math (the multi-query shape the decode kernel does not
+    cover), masked to ``pos <= qpos``. Stale lanes scatter onto the
+    garbage sink, as in the one-token step."""
+    B, C, _ = x.shape
+    nh, hd = cfg.n_heads, cfg.head_dim
+    bs = kb.shape[3]
+    W = tables.shape[1]
+    q, k, v = _verify_qkv(cfg, p, x)
+    blk = tables.long().gather(1, qpos // bs)
+    off = qpos % bs
+    kb[blk, layer, :, off] = k.to(kb.dtype)
+    vb[blk, layer, :, off] = v.to(vb.dtype)
+    rows = tables.long()
+    kg = kb[rows, layer].transpose(1, 2).reshape(B, nh, W * bs, hd)
+    vg = vb[rows, layer].transpose(1, 2).reshape(B, nh, W * bs, hd)
+    return _verify_attend(cfg, p, x, q.transpose(1, 2), kg, vg, qpos)
+
+
+def verify_paged_hidden(cfg: GPTConfig, params, pool, tables, positions,
+                        tokens):
+    """gpt_verify_step_paged before the head: hidden (B, C, H); the pool
+    is written in place."""
+    _no_moe(cfg, "gpt_verify_step_paged")
+    kb, vb = pool
+    x, qpos = _verify_embed(cfg, params, positions, tokens)
+    x, _ = _dec_layers(cfg, params, x, lambda i, p, x: _block_verify_paged(
+        cfg, p, x, kb, vb, i, tables, qpos))
+    return x
+
+
+def gpt_verify_step_paged(cfg: GPTConfig, params, pool, tables, positions,
+                          tokens):
+    """Batched multi-token decode against a paged block pool.
+
+    pool = (kb, vb), each (n_blocks, L, nh, block_size, hd); tables
+    (B, W) int32; positions (B,) int — the first token's index per row;
+    tokens (B, C) int. Returns (logits (B, C, V) f32, pool). Same
+    per-query math as gpt_decode_step_paged; the caller has grown each
+    live row's table to cover ``positions + C`` tokens."""
+    x = verify_paged_hidden(cfg, params, pool, tables, positions, tokens)
+    return _head(cfg, params, x), pool
+
+
+def gpt_prefill_prefix(cfg: GPTConfig, params, pool, table_row, tokens,
+                       start):
+    """Prefill continuing from an arbitrary cached prefix (the radix
+    prefix cache's tail entry point).
+
+    Like :func:`gpt_prefill_chunk`, but ``start`` (tokens already cached
+    for this slot) need NOT be block-aligned: the paged verify step at
+    B = 1. Token j of ``tokens`` (1, C) lands at ``start + j`` through
+    ``table_row``'s block/offset lookup and each query attends over the
+    whole cached prefix masked to ``pos <= start + j``, so logits at
+    chunk position i equal gpt_prefill's at global position
+    ``start + i``. Returns (logits (1, C, V) f32, pool)."""
+    start = torch.tensor([int(start)], device=tokens.device)
+    return gpt_verify_step_paged(cfg, params, pool, table_row[None, :],
+                                 start, tokens)

@@ -3,9 +3,10 @@ engine and cache set, the ``train_steps`` counter the train step bumps,
 the ``fused_optimizer_steps`` / ``int8_matmul_calls`` /
 ``fp8_matmul_calls`` counters of the fused optimizer and the int8 and
 fp8 matmuls, the MoE router's ``moe_expert_load`` gauge and
-``moe_tokens_dropped`` counter, and the ``fused_kernel_calls`` counter of
-``ops/fused.py`` (a subset of
-``paddle_tpu/monitor/stats.py``, with its names).
+``moe_tokens_dropped`` counter, the ``fused_kernel_calls`` counter of
+``ops/fused.py``, and the engine's speculative-decoding, prefix-cache and
+constrained-decoding stats (a subset of ``paddle_tpu/monitor/stats.py``,
+with its names).
 
 A :class:`Stat` is a named int64 gauge; :class:`StatRegistry` is the
 process-wide thread-safe registry. Tracing spans and latency histograms
@@ -83,3 +84,21 @@ MOE_EXPERT_LOAD = _registry.get_stat("moe_expert_load")
 MOE_TOKENS_DROPPED = _registry.get_stat("moe_tokens_dropped")
 # fused_feedforward calls that took the fused kernels (FLAGS_fused_kernels)
 FUSED_KERNEL_CALLS = _registry.get_stat("fused_kernel_calls")
+# speculative decoding: draft tokens proposed / accepted by the target's
+# verify pass, and the lifetime acceptance percentage (gauge)
+SPEC_PROPOSED = _registry.get_stat("spec_proposed")
+SPEC_ACCEPTED = _registry.get_stat("spec_accepted")
+SPEC_ACCEPTANCE_RATE = _registry.get_stat("spec_acceptance_rate")
+# radix prefix cache: prompt tokens served from the tree / looked up at
+# admission, their percentage (gauge), pool blocks pinned by the tree
+# (gauge), LRU-reclaimed leaves, copy-on-write duplications
+PREFIX_MATCHED_TOKENS = _registry.get_stat("prefix_matched_tokens")
+PREFIX_LOOKUP_TOKENS = _registry.get_stat("prefix_lookup_tokens")
+PREFIX_HIT_RATE = _registry.get_stat("prefix_hit_rate")
+PREFIX_CACHE_BLOCKS = _registry.get_stat("prefix_cache_blocks")
+PREFIX_EVICTIONS = _registry.get_stat("prefix_evictions")
+PREFIX_COW_COPIES = _registry.get_stat("prefix_cow_copies")
+# constrained decoding: requests under a token-mask automaton, and
+# speculative ticks dropped to the one-token tick for them
+CONSTRAINED_REQUESTS = _registry.get_stat("constrained_requests")
+CONSTRAINED_FALLBACK_TICKS = _registry.get_stat("constrained_fallback_ticks")

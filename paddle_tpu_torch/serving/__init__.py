@@ -1,8 +1,15 @@
-"""Serving path of the port: KV caches, sampling and the engine."""
+"""Serving path of the port: KV caches, sampling, the prefix cache, the
+tokenizer and constraints, and the engine."""
+from .constrained import (ConstraintCursor, TokenConstraint,
+                          compile_constraint, compile_regex, schema_to_regex)
 from .engine import GenerationRequest, InferenceEngine, QueueFull
 from .kv_cache import KVCache, PagedKVCache, cache_insert
-from .sampling import sample_tokens_streams
+from .prefix_cache import RadixPrefixCache
+from .sampling import sample_tokens_streams, spec_accept
+from .tokenizer import ByteTokenizer, StreamDetokenizer
 
-__all__ = ["GenerationRequest", "InferenceEngine", "KVCache",
-           "PagedKVCache", "QueueFull", "cache_insert",
-           "sample_tokens_streams"]
+__all__ = ["ByteTokenizer", "ConstraintCursor", "GenerationRequest",
+           "InferenceEngine", "KVCache", "PagedKVCache", "QueueFull",
+           "RadixPrefixCache", "StreamDetokenizer", "TokenConstraint",
+           "cache_insert", "compile_constraint", "compile_regex",
+           "sample_tokens_streams", "schema_to_regex", "spec_accept"]

@@ -8,8 +8,10 @@ tables — is host-side: it changes at request granularity, not token
 granularity.
 
 The paged pool here is single-shard (``shards=1``): pool block 0 is the
-garbage sink, never allocated. Block refcounts and table splicing (the
-prefix-cache surface) wait for the prefix-cache slice.
+garbage sink, never allocated. Blocks are refcounted, so the radix prefix
+cache (``serving/prefix_cache.py``) can share one block among several
+slots' tables and its own tree; the multi-shard pool of the serving mesh
+is not ported.
 """
 from __future__ import annotations
 
@@ -99,7 +101,17 @@ class PagedKVCache:
     unoccupied batch lanes, so the batched decode step's stale-lane
     writes land where no live slot reads. A double free raises
     ``AssertionError`` (a corrupt free list would cross-wire two
-    requests' caches)."""
+    requests' caches).
+
+    Refcounted sharing (the radix prefix cache): every allocated block
+    carries a reference count. ``grow``/``alloc_block`` hand out blocks
+    at refcount 1; :meth:`ref_block` lets another owner (a second slot's
+    table, or the prefix tree) pin the same block, and releasing a table
+    *unrefs* instead of freeing — a block returns to the free list only
+    when the LAST reference drops. Writers never mutate a shared block:
+    a slot that must extend a partially-filled shared block first
+    :meth:`replace_block`\\ s it with a copy-on-write duplicate (the
+    engine copies the block's rows on the device)."""
 
     def __init__(self, cfg, n_slots: int, n_blocks: Optional[int] = None,
                  block_size: int = 16, dtype=None, device=None):
@@ -128,6 +140,7 @@ class PagedKVCache:
         self.block_tables: List[List[int]] = [[] for _ in range(self.n_slots)]
         self._free: List[int] = list(range(1, self.n_blocks))
         self._free_set = set(self._free)
+        self._refs: dict = {}      # allocated block -> reference count
         self._slot_free: List[int] = list(range(self.n_slots))
         self.update_gauges()
 
@@ -190,24 +203,88 @@ class PagedKVCache:
         if extra > len(self._free):
             return False
         for _ in range(extra):
-            b = self._free.pop(0)
-            self._free_set.discard(b)
-            table.append(b)
+            table.append(self._take_block())
         self.update_gauges()
         return True
 
+    def _take_block(self) -> int:
+        b = self._free.pop(0)
+        self._free_set.discard(b)
+        self._refs[b] = 1
+        return b
+
+    def alloc_block(self) -> Optional[int]:
+        """One free block at refcount 1 (the copy-on-write destination),
+        or None when the pool is dry."""
+        if not self._free:
+            return None
+        b = self._take_block()
+        self.update_gauges()
+        return b
+
+    def ref_block(self, block: int) -> None:
+        """Pin one more reference on an allocated block (a second slot's
+        table, or the prefix tree adopting it)."""
+        b = int(block)
+        if b not in self._refs:
+            raise AssertionError(
+                f"KV block {b} ref'd while not allocated (use-after-free)")
+        self._refs[b] += 1
+
+    def ref_count(self, block: int) -> int:
+        return self._refs.get(int(block), 0)
+
+    def unref_block(self, block: int) -> None:
+        """Drop one reference; the LAST drop returns the block to the
+        free list (shared prefix blocks survive their first owner)."""
+        b = int(block)
+        if b in self._free_set:
+            raise AssertionError(
+                f"KV block {b} double-freed (free-list corruption)")
+        if not 0 < b < self.n_blocks:
+            raise AssertionError(
+                f"KV block {b} outside the pool or the reserved sink")
+        refs = self._refs.get(b)
+        if refs is None:
+            raise AssertionError(
+                f"KV block {b} unref'd while not allocated "
+                "(refcount corruption)")
+        if refs > 1:
+            self._refs[b] = refs - 1
+            return
+        del self._refs[b]
+        self._free.append(b)
+        self._free_set.add(b)
+
     def free_blocks(self, blocks: Sequence[int]) -> None:
         for b in blocks:
-            b = int(b)
-            if b in self._free_set:
-                raise AssertionError(
-                    f"KV block {b} double-freed (free-list corruption)")
-            if not 0 < b < self.n_blocks:
-                raise AssertionError(
-                    f"KV block {b} outside the pool or the reserved sink")
-            self._free.append(b)
-            self._free_set.add(b)
+            self.unref_block(b)
         self.update_gauges()
+
+    def splice(self, slot: int, blocks: Sequence[int]) -> None:
+        """Seed an empty slot table with already-allocated (shared)
+        blocks, taking one reference per block — the prefix-cache hit
+        path."""
+        table = self.block_tables[slot]
+        if table:
+            raise AssertionError(
+                f"splice into slot {slot} with a non-empty table")
+        for b in blocks:
+            self.ref_block(b)
+            table.append(int(b))
+        self.update_gauges()
+
+    def replace_block(self, slot: int, index: int, new_block: int) -> int:
+        """Swap one table entry for ``new_block`` (the copy-on-write
+        commit: the caller has already copied the old block's rows into
+        ``new_block`` on the device). Drops this table's reference on
+        the old block and returns it."""
+        table = self.block_tables[slot]
+        old = table[index]
+        table[index] = int(new_block)
+        self.unref_block(old)
+        self.update_gauges()
+        return old
 
     def table_row(self, slot: int) -> np.ndarray:
         """This slot's table as a fixed-width int32 row, sink-padded."""

@@ -427,15 +427,20 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, tol, hd):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-def test_engine_on_card_matches_cpu(cuda_device):
-    """Both cache modes on the card (flash prefill in fixed mode, paged
-    decode in paged mode) give the CPU engine's greedy tokens (f32,
-    head_dim 64, block matrices scaled so tokens vary)."""
+def _small_engine_model():
     cfg = tg.GPTConfig(vocab_size=512, hidden=128, n_layers=2, n_heads=2,
                        seq_len=128, dtype=torch.float32)
     params = tg.gpt_init(cfg, seed=0, device="cpu")
     for k in ("qkv_w", "proj_w", "fc_w", "out_w"):
         params["blocks"][k] *= 4.0
+    return cfg, params
+
+
+def test_engine_on_card_matches_cpu(cuda_device):
+    """Both cache modes on the card (flash prefill in fixed mode, paged
+    decode in paged mode) give the CPU engine's greedy tokens (f32,
+    head_dim 64, block matrices scaled so tokens vary)."""
+    cfg, params = _small_engine_model()
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 512, n) for n in (5, 40, 77)]
 
@@ -453,6 +458,72 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert tfa.LAUNCHES > f0
     assert run(True, cuda_device) == want
     assert tpa.LAUNCHES > p0
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_engine_on_card_matches_non_spec(cuda_device, paged):
+    """A speculative engine on the card (a 1-layer gpt_truncate draft,
+    spec_k 3; flash prefill of both models in fixed mode, the composed
+    verify on every tick) gives the CPU non-speculative engine's greedy
+    tokens (f32), and sampled streams replay exactly."""
+    from paddle_tpu_torch.monitor.stats import stat_get
+
+    cfg, params = _small_engine_model()
+    draft = tg.gpt_truncate(cfg, params, 1)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n) for n in (5, 40, 77)]
+
+    def run(device, spec, **kw):
+        eng = InferenceEngine(cfg, params, n_slots=2, paged=paged,
+                              device=device, seed=3,
+                              draft=draft if spec else None, spec_k=3)
+        try:
+            return [eng.generate(p, max_new_tokens=12, **kw)
+                    for p in prompts]
+        finally:
+            eng.shutdown()
+
+    a0 = stat_get("spec_accepted")
+    assert run(cuda_device, True) == run("cpu", False)
+    assert stat_get("spec_accepted") > a0
+    sampled = dict(temperature=0.8, top_k=20)
+    assert run(cuda_device, True, **sampled) \
+        == run(cuda_device, True, **sampled)
+
+
+def test_prefix_engine_on_card_matches_cold(cuda_device):
+    """The prefix cache on the card: shared-head prompts, copy-on-write
+    of a partly used block, a pool small enough to evict tree leaves:
+    greedy tokens equal the CPU cold engine's (f32), and after shutdown
+    every refcount is the tree's own."""
+    from paddle_tpu_torch.monitor.stats import stat_get
+
+    cfg, params = _small_engine_model()
+    rng = np.random.default_rng(2)
+    head = rng.integers(0, 512, 37)
+    prompts = [np.concatenate([head, rng.integers(0, 512, 9)])
+               for _ in range(3)]
+    prompts += prompts + [rng.integers(0, 512, 60) for _ in range(3)]
+
+    def run(device, prefix):
+        eng = InferenceEngine(cfg, params, n_slots=2, paged=True,
+                              device=device, block_size=16, n_blocks=14,
+                              prefill_chunk=32, prefix_cache=prefix)
+        try:
+            return eng, [eng.generate(p, max_new_tokens=12)
+                         for p in prompts]
+        finally:
+            eng.shutdown()
+
+    c0, e0 = stat_get("prefix_cow_copies"), stat_get("prefix_evictions")
+    p0 = tpa.LAUNCHES
+    eng, got = run(cuda_device, True)
+    assert got == run("cpu", False)[1]
+    assert tpa.LAUNCHES > p0
+    assert stat_get("prefix_cow_copies") > c0
+    assert stat_get("prefix_evictions") > e0
+    blocks = eng._prefix.blocks()
+    assert eng.cache._refs == {b: 1 for b in blocks}
 
 
 def _opt_leaves(pdt, mdt, dev, seed):

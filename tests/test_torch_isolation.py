@@ -56,7 +56,10 @@ def test_scan_sees_every_module():
                  "paddle_tpu_torch/nn/layer/transformer.py",
                  "paddle_tpu_torch/optimizer/optimizer.py",
                  "paddle_tpu_torch/ops/fused.py",
-                 "paddle_tpu_torch/tensor/logic.py", "chip_smoke.py"):
+                 "paddle_tpu_torch/tensor/logic.py",
+                 "paddle_tpu_torch/serving/tokenizer.py",
+                 "paddle_tpu_torch/serving/constrained.py",
+                 "paddle_tpu_torch/serving/prefix_cache.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -73,7 +76,10 @@ def test_imports_without_triton_nvcc_or_jax():
         " paddle_tpu_torch.ops.moe_dispatch, paddle_tpu_torch.ops.fp8_matmul,"
         " paddle_tpu_torch.nn, paddle_tpu_torch.amp,"
         " paddle_tpu_torch.tools.profile_train, paddle_tpu_torch.ops.fused,"
-        " paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.functional\n"
+        " paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.functional,"
+        " paddle_tpu_torch.serving.tokenizer,"
+        " paddle_tpu_torch.serving.constrained,"
+        " paddle_tpu_torch.serving.prefix_cache\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"

@@ -26,6 +26,7 @@ from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.monitor.stats import stat_get
 from paddle_tpu_torch.serving import (InferenceEngine, KVCache,
                                       PagedKVCache, sampling)
+from torch_jax_util import scaled_params
 
 CFG_J = jg.gpt_tiny(dtype=jnp.float32, seq_len=64)
 CFG = tg.gpt_tiny(dtype=torch.float32, seq_len=64)
@@ -36,14 +37,7 @@ ENGINE_KW = dict(n_slots=2, max_len=64, block_size=8, prefill_chunk=16)
 
 @functools.lru_cache(maxsize=None)
 def _params():
-    """One JAX init, its block matrices scaled x4 so that greedy streams
-    vary from token to token (at init scale they repeat one token)."""
-    tree = jax.tree.map(np.asarray, jg.gpt_init(CFG_J, seed=3))
-    blocks = dict(tree["blocks"])
-    for k in ("qkv_w", "proj_w", "fc_w", "out_w"):
-        blocks[k] = blocks[k] * 4.0
-    tree = {**tree, "blocks": blocks}
-    return tree, tg.params_from_jax(tree, device="cpu")
+    return scaled_params(CFG_J)
 
 
 def _prompts():
