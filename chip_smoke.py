@@ -153,10 +153,14 @@ stamped with the card's name and power limit):
 
 26. speculative decoding's identity: gpt_1p3b's full width at 4 layers,
     f32 with TF32 off, block matrices scaled x4 (so greedy tokens vary),
-    8 slots, phase 5's greedy prompts, 32 new tokens: the engine with a
-    2-layer ``gpt_truncate`` draft and spec_k 4 gives the plain engine's
-    greedy streams in both cache modes; a stream that parts must part
-    where the target's top-2 logit gap is below TIE_REL of the top logit;
+    8 slots, phase 5's greedy prompts, 32 new tokens: the engine with
+    spec_k 4 gives the plain engine's greedy streams in both cache modes,
+    with two ``gpt_truncate`` drafts: the target's own 4 layers, which
+    agree with it, so nearly every tick emits a burst of k+1 tokens (at
+    least SELF_DRAFT_MIN of the proposals accepted and of the rows'
+    ticks bursts longer than one), and 2 layers, which mostly disagree;
+    a stream that parts must part where the target's top-2 logit gap is
+    below TIE_REL of the top logit;
 27. phase 5's run again without and with that draft (bf16, full depth,
     both cache modes) in this one phase: decode tokens/s of each, the
     acceptance rate, the sampled replay, and the device kernels per tick
@@ -2252,6 +2256,11 @@ def bert_check_phase(dev, stamp, layers=2, batch=2):
 SPEC_K = 4
 # the f32 identity checks run gpt_1p3b's full width at this depth
 IDENTITY_LAYERS = 4
+# phase 26: a draft equal to the f32 target is rejected only at a
+# near-tie of its argmax, so it must have at least this share of its
+# proposals accepted, and of the rows' speculative ticks emit more than
+# one token
+SELF_DRAFT_MIN = 0.9
 # phases 26 and 28: two f32 engines' greedy streams may part only at a
 # near-tie, where the target's top two logits lie within this share of
 # the top logit (f32 sums in another order can flip such an argmax)
@@ -2304,43 +2313,76 @@ def _generate(eng, prompts, new, **kw):
         eng.shutdown()
 
 
+def _count_bursts(eng):
+    """Histogram of the tokens each active row emits per speculative tick
+    (index n: rows that emitted n, 1..k+1), filled on the scheduler
+    thread by wrapping the engine's speculative dispatch."""
+    bursts = [0] * (eng.spec_k + 2)
+    dispatch = eng._spec_dispatch
+
+    def counted(*args):
+        out, n_emit = dispatch(*args)
+        for s, st in enumerate(eng._slots):
+            if st is not None and st.pending is None:
+                bursts[int(n_emit[s])] += 1
+        return out, n_emit
+
+    eng._spec_dispatch = counted
+    return bursts
+
+
 def spec_identity_phase(dev, stamp):
     """Phase 26: greedy streams of the speculative engine equal the
     non-speculative engine's, f32 (TF32 off), gpt_1p3b's full width at
-    IDENTITY_LAYERS layers, both cache modes."""
+    IDENTITY_LAYERS layers, both cache modes, with a draft that agrees
+    with the target (its own layers: bursts of k+1) and one that mostly
+    does not (2 layers)."""
     from paddle_tpu_torch.models import gpt as G
     from paddle_tpu_torch.monitor.stats import stat_get
     from paddle_tpu_torch.serving import InferenceEngine
 
     cfg = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
     params = _scaled_params(G, cfg, dev)
-    draft = G.gpt_truncate(cfg, params, 2)
+    drafts = {n: G.gpt_truncate(cfg, params, n) for n in (IDENTITY_LAYERS, 2)}
     rng = np.random.default_rng(8)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (40, 100, 200, 400, 700, 1000, 1300, 1500)]
     new = 32
-    rows = {}
+    rows = []
     for paged in (False, True):
         want = _generate(InferenceEngine(cfg, params, n_slots=8,
                                          paged=paged), prompts, new)
-        s0 = (stat_get("spec_proposed"), stat_get("spec_accepted"))
-        got = _generate(InferenceEngine(cfg, params, n_slots=8, paged=paged,
-                                        draft=draft, spec_k=SPEC_K),
-                        prompts, new)
-        proposed = stat_get("spec_proposed") - s0[0]
-        accepted = stat_get("spec_accepted") - s0[1]
-        equal, ties = _streams_equal(G, cfg, params, prompts, want, got, dev)
-        row = {"phase": "spec_identity", "mode": "paged" if paged
-               else "fixed", "model": "gpt_1p3b", "dtype": "float32",
-               "layers": cfg.n_layers, "hidden": cfg.hidden,
-               "draft_layers": 2, "spec_k": SPEC_K, "requests": len(prompts),
-               "new_tokens": new, "streams_equal": equal,
-               "near_ties": ties, "tie_rel": TIE_REL,
-               "distinct_tokens": len({t for o in want for t in o}),
-               "spec_acceptance_rate": accepted / max(proposed, 1), **stamp}
-        emit(row)
-        rows[paged] = row
-    del params, draft
+        for n_draft, draft in drafts.items():
+            s0 = (stat_get("spec_proposed"), stat_get("spec_accepted"))
+            eng = InferenceEngine(cfg, params, n_slots=8, paged=paged,
+                                  draft=draft, spec_k=SPEC_K)
+            bursts = _count_bursts(eng)
+            got = _generate(eng, prompts, new)
+            proposed = stat_get("spec_proposed") - s0[0]
+            accepted = stat_get("spec_accepted") - s0[1]
+            equal, ties = _streams_equal(G, cfg, params, prompts, want, got,
+                                         dev)
+            rate = accepted / max(proposed, 1)
+            multi = sum(bursts[2:]) / max(sum(bursts), 1)
+            row = {"phase": "spec_identity", "mode": "paged" if paged
+                   else "fixed", "model": "gpt_1p3b", "dtype": "float32",
+                   "layers": cfg.n_layers, "hidden": cfg.hidden,
+                   "draft_layers": n_draft, "spec_k": SPEC_K,
+                   "requests": len(prompts), "new_tokens": new,
+                   "streams_equal": equal, "near_ties": ties,
+                   "tie_rel": TIE_REL,
+                   "distinct_tokens": len({t for o in want for t in o}),
+                   "spec_acceptance_rate": rate, "bursts": bursts,
+                   "multi_token_tick_share": multi, **stamp}
+            emit(row)
+            if n_draft == cfg.n_layers and (rate < SELF_DRAFT_MIN
+                                            or multi < SELF_DRAFT_MIN):
+                raise AssertionError(
+                    f"the target's own layers as the draft: acceptance "
+                    f"{rate:.3f}, multi-token tick share {multi:.3f}, "
+                    f"below {SELF_DRAFT_MIN}")
+            rows.append(row)
+    del params, drafts
     torch.cuda.empty_cache()
     return rows
 

@@ -55,11 +55,13 @@ Speculative decoding and the prefix cache: :func:`gpt_truncate` builds
 a layer-truncated draft that shares the target's embeddings and final
 LN; :func:`gpt_verify_step` / :func:`gpt_verify_step_paged` score C
 tokens per row in one pass over either cache (the draft's proposals
-plus the bonus position), and :func:`gpt_prefill_prefix` continues a
-paged prefill from an unaligned cached length. Their attention is
+plus the bonus position); the paged verify shares its attention body
+with :func:`gpt_prefill_chunk`, which therefore continues from any
+cached length — :func:`gpt_prefill_prefix`, the JAX name of the prefix
+cache's tail, is that chunk at an unaligned start. Their attention is
 composed PyTorch, as in JAX (a multi-query shape the decode kernel does
-not cover), and their MLP the composed one (int8 weights allowed); MoE
-configs raise, as in JAX.
+not cover), and their MLP the composed one (int8 weights allowed in the
+verify); the verify steps raise on MoE configs, as in JAX.
 
 The expert-parallel, ring-attention and pipeline branches are not ported
 yet and raise ``NotImplementedError`` where a config asks for one.
@@ -657,24 +659,20 @@ def _dec_attn(cfg: GPTConfig, p, x, kc_l, vc_l, positions):
     return x, kc_l, vc_l
 
 
-def _dec_mlp(cfg: GPTConfig, p, x):
-    """Dense MLP half of the one-token block step (x (B, 1, H)): LN2 →
-    gelu MLP + residual, always composed (as in JAX, whatever
-    ``fused_mlp`` says); weights may be int8-quantized dicts."""
-    return _composed_mlp(cfg, p, x, _dec_mm)
-
-
-def _dec_layers(cfg: GPTConfig, params, x, attn):
-    """The one-token block stack shared by both decode steps: ``attn(i,
-    p, x)`` is layer i's attention half. Returns (x, moe_stats), the
-    stats ``(counts (E,) int32, dropped int32)`` summed over the MoE
-    layers (None for a dense model); MoE layers route droplessly, so
-    decode never depends on which requests share the tick."""
+def _dec_layers(cfg: GPTConfig, params, x, attn, mm=_dec_mm):
+    """The block stack shared by the decode, verify and chunk steps:
+    ``attn(i, p, x)`` is layer i's attention half; a dense MLP half is
+    always composed (as in JAX, whatever ``fused_mlp`` says) through
+    ``mm`` (:func:`_dec_mm` takes int8-quantized dicts). Returns (x,
+    moe_stats), the stats ``(counts (E,) int32, dropped int32)`` summed
+    over the MoE layers (None for a dense model); MoE layers route
+    droplessly, so decode never depends on which requests share the
+    tick."""
     stats = None
     for i, (p, pm) in enumerate(_unstack(cfg, params)):
         x = attn(i, p, x)
         if pm is None:
-            x = _dec_mlp(cfg, p, x)
+            x = _composed_mlp(cfg, p, x, mm)
             continue
         x, _, _, c, d = _moe_mlp_half(cfg, p, pm, x, None)
         stats = (c, d) if stats is None else (stats[0] + c, stats[1] + d)
@@ -724,7 +722,7 @@ def _verify_embed(cfg: GPTConfig, params, positions, tokens):
         + params["wpe"].to(cd)[qpos], qpos
 
 
-def _verify_attend(cfg: GPTConfig, p, x, q, kc, vc, qpos):
+def _verify_attend(cfg: GPTConfig, p, x, q, kc, vc, qpos, mm=_dec_mm):
     """Composed multi-query attention of a verify block: q (B, nh, C,
     hd) over kc/vc (B, nh, T, hd), query j of row b masked to keys at
     ``pos <= qpos[b, j]``; scores in the compute dtype, softmax in f32.
@@ -739,15 +737,15 @@ def _verify_attend(cfg: GPTConfig, p, x, q, kc, vc, qpos):
     w = torch.softmax(s.float(), dim=-1).to(q.dtype)
     o = torch.einsum("bhqk,bhkd->bhqd", w, vc.to(q.dtype))
     o = o.transpose(1, 2).reshape(B, C, nh * hd)
-    return x + _dec_mm(o, p["proj_w"], cd) + p["proj_b"].to(cd)
+    return x + mm(o, p["proj_w"], cd) + p["proj_b"].to(cd)
 
 
-def _verify_qkv(cfg: GPTConfig, p, x):
+def _verify_qkv(cfg: GPTConfig, p, x, mm=_dec_mm):
     """LN1 → QKV of a verify block; each (B, C, nh, hd)."""
     B, C, H = x.shape
     cd = cfg.dtype
     h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
-    qkv = _dec_mm(h, p["qkv_w"], cd) + p["qkv_b"].to(cd)
+    qkv = mm(h, p["qkv_w"], cd) + p["qkv_b"].to(cd)
     return (t.reshape(B, C, cfg.n_heads, cfg.head_dim)
             for t in qkv.split(H, dim=-1))
 
@@ -841,50 +839,43 @@ def gpt_decode_step_paged(cfg: GPTConfig, params, pool, tables, positions,
     return out if stats is None else out + (stats,)
 
 
-def _chunk_attn(cfg: GPTConfig, p, x, kb, vb, layer, table_row, start):
-    """Attention half of the chunked-prefill block step: the chunk's K/V
-    go into their pool blocks first (in place), then the chunk's queries
-    attend over every cached position under the global causal mask."""
-    _, C, H = x.shape
+def _paged_attend(cfg: GPTConfig, p, x, kb, vb, layer, rows, where, qpos,
+                  mm):
+    """Attention half of every multi-token step against the WHOLE pool
+    (n_blocks, L, nh, bs, hd) at layer ``layer`` — a prefill chunk (B = 1)
+    and the paged verify alike: token j of row b is stored in place at
+    ``where = (block, offset)`` of position ``qpos[b, j]`` through the
+    table ``rows`` (B, W), so a row may start anywhere in a block; the
+    queries then attend over the gathered table in composed math (the
+    multi-query shape the decode kernel does not cover), masked to
+    ``pos <= qpos``. Stale lanes scatter onto the garbage sink, as in
+    the one-token step. ``mm`` is :func:`_mm` or :func:`_dec_mm` (int8
+    weights)."""
+    B, C, _ = x.shape
     nh, hd = cfg.n_heads, cfg.head_dim
+    T = rows.shape[1] * kb.shape[3]
+    q, k, v = _verify_qkv(cfg, p, x, mm)
+    blk, off = where
+    kb[blk, layer, :, off] = k.to(kb.dtype)
+    vb[blk, layer, :, off] = v.to(vb.dtype)
+    kg = kb[rows, layer].transpose(1, 2).reshape(B, nh, T, hd)
+    vg = vb[rows, layer].transpose(1, 2).reshape(B, nh, T, hd)
+    return _verify_attend(cfg, p, x, q.transpose(1, 2), kg, vg, qpos, mm)
+
+
+def _paged_hidden(cfg: GPTConfig, params, pool, tables, positions, tokens,
+                  mm):
+    """The multi-token block stack over the pool: hidden (B, C, H), the
+    pool written in place. The tokens' pool addresses are found once for
+    all layers. A MoE layer routes droplessly."""
+    kb, vb = pool
     bs = kb.shape[3]
-    cd = cfg.dtype
-    W = table_row.shape[0]
-
-    h = _layer_norm(x, p["ln1_s"], p["ln1_b"])
-    qkv = _mm(h, p["qkv_w"], cd) + p["qkv_b"].to(cd)
-    q, k, v = (t[0].reshape(C, nh, hd).transpose(0, 1)
-               for t in qkv.split(H, dim=-1))      # (nh, C, hd)
-
-    nb = C // bs
-    first = start // bs
-    bids = table_row[first:first + nb].long()
-    kb[bids, layer] = k.reshape(nh, nb, bs, hd).transpose(0, 1).to(kb.dtype)
-    vb[bids, layer] = v.reshape(nh, nb, bs, hd).transpose(0, 1).to(vb.dtype)
-
-    rows = table_row.long()
-    kg = kb[rows, layer].transpose(0, 1).reshape(nh, W * bs, hd)
-    vg = vb[rows, layer].transpose(0, 1).reshape(nh, W * bs, hd)
-    s = torch.einsum("hqd,hkd->hqk", q, kg.to(q.dtype)) \
-        * (1.0 / math.sqrt(hd))
-    qpos = start + torch.arange(C, device=x.device)
-    live = torch.arange(W * bs, device=x.device)[None, :] <= qpos[:, None]
-    s = torch.where(live[None], s, NEG_INF)
-    w = torch.softmax(s.float(), dim=-1).to(q.dtype)
-    o = torch.einsum("hqk,hkd->hqd", w, vg.to(q.dtype))
-    o = o.transpose(0, 1).reshape(1, C, H)
-    return x + _mm(o, p["proj_w"], cd) + p["proj_b"].to(cd), kb, vb
-
-
-def _block_chunk(cfg: GPTConfig, p, pm, x, kb, vb, layer, table_row,
-                 start):
-    """One transformer block over one prefill chunk against the pool; a
-    dense MLP half is always composed, as in JAX, and a MoE one routes
-    droplessly."""
-    x, kb, vb = _chunk_attn(cfg, p, x, kb, vb, layer, table_row, start)
-    if pm is not None:
-        return _moe_mlp_half(cfg, p, pm, x, None)[0], kb, vb
-    return _composed_mlp(cfg, p, x, _mm), kb, vb
+    x, qpos = _verify_embed(cfg, params, positions, tokens)
+    rows = tables.long()
+    where = (rows.gather(1, qpos // bs), qpos % bs)
+    x, _ = _dec_layers(cfg, params, x, lambda i, p, x: _paged_attend(
+        cfg, p, x, kb, vb, i, rows, where, qpos, mm), mm)
+    return x
 
 
 def prefill_chunk_hidden(cfg: GPTConfig, params, pool, table_row, tokens,
@@ -892,63 +883,32 @@ def prefill_chunk_hidden(cfg: GPTConfig, params, pool, table_row, tokens,
     """gpt_prefill_chunk before the head: the chunk's hidden states
     (1, C, H); the pool is written in place."""
     _check_ported(cfg)
-    kb, vb = pool
-    start = int(start)
-    C = tokens.shape[1]
-    cd = cfg.dtype
-    x = params["wte"].to(cd)[tokens.long()] \
-        + params["wpe"][start:start + C].to(cd)[None]
-    for i, (p, pm) in enumerate(_unstack(cfg, params)):
-        x, _, _ = _block_chunk(cfg, p, pm, x, kb, vb, i, table_row, start)
-    return x
+    start = torch.tensor([int(start)], device=tokens.device)
+    return _paged_hidden(cfg, params, pool, table_row[None], start, tokens,
+                         _mm)
 
 
 def gpt_prefill_chunk(cfg: GPTConfig, params, pool, table_row, tokens,
                       start):
     """One chunk of a paged, chunked prefill.
 
-    tokens (1, C) int — the next C prompt tokens, end-padded to a
-    multiple of block_size; start — tokens already cached for this slot,
-    a block_size multiple; table_row (W,) int32 must already cover
-    positions < start + C. Returns (logits (1, C, V) f32, pool): logits
-    at position i equal gpt_prefill's at global position start + i."""
+    tokens (1, C) int — the next C prompt tokens (end padding lands in
+    the slot's own blocks and is overwritten before it is attended);
+    start — tokens already cached for this slot, which need NOT be
+    block-aligned (a radix prefix match ends wherever the prompts
+    diverge); table_row (W,) int32 must already cover positions
+    < start + C. Token j lands at ``start + j`` through the table's
+    block/offset lookup and attends over the whole cached prefix masked
+    to ``pos <= start + j``. Returns (logits (1, C, V) f32, pool):
+    logits at position i equal gpt_prefill's at global position
+    start + i."""
     x = prefill_chunk_hidden(cfg, params, pool, table_row, tokens, start)
     return _head(cfg, params, x), pool
 
 
-def _block_verify_paged(cfg: GPTConfig, p, x, kb, vb, layer, tables, qpos):
-    """Attention half of the C-token block step against the WHOLE pool
-    (n_blocks, L, nh, bs, hd) at layer ``layer``: token j of row b is
-    stored in place at block ``tables[b, qpos[b, j] // bs]``, offset
-    ``qpos[b, j] % bs``; the queries attend over the gathered table in
-    composed math (the multi-query shape the decode kernel does not
-    cover), masked to ``pos <= qpos``. Stale lanes scatter onto the
-    garbage sink, as in the one-token step."""
-    B, C, _ = x.shape
-    nh, hd = cfg.n_heads, cfg.head_dim
-    bs = kb.shape[3]
-    W = tables.shape[1]
-    q, k, v = _verify_qkv(cfg, p, x)
-    blk = tables.long().gather(1, qpos // bs)
-    off = qpos % bs
-    kb[blk, layer, :, off] = k.to(kb.dtype)
-    vb[blk, layer, :, off] = v.to(vb.dtype)
-    rows = tables.long()
-    kg = kb[rows, layer].transpose(1, 2).reshape(B, nh, W * bs, hd)
-    vg = vb[rows, layer].transpose(1, 2).reshape(B, nh, W * bs, hd)
-    return _verify_attend(cfg, p, x, q.transpose(1, 2), kg, vg, qpos)
-
-
-def verify_paged_hidden(cfg: GPTConfig, params, pool, tables, positions,
-                        tokens):
-    """gpt_verify_step_paged before the head: hidden (B, C, H); the pool
-    is written in place."""
-    _no_moe(cfg, "gpt_verify_step_paged")
-    kb, vb = pool
-    x, qpos = _verify_embed(cfg, params, positions, tokens)
-    x, _ = _dec_layers(cfg, params, x, lambda i, p, x: _block_verify_paged(
-        cfg, p, x, kb, vb, i, tables, qpos))
-    return x
+# the radix prefix cache's tail entry point (the JAX name): a chunk at an
+# unaligned start
+gpt_prefill_prefix = gpt_prefill_chunk
 
 
 def gpt_verify_step_paged(cfg: GPTConfig, params, pool, tables, positions,
@@ -960,22 +920,6 @@ def gpt_verify_step_paged(cfg: GPTConfig, params, pool, tables, positions,
     tokens (B, C) int. Returns (logits (B, C, V) f32, pool). Same
     per-query math as gpt_decode_step_paged; the caller has grown each
     live row's table to cover ``positions + C`` tokens."""
-    x = verify_paged_hidden(cfg, params, pool, tables, positions, tokens)
+    _no_moe(cfg, "gpt_verify_step_paged")
+    x = _paged_hidden(cfg, params, pool, tables, positions, tokens, _dec_mm)
     return _head(cfg, params, x), pool
-
-
-def gpt_prefill_prefix(cfg: GPTConfig, params, pool, table_row, tokens,
-                       start):
-    """Prefill continuing from an arbitrary cached prefix (the radix
-    prefix cache's tail entry point).
-
-    Like :func:`gpt_prefill_chunk`, but ``start`` (tokens already cached
-    for this slot) need NOT be block-aligned: the paged verify step at
-    B = 1. Token j of ``tokens`` (1, C) lands at ``start + j`` through
-    ``table_row``'s block/offset lookup and each query attends over the
-    whole cached prefix masked to ``pos <= start + j``, so logits at
-    chunk position i equal gpt_prefill's at global position
-    ``start + i``. Returns (logits (1, C, V) f32, pool)."""
-    start = torch.tensor([int(start)], device=tokens.device)
-    return gpt_verify_step_paged(cfg, params, pool, table_row[None, :],
-                                 start, tokens)

@@ -55,8 +55,8 @@ paged grow for k+1 positions fails, or a row is constrained.
 Prefix sharing (``prefix_cache=True`` or ``FLAGS_prefix_cache=1``, paged
 only): admission walks a radix tree of cached prompt prefixes
 (``serving/prefix_cache.py``), splices the matched refcounted blocks
-into the new slot's table and prefills only the uncached tail through
-``gpt_prefill_prefix`` (from an unaligned length); a partly used last
+into the new slot's table and prefills only the uncached tail, in
+chunks that start at the unaligned matched length; a partly used last
 block is copied first (copy-on-write). Finished prompts enter the tree;
 when the pool runs dry the scheduler reclaims LRU tree leaves before it
 preempts. Greedy output is token-identical to the cold cache.
@@ -88,8 +88,7 @@ from ..core import flags
 from ..models.gpt import (_check_ported, _head, gpt_decode_step,
                           gpt_decode_step_paged, gpt_verify_step,
                           gpt_verify_step_paged, prefill_chunk_hidden,
-                          prefill_hidden, quantize_gpt_weights,
-                          verify_paged_hidden)
+                          prefill_hidden, quantize_gpt_weights)
 from ..monitor.stats import (CONSTRAINED_FALLBACK_TICKS,
                              CONSTRAINED_REQUESTS, MOE_EXPERT_LOAD,
                              MOE_TOKENS_DROPPED, PREFIX_COW_COPIES,
@@ -233,7 +232,7 @@ class _Slot:
     """Host-side state of one occupied cache slot."""
 
     __slots__ = ("req", "length", "last_token", "generated", "pending",
-                 "resume_last", "admit_order", "tail_mode")
+                 "resume_last", "admit_order")
 
     def __init__(self, req: GenerationRequest, length: int, last_token: int):
         self.req = req
@@ -243,8 +242,6 @@ class _Slot:
         self.pending = None           # paged: prompt tokens not yet prefilled
         self.resume_last = None       # paged: last token of a preempted run
         self.admit_order = 0          # paged: preemption picks the youngest
-        self.tail_mode = False        # prefix hit: chunks continue from an
-        #                               unaligned cached length
 
 
 def _pin_flags(cfg):
@@ -401,8 +398,7 @@ class InferenceEngine:
             if prefill_chunk % self.block_size != 0:
                 raise ValueError(
                     f"prefill_chunk={prefill_chunk} must be a multiple of "
-                    f"block_size={self.block_size} (chunks must start "
-                    "block-aligned)")
+                    f"block_size={self.block_size} (as in the JAX engine)")
             self.prefill_chunk = int(prefill_chunk)
         else:
             self.cache = KVCache(cfg, n_slots, max_len, device=self.device)
@@ -421,10 +417,10 @@ class InferenceEngine:
                              "skipped prefix, so every hit would force a "
                              "full draft prefill")
         if use_prefix and self._moe:
-            raise ValueError("prefix_cache and MoE are not combinable: "
-                             "prefix reuse verifies through "
-                             "gpt_verify_step_paged, which has no "
-                             "routed-expert path")
+            raise ValueError("prefix_cache and MoE are not combinable "
+                             "(as in the JAX engine, whose prefix tail "
+                             "verifies through a step with no "
+                             "routed-expert path)")
         self._prefix = RadixPrefixCache(self.cache) if use_prefix else None
         self._init_draft(draft, spec_k, params)
         self.tokenizer = tokenizer
@@ -749,10 +745,8 @@ class InferenceEngine:
                 if self._prefix is not None:
                     m_len = self._splice_prefix(slot, m_len, m_blocks)
                     self._prefix.note_lookup(m_len, seq.size)
-                if m_len > 0:
-                    st.length = m_len
-                    st.tail_mode = True
-                    self.cache.lengths[slot] = m_len
+                st.length = m_len
+                self.cache.lengths[slot] = m_len
                 st.pending = seq[m_len:]
                 self._slots[slot] = st
                 continue
@@ -921,11 +915,9 @@ class InferenceEngine:
         pending = st.pending
         c_true = min(int(pending.size), self.prefill_chunk)
         bs = self.block_size
-        c_pad = -(-c_true // bs) * bs
-        if st.tail_mode:
-            # prefix-matched slots continue from an UNALIGNED length:
-            # clamp the pad so no position runs past the table
-            c_pad = min(c_pad, self.cache.table_width * bs - st.length)
+        # end-padded to the next block boundary (a prefix-matched slot
+        # starts mid-block), which the table covers
+        c_pad = -(-(st.length + c_true) // bs) * bs - st.length
         while not self.cache.grow(slot, st.length + c_pad):
             # pool exhausted: reclaim LRU prefix-tree leaves first, then
             # preempt strictly-younger work, else wait for an eviction
@@ -948,13 +940,8 @@ class InferenceEngine:
         row = torch.from_numpy(row).to(dev)
         toks = torch.from_numpy(toks).to(dev)
         pool = (self.cache.kb, self.cache.vb)
-        if st.tail_mode:
-            x = verify_paged_hidden(
-                self.cfg, self._params, pool, row[None],
-                torch.tensor([st.length], device=dev), toks)
-        else:
-            x = prefill_chunk_hidden(self.cfg, self._params, pool, row,
-                                     toks, st.length)
+        x = prefill_chunk_hidden(self.cfg, self._params, pool, row, toks,
+                                 st.length)
         if self.draft_cache is not None:
             # the same chunk appended to the draft's fixed cache row
             gpt_verify_step(
@@ -1120,7 +1107,8 @@ class InferenceEngine:
         samp = (temps, top_ks, top_ps, self.seed, rids, draws)
         n_emit = None
         if use_spec:
-            out, n_emit = self._spec_dispatch(tables, pos_t, tok_t, samp)
+            out, n_emit = self._spec_dispatch(
+                tables, pos_t, tok_t, self._draft_inputs(active), samp)
         else:
             if self.paged:
                 got = gpt_decode_step_paged(
@@ -1174,18 +1162,56 @@ class InferenceEngine:
         if self.paged:
             self.cache.update_gauges()
 
-    def _draft_propose(self, positions, tokens, samp):
-        """``spec_k`` draft decode steps over the draft's fixed cache, each
+    def _draft_inputs(self, active: List[int]):
+        """(positions, prev) (B,) device tensors of a tick's draft steps.
+        An active row drafts from its length, ``prev`` the token before
+        its last (at length - 1, which the first step rewrites). Every
+        other lane writes its garbage where its own draft row holds
+        nothing yet: from its length on (a mid-prefill slot keeps the
+        K/V its chunks appended), clamped to the cache; a slot past the
+        clamp is too near its cap ever to draft again."""
+        pos = np.zeros(self.n_slots, np.int64)
+        prev = np.zeros(self.n_slots, np.int64)
+        cap = self.draft_cache.max_len - self.spec_k
+        for s in range(self.n_slots):
+            st = self._slots[s]
+            if s in active:
+                pos[s] = st.length
+                req = st.req
+                prev[s] = req.tokens[-2] if len(req.tokens) >= 2 \
+                    else req.prompt[-1]
+            else:
+                pos[s] = min((st.length if st is not None else 0) + 1, cap)
+        return (torch.from_numpy(pos).to(self.device),
+                torch.from_numpy(prev).to(self.device))
+
+    def _draft_propose(self, draft_in, tokens, samp):
+        """``spec_k`` draft steps over the draft's fixed cache, each
         sampled from the request's stream under the draft salt. Returns
         the proposals (B, K) and the logits they were drawn from
-        (B, K, V)."""
+        (B, K, V).
+
+        The draft never consumes its own last proposal, so after a tick
+        that accepts all k its cache has no K/V at the new length - 1.
+        The first step therefore takes two tokens, ``prev`` at
+        ``positions - 1`` and ``tokens`` at ``positions``
+        (``draft_in`` is :meth:`_draft_inputs`): it fills that hole, and
+        otherwise rewrites an accepted token's K/V. One 2-token step
+        reads the weights once, as a 1-token step does."""
         temps, top_ks, top_ps, seed, rids, draws = samp
+        positions, prev = draft_in
+        cache = (self.draft_cache.k, self.draft_cache.v)
         cur = tokens
         d_toks, d_logits = [], []
         for j in range(self.spec_k):
-            lg = gpt_decode_step(self.draft_cfg, self._draft_params,
-                                 (self.draft_cache.k, self.draft_cache.v),
-                                 positions + j, cur)[0]
+            if j == 0:
+                lg = gpt_verify_step(
+                    self.draft_cfg, self._draft_params, cache,
+                    positions - 1,
+                    torch.stack([prev, cur.long()], dim=1))[0][:, 1]
+            else:
+                lg = gpt_decode_step(self.draft_cfg, self._draft_params,
+                                     cache, positions + j, cur)[0]
             cur = sample_tokens_streams(lg, temps, top_ks, top_ps, seed,
                                         rids, [d + j for d in draws],
                                         salt=DRAFT_SALT)
@@ -1193,11 +1219,11 @@ class InferenceEngine:
             d_logits.append(lg)
         return torch.stack(d_toks, dim=1), torch.stack(d_logits, dim=1)
 
-    def _spec_dispatch(self, tables, positions, tokens, samp):
+    def _spec_dispatch(self, tables, positions, tokens, draft_in, samp):
         """One speculative tick: the draft proposes spec_k, the target
         verifies k+1 positions in one pass, the acceptance rule picks.
         Returns (tokens (B, k+1), n_emit (B,)) as host arrays."""
-        d_toks, d_logits = self._draft_propose(positions, tokens, samp)
+        d_toks, d_logits = self._draft_propose(draft_in, tokens, samp)
         vtokens = torch.cat([tokens.long()[:, None], d_toks.long()], dim=1)
         if self.paged:
             t_logits, _ = gpt_verify_step_paged(

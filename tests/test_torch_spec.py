@@ -312,6 +312,24 @@ def test_greedy_spec_streams_match_jax_and_non_spec(paged):
     assert 0 < stat_get("spec_acceptance_rate") <= 100
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_draft_equal_to_target_accepts_every_proposal(paged):
+    """A draft of the target's own layers proposes the target's greedy
+    tokens, so every proposal is accepted and every tick emits k+1. That
+    holds only if the draft's cache gains the K/V of its last proposal,
+    which it never consumes, before the next tick drafts past it."""
+    _, params = _params()
+    p0, a0 = stat_get("spec_proposed"), stat_get("spec_accepted")
+    eng = InferenceEngine(
+        CFG, params, paged=paged, device="cpu",
+        draft=tg.gpt_truncate(CFG, params, CFG.n_layers),
+        **{**ENGINE_KW, "spec_k": SPEC_K})
+    assert _run(eng, _prompts()) == _port_streams(False, paged)
+    proposed = stat_get("spec_proposed") - p0
+    assert proposed > 0
+    assert stat_get("spec_accepted") - a0 == proposed
+
+
 def test_spec_paged_preemption_resume_is_token_identical():
     """A pool too small for three streams preempts the youngest; it
     resumes through the draft's chunk append and its stream is
