@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
 // (fp8_matmul.cu, flash_attention_fwd.cu, flash_attention_bwd.cu,
-// fused_ln_mlp.cu through gemm_sm90.cuh): mbarriers, TMA tile loads and
-// reduce-adds into device memory, named barriers, wgmma shared-memory
-// descriptors and products (bf16 with A from shared memory or registers,
-// either operand K-major or MN-major; f16 with A from registers),
-// register rebalancing, and the host-side encoding of TMA tensor maps.
+// fused_ln_mlp.cu through gemm_sm90.cuh) and the bulk-copy kernels
+// (paged_attention.cu, moe_dispatch.cu): mbarriers, TMA tile loads and
+// reduce-adds into device memory, 1D bulk copies without a tensor map,
+// named barriers, wgmma shared-memory descriptors and products (bf16
+// with A from shared memory or registers, either operand K-major or
+// MN-major; f16 with A from registers), register rebalancing, and the
+// host-side encoding of TMA tensor maps.
 //
 // Shared-memory layout every descriptor here assumes: a tile of R rows
 // whose rows are exactly 128 bytes (64 bf16 or 128 e4m3 values), written
@@ -118,6 +120,57 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// -- bulk copies without a tensor map ---------------------------------
+//
+// `bytes` contiguous bytes between device and shared memory by the
+// bulk-copy engine, one instruction from one thread, no registers held
+// while they fly and no tensor map to encode on the host. Both addresses
+// must be 16-byte aligned and `bytes` a multiple of 16: a caller whose
+// rows or bases break that takes a plain vector path of its own kernel.
+
+// global -> shared; completes on `bar`'s transaction count, so announce
+// the bytes first with mbar_arrive_expect_tx (a barrier phase may take
+// several such loads)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// an L2 policy that marks the lines a load brings in as the first to go:
+// for data read once, so that it displaces no line that is read again
+// (and, behind a write-heavy kernel, writes back few dirty ones)
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// bulk_load under an L2 cache policy (l2_evict_first)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)),
+         "l"(policy)
+      : "memory");
+}
+
+// shared -> global, in this thread's bulk group: bulk_commit, then
+// bulk_wait_read before the source is written again and bulk_wait before
+// the block exits
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
 }
 
 // -- TMA reduce-adds into device memory, bulk groups, proxy fences ------

@@ -69,8 +69,10 @@ def _launch(x, src):
         raise ValueError("moe gather needs contiguous x and src")
     T, H = x.shape
     N = src.shape[0]
-    lib = _load()
     out = torch.empty((N, H), dtype=x.dtype, device=x.device)
+    if N == 0 or H == 0:
+        return out             # nothing to copy, no launch
+    lib = _load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.moe_gather(x.data_ptr(), src.data_ptr(), out.data_ptr(),

@@ -50,8 +50,33 @@ def _paged_attention_reference(q, kb, vb, tables, lengths, scale):
     return torch.einsum("bhk,bhkd->bhd", w, v.to(q.dtype))
 
 
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("paged_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.paged_attention_decode.argtypes = [p] * 6 + [i] * 8 + [
+            ctypes.c_float, i, p]
+        lib.paged_attention_decode.restype = i
+        lib.paged_attention_cluster.argtypes = [i, i, i]
+        lib.paged_attention_cluster.restype = i
+        lib.paged_attention_smem_bytes.argtypes = [i, i, i]
+        lib.paged_attention_smem_bytes.restype = i
+        lib.ptt_error_string.argtypes = [i]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def cluster_size(B, nh, W):
+    """Blocks of the kernel's cluster per (slot, head) at B slots, nh
+    heads and tables of width W: each slot's live blocks are split over
+    that many (builds the kernel)."""
+    return _load().paged_attention_cluster(B, nh, W)
+
+
 def _launch(q, kb, vb, tables, lengths, scale, layer):
-    global _lib, LAUNCHES
+    global LAUNCHES
     if q.dtype not in _DTYPES or kb.dtype != q.dtype or vb.dtype != q.dtype:
         raise TypeError(f"paged attention takes f32 or bf16 q/pool of one "
                         f"dtype, got {q.dtype}/{kb.dtype}/{vb.dtype}")
@@ -81,32 +106,16 @@ def _launch(q, kb, vb, tables, lengths, scale, layer):
                          "taken by the kernel")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} outside the pool's {L} layers")
-    if _lib is None:
-        lib = _build.load("paged_attention")
-        lib.paged_attention_decode.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_void_p]
-        lib.paged_attention_decode.restype = ctypes.c_int
-        lib.paged_attention_splits.argtypes = [ctypes.c_int]
-        lib.paged_attention_splits.restype = ctypes.c_int
-        lib.ptt_error_string.argtypes = [ctypes.c_int]
-        lib.ptt_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    W = tables.shape[1]
-    n_splits = _lib.paged_attention_splits(W)
     o = torch.empty_like(q)
-    # per-split softmax partials, merged by the kernel's second pass
-    part_ml = torch.empty((B, nh, n_splits, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((B, nh, n_splits, hd), dtype=torch.float32,
-                           device=q.device)
+    if B == 0:
+        return o               # nothing to launch
+    _load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib.paged_attention_decode(
             q.data_ptr(), kb.data_ptr(), vb.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), part_ml.data_ptr(),
-            part_acc.data_ptr(), B, nh, hd, bs, W, L, int(layer), n_blocks,
-            float(scale), _DTYPES[q.dtype], stream)
+            lengths.data_ptr(), o.data_ptr(), B, nh, hd, bs, tables.shape[1],
+            L, int(layer), n_blocks, float(scale), _DTYPES[q.dtype], stream)
     _build.check(_lib, err, "paged_attention_decode")
     LAUNCHES += 1
     return o

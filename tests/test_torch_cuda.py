@@ -427,6 +427,99 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, tol, hd):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _paged_edge_case(B, nh, hd, bs, W, L, dtype, dev, seed):
+    """Slots whose live blocks are 1, the cluster's size, one past it and
+    the whole table (W is no multiple of the cluster), a slot of length 0
+    and a stale lane (an all-sink table with a leftover length)."""
+    cl = tpa.cluster_size(B, nh, W)
+    assert 1 < cl < W and W % cl
+    nb = 1 + 4 * W
+    kb = _randn((nb, L, nh, bs, hd), dtype, dev, seed)
+    vb = _randn((nb, L, nh, bs, hd), dtype, dev, seed + 1)
+    q = _randn((B, nh, hd), dtype, dev, seed + 2)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 3)
+    perm = torch.randperm(nb - 1, generator=gen).int() + 1
+    n_live = [1, cl, cl + 1, W]
+    lengths = [bs - 3, cl * bs, cl * bs + 1, W * bs - 5, 0, 2 * bs + 1]
+    tables = torch.zeros((B, W), dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(n_live):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    return q, kb, vb, tables.to(dev), lengths.to(dev)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_kernel_edge_lengths_match_plain(cuda_device, dtype, tol, hd,
+                                               bs):
+    """Every (hd, bs) pair: each slot's live blocks split over a cluster
+    (1, the cluster, one past it, the whole width); length 0 gives zeros
+    (the plain version's uniform average is not the contract there)."""
+    B, nh, W, L, layer = 6, 4, 11, 2, 1
+    q, kb, vb, tables, lengths = _paged_edge_case(B, nh, hd, bs, W, L,
+                                                  dtype, cuda_device, 40)
+    got = tpa.paged_attention_arrays(q, kb, vb, tables, lengths,
+                                     ragged=False, layer=layer)
+    again = tpa.paged_attention_arrays(q, kb, vb, tables, lengths,
+                                       ragged=True, layer=layer)
+    want = tpa._paged_attention_reference(q, kb[:, layer], vb[:, layer],
+                                          tables, lengths, 1.0 / hd ** 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not got[4].any()
+    live = [0, 1, 2, 3, 5]
+    assert (got[live].float() - want[live].float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_unaligned_pool_takes_element_copies(cuda_device,
+                                                          dtype):
+    """A pool view whose base is not 16-byte aligned cannot take bulk
+    copies: the element path gives the same bits as the aligned pool."""
+    B, nh, hd, bs, W, L, layer = 6, 4, 64, 16, 11, 2, 0
+    q, kb, vb, tables, lengths = _paged_edge_case(B, nh, hd, bs, W, L,
+                                                  dtype, cuda_device, 50)
+    n = kb.numel()
+    kbuf = torch.empty(n + 1, dtype=dtype, device=cuda_device)
+    vbuf = torch.empty(n + 1, dtype=dtype, device=cuda_device)
+    ku, vu = kbuf[1:].view(kb.shape), vbuf[1:].view(vb.shape)
+    ku.copy_(kb)
+    vu.copy_(vb)
+    assert ku.data_ptr() % 16 and ku.is_contiguous()
+    got = tpa.paged_attention_arrays(q, ku, vu, tables, lengths, layer=layer)
+    want = tpa.paged_attention_arrays(q, kb, vb, tables, lengths,
+                                      layer=layer)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_paged_kernel_is_one_launch_a_call(cuda_device):
+    """One kernel on the card per call (the split keys merge inside the
+    launch), and the wrapper counts it once."""
+    B, nh, hd, bs, W, L = 6, 4, 128, 16, 11, 2
+    q, kb, vb, tables, lengths = _paged_edge_case(
+        B, nh, hd, bs, W, L, torch.bfloat16, cuda_device, 60)
+    tpa.paged_attention_arrays(q, kb, vb, tables, lengths, layer=1)
+    torch.cuda.synchronize()
+    before = tpa.LAUNCHES
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            tpa.paged_attention_arrays(q, kb, vb, tables, lengths, layer=1)
+        torch.cuda.synchronize()
+    assert tpa.LAUNCHES == before + 3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:                # the trace may lose device events
+        assert len(kernels) == 3
+        assert all("paged_decode" in e.name for e in kernels)
+
+
 def _small_engine_model():
     cfg = tg.GPTConfig(vocab_size=512, hidden=128, n_layers=2, n_heads=2,
                        seq_len=128, dtype=torch.float32)
@@ -717,6 +810,49 @@ def test_moe_gather_kernel_matches_plain(cuda_device, dtype, T, N, H):
     assert got.dtype == dtype
     assert torch.equal(got, tmd._gather_reference(x, src))
     assert not got[:2].any()
+
+
+def test_moe_gather_kernel_edge_cases(cuda_device):
+    """N 0 launches nothing; an all-empty src gives zeros; src >= T
+    gives zeros (the plain version refuses it)."""
+    x = _randn((16, 256), torch.bfloat16, cuda_device, 32)
+    before = tmd.LAUNCHES
+    got = tmd.moe_dispatch_gather(
+        x, torch.zeros(0, dtype=torch.int32, device=cuda_device))
+    assert got.shape == (0, 256) and tmd.LAUNCHES == before
+    empty = torch.full((37,), -1, dtype=torch.int32, device=cuda_device)
+    got = tmd.moe_dispatch_gather(x, empty)
+    torch.cuda.synchronize()
+    assert tmd.LAUNCHES == before + 1
+    assert got.shape == (37, 256) and not got.any()
+    src = torch.tensor([3, 16, -1, 99, 15, 0, 2 ** 30], dtype=torch.int32,
+                       device=cuda_device)
+    got = tmd.moe_dispatch_gather(x, src)
+    want = tmd._gather_reference(x, torch.where(src < 16, src, -1))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[[1, 2, 3, 6]].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,N,H,offset", [
+    (100, 1001, 100, 0),       # bf16 200-byte rows: 8-byte units
+    (64, 333, 7, 0),           # 14- / 28-byte rows: 2- / 4-byte units
+    (50, 257, 2056, 0),        # 16-byte rows past one 4 KB chunk
+    (30, 99, 4096, 0),         # several whole chunks a row
+    (40, 1001, 2048, 1)])      # an unaligned x: the vector path
+def test_moe_gather_kernel_rows_and_runs(cuda_device, dtype, T, N, H,
+                                         offset):
+    """Bulk and vector paths, N no multiple of a block's run of rows:
+    bit-identical to the plain version."""
+    base = _randn((T * H + offset,), dtype, cuda_device, 33)
+    x = base[offset:].view(T, H)
+    gen = torch.Generator(device="cpu").manual_seed(N + H)
+    src = torch.randint(-1, T, (N,), generator=gen, dtype=torch.int32)
+    src = src.to(cuda_device)
+    got = tmd.moe_dispatch_gather(x, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tmd._gather_reference(x, src))
 
 
 def test_moe_gather_backward_on_card_matches_cpu(cuda_device):

@@ -168,6 +168,36 @@ def test_gather_plain_bit_exact_vs_interpret_kernel(dtype, T, N, H):
     assert (_np(got)[:3] == 0).all()
 
 
+@pytest.mark.parametrize("case", ["n0", "all_empty", "h100_bf16",
+                                  "n1001"])
+def test_gather_edge_shapes_vs_jax(case):
+    """The card tests' edge shapes: no slot, every slot empty, a 200-byte
+    bf16 row (the kernel's vector path), N no multiple of a block's run
+    (against the composed JAX gather: 1001 interpret steps are slow)."""
+    T, N, H, dtype = {"n0": (5, 0, 128, jnp.float32),
+                      "all_empty": (6, 20, 128, jnp.float32),
+                      "h100_bf16": (10, 24, 100, jnp.bfloat16),
+                      "n1001": (40, 1001, 128, jnp.float32)}[case]
+    xj, xt, src = _gather_inputs(T, N, H, dtype, seed=16)
+    if case == "all_empty":
+        src[:] = -1
+    if case in ("n0", "n1001"):
+        want = jmd._gather_reference(xj, jnp.asarray(src))
+    else:
+        want = jmd._gather_pallas(xj, jnp.asarray(src), hb=H, interpret=True)
+    got = tmd.moe_dispatch_gather(xt, torch.from_numpy(src))
+    assert got.dtype == xt.dtype and got.shape == (N, H)
+    np.testing.assert_array_equal(_np(got), np.asarray(want, np.float32))
+
+
+def test_gather_plain_refuses_src_past_the_tokens():
+    """src >= T: the plain version raises (the card kernel writes zeros;
+    the router never sends such a slot)."""
+    x = torch.zeros(4, 8)
+    with pytest.raises(IndexError):
+        tmd.moe_dispatch_gather(x, torch.tensor([0, 4], dtype=torch.int32))
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_gather_backward_matches_jax_vjp(dtype):
     """Each token fills two of the 30 slots (as top-2 routing places it),

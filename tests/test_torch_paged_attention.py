@@ -114,3 +114,57 @@ def test_ragged_flag_is_bit_identical_and_counts_nothing_on_cpu():
     b = tpa.paged_attention_arrays(q, kb, vb, tables, lengths, ragged=True)
     assert torch.equal(a, b)
     assert tpa.LAUNCHES == before
+
+
+def _edge_case(hd, bs, W=11, cl=8, seed=3):
+    """The card tests' edge shapes: slots whose live blocks are 1, the
+    kernel's cluster (8 here), one past it and the whole table (W no
+    multiple of 8), a length-0 slot and a stale all-sink lane."""
+    rng = np.random.default_rng(seed)
+    B, nh, nb = 6, 2, 1 + 4 * W
+    q = rng.standard_normal((B, nh, hd)).astype(np.float32)
+    kb = rng.standard_normal((nb, nh, bs, hd)).astype(np.float32)
+    vb = rng.standard_normal((nb, nh, bs, hd)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    tables = np.zeros((B, W), np.int32)
+    used = 0
+    for b, n in enumerate((1, cl, cl + 1, W)):
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    lengths = np.asarray([bs - 3, cl * bs, cl * bs + 1, W * bs - 5, 0,
+                          2 * bs + 1], np.int32)
+    return q, kb, vb, tables, lengths
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_plain_edge_lengths_match_jax_reference(hd, bs):
+    """Every (hd, bs) pair the kernel takes, at the edge lengths; the
+    length-0 slot gets both plain versions' uniform average."""
+    q, kb, vb, tables, lengths = _edge_case(hd, bs)
+    want = jpa._paged_attention_reference(
+        jnp.asarray(q), jnp.asarray(kb), jnp.asarray(vb),
+        jnp.asarray(tables), jnp.asarray(lengths), 0.2)
+    got = tpa.paged_attention_arrays(_t(q), _t(kb), _t(vb), _t(tables),
+                                     _t(lengths), scale=0.2)
+    np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", [(jnp.float32, torch.float32, F32_TOL),
+                                         (jnp.bfloat16, torch.bfloat16,
+                                          BF16_TOL)])
+def test_plain_edge_lengths_match_pallas_interpret(jdt, tdt, tol):
+    """The edge lengths against the Pallas kernel, ragged; its length-0
+    slot is zeros (the card kernel's contract), so it is held apart."""
+    q, kb, vb, tables, lengths = _edge_case(64, 16)
+    want = jpa._paged_decode(jnp.asarray(q, jdt), jnp.asarray(kb, jdt),
+                             jnp.asarray(vb, jdt), jnp.asarray(tables),
+                             jnp.asarray(lengths), 0.125, interpret=True,
+                             ragged=True)
+    got = tpa.paged_attention_arrays(_t(q, tdt), _t(kb, tdt), _t(vb, tdt),
+                                     _t(tables), _t(lengths), scale=0.125)
+    live = [0, 1, 2, 3, 5]
+    np.testing.assert_allclose(_np(got)[live], _np(want)[live], atol=tol,
+                               rtol=tol)
+    assert not _np(want)[4].any()
