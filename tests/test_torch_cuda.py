@@ -428,22 +428,20 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, tol, hd):
 
 
 def _paged_edge_case(B, nh, hd, bs, W, L, dtype, dev, seed):
-    """Slots whose live blocks are 1, the cluster's size, one past it and
-    the whole table (W is no multiple of the cluster), a slot of length 0
-    and a stale lane (an all-sink table with a leftover length)."""
-    cl = tpa.cluster_size(B, nh, W)
-    assert 1 < cl < W and W % cl
+    """Slots of 1, 8, 9 and W live blocks (W = 11), a slot of length 0
+    and a stale lane (an all-sink table with a leftover length). The
+    kernel's blocks split these few tiles one each, so every pair of more
+    than one block is merged from parts."""
     nb = 1 + 4 * W
     kb = _randn((nb, L, nh, bs, hd), dtype, dev, seed)
     vb = _randn((nb, L, nh, bs, hd), dtype, dev, seed + 1)
     q = _randn((B, nh, hd), dtype, dev, seed + 2)
     gen = torch.Generator(device="cpu").manual_seed(seed + 3)
     perm = torch.randperm(nb - 1, generator=gen).int() + 1
-    n_live = [1, cl, cl + 1, W]
-    lengths = [bs - 3, cl * bs, cl * bs + 1, W * bs - 5, 0, 2 * bs + 1]
+    lengths = [bs - 3, 8 * bs, 8 * bs + 1, W * bs - 5, 0, 2 * bs + 1]
     tables = torch.zeros((B, W), dtype=torch.int32)
     used = 0
-    for b, n in enumerate(n_live):
+    for b, n in enumerate((1, 8, 9, W)):
         tables[b, :n] = perm[used:used + n]
         used += n
     lengths = torch.tensor(lengths, dtype=torch.int32)
@@ -456,9 +454,8 @@ def _paged_edge_case(B, nh, hd, bs, W, L, dtype, dev, seed):
 @pytest.mark.parametrize("bs", [8, 16, 32])
 def test_paged_kernel_edge_lengths_match_plain(cuda_device, dtype, tol, hd,
                                                bs):
-    """Every (hd, bs) pair: each slot's live blocks split over a cluster
-    (1, the cluster, one past it, the whole width); length 0 gives zeros
-    (the plain version's uniform average is not the contract there)."""
+    """Every (hd, bs) pair at the edge lengths; length 0 gives zeros (the
+    plain version's uniform average is not the contract there)."""
     B, nh, W, L, layer = 6, 4, 11, 2, 1
     q, kb, vb, tables, lengths = _paged_edge_case(B, nh, hd, bs, W, L,
                                                   dtype, cuda_device, 40)
@@ -473,6 +470,40 @@ def test_paged_kernel_edge_lengths_match_plain(cuda_device, dtype, tol, hd,
     assert not got[4].any()
     live = [0, 1, 2, 3, 5]
     assert (got[live].float() - want[live].float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_kernel_many_tiles_a_block_match_plain(cuda_device, dtype,
+                                                     tol):
+    """More live tiles than the launch has blocks (phase 4's batch of
+    chip_smoke.py at one layer): blocks that take several (slot, head)
+    pairs whole and split others; repeated calls agree bit for bit (the
+    arrival counters are back at 0 after each)."""
+    B, nh, hd, bs, W = 8, 16, 128, 16, 128
+    lengths = torch.tensor([2047, 1500, 700, 129, 17, 1, 33, 1],
+                           dtype=torch.int32)
+    n_live = [-(-int(n) // bs) for n in lengths]
+    assert nh * sum(n_live) > tpa.grid_size(cuda_device, hd, bs, dtype)
+    nb = 1 + sum(n_live[:6])
+    kb = _randn((nb, 1, nh, bs, hd), dtype, cuda_device, 70)
+    vb = _randn((nb, 1, nh, bs, hd), dtype, cuda_device, 71)
+    q = _randn((B, nh, hd), dtype, cuda_device, 72)
+    gen = torch.Generator(device="cpu").manual_seed(73)
+    perm = torch.randperm(nb - 1, generator=gen).int() + 1
+    tables = torch.zeros((B, W), dtype=torch.int32)
+    used = 0
+    for b in range(6):              # lanes 6, 7: all sink, stale lengths
+        tables[b, :n_live[b]] = perm[used:used + n_live[b]]
+        used += n_live[b]
+    tables, lengths = tables.to(cuda_device), lengths.to(cuda_device)
+    got = tpa.paged_attention_arrays(q, kb, vb, tables, lengths, layer=0)
+    again = tpa.paged_attention_arrays(q, kb, vb, tables, lengths, layer=0)
+    want = tpa._paged_attention_reference(q, kb[:, 0], vb[:, 0], tables,
+                                          lengths, 1.0 / hd ** 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
