@@ -15,7 +15,9 @@ stamped with the card's name and power limit):
    and dynamic shared memory, and, where ``cuobjdump`` exists, the count
    of wgmma (HGMMA) and TMA load (UTMALDG) instructions in its SASS (none
    fails the run); the int8 matmul kernels' registers, spills and
-   dynamic shared memory;
+   dynamic shared memory; the bulk-copy kernels' (paged decode, MoE
+   gather) registers, spills, static and dynamic shared memory, and the
+   paged decode clusters the card holds at once;
 3. flash-attention forward vs its plain PyTorch version, causal, bf16
    and f32, at gpt_1p3b prefill shapes (1, 16, S, 128) for S in 16, 128
    (the bucket of a 100-token prompt), 2048, and at one gpt_small shape
@@ -28,9 +30,12 @@ stamped with the card's name and power limit):
    to back (``batch_ms``);
 4. paged-attention decode vs its plain version at B=8, nh=16, hd=128,
    bs=16, W=128 over a 24-layer pool, ragged lengths with stale
-   sink-only lanes; ``ragged`` True and False bit-identical; the lone
-   call's time (``ms``) and the split and merge kernels' own device time
-   (``kernel_ms``, torch.profiler);
+   sink-only lanes (bf16 and f32), and 8 slots of ~1040 tokens (bf16);
+   ``ragged`` True and False bit-identical, length 0 gives zeros, one
+   launch a call (the wrapper's count and the profiler's kernels); the
+   lone call's time (``ms``) and the kernel's own device time
+   (torch.profiler) after a flush that leaves the L2 dirty
+   (``kernel_ms``), warm and clean (``kernel_ms_warm``, ``_clean``);
 5. the serving engine at full gpt_1p3b width and depth (random weights
    from a seed), fixed slots and paged: 8 greedy requests with prompts
    of 40 to 1500 tokens and 2 sampled ones, 32 new tokens each; every
@@ -113,7 +118,9 @@ stamped with the card's name and power limit):
 19. the MoE dispatch gather against its plain version (bit-identical)
     at the decode (8 tokens, 64 slots), training (8192 tokens, 20480
     slots) and a ragged (H = 100, f32) shape, with the src of a real
-    top-2 routing: kernel / plain / bound / torch.index_select times;
+    top-2 routing: kernel / plain / bound / torch.index_select times
+    (lone calls), and the gather's and index_select's kernels alone
+    (``kernel_ms``, ``library_kernel_ms``, torch.profiler);
 20. the engine phase with gpt_1p3b(moe_experts=8) (top-2, every 2nd
     layer: 12 MoE layers, ~4.1B parameters, dropless serving) in both
     cache modes: phase 5's requests and checks, the gather's launches,
@@ -315,6 +322,8 @@ def _ptxas_props(_build, src, stems):
         elif entry and "Used" in ln and "registers" in ln:
             props[entry]["registers"] = int(
                 re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            props[entry]["static_smem_bytes"] = int(m.group(1)) if m else 0
     return props
 
 
@@ -327,6 +336,33 @@ def int8_report(_build):
              "dynamic_smem_bytes": smem if "int8_mm" in name else 0}
             for name, p in _ptxas_props(_build, "int8_matmul",
                                         ("int8_mm", "int8_quantize")).items()]
+
+
+def bulk_report(_build):
+    """The bulk-copy kernels (paged decode, MoE gather): per function,
+    ptxas' registers, spills and static shared memory, and the dynamic
+    shared memory a block takes; and the paged decode clusters the card
+    holds at once at phase 4's shape."""
+    pa = _build.load("paged_attention")
+    mg = _build.load("moe_dispatch")
+    rows = []
+    for name, p in _ptxas_props(_build, "paged_attention",
+                                ("paged_decode",)).items():
+        m = re.search(r"paged_decodeI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
+                      name)
+        dyn = pa.paged_attention_smem_bytes(
+            int(m.group(2)), int(m.group(3)),
+            1 if m.group(1) != "f" else 0) if m else None
+        rows.append({"source": "paddle_tpu_torch/csrc/paged_attention.cu",
+                     "kernel": name, **p, "dynamic_smem_bytes": dyn})
+    for name, p in _ptxas_props(_build, "moe_dispatch",
+                                ("moe_gather",)).items():
+        rows.append({"source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
+                     "kernel": name, **p, "dynamic_smem_bytes":
+                     mg.moe_gather_smem_bytes() if "bulk" in name else 0})
+    return {"bulk_kernels": rows,
+            "paged_clusters_resident": pa.paged_attention_resident(
+                8, 16, 128, 16, 128, 1)}
 
 
 def hopper_report(_build):
@@ -506,71 +542,102 @@ def flash_phase(dev, fa, stamp, shapes=FLASH_SHAPES):
     return rows
 
 
+# phase 4: (name, lengths, lanes with a table of their own); the rest
+# are stale lanes (all-sink tables with leftover lengths), as unoccupied
+# engine slots have. "engine": 8 live slots of ~1040 tokens (the paged
+# table width 128 of a 2047-token slot kept)
+PAGED_SHAPES = (("ragged", (2047, 1500, 700, 129, 17, 1, 33, 1), 6,
+                 (torch.bfloat16, torch.float32)),
+                ("engine", (1041, 1039, 1040, 1042, 1038, 1040, 1041, 1037),
+                 8, (torch.bfloat16,)))
+
+
 def paged_phase(dev, pa, stamp):
     B, nh, hd, bs, W, L, layer = 8, 16, 128, 16, 128, 24, 5
     n_blocks = 1 + B * W
-    rng = np.random.default_rng(2)
-    # six live lanes of ragged length and two stale lanes: all-sink
-    # tables with leftover lengths, as unoccupied engine slots have
-    lengths = np.asarray([2047, 1500, 700, 129, 17, 1, 33, 1], np.int32)
-    tables = np.zeros((B, W), np.int32)
-    perm = rng.permutation(np.arange(1, n_blocks)).astype(np.int32)
-    used = 0
-    for b in range(6):
-        n = -(-int(lengths[b]) // bs)
-        tables[b, :n] = perm[used:used + n]
-        used += n
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    flushes = {"": flush_buf.zero_, "_warm": lambda: None,
+               "_clean": lambda: flush_buf.view(torch.int64).max()}
     rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        shape = (n_blocks, L, nh, bs, hd)
-        kb = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        vb = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        q = torch.randn((B, nh, hd), generator=gen, device=dev).to(dtype)
-        tab = torch.from_numpy(tables).to(dev)
-        lens = torch.from_numpy(lengths).to(dev)
-        scale = 1.0 / math.sqrt(hd)
-        dense = pa.paged_attention_arrays(q, kb, vb, tab, lens, scale,
-                                          ragged=False, layer=layer)
-        ragged = pa.paged_attention_arrays(q, kb, vb, tab, lens, scale,
-                                           ragged=True, layer=layer)
-        ref = pa._paged_attention_reference(q, kb[:, layer], vb[:, layer],
-                                            tab, lens, scale)
-        torch.cuda.synchronize()
-        err = (dense.float() - ref.float()).abs().max().item()
-        identical = bool(torch.equal(dense, ragged))
-        ok = identical and err <= PAGED_TOL[dtype]
-        live = int(np.minimum(lengths, W * bs).sum())
-        nbytes = (2 * live * nh * hd + 2 * B * nh * hd) * q.element_size() \
-            + tables.nbytes + lengths.nbytes
-        flops = 4 * live * nh * hd
-        b_ms, b_by = bound(flops, nbytes, dtype)
-        call = lambda: pa.paged_attention_arrays(  # noqa: E731
-            q, kb, vb, tab, lens, scale, layer=layer)
-        row = {
-            "phase": "paged_attention", "B": B, "nh": nh, "hd": hd,
-            "block_size": bs, "W": W, "layers": L,
-            "lengths": lengths.tolist(), "dtype": str(dtype)[6:],
-            "max_abs_err": err, "tol": PAGED_TOL[dtype],
-            "ragged_bit_identical": identical, "ok": ok,
-            # "ms": CUDA events around a lone call (the wrapper's host
-            # work and both launches held); "kernel_ms": the split and
-            # merge kernels' own device time (torch.profiler)
-            "ms": time_ms(call, flush=flush_buf.zero_),
-            "kernel_ms": _kernel_device_ms(
-                call, ("paged_decode_split", "paged_decode_merge"),
-                flush_buf.zero_),
-            "plain_ms": time_ms(lambda: pa._paged_attention_reference(
-                q, kb[:, layer], vb[:, layer], tab, lens, scale),
-                flush=flush_buf.zero_),
-            "bound_ms": b_ms, "bound_by": b_by, **stamp}
-        emit(row)
-        if not ok:
-            raise AssertionError(f"paged kernel disagrees: {row}")
-        rows[dtype] = row
-        del kb, vb
+    for shape, lens_, tabled, dtypes in PAGED_SHAPES:
+        rng = np.random.default_rng(2)
+        lengths = np.asarray(lens_, np.int32)
+        tables = np.zeros((B, W), np.int32)
+        perm = rng.permutation(np.arange(1, n_blocks)).astype(np.int32)
+        used = 0
+        for b in range(tabled):
+            n = -(-int(lengths[b]) // bs)
+            tables[b, :n] = perm[used:used + n]
+            used += n
+        for dtype in dtypes:
+            pool = (n_blocks, L, nh, bs, hd)
+            kb = torch.randn(pool, generator=gen, device=dev).to(dtype)
+            vb = torch.randn(pool, generator=gen, device=dev).to(dtype)
+            q = torch.randn((B, nh, hd), generator=gen, device=dev).to(dtype)
+            tab = torch.from_numpy(tables).to(dev)
+            lens = torch.from_numpy(lengths).to(dev)
+            scale = 1.0 / math.sqrt(hd)
+            before = pa.LAUNCHES
+            dense = pa.paged_attention_arrays(q, kb, vb, tab, lens, scale,
+                                              ragged=False, layer=layer)
+            ragged = pa.paged_attention_arrays(q, kb, vb, tab, lens, scale,
+                                               ragged=True, layer=layer)
+            wrapper_launches = (pa.LAUNCHES - before) / 2
+            ref = pa._paged_attention_reference(q, kb[:, layer],
+                                                vb[:, layer], tab, lens,
+                                                scale)
+            zero = pa.paged_attention_arrays(
+                q, kb, vb, tab, torch.zeros_like(lens), scale, layer=layer)
+            torch.cuda.synchronize()
+            err = (dense.float() - ref.float()).abs().max().item()
+            identical = bool(torch.equal(dense, ragged))
+            zeros = not bool(zero.any())
+            live = int(np.minimum(lengths, W * bs).sum())
+            nbytes = (2 * live * nh * hd + 2 * B * nh * hd) \
+                * q.element_size() + tables.nbytes + lengths.nbytes
+            flops = 4 * live * nh * hd
+            b_ms, b_by = bound(flops, nbytes, dtype)
+            call = lambda: pa.paged_attention_arrays(  # noqa: E731
+                q, kb, vb, tab, lens, scale, layer=layer)
+            row = {
+                "phase": "paged_attention", "shape": shape, "B": B,
+                "nh": nh, "hd": hd, "block_size": bs, "W": W, "layers": L,
+                "lengths": lengths.tolist(), "dtype": str(dtype)[6:],
+                "cluster": pa.cluster_size(B, nh, W),
+                "max_abs_err": err, "tol": PAGED_TOL[dtype],
+                "ragged_bit_identical": identical,
+                "length0_gives_zeros": zeros,
+                # "ms": CUDA events around a lone call (the wrapper's host
+                # work held), the L2 flushed (left dirty) before each
+                "ms": time_ms(call, flush=flush_buf.zero_),
+                "plain_ms": time_ms(lambda: pa._paged_attention_reference(
+                    q, kb[:, layer], vb[:, layer], tab, lens, scale),
+                    flush=flush_buf.zero_),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "wrapper_launches_per_call": wrapper_launches}
+            # "kernel_ms": the kernel's own device time (torch.profiler)
+            # after a flush that leaves the L2 dirty; "_warm": no flush;
+            # "_clean": after a flush that leaves it clean (a read)
+            for key, fl in flushes.items():
+                ms, n = _kernel_device_ms(call, ("paged_decode",), fl,
+                                          counts=True)
+                row["kernel_ms" + key] = ms
+                if key == "":
+                    row["kernels_per_call"] = n
+            row.update(stamp)
+            row["ok"] = ok = (identical and zeros
+                              and err <= PAGED_TOL[dtype]
+                              and wrapper_launches == 1
+                              and row["kernels_per_call"] in (1, None))
+            emit(row)
+            if not ok:
+                raise AssertionError(f"paged kernel disagrees: {row}")
+            rows[(shape, dtype)] = row
+            del kb, vb
+    del flush_buf
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1774,6 +1841,14 @@ def gather_phase(dev, md, stamp, shapes=GATHER_SHAPES):
                    "library_ms": time_ms(lambda: torch.index_select(
                        x, 0, idx), flush=flush_buf.zero_),
                    "library": "torch.index_select (no zeroing)",
+                   # each one's kernels alone (torch.profiler)
+                   "kernel_ms": _kernel_device_ms(
+                       lambda: md.moe_dispatch_gather(x, src),
+                       ("moe_gather",), flush_buf.zero_),
+                   "library_kernel_ms": _kernel_device_ms(
+                       lambda: torch.index_select(x, 0, idx),
+                       ("vectorized_gather", "index_select", "indexSelect"),
+                       flush_buf.zero_),
                    "bound_ms": b_ms, "bound_by": b_by, **stamp}
             emit(row)
             if not identical:
@@ -1961,10 +2036,11 @@ def bert_fused_model(paddle, composed):
     return FusedBertLM()
 
 
-def _kernel_device_ms(fn, names, flush, reps=10):
+def _kernel_device_ms(fn, names, flush, reps=10, counts=False):
     """Device time per call of the kernels whose names contain one of
     ``names``, from torch.profiler over ``reps`` calls (the L2 flushed
-    before each): the kernels' own time, without the host's enqueue."""
+    before each): the kernels' own time, without the host's enqueue.
+    ``counts``: (that time, those kernels' launches per call)."""
     from paddle_tpu_torch.tools.profile_decode import _device_us
 
     fn()
@@ -1980,8 +2056,9 @@ def _kernel_device_ms(fn, names, flush, reps=10):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and any(n in e.key for n in names)]
     if not events:
-        return None             # the trace lost them: say so, not 0
-    return sum(_device_us(e) for e in events) / reps / 1e3
+        return (None, None) if counts else None   # the trace lost them
+    ms = sum(_device_us(e) for e in events) / reps / 1e3
+    return (ms, sum(e.count for e in events) / reps) if counts else ms
 
 
 def addln_phase(dev, fk, stamp):
@@ -2684,7 +2761,7 @@ def main():
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas, **hopper_report(_build),
-          "int8_kernels": int8_report(_build)})
+          "int8_kernels": int8_report(_build), **bulk_report(_build)})
 
     flash = flash_phase(dev, fa, stamp)
     paged = paged_phase(dev, pa, stamp)
@@ -2757,7 +2834,8 @@ def main():
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
-    p = paged[torch.bfloat16]
+    p = paged[("ragged", torch.bfloat16)]
+    pe = paged[("engine", torch.bfloat16)]
     fb = flash_bwd[("gpt_1p3b_train", torch.bfloat16)]
     fm = fmlp[(8192, torch.bfloat16)]
     tl = train["launches"]
@@ -2779,10 +2857,12 @@ def main():
                      runs[False]["launches"]["flash_attention_fwd"], f,
                      f["max_abs_err_o"], plain, "library_ms"),
              **_batch_keys(f), training_shape=_shape_keys(ft)),
-        # "ms" is the split and merge kernels' own device time
-        # (torch.profiler) where the trace has it; "call_ms" the lone
-        # call's (CUDA events around the wrapper: its host work and both
-        # launches held), as add-LN's rows below
+        # "ms" is the kernel's own device time (torch.profiler) after a
+        # flush that leaves the L2 dirty, where the trace has it;
+        # "kernel_ms_warm" / "_clean" the same without a flush and after
+        # one that leaves it clean; "call_ms" the lone call's (CUDA events
+        # around the wrapper: its host work held), as add-LN's rows below;
+        # "engine_shape": the same at 8 slots of ~1040 tokens
         dict(_kernel("paged_attention_decode",
                      "paddle_tpu_torch/csrc/paged_attention.cu",
                      "paddle_tpu/ops/paged_attention.py:77",
@@ -2790,7 +2870,12 @@ def main():
                      p["max_abs_err"],
                      ("kernel_ms" if p["kernel_ms"] else "ms", "plain_ms",
                       "bound_ms", "bound_by"), None),
-             call_ms=p["ms"]),
+             call_ms=p["ms"], kernel_ms_warm=p["kernel_ms_warm"],
+             kernel_ms_clean=p["kernel_ms_clean"],
+             kernels_per_call=p["kernels_per_call"],
+             engine_shape={k: pe[k] for k in (
+                 "kernel_ms", "kernel_ms_warm", "kernel_ms_clean", "ms",
+                 "bound_ms", "max_abs_err")}),
         dict(_kernel("flash_attention_bwd",
                      "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                      "paddle_tpu/ops/flash_attention.py:200",
@@ -2852,11 +2937,16 @@ def main():
              **_batch_keys(f8r),
              second_shape=_shape_keys(fp8[(8192, 8192, 2048, torch.bfloat16,
                                            "col")])),
-        _kernel("moe_dispatch_gather",
-                "paddle_tpu_torch/csrc/moe_dispatch.cu",
-                "paddle_tpu/ops/moe_dispatch.py:55",
-                runs_moe[False]["launches"]["moe_dispatch_gather"], gr,
-                gr["max_abs_err"], plain, "library_ms"),
+        # "ms" / "library_ms": lone calls; "kernel_ms" /
+        # "library_kernel_ms": the gather's and index_select's kernels
+        # alone (torch.profiler, after the L2 flush)
+        dict(_kernel("moe_dispatch_gather",
+                     "paddle_tpu_torch/csrc/moe_dispatch.cu",
+                     "paddle_tpu/ops/moe_dispatch.py:55",
+                     runs_moe[False]["launches"]["moe_dispatch_gather"], gr,
+                     gr["max_abs_err"], plain, "library_ms"),
+             kernel_ms=gr["kernel_ms"],
+             library_kernel_ms=gr["library_kernel_ms"]),
         # no single PyTorch call computes LN(x + y): the add followed by
         # F.layer_norm is the yardstick ("composed_ms"), as the composed
         # cuBLAS MLP is the fused LN-MLP's. "ms" is the kernels' own

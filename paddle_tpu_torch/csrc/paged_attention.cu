@@ -18,59 +18,59 @@
 // What bounds it on an H100: memory. A tick reads each live K/V row once
 // (2·len·nh·hd elements per slot) and does 4 operations per element, far
 // below the card's ~295 operations per byte, so the bound is the live
-// K/V bytes over 3.35 TB/s. Reaching it needs many bytes in flight on
-// every SM for the whole call, while a decode batch has few (slot, head)
-// pairs and ragged lengths: a grid cut by (slot, head) leaves most blocks
-// idle and a few (those of the longest slot) streaming a long serial
-// chain of tiles.
+// K/V bytes over 3.35 TB/s. Reaching it needs many bytes in flight
+// across the whole card, while a decode batch has few (slot, head) pairs
+// and ragged lengths.
 //
-// Design: one launch of one wave of blocks that split the live tiles
-// evenly, whatever the lengths ("stream-K").
-// - The live tiles of all (slot, head) pairs, slot-major, head-minor, then
-//   block by block, form one sequence of T = nh · sum ceil(len / bs) tile
-//   pairs (K and V of one pool block). Each block reads the lengths, and
-//   block c of the P in the grid takes tiles [c·T/P, (c+1)·T/P): every
-//   block the same work, and only live blocks are ever read, so `ragged`
-//   cannot change the output.
-// - One producer thread walks the block's tiles and issues a bulk copy
-//   (hopper.cuh bulk_load, no tensor map, evict-first in L2: the K/V is
-//   read once) of each K and V tile into a ring of S stages in shared
-//   memory; the copies of the next tiles fly while this one is reduced.
+// Design: one launch. The blocks of one (slot, head) form a thread-block
+// cluster of CL (<= 8) blocks; grid (CL, nh, B).
+// - Work follows the live length: the slot's ceil(len / bs) live pool
+//   blocks are divided evenly over the cluster's blocks, so a block with
+//   none issues no copy (it only joins the merge). Only live blocks are
+//   ever read, so `ragged` cannot change the output.
+// - One producer thread walks the block's share of the table and issues
+//   a bulk copy (hopper.cuh bulk_load, no tensor map; evict-first in L2,
+//   since the K/V is read once a tick) of each K and V tile into a ring of
+//   S stages (16 KB in all; eight blocks an SM) in shared memory; the
+//   copies of the next tiles fly while this one is reduced.
 // - Four consumer warps share each tile, a warp per bs/4 key rows: a lane
 //   takes hd/32 dims of a row from shared memory (a warp reads whole rows,
 //   no bank conflict), and the warp's bs/4 partial dot products are
 //   reduced together by a transposing butterfly (bs/4 - 1 + 5 - log2(bs/4)
 //   shuffles for all of them); the lane holding a key's score takes its
 //   exponential, and the probabilities are broadcast for P·V. Each warp
-//   keeps an online-softmax state (m, l, acc) per (slot, head) and
+//   keeps its own online-softmax state (m, l, acc) over its keys and
 //   releases the stage to the producer through an mbarrier.
-// - At the end of each (slot, head) in the block's range the warps merge
-//   their states in shared memory. A pair wholly inside the range writes
-//   its output; a pair split between blocks stores the block's (m, l,
-//   acc) in a workspace and counts itself on the pair's arrival counter,
-//   and the last block to arrive merges every part, writes the output and
-//   sets the counter back to 0 for the next call. Empty slots' outputs
-//   are zeroed by block 0. No second kernel.
+// - The warps' states merge in shared memory, and each block writes its
+//   (m, l, acc) into rank 0's shared memory (distributed shared memory)
+//   between the two halves of one cluster barrier; the others then leave,
+//   and rank 0 writes the output. No scratch in device memory and no
+//   second kernel. (A variant that split the live tiles of all pairs
+//   evenly over one wave of blocks and merged split pairs through an
+//   arrival counter in device memory measured slower: PERF.md.)
 // - A pool whose K or V base is not 16-byte aligned (a view with an
 //   offset) cannot take bulk copies: the producer warp then copies the
 //   tiles element by element into the same ring.
-#include <algorithm>
+#include <cooperative_groups.h>
 
 #include "hopper.cuh"
 
+namespace cg = cooperative_groups;
 namespace hp = ptt::hopper;
 
 namespace {
 
 constexpr int NW = 4;                  // consumer warps a block
-constexpr int NC = NW * 32;            // consumer threads
-constexpr int NT = NC + 32;            // + one producer warp
-constexpr int B_MAX = 1024;            // slots a call
+constexpr int NT = (NW + 1) * 32;      // + one producer warp
+constexpr int CL_MAX = 8;              // blocks a cluster (portable limit)
+// the ring's shared memory and the blocks an SM must hold (registers
+// are capped to fit them): 16 KB and 8, the best of 16/24/32 KB and 1/8
+// on an H100 at the shapes of PERF.md §6 (a study overrides both)
 #ifndef PAGED_RING_BYTES
-#define PAGED_RING_BYTES (24 * 1024)   // shared memory of the ring
+#define PAGED_RING_BYTES (16 * 1024)
 #endif
-#ifndef PAGED_BLOCKS_PER_SM
-#define PAGED_BLOCKS_PER_SM 0          // 0: as many as the SM holds
+#ifndef PAGED_MIN_BLOCKS
+#define PAGED_MIN_BLOCKS 8
 #endif
 
 // ring stages of (K tile, V tile) pairs of `pair_bytes` each: as many as
@@ -85,6 +85,17 @@ __host__ __device__ constexpr int smem_of(int hd, int bs, int elt) {
   return ring_stages(2 * bs * hd * elt) * 2 * bs * hd * elt;
 }
 
+// the cluster barrier in two halves, so that work can go between them
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 struct Params {
   const void* q;          // (B, nh, hd)
   const void* kp;         // (n_blocks, L, nh, bs, hd)
@@ -92,9 +103,7 @@ struct Params {
   const int* tables;      // (B, W)
   const int* lengths;     // (B,)
   void* o;                // (B, nh, hd)
-  float* part;            // (grid, 2, hd + 2): split pairs' (m, l, acc)
-  int* counters;          // (B · nh), 0 between calls
-  int B, nh, W, L, layer, n_blocks;
+  int nh, W, L, layer, n_blocks;
   int bulk;               // pool bases 16-byte aligned: bulk copies
   float scale;
 };
@@ -143,44 +152,9 @@ __device__ __forceinline__ float reduce_keys(float (&v)[K], int lane) {
   return x;
 }
 
-// The tile sequence: pre[b] live pool blocks before slot b (pre[B] all
-// of them), so slot b's tiles are [nh·pre[b], nh·pre[b+1]) and those of
-// its head h the nl = pre[b+1] - pre[b] after nh·pre[b] + h·nl.
-struct Seq {
-  const int* pre;
-  int B, nh;
-  long long P, T;      // blocks taking part, tiles
-
-  __device__ int nl(int b) const { return pre[b + 1] - pre[b]; }
-  __device__ long long start(long long c) const { return c * T / P; }
-  // the block whose range holds tile t
-  __device__ int block_of(long long t) const {
-    return (int)(((t + 1) * P + T - 1) / T - 1);
-  }
-  // (slot, head, block index) of tile t < T
-  __device__ void locate(long long t, int& b, int& h, int& i) const {
-    int lo = 0, hi = B - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) / 2;
-      if ((long long)nh * pre[mid] <= t) lo = mid; else hi = mid - 1;
-    }
-    b = lo;
-    const long long r = t - (long long)nh * pre[b];
-    h = (int)(r / nl(b));
-    i = (int)(r % nl(b));
-  }
-  // the first block of the next (slot, head) after (b, h)
-  __device__ void next_pair(int& b, int& h, int& i) const {
-    i = 0;
-    if (++h == nh) {
-      h = 0;
-      do { ++b; } while (b < B && nl(b) == 0);
-    }
-  }
-};
-
 template <typename T, int HD, int BS>
-__global__ void __launch_bounds__(NT) paged_decode(const Params p) {
+__global__ void __launch_bounds__(NT, PAGED_MIN_BLOCKS)
+paged_decode(const Params p) {
   constexpr int DPL = HD / 32;         // head dims a lane
   constexpr int TILE = BS * HD;        // elements of one K or V tile
   constexpr int KPW = BS / NW;         // key rows a consumer warp per tile
@@ -188,33 +162,24 @@ __global__ void __launch_bounds__(NT) paged_decode(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);             // [S][K, V][TILE]
   __shared__ uint64_t full[S], empty[S];
-  __shared__ int pre[B_MAX + 1];
   __shared__ float w_m[NW], w_l[NW];
   __shared__ __align__(16) float w_acc[NW][HD];
-  __shared__ int last;                 // this block merges a split pair
-  __shared__ float m_v[NC], l_v[NC];   // the parts' (m, l) in a merge
-  __shared__ int m_at[NC];             // and where each lies
+  __shared__ float parts[CL_MAX][HD + 2];   // rank 0: each block's (m, l, acc)
 
+  // phase 1 of the cluster barrier: every block has started (so that
+  // rank 0's shared memory exists) by the time the merge waits on it
+  cluster_arrive_relaxed();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int B = p.B, nh = p.nh;
+  const int len = p.lengths[b];
+  const int n_live = len <= 0 ? 0 : min((len + BS - 1) / BS, p.W);
+  const int first = rank * n_live / CL;              // this block's share
+  const int n = (rank + 1) * n_live / CL - first;
 
-  // live pool blocks per slot, and their prefix (warp 0, 32 at a time)
-  if (warp == 0) {
-    int carry = 0;
-    for (int b0 = 0; b0 < B; b0 += 32) {
-      const int b = b0 + lane;
-      const int len = b < B ? p.lengths[b] : 0;
-      int x = len <= 0 ? 0 : min((len + BS - 1) / BS, p.W);
-#pragma unroll
-      for (int o = 1; o < 32; o *= 2) {
-        const int y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-      }
-      if (b < B) pre[b + 1] = carry + x;
-      carry += __shfl_sync(0xffffffffu, x, 31);
-    }
-    if (lane == 0) pre[0] = 0;
-  } else if (tid == NC) {
+  if (tid == 0) {
     for (int i = 0; i < S; ++i) {
       hp::mbar_init(&full[i], p.bulk ? 1 : 32);
       hp::mbar_init(&empty[i], NW);
@@ -223,36 +188,21 @@ __global__ void __launch_bounds__(NT) paged_decode(const Params p) {
   }
   __syncthreads();
 
-  const long long T_all = (long long)nh * pre[B];
-  // block 0 writes the zeros of the empty slots
-  if (blockIdx.x == 0) {
-    for (int b = 0; b < B; ++b)
-      if (pre[b + 1] == pre[b])
-        for (int e = tid; e < nh * HD; e += NT)
-          static_cast<T*>(p.o)[(size_t)b * nh * HD + e] = ptt::from_f<T>(0.f);
-  }
-  const Seq seq{pre, B, nh, min((long long)gridDim.x, T_all), T_all};
-  if (blockIdx.x >= seq.P) return;     // no tile for this block
-  const long long t0 = seq.start(blockIdx.x);
-  const int n = (int)(seq.start(blockIdx.x + 1) - t0);
-
   if (warp == NW) {
-    // producer: the K and V tiles of the range, S ahead of the consumers
+    // producer: the K and V tiles of the share, S ahead of the consumers
     const T* kp = static_cast<const T*>(p.kp);
     const T* vp = static_cast<const T*>(p.vp);
     const size_t blk_stride = (size_t)p.L * p.nh * TILE;
-    int b, h, i;
-    seq.locate(t0, b, h, i);
+    const size_t head_off = ((size_t)p.layer * p.nh + h) * TILE;
+    const int* trow = p.tables + (size_t)b * p.W + first;
     // bulk copies: lane 0 alone; element copies: the whole warp
     const int todo = p.bulk && lane != 0 ? 0 : n;
     const uint64_t pol = hp::l2_evict_first();
-    for (int k = 0; k < todo; ++k) {
-      const int st = k % S;
-      if (k >= S) hp::mbar_wait(&empty[st], (k / S - 1) & 1);
-      const int blk = min(max(p.tables[(size_t)b * p.W + i], 0),
-                          p.n_blocks - 1);
-      const size_t off = (size_t)blk * blk_stride
-          + ((size_t)p.layer * p.nh + h) * TILE;
+    for (int i = 0; i < todo; ++i) {
+      const int st = i % S;
+      if (i >= S) hp::mbar_wait(&empty[st], (i / S - 1) & 1);
+      const int blk = min(max(trow[i], 0), p.n_blocks - 1);
+      const size_t off = (size_t)blk * blk_stride + head_off;
       T* dst = ring + (size_t)st * 2 * TILE;
       if (p.bulk) {
         hp::mbar_arrive_expect_tx(&full[st], 2 * TILE * sizeof(T));
@@ -265,21 +215,12 @@ __global__ void __launch_bounds__(NT) paged_decode(const Params p) {
         }
         hp::mbar_arrive(&full[st]);
       }
-      if (++i == seq.nl(b)) seq.next_pair(b, h, i);
     }
-    return;
-  }
-
-  // consumers: warp `warp` takes key rows [warp·KPW, warp·KPW + KPW) of
-  // every tile; one (slot, head) pair at a time
-  const int key = lane / (32 / KPW);   // the key a lane's sum ends on
-  int b, h, i;
-  seq.locate(t0, b, h, i);
-  for (int k = 0; k < n;) {
-    const int nlb = seq.nl(b), i0 = i, cnt = min(nlb - i0, n - k);
-    const int len = p.lengths[b];
-    const size_t pair = (size_t)b * nh + h;
-    const T* q = static_cast<const T*>(p.q) + pair * HD;
+  } else {
+    // consumers: warp `warp` takes key rows [warp·KPW, warp·KPW + KPW)
+    // of every tile
+    const int key = lane / (32 / KPW);   // the key a lane's sum ends on
+    const T* q = static_cast<const T*>(p.q) + ((size_t)b * p.nh + h) * HD;
     float qr[DPL], acc[DPL];
 #pragma unroll
     for (int d = 0; d < DPL; ++d) {
@@ -287,23 +228,23 @@ __global__ void __launch_bounds__(NT) paged_decode(const Params p) {
       acc[d] = 0.f;
     }
     float m = -INFINITY, l = 0.f;
-    for (int j = 0; j < cnt; ++j, ++k) {
-      const int st = k % S;
-      hp::mbar_wait(&full[st], (k / S) & 1);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % S;
+      hp::mbar_wait(&full[st], (i / S) & 1);
       const T* kt = ring + (size_t)st * 2 * TILE + warp * KPW * HD
           + lane * DPL;
       const T* vt = kt + TILE;
       float part[KPW];
 #pragma unroll
-      for (int r = 0; r < KPW; ++r) {
+      for (int k = 0; k < KPW; ++k) {
         float kr[DPL];
-        load_row<T, DPL>(kt + r * HD, kr);
-        part[r] = 0.f;
+        load_row<T, DPL>(kt + k * HD, kr);
+        part[k] = 0.f;
 #pragma unroll
-        for (int d = 0; d < DPL; ++d) part[r] = fmaf(qr[d], kr[d], part[r]);
+        for (int d = 0; d < DPL; ++d) part[k] = fmaf(qr[d], kr[d], part[k]);
       }
       float sc = reduce_keys<KPW>(part, lane) * p.scale;
-      if ((i0 + j) * BS + warp * KPW + key >= len) sc = -INFINITY;
+      if ((first + i) * BS + warp * KPW + key >= len) sc = -INFINITY;
       float mx = sc;                   // max over the warp's keys
 #pragma unroll
       for (int o = 16; o >= 32 / KPW; o /= 2)
@@ -319,12 +260,12 @@ __global__ void __launch_bounds__(NT) paged_decode(const Params p) {
 #pragma unroll
         for (int d = 0; d < DPL; ++d) acc[d] *= alpha;
 #pragma unroll
-        for (int r = 0; r < KPW; ++r) {
+        for (int k = 0; k < KPW; ++k) {
           const float pr = ptt::round_to<T>(
-              __shfl_sync(0xffffffffu, pk, r * (32 / KPW)));
+              __shfl_sync(0xffffffffu, pk, k * (32 / KPW)));
           if (pr == 0.f) continue;     // masked (or underflowed): adds 0
           float vr[DPL];
-          load_row<T, DPL>(vt + r * HD, vr);
+          load_row<T, DPL>(vt + k * HD, vr);
 #pragma unroll
           for (int d = 0; d < DPL; ++d) acc[d] = fmaf(pr, vr[d], acc[d]);
         }
@@ -334,15 +275,18 @@ __global__ void __launch_bounds__(NT) paged_decode(const Params p) {
       __syncwarp();
       if (lane == 0) hp::mbar_arrive(&empty[st]);
     }
-
-    // the pair's state in this block: its warps' merged
     if (lane == 0) {
       w_m[warp] = m;
       w_l[warp] = l;
     }
 #pragma unroll
     for (int d = 0; d < DPL; ++d) w_acc[warp][lane * DPL + d] = acc[d];
-    hp::named_bar_sync(1, NC);
+  }
+  __syncthreads();
+
+  // the block's state (its warps' merged) into rank 0's shared memory
+  cluster_wait();                      // phase 1: rank 0 has started
+  {
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < NW; ++w) M = fmaxf(M, w_m[w]);
@@ -352,93 +296,67 @@ __global__ void __launch_bounds__(NT) paged_decode(const Params p) {
       c[w] = w_m[w] == -INFINITY ? 0.f : expf(w_m[w] - M);
       Ls += w_l[w] * c[w];
     }
-    T* o = static_cast<T*>(p.o) + pair * HD;
-    if (i0 == 0 && cnt == nlb) {       // the whole pair: its output
-      for (int d = tid; d < HD; d += NC) {
+    float* dst = cluster.map_shared_rank(&parts[rank][0], 0);
+    if (M != -INFINITY) {
+      for (int d = tid; d < HD; d += NT) {
         float a = 0.f;
 #pragma unroll
         for (int w = 0; w < NW; ++w) a = fmaf(w_acc[w][d], c[w], a);
-        o[d] = ptt::from_f<T>(a / (Ls == 0.f ? 1.f : Ls));
-      }
-    } else {
-      // a part: into the workspace, slot 0 for the pair holding the
-      // block's first tile, 1 for the one holding its last
-      const long long first = (long long)nh * pre[b] + (long long)h * nlb;
-      float* mine = p.part
-          + ((size_t)blockIdx.x * 2 + (first <= t0 ? 0 : 1)) * (HD + 2);
-      for (int d = tid; d < HD; d += NC) {
-        float a = 0.f;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) a = fmaf(w_acc[w][d], c[w], a);
-        mine[2 + d] = a;
-      }
-      if (tid == 0) {
-        mine[0] = M;
-        mine[1] = Ls;
-      }
-      __threadfence();
-      hp::named_bar_sync(1, NC);
-      const int c_lo = seq.block_of(first);
-      const int c_hi = seq.block_of(first + nlb - 1);
-      if (tid == 0)
-        last = atomicAdd(&p.counters[pair], 1) == c_hi - c_lo;
-      hp::named_bar_sync(1, NC);
-      if (last) {
-        // every part has landed: merge them, NC parts at a time, each
-        // thread loading one part's (m, l), then each dim's sum from all
-        __threadfence();
-        float M2 = -INFINITY, L2 = 0.f, a2 = 0.f;
-        for (int c0 = c_lo; c0 <= c_hi; c0 += NC) {
-          const int nc = min(NC, c_hi - c0 + 1);
-          float mj = -INFINITY, lj = 0.f;
-          if (tid < nc) {
-            const int cb = c0 + tid;
-            const int at = (cb * 2 + (seq.start(cb) >= first ? 0 : 1))
-                * (HD + 2);
-            mj = __ldcg(p.part + at);
-            lj = __ldcg(p.part + at + 1);
-            m_at[tid] = at;
-          }
-          m_v[tid] = mj;
-          hp::named_bar_sync(1, NC);
-          float Mn = M2;
-          for (int j = 0; j < nc; ++j) Mn = fmaxf(Mn, m_v[j]);
-          const float r = M2 == -INFINITY ? 0.f : expf(M2 - Mn);
-          hp::named_bar_sync(1, NC);
-          m_v[tid] = mj == -INFINITY ? 0.f : expf(mj - Mn);   // its weight
-          l_v[tid] = lj;
-          hp::named_bar_sync(1, NC);
-          L2 *= r;
-          for (int j = 0; j < nc; ++j) L2 = fmaf(m_v[j], l_v[j], L2);
-          if (tid < HD) {
-            a2 *= r;
-#pragma unroll 8
-            for (int j = 0; j < nc; ++j)
-              a2 = fmaf(m_v[j], __ldcg(p.part + m_at[j] + 2 + tid), a2);
-          }
-          M2 = Mn;
-          hp::named_bar_sync(1, NC);   // m_v, l_v, m_at free again
-        }
-        if (tid < HD) o[tid] = ptt::from_f<T>(a2 / (L2 == 0.f ? 1.f : L2));
-        if (tid == 0) p.counters[pair] = 0;   // ready for the next call
+        dst[2 + d] = a;
       }
     }
-    hp::named_bar_sync(1, NC);         // w_* and `last` are free again
-    if (k < n) seq.next_pair(b, h, i);
+    if (tid == 0) {
+      dst[0] = M;
+      dst[1] = Ls;
+    }
+  }
+  cluster_arrive();                    // phase 2: the states are written
+  if (rank != 0) return;
+  cluster_wait();
+
+  // rank 0: the output from every block's state
+  for (int d = tid; d < HD; d += NT) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < CL_MAX; ++r)
+      if (r < CL) M = fmaxf(M, parts[r][0]);
+    float Ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int r = 0; r < CL_MAX; ++r) {
+      if (r < CL && parts[r][0] != -INFINITY) {
+        const float c = expf(parts[r][0] - M);
+        Ls += parts[r][1] * c;
+        a = fmaf(parts[r][2 + d], c, a);
+      }
+    }
+    const float li = Ls == 0.f ? 1.f : Ls;
+    static_cast<T*>(p.o)[((size_t)b * p.nh + h) * HD + d] =
+        ptt::from_f<T>(a / li);
   }
 }
 
-// blocks of one launch: one wave (as many as the card holds at once)
+// blocks a cluster for B·nh (slot, head) pairs and tables of width W: up
+// to 8, no more than W, and halved while half of it still gives every SM
+// four blocks
+int cluster_of(int B, int nh, int W) {
+  int cl = CL_MAX;
+  while (cl > 1
+         && (cl > W || (long long)B * nh * (cl / 2) >= 4LL * hp::sm_count()))
+    cl /= 2;
+  return cl;
+}
+
+// launches the kernel on B slots, or with `resident` set only counts
+// into it the clusters of that launch the card holds at once
 template <typename T, int HD, int BS>
-int grid_of() {
+int launch(const Params& p, int B, cudaStream_t s, int* resident) {
+  auto kern = paged_decode<T, HD, BS>;
   constexpr int SMEM = smem_of(HD, BS, sizeof(T));
-  static int per_sm[32] = {0};         // by device
+  static unsigned ready = 0;           // devices the attribute is set on
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  dev &= 31;
-  if (per_sm[dev] == 0) {
-    auto kern = paged_decode<T, HD, BS>;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!(ready & (1u << (dev & 31)))) {
     e = cudaFuncSetAttribute(kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM);
@@ -446,66 +364,71 @@ int grid_of() {
       e = cudaFuncSetAttribute(kern,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
-    int n = 0;
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, NT, SMEM);
-    if (e != cudaSuccess) return -static_cast<int>(e);
-    if (PAGED_BLOCKS_PER_SM > 0) n = std::min(n, PAGED_BLOCKS_PER_SM);
-    per_sm[dev] = std::max(n, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready |= 1u << (dev & 31);
   }
-  return per_sm[dev] * hp::sm_count();
-}
-
-// launches the kernel, or with `grid` set only writes its grid there
-template <typename T, int HD, int BS>
-int launch(const Params& p, cudaStream_t s, int* grid) {
-  const int g = grid_of<T, HD, BS>();
-  if (g < 0) return -g;
-  if (grid != nullptr) {
-    *grid = g;
-    return 0;
-  }
-  paged_decode<T, HD, BS><<<g, NT, smem_of(HD, BS, sizeof(T)), s>>>(p);
+  const int cl = cluster_of(B, p.nh, p.W);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, p.nh, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (resident != nullptr)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(resident, kern, &cfg));
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int launch_bs(int bs, const Params& p, cudaStream_t s, int* grid) {
+int launch_bs(int bs, const Params& p, int B, cudaStream_t s, int* res) {
   switch (bs) {
-    case 8: return launch<T, HD, 8>(p, s, grid);
-    case 16: return launch<T, HD, 16>(p, s, grid);
-    case 32: return launch<T, HD, 32>(p, s, grid);
+    case 8: return launch<T, HD, 8>(p, B, s, res);
+    case 16: return launch<T, HD, 16>(p, B, s, res);
+    case 32: return launch<T, HD, 32>(p, B, s, res);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch_any(int hd, int bs, int dtype, const Params& p, cudaStream_t s,
-               int* grid) {
-  if (dtype != ptt::kBF16 && dtype != ptt::kF32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool b16 = dtype == ptt::kBF16;
+template <typename T>
+int launch_hd(int hd, int bs, const Params& p, int B, cudaStream_t s,
+              int* res = nullptr) {
   switch (hd) {
-    case 32:
-      return b16 ? launch_bs<__nv_bfloat16, 32>(bs, p, s, grid)
-                 : launch_bs<float, 32>(bs, p, s, grid);
-    case 64:
-      return b16 ? launch_bs<__nv_bfloat16, 64>(bs, p, s, grid)
-                 : launch_bs<float, 64>(bs, p, s, grid);
-    case 128:
-      return b16 ? launch_bs<__nv_bfloat16, 128>(bs, p, s, grid)
-                 : launch_bs<float, 128>(bs, p, s, grid);
+    case 32: return launch_bs<T, 32>(bs, p, B, s, res);
+    case 64: return launch_bs<T, 64>(bs, p, B, s, res);
+    case 128: return launch_bs<T, 128>(bs, p, B, s, res);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Blocks of the launch at head dim hd, block size bs and `dtype` (one
-// wave; -1 on an error): the workspace holds 2 · (hd + 2) floats for each.
-extern "C" int paged_attention_grid(int hd, int bs, int dtype) {
-  const Params p{};
-  int g = -1;
-  return launch_any(hd, bs, dtype, p, nullptr, &g) == 0 ? g : -1;
+// Blocks a cluster of one (slot, head) for B slots, nh heads and tables
+// of width W (the split of each slot's live blocks).
+extern "C" int paged_attention_cluster(int B, int nh, int W) {
+  return cluster_of(B, nh, W);
+}
+
+// Clusters of the launch for B slots, nh heads, tables of width W, head
+// dim hd, block size bs and `dtype` that the card holds at once (-1 on
+// an error).
+extern "C" int paged_attention_resident(int B, int nh, int hd, int bs, int W,
+                                        int dtype) {
+  const Params p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nh,
+                 W, 1, 0, 1, 1, 1.f};
+  int n = -1;
+  const int e = dtype == ptt::kBF16
+      ? launch_hd<__nv_bfloat16>(hd, bs, p, B, nullptr, &n)
+      : launch_hd<float>(hd, bs, p, B, nullptr, &n);
+  return e == 0 ? n : -1;
 }
 
 // Dynamic shared memory (the ring) a block takes at head dim hd, block
@@ -516,25 +439,23 @@ extern "C" int paged_attention_smem_bytes(int hd, int bs, int dtype) {
 
 // q (B, nh, hd); kpool/vpool (n_blocks, L, nh, bs, hd) contiguous, all in
 // `dtype`; tables (B, W) int32; lengths (B,) int32; o like q. Attends
-// layer `layer` of the pool. hd in {32, 64, 128}, bs in {8, 16, 32},
-// B <= 1024. Workspace: part (paged_attention_grid floats · 2 · (hd + 2),
-// f32) and counters (B · nh int32, all 0; the call leaves them 0). One
-// launch; returns cudaGetLastError() after it.
+// layer `layer` of the pool. hd in {32, 64, 128}, bs in {8, 16, 32}.
+// One launch; returns cudaGetLastError() after it.
 extern "C" int paged_attention_decode(const void* q, const void* kpool,
                                       const void* vpool, const int* tables,
-                                      const int* lengths, void* o,
-                                      float* part, int* counters, int B,
+                                      const int* lengths, void* o, int B,
                                       int nh, int hd, int bs, int W, int L,
                                       int layer, int n_blocks, float scale,
                                       int dtype, void* stream) {
   if (B <= 0 || nh <= 0) return 0;
-  if (B > B_MAX || W <= 0 || L <= 0 || layer < 0 || layer >= L
-      || n_blocks <= 0)
+  if (W <= 0 || L <= 0 || layer < 0 || layer >= L || n_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int bulk = ((reinterpret_cast<uintptr_t>(kpool)
                      | reinterpret_cast<uintptr_t>(vpool)) & 15) == 0;
-  const Params p{q, kpool, vpool, tables, lengths, o, part, counters, B, nh,
-                 W, L, layer, n_blocks, bulk, scale};
-  return launch_any(hd, bs, dtype, p, static_cast<cudaStream_t>(stream),
-                    nullptr);
+  const Params p{q, kpool, vpool, tables, lengths, o, nh, W, L, layer,
+                 n_blocks, bulk, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kBF16) return launch_hd<__nv_bfloat16>(hd, bs, p, B, s);
+  if (dtype == ptt::kF32) return launch_hd<float>(hd, bs, p, B, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,10 +25,7 @@ __all__ = ["paged_attention_arrays", "LAUNCHES"]
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-B_MAX = 1024           # slots a call (the kernel's prefix of live blocks)
 _lib = None
-_grids: dict = {}      # (device index, hd, bs, dtype) -> blocks a launch
-_work: dict = {}       # device index -> (parts, counters)
 
 
 def _paged_attention_reference(q, kb, vb, tables, lengths, scale):
@@ -58,47 +55,26 @@ def _load():
     if _lib is None:
         lib = _build.load("paged_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_decode.argtypes = [p] * 8 + [i] * 8 + [
+        lib.paged_attention_decode.argtypes = [p] * 6 + [i] * 8 + [
             ctypes.c_float, i, p]
         lib.paged_attention_decode.restype = i
-        lib.paged_attention_grid.argtypes = [i, i, i]
-        lib.paged_attention_grid.restype = i
+        lib.paged_attention_cluster.argtypes = [i, i, i]
+        lib.paged_attention_cluster.restype = i
         lib.paged_attention_smem_bytes.argtypes = [i, i, i]
         lib.paged_attention_smem_bytes.restype = i
+        lib.paged_attention_resident.argtypes = [i] * 6
+        lib.paged_attention_resident.restype = i
         lib.ptt_error_string.argtypes = [i]
         lib.ptt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def grid_size(device, hd, bs, dtype):
-    """Blocks of the kernel's launch on ``device`` (one wave of the card)
-    at head dim hd, block size bs and ``dtype``: they split the call's
-    live tiles evenly (builds the kernel)."""
-    key = (device.index, hd, bs, dtype)
-    g = _grids.get(key)
-    if g is None:
-        with torch.cuda.device(device):
-            g = _load().paged_attention_grid(hd, bs, _DTYPES[dtype])
-        if g <= 0:
-            raise RuntimeError(f"paged_attention_grid failed ({g})")
-        _grids[key] = g
-    return g
-
-
-def _workspace(device, hd, bs, dtype, pairs):
-    """The kernel's workspace on ``device``, made once and grown when a
-    call needs more: each block's parts of split (slot, head) pairs, and
-    one arrival counter a pair (zeros; every call leaves them zero, so
-    calls on one device must run in stream order, as the engine's do)."""
-    floats = grid_size(device, hd, bs, dtype) * 2 * (hd + 2)
-    part, counters = _work.get(device.index, (None, None))
-    if part is None or part.numel() < floats:
-        part = torch.empty(floats, dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < pairs:
-        counters = torch.zeros(pairs, dtype=torch.int32, device=device)
-    _work[device.index] = (part, counters)
-    return part, counters
+def cluster_size(B, nh, W):
+    """Blocks of the kernel's cluster per (slot, head) at B slots, nh
+    heads and tables of width W: each slot's live blocks are split over
+    that many (builds the kernel)."""
+    return _load().paged_attention_cluster(B, nh, W)
 
 
 def _launch(q, kb, vb, tables, lengths, scale, layer):
@@ -132,19 +108,16 @@ def _launch(q, kb, vb, tables, lengths, scale, layer):
                          "taken by the kernel")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} outside the pool's {L} layers")
-    if B > B_MAX:
-        raise ValueError(f"batch {B} exceeds the kernel's {B_MAX} slots")
     o = torch.empty_like(q)
     if B == 0:
         return o               # nothing to launch
-    part, counters = _workspace(q.device, hd, bs, q.dtype, B * nh)
+    _load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib.paged_attention_decode(
             q.data_ptr(), kb.data_ptr(), vb.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), part.data_ptr(),
-            counters.data_ptr(), B, nh, hd, bs, tables.shape[1], L,
-            int(layer), n_blocks, float(scale), _DTYPES[q.dtype], stream)
+            lengths.data_ptr(), o.data_ptr(), B, nh, hd, bs, tables.shape[1],
+            L, int(layer), n_blocks, float(scale), _DTYPES[q.dtype], stream)
     _build.check(_lib, err, "paged_attention_decode")
     LAUNCHES += 1
     return o

@@ -428,10 +428,10 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, tol, hd):
 
 
 def _paged_edge_case(B, nh, hd, bs, W, L, dtype, dev, seed):
-    """Slots of 1, 8, 9 and W live blocks (W = 11), a slot of length 0
-    and a stale lane (an all-sink table with a leftover length). The
-    kernel's blocks split these few tiles one each, so every pair of more
-    than one block is merged from parts."""
+    """Slots whose live blocks are 1, the cluster's size (8), one past it
+    and the whole table (W = 11, no multiple of 8), a slot of length 0 and
+    a stale lane (an all-sink table with a leftover length)."""
+    assert tpa.cluster_size(B, nh, W) == 8
     nb = 1 + 4 * W
     kb = _randn((nb, L, nh, bs, hd), dtype, dev, seed)
     vb = _randn((nb, L, nh, bs, hd), dtype, dev, seed + 1)
@@ -474,17 +474,15 @@ def test_paged_kernel_edge_lengths_match_plain(cuda_device, dtype, tol, hd,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_paged_kernel_many_tiles_a_block_match_plain(cuda_device, dtype,
-                                                     tol):
-    """More live tiles than the launch has blocks (phase 4's batch of
-    chip_smoke.py at one layer): blocks that take several (slot, head)
-    pairs whole and split others; repeated calls agree bit for bit (the
-    arrival counters are back at 0 after each)."""
+def test_paged_kernel_long_and_short_slots_match_plain(cuda_device, dtype,
+                                                       tol):
+    """Phase 4's batch of chip_smoke.py at one layer: long slots split
+    over a full cluster, short ones leaving most of theirs idle; repeated
+    calls agree bit for bit."""
     B, nh, hd, bs, W = 8, 16, 128, 16, 128
     lengths = torch.tensor([2047, 1500, 700, 129, 17, 1, 33, 1],
                            dtype=torch.int32)
     n_live = [-(-int(n) // bs) for n in lengths]
-    assert nh * sum(n_live) > tpa.grid_size(cuda_device, hd, bs, dtype)
     nb = 1 + sum(n_live[:6])
     kb = _randn((nb, 1, nh, bs, hd), dtype, cuda_device, 70)
     vb = _randn((nb, 1, nh, bs, hd), dtype, cuda_device, 71)

@@ -116,9 +116,10 @@ def test_ragged_flag_is_bit_identical_and_counts_nothing_on_cpu():
     assert tpa.LAUNCHES == before
 
 
-def _edge_case(hd, bs, W=11, seed=3):
-    """The card tests' edge shapes: slots of 1, 8, 9 and W live blocks, a
-    length-0 slot and a stale all-sink lane."""
+def _edge_case(hd, bs, W=11, cl=8, seed=3):
+    """The card tests' edge shapes: slots whose live blocks are 1, the
+    kernel's cluster (8 here), one past it and the whole table (W no
+    multiple of 8), a length-0 slot and a stale all-sink lane."""
     rng = np.random.default_rng(seed)
     B, nh, nb = 6, 2, 1 + 4 * W
     q = rng.standard_normal((B, nh, hd)).astype(np.float32)
@@ -127,10 +128,10 @@ def _edge_case(hd, bs, W=11, seed=3):
     perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
     tables = np.zeros((B, W), np.int32)
     used = 0
-    for b, n in enumerate((1, 8, 9, W)):
+    for b, n in enumerate((1, cl, cl + 1, W)):
         tables[b, :n] = perm[used:used + n]
         used += n
-    lengths = np.asarray([bs - 3, 8 * bs, 8 * bs + 1, W * bs - 5, 0,
+    lengths = np.asarray([bs - 3, cl * bs, cl * bs + 1, W * bs - 5, 0,
                           2 * bs + 1], np.int32)
     return q, kb, vb, tables, lengths
 
