@@ -31,12 +31,13 @@
 // - One producer thread walks the block's share of the table and issues
 //   a bulk copy (hopper.cuh bulk_load, no tensor map; evict-first in L2,
 //   since the K/V is read once a tick) of each K and V tile into a ring of
-//   S stages (16 KB in all; eight blocks an SM) in shared memory; the
-//   copies of the next tiles fly while this one is reduced.
-// - Four consumer warps share each tile, a warp per bs/4 key rows: a lane
-//   takes hd/32 dims of a row from shared memory (a warp reads whole rows,
-//   no bank conflict), and the warp's bs/4 partial dot products are
-//   reduced together by a transposing butterfly (bs/4 - 1 + 5 - log2(bs/4)
+//   S stages (32 KB in all; six blocks an SM) in shared memory; the
+//   copies of the next tiles fly while earlier ones are reduced.
+// - Four consumer warps, two to a tile: the pairs take alternate tiles,
+//   and a warp takes bs/2 key rows of its tile. A lane takes hd/32 dims
+//   of a row from shared memory (a warp reads whole rows, no bank
+//   conflict), and the warp's bs/2 partial dot products are reduced
+//   together by a transposing butterfly (bs/2 - 1 + 5 - log2(bs/2)
 //   shuffles for all of them); the lane holding a key's score takes its
 //   exponential, and the probabilities are broadcast for P·V. Each warp
 //   keeps its own online-softmax state (m, l, acc) over its keys and
@@ -63,26 +64,38 @@ namespace {
 constexpr int NW = 4;                  // consumer warps a block
 constexpr int NT = (NW + 1) * 32;      // + one producer warp
 constexpr int CL_MAX = 8;              // blocks a cluster (portable limit)
-// the ring's shared memory and the blocks an SM must hold (registers
-// are capped to fit them): 16 KB and 8, the best of 16/24/32 KB and 1/8
-// on an H100 at the shapes of PERF.md §6 (a study overrides both)
+// the ring's shared memory, the blocks an SM must hold (registers are
+// capped to fit them) and the consumer warps that share a tile: 32 KB, 6
+// and 2, the best of the variants tools/kernel_ab.py timed on an H100
+// (PERF.md §6; a study overrides them with -D)
 #ifndef PAGED_RING_BYTES
-#define PAGED_RING_BYTES (16 * 1024)
+#define PAGED_RING_BYTES (32 * 1024)
 #endif
 #ifndef PAGED_MIN_BLOCKS
-#define PAGED_MIN_BLOCKS 8
+#define PAGED_MIN_BLOCKS 6
 #endif
+#ifndef PAGED_WPT
+#define PAGED_WPT 2
+#endif
+constexpr int WPT = PAGED_WPT;         // consumer warps sharing a tile
+constexpr int G = NW / WPT;            // tiles the consumers take at once
 
 // ring stages of (K tile, V tile) pairs of `pair_bytes` each: as many as
-// PAGED_RING_BYTES holds, 2 to 8
+// PAGED_RING_BYTES holds, 2 to 8, a multiple of G (so that a stage always
+// goes to the same group of consumers, whose barrier phases then follow
+// one another)
 __host__ __device__ constexpr int ring_stages(int pair_bytes) {
-  return PAGED_RING_BYTES / pair_bytes < 2 ? 2
-         : PAGED_RING_BYTES / pair_bytes > 8 ? 8
-         : PAGED_RING_BYTES / pair_bytes;
+  const int s = PAGED_RING_BYTES / pair_bytes;
+  const int c = (s < 2 ? 2 : s > 8 ? 8 : s) / G * G;
+  return c > 0 ? c : G;
 }
 
 __host__ __device__ constexpr int smem_of(int hd, int bs, int elt) {
   return ring_stages(2 * bs * hd * elt) * 2 * bs * hd * elt;
+}
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" :: "l"(p));
 }
 
 // the cluster barrier in two halves, so that work can go between them
@@ -157,7 +170,7 @@ __global__ void __launch_bounds__(NT, PAGED_MIN_BLOCKS)
 paged_decode(const Params p) {
   constexpr int DPL = HD / 32;         // head dims a lane
   constexpr int TILE = BS * HD;        // elements of one K or V tile
-  constexpr int KPW = BS / NW;         // key rows a consumer warp per tile
+  constexpr int KPW = BS / WPT;        // key rows a consumer warp per tile
   constexpr int S = ring_stages(2 * TILE * sizeof(T));
   extern __shared__ __align__(128) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);             // [S][K, V][TILE]
@@ -175,6 +188,18 @@ paged_decode(const Params p) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = p.lengths[b];
+  // issued beside the length's load, so that neither waits on the other:
+  // the slot's table row into L1 (the producer reads it) and q (the
+  // consumers keep it in registers)
+  float qr[DPL];
+  if (warp == NW) {
+    for (int j = lane * 32; j < p.W; j += 32 * 32)
+      prefetch_l1(p.tables + (size_t)b * p.W + j);
+  } else {
+    const T* q = static_cast<const T*>(p.q) + ((size_t)b * p.nh + h) * HD;
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) qr[d] = ptt::to_f(q[lane * DPL + d]);
+  }
   const int n_live = len <= 0 ? 0 : min((len + BS - 1) / BS, p.W);
   const int first = rank * n_live / CL;              // this block's share
   const int n = (rank + 1) * n_live / CL - first;
@@ -182,7 +207,7 @@ paged_decode(const Params p) {
   if (tid == 0) {
     for (int i = 0; i < S; ++i) {
       hp::mbar_init(&full[i], p.bulk ? 1 : 32);
-      hp::mbar_init(&empty[i], NW);
+      hp::mbar_init(&empty[i], WPT);
     }
     hp::mbar_fence_init();
   }
@@ -217,21 +242,18 @@ paged_decode(const Params p) {
       }
     }
   } else {
-    // consumers: warp `warp` takes key rows [warp·KPW, warp·KPW + KPW)
-    // of every tile
+    // consumers: WPT warps a tile, tiles g, g + G, ... to group g; warp
+    // wk of a group takes key rows [wk·KPW, wk·KPW + KPW) of each
+    const int g = warp / WPT, wk = warp % WPT;
     const int key = lane / (32 / KPW);   // the key a lane's sum ends on
-    const T* q = static_cast<const T*>(p.q) + ((size_t)b * p.nh + h) * HD;
-    float qr[DPL], acc[DPL];
+    float acc[DPL];
 #pragma unroll
-    for (int d = 0; d < DPL; ++d) {
-      qr[d] = ptt::to_f(q[lane * DPL + d]);
-      acc[d] = 0.f;
-    }
+    for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
     float m = -INFINITY, l = 0.f;
-    for (int i = 0; i < n; ++i) {
+    for (int i = g; i < n; i += G) {
       const int st = i % S;
       hp::mbar_wait(&full[st], (i / S) & 1);
-      const T* kt = ring + (size_t)st * 2 * TILE + warp * KPW * HD
+      const T* kt = ring + (size_t)st * 2 * TILE + wk * KPW * HD
           + lane * DPL;
       const T* vt = kt + TILE;
       float part[KPW];
@@ -244,7 +266,7 @@ paged_decode(const Params p) {
         for (int d = 0; d < DPL; ++d) part[k] = fmaf(qr[d], kr[d], part[k]);
       }
       float sc = reduce_keys<KPW>(part, lane) * p.scale;
-      if ((first + i) * BS + warp * KPW + key >= len) sc = -INFINITY;
+      if ((first + i) * BS + wk * KPW + key >= len) sc = -INFINITY;
       float mx = sc;                   // max over the warp's keys
 #pragma unroll
       for (int o = 16; o >= 32 / KPW; o /= 2)

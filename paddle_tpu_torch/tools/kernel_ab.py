@@ -17,8 +17,9 @@ source with nvcc (its -D flags after a colon, comma-separated) and times
 its C entry directly at the same shapes; a source whose entry takes a
 workspace (a part buffer and arrival counters) is given one. The shapes
 are chip_smoke.py phase 4's (B 8, nh 16, hd 128, bs 16, W 128, 24
-layers, ragged lengths with stale lanes), an engine-like batch (8 slots
-of ~1040 tokens), 8 full slots, and 8 empty ones. Every time is the
+layers, ragged lengths with stale lanes), profile_decode's tick (8 slots
+of 41 to 1501 tokens), an engine-like batch (8 slots of ~1040 tokens),
+8 full slots, and 8 empty ones. Every time is the
 card's own, stamped with its name and power limit. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 SHAPES = (("phase4", (2047, 1500, 700, 129, 17, 1, 33, 1), 6),
+          ("tick", (41, 101, 201, 401, 701, 1001, 1301, 1501), 8),
           ("engine", (1041, 1039, 1040, 1042, 1038, 1040, 1041, 1037), 8),
           ("full", (2047,) * 8, 8), ("zero", (0,) * 8, 0))
 B, NH, HD, BS, W, L, LAYER = 8, 16, 128, 16, 128, 24, 5
