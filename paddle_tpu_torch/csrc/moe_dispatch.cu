@@ -18,11 +18,11 @@
 // row named by a scalar-prefetched index. Here the rows go through the
 // bulk-copy engine (hopper.cuh bulk_load / bulk_store, no tensor map):
 // - The grid is at most one wave; each block takes a contiguous run of
-//   output rows and hands them round-robin to four copy drivers, lane 0
+//   output rows and hands them round-robin to four copy threads, lane 0
 //   of each warp. A row is cut into chunks of at most CH bytes.
-// - A driver keeps S - 1 chunks in flight into its ring of S shared
+// - A copy thread keeps S - 1 chunks in flight into its ring of S shared
 //   stages (bulk_load, completing on the stage's mbarrier), and stores
-//   each chunk out as it lands (bulk_store, in the driver's bulk group);
+//   each chunk out as it lands (bulk_store, in its bulk group);
 //   a stage is loaded again once its store has read it. No register
 //   holds a byte of a row.
 // - An empty slot reads nothing: its chunks are stored from one zeroed
@@ -41,9 +41,9 @@ namespace hp = ptt::hopper;
 
 namespace {
 
-constexpr int NWARP = 4;              // copy drivers a block
+constexpr int NWARP = 4;              // copy threads a block
 constexpr int NT = NWARP * 32;
-constexpr int S = 4;                  // stages a driver
+constexpr int S = 4;                  // stages a copy thread
 constexpr int CH = 4096;              // bytes a stage: a chunk of a row
 constexpr int SMEM = NWARP * S * CH + CH;   // the rings and the zero tile
 constexpr int UNR = 8;                // units a lane a round (vector path)
@@ -77,7 +77,7 @@ moe_gather_bulk(const unsigned char* __restrict__ x,
   block_rows(N, r0, r1);
   unsigned char* ring = smem + warp * S * CH;
   uint64_t* bar = full[warp];
-  // this driver's rows: r0 + warp, r0 + warp + NWARP, ...
+  // this thread's rows: r0 + warp, r0 + warp + NWARP, ...
   const int rows =
       r1 - r0 > warp ? (r1 - r0 - warp + NWARP - 1) / NWARP : 0;
   const int chunks = (int)((row_bytes + CH - 1) / CH);
