@@ -118,9 +118,10 @@ stamped with the card's name and power limit):
 19. the MoE dispatch gather against its plain version (bit-identical)
     at the decode (8 tokens, 64 slots), training (8192 tokens, 20480
     slots) and a ragged (H = 100, f32) shape, with the src of a real
-    top-2 routing: kernel / plain / bound / torch.index_select times
-    (lone calls), and the gather's and index_select's kernels alone
-    (``kernel_ms``, ``library_kernel_ms``, torch.profiler);
+    top-2 routing: kernel / plain / torch.index_select times (lone
+    calls), the gather's and index_select's kernels alone
+    (``kernel_ms``, ``library_kernel_ms``, torch.profiler), and the bound
+    from the distinct live source rows (one read each) and the slots;
 20. the engine phase with gpt_1p3b(moe_experts=8) (top-2, every 2nd
     layer: 12 MoE layers, ~4.1B parameters, dropless serving) in both
     cache modes: phase 5's requests and checks, the gather's launches,
@@ -552,15 +553,25 @@ PAGED_SHAPES = (("ragged", (2047, 1500, 700, 129, 17, 1, 33, 1), 6,
                  8, (torch.bfloat16,)))
 
 
-def paged_phase(dev, pa, stamp):
-    B, nh, hd, bs, W, L, layer = 8, 16, 128, 16, 128, 24, 5
+PAGED_GEOM = (8, 16, 128, 16, 128, 24, 5)   # B, nh, hd, bs, W, L, layer
+
+
+def l2_flushes(flush_buf):
+    """Cache states a kernel is read in: "" after a flush that leaves the
+    L2 dirty (``flush_buf`` zeroed), "_warm" no flush, "_clean" after a
+    flush that leaves it clean (``flush_buf`` read)."""
+    return {"": flush_buf.zero_, "_warm": lambda: None,
+            "_clean": lambda: flush_buf.view(torch.int64).max()}
+
+
+def paged_cases(dev):
+    """Phase 4's inputs, one dict a (shape, dtype) of PAGED_SHAPES: q, the
+    whole pool (kb, vb), tables, lengths, the bound's operations and
+    bytes. The draws come from one seeded generator in a fixed order."""
+    B, nh, hd, bs, W, L, layer = PAGED_GEOM
     n_blocks = 1 + B * W
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    flushes = {"": flush_buf.zero_, "_warm": lambda: None,
-               "_clean": lambda: flush_buf.view(torch.int64).max()}
-    rows = {}
     for shape, lens_, tabled, dtypes in PAGED_SHAPES:
         rng = np.random.default_rng(2)
         lengths = np.asarray(lens_, np.int32)
@@ -576,66 +587,84 @@ def paged_phase(dev, pa, stamp):
             kb = torch.randn(pool, generator=gen, device=dev).to(dtype)
             vb = torch.randn(pool, generator=gen, device=dev).to(dtype)
             q = torch.randn((B, nh, hd), generator=gen, device=dev).to(dtype)
-            tab = torch.from_numpy(tables).to(dev)
-            lens = torch.from_numpy(lengths).to(dev)
-            scale = 1.0 / math.sqrt(hd)
-            before = pa.LAUNCHES
-            dense = pa.paged_attention_arrays(q, kb, vb, tab, lens, scale,
-                                              ragged=False, layer=layer)
-            ragged = pa.paged_attention_arrays(q, kb, vb, tab, lens, scale,
-                                               ragged=True, layer=layer)
-            wrapper_launches = (pa.LAUNCHES - before) / 2
-            ref = pa._paged_attention_reference(q, kb[:, layer],
-                                                vb[:, layer], tab, lens,
-                                                scale)
-            zero = pa.paged_attention_arrays(
-                q, kb, vb, tab, torch.zeros_like(lens), scale, layer=layer)
-            torch.cuda.synchronize()
-            err = (dense.float() - ref.float()).abs().max().item()
-            identical = bool(torch.equal(dense, ragged))
-            zeros = not bool(zero.any())
             live = int(np.minimum(lengths, W * bs).sum())
-            nbytes = (2 * live * nh * hd + 2 * B * nh * hd) \
-                * q.element_size() + tables.nbytes + lengths.nbytes
-            flops = 4 * live * nh * hd
-            b_ms, b_by = bound(flops, nbytes, dtype)
-            call = lambda: pa.paged_attention_arrays(  # noqa: E731
-                q, kb, vb, tab, lens, scale, layer=layer)
-            row = {
-                "phase": "paged_attention", "shape": shape, "B": B,
-                "nh": nh, "hd": hd, "block_size": bs, "W": W, "layers": L,
-                "lengths": lengths.tolist(), "dtype": str(dtype)[6:],
-                "cluster": pa.cluster_size(B, nh, W),
-                "max_abs_err": err, "tol": PAGED_TOL[dtype],
-                "ragged_bit_identical": identical,
-                "length0_gives_zeros": zeros,
-                # "ms": CUDA events around a lone call (the wrapper's host
-                # work held), the L2 flushed (left dirty) before each
-                "ms": time_ms(call, flush=flush_buf.zero_),
-                "plain_ms": time_ms(lambda: pa._paged_attention_reference(
-                    q, kb[:, layer], vb[:, layer], tab, lens, scale),
-                    flush=flush_buf.zero_),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "wrapper_launches_per_call": wrapper_launches}
-            # "kernel_ms": the kernel's own device time (torch.profiler)
-            # after a flush that leaves the L2 dirty; "_warm": no flush;
-            # "_clean": after a flush that leaves it clean (a read)
-            for key, fl in flushes.items():
-                ms, n = _kernel_device_ms(call, ("paged_decode",), fl,
-                                          counts=True)
-                row["kernel_ms" + key] = ms
-                if key == "":
-                    row["kernels_per_call"] = n
-            row.update(stamp)
-            row["ok"] = ok = (identical and zeros
-                              and err <= PAGED_TOL[dtype]
-                              and wrapper_launches == 1
-                              and row["kernels_per_call"] in (1, None))
-            emit(row)
-            if not ok:
-                raise AssertionError(f"paged kernel disagrees: {row}")
-            rows[(shape, dtype)] = row
-            del kb, vb
+            yield {"shape": shape, "dtype": dtype, "q": q, "kb": kb,
+                   "vb": vb, "tab": torch.from_numpy(tables).to(dev),
+                   "lens": torch.from_numpy(lengths).to(dev),
+                   "lengths": lengths, "scale": 1.0 / math.sqrt(hd),
+                   "layer": layer,
+                   "flops": 4 * live * nh * hd,
+                   "nbytes": (2 * live * nh * hd + 2 * B * nh * hd)
+                   * q.element_size() + tables.nbytes + lengths.nbytes}
+            del kb, vb, q
+
+
+def paged_times(pa, c, flush_buf):
+    """One phase-4 case's times: the lone call (CUDA events, the wrapper's
+    host work held, after a dirty flush) and the kernels' own device
+    time (torch.profiler) in each of l2_flushes' states, with the
+    kernels a call launches."""
+    call = lambda: pa.paged_attention_arrays(  # noqa: E731
+        c["q"], c["kb"], c["vb"], c["tab"], c["lens"], c["scale"],
+        layer=c["layer"])
+    row = {"ms": time_ms(call, flush=flush_buf.zero_)}
+    for key, fl in l2_flushes(flush_buf).items():
+        ms, n = _kernel_device_ms(call, ("paged_decode",), fl, counts=True)
+        row["kernel_ms" + key] = ms
+        if key == "":
+            row["kernels_per_call"] = n
+    return row
+
+
+def paged_phase(dev, pa, stamp):
+    B, nh, hd, bs, W, L, layer = PAGED_GEOM
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for c in paged_cases(dev):
+        q, kb, vb, tab, lens, scale = (c[k] for k in (
+            "q", "kb", "vb", "tab", "lens", "scale"))
+        shape, dtype = c["shape"], c["dtype"]
+        before = pa.LAUNCHES
+        dense = pa.paged_attention_arrays(q, kb, vb, tab, lens, scale,
+                                          ragged=False, layer=layer)
+        ragged = pa.paged_attention_arrays(q, kb, vb, tab, lens, scale,
+                                           ragged=True, layer=layer)
+        wrapper_launches = (pa.LAUNCHES - before) / 2
+        ref = pa._paged_attention_reference(q, kb[:, layer], vb[:, layer],
+                                            tab, lens, scale)
+        zero = pa.paged_attention_arrays(
+            q, kb, vb, tab, torch.zeros_like(lens), scale, layer=layer)
+        torch.cuda.synchronize()
+        err = (dense.float() - ref.float()).abs().max().item()
+        identical = bool(torch.equal(dense, ragged))
+        zeros = not bool(zero.any())
+        b_ms, b_by = bound(c["flops"], c["nbytes"], dtype)
+        row = {
+            "phase": "paged_attention", "shape": shape, "B": B,
+            "nh": nh, "hd": hd, "block_size": bs, "W": W, "layers": L,
+            "lengths": c["lengths"].tolist(), "dtype": str(dtype)[6:],
+            "cluster": pa.cluster_size(B, nh, W),
+            "max_abs_err": err, "tol": PAGED_TOL[dtype],
+            "ragged_bit_identical": identical,
+            "length0_gives_zeros": zeros,
+            "plain_ms": time_ms(lambda: pa._paged_attention_reference(
+                q, kb[:, layer], vb[:, layer], tab, lens, scale),
+                flush=flush_buf.zero_),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "wrapper_launches_per_call": wrapper_launches}
+        # "ms": a lone call; "kernel_ms": the kernel alone after a dirty
+        # flush, "_warm" / "_clean" without one and after a clean one
+        row.update(paged_times(pa, c, flush_buf))
+        row.update(stamp)
+        row["ok"] = ok = (identical and zeros
+                          and err <= PAGED_TOL[dtype]
+                          and wrapper_launches == 1
+                          and row["kernels_per_call"] in (1, None))
+        emit(row)
+        if not ok:
+            raise AssertionError(f"paged kernel disagrees: {row}")
+        rows[(shape, dtype)] = row
+        del c, kb, vb, q, dense, ragged, ref, zero
     del flush_buf
     torch.cuda.empty_cache()
     return rows
@@ -1801,17 +1830,16 @@ def fp8_check_phase(dev, stamp):
     return row
 
 
-def gather_phase(dev, md, stamp, shapes=GATHER_SHAPES):
-    """Phase 19: the MoE dispatch gather against its plain version
-    (bit-identical) at the decode, training and a ragged shape, with the
-    src of a real top-2 routing; torch.index_select (the same rows,
-    without zeroing empty slots) as the yardstick."""
+def gather_cases(dev, shapes=GATHER_SHAPES, seed=19):
+    """Phase 19's inputs, one dict a (shape, dtype): x and the src of a
+    real top-2 routing (8 experts, a random router), with the bytes the
+    gather must move. Each distinct live source row is read once (a token
+    routed to two experts feeds two slots from one row), every slot is
+    written once, and src is read."""
     from paddle_tpu_torch.nn import moe as MO
 
     gen = torch.Generator(device=dev)
-    gen.manual_seed(19)
-    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    rows = {}
+    gen.manual_seed(seed)
     for dtype in (torch.bfloat16, torch.float32):
         for name, T, H, cf in shapes:
             if name == "ragged" and dtype == torch.bfloat16:
@@ -1820,40 +1848,60 @@ def gather_phase(dev, md, stamp, shapes=GATHER_SHAPES):
             router = torch.randn((H, 8), generator=gen, device=dev)
             src = MO.moe_route(router, x, top_k=2, capacity_factor=cf)[2]
             N = src.shape[0]
-            got = md.moe_dispatch_gather(x, src)
-            want = md._gather_reference(x, src)
-            torch.cuda.synchronize()
-            identical = bool(torch.equal(got, want))
-            err = (got.float() - want.float()).abs().max().item()
-            live = int((src >= 0).sum())
-            es = x.element_size()
-            nbytes = (live + N) * H * es + 4 * N
-            b_ms, b_by = bound(0, nbytes, dtype)
-            idx = src.clamp_min(0).long()
-            row = {"phase": "moe_dispatch_gather", "shape": name, "T": T,
-                   "N": N, "H": H, "live_slots": live,
-                   "dtype": str(dtype)[6:], "bit_identical": identical,
-                   "max_abs_err": err, "ok": identical,
-                   "ms": time_ms(lambda: md.moe_dispatch_gather(x, src),
-                                 flush=flush_buf.zero_),
-                   "plain_ms": time_ms(lambda: md._gather_reference(x, src),
-                                       flush=flush_buf.zero_),
-                   "library_ms": time_ms(lambda: torch.index_select(
-                       x, 0, idx), flush=flush_buf.zero_),
-                   "library": "torch.index_select (no zeroing)",
-                   # each one's kernels alone (torch.profiler)
-                   "kernel_ms": _kernel_device_ms(
-                       lambda: md.moe_dispatch_gather(x, src),
-                       ("moe_gather",), flush_buf.zero_),
-                   "library_kernel_ms": _kernel_device_ms(
-                       lambda: torch.index_select(x, 0, idx),
-                       ("vectorized_gather", "index_select", "indexSelect"),
-                       flush_buf.zero_),
-                   "bound_ms": b_ms, "bound_by": b_by, **stamp}
-            emit(row)
-            if not identical:
-                raise AssertionError(f"gather kernel disagrees: {row}")
-            rows[(name, dtype)] = row
+            live = src[(src >= 0) & (src < T)]
+            distinct = int(torch.unique(live).numel())
+            yield {"shape": name, "dtype": dtype, "T": T, "N": N, "H": H,
+                   "x": x, "src": src, "live_slots": int(live.numel()),
+                   "distinct_rows": distinct,
+                   "nbytes": (distinct + N) * H * x.element_size() + 4 * N}
+
+
+def gather_times(md, c, flush_buf):
+    """One phase-19 case's times, each after a dirty L2 flush: lone calls
+    (CUDA events, host work held) of the gather and of
+    torch.index_select (the same rows, empty slots not zeroed), and each
+    one's kernels alone (torch.profiler)."""
+    x, src = c["x"], c["src"]
+    idx = src.clamp_min(0).long()
+    gather = lambda: md.moe_dispatch_gather(x, src)  # noqa: E731
+    library = lambda: torch.index_select(x, 0, idx)  # noqa: E731
+    return {"ms": time_ms(gather, flush=flush_buf.zero_),
+            "library_ms": time_ms(library, flush=flush_buf.zero_),
+            "library": "torch.index_select (no zeroing)",
+            "kernel_ms": _kernel_device_ms(gather, ("moe_gather",),
+                                           flush_buf.zero_),
+            "library_kernel_ms": _kernel_device_ms(
+                library, ("vectorized_gather", "index_select",
+                          "indexSelect"), flush_buf.zero_)}
+
+
+def gather_phase(dev, md, stamp, shapes=GATHER_SHAPES):
+    """Phase 19: the MoE dispatch gather against its plain version
+    (bit-identical) at the decode, training and a ragged shape, with the
+    src of a real top-2 routing; torch.index_select as the yardstick."""
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for c in gather_cases(dev, shapes):
+        x, src, dtype = c["x"], c["src"], c["dtype"]
+        got = md.moe_dispatch_gather(x, src)
+        want = md._gather_reference(x, src)
+        torch.cuda.synchronize()
+        identical = bool(torch.equal(got, want))
+        err = (got.float() - want.float()).abs().max().item()
+        b_ms, b_by = bound(0, c["nbytes"], dtype)
+        row = {"phase": "moe_dispatch_gather",
+               **{k: c[k] for k in ("shape", "T", "N", "H", "live_slots",
+                                    "distinct_rows")},
+               "dtype": str(dtype)[6:], "bit_identical": identical,
+               "max_abs_err": err, "ok": identical,
+               "plain_ms": time_ms(lambda: md._gather_reference(x, src),
+                                   flush=flush_buf.zero_),
+               **gather_times(md, c, flush_buf),
+               "bound_ms": b_ms, "bound_by": b_by, **stamp}
+        emit(row)
+        if not identical:
+            raise AssertionError(f"gather kernel disagrees: {row}")
+        rows[(c["shape"], dtype)] = row
     del flush_buf
     torch.cuda.empty_cache()
     return rows

@@ -64,28 +64,17 @@ namespace {
 constexpr int NW = 4;                  // consumer warps a block
 constexpr int NT = (NW + 1) * 32;      // + one producer warp
 constexpr int CL_MAX = 8;              // blocks a cluster (portable limit)
-// the ring's shared memory, the blocks an SM must hold (registers are
-// capped to fit them) and the consumer warps that share a tile: 32 KB, 6
-// and 2, the best of the variants tools/kernel_ab.py timed on an H100
-// (PERF.md §6; a study overrides them with -D)
-#ifndef PAGED_RING_BYTES
-#define PAGED_RING_BYTES (32 * 1024)
-#endif
-#ifndef PAGED_MIN_BLOCKS
-#define PAGED_MIN_BLOCKS 6
-#endif
-#ifndef PAGED_WPT
-#define PAGED_WPT 2
-#endif
-constexpr int WPT = PAGED_WPT;         // consumer warps sharing a tile
+constexpr int RING_BYTES = 32 * 1024;  // the ring's shared memory a block
+constexpr int MIN_BLOCKS = 6;          // blocks an SM holds (caps registers)
+constexpr int WPT = 2;                 // consumer warps sharing a tile
 constexpr int G = NW / WPT;            // tiles the consumers take at once
 
 // ring stages of (K tile, V tile) pairs of `pair_bytes` each: as many as
-// PAGED_RING_BYTES holds, 2 to 8, a multiple of G (so that a stage always
+// RING_BYTES holds, 2 to 8, a multiple of G (so that a stage always
 // goes to the same group of consumers, whose barrier phases then follow
 // one another)
 __host__ __device__ constexpr int ring_stages(int pair_bytes) {
-  const int s = PAGED_RING_BYTES / pair_bytes;
+  const int s = RING_BYTES / pair_bytes;
   const int c = (s < 2 ? 2 : s > 8 ? 8 : s) / G * G;
   return c > 0 ? c : G;
 }
@@ -166,7 +155,7 @@ __device__ __forceinline__ float reduce_keys(float (&v)[K], int lane) {
 }
 
 template <typename T, int HD, int BS>
-__global__ void __launch_bounds__(NT, PAGED_MIN_BLOCKS)
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 paged_decode(const Params p) {
   constexpr int DPL = HD / 32;         // head dims a lane
   constexpr int TILE = BS * HD;        // elements of one K or V tile

@@ -1,266 +1,102 @@
-"""Paged decode and MoE gather on the card: lone calls, kernels alone in
-three L2 states, and builds of other kernel sources side by side.
+"""The paged decode and the MoE gather of one tree on the card, so that
+commits can be compared in one call.
 
-    python /path/to/kernel_ab.py calls            # from a tree's root
-    python -m paddle_tpu_torch.tools.kernel_ab variants NAME=SRC[:FLAGS] ...
+    cd TREE && python /path/to/repo/paddle_tpu_torch/tools/kernel_ab.py
 
-``calls`` imports ``paddle_tpu_torch`` from the current directory (so that
-run from the root of an archive of an older commit it times that commit's
-wrappers and kernels) and prints one JSON line per shape and dtype: the
-lone call through ``paged_attention_arrays`` / ``moe_dispatch_gather``
-(CUDA events around it, host work held) and the kernels' own device time
-(torch.profiler, every kernel whose name holds ``paged_decode`` or
-``moe_gather``) after an L2 flush that leaves it dirty (a 128 MB buffer
-zeroed), warm (no flush) and clean (the buffer read), with the kernels a
-call launches. ``variants`` builds each ``csrc/paged_attention.cu``-like
-source with nvcc (its -D flags after a colon, comma-separated) and times
-its C entry directly at the same shapes; a source whose entry takes a
-workspace (a part buffer and arrival counters) is given one. The shapes
-are chip_smoke.py phase 4's (B 8, nh 16, hd 128, bs 16, W 128, 24
-layers, ragged lengths with stale lanes), profile_decode's tick (8 slots
-of 41 to 1501 tokens), an engine-like batch (8 slots of ~1040 tokens),
-8 full slots, and 8 empty ones. Every time is the
-card's own, stamped with its name and power limit. Needs a CUDA device.
+``paddle_tpu_torch`` is imported from the current directory: run from
+the root of an archive of another commit, the tool times that commit's
+wrappers and kernels. The inputs, the L2 flushes, the timers and the
+bounds come from the ``chip_smoke.py`` of the tree this file sits in
+(phase 4's ``paged_cases`` / ``paged_times``, phase 19's
+``gather_cases`` / ``gather_times``), so every tree is read on the same
+inputs in the same way. One JSON line a case:
+
+- paged decode at phase 4's shapes: the lone call, the kernels alone
+  after a dirty flush, warm and clean, and the kernels a call launches;
+- the gather and ``torch.index_select`` at phase 19's shapes: lone calls
+  and kernels alone after a dirty flush. The training shape is also read
+  under three more router seeds, each with ``pair_gap``: the mean
+  distance, as a share of the slots, between the two slots that one
+  token's row feeds (how far apart in the output the two reads of one
+  row fall).
+
+Every time is the card's own, stamped with its name and power limit.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
-import ctypes
+import importlib.util
 import json
-import math
 import os
+import pathlib
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
-SHAPES = (("phase4", (2047, 1500, 700, 129, 17, 1, 33, 1), 6),
-          ("tick", (41, 101, 201, 401, 701, 1001, 1301, 1501), 8),
-          ("engine", (1041, 1039, 1040, 1042, 1038, 1040, 1041, 1037), 8),
-          ("full", (2047,) * 8, 8), ("zero", (0,) * 8, 0))
-B, NH, HD, BS, W, L, LAYER = 8, 16, 128, 16, 128, 24, 5
-GATHER = (("decode", 8, 2048, None), ("training", 8192, 2048, 1.25),
-          ("ragged", 100, 100, 1.25))
+EXTRA_SEEDS = (3, 20, 21)      # more routers for the gather's training shape
 
 
-def _smi():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def _device_us(evt):
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        val = getattr(evt, name, None)
-        if val is not None:
-            return float(val)
-    return 0.0
-
-
-def kernel_us(fn, names, flush, reps=20):
-    """(device µs a call of the kernels whose names hold one of ``names``,
-    kernels a call) from torch.profiler over ``reps`` calls, ``flush``
-    before each."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and any(n in e.key for n in names)]
-    if not ev:
-        return None, None
-    return (sum(_device_us(e) for e in ev) / reps,
-            sum(e.count for e in ev) / reps)
-
-
-def call_ms(fn, flush, reps=50):
-    """Mean ms of a lone call, CUDA events around it, ``flush`` before."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.mean(times))
-
-
-def _paged_case(dev, lengths, n_tabled, dtype, gen):
-    n_blocks = 1 + B * W
-    rng = np.random.default_rng(2)
-    lengths = np.asarray(lengths, np.int32)
-    tables = np.zeros((B, W), np.int32)
-    perm = rng.permutation(np.arange(1, n_blocks)).astype(np.int32)
-    used = 0
-    for b in range(n_tabled):
-        n = -(-int(lengths[b]) // BS)
-        tables[b, :n] = perm[used:used + n]
-        used += n
-    shape = (n_blocks, L, NH, BS, HD)
-    kb = torch.randn(shape, generator=gen, device=dev).to(dtype)
-    vb = torch.randn(shape, generator=gen, device=dev).to(dtype)
-    q = torch.randn((B, NH, HD), generator=gen, device=dev).to(dtype)
-    live = int(np.minimum(lengths, W * BS).sum())
-    bound = 2 * live * NH * HD * q.element_size() / 3.35e12 * 1e6
-    return (q, kb, vb, torch.from_numpy(tables).to(dev),
-            torch.from_numpy(lengths).to(dev), bound)
-
-
-def _flushes(dev):
-    buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    return {"dirty": buf.zero_, "warm": lambda: None,
-            "clean": lambda: buf.view(torch.int64).max()}
-
-
-def calls(dev, smi):
-    sys.path.insert(0, os.getcwd())
-    from paddle_tpu_torch.nn import moe as MO
-    from paddle_tpu_torch.ops import moe_dispatch as md
-    from paddle_tpu_torch.ops import paged_attention as pa
-
-    flushes = _flushes(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    for name, lengths, n_tabled in SHAPES:
-        for dtype in ((torch.bfloat16, torch.float32) if name == "phase4"
-                      else (torch.bfloat16,)):
-            q, kb, vb, tab, lens, bound = _paged_case(dev, lengths, n_tabled,
-                                                      dtype, gen)
-            fn = lambda: pa.paged_attention_arrays(  # noqa: E731
-                q, kb, vb, tab, lens, layer=LAYER)
-            row = {"kernel": "paged_attention", "shape": name,
-                   "dtype": str(dtype)[6:], "bound_us": bound,
-                   "call_ms": call_ms(fn, flushes["dirty"])}
-            for state, fl in flushes.items():
-                us, n = kernel_us(fn, ("paged_decode",), fl)
-                row[f"kernel_us_{state}"] = us
-                row["kernels_a_call"] = n
-            row["card"] = smi
-            print(json.dumps(row), flush=True)
-            del kb, vb
-            torch.cuda.empty_cache()
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, T, H, cf in GATHER:
-            x = torch.randn((T, H), generator=gen, device=dev).to(dtype)
-            router = torch.randn((H, 8), generator=gen, device=dev)
-            src = MO.moe_route(router, x, top_k=2, capacity_factor=cf)[2]
-            idx = src.clamp_min(0).long()
-            live = int((src >= 0).sum())
-            fn = lambda: md.moe_dispatch_gather(x, src)  # noqa: E731
-            lib = lambda: torch.index_select(x, 0, idx)  # noqa: E731
-            row = {"kernel": "moe_dispatch_gather", "shape": name, "T": T,
-                   "N": src.shape[0], "H": H, "dtype": str(dtype)[6:],
-                   "bound_us": (live + src.shape[0]) * H * x.element_size()
-                   / 3.35e12 * 1e6,
-                   "call_ms": call_ms(fn, flushes["dirty"]),
-                   "library_call_ms": call_ms(lib, flushes["dirty"])}
-            row["kernel_us"] = kernel_us(fn, ("moe_gather",),
-                                         flushes["dirty"])[0]
-            row["library_kernel_us"] = kernel_us(
-                lib, ("gather", "index_select", "indexSelect"),
-                flushes["dirty"])[0]
-            row["card"] = smi
-            print(json.dumps(row), flush=True)
-
-
-def variants(dev, smi, specs):
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    csrc = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "csrc")
-    out_dir = os.path.join(os.getcwd(), "chiprun_out", "kernel_ab")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for spec in specs:
-        name, rest = spec.split("=", 1)
-        src, _, flags = rest.partition(":")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-I", csrc,
-               *[f"-D{f}" for f in flags.split(",") if f],
-               "-o", os.path.join(out_dir, f"{name}.so"), src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       open(src).read())
-    libs = {}
-    for name, (proc, text) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out[-4000:]}")
-        libs[name] = (ctypes.CDLL(os.path.join(out_dir, f"{name}.so")),
-                      "int* counters" in text, "float* part_ml" in text)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    flushes = _flushes(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    for shape, lengths, n_tabled in SHAPES:
-        for dtype in ((torch.bfloat16, torch.float32) if shape == "phase4"
-                      else (torch.bfloat16,)):
-            q, kb, vb, tab, lens, bound = _paged_case(dev, lengths, n_tabled,
-                                                      dtype, gen)
-            o = torch.empty_like(q)
-            dt = 1 if dtype == torch.bfloat16 else 0
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            common = (B, NH, HD, BS, W, L, LAYER, kb.shape[0],
-                      1.0 / math.sqrt(HD), dt, stream)
-            ptrs = [t.data_ptr() for t in (q, kb, vb, tab, lens, o)]
-            for turn, order in enumerate((list(libs), list(libs)[::-1])):
-                for name in order:
-                    lib, counters, split = libs[name]
-                    if counters:     # one wave of blocks + a workspace
-                        lib.paged_attention_grid.argtypes = [I] * 3
-                        g = lib.paged_attention_grid(HD, BS, dt)
-                        extra = [torch.empty(g * 2 * (HD + 2), device=dev),
-                                 torch.zeros(B * NH, dtype=torch.int32,
-                                             device=dev)]
-                    elif split:      # split partials + a merge kernel
-                        ns = (W + 15) // 16
-                        extra = [torch.empty((B, NH, ns, 2), device=dev),
-                                 torch.empty((B, NH, ns, HD), device=dev)]
-                    else:
-                        extra = []
-                    lib.paged_attention_decode.argtypes = \
-                        [P] * (6 + len(extra)) + [I] * 8 + [ctypes.c_float,
-                                                            I, P]
-                    args = ptrs + [t.data_ptr() for t in extra] + list(common)
-                    fn = lambda: lib.paged_attention_decode(  # noqa: E731
-                        *args)
-                    row = {"variant": name, "turn": turn, "shape": shape,
-                           "dtype": str(dtype)[6:], "bound_us": bound}
-                    for state, fl in flushes.items():
-                        row[f"kernel_us_{state}"] = kernel_us(
-                            fn, ("paged_decode",), fl)[0]
-                    row["card"] = smi
-                    print(json.dumps(row), flush=True)
-            del kb, vb
-            torch.cuda.empty_cache()
+def pair_gap(src, T):
+    """Mean distance between the two live slots of each token fed twice,
+    over the number of slots."""
+    pos = torch.nonzero((src >= 0) & (src < T)).flatten()
+    tok = src[pos].long()
+    order = torch.argsort(tok * src.numel() + pos)
+    tok, pos = tok[order], pos[order]
+    twice = tok[1:] == tok[:-1]
+    if not bool(twice.any()):
+        return 0.0
+    return float((pos[1:] - pos[:-1])[twice].float().mean()) / src.numel()
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device")
+    sys.path.insert(0, os.getcwd())
+    from paddle_tpu_torch.ops import moe_dispatch as md
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    cs = _chip_smoke()
     dev = torch.device("cuda", 0)
-    smi = _smi()
-    if argv[:1] == ["calls"]:
-        calls(dev, smi)
-    elif argv[:1] == ["variants"] and len(argv) > 1:
-        variants(dev, smi, argv[1:])
-    else:
-        raise SystemExit(__doc__)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    for c in cs.paged_cases(dev):
+        row = {"kernel": "paged_attention", "shape": c["shape"],
+               "dtype": str(c["dtype"])[6:],
+               "bound_ms": cs.bound(c["flops"], c["nbytes"], c["dtype"])[0],
+               **cs.paged_times(pa, c, flush_buf), "card": card}
+        print(json.dumps(row), flush=True)
+        del c
+        torch.cuda.empty_cache()
+    training = tuple(s for s in cs.GATHER_SHAPES if s[0] == "training")
+    cases = [(19, c) for c in cs.gather_cases(dev)]
+    for seed in EXTRA_SEEDS:
+        cases.append((seed, next(cs.gather_cases(dev, training, seed))))
+    for seed, c in cases:
+        row = {"kernel": "moe_dispatch_gather", "seed": seed,
+               **{k: c[k] for k in ("shape", "T", "N", "H", "live_slots",
+                                    "distinct_rows")},
+               "dtype": str(c["dtype"])[6:],
+               "pair_gap": pair_gap(c["src"], c["T"]),
+               "bound_ms": cs.bound(0, c["nbytes"], c["dtype"])[0],
+               **cs.gather_times(md, c, flush_buf), "card": card}
+        print(json.dumps(row), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
