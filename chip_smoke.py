@@ -15,8 +15,8 @@ stamped with the card's name and power limit):
    and dynamic shared memory, and, where ``cuobjdump`` exists, the count
    of wgmma (HGMMA) and TMA load (UTMALDG) instructions in its SASS (none
    fails the run); the int8 matmul kernels' registers, spills and
-   dynamic shared memory; the bulk-copy kernels' (paged decode, MoE
-   gather) registers, spills, static and dynamic shared memory, and the
+   dynamic shared memory; the paged decode's (bulk copies) and the MoE
+   gather's registers, spills, static and dynamic shared memory, and the
    paged decode clusters the card holds at once;
 3. flash-attention forward vs its plain PyTorch version, causal, bf16
    and f32, at gpt_1p3b prefill shapes (1, 16, S, 128) for S in 16, 128
@@ -340,12 +340,11 @@ def int8_report(_build):
 
 
 def bulk_report(_build):
-    """The bulk-copy kernels (paged decode, MoE gather): per function,
+    """The paged decode (bulk copies) and the MoE gather: per function,
     ptxas' registers, spills and static shared memory, and the dynamic
     shared memory a block takes; and the paged decode clusters the card
     holds at once at phase 4's shape."""
     pa = _build.load("paged_attention")
-    mg = _build.load("moe_dispatch")
     rows = []
     for name, p in _ptxas_props(_build, "paged_attention",
                                 ("paged_decode",)).items():
@@ -359,8 +358,7 @@ def bulk_report(_build):
     for name, p in _ptxas_props(_build, "moe_dispatch",
                                 ("moe_gather",)).items():
         rows.append({"source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
-                     "kernel": name, **p, "dynamic_smem_bytes":
-                     mg.moe_gather_smem_bytes() if "bulk" in name else 0})
+                     "kernel": name, **p, "dynamic_smem_bytes": 0})
     return {"bulk_kernels": rows,
             "paged_clusters_resident": pa.paged_attention_resident(
                 8, 16, 128, 16, 128, 1)}

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
 // (fp8_matmul.cu, flash_attention_fwd.cu, flash_attention_bwd.cu,
-// fused_ln_mlp.cu through gemm_sm90.cuh) and the bulk-copy kernels
-// (paged_attention.cu, moe_dispatch.cu): mbarriers, TMA tile loads and
-// reduce-adds into device memory, 1D bulk copies without a tensor map,
+// fused_ln_mlp.cu through gemm_sm90.cuh) and the paged decode
+// (paged_attention.cu): mbarriers, TMA tile loads and reduce-adds into
+// device memory, 1D bulk loads without a tensor map,
 // named barriers, wgmma shared-memory descriptors and products (bf16
 // with A from shared memory or registers, either operand K-major or
 // MN-major; f16 with A from registers), register rebalancing, and the
@@ -123,24 +123,6 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
 }
 
 // -- bulk copies without a tensor map ---------------------------------
-//
-// `bytes` contiguous bytes between device and shared memory by the
-// bulk-copy engine, one instruction from one thread, no registers held
-// while they fly and no tensor map to encode on the host. Both addresses
-// must be 16-byte aligned and `bytes` a multiple of 16: a caller whose
-// rows or bases break that takes a plain vector path of its own kernel.
-
-// global -> shared; completes on `bar`'s transaction count, so announce
-// the bytes first with mbar_arrive_expect_tx (a barrier phase may take
-// several such loads)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // an L2 policy that marks the lines a load brings in as the first to go:
 // for data read once, so that it displaces no line that is read again
@@ -152,7 +134,14 @@ __device__ __forceinline__ uint64_t l2_evict_first() {
   return policy;
 }
 
-// bulk_load under an L2 cache policy (l2_evict_first)
+// `bytes` contiguous bytes from device to shared memory by the bulk-copy
+// engine under an L2 cache `policy` (l2_evict_first): one instruction
+// from one thread, no registers held while they fly and no tensor map
+// to encode on the host. Both addresses must be 16-byte aligned and
+// `bytes` a multiple of 16: a caller whose spans break that takes a
+// plain path of its own kernel. Completes on `bar`'s transaction count,
+// so announce the bytes first with mbar_arrive_expect_tx (a barrier
+// phase may take several such loads).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar,
                                           uint64_t policy) {
@@ -162,15 +151,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)),
          "l"(policy)
       : "memory");
-}
-
-// shared -> global, in this thread's bulk group: bulk_commit, then
-// bulk_wait_read before the source is written again and bulk_wait before
-// the block exits
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
 }
 
 // -- TMA reduce-adds into device memory, bulk groups, proxy fences ------

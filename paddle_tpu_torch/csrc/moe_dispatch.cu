@@ -12,200 +12,62 @@
 // What bounds it on an H100: it moves bytes and computes nothing. Each
 // live slot reads one row of x and every slot writes one row of out, so
 // the bound is (live rows + all rows) * H * bytes over 3.35 TB/s.
-// Reaching it needs megabytes in flight across the card.
 //
 // Design. The TPU kernel DMAs one routed row per grid step, the source
-// row named by a scalar-prefetched index. Here the rows go through the
-// bulk-copy engine (hopper.cuh bulk_load / bulk_store, no tensor map):
-// - The grid is at most one wave; each block takes a contiguous run of
-//   output rows and hands them round-robin to four copy threads, lane 0
-//   of each warp. A row is cut into chunks of at most CH bytes.
-// - A copy thread keeps S - 1 chunks in flight into its ring of S shared
-//   stages (bulk_load, completing on the stage's mbarrier), and stores
-//   each chunk out as it lands (bulk_store, in its bulk group);
-//   a stage is loaded again once its store has read it. No register
-//   holds a byte of a row.
-// - An empty slot reads nothing: its chunks are stored from one zeroed
-//   shared tile.
-// - Bulk copies need 16-byte rows and bases. Where the row's byte length
-//   or a base is not a multiple of 16 (any H is allowed), a warp copies
-//   each row in the widest unit that divides them (8, 4 or 2 bytes: bf16
-//   and f32 rows are whole 2-byte units), every load of a round of the
-//   row issued before its stores.
-// The copy is typeless (bytes), so one kernel serves bf16 and f32.
-#include <algorithm>
-
-#include "hopper.cuh"
-
-namespace hp = ptt::hopper;
+// row named by a scalar-prefetched index. Here one warp owns one output
+// row (8 rows per block of 256 threads): its lanes read src[i] (one
+// broadcast load), then copy the row as 16-byte vectors, lane j taking
+// vectors j, j + 32, ... so a warp moves 512 contiguous bytes per step;
+// an empty slot stores zeros without reading x. The copy is typeless
+// (bytes), so one kernel serves bf16 and f32. Where the row's byte
+// length or the base addresses are not 16-byte multiples (any H is
+// allowed), the row is copied in 2-byte units instead (bf16 and f32 rows
+// are both whole 2-byte units).
+#include "common.cuh"
 
 namespace {
 
-constexpr int NWARP = 4;              // copy threads a block
-constexpr int NT = NWARP * 32;
-constexpr int S = 4;                  // stages a copy thread
-constexpr int CH = 4096;              // bytes a stage: a chunk of a row
-constexpr int SMEM = NWARP * S * CH + CH;   // the rings and the zero tile
-constexpr int UNR = 8;                // units a lane a round (vector path)
-constexpr int MIN_ROWS = 8;           // rows a block at least
+constexpr int NT = 256;                 // 8 warps, one output row each
+constexpr int ROWS = NT / 32;
 
-// rows [r0, r1) of out for this block: the grid's blocks take contiguous
-// runs that differ by at most one row
-__device__ __forceinline__ void block_rows(int N, int& r0, int& r1) {
-  r0 = (int)((long long)blockIdx.x * N / gridDim.x);
-  r1 = (int)((long long)(blockIdx.x + 1) * N / gridDim.x);
-}
-
+template <bool VEC>
 __global__ void __launch_bounds__(NT)
-moe_gather_bulk(const unsigned char* __restrict__ x,
+moe_gather_rows(const unsigned char* __restrict__ x,
                 const int* __restrict__ src, unsigned char* __restrict__ out,
                 int T, int N, long long row_bytes) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ uint64_t full[NWARP][S];
-  unsigned char* zero = smem + NWARP * S * CH;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int i = tid * 16; i < CH; i += NT * 16)
-    *reinterpret_cast<uint4*>(zero + i) = make_uint4(0u, 0u, 0u, 0u);
-  hp::fence_proxy_async();             // the zeros, seen by bulk stores
-  if (tid < NWARP * S) hp::mbar_init(&full[tid / S][tid % S], 1);
-  hp::mbar_fence_init();
-  __syncthreads();
-  if (lane != 0) return;
-
-  int r0, r1;
-  block_rows(N, r0, r1);
-  unsigned char* ring = smem + warp * S * CH;
-  uint64_t* bar = full[warp];
-  // this thread's rows: r0 + warp, r0 + warp + NWARP, ...
-  const int rows =
-      r1 - r0 > warp ? (r1 - r0 - warp + NWARP - 1) / NWARP : 0;
-  const int chunks = (int)((row_bytes + CH - 1) / CH);
-  const long long units = (long long)rows * chunks;
-
-  // (row, chunk) of unit u: the output row, its source row (-1: empty),
-  // the chunk's byte offset and size
-  auto unit = [&](long long u, int& row, int& from, long long& off,
-                  uint32_t& bytes) {
-    row = r0 + warp + NWARP * (int)(u / chunks);
-    off = (u % chunks) * (long long)CH;
-    bytes = (uint32_t)min((long long)CH, row_bytes - off);
-    const int s = __ldg(src + row);
-    from = s >= 0 && s < T ? s : -1;
-  };
-  auto issue = [&](long long u) {
-    int row, from;
-    long long off;
-    uint32_t bytes;
-    unit(u, row, from, off, bytes);
-    if (from < 0) return;              // an empty slot loads nothing
-    const int st = (int)(u % S);
-    hp::mbar_arrive_expect_tx(&bar[st], bytes);
-    hp::bulk_load(ring + st * CH, x + (size_t)from * row_bytes + off, bytes,
-                  &bar[st]);
-  };
-
-  uint32_t phase = 0;                  // a parity bit per stage
-  for (long long u = 0; u < S - 1 && u < units; ++u) issue(u);
-  for (long long u = 0; u < units; ++u) {
-    int row, from;
-    long long off;
-    uint32_t bytes;
-    unit(u, row, from, off, bytes);
-    const int st = (int)(u % S);
-    const unsigned char* from_smem = zero;
-    if (from >= 0) {
-      hp::mbar_wait(&bar[st], (phase >> st) & 1u);
-      phase ^= 1u << st;
-      from_smem = ring + st * CH;
+  const int i = blockIdx.x * ROWS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= N) return;
+  const int s = src[i];
+  const bool live = s >= 0 && s < T;
+  unsigned char* dst = out + (size_t)i * row_bytes;
+  const unsigned char* from = x + (size_t)(live ? s : 0) * row_bytes;
+  if constexpr (VEC) {
+    const long long nv = row_bytes / 16;
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const uint4* f = reinterpret_cast<const uint4*>(from);
+    if (live) {
+      for (long long v = lane; v < nv; v += 32) d[v] = f[v];
+    } else {
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      for (long long v = lane; v < nv; v += 32) d[v] = z;
     }
-    hp::bulk_store(out + (size_t)row * row_bytes + off, from_smem, bytes);
-    hp::bulk_commit();
-    if (u + S - 1 < units) {
-      // its stage last held unit u - 1, whose store must have read it
-      hp::bulk_wait_read<1>();
-      issue(u + S - 1);
+  } else {
+    const long long nh = row_bytes / 2;
+    uint16_t* d = reinterpret_cast<uint16_t*>(dst);
+    const uint16_t* f = reinterpret_cast<const uint16_t*>(from);
+    if (live) {
+      for (long long v = lane; v < nh; v += 32) d[v] = f[v];
+    } else {
+      for (long long v = lane; v < nh; v += 32) d[v] = (uint16_t)0;
     }
   }
-  hp::bulk_wait<0>();                  // every store done before exit
-}
-
-// a warp a row, in units of U (8, 4 or 2 bytes)
-template <typename U>
-__global__ void __launch_bounds__(NT)
-moe_gather_vec(const unsigned char* __restrict__ x,
-               const int* __restrict__ src, unsigned char* __restrict__ out,
-               int T, int N, long long row_bytes) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int r0, r1;
-  block_rows(N, r0, r1);
-  const long long nu = row_bytes / (long long)sizeof(U);
-  for (int row = r0 + warp; row < r1; row += NWARP) {
-    const int s = __ldg(src + row);
-    const bool live = s >= 0 && s < T;
-    U* d = reinterpret_cast<U*>(out + (size_t)row * row_bytes);
-    const U* f = reinterpret_cast<const U*>(x + (size_t)(live ? s : 0)
-                                            * row_bytes);
-    for (long long base = 0; base < nu; base += 32 * UNR) {
-      U v[UNR];
-#pragma unroll
-      for (int k = 0; k < UNR; ++k) {
-        const long long e = base + k * 32 + lane;
-        v[k] = live && e < nu ? f[e] : U{};
-      }
-#pragma unroll
-      for (int k = 0; k < UNR; ++k) {
-        const long long e = base + k * 32 + lane;
-        if (e < nu) d[e] = v[k];
-      }
-    }
-  }
-}
-
-// blocks of `kern` (at `smem` bytes) one SM holds at once, per device
-template <typename K>
-int resident(K kern, int smem, unsigned& ready, int (&per_sm)[32]) {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
-  dev &= 31;
-  if (!(ready & (1u << dev))) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-    int n = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, NT, smem)
-        != cudaSuccess)
-      n = 1;
-    per_sm[dev] = std::max(n, 1);
-    ready |= 1u << dev;
-  }
-  return per_sm[dev];
-}
-
-template <typename K>
-int launch(K kern, int smem, unsigned& ready, int (&per_sm)[32],
-           const unsigned char* x, const int* src, unsigned char* out, int T,
-           int N, long long row_bytes, cudaStream_t s) {
-  const int wave = resident(kern, smem, ready, per_sm) * hp::sm_count();
-  const int grid = std::max(1, std::min((N + MIN_ROWS - 1) / MIN_ROWS, wave));
-  kern<<<grid, NT, smem, s>>>(x, src, out, T, N, row_bytes);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename U>
-int launch_vec(const unsigned char* x, const int* src, unsigned char* out,
-               int T, int N, long long row_bytes, cudaStream_t s) {
-  static unsigned ready = 0;
-  static int per_sm[32];
-  return launch(moe_gather_vec<U>, 0, ready, per_sm, x, src, out, T, N,
-                row_bytes, s);
 }
 
 }  // namespace
 
 // x (T, H), out (N, H) with `elem_bytes` bytes per element (2 or 4),
-// src (N,) int32. One launch (none when N or H is 0); returns
-// cudaGetLastError() after it.
+// src (N,) int32. Returns cudaGetLastError() after the launch.
 extern "C" int moe_gather(const void* x, const int* src, void* out, int T,
                           int N, int H, int elem_bytes, void* stream) {
   if (T < 0 || N < 0 || H < 0 || (elem_bytes != 2 && elem_bytes != 4))
@@ -213,22 +75,15 @@ extern "C" int moe_gather(const void* x, const int* src, void* out, int T,
   if (N == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long row_bytes = (long long)H * elem_bytes;
+  const bool vec = row_bytes % 16 == 0
+      && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out))
+          & 15) == 0;
+  const unsigned int grid = (unsigned int)((N + ROWS - 1) / ROWS);
   const unsigned char* xp = static_cast<const unsigned char*>(x);
   unsigned char* op = static_cast<unsigned char*>(out);
-  // the widest unit dividing the row and both bases
-  const uintptr_t a = reinterpret_cast<uintptr_t>(x)
-      | reinterpret_cast<uintptr_t>(out) | (uintptr_t)row_bytes;
-  if (a % 16 == 0) {
-    static unsigned ready = 0;
-    static int per_sm[32];
-    return launch(moe_gather_bulk, SMEM, ready, per_sm, xp, src, op, T, N,
-                  row_bytes, s);
-  }
-  if (a % 8 == 0) return launch_vec<uint2>(xp, src, op, T, N, row_bytes, s);
-  if (a % 4 == 0)
-    return launch_vec<uint32_t>(xp, src, op, T, N, row_bytes, s);
-  return launch_vec<uint16_t>(xp, src, op, T, N, row_bytes, s);
+  if (vec)
+    moe_gather_rows<true><<<grid, NT, 0, s>>>(xp, src, op, T, N, row_bytes);
+  else
+    moe_gather_rows<false><<<grid, NT, 0, s>>>(xp, src, op, T, N, row_bytes);
+  return static_cast<int>(cudaGetLastError());
 }
-
-// dynamic shared memory a block of the bulk kernel takes, in bytes
-extern "C" int moe_gather_smem_bytes() { return SMEM; }

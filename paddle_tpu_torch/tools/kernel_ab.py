@@ -11,17 +11,16 @@ bounds come from the ``chip_smoke.py`` of the tree this file sits in
 ``gather_cases`` / ``gather_times``), so every tree is read on the same
 inputs in the same way. One JSON line a case:
 
+- the gather and ``torch.index_select`` at phase 19's shapes, first in
+  the process: lone calls and kernels alone after a dirty flush;
 - paged decode at phase 4's shapes: the lone call, the kernels alone
   after a dirty flush, warm and clean, and the kernels a call launches;
-- the gather and ``torch.index_select`` at phase 19's shapes: lone calls
-  and kernels alone after a dirty flush. The training shape is also read
-  under three more router seeds, each with ``pair_gap``: the mean
-  distance, as a share of the slots, between the two slots that one
-  token's row feeds (how far apart in the output the two reads of one
-  row fall).
+- the gather's training shape again, after the paged cases and then
+  after two seconds of back-to-back bf16 matmuls (``when``).
 
-Every time is the card's own, stamped with its name and power limit.
-Needs a CUDA device.
+Each gather row carries the SM and memory clocks (MHz) that
+``nvidia-smi`` sampled while it was read. Every time is the card's own,
+stamped with its name and power limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,10 +30,9 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import torch
-
-EXTRA_SEEDS = (3, 20, 21)      # more routers for the gather's training shape
 
 
 def _chip_smoke():
@@ -45,17 +43,36 @@ def _chip_smoke():
     return mod
 
 
-def pair_gap(src, T):
-    """Mean distance between the two live slots of each token fed twice,
-    over the number of slots."""
-    pos = torch.nonzero((src >= 0) & (src < T)).flatten()
-    tok = src[pos].long()
-    order = torch.argsort(tok * src.numel() + pos)
-    tok, pos = tok[order], pos[order]
-    twice = tok[1:] == tok[:-1]
-    if not bool(twice.any()):
-        return 0.0
-    return float((pos[1:] - pos[:-1])[twice].float().mean()) / src.numel()
+def sampled_clocks(fn):
+    """fn()'s result, and the [min, max] SM and memory clocks in MHz that
+    nvidia-smi sampled every 50 ms while it ran."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=60)[0]
+    samples = [[int(v) for v in ln.split(",")]
+               for ln in text.splitlines() if ln.strip()]
+    clocks = {}
+    for i, key in enumerate(("sm_mhz", "mem_mhz")):
+        got = [s[i] for s in samples]
+        if got:
+            clocks[key] = [min(got), max(got)]
+    return out, clocks
+
+
+def busy(dev, seconds=2.0):
+    """Back-to-back bf16 matmuls (8192^3) for ``seconds``."""
+    a = torch.randn((8192, 8192), device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
 
 
 def main(argv=None) -> int:
@@ -74,6 +91,21 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def gather_row(c, when):
+        times, clocks = sampled_clocks(
+            lambda: cs.gather_times(md, c, flush_buf))
+        row = {"kernel": "moe_dispatch_gather", "when": when,
+               **{k: c[k] for k in ("shape", "T", "N", "H", "live_slots",
+                                    "distinct_rows")},
+               "dtype": str(c["dtype"])[6:],
+               "bound_ms": cs.bound(0, c["nbytes"], c["dtype"])[0],
+               **times, **clocks, "card": card}
+        print(json.dumps(row), flush=True)
+
+    gathers = list(cs.gather_cases(dev))
+    for c in gathers:
+        gather_row(c, "first")
     for c in cs.paged_cases(dev):
         row = {"kernel": "paged_attention", "shape": c["shape"],
                "dtype": str(c["dtype"])[6:],
@@ -82,19 +114,10 @@ def main(argv=None) -> int:
         print(json.dumps(row), flush=True)
         del c
         torch.cuda.empty_cache()
-    training = tuple(s for s in cs.GATHER_SHAPES if s[0] == "training")
-    cases = [(19, c) for c in cs.gather_cases(dev)]
-    for seed in EXTRA_SEEDS:
-        cases.append((seed, next(cs.gather_cases(dev, training, seed))))
-    for seed, c in cases:
-        row = {"kernel": "moe_dispatch_gather", "seed": seed,
-               **{k: c[k] for k in ("shape", "T", "N", "H", "live_slots",
-                                    "distinct_rows")},
-               "dtype": str(c["dtype"])[6:],
-               "pair_gap": pair_gap(c["src"], c["T"]),
-               "bound_ms": cs.bound(0, c["nbytes"], c["dtype"])[0],
-               **cs.gather_times(md, c, flush_buf), "card": card}
-        print(json.dumps(row), flush=True)
+    training = gathers[1]                # phase 19's bf16 training shape
+    gather_row(training, "after_paged")
+    busy(dev)
+    gather_row(training, "after_busy")
     return 0
 
 

@@ -865,14 +865,14 @@ def test_moe_gather_kernel_edge_cases(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,N,H,offset", [
-    (100, 1001, 100, 0),       # bf16 200-byte rows: 8-byte units
-    (64, 333, 7, 0),           # 14- / 28-byte rows: 2- / 4-byte units
-    (50, 257, 2056, 0),        # 16-byte rows past one 4 KB chunk
-    (30, 99, 4096, 0),         # several whole chunks a row
-    (40, 1001, 2048, 1)])      # an unaligned x: the vector path
+    (100, 1001, 100, 0),       # bf16 200-byte rows: 2-byte units
+    (64, 333, 7, 0),           # 14- / 28-byte rows: 2-byte units
+    (50, 257, 2056, 0),        # 16-byte vectors, rows past 4 KB
+    (30, 99, 4096, 0),         # 16-byte vectors, 8 or 16 KB rows
+    (40, 1001, 2048, 1)])      # an unaligned x: 2-byte units
 def test_moe_gather_kernel_rows_and_runs(cuda_device, dtype, T, N, H,
                                          offset):
-    """Bulk and vector paths, N no multiple of a block's run of rows:
+    """16-byte and 2-byte copies, N no multiple of a block's rows:
     bit-identical to the plain version."""
     base = _randn((T * H + offset,), dtype, cuda_device, 33)
     x = base[offset:].view(T, H)

@@ -172,7 +172,7 @@ def test_gather_plain_bit_exact_vs_interpret_kernel(dtype, T, N, H):
                                   "n1001"])
 def test_gather_edge_shapes_vs_jax(case):
     """The card tests' edge shapes: no slot, every slot empty, a 200-byte
-    bf16 row (the kernel's vector path), N no multiple of a block's run
+    bf16 row (the kernel's 2-byte path), N no multiple of a block's rows
     (against the composed JAX gather: 1001 interpret steps are slow)."""
     T, N, H, dtype = {"n0": (5, 0, 128, jnp.float32),
                       "all_empty": (6, 20, 128, jnp.float32),
