@@ -120,8 +120,10 @@ stamped with the card's name and power limit):
     slots) and a ragged (H = 100, f32) shape, with the src of a real
     top-2 routing: kernel / plain / torch.index_select times (lone
     calls), the gather's and index_select's kernels alone
-    (``kernel_ms``, ``library_kernel_ms``, torch.profiler), and the bound
-    from the distinct live source rows (one read each) and the slots;
+    (``kernel_ms``, ``library_kernel_ms``, torch.profiler, after a dirty
+    flush, with the records a call the trace kept; ``_clean`` after a
+    clean one), and the bound from the distinct live source rows (one
+    read each) and the slots;
 20. the engine phase with gpt_1p3b(moe_experts=8) (top-2, every 2nd
     layer: 12 MoE layers, ~4.1B parameters, dropless serving) in both
     cache modes: phase 5's requests and checks, the gather's launches,
@@ -607,7 +609,8 @@ def paged_times(pa, c, flush_buf):
         layer=c["layer"])
     row = {"ms": time_ms(call, flush=flush_buf.zero_)}
     for key, fl in l2_flushes(flush_buf).items():
-        ms, n = _kernel_device_ms(call, ("paged_decode",), fl, counts=True)
+        ms, n, _ = _kernel_device_ms(call, ("paged_decode",), fl,
+                                     counts=True)
         row["kernel_ms" + key] = ms
         if key == "":
             row["kernels_per_call"] = n
@@ -1855,22 +1858,28 @@ def gather_cases(dev, shapes=GATHER_SHAPES, seed=19):
 
 
 def gather_times(md, c, flush_buf):
-    """One phase-19 case's times, each after a dirty L2 flush: lone calls
-    (CUDA events, host work held) of the gather and of
-    torch.index_select (the same rows, empty slots not zeroed), and each
-    one's kernels alone (torch.profiler)."""
+    """One phase-19 case's times: lone calls (CUDA events, host work held,
+    after a dirty L2 flush) of the gather and of torch.index_select (the
+    same rows, empty slots not zeroed), and each one's kernel alone
+    (torch.profiler) after a dirty and after a clean flush, with the
+    records a call the dirty reading's trace kept."""
     x, src = c["x"], c["src"]
     idx = src.clamp_min(0).long()
     gather = lambda: md.moe_dispatch_gather(x, src)  # noqa: E731
     library = lambda: torch.index_select(x, 0, idx)  # noqa: E731
-    return {"ms": time_ms(gather, flush=flush_buf.zero_),
-            "library_ms": time_ms(library, flush=flush_buf.zero_),
-            "library": "torch.index_select (no zeroing)",
-            "kernel_ms": _kernel_device_ms(gather, ("moe_gather",),
-                                           flush_buf.zero_),
-            "library_kernel_ms": _kernel_device_ms(
-                library, ("vectorized_gather", "index_select",
-                          "indexSelect"), flush_buf.zero_)}
+    row = {"ms": time_ms(gather, flush=flush_buf.zero_),
+           "library_ms": time_ms(library, flush=flush_buf.zero_),
+           "library": "torch.index_select (no zeroing)"}
+    clean = l2_flushes(flush_buf)["_clean"]
+    for key, fn, names in (
+            ("kernel", gather, ("moe_gather",)),
+            ("library_kernel", library,
+             ("vectorized_gather", "index_select", "indexSelect"))):
+        ms, _, records = _kernel_device_ms(fn, names, flush_buf.zero_,
+                                           counts=True)
+        row.update({key + "_ms": ms, key + "_records_per_call": records,
+                    key + "_ms_clean": _kernel_device_ms(fn, names, clean)})
+    return row
 
 
 def gather_phase(dev, md, stamp, shapes=GATHER_SHAPES):
@@ -2086,7 +2095,12 @@ def _kernel_device_ms(fn, names, flush, reps=10, counts=False):
     """Device time per call of the kernels whose names contain one of
     ``names``, from torch.profiler over ``reps`` calls (the L2 flushed
     before each): the kernels' own time, without the host's enqueue.
-    ``counts``: (that time, those kernels' launches per call)."""
+    Each kernel is read as its mean time a launch and the kernels of a
+    call are summed (every caller's kernels launch once a call): late in
+    a long process the trace can keep only some of a kernel's records,
+    and a total over ``reps`` would read that as a faster kernel.
+    ``counts``: (that time, the distinct kernels a call, the records a
+    call the trace kept)."""
     from paddle_tpu_torch.tools.profile_decode import _device_us
 
     fn()
@@ -2100,11 +2114,13 @@ def _kernel_device_ms(fn, names, flush, reps=10, counts=False):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(n in e.key for n in names)]
+              and any(n in e.key for n in names) and e.count]
     if not events:
-        return (None, None) if counts else None   # the trace lost them
-    ms = sum(_device_us(e) for e in events) / reps / 1e3
-    return (ms, sum(e.count for e in events) / reps) if counts else ms
+        return (None, None, None) if counts else None   # the trace lost them
+    ms = sum(_device_us(e) / e.count for e in events) / 1e3
+    if counts:
+        return ms, len(events), sum(e.count for e in events) / reps
+    return ms
 
 
 def addln_phase(dev, fk, stamp):

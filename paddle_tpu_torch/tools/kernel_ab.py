@@ -11,16 +11,13 @@ bounds come from the ``chip_smoke.py`` of the tree this file sits in
 ``gather_cases`` / ``gather_times``), so every tree is read on the same
 inputs in the same way. One JSON line a case:
 
-- the gather and ``torch.index_select`` at phase 19's shapes, first in
-  the process: lone calls and kernels alone after a dirty flush;
+- the gather and ``torch.index_select`` at phase 19's shapes: lone
+  calls, and the kernels alone after a dirty and after a clean flush;
 - paged decode at phase 4's shapes: the lone call, the kernels alone
-  after a dirty flush, warm and clean, and the kernels a call launches;
-- the gather's training shape again, after the paged cases and then
-  after two seconds of back-to-back bf16 matmuls (``when``).
+  after a dirty flush, warm and clean, and the kernels a call launches.
 
-Each gather row carries the SM and memory clocks (MHz) that
-``nvidia-smi`` sampled while it was read. Every time is the card's own,
-stamped with its name and power limit. Needs a CUDA device.
+Every time is the card's own, stamped with its name and power limit.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,7 +27,6 @@ import os
 import pathlib
 import subprocess
 import sys
-import time
 
 import torch
 
@@ -41,38 +37,6 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def sampled_clocks(fn):
-    """fn()'s result, and the [min, max] SM and memory clocks in MHz that
-    nvidia-smi sampled every 50 ms while it ran."""
-    proc = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem",
-         "--format=csv,noheader,nounits", "-lms", "50"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    try:
-        out = fn()
-    finally:
-        proc.terminate()
-        text = proc.communicate(timeout=60)[0]
-    samples = [[int(v) for v in ln.split(",")]
-               for ln in text.splitlines() if ln.strip()]
-    clocks = {}
-    for i, key in enumerate(("sm_mhz", "mem_mhz")):
-        got = [s[i] for s in samples]
-        if got:
-            clocks[key] = [min(got), max(got)]
-    return out, clocks
-
-
-def busy(dev, seconds=2.0):
-    """Back-to-back bf16 matmuls (8192^3) for ``seconds``."""
-    a = torch.randn((8192, 8192), device=dev, dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < seconds:
-        for _ in range(20):
-            a @ a
-        torch.cuda.synchronize()
 
 
 def main(argv=None) -> int:
@@ -91,21 +55,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-
-    def gather_row(c, when):
-        times, clocks = sampled_clocks(
-            lambda: cs.gather_times(md, c, flush_buf))
-        row = {"kernel": "moe_dispatch_gather", "when": when,
+    for c in cs.gather_cases(dev):
+        row = {"kernel": "moe_dispatch_gather",
                **{k: c[k] for k in ("shape", "T", "N", "H", "live_slots",
                                     "distinct_rows")},
                "dtype": str(c["dtype"])[6:],
                "bound_ms": cs.bound(0, c["nbytes"], c["dtype"])[0],
-               **times, **clocks, "card": card}
+               **cs.gather_times(md, c, flush_buf), "card": card}
         print(json.dumps(row), flush=True)
-
-    gathers = list(cs.gather_cases(dev))
-    for c in gathers:
-        gather_row(c, "first")
     for c in cs.paged_cases(dev):
         row = {"kernel": "paged_attention", "shape": c["shape"],
                "dtype": str(c["dtype"])[6:],
@@ -114,10 +71,6 @@ def main(argv=None) -> int:
         print(json.dumps(row), flush=True)
         del c
         torch.cuda.empty_cache()
-    training = gathers[1]                # phase 19's bf16 training shape
-    gather_row(training, "after_paged")
-    busy(dev)
-    gather_row(training, "after_busy")
     return 0
 
 
