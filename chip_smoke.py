@@ -187,13 +187,41 @@ stamped with the card's name and power limit):
     ByteTokenizer over a literal merge list, ``submit(text=...)``, and
     the bounded regex ``(yes|no), [0-9]{1,3}\\.``: 4 greedy and 4 sampled
     streams each end with "stop" within 16 tokens, their bytes a full
-    match of the DFA.
+    match of the DFA;
+30. the serving watchdog (16 new tokens a request in phases 30-33):
+    f32 at full width and 4 layers, fixed and paged, phase 5's mix with
+    FLAGS_fault_inject=serving_nan@step=3: request 3 ends "watchdog"
+    (WatchdogTripped), every other stream equals the unarmed engine's,
+    one trip and one restart, a serving_watchdog_restart flight dump that
+    parses; bf16 at full depth, one poisoned slot on each decode path
+    (fixed, paged, int8 paged, speculative paged): its verdict False,
+    every other slot's True, the restart's ms to the first replayed
+    token, peak memory (the paged restart's beside unarmed runs'); the
+    armed against the unarmed tick (ms in turns, launches a tick);
+    max_restarts=0 fails every open request;
+31. overload control, bf16 at full depth, paged, 2-layer draft: a
+    controller held at rung 0 gives overload=None's greedy tokens, rung 1
+    stops speculation, rung 2 prefills a 1500-token prompt in 16-token
+    chunks instead of 64; brownout gauges, queue-wait and tick p50/p99;
+32. KV streaming between two bf16 engines at full depth with the prefix
+    cache: a 1024-token prompt's 64 blocks exported and imported (B's
+    greedy stream equals A's), a 1500-token prompt streamed in 8-block
+    chunks while A prefills it; bytes, ms and GB/s of each copy, B's hit
+    rate and first-token ms against a cold prompt;
+33. failover, crash and tracing: f32 at 4 layers, A evacuated mid-decode
+    and every stream adopted by B, token-identical to an undisturbed run;
+    fail_at_tick(2) crashes B (InjectedCrash, a flight dump, submit
+    refused with the cause); a traced paged run's chrome trace holds one
+    decode_step a tick and per request its decode_tick events, prefill
+    chunks, one request_done and one "f" flow; bf16 ms a tick with
+    tracing on and off.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero;
 without a CUDA device the script exits 2 and prints no result.
 """
+import gc
 import json
 import math
 import os
@@ -201,6 +229,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -671,6 +700,26 @@ def paged_phase(dev, pa, stamp):
     return rows
 
 
+def phase5_requests(V, seed=4):
+    """Phase 5's requests in submission order, as (prompt, sampling
+    kwargs) pairs: a 64-token sampled prompt, eight greedy prompts of
+    profile_decode's LENGTHS (40-1500 tokens), a 300-token sampled
+    prompt. Drawn from ``seed`` (phase 5's 4 by default) in phase 5's
+    order: the two sampled prompts, then the greedy ones."""
+    from paddle_tpu_torch.tools.profile_decode import LENGTHS
+
+    rng = np.random.default_rng(seed)
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.95)
+    s1 = rng.integers(0, V, 64).astype(np.int32)
+    s2 = rng.integers(0, V, 300).astype(np.int32)
+    greedy = [rng.integers(0, V, n).astype(np.int32) for n in LENGTHS]
+    return [(s1, sampled)] + [(p, {}) for p in greedy] + [(s2, sampled)]
+
+
+def _greedy(requests):
+    return [p for p, kw in requests if not kw]
+
+
 def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
                  int8=False, fp_outs=None, md=None, draft=None):
     """The serving phase; with ``int8`` the engine decodes with int8
@@ -684,13 +733,9 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
     from paddle_tpu_torch.monitor.stats import stat_get
     from paddle_tpu_torch.serving import InferenceEngine
 
-    rng = np.random.default_rng(4)
     V = cfg.vocab_size
-    greedy_lens = (40, 100, 200, 400, 700, 1000, 1300, 1500)
-    sampled = dict(temperature=0.8, top_k=50, top_p=0.95)
-    s1 = rng.integers(0, V, 64).astype(np.int32)
-    s2 = rng.integers(0, V, 300).astype(np.int32)
-    prompts = [rng.integers(0, V, n).astype(np.int32) for n in greedy_lens]
+    requests = phase5_requests(V)
+    s1, sampled = requests[0]
     new = 32
 
     spec = {} if draft is None else {"draft": draft, "spec_k": SPEC_K}
@@ -708,9 +753,7 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
     if md is not None:
         md.LAUNCHES = 0
     t0 = time.perf_counter()
-    reqs = [eng.submit(s1, max_new_tokens=new, **sampled)]
-    reqs += [eng.submit(p, max_new_tokens=new) for p in prompts]
-    reqs += [eng.submit(s2, max_new_tokens=new, **sampled)]
+    reqs = [eng.submit(p, max_new_tokens=new, **kw) for p, kw in requests]
     outs = [r.result(timeout=600) for r in reqs]
     wall = time.perf_counter() - t0
     launches = {"flash_attention_fwd": fa.LAUNCHES,
@@ -754,7 +797,7 @@ def engine_phase(dev, cfg, params, paged, fa, pa, stamp, im=None,
                           int8_weights=int8, **spec)
     replay = eng.generate(s1, max_new_tokens=new, **sampled)
     t1 = time.perf_counter()
-    eng.generate(prompts[-1], max_new_tokens=1)
+    eng.generate(requests[-2][0], max_new_tokens=1)     # 1500 tokens
     ttft_1500 = (time.perf_counter() - t1) * 1e3
     eng.shutdown()
     want = outs[0]
@@ -2460,11 +2503,11 @@ def _count_bursts(eng):
     dispatch = eng._spec_dispatch
 
     def counted(*args):
-        out, n_emit = dispatch(*args)
+        out, n_emit, health = dispatch(*args)
         for s, st in enumerate(eng._slots):
             if st is not None and st.pending is None:
                 bursts[int(n_emit[s])] += 1
-        return out, n_emit
+        return out, n_emit, health
 
     eng._spec_dispatch = counted
     return bursts
@@ -2483,9 +2526,7 @@ def spec_identity_phase(dev, stamp):
     cfg = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
     params = _scaled_params(G, cfg, dev)
     drafts = {n: G.gpt_truncate(cfg, params, n) for n in (IDENTITY_LAYERS, 2)}
-    rng = np.random.default_rng(8)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (40, 100, 200, 400, 700, 1000, 1300, 1500)]
+    prompts = _greedy(phase5_requests(cfg.vocab_size, seed=8))
     new = 32
     rows = []
     for paged in (False, True):
@@ -2578,9 +2619,7 @@ def spec_phase(dev, cfg, params, fa, pa, stamp):
     from paddle_tpu_torch.serving import InferenceEngine
 
     draft = G.gpt_truncate(cfg, params, 2)
-    rng = np.random.default_rng(4)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (40, 100, 200, 400, 700, 1000, 1300, 1500)]
+    prompts = _greedy(phase5_requests(cfg.vocab_size))
     runs = {}
     for paged in (False, True):
         base = engine_phase(dev, cfg, params, paged, fa, pa, stamp)
@@ -2771,6 +2810,660 @@ def text_phase(dev, cfg, params, stamp):
     return rows
 
 
+# phases 30-33: the engine's resilience and observability
+# --------------------------------------------------------------------------
+
+# phases 30-33 give every request this many new tokens
+RES_NEW = 16
+# phase 30: the request whose K/V the serving_nan fault poisons
+NAN_RID = 3
+# phase 31: the 1500-token prompt's prefill chunk at rung 0 and rung 2
+# (64 // OverloadController's chunk_shrink 4, on 16-token blocks)
+CHUNK_RUNG0, CHUNK_RUNG2 = 64, 16
+# phase 32: blocks a streamed chunk carries
+STREAM_CHUNK_BLOCKS = 8
+
+
+def _submit_all(eng, requests, new=RES_NEW, **kw):
+    """Submit ``phase5_requests``' (prompt, sampling kwargs) pairs."""
+    return [eng.submit(p, max_new_tokens=new, **skw, **kw)
+            for p, skw in requests]
+
+
+def _outcomes(reqs):
+    """Each request's (tokens, finish_reason, error type or None)."""
+    out = []
+    for r in reqs:
+        try:
+            toks = r.result(timeout=600)
+        except RuntimeError:
+            toks = list(r.tokens)
+        out.append((toks, r.finish_reason,
+                    None if r.error is None else type(r.error).__name__))
+    return out
+
+
+def _hold_identity(G, cfg, params, requests, want, got, dev, skip=()):
+    """Streams of two f32 runs of ``requests``: sampled streams equal,
+    greedy ones equal or parted at a near-tie (TIE_REL). Returns the
+    greedy comparison of ``_streams_equal``."""
+    for i, (_, skw) in enumerate(requests):
+        if skw and i not in skip and want[i] != got[i]:
+            raise AssertionError(f"sampled stream {i} differs: {want[i]} "
+                                 f"vs {got[i]}")
+    idx = [i for i, (_, skw) in enumerate(requests)
+           if not skw and i not in skip]
+    return _streams_equal(G, cfg, params, [requests[i][0] for i in idx],
+                          [want[i] for i in idx], [got[i] for i in idx], dev)
+
+
+def _record_verdicts(eng):
+    """Wrap the engine's decode dispatches: each tick's (time, {slot:
+    rid} of the active rows, per-slot verdict) lands in the returned
+    list, on the scheduler thread."""
+    log = []
+    for name in ("_plain_dispatch", "_spec_dispatch"):
+        fn = getattr(eng, name)
+
+        def wrapped(*args, _fn=fn):
+            got = _fn(*args)
+            active = {s: st.req.rid for s, st in enumerate(eng._slots)
+                      if st is not None and st.pending is None}
+            log.append((time.perf_counter(), active,
+                        None if got[-1] is None else got[-1].copy()))
+            return got
+
+        setattr(eng, name, wrapped)
+    return log
+
+
+def _record_pushes(req):
+    """Time every token the request receives (``req.push_times``)."""
+    req.push_times = []
+    push = req._push
+
+    def timed(tok):
+        req.push_times.append(time.perf_counter())
+        push(tok)
+
+    req._push = timed
+
+
+def _verdict_row(log, reqs):
+    """The poisoned tick of a verdict log: the slot of request NAN_RID
+    must read False and every other active slot True, on that tick and
+    on every tick before it."""
+    for i, (t, active, health) in enumerate(log):
+        bad = [s for s in active if not health[s]]
+        if not bad:
+            continue
+        slot = next(s for s, rid in active.items() if rid == NAN_RID)
+        if bad != [slot]:
+            raise AssertionError(f"poisoned tick {i}: slots {bad} read "
+                                 f"non-finite, want only {slot}")
+        healthy = [s for s in active if s != slot]
+        after = [min((p for p in reqs[active[s]].push_times if p > t),
+                     default=None) for s in healthy]
+        after = [p for p in after if p is not None]
+        return {"poisoned_tick": i, "poisoned_slot": slot,
+                "active_slots": len(active),
+                "healthy_verdicts_true": len(healthy),
+                "restart_to_first_token_ms":
+                    (min(after) - t) * 1e3 if after else None}
+    raise AssertionError("no tick read the poisoned slot non-finite")
+
+
+def _fresh_peak(dev):
+    """Free what earlier engines left (a wrapped engine refers to itself,
+    so only the cycle collector frees it) and restart the peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _counts(mods):
+    for m in mods.values():
+        m.LAUNCHES = 0
+
+
+def _read(mods):
+    return {k: m.LAUNCHES for k, m in mods.items()}
+
+
+def watchdog_phase(dev, cfg, params, mods, stamp, flight_dir):
+    """Phase 30: the serving watchdog. (1) f32 identity at full width,
+    IDENTITY_LAYERS layers, 8 slots, fixed and paged, phase 5's prompts
+    with FLAGS_fault_inject=serving_nan@step=NAN_RID: request NAN_RID
+    ends "watchdog" (WatchdogTripped), every other stream equals the
+    unarmed engine's, one trip and one restart, a
+    serving_watchdog_restart flight dump that parses. (2) bf16 at full
+    depth: one poisoned slot on each decode path (fixed, paged, int8
+    paged, speculative paged) reads False, every other slot True; the
+    restart's ms to the first replayed token and the peak memory; the
+    armed against the unarmed tick (ms, launches a tick), interleaved.
+    (3) max_restarts=0 fails every open request with the cause."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor import (disarm_flight_recorder,
+                                          get_histogram, hist_delta)
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.resilience import configure_faults
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    requests = phase5_requests(cfg.vocab_size, seed=30)
+    spec = f"serving_nan@step={NAN_RID}"
+    cfg32 = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
+    p32 = _scaled_params(G, cfg32, dev)
+    identity = {}
+    for paged in (False, True):
+        mode = "paged" if paged else "fixed"
+        base = _outcomes(_submit_all(InferenceEngine(
+            cfg32, p32, n_slots=8, paged=paged, seed=5), requests))
+        s0 = {k: stat_get(k) for k in ("serving_watchdog_trips",
+                                       "serving_watchdog_restarts")}
+        configure_faults(spec)
+        try:
+            eng = InferenceEngine(cfg32, p32, n_slots=8, paged=paged,
+                                  seed=5, watchdog=True,
+                                  flight_dir=flight_dir)
+            got = _outcomes(_submit_all(eng, requests))
+            eng.shutdown()
+        finally:
+            configure_faults("")
+        d = {k: stat_get(k) - v for k, v in s0.items()}
+        if got[NAN_RID][1:] != ("watchdog", "WatchdogTripped") \
+                or d["serving_watchdog_trips"] != 1 \
+                or d["serving_watchdog_restarts"] != 1:
+            raise AssertionError(f"{mode} watchdog run: request "
+                                 f"{NAN_RID} {got[NAN_RID][1:]}, {d}")
+        if any(o[1] != "length" for i, o in enumerate(got) if i != NAN_RID):
+            raise AssertionError(f"{mode}: healthy streams ended "
+                                 f"{[o[1] for o in got]}")
+        equal, ties = _hold_identity(
+            G, cfg32, p32, requests, [o[0] for o in base],
+            [o[0] for o in got], dev, skip=(NAN_RID,))
+        identity[mode] = {"streams_equal": equal + 2, "near_ties": ties,
+                          "of": len(requests) - 1, **d}
+    dumps = sorted(f for f in os.listdir(flight_dir)
+                   if f.endswith("_serving_watchdog_restart.json"))
+    for f in dumps:
+        with open(os.path.join(flight_dir, f)) as fh:
+            doc = json.load(fh)
+        if doc["flight"]["reason"] != "serving_watchdog_restart" \
+                or doc["flight"]["poisoned"] == []:
+            raise AssertionError(f"flight dump {f} is off: {doc['flight']}")
+    if len(dumps) != 2:
+        raise AssertionError(f"want 2 watchdog dumps, found {dumps}")
+    # the recorder stays armed once armed: disarm it, so the later legs'
+    # spans cost what they cost without it
+    disarm_flight_recorder()
+    del p32
+    torch.cuda.empty_cache()
+
+    # (2) each decode path at full depth, bf16, one poisoned slot
+    draft = G.gpt_truncate(cfg, params, 2)
+    paths = {"fixed": dict(paged=False), "paged": dict(paged=True),
+             "int8_paged": dict(paged=True, int8_weights=True),
+             "spec_paged": dict(paged=True, draft=draft, spec_k=SPEC_K)}
+    verdicts, launches = {}, {}
+    for name, kw in paths.items():
+        configure_faults(spec)
+        _fresh_peak(dev)
+        try:
+            eng = InferenceEngine(cfg, params, n_slots=8, seed=5,
+                                  watchdog=True, **kw)
+            log = _record_verdicts(eng)
+            _counts(mods)
+            reqs = _submit_all(eng, requests)
+            for r in reqs:
+                _record_pushes(r)
+            got = _outcomes(reqs)
+            launches[name] = _read(mods)
+            eng.shutdown()
+        finally:
+            configure_faults("")
+        row = _verdict_row(log, reqs)
+        bad = [o for i, o in enumerate(got) if i != NAN_RID
+               and (o[1] != "length" or len(o[0]) != RES_NEW)]
+        if got[NAN_RID][1] != "watchdog" or bad:
+            raise AssertionError(f"{name}: {got[NAN_RID][1:]}, {bad}")
+        pool = sum(t.numel() * t.element_size() for t in (
+            (eng.cache.kb, eng.cache.vb) if eng.paged
+            else (eng.cache.k, eng.cache.v)))
+        verdicts[name] = {**row, "peak_mem_gib":
+                          torch.cuda.max_memory_allocated(dev) / 2**30,
+                          "kv_pool_gib": pool / 2**30}
+        del eng, log
+    want = {"fixed": "flash_attention_fwd",
+            "paged": "paged_attention_decode",
+            "int8_paged": "int8_matmul", "spec_paged": None}
+    for name, kname in want.items():
+        if kname is not None and launches[name].get(kname, 0) <= 0:
+            raise AssertionError(f"{kname} never launched on {name}")
+
+    # the armed against the unarmed tick, in turns; the unarmed runs' peak
+    # memory beside the paged restart's
+    tick = {"armed": [], "unarmed": []}
+    unarmed_peak = []
+    for armed in (False, True, True, False, False, True):
+        _fresh_peak(dev)
+        h0 = get_histogram("serving_decode_tick_ms").snapshot()
+        eng = InferenceEngine(cfg, params, n_slots=8, paged=True, seed=5,
+                              watchdog=True if armed else None)
+        _outcomes(_submit_all(eng, requests))
+        eng.shutdown()
+        del eng
+        d = hist_delta(h0, get_histogram("serving_decode_tick_ms")
+                       .snapshot())
+        tick["armed" if armed else "unarmed"].append(d["sum"] / d["count"])
+        if not armed:
+            unarmed_peak.append(torch.cuda.max_memory_allocated(dev) / 2**30)
+    per_tick = {
+        name: _launches_per_tick(lambda wd=wd: InferenceEngine(
+            cfg, params, n_slots=8, paged=True, watchdog=wd),
+            _greedy(requests))
+        for name, wd in (("unarmed", None), ("armed", True))}
+
+    # (3) the budget spent: every open request fails with the cause
+    configure_faults("serving_nan@step=0")
+    try:
+        eng = InferenceEngine(cfg, params, n_slots=8, paged=True, seed=5,
+                              watchdog={"max_restarts": 0},
+                              flight_dir=flight_dir)
+        ex = _outcomes(_submit_all(eng, requests[:4]))
+        eng.shutdown()
+    finally:
+        configure_faults("")
+        disarm_flight_recorder()
+    if any(o[2] != "WatchdogTripped" for o in ex) or eng.alive \
+            or not any(f.endswith("engine_abort_WatchdogTripped.json")
+                       for f in os.listdir(flight_dir)):
+        raise AssertionError(f"exhausted budget: {ex}")
+    row = {"phase": "serving_watchdog", "model": "gpt_1p3b",
+           "fault": spec, "identity_f32": {"layers": IDENTITY_LAYERS,
+                                           **identity},
+           "flight_dumps": dumps, "layers": cfg.n_layers,
+           "verdicts": verdicts, "tick_ms": tick,
+           "unarmed_paged_peak_mem_gib": unarmed_peak,
+           "paged_restart_peak_over_unarmed_gib":
+               verdicts["paged"]["peak_mem_gib"] - max(unarmed_peak),
+           "armed_over_unarmed": float(np.mean(tick["armed"])
+                                       / np.mean(tick["unarmed"])),
+           "launches_per_tick": per_tick,
+           "exhausted": [o[1:] for o in ex], "launches": launches,
+           **stamp}
+    emit(row)
+    return row
+
+
+def _holding_controller():
+    """An OverloadController whose pressure stays inside its hysteresis
+    band (budgets far above any wait, a tiny low-water mark): it holds
+    whatever rung it is put on."""
+    from paddle_tpu_torch.serving import OverloadController
+
+    return OverloadController(queue_wait_budget_ms=1e9, tick_budget_ms=1e9,
+                              low_water=1e-15)
+
+
+def _chunk_spans(fn):
+    """Run ``fn`` with tracing on; returns (its result, the ``chunk`` arg
+    of every serving.prefill_chunk span)."""
+    from paddle_tpu_torch import monitor
+
+    writer = monitor.start_tracing()
+    try:
+        out = fn()
+    finally:
+        monitor.stop_tracing()
+    chunks = [e["args"]["chunk"] for e in writer.events()
+              if e["name"] == "serving.prefill_chunk"]
+    writer.clear()
+    return out, chunks
+
+
+def overload_phase(dev, cfg, params, mods, stamp):
+    """Phase 31: overload control at full depth, bf16, paged, with a
+    2-layer draft at SPEC_K: a controller held at rung 0 gives the greedy
+    tokens of overload=None; at rung 1 spec_proposed stops growing; at
+    rung 2 a 1500-token prompt prefills in CHUNK_RUNG2-token chunks
+    instead of CHUNK_RUNG0 (the serving.prefill_chunk spans' chunk arg).
+    Prints the brownout gauges and the queue-wait and tick histograms'
+    p50 and p99 over the phase."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor import (get_histogram, hist_delta,
+                                          hist_quantile)
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    draft = G.gpt_truncate(cfg, params, 2)
+    prompts = _greedy(phase5_requests(cfg.vocab_size, seed=31))
+    names = ("serving_queue_wait_ms", "serving_decode_tick_ms")
+    h0 = {n: get_histogram(n).snapshot() for n in names}
+    s0 = {k: stat_get(k) for k in ("brownout_steps", "spec_proposed")}
+    kw = dict(n_slots=8, paged=True, seed=5, draft=draft, spec_k=SPEC_K)
+    base = _generate(InferenceEngine(cfg, params, **kw), prompts, RES_NEW)
+    ctl = _holding_controller()
+    eng = InferenceEngine(cfg, params, overload=ctl, **kw)
+    try:
+        _counts(mods)
+        got = [r.result(timeout=600) for r in
+               [eng.submit(p, max_new_tokens=RES_NEW) for p in prompts]]
+        rung0_proposed = stat_get("spec_proposed") - s0["spec_proposed"]
+        ctl.force_rung(1)
+        p1 = stat_get("spec_proposed")
+        [r.result(timeout=600) for r in
+         [eng.submit(p, max_new_tokens=RES_NEW) for p in prompts[:4]]]
+        rung1_growth = stat_get("spec_proposed") - p1
+        long = prompts[-1]
+        _, rung1_chunks = _chunk_spans(
+            lambda: eng.generate(long, max_new_tokens=1))
+        ctl.force_rung(2)
+        _, rung2_chunks = _chunk_spans(
+            lambda: eng.generate(long, max_new_tokens=1))
+        # rungs 0-2 together: the speculative ticks attend in composed
+        # PyTorch, rung 1's one-token ticks launch the paged kernel
+        launches = _read(mods)
+    finally:
+        eng.shutdown()
+    rung = stat_get("brownout_rung")
+    d = {n: hist_delta(h0[n], get_histogram(n).snapshot()) for n in names}
+    row = {"phase": "serving_overload", "mode": "paged",
+           "model": "gpt_1p3b", "layers": cfg.n_layers, "draft_layers": 2,
+           "spec_k": SPEC_K, "rung0_greedy_equal": got == base,
+           "rung0_spec_proposed": rung0_proposed,
+           "rung1_spec_proposed_growth": rung1_growth,
+           "prompt_tokens": int(long.size),
+           "rung1_chunks": len(rung1_chunks),
+           "rung1_chunk_sizes": sorted(set(rung1_chunks)),
+           "rung2_chunks": len(rung2_chunks),
+           "rung2_chunk_sizes": sorted(set(rung2_chunks)),
+           "brownout_rung": rung,
+           "brownout_steps": stat_get("brownout_steps")
+           - s0["brownout_steps"],
+           "histograms": {n: {"count": d[n]["count"],
+                              "p50_ms": hist_quantile(d[n], 0.5),
+                              "p99_ms": hist_quantile(d[n], 0.99)}
+                          for n in names},
+           "launches": launches, **stamp}
+    emit(row)
+    if not row["rung0_greedy_equal"] or rung0_proposed <= 0 \
+            or rung1_growth != 0 or rung != 2 \
+            or max(rung1_chunks) != CHUNK_RUNG0 \
+            or max(rung2_chunks) != CHUNK_RUNG2 \
+            or sum(rung2_chunks) != long.size \
+            or sum(rung1_chunks) != long.size \
+            or launches["paged_attention_decode"] <= 0:
+        raise AssertionError(f"overload run is off: {row}")
+    return row
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _payload_bytes(kb, vb):
+    return sum(t.numel() * t.element_size() for t in (kb, vb))
+
+
+def kv_stream_phase(dev, cfg, params, mods, stamp):
+    """Phase 32: KV streaming between two bf16 engines at full depth,
+    paged with the prefix cache, on one card. A prefills a 1024-token
+    prompt; export_kv_prefix from A and import_kv_prefix into B move its
+    64 blocks; B's greedy stream equals A's second submission. Then a
+    1500-token prompt streams in STREAM_CHUNK_BLOCKS-block chunks
+    (export_kv_range / import_kv_chunk) while A prefills it, until done.
+    Bytes, ms and GB/s of each export and import; B's hit rate and
+    first-token ms against a cold submission."""
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    rng = np.random.default_rng(32)
+    V = cfg.vocab_size
+    p1 = rng.integers(0, V, 1024).astype(np.int32)
+    p2 = rng.integers(0, V, 1500).astype(np.int32)
+    cold = rng.integers(0, V, 1024).astype(np.int32)
+    kw = dict(n_slots=8, paged=True, prefix_cache=True, seed=5)
+    a = InferenceEngine(cfg, params, **kw)
+    b = InferenceEngine(cfg, params, **kw)
+    try:
+        _counts(mods)
+        a.warm_prefix(p1).result(timeout=600)
+        exp, exp_ms = _timed(lambda: a.export_kv_prefix(p1, timeout=600))
+        nbytes = _payload_bytes(exp["kb"], exp["vb"])
+        m0 = (stat_get("prefix_matched_tokens"),
+              stat_get("prefix_lookup_tokens"))
+        cached, imp_ms = _timed(lambda: b.import_kv_prefix(
+            p1, exp["kb"], exp["vb"], exp["matched_len"], timeout=600))
+        rb = b.submit(p1, max_new_tokens=RES_NEW)
+        got = rb.result(timeout=600)
+        hit = ((stat_get("prefix_matched_tokens") - m0[0])
+               / max(stat_get("prefix_lookup_tokens") - m0[1], 1))
+        want = a.generate(p1, max_new_tokens=RES_NEW)
+        rc = b.submit(cold, max_new_tokens=RES_NEW)
+        rc.result(timeout=600)
+        # the chunked stream while A prefills the 1500-token prompt
+        warm = a.warm_prefix(p2)
+        chunks, ack = [], 0
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            e, ems = _timed(lambda: a.export_kv_range(
+                p2, start_block=ack // a.block_size,
+                max_blocks=STREAM_CHUNK_BLOCKS, timeout=600))
+            if e["n_blocks"] > 0:
+                got_ack, ims = _timed(lambda: b.import_kv_chunk(
+                    p2, e["kb"], e["vb"], e["start_block"],
+                    e["covered_tokens"], timeout=600))
+                nb = _payload_bytes(e["kb"], e["vb"])
+                chunks.append({"start_block": e["start_block"],
+                               "n_blocks": e["n_blocks"], "bytes": nb,
+                               "done": e["done"], "export_ms": ems,
+                               "import_ms": ims,
+                               "export_gb_s": nb / ems / 1e6,
+                               "import_gb_s": nb / ims / 1e6})
+                if got_ack <= ack:
+                    raise AssertionError(f"stream stalled at {ack}")
+                ack = got_ack
+            if e["done"] and ack >= e["matched_len"]:
+                break
+        warm.result(timeout=600)
+        got2 = b.generate(p2, max_new_tokens=RES_NEW)
+        want2 = a.generate(p2, max_new_tokens=RES_NEW)
+        launches = _read(mods)
+    finally:
+        a.shutdown()
+        b.shutdown()
+    row = {"phase": "serving_kv_stream", "mode": "paged",
+           "model": "gpt_1p3b", "layers": cfg.n_layers,
+           "prefix_tokens": int(p1.size), "matched_len": exp["matched_len"],
+           "dtype": exp["dtype"], "shape": exp["shape"],
+           "export_bytes": nbytes, "export_ms": exp_ms,
+           "export_gb_s": nbytes / exp_ms / 1e6, "import_ms": imp_ms,
+           "import_gb_s": nbytes / imp_ms / 1e6, "imported_tokens": cached,
+           "greedy_equal_to_source": got == want,
+           "b_prefix_hit_rate": hit,
+           "b_first_token_ms": (rb._t_first - rb._t_submit) * 1e3,
+           "b_cold_first_token_ms": (rc._t_first - rc._t_submit) * 1e3,
+           "stream_prompt_tokens": int(p2.size), "stream_ack": ack,
+           "stream_chunks": chunks,
+           "stream_mid_prefill_chunks": sum(not c["done"] for c in chunks),
+           "stream_greedy_equal_to_source": got2 == want2,
+           "launches": launches, **stamp}
+    emit(row)
+    if not row["greedy_equal_to_source"] or cached < p1.size - 1 \
+            or exp["shape"][0] != 64 or ack != p2.size - 1 \
+            or not row["stream_greedy_equal_to_source"] or hit <= 0 \
+            or launches["paged_attention_decode"] <= 0:
+        raise AssertionError(f"KV streaming run is off: {row}")
+    return row
+
+
+def _evacuate_run(G, cfg32, p32, requests, flight_dir):
+    """A (replica 0) serves phase 5's mix with fixed slots; once its 8
+    running streams have 2 tokens each it is evacuated, and its failover
+    hook adopts every stream into B (replica 1). Returns (outcomes, B,
+    adopted request ids)."""
+    from paddle_tpu_torch.serving import InferenceEngine, ReplicaEvacuated
+
+    a = InferenceEngine(cfg32, p32, n_slots=8, seed=5, replica_id=0)
+    b = InferenceEngine(cfg32, p32, n_slots=8, seed=5, replica_id=1,
+                        flight_dir=flight_dir)
+    adopted = []
+
+    def hook(req, err):
+        if not isinstance(err, ReplicaEvacuated):
+            return False
+        b.adopt_request(req)
+        adopted.append(req.rid)
+        return True
+
+    a.failover = hook
+    reqs = _submit_all(a, requests)
+    deadline = time.monotonic() + 600
+    while sum(len(r.tokens) >= 2 for r in reqs) < 8:
+        if time.monotonic() > deadline:
+            raise AssertionError("streams never reached 2 tokens on A")
+        time.sleep(0.001)
+    a.evacuate()
+    at = [len(r.tokens) for r in reqs]   # no more than A's next tick adds
+    out = _outcomes(reqs)
+    a.shutdown()
+    return out, b, adopted, at
+
+
+def failover_phase(dev, cfg, params, mods, stamp, flight_dir):
+    """Phase 33: failover, crash and tracing. f32 at full width,
+    IDENTITY_LAYERS layers: A is evacuated mid-decode and its failover
+    hook adopts every stream into B, each token-identical to an
+    undisturbed run (greedy and sampled); fail_at_tick(2) on B raises
+    InjectedCrash, closes B, dumps engine_abort_InjectedCrash, and a later
+    submit names the cause; with tracing on and mint_trace() on 8 paged
+    requests the chrome trace holds one serving.decode_step a tick,
+    serving.decode_tick events a request, serving.prefill_chunk spans,
+    one serving.request_done and one "f" flow a request. bf16 at full
+    depth: ms a tick with tracing on and off, in turns."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor import get_histogram, hist_delta
+    from paddle_tpu_torch.resilience import InjectedCrash
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    requests = phase5_requests(cfg.vocab_size, seed=33)
+    prompts = _greedy(requests)
+    cfg32 = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
+    p32 = _scaled_params(G, cfg32, dev)
+    want = [o[0] for o in _outcomes(_submit_all(InferenceEngine(
+        cfg32, p32, n_slots=8, seed=5), requests))]
+    _counts(mods)
+    got, b, adopted, at = _evacuate_run(G, cfg32, p32, requests, flight_dir)
+    launches = _read(mods)
+    if sorted(adopted) != list(range(len(requests))) \
+            or any(o[1] != "length" for o in got):
+        raise AssertionError(f"evacuation: adopted {adopted}, "
+                             f"{[o[1] for o in got]}")
+    equal, ties = _hold_identity(G, cfg32, p32, requests, want,
+                                 [o[0] for o in got], dev)
+    # the crash
+    b.fail_at_tick(2)
+    r = b.submit(prompts[0], max_new_tokens=RES_NEW)
+    crash = _outcomes([r])[0]
+    b._thread.join(60)
+    try:
+        b.submit(prompts[0], max_new_tokens=1)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    monitor.disarm_flight_recorder()
+    dumps = [f for f in os.listdir(flight_dir)
+             if f.endswith("engine_abort_InjectedCrash.json")]
+    for f in dumps:
+        with open(os.path.join(flight_dir, f)) as fh:
+            json.load(fh)
+    if crash[2] != InjectedCrash.__name__ or b.alive or not dumps \
+            or refused is None or "InjectedCrash" not in refused:
+        raise AssertionError(f"crash leg: {crash[1:]}, alive {b.alive}, "
+                             f"dumps {dumps}, submit {refused}")
+    # tracing, f32 paged: 8 traced requests
+    eng = InferenceEngine(cfg32, p32, n_slots=8, paged=True, seed=5)
+    h0 = get_histogram("serving_decode_tick_ms").snapshot()
+    writer = monitor.start_tracing()
+    try:
+        reqs = [eng.submit(p, max_new_tokens=RES_NEW,
+                           trace=monitor.mint_trace())
+                for p in prompts]
+        [q.result(timeout=600) for q in reqs]
+    finally:
+        monitor.stop_tracing()
+        eng.shutdown()
+    ticks = hist_delta(h0, get_histogram("serving_decode_tick_ms")
+                       .snapshot())["count"]
+    with tempfile.TemporaryDirectory() as d:
+        path = writer.write(os.path.join(d, "serving_trace.json"))
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    writer.clear()
+    ids = {q.trace.trace_id for q in reqs}
+    per = {i: {} for i in ids}
+    for e in events:
+        tid = (e.get("args") or {}).get("trace", e.get("id"))
+        if tid in per:
+            key = e["name"] if e["name"] != "request" else "flow_" + e["ph"]
+            per[tid][key] = per[tid].get(key, 0) + 1
+    steps = sum(e["name"] == "serving.decode_step" for e in events)
+    tr = {"decode_steps": steps, "decode_ticks_run": ticks,
+          "per_request": sorted(
+              (v.get("serving.decode_tick", 0),
+               v.get("serving.prefill_chunk", 0),
+               v.get("serving.request_done", 0), v.get("flow_f", 0))
+              for v in per.values()),
+          "events": len(events)}
+    if steps != ticks or any(
+            n_tick != RES_NEW - 1 or n_chunk < 1 or done != 1 or f != 1
+            for n_tick, n_chunk, done, f in tr["per_request"]):
+        raise AssertionError(f"trace is off: {tr}")
+    del p32
+    torch.cuda.empty_cache()
+    # bf16 at full depth: ms a tick with tracing on and off, in turns
+    tick = {"on": [], "off": []}
+    for on in (False, True, True, False):
+        h0 = get_histogram("serving_decode_tick_ms").snapshot()
+        eng = InferenceEngine(cfg, params, n_slots=8, paged=True, seed=5)
+        writer = monitor.start_tracing() if on else None
+        try:
+            [q.result(timeout=600) for q in
+             [eng.submit(p, max_new_tokens=RES_NEW,
+                         trace=monitor.mint_trace() if on else None)
+              for p in prompts]]
+        finally:
+            if on:
+                monitor.stop_tracing()
+                writer.clear()
+            eng.shutdown()
+        d = hist_delta(h0, get_histogram("serving_decode_tick_ms")
+                       .snapshot())
+        tick["on" if on else "off"].append(d["sum"] / d["count"])
+    row = {"phase": "serving_failover", "model": "gpt_1p3b",
+           "identity_f32": {"layers": IDENTITY_LAYERS, "mode": "fixed",
+                            "adopted": len(adopted),
+                            "tokens_at_evacuation": at,
+                            "streams_equal": equal + 2, "near_ties": ties,
+                            "of": len(requests)},
+           "crash": {"finish": crash[1], "error": crash[2],
+                     "dumps": dumps, "submit_after": refused},
+           "trace_f32_paged": tr, "tick_ms_bf16": tick,
+           "tracing_on_over_off": float(np.mean(tick["on"])
+                                        / np.mean(tick["off"])),
+           "layers": cfg.n_layers, "launches": launches, **stamp}
+    emit(row)
+    if launches["flash_attention_fwd"] <= 0:
+        raise AssertionError("flash_attention_fwd never launched in the "
+                             "failover run")
+    return row
+
+
 def _kernel(name, source, replaces, launches, row, err, keys, library):
     ms, plain, bnd, by = keys
     return {"name": name, "route": "cuda", "source": source,
@@ -2800,6 +3493,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
     from paddle_tpu_torch.models import gpt as G
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -2891,6 +3585,24 @@ def main():
     runs_spec = spec_phase(dev, cfg, params, fa, pa, stamp)
     prefix = prefix_phase(dev, cfg, params, fa, pa, stamp)
     text_phase(dev, cfg, params, stamp)
+    mods = {"flash_attention_fwd": fa, "paged_attention_decode": pa,
+            "int8_matmul": im}
+    res_s = {}                         # phases 30-33's seconds each
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        res_s[name] = time.perf_counter() - t
+        return out
+
+    with tempfile.TemporaryDirectory() as flight_dir:
+        wd = timed("watchdog", watchdog_phase, dev, cfg, params, mods,
+                   stamp, flight_dir)
+        ov = timed("overload", overload_phase, dev, cfg, params, mods, stamp)
+        kv = timed("kv_stream", kv_stream_phase, dev, cfg, params, mods,
+                   stamp)
+        fo_run = timed("failover", failover_phase, dev, cfg, params, mods,
+                       stamp, flight_dir)
     del params
     torch.cuda.empty_cache()
 
@@ -3045,10 +3757,18 @@ def main():
              "training_paddle_bert_fused": bl,
              "serving_spec_fixed": runs_spec[False]["launches"],
              "serving_spec_paged": runs_spec[True]["launches"],
-             "serving_prefix_paged": prefix["launches"]}
+             "serving_prefix_paged": prefix["launches"],
+             **{f"serving_watchdog_{k}": v
+                for k, v in wd["launches"].items()},
+             "serving_overload_spec_paged": ov["launches"],
+             "serving_kv_stream_paged": kv["launches"],
+             "serving_failover_fixed": fo_run["launches"]}
     for k in kernels:
         k["launches_by_path"] = {name: counts.get(k["name"], 0)
                                  for name, counts in paths.items()}
+    emit({"phase": "seconds", "resilience_phases_s": res_s,
+          "resilience_total_s": sum(res_s.values()),
+          "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

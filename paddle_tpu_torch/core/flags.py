@@ -15,8 +15,10 @@ Own copy of the ``_truthy`` cells of ``paddle_tpu/core/native.py``:
   ``GPTConfig.fp8`` is None (the serving engine pins it at construction);
 - ``FLAGS_prefix_cache``: the engine's radix prefix cache when
   ``InferenceEngine(prefix_cache=None)`` (paged mode only);
-- ``FLAGS_fault_inject``: the fault-injection spec string, not ported yet
-  (``DistributedTrainStep`` raises while it is non-empty).
+- ``FLAGS_fault_inject``: the fault-injection spec string; setting it
+  reconfigures ``resilience/faults.py``'s registry (its watcher), whose
+  serving kinds the engine fires (``DistributedTrainStep`` raises while
+  it is non-empty: the train-step hooks are not ported).
 
 Each is a one-element list so callers can flip it at run time;
 :func:`set_flag` / :func:`get_flag` (``paddle.set_flags`` /
@@ -58,8 +60,10 @@ fp8_matmul = [_truthy(os.environ.get("FLAGS_fp8_matmul", "0"))]
 # when the engine leaves prefix_cache unset
 prefix_cache = [_truthy(os.environ.get("FLAGS_prefix_cache", "0"))]
 
-# train step: deterministic fault injection spec (not ported yet)
+# deterministic fault injection spec; resilience.faults registers a
+# watcher here so set_flag reconfigures its registry at once
 fault_inject = [os.environ.get("FLAGS_fault_inject", "")]
+fault_inject_watchers: list = []
 
 
 def _cell(name: str) -> list:
@@ -80,7 +84,12 @@ def _cell(name: str) -> list:
 
 def set_flag(name: str, value) -> None:
     cell = _cell(name)
-    cell[0] = str(value) if cell is fault_inject else _truthy(value)
+    if cell is fault_inject:
+        cell[0] = str(value)
+        for watcher in fault_inject_watchers:
+            watcher(cell[0])
+    else:
+        cell[0] = _truthy(value)
 
 
 def get_flag(name: str):

@@ -3,7 +3,9 @@
 // (+ b[n]), cast to the output dtype; optionally after quantizing the
 // activations (x in bf16 or f32, one scale for the whole tensor:
 // xs = max(max|x|, 1e-8) / 127, xq = round(x / xs) clipped to ±127, round
-// half to even, all in f32).
+// half to even, all in f32; a NaN is left out of the abs-max and makes
+// its own row's scale NaN, so it reaches that row of the output and no
+// other: a poisoned batch row stays in its row).
 //
 // Replaces: paddle_tpu/ops/int8_matmul.py `_int8_kernel` (launched by
 // `_int8_matmul_2d`, pallas_call at :92) and the quantization of
@@ -306,11 +308,14 @@ __global__ void __launch_bounds__(NT, 2) int8_mm(const Args p) {
 
 // the activations' quantization by one cluster of QB blocks, each a
 // slice of x: the abs-max of all of x (the slices' maxima exchanged in
-// distributed shared memory), the scale max(amax, 1e-8) / 127, then
-// round(x / scale) clipped to ±127
+// distributed shared memory; a NaN or inf is left out), the scale
+// max(amax, 1e-8) / 127, then round(x / scale) clipped to ±127. The
+// scale is written once a row of K (rows r ≡ b mod QB to block b): NaN
+// for a row holding a NaN or inf, the tensor's scale for every other
+// row, so a non-finite row reaches its own output row and no other.
 template <typename XT>
 __global__ void __launch_bounds__(QT) int8_quantize(const XT* __restrict__ x,
-                                                    int total,
+                                                    int total, int K,
                                                     int8_t* __restrict__ xq,
                                                     float* __restrict__ scale) {
   // the product kernel behind this one may start its weight loads now
@@ -323,8 +328,10 @@ __global__ void __launch_bounds__(QT) int8_quantize(const XT* __restrict__ x,
   const int i0 = min(b * chunk, total), i1 = min(i0 + chunk, total);
   float m = 0.f;
 #pragma unroll 8
-  for (int i = i0 + tid; i < i1; i += QT)
-    m = fmaxf(m, fabsf(ptt::to_f<XT>(x[i])));
+  for (int i = i0 + tid; i < i1; i += QT) {
+    const float v = fabsf(ptt::to_f<XT>(x[i]));
+    m = fmaxf(m, isfinite(v) ? v : 0.f);
+  }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
@@ -341,11 +348,17 @@ __global__ void __launch_bounds__(QT) int8_quantize(const XT* __restrict__ x,
   for (int r = 0; r < QB; ++r) a = fmaxf(a, *cluster.map_shared_rank(&amax, r));
   cluster_arrive();                    // the others' maxima are read
   const float s = __fdiv_rn(fmaxf(a, 1e-8f), 127.f);
-  if (b == 0 && tid == 0) *scale = s;
 #pragma unroll 8
   for (int i = i0 + tid; i < i1; i += QT) {
     const float q = rintf(__fdiv_rn(ptt::to_f<XT>(x[i]), s));
     xq[i] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+  }
+  for (int r = b; r < total / K; r += QB) {
+    int bad = 0;
+    for (int k = tid; k < K; k += QT)
+      bad |= !isfinite(ptt::to_f<XT>(x[(size_t)r * K + k]));
+    bad = __syncthreads_or(bad);
+    if (tid == 0) scale[r] = bad ? __int_as_float(0x7fc00000) : s;
   }
   cluster_wait();
 }
@@ -436,8 +449,8 @@ Args args_of(const void* xq, const void* w, const float* xs, int xs_per_row,
 
 // the quantizing cluster on stream s
 template <typename XT>
-int launch_quantize(const void* x, int total, int8_t* xq, float* scale,
-                    cudaStream_t s) {
+int launch_quantize(const void* x, int total, int K, int8_t* xq,
+                    float* scale, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(QB);
   cfg.blockDim = dim3(QT);
@@ -451,7 +464,7 @@ int launch_quantize(const void* x, int total, int8_t* xq, float* scale,
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, int8_quantize<XT>,
                                            static_cast<const XT*>(x), total,
-                                           xq, scale);
+                                           K, xq, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -474,9 +487,10 @@ extern "C" int int8_matmul(const void* xq, const void* w, const float* xs,
 }
 
 // The same product of x (M, K) in `x_dtype` (0 f32, 1 bf16), quantized
-// per tensor first: xq_buf (M, K) int8 and scale_buf (1) f32 are scratch
-// for the codes and the scale. Two launches (the quantizing cluster, then
-// the product as its programmatic dependent); returns the CUDA error.
+// per tensor first: xq_buf (M, K) int8 and scale_buf (M) f32 are scratch
+// for the codes and the scale (a row's copy, NaN where the row holds a
+// NaN). Two launches (the quantizing cluster, then the product as its
+// programmatic dependent); returns the CUDA error.
 extern "C" int int8_matmul_quantized(const void* x, int x_dtype,
                                      void* xq_buf, float* scale_buf,
                                      const void* w, const float* ws,
@@ -489,10 +503,10 @@ extern "C" int int8_matmul_quantized(const void* x, int x_dtype,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(xq_buf);
   const int e = x_dtype == ptt::kBF16
-      ? launch_quantize<__nv_bfloat16>(x, M * K, q, scale_buf, s)
-      : launch_quantize<float>(x, M * K, q, scale_buf, s);
+      ? launch_quantize<__nv_bfloat16>(x, M * K, K, q, scale_buf, s)
+      : launch_quantize<float>(x, M * K, K, q, scale_buf, s);
   if (e) return e;
-  return launch(args_of(q, w, scale_buf, 0, ws, b, out, M, K, N, out_dtype,
+  return launch(args_of(q, w, scale_buf, 1, ws, b, out, M, K, N, out_dtype,
                         true),
                 true, s);
 }

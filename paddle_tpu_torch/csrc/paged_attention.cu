@@ -83,6 +83,14 @@ __host__ __device__ constexpr int smem_of(int hd, int bs, int elt) {
   return ring_stages(2 * bs * hd * elt) * 2 * bs * hd * elt;
 }
 
+// max that keeps a NaN (fmaxf returns the other operand): a NaN score
+// or softmax state then reaches the output, as it does through the plain
+// version's softmax, so a poisoned slot reads non-finite. Equal to fmaxf
+// on every other input.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
 __device__ __forceinline__ void prefetch_l1(const void* p) {
   asm volatile("prefetch.global.L1 [%0];\n" :: "l"(p));
 }
@@ -259,9 +267,9 @@ paged_decode(const Params p) {
       float mx = sc;                   // max over the warp's keys
 #pragma unroll
       for (int o = 16; o >= 32 / KPW; o /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       if (mx != -INFINITY) {           // the warp has a live key here
-        const float m_new = fmaxf(m, mx);
+        const float m_new = max_nan(m, mx);
         const float alpha = expf(m - m_new);
         const float pk = sc == -INFINITY ? 0.f : expf(sc - m_new);
         float rs = pk;
@@ -300,7 +308,7 @@ paged_decode(const Params p) {
   {
     float M = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, w_m[w]);
+    for (int w = 0; w < NW; ++w) M = max_nan(M, w_m[w]);
     float c[NW], Ls = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
@@ -330,7 +338,7 @@ paged_decode(const Params p) {
     float M = -INFINITY;
 #pragma unroll
     for (int r = 0; r < CL_MAX; ++r)
-      if (r < CL) M = fmaxf(M, parts[r][0]);
+      if (r < CL) M = max_nan(M, parts[r][0]);
     float Ls = 0.f, a = 0.f;
 #pragma unroll
     for (int r = 0; r < CL_MAX; ++r) {

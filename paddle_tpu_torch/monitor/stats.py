@@ -1,22 +1,27 @@
-"""Minimal gauge registry: the serving and KV-pool gauges the ported
-engine and cache set, the ``train_steps`` counter the train step bumps,
-the ``fused_optimizer_steps`` / ``int8_matmul_calls`` /
+"""Gauge and histogram registry: the serving and KV-pool gauges the
+ported engine and cache set, the ``train_steps`` counter the train step
+bumps, the ``fused_optimizer_steps`` / ``int8_matmul_calls`` /
 ``fp8_matmul_calls`` counters of the fused optimizer and the int8 and
 fp8 matmuls, the MoE router's ``moe_expert_load`` gauge and
 ``moe_tokens_dropped`` counter, the ``fused_kernel_calls`` counter of
-``ops/fused.py``, and the engine's speculative-decoding, prefix-cache and
-constrained-decoding stats (a subset of ``paddle_tpu/monitor/stats.py``,
-with its names).
+``ops/fused.py``, the engine's speculative-decoding, prefix-cache and
+constrained-decoding stats, its watchdog and brownout stats, the
+injected-fault counter, and the engine's latency histograms (a subset of
+``paddle_tpu/monitor/stats.py``, with its names).
 
-A :class:`Stat` is a named int64 gauge; :class:`StatRegistry` is the
-process-wide thread-safe registry. Tracing spans and latency histograms
-wait for a later slice.
+A :class:`Stat` is a named int64 gauge; a :class:`Histogram` a
+fixed-bucket (log2) latency histogram with count and sum;
+:class:`StatRegistry` the process-wide thread-safe registry of both.
+``prometheus_text`` and the memory gauges wait for the front end.
 """
 from __future__ import annotations
 
 import threading
 
-__all__ = ["Stat", "StatRegistry", "stat_get"]
+__all__ = ["Stat", "StatRegistry", "stat_get", "stat_add", "stat_reset",
+           "stat_names", "stat_snapshot", "reset_all_stats", "Histogram",
+           "DEFAULT_HISTOGRAMS", "hist_observe", "get_histogram",
+           "histogram_snapshot", "hist_delta", "hist_quantile"]
 
 
 class Stat:
@@ -40,27 +45,192 @@ class Stat:
     def get(self) -> int:
         return self._value
 
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0
+
     def __repr__(self):
         return f"Stat({self.name}={self._value})"
 
 
+# log2-spaced bucket bounds (milliseconds): 0.125 ms .. 8.192 s, shared by
+# every default histogram so quantiles of two metrics read off one
+# resolution
+DEFAULT_BUCKETS_MS = tuple(2.0 ** k for k in range(-3, 14))
+
+
+class Histogram:
+    """Fixed-bucket latency histogram (Prometheus semantics: per-bucket
+    counts with a +Inf overflow bucket, count and sum). The bounds never
+    move, so two snapshots diff cleanly (:func:`hist_delta`)."""
+
+    __slots__ = ("name", "bounds", "_counts", "_count", "_sum", "_lock")
+
+    def __init__(self, name: str, bounds=DEFAULT_BUCKETS_MS):
+        self.name = name
+        self.bounds = tuple(float(b) for b in bounds)
+        if list(self.bounds) != sorted(set(self.bounds)):
+            raise ValueError(f"histogram bounds must be strictly "
+                             f"increasing, got {bounds}")
+        self._counts = [0] * (len(self.bounds) + 1)   # +1 = +Inf overflow
+        self._count = 0
+        self._sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        i = 0
+        for b in self.bounds:
+            if v <= b:
+                break
+            i += 1
+        with self._lock:
+            self._counts[i] += 1
+            self._count += 1
+            self._sum += v
+
+    def snapshot(self) -> dict:
+        """{"bounds", "counts" (per bucket, not cumulative, +Inf last),
+        "count", "sum"}."""
+        with self._lock:
+            return {"bounds": list(self.bounds),
+                    "counts": list(self._counts),
+                    "count": self._count, "sum": self._sum}
+
+    def quantile(self, q: float) -> float:
+        return hist_quantile(self.snapshot(), q)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = [0] * (len(self.bounds) + 1)
+            self._count = 0
+            self._sum = 0.0
+
+    def __repr__(self):
+        return f"Histogram({self.name}, count={self._count})"
+
+
+def hist_delta(before: dict, after: dict) -> dict:
+    """The observations made between two snapshots of one histogram."""
+    if before["bounds"] != after["bounds"]:
+        raise ValueError("histogram snapshots have different bounds")
+    return {"bounds": list(after["bounds"]),
+            "counts": [a - b for a, b in zip(after["counts"],
+                                             before["counts"])],
+            "count": after["count"] - before["count"],
+            "sum": after["sum"] - before["sum"]}
+
+
+def hist_quantile(snap: dict, q: float) -> float:
+    """Quantile estimate from a snapshot: linear interpolation inside the
+    bucket where the cumulative count crosses ``q`` (the +Inf bucket
+    clamps to the last finite bound); 0.0 for an empty snapshot."""
+    count = snap["count"]
+    if count <= 0:
+        return 0.0
+    rank = q * count
+    cum = 0
+    lo = 0.0
+    for i, c in enumerate(snap["counts"]):
+        nxt = cum + c
+        if nxt >= rank and c > 0:
+            if i >= len(snap["bounds"]):
+                return float(snap["bounds"][-1])
+            hi = snap["bounds"][i]
+            return float(lo + (hi - lo) * (rank - cum) / c)
+        cum = nxt
+        if i < len(snap["bounds"]):
+            lo = snap["bounds"][i]
+    return float(snap["bounds"][-1])
+
+
 class StatRegistry:
-    """Thread-safe name → Stat map."""
+    """Thread-safe registry of Stats and Histograms by name."""
 
     def __init__(self):
         self._stats: dict = {}
+        self._hists: dict = {}
         self._lock = threading.Lock()
 
     def get_stat(self, name: str) -> Stat:
         with self._lock:
             return self._stats.setdefault(name, Stat(name))
 
+    def get_histogram(self, name: str,
+                      bounds=DEFAULT_BUCKETS_MS) -> Histogram:
+        with self._lock:
+            h = self._hists.get(name)
+            if h is None:
+                h = self._hists[name] = Histogram(name, bounds)
+            return h
+
+    def histogram_snapshot(self) -> dict:
+        with self._lock:
+            hists = sorted(self._hists.items())
+        return {n: h.snapshot() for n, h in hists}
+
+    def add(self, name: str, delta: int = 1) -> None:
+        self.get_stat(name).add(delta)
+
+    def get(self, name: str) -> int:
+        return self.get_stat(name).get()
+
+    def reset(self, name: str) -> None:
+        self.get_stat(name).reset()
+
+    def reset_all(self) -> None:
+        with self._lock:
+            for s in self._stats.values():
+                s.reset()
+            for h in self._hists.values():
+                h.reset()
+
+    def names(self):
+        with self._lock:
+            return sorted(self._stats)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {n: s.get() for n, s in sorted(self._stats.items())}
+
 
 _registry = StatRegistry()
 
 
+def stat_add(name: str, delta: int = 1) -> None:
+    _registry.add(name, delta)
+
+
 def stat_get(name: str) -> int:
-    return _registry.get_stat(name).get()
+    return _registry.get(name)
+
+
+def stat_reset(name: str) -> None:
+    _registry.reset(name)
+
+
+def stat_names():
+    return _registry.names()
+
+
+def stat_snapshot() -> dict:
+    return _registry.snapshot()
+
+
+def reset_all_stats() -> None:
+    _registry.reset_all()
+
+
+def hist_observe(name: str, value: float) -> None:
+    _registry.get_histogram(name).observe(value)
+
+
+def get_histogram(name: str) -> Histogram:
+    return _registry.get_histogram(name)
+
+
+def histogram_snapshot() -> dict:
+    return _registry.histogram_snapshot()
 
 
 SERVING_QUEUE_DEPTH = _registry.get_stat("serving_queue_depth")
@@ -102,3 +272,38 @@ PREFIX_COW_COPIES = _registry.get_stat("prefix_cow_copies")
 # speculative ticks dropped to the one-token tick for them
 CONSTRAINED_REQUESTS = _registry.get_stat("constrained_requests")
 CONSTRAINED_FALLBACK_TICKS = _registry.get_stat("constrained_fallback_ticks")
+# serving watchdog: NaN-tick / latency-stall verdicts, and engine
+# restarts from the last healthy state
+SERVING_WATCHDOG_TRIPS = _registry.get_stat("serving_watchdog_trips")
+SERVING_WATCHDOG_RESTARTS = _registry.get_stat("serving_watchdog_restarts")
+# brownout ladder: the current rung (gauge) and transitions taken
+BROWNOUT_RUNG = _registry.get_stat("brownout_rung")
+BROWNOUT_STEPS = _registry.get_stat("brownout_steps")
+# FLAGS_fault_inject faults that fired
+FAULTS_INJECTED = _registry.get_stat("faults_injected")
+
+# the engine's latency histograms, recorded at the source (ms)
+DEFAULT_HISTOGRAMS = (
+    ("serving_first_token_ms",
+     "submit-to-first-token latency per request (ms)"),
+    ("serving_per_token_ms",
+     "steady-state inter-token latency per request, "
+     "(t_last - t_first)/(n-1) (ms)"),
+    ("serving_queue_wait_ms",
+     "queue wait before the engine admits a request (ms)"),
+    ("serving_decode_tick_ms",
+     "batched decode tick wall latency (ms)"),
+    ("serving_prefill_chunk_ms",
+     "prefill work quantum wall latency: one chunk (paged) or one "
+     "whole-prompt prefill (fixed) (ms)"),
+)
+
+for _n, _ in DEFAULT_HISTOGRAMS:
+    _registry.get_histogram(_n)
+
+SERVING_FIRST_TOKEN_MS = _registry.get_histogram("serving_first_token_ms")
+SERVING_PER_TOKEN_MS = _registry.get_histogram("serving_per_token_ms")
+SERVING_QUEUE_WAIT_MS = _registry.get_histogram("serving_queue_wait_ms")
+SERVING_DECODE_TICK_MS = _registry.get_histogram("serving_decode_tick_ms")
+SERVING_PREFILL_CHUNK_MS = _registry.get_histogram(
+    "serving_prefill_chunk_ms")

@@ -115,7 +115,7 @@ def _launch(x2, wq, wscale, xs, bias, out_dtype):
     stream = torch.cuda.current_stream(dev).cuda_stream
     if quantize:
         xq = torch.empty((M, K), dtype=torch.int8, device=dev)
-        scale = torch.empty(1, dtype=torch.float32, device=dev)
+        scale = torch.empty(M, dtype=torch.float32, device=dev)
         err = lib.int8_matmul_quantized(
             x2.data_ptr(), _DTYPES[x2.dtype], xq.data_ptr(),
             scale.data_ptr(), wq.data_ptr(), wscale.data_ptr(), b,
@@ -173,11 +173,18 @@ def _quantize(x32, scale):
 def _dynamic_int8_reference(x, wq, wscale, bias=None):
     """Plain version of :func:`dynamic_int8_matmul`'s kernel: the
     per-tensor abs-max quantization in f32, then
-    :func:`_int8_matmul_reference`; the output has x's dtype."""
+    :func:`_int8_matmul_reference`; the output has x's dtype. A NaN or
+    inf is left out of the abs-max and makes its own row's scale NaN, so
+    it reaches that row of the output and no other (the JAX package's
+    per-tensor scale turns every row NaN): a decode batch's poisoned row
+    stays in its slot."""
     x32 = x.float()
-    xscale = _quant_scale(x32.abs().max())
-    return _int8_matmul_reference(_quantize(x32, xscale), wq, wscale, xscale,
-                                  bias, x.dtype)
+    bad = ~torch.isfinite(x32)
+    xscale = _quant_scale(torch.where(bad, 0.0, x32.abs()).max())
+    rows = torch.where(bad.any(-1), torch.nan, xscale)
+    return _int8_matmul_reference(
+        _quantize(torch.where(bad, 0.0, x32), xscale), wq, wscale, rows,
+        bias, x.dtype)
 
 
 def dynamic_int8_matmul(x, wq, wscale, bias=None):

@@ -68,9 +68,47 @@ sampled token through a byte-DFA cursor that advances on the host, and a
 completed (or dead) automaton ends the stream with finish_reason
 ``"stop"``.
 
-Not ported yet (see ROADMAP.md): the serving mesh, the watchdog,
-overload control, KV export/import, the ranker, the flight recorder and
-tracing spans.
+Resilience: ``watchdog=`` arms a per-tick NaN/latency sentinel. Each
+decode tick also computes a per-slot all-finite verdict over the logits
+(``resilience.sentinel.logits_finite``), which reaches the host in the
+same copy as the sampled tokens; a poisoned slot fails only its own
+request (finish_reason ``"watchdog"``, :class:`WatchdogTripped`), and the
+engine restarts: healthy open streams are requeued with their token
+history and replayed through the preemption-resume path (token-identical
+continuations), and the cache, prefix tree and draft cache are zeroed in
+place. ``overload=`` (``serving.overload.OverloadController``) gets the
+queue waits and tick latencies and steps the brownout ladder: rung 1
+drops speculative decoding, rung 2 shrinks prefill chunks.
+``FLAGS_fault_inject`` (``resilience/faults.py``) drives the serving
+faults: ``serving_nan`` poisons a request's cached K/V, ``slow_tick``
+stalls the scheduler, ``replica_crash`` kills it; ``fail_at_tick`` is
+the deterministic crash.
+
+Fleet hooks: ``replica_id`` tags the engine's spans and fault specs;
+``failover`` holds a router's adoption hook, stamped onto each request
+and offered the request when the engine dies; ``adopt_request`` replays
+another engine's stream here (token-identical when the engines share
+the seed, since the request keeps its id); ``evacuate`` fails every open
+stream with :class:`ReplicaEvacuated`; ``run_on_scheduler`` runs a
+closure on the scheduler thread between ticks, which the KV streaming
+(``export_kv_prefix`` / ``import_kv_prefix``, ``export_kv_range`` /
+``import_kv_chunk``) uses to copy pool blocks; ``alive``, ``busy``,
+``tick_age`` and ``pool_headroom`` are the health surface.
+
+Observability: latency histograms (``serving_first_token_ms``,
+``serving_per_token_ms``, ``serving_queue_wait_ms``,
+``serving_decode_tick_ms``, ``serving_prefill_chunk_ms``); the
+``serving.prefill`` / ``serving.prefill_chunk`` / ``serving.decode_step``
+spans (``monitor/trace.py``); a request submitted with
+``trace=TraceContext`` stamps every span it touches, a
+``serving.decode_tick`` event per tick it rides and a
+``serving.request_done`` event with the flow's finish; ``flight_dir=``
+arms the process's flight recorder (``monitor/flight.py``), which the
+scheduler abort and the watchdog restart dump. Spans time the host: a
+tick's span ends at its device-to-host copy.
+
+Not ported yet (see ROADMAP.md): the serving mesh (``mesh=``, a sharded
+pool) and the ranker (``rank``, ``embedding_tables``).
 """
 from __future__ import annotations
 
@@ -89,20 +127,30 @@ from ..models.gpt import (_check_ported, _head, gpt_decode_step,
                           gpt_decode_step_paged, gpt_verify_step,
                           gpt_verify_step_paged, prefill_chunk_hidden,
                           prefill_hidden, quantize_gpt_weights)
+from ..monitor.flight import arm_flight_recorder, dump_flight
 from ..monitor.stats import (CONSTRAINED_FALLBACK_TICKS,
-                             CONSTRAINED_REQUESTS, MOE_EXPERT_LOAD,
-                             MOE_TOKENS_DROPPED, PREFIX_COW_COPIES,
-                             SERVING_DEADLINE_SHEDS, SERVING_DECODE_MS,
-                             SERVING_EVICTIONS, SERVING_PREEMPTIONS,
-                             SERVING_PREFILL_MS, SERVING_QUEUE_DEPTH,
+                             CONSTRAINED_REQUESTS, FAULTS_INJECTED,
+                             MOE_EXPERT_LOAD, MOE_TOKENS_DROPPED,
+                             PREFIX_COW_COPIES, SERVING_DEADLINE_SHEDS,
+                             SERVING_DECODE_MS, SERVING_DECODE_TICK_MS,
+                             SERVING_EVICTIONS, SERVING_FIRST_TOKEN_MS,
+                             SERVING_PER_TOKEN_MS, SERVING_PREEMPTIONS,
+                             SERVING_PREFILL_CHUNK_MS, SERVING_PREFILL_MS,
+                             SERVING_QUEUE_DEPTH, SERVING_QUEUE_WAIT_MS,
                              SERVING_SLOT_OCCUPANCY, SERVING_TOKENS_PER_S,
-                             SPEC_ACCEPTANCE_RATE, SPEC_ACCEPTED,
-                             SPEC_PROPOSED)
+                             SERVING_WATCHDOG_RESTARTS,
+                             SERVING_WATCHDOG_TRIPS, SPEC_ACCEPTANCE_RATE,
+                             SPEC_ACCEPTED, SPEC_PROPOSED)
+from ..monitor.trace import (emit_complete, emit_flow, emit_instant,
+                             recording, span)
+from ..resilience import faults as _faults
+from ..resilience.sentinel import logits_finite
 from .kv_cache import KVCache, PagedKVCache, cache_insert
 from .prefix_cache import RadixPrefixCache
 from .sampling import DRAFT_SALT, sample_tokens_streams, spec_accept
 
-__all__ = ["InferenceEngine", "GenerationRequest", "QueueFull"]
+__all__ = ["InferenceEngine", "GenerationRequest", "QueueFull",
+           "WatchdogTripped", "ReplicaEvacuated"]
 
 
 class QueueFull(RuntimeError):
@@ -118,10 +166,24 @@ SHUTDOWN = "shutdown"
 ERROR = "error"
 STOP = "stop"        # constrained decoding: the automaton's match is
 #                      complete (or dead) — nothing more to emit
+WATCHDOG = "watchdog"  # the per-tick NaN sentinel found this stream's
+#                        logits poisoned; the engine restarted around it
 
 # rid floor of the prefix re-warm request space: warm prefills draw RNG
 # streams that never collide with, or shift the numbering of, live ids
 _WARM_RID_BASE = 2**30
+
+
+class WatchdogTripped(RuntimeError):
+    """The ``error`` of a request the serving watchdog failed: its decode
+    logits went non-finite. Healthy streams of the same batch resume,
+    token-identical."""
+
+
+class ReplicaEvacuated(RuntimeError):
+    """Raised by the scheduler when :meth:`InferenceEngine.evacuate` asks
+    it to stop: every open stream fails with this cause, which a
+    ``failover`` hook turns into adoption by another engine."""
 
 
 class GenerationRequest:
@@ -142,6 +204,8 @@ class GenerationRequest:
         self.deadline = deadline          # absolute time.monotonic() or None
         self.constraint = constraint      # ConstraintCursor (scheduler-owned)
         self.rid = 0                      # engine-assigned: the RNG stream id
+        self.trace = None                 # TraceContext or None: the
+        #                                   request's causal identity
         self._tokenizer = None            # the engine's tokenizer, if any
         self.tokens: List[int] = []       # generated ids (includes eos)
         self.finish_reason: Optional[str] = None
@@ -150,20 +214,55 @@ class GenerationRequest:
         # paged preemption: (cached-prefix tokens, last token) to
         # re-prefill from when the request is re-admitted
         self._resume = None
+        # a router's failover hook: called (req, err) when the owning
+        # engine dies; True means another engine adopted the request and
+        # the error must not finish it
+        self._failover = None
+        self._t_submit = 0.0              # monotonic enqueue time
+        self._t_first = None              # monotonic time of the 1st token
         self._cv = threading.Condition()
 
     # -- scheduler side ------------------------------------------------------
     def _push(self, tok: int) -> None:
         with self._cv:
             self.tokens.append(tok)
+            if self._t_first is None:
+                self._t_first = time.monotonic()
+                if self._t_submit:
+                    SERVING_FIRST_TOKEN_MS.observe(
+                        (self._t_first - self._t_submit) * 1e3)
             self._cv.notify_all()
 
     def _finish(self, reason: str, error: Optional[BaseException] = None):
+        if reason == ERROR and self._failover is not None:
+            # the engine died (never a per-request verdict): offer the
+            # stream to the router first — adoption replays it elsewhere
+            handler, self._failover = self._failover, None
+            try:
+                if handler(self, error):
+                    return          # adopted: another engine owns it now
+            except Exception:  # noqa: BLE001 — a failing hook must not
+                pass           # mask the original error: fall through
+        finished = False
         with self._cv:
             if self.finish_reason is None:
                 self.finish_reason = reason
                 self.error = error
+                finished = True
             self._cv.notify_all()
+        if not finished:
+            return
+        if self._t_first is not None and len(self.tokens) >= 2:
+            # the inter-token rate the client saw, stalls included
+            SERVING_PER_TOKEN_MS.observe(
+                (time.monotonic() - self._t_first) * 1e3
+                / (len(self.tokens) - 1))
+        if self.trace is not None and recording():
+            t = time.perf_counter()
+            emit_complete("serving.request_done", t, 0.0, cat="serving",
+                          args=self.trace.args(rid=self.rid, reason=reason,
+                                               tokens=len(self.tokens)))
+            emit_flow("f", self.trace.trace_id, t)
 
     # -- user side -----------------------------------------------------------
     @property
@@ -228,6 +327,31 @@ class GenerationRequest:
                                              skip_special=True)
 
 
+class _HostCall:
+    """One closure parked for the scheduler thread
+    (:meth:`InferenceEngine.run_on_scheduler`): its result or error, and
+    the event the calling thread waits on."""
+
+    __slots__ = ("fn", "result", "error", "done")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.result = None
+        self.error: Optional[BaseException] = None
+        self.done = threading.Event()
+
+    def run(self, eng) -> None:
+        try:
+            self.result = self.fn(eng)
+        except Exception as e:  # noqa: BLE001 — the caller's error, never
+            self.error = e      # a scheduler crash
+        self.done.set()
+
+    def fail(self, err: BaseException) -> None:
+        self.error = err
+        self.done.set()
+
+
 class _Slot:
     """Host-side state of one occupied cache slot."""
 
@@ -242,6 +366,23 @@ class _Slot:
         self.pending = None           # paged: prompt tokens not yet prefilled
         self.resume_last = None       # paged: last token of a preempted run
         self.admit_order = 0          # paged: preemption picks the youngest
+
+
+def _dtype_name(dtype) -> str:
+    """A torch dtype's numpy-style name (``"bfloat16"``, ``"float32"``),
+    the reference payload's ``dtype`` string."""
+    return str(dtype).replace("torch.", "")
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A streamed K/V payload as a tensor: tensors pass through, numpy
+    arrays are wrapped (an ``ml_dtypes`` bfloat16 array by its bits)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.array(x)                   # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _pin_flags(cfg):
@@ -342,6 +483,20 @@ class InferenceEngine:
     ``prefix_cache_blocks``, ``prefix_evictions`` and
     ``prefix_cow_copies``. Greedy output stays token-identical to the
     cold cache.
+
+    ``watchdog`` (True or a dict; default off, and off a tick launches
+    and returns exactly what it did without it) arms the per-tick
+    NaN/latency sentinel and the auto-restart (module docstring).
+    Options: ``latency_budget_ms`` (None disables the latency rung) with
+    ``latency_trips`` consecutive slow ticks per stall verdict, and
+    ``max_restarts`` before the engine fails every open request.
+
+    ``overload`` (a ``serving.overload.OverloadController``) steps the
+    brownout ladder from this engine's queue waits and tick latencies;
+    ``replica_id`` names the engine in spans and fault specs;
+    ``flight_dir`` arms the process's flight recorder, dumped there on a
+    scheduler abort or a watchdog restart; ``tps_window_ticks`` is the
+    window of the ``serving_tokens_per_s`` gauge.
     """
 
     def __init__(self, cfg, params, n_slots: int = 4,
@@ -349,9 +504,25 @@ class InferenceEngine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  int8_weights: bool = False, paged: Optional[bool] = None,
                  block_size: int = 16, n_blocks: Optional[int] = None,
-                 prefill_chunk: int = 64, draft=None, spec_k: int = 4,
-                 mesh=None, tokenizer=None,
-                 prefix_cache: Optional[bool] = None, device=None):
+                 prefill_chunk: int = 64, tps_window_ticks: int = 64,
+                 draft=None, spec_k: int = 4, mesh=None, tokenizer=None,
+                 prefix_cache: Optional[bool] = None, watchdog=None,
+                 overload=None, replica_id: Optional[int] = None,
+                 flight_dir: Optional[str] = None, device=None):
+        if watchdog:
+            defaults = {"latency_budget_ms": None, "latency_trips": 3,
+                        "max_restarts": 3}
+            if watchdog is not True:
+                unknown = set(dict(watchdog)) - set(defaults)
+                if unknown:
+                    raise ValueError(f"unknown watchdog option(s) "
+                                     f"{sorted(unknown)}")
+                defaults.update(dict(watchdog))
+            self._watchdog = defaults
+        else:
+            self._watchdog = None
+        self._restarts = 0
+        self._slow_ticks = 0
         if mesh is not None:
             if int8_weights:
                 raise ValueError("int8_weights and mesh are not yet "
@@ -442,7 +613,23 @@ class InferenceEngine:
         # float running totals behind the int ms gauges
         self._prefill_ms = 0.0
         self._decode_ms = 0.0
-        self._window: collections.deque = collections.deque(maxlen=64)
+        # tokens/s over the last N tick completions
+        self._window: collections.deque = collections.deque(
+            maxlen=max(2, int(tps_window_ticks)))
+        self.overload = overload
+        self.replica_id = replica_id
+        self.failover = None     # a router's adoption hook, stamped on
+        #                          each request at submit
+        self._evacuate = False   # the scheduler raises ReplicaEvacuated
+        #                          at its next loop check
+        self._die_tick = None    # fail_at_tick's target tick
+        self.flight_dir = flight_dir
+        if flight_dir:
+            arm_flight_recorder(flight_dir)
+        self._last_tick_t = time.monotonic()
+        # closures other threads park for the scheduler to run between
+        # ticks (run_on_scheduler; guarded by self._cv)
+        self._host_calls: collections.deque = collections.deque()
         self._thread = threading.Thread(target=self._run,
                                         name="serving-scheduler", daemon=True)
         self._thread.start()
@@ -493,7 +680,7 @@ class InferenceEngine:
                eos_id: Optional[int] = None,
                deadline_s: Optional[float] = None, block: bool = True,
                timeout: Optional[float] = None, text: Optional[str] = None,
-               constraint=None) -> GenerationRequest:
+               constraint=None, trace=None) -> GenerationRequest:
         """Queue a generation request; returns its streaming handle.
 
         Exactly one of ``prompt`` (token ids) and ``text`` is given;
@@ -506,7 +693,9 @@ class InferenceEngine:
         wherever it is. ``constraint`` (``serving.constrained.
         TokenConstraint``) masks every sampled token through its
         automaton; the stream finishes with ``finish_reason="stop"``
-        when the match completes."""
+        when the match completes. ``trace`` (``monitor.TraceContext``)
+        is the request's causal tracing identity, stamped onto every span
+        it touches; it never changes a token."""
         if text is not None:
             if prompt is not None:
                 raise ValueError("pass prompt OR text, not both")
@@ -547,6 +736,7 @@ class InferenceEngine:
             self.eos_id if eos_id is None else eos_id,
             None if deadline_s is None else time.monotonic() + deadline_s,
             constraint=cursor)
+        req.trace = trace
         req._tokenizer = self.tokenizer
         with self._cv:
             self._check_open()
@@ -566,6 +756,8 @@ class InferenceEngine:
             # (seed, rid) — batch neighbours cannot perturb it
             req.rid = self._rid
             self._rid += 1
+            req._failover = self.failover
+            req._t_submit = time.monotonic()
             self._queue.append(req)
             SERVING_QUEUE_DEPTH.set(len(self._queue))
             self._cv.notify_all()
@@ -593,10 +785,316 @@ class InferenceEngine:
             self._check_open()
             req.rid = _WARM_RID_BASE + self._warm_seq
             self._warm_seq += 1
+            req._t_submit = time.monotonic()
             self._queue.append(req)     # warming runs before traffic: the
             SERVING_QUEUE_DEPTH.set(len(self._queue))   # bound is moot
             self._cv.notify_all()
         return req
+
+    def adopt_request(self, req: GenerationRequest) -> None:
+        """Failover entry: enqueue a request ANOTHER engine was serving
+        when it died. The preemption-resume contract rebuilds decode
+        state from ``prompt + generated[:-1]`` with the last token
+        restored, and the request keeps its id: with engines sharing a
+        seed the continuation is token-identical to the run the dead
+        engine would have given. Bypasses the queue bound (failover must
+        not drop work a caller already holds a handle to)."""
+        if req.trace is not None:
+            # the causal timeline continues here: record the hop
+            prev = getattr(req, "_replica", None)
+            req.trace.hop(prev, self.replica_id)
+            if recording():
+                t = time.perf_counter()
+                emit_complete(
+                    "serving.failover_hop", t, 0.0, cat="serving",
+                    args=req.trace.args(rid=req.rid, hop_from=prev,
+                                        hop_to=self.replica_id))
+                emit_flow("t", req.trace.trace_id, t)
+        with self._cv:
+            self._check_open()
+            req._resume = self._resume_record(req)
+            req._failover = self.failover
+            req._t_submit = time.monotonic()
+            # keep later ids clear of the adopted one: a collision would
+            # alias two requests onto one RNG stream
+            self._rid = max(self._rid, req.rid + 1)
+            self._queue.append(req)
+            SERVING_QUEUE_DEPTH.set(len(self._queue))
+            self._cv.notify_all()
+
+    def evacuate(self) -> None:
+        """Ask the scheduler to stop by FAILING every open stream with
+        :class:`ReplicaEvacuated`: through the ``failover`` hook each one
+        is adopted by another engine and replayed token-identically.
+        Callers must already have stopped sending work here."""
+        with self._cv:
+            self._evacuate = True
+            self._cv.notify_all()
+
+    def fail_at_tick(self, ticks_ahead: int = 1) -> None:
+        """Make the scheduler raise ``InjectedCrash`` ``ticks_ahead`` busy
+        ticks from now: a deterministic crash, real in every observable
+        way (failover, flight dump, closed engine)."""
+        with self._cv:
+            self._die_tick = self._ticks + max(1, int(ticks_ahead))
+            self._cv.notify_all()
+
+    def run_on_scheduler(self, fn, timeout: Optional[float] = None):
+        """Run ``fn(engine)`` on the scheduler thread, between ticks, and
+        return its result (re-raising its exception): the only safe way
+        for another thread to touch the pool buffers or the radix tree,
+        since between ticks no model call is in flight and the refcounts
+        are consistent. Called from the scheduler thread itself, it runs
+        inline."""
+        if threading.current_thread() is self._thread:
+            return fn(self)
+        call = _HostCall(fn)
+        with self._cv:
+            self._check_open()
+            self._host_calls.append(call)
+            self._cv.notify_all()
+        if not call.done.wait(timeout):
+            raise TimeoutError("scheduler did not service the host call "
+                               f"within {timeout}s")
+        if call.error is not None:
+            raise call.error
+        return call.result
+
+    # -- KV-block streaming --------------------------------------------------
+    def _blocks_payload(self, blocks):
+        """Pool rows ``blocks`` of K and V as CPU tensors (copies, safe to
+        ship): (n_blocks, layers, heads, block_size, head_dim). numpy has
+        no bf16 without ml_dtypes, so the payload carries torch tensors;
+        its ``dtype`` string is the reference's name."""
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        kb = self.cache.kb.index_select(0, idx).cpu()
+        vb = self.cache.vb.index_select(0, idx).cpu()
+        return kb, vb
+
+    def _write_blocks(self, blocks, kb, vb) -> None:
+        """Write streamed K/V rows into pool ``blocks``, in place."""
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        for buf, rows in ((self.cache.kb, kb), (self.cache.vb, vb)):
+            buf.index_copy_(0, idx, rows.to(self.device, buf.dtype))
+
+    def export_kv_prefix(self, tokens, timeout: Optional[float] = None):
+        """Serialize the cached KV blocks covering ``tokens`` (the
+        prefill side of disaggregated serving): the radix tree's longest
+        cached prefix (capped at len-1, as every splice), gathered to
+        host memory on the scheduler thread. Returns None when nothing is
+        cached, else a dict with ``matched_len``, ``block_size``,
+        ``dtype`` (``"bfloat16"``, ``"float32"``), ``shape`` and CPU
+        tensors ``kb``/``vb`` of shape (n_blocks, layers, heads,
+        block_size, head_dim)."""
+        if self._prefix is None:
+            raise RuntimeError("export_kv_prefix needs prefix_cache=True")
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+
+        def _export(eng):
+            m_len, blocks = eng._prefix.match(toks)
+            if m_len <= 0 or not blocks:
+                return None
+            kb, vb = eng._blocks_payload(blocks)
+            return {"matched_len": int(m_len),
+                    "block_size": int(eng.block_size),
+                    "dtype": _dtype_name(kb.dtype), "shape": list(kb.shape),
+                    "kb": kb, "vb": vb}
+
+        return self.run_on_scheduler(_export, timeout=timeout)
+
+    def _alloc_import(self, n: int):
+        """``n`` fresh pool blocks for an import, reclaiming LRU tree
+        leaves for a shortfall; None (nothing taken) when the pool has no
+        room."""
+        if self.cache.free_blocks_count + self._prefix.evictable_count() < n:
+            return None
+        short = n - self.cache.free_blocks_count
+        if short > 0 and self._prefix.evict(short) < short:
+            return None
+        blocks = []
+        for _ in range(n):
+            b = self.cache.alloc_block()
+            if b is None:
+                for bb in blocks:
+                    self.cache.unref_block(bb)
+                return None
+            blocks.append(b)
+        return blocks
+
+    def import_kv_prefix(self, tokens, kb, vb, matched_len: int,
+                         timeout: Optional[float] = None) -> int:
+        """Splice streamed KV blocks (an :meth:`export_kv_prefix`
+        payload; ``kb``/``vb`` tensors or numpy arrays) into this
+        engine's pool and radix tree — the decode side of disaggregated
+        serving. Returns the number of prefix tokens now cached (0 when
+        the pool has no room); a later ``submit`` of the prompt splices
+        them exactly like a local prefix hit."""
+        if self._prefix is None:
+            raise RuntimeError("import_kv_prefix needs prefix_cache=True")
+        toks = np.asarray(tokens, np.int32).reshape(-1)[:int(matched_len)]
+        kb, vb = _host_tensor(kb), _host_tensor(vb)
+        n = int(kb.shape[0])
+        if toks.size <= 0 or n == 0:
+            return 0
+        if n != self.cache.blocks_for(toks.size) \
+                or tuple(kb.shape) != tuple(vb.shape):
+            raise ValueError(
+                f"import_kv_prefix: {n} streamed blocks do not cover "
+                f"{toks.size} tokens at block_size {self.block_size}")
+        self._check_block_shape(kb)
+
+        def _import(eng):
+            have = eng._prefix.peek(toks)
+            if have >= toks.size:        # already warm: keep the local copy
+                return int(have)
+            blocks = eng._alloc_import(n)
+            if blocks is None:
+                return 0
+            eng._write_blocks(blocks, kb, vb)
+            eng._prefix.insert(toks, blocks)
+            # insert() took a tree reference on each chunk it adopted:
+            # drop the allocation's, so the tree is the sole owner and
+            # duplicates of chunks it already held free at once
+            for b in blocks:
+                eng.cache.unref_block(b)
+            eng.cache.update_gauges()
+            return int(eng._prefix.peek(toks))
+
+        return self.run_on_scheduler(_import, timeout=timeout)
+
+    def export_kv_range(self, tokens, start_block: int,
+                        max_blocks: Optional[int] = None,
+                        timeout: Optional[float] = None):
+        """Incremental slice of :meth:`export_kv_prefix` for resumable
+        chunked streaming: the cached blocks from ``start_block`` on, so
+        finished prefill chunks ship while the next chunk computes. While
+        the prompt is still prefilling only FULL blocks go (a partial
+        tail block is rewritten by the next chunk); once the whole
+        prefix is cached (``done``) the partial tail block goes too.
+        Returns ``matched_len``, ``start_block``, ``n_blocks``,
+        ``block_size``, ``done``, ``covered_tokens`` and, when
+        ``n_blocks`` > 0, CPU tensors ``kb``/``vb``."""
+        if self._prefix is None:
+            raise RuntimeError("export_kv_range needs prefix_cache=True")
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        start = int(start_block)
+
+        def _export(eng):
+            m_len, blocks = eng._prefix.match(toks)
+            bs = int(eng.block_size)
+            # match() caps at len-1, so "whole prefix cached" is
+            # m_len >= size-1, the terminal every splice uses
+            done = m_len >= toks.size - 1
+            avail = len(blocks) if done else m_len // bs
+            if not done:
+                # a slot still prefilling this prompt is not in the tree
+                # yet: ship its finished full blocks (never rewritten
+                # once filled; this runs between ticks)
+                for slot in range(eng.n_slots):
+                    st = eng._slots[slot]
+                    if st is None:
+                        continue
+                    pr = st.req.prompt
+                    n_full = min(int(st.length), toks.size) // bs
+                    if (n_full > avail and pr.size >= toks.size
+                            and np.array_equal(pr[:toks.size], toks)):
+                        tbl = eng.cache.block_tables[slot]
+                        blocks = [int(b) for b in tbl[:n_full]]
+                        avail, m_len = n_full, n_full * bs
+            lo = min(start, avail)
+            hi = avail if max_blocks is None \
+                else min(avail, lo + int(max_blocks))
+            out = {"matched_len": int(m_len), "start_block": int(lo),
+                   "n_blocks": int(hi - lo), "block_size": bs,
+                   "done": bool(done),
+                   # prefix tokens covered by blocks [0, hi): the
+                   # n_tokens a receiver passes to import_kv_chunk
+                   "covered_tokens": int(min(m_len, hi * bs))}
+            if hi > lo:
+                out["kb"], out["vb"] = eng._blocks_payload(blocks[lo:hi])
+            return out
+
+        return self.run_on_scheduler(_export, timeout=timeout)
+
+    def import_kv_chunk(self, tokens, kb, vb, start_block: int,
+                        n_tokens: int,
+                        timeout: Optional[float] = None) -> int:
+        """Splice ONE streamed chunk (an :meth:`export_kv_range` slice)
+        into the pool and radix tree, extending a prefix whose earlier
+        blocks came in previous chunks. Returns the number of prefix
+        tokens now cached, the ack the sender resumes from: a chunk past
+        what this engine holds (a gap) is dropped and the current mark
+        returned, so a lost chunk rewinds the stream; re-delivery is
+        idempotent."""
+        if self._prefix is None:
+            raise RuntimeError("import_kv_chunk needs prefix_cache=True")
+        n_tok = int(n_tokens)
+        toks = np.asarray(tokens, np.int32).reshape(-1)[:n_tok]
+        kb, vb = _host_tensor(kb), _host_tensor(vb)
+        n = int(kb.shape[0])
+        start = int(start_block)
+        if toks.size != n_tok or n_tok <= 0:
+            raise ValueError(f"import_kv_chunk: prompt carries {toks.size} "
+                             f"tokens, chunk claims {n_tok}")
+        if n == 0 or tuple(kb.shape) != tuple(vb.shape) \
+                or start + n != self.cache.blocks_for(n_tok):
+            raise ValueError(
+                f"import_kv_chunk: {n} blocks at {start} do not land on "
+                f"{n_tok} tokens at block_size {self.block_size}")
+        self._check_block_shape(kb)
+
+        def _import(eng):
+            bs = int(eng.block_size)
+            have = eng._prefix.peek(toks)
+            if have >= n_tok:
+                return int(have)           # idempotent re-delivery
+            if have < start * bs:
+                return int(have)           # gap: the sender must rewind
+            _, ex_blocks = eng._prefix.match(toks)
+            blocks = eng._alloc_import(n)
+            if blocks is None:
+                return int(have)
+            eng._write_blocks(blocks, kb, vb)
+            # the first ``start`` blocks are the tree's own nodes from
+            # earlier chunks: insert() dedupes them and adopts the tail
+            eng._prefix.insert(toks, list(ex_blocks[:start]) + blocks)
+            for b in blocks:
+                eng.cache.unref_block(b)
+            eng.cache.update_gauges()
+            return int(eng._prefix.peek(toks))
+
+        return self.run_on_scheduler(_import, timeout=timeout)
+
+    def _check_block_shape(self, kb) -> None:
+        want = tuple(self.cache.kb.shape[1:])
+        if tuple(kb.shape[1:]) != want:
+            raise ValueError(f"streamed blocks of shape {tuple(kb.shape)} "
+                             f"do not fit this pool's blocks {want}")
+
+    # -- health surface ------------------------------------------------------
+    @property
+    def alive(self) -> bool:
+        """Scheduler running and able to make progress."""
+        return self._thread.is_alive() and not self._stop \
+            and self._error is None
+
+    @property
+    def busy(self) -> bool:
+        return bool(self._queue) or any(s is not None for s in self._slots)
+
+    def tick_age(self) -> float:
+        """Seconds since the scheduler last began a loop iteration (fresh
+        when idle too: the idle wait beats every 50 ms)."""
+        with self._cv:
+            return time.monotonic() - self._last_tick_t
+
+    def pool_headroom(self) -> float:
+        """Free fraction of the KV capacity (blocks when paged, slots
+        otherwise)."""
+        if self.paged:
+            total = self.cache.n_blocks - 1
+            return self.cache.free_blocks_count / max(1, total)
+        return self.cache.free_count / max(1, self.n_slots)
 
     def cancel(self, req: GenerationRequest) -> None:
         """Drop ``req`` at the scheduler's next tick (queued or live)."""
@@ -629,14 +1127,36 @@ class InferenceEngine:
                     torch.cuda.set_device(self.device)
                 while True:
                     with self._cv:
+                        self._last_tick_t = time.monotonic()
+                        if self._evacuate:
+                            # raised here, on the scheduler thread, never
+                            # racing a live tick: every open stream fails
+                            # with the adoption-triggering cause
+                            raise ReplicaEvacuated(
+                                f"replica {self.replica_id} evacuated")
                         busy = bool(self._queue) or any(
                             s is not None for s in self._slots)
                         if self._stop and (not self._drain or not busy):
                             break
-                        if not busy:
+                        # run_on_scheduler closures: popped under the
+                        # lock, run outside it, between ticks
+                        calls = list(self._host_calls)
+                        self._host_calls.clear()
+                        if not busy and not calls:
                             self._cv.wait(0.05)
                             continue
+                        die = self._die_tick
+                    for c in calls:
+                        c.run(self)
+                    if not busy:
+                        continue
                     self._ticks += 1
+                    if die is not None and self._ticks >= die:
+                        raise _faults.InjectedCrash(
+                            f"injected crash (replica {self.replica_id}, "
+                            f"tick {self._ticks})")
+                    if _faults.ENABLED[0]:
+                        self._tick_faults()
                     self._admit()
                     if self.paged:
                         self._prefill_chunk_tick()
@@ -649,13 +1169,36 @@ class InferenceEngine:
                 self._stop = True
                 leftovers = list(self._queue)
                 self._queue.clear()
+                stranded = list(self._host_calls)
+                self._host_calls.clear()
                 SERVING_QUEUE_DEPTH.set(0)
                 self._cv.notify_all()
+            for c in stranded:
+                c.fail(RuntimeError(
+                    "engine shut down before the host call ran"))
             for req in leftovers:
                 req._finish(SHUTDOWN)
             for s, st in enumerate(self._slots):
                 if st is not None:
                     self._evict(s, SHUTDOWN)
+
+    def _tick_faults(self) -> None:
+        """The tick-keyed serving faults (``FLAGS_fault_inject``):
+        ``slow_tick`` stalls the scheduler between ticks (queue waits,
+        which the brownout EWMA reads, and ``tick_age`` see it; a tick's
+        own time does not), ``replica_crash`` kills it."""
+        f = _faults.FAULTS.take_tick("slow_tick", self.replica_id,
+                                     self._ticks)
+        if f is not None:
+            FAULTS_INJECTED.add()
+            time.sleep(f.secs)
+        f = _faults.FAULTS.take_tick("replica_crash", self.replica_id,
+                                     self._ticks)
+        if f is not None:
+            FAULTS_INJECTED.add()
+            raise _faults.InjectedCrash(
+                f"injected replica crash (replica {self.replica_id}, "
+                f"tick {self._ticks})")
 
     def _check_open(self) -> None:
         if not self._stop:
@@ -668,6 +1211,11 @@ class InferenceEngine:
         raise RuntimeError("InferenceEngine is shut down")
 
     def _abort(self, err: BaseException) -> None:
+        # the flight recorder's dump at the moment of death (no-op when
+        # none is armed; never raises)
+        dump_flight(f"engine_abort_{type(err).__name__}",
+                    extra={"replica": self.replica_id,
+                           "error": f"{type(err).__name__}: {err}"})
         with self._cv:
             # close the engine BEFORE failing requests so a racing
             # submit() cannot slip into the dead queue
@@ -678,6 +1226,9 @@ class InferenceEngine:
             self._cv.notify_all()
         for s, st in enumerate(self._slots):
             if st is not None:
+                # cleared FIRST: a failover hook may leave the request
+                # unfinished (adopted), and the finally block must not
+                # finish it as shutdown
                 self._slots[s] = None
                 st.req._finish(ERROR, err)
         for req in leftovers:
@@ -730,6 +1281,11 @@ class InferenceEngine:
                 req = self._queue.popleft()
                 SERVING_QUEUE_DEPTH.set(len(self._queue))
                 self._cv.notify_all()
+            if req._t_submit:
+                wait_ms = (time.monotonic() - req._t_submit) * 1e3
+                SERVING_QUEUE_WAIT_MS.observe(wait_ms)
+                if self.overload is not None:
+                    self.overload.observe_queue_wait(wait_ms)
             slot = self.cache.alloc()
             if self.paged:
                 st = _Slot(req, length=0, last_token=-1)
@@ -861,31 +1417,56 @@ class InferenceEngine:
             self.seed, [req.rid], [draw], mask=mask)[0])
 
     def _prefill(self, req: GenerationRequest, slot: int) -> None:
-        seq = req.prompt
+        # a resume record (a watchdog restart or an adoption) re-prefills
+        # prompt + generated[:-1] and rebuilds decode state without
+        # emitting: the paged preemption-resume contract on fixed slots
+        resume = req._resume
+        req._resume = None
+        seq = resume[0] if resume is not None else req.prompt
         S = int(seq.size)
+        if resume is not None and S + 1 > self.max_len:
+            self.cache.release(slot)
+            req._finish(LENGTH)
+            return
         t0 = time.perf_counter()
-        # end-padded to a power-of-two bucket: causality keeps positions
-        # < S exact, and the cache rows past S are overwritten by decode
-        # before they are ever attended
-        toks = np.zeros((1, self._bucket(S)), np.int64)
-        toks[0, :S] = seq
-        toks = torch.from_numpy(toks).to(self.device)
-        x, (ke, ve) = prefill_hidden(self.cfg, self._params, toks)
-        cache_insert(self.cache.k, self.cache.v, slot, ke[0], ve[0])
-        if self.draft_cache is not None:
-            # seed the draft's cache for the same slot, so the first
-            # speculative tick can draft at once
-            _, (dke, dve) = prefill_hidden(self.draft_cfg,
-                                           self._draft_params, toks)
-            cache_insert(self.draft_cache.k, self.draft_cache.v, slot,
-                         dke[0], dve[0])
-        logits = _head(self.cfg, self._params, x[:, S - 1])
-        tok = self._sample_one(logits, req, 0)
-        self._note_ms(SERVING_PREFILL_MS, "_prefill_ms",
-                      (time.perf_counter() - t0) * 1e3)
+        pf_args = {"slot": slot, "prompt_len": S}
+        flow = None
+        if req.trace is not None and recording():
+            pf_args.update(req.trace.args(rid=req.rid))
+            flow = req.trace.trace_id
+        tok = None
+        with span("serving.prefill", cat="serving", args=pf_args,
+                  flow=flow):
+            # end-padded to a power-of-two bucket: causality keeps
+            # positions < S exact, and the cache rows past S are
+            # overwritten by decode before they are ever attended
+            toks = np.zeros((1, self._bucket(S)), np.int64)
+            toks[0, :S] = seq
+            toks = torch.from_numpy(toks).to(self.device)
+            x, (ke, ve) = prefill_hidden(self.cfg, self._params, toks)
+            cache_insert(self.cache.k, self.cache.v, slot, ke[0], ve[0])
+            if self.draft_cache is not None:
+                # seed the draft's cache for the same slot, so the first
+                # speculative tick can draft at once
+                _, (dke, dve) = prefill_hidden(self.draft_cfg,
+                                               self._draft_params, toks)
+                cache_insert(self.draft_cache.k, self.draft_cache.v, slot,
+                             dke[0], dve[0])
+            if resume is None:
+                logits = _head(self.cfg, self._params, x[:, S - 1])
+                tok = self._sample_one(logits, req, 0)
+        pf_ms = (time.perf_counter() - t0) * 1e3
+        self._note_ms(SERVING_PREFILL_MS, "_prefill_ms", pf_ms)
+        SERVING_PREFILL_CHUNK_MS.observe(pf_ms)
         st = _Slot(req, length=S, last_token=tok)
         self._slots[slot] = st
         self.cache.lengths[slot] = S
+        if resume is not None:
+            # tokens through resume[1] were streamed before: rebuild
+            # decode state, emit nothing
+            st.last_token = resume[1]
+            st.generated = len(req.tokens)
+            return
         self._emit(slot, st, tok)
 
     def _emit(self, slot: int, st: _Slot, tok: int) -> None:
@@ -913,8 +1494,15 @@ class InferenceEngine:
 
     def _prefill_one_chunk(self, slot: int, st: _Slot) -> None:
         pending = st.pending
-        c_true = min(int(pending.size), self.prefill_chunk)
         bs = self.block_size
+        chunk_cap = self.prefill_chunk
+        if self.overload is not None:
+            # brownout rung 2: smaller chunks, so long prompts yield the
+            # scheduler to open streams more often (re-rounded to the
+            # block size, at least one block)
+            chunk_cap = max(bs, (self.overload.prefill_chunk(chunk_cap)
+                                 // bs) * bs)
+        c_true = min(int(pending.size), chunk_cap)
         # end-padded to the next block boundary (a prefix-matched slot
         # starts mid-block), which the table covers
         c_pad = -(-(st.length + c_true) // bs) * bs - st.length
@@ -932,23 +1520,35 @@ class InferenceEngine:
             self._preempt(victim)
         last = c_true == pending.size
         t0 = time.perf_counter()
-        toks = np.zeros((1, c_pad), np.int64)
-        toks[0, :c_true] = pending[:c_true]
-        row = self.cache.table_row(slot)[:self._width_bucket(
-            self.cache.blocks_for(st.length + c_pad))]
-        dev = self.device
-        row = torch.from_numpy(row).to(dev)
-        toks = torch.from_numpy(toks).to(dev)
-        pool = (self.cache.kb, self.cache.vb)
-        x = prefill_chunk_hidden(self.cfg, self._params, pool, row, toks,
-                                 st.length)
-        if self.draft_cache is not None:
-            # the same chunk appended to the draft's fixed cache row
-            gpt_verify_step(
-                self.draft_cfg, self._draft_params,
-                (self.draft_cache.k[slot:slot + 1],
-                 self.draft_cache.v[slot:slot + 1]),
-                torch.tensor([st.length], device=dev), toks)
+        ck_args = {"slot": slot, "start": st.length, "chunk": c_true,
+                   "tick": self._ticks,
+                   "open_streams": self._open_decode_streams()}
+        flow = None
+        if st.req.trace is not None and recording():
+            ck_args.update(st.req.trace.args(rid=st.req.rid))
+            flow = st.req.trace.trace_id
+        # the span times the chunk's launches (no synchronisation: a
+        # non-final chunk returns nothing to the host)
+        with span("serving.prefill_chunk", cat="serving", args=ck_args,
+                  flow=flow):
+            toks = np.zeros((1, c_pad), np.int64)
+            toks[0, :c_true] = pending[:c_true]
+            row = self.cache.table_row(slot)[:self._width_bucket(
+                self.cache.blocks_for(st.length + c_pad))]
+            dev = self.device
+            row = torch.from_numpy(row).to(dev)
+            toks = torch.from_numpy(toks).to(dev)
+            pool = (self.cache.kb, self.cache.vb)
+            x = prefill_chunk_hidden(self.cfg, self._params, pool, row,
+                                     toks, st.length)
+            if self.draft_cache is not None:
+                # the same chunk appended to the draft's fixed cache row
+                gpt_verify_step(
+                    self.draft_cfg, self._draft_params,
+                    (self.draft_cache.k[slot:slot + 1],
+                     self.draft_cache.v[slot:slot + 1]),
+                    torch.tensor([st.length], device=dev), toks)
+        SERVING_PREFILL_CHUNK_MS.observe((time.perf_counter() - t0) * 1e3)
         st.length += c_true
         self.cache.lengths[slot] = st.length
         st.pending = None if last else pending[c_true:]
@@ -977,6 +1577,10 @@ class InferenceEngine:
         st.generated = 1
         self._emit(slot, st, tok)
 
+    def _open_decode_streams(self) -> int:
+        return sum(1 for st in self._slots
+                   if st is not None and st.pending is None)
+
     def _youngest_slot(self, exclude: int) -> Optional[int]:
         best = None
         for s, st in enumerate(self._slots):
@@ -995,19 +1599,22 @@ class InferenceEngine:
         self._slots[slot] = None
         self.cache.release(slot)
         SERVING_PREEMPTIONS.add(1)
-        if st.req.tokens:
-            # the cache held prompt + tokens[:-1]; tokens[-1] is the next
-            # decode input
-            seq = np.concatenate(
-                [st.req.prompt,
-                 np.asarray(st.req.tokens[:-1], np.int32)]).astype(np.int32)
-            st.req._resume = (seq, int(st.req.tokens[-1]))
-        else:
-            st.req._resume = None       # mid-prefill: just start over
+        st.req._resume = self._resume_record(st.req)
         with self._cv:
             self._queue.appendleft(st.req)
             SERVING_QUEUE_DEPTH.set(len(self._queue))
         SERVING_SLOT_OCCUPANCY.set(self.cache.occupancy)
+
+    @staticmethod
+    def _resume_record(req: GenerationRequest):
+        """Where a requeued request resumes: (prompt + tokens[:-1],
+        tokens[-1]) — the cache held the first, the last is the next
+        decode input — or None when nothing was emitted (start over)."""
+        if not req.tokens:
+            return None
+        seq = np.concatenate([req.prompt, np.asarray(req.tokens[:-1],
+                                                     np.int32)])
+        return seq.astype(np.int32), int(req.tokens[-1])
 
     def _grow_for_decode(self, active: List[int]) -> List[int]:
         """Ensure each decoding slot's table covers its next write
@@ -1059,11 +1666,14 @@ class InferenceEngine:
         # slot: a near-cap slot drops the whole tick to the one-token
         # decode rather than splitting the batch. Constrained rows force
         # the same fallback: the draft's proposals are not mask-aware.
+        # Brownout rung 1 turns speculation off.
         constrained = [s for s in active
                        if self._slots[s].req.constraint is not None]
-        use_spec = self.draft_cfg is not None and all(
-            self._slots[s].length + self.spec_k + 1 <= self.max_len
-            for s in active)
+        use_spec = (self.draft_cfg is not None
+                    and (self.overload is None
+                         or self.overload.spec_allowed())
+                    and all(self._slots[s].length + self.spec_k + 1
+                            <= self.max_len for s in active))
         if use_spec and constrained:
             use_spec = False
             CONSTRAINED_FALLBACK_TICKS.add(1)
@@ -1074,6 +1684,16 @@ class InferenceEngine:
                 active = self._grow_for_decode(active)
                 if not active:
                     return
+
+        if _faults.ENABLED[0]:
+            # serving_nan (keyed by request id): NaN the slot's cached
+            # K/V, the deterministic stand-in for a poisoned pool
+            for s in active:
+                f = _faults.FAULTS.take_request("serving_nan",
+                                                self._slots[s].req.rid)
+                if f is not None:
+                    FAULTS_INJECTED.add()
+                    self._poison_slot(s)
 
         positions = np.zeros(self.n_slots, np.int32)
         tokens = np.zeros(self.n_slots, np.int32)
@@ -1091,58 +1711,60 @@ class InferenceEngine:
             top_ps[s] = st.req.top_p
             rids[s] = st.req.rid
             draws[s] = len(st.req.tokens)
-        t0 = time.perf_counter()
-        dev = self.device
-        pos_t = torch.from_numpy(positions).to(dev)
-        tok_t = torch.from_numpy(tokens).to(dev)
-        tables = None
-        if self.paged:
-            # table width bucketed to the live maximum (next pow2): the
-            # decode's work tracks live tokens, not the worst-case table
-            tables = self.cache.tables_array(active)
-            tables = torch.from_numpy(np.ascontiguousarray(
-                tables[:, :self._width_bucket(
-                    max(len(self.cache.block_tables[s]) for s in active))]
-            )).to(dev)
-        samp = (temps, top_ks, top_ps, self.seed, rids, draws)
-        n_emit = None
+        span_args = {"batch": len(active), "tick": self._ticks}
+        if self.replica_id is not None:
+            span_args["replica"] = self.replica_id
         if use_spec:
-            out, n_emit = self._spec_dispatch(
-                tables, pos_t, tok_t, self._draft_inputs(active), samp)
-        else:
+            span_args["spec_k"] = self.spec_k
+        t0 = time.perf_counter()
+        n_emit = health = None
+        # the span ends at the tick's device-to-host copy; its args are
+        # serialized when it closes, so the spec counts added below land
+        with span("serving.decode_step", cat="serving", args=span_args):
+            dev = self.device
+            pos_t = torch.from_numpy(positions).to(dev)
+            tok_t = torch.from_numpy(tokens).to(dev)
+            tables = None
             if self.paged:
-                got = gpt_decode_step_paged(
-                    self.cfg, self._decode_params,
-                    (self.cache.kb, self.cache.vb), tables, pos_t, tok_t)
+                # table width bucketed to the live maximum (next pow2):
+                # the decode's work tracks live tokens, not the
+                # worst-case table
+                tables = self.cache.tables_array(active)
+                tables = torch.from_numpy(np.ascontiguousarray(
+                    tables[:, :self._width_bucket(
+                        max(len(self.cache.block_tables[s])
+                            for s in active))])).to(dev)
+            samp = (temps, top_ks, top_ps, self.seed, rids, draws)
+            if use_spec:
+                out, n_emit, health = self._spec_dispatch(
+                    tables, pos_t, tok_t, self._draft_inputs(active), samp)
+                span_args["proposed"] = self.spec_k * len(active)
+                span_args["accepted"] = int(sum(int(n_emit[s]) - 1
+                                               for s in active))
             else:
-                got = gpt_decode_step(
-                    self.cfg, self._decode_params,
-                    (self.cache.k, self.cache.v), pos_t, tok_t)
-            mask = None
-            if constrained:
-                # per-slot sampling mask: each constrained row carries its
-                # automaton's live-token set, every other row allows all
-                masks = np.ones((self.n_slots, self.cfg.vocab_size), bool)
-                for s in constrained:
-                    masks[s] = self._mask_row(self._slots[s].req)
-                mask = torch.from_numpy(masks).to(dev)
-            toks = sample_tokens_streams(got[0], *samp, mask=mask)
-            if self._moe:
-                # the router stats ride in the tokens' device-to-host copy
-                counts, dropped = got[2]
-                host = torch.cat([toks.long(), counts.long(),
-                                  dropped.long().reshape(1)]).cpu().numpy()
-                out = host[:self.n_slots]
-                self._note_moe(host[self.n_slots:-1], int(host[-1]))
-            else:
-                out = toks.cpu().numpy()
-        self._note_ms(SERVING_DECODE_MS, "_decode_ms",
-                      (time.perf_counter() - t0) * 1e3)
+                out, health = self._plain_dispatch(
+                    tables, pos_t, tok_t, constrained, samp, span_args)
+        tick_ms = (time.perf_counter() - t0) * 1e3
+        self._note_ms(SERVING_DECODE_MS, "_decode_ms", tick_ms)
+        SERVING_DECODE_TICK_MS.observe(tick_ms)
+        if self.overload is not None:
+            self.overload.observe_tick(tick_ms)
+        if self._watchdog is not None:
+            poisoned = [s for s in active if not health[s]]
+            if poisoned:
+                SERVING_WATCHDOG_TRIPS.add(len(poisoned))
+                # the whole tick's outputs are dropped: poisoned streams
+                # fail, healthy ones resume by replay, token-identical
+                self._watchdog_restart(poisoned)
+                return
+            self._watchdog_latency(tick_ms)
         emitted = 0
+        traced = []       # (request, tokens pushed) of traced riders
         for s in active:
             st = self._slots[s]
             burst = [int(out[s])] if n_emit is None \
                 else [int(x) for x in out[s, :int(n_emit[s])]]
+            pushed = 0
             for tok in burst:
                 st.length += 1
                 st.generated += 1
@@ -1150,10 +1772,25 @@ class InferenceEngine:
                 self.cache.lengths[s] = st.length
                 st.req._push(tok)
                 emitted += 1
+                pushed += 1
                 reason = self._finish_reason(st, tok)
                 if reason is not None:
                     self._evict(s, reason)
                     break
+            if st.req.trace is not None:
+                traced.append((st.req, pushed))
+        if traced and recording():
+            # one per-request event per traced rider: the causal twin of
+            # the batched serving.decode_step span
+            dur = tick_ms / 1e3
+            for req, n_toks in traced:
+                rq_args = req.trace.args(rid=req.rid, tokens=n_toks,
+                                         tick=self._ticks)
+                if self.replica_id is not None:
+                    rq_args["replica"] = self.replica_id
+                emit_complete("serving.decode_tick", t0, dur,
+                              cat="serving", args=rq_args)
+                emit_flow("t", req.trace.trace_id, t0)
         if use_spec:
             self._note_spec(self.spec_k * len(active),
                             int(sum(int(n_emit[s]) - 1 for s in active)))
@@ -1161,6 +1798,47 @@ class InferenceEngine:
         SERVING_SLOT_OCCUPANCY.set(self.cache.occupancy)
         if self.paged:
             self.cache.update_gauges()
+
+    def _plain_dispatch(self, tables, pos_t, tok_t, constrained, samp,
+                        span_args):
+        """The one-token decode and its sampling. Returns (tokens (B,),
+        health (B,) or None) as host arrays: the armed watchdog's verdict
+        and the MoE router's stats ride in the tokens' device-to-host
+        copy."""
+        if self.paged:
+            got = gpt_decode_step_paged(
+                self.cfg, self._decode_params,
+                (self.cache.kb, self.cache.vb), tables, pos_t, tok_t)
+        else:
+            got = gpt_decode_step(
+                self.cfg, self._decode_params,
+                (self.cache.k, self.cache.v), pos_t, tok_t)
+        mask = None
+        if constrained:
+            # per-slot sampling mask: each constrained row carries its
+            # automaton's live-token set, every other row allows all
+            masks = np.ones((self.n_slots, self.cfg.vocab_size), bool)
+            for s in constrained:
+                masks[s] = self._mask_row(self._slots[s].req)
+            mask = torch.from_numpy(masks).to(self.device)
+        toks = sample_tokens_streams(got[0], *samp, mask=mask)
+        parts = [toks.long()]
+        if self._watchdog is not None:
+            parts.append(logits_finite(got[0]).long())
+        if self._moe:
+            counts, dropped = got[2]
+            parts += [counts.long(), dropped.long().reshape(1)]
+        if len(parts) == 1:
+            return toks.cpu().numpy(), None
+        host = torch.cat(parts).cpu().numpy()
+        B = self.n_slots
+        health = None
+        if self._watchdog is not None:
+            health = host[B:2 * B].astype(bool)
+        if self._moe:
+            off = B * (len(parts) - 2)     # past the tokens and verdict
+            self._note_moe(host[off:-1], int(host[-1]), span_args)
+        return host[:B], health
 
     def _draft_inputs(self, active: List[int]):
         """(positions, prev) (B,) device tensors of a tick's draft steps.
@@ -1222,7 +1900,9 @@ class InferenceEngine:
     def _spec_dispatch(self, tables, positions, tokens, draft_in, samp):
         """One speculative tick: the draft proposes spec_k, the target
         verifies k+1 positions in one pass, the acceptance rule picks.
-        Returns (tokens (B, k+1), n_emit (B,)) as host arrays."""
+        Returns (tokens (B, k+1), n_emit (B,), health (B,) or None) as
+        host arrays; the armed watchdog's verdict covers every verify
+        position and rides in the same copy."""
         d_toks, d_logits = self._draft_propose(draft_in, tokens, samp)
         vtokens = torch.cat([tokens.long()[:, None], d_toks.long()], dim=1)
         if self.paged:
@@ -1234,9 +1914,16 @@ class InferenceEngine:
                 self.cfg, self._decode_params, (self.cache.k, self.cache.v),
                 positions, vtokens)
         out, n_emit = spec_accept(t_logits, d_logits, d_toks, *samp)
-        host = torch.cat([out.reshape(-1), n_emit]).cpu().numpy()
+        parts = [out.reshape(-1), n_emit]
+        if self._watchdog is not None:
+            parts.append(logits_finite(t_logits).long())
+        host = torch.cat(parts).cpu().numpy()
         B = self.n_slots
-        return host[:-B].reshape(B, -1), host[-B:]
+        K1 = out.shape[1]
+        health = None if self._watchdog is None \
+            else host[B * (K1 + 1):].astype(bool)
+        return (host[:B * K1].reshape(B, K1), host[B * K1:B * (K1 + 1)],
+                health)
 
     def _finish_reason(self, st: _Slot, tok: int) -> Optional[str]:
         """Why generation stops after emitting ``tok`` (None = go on).
@@ -1262,8 +1949,98 @@ class InferenceEngine:
         SERVING_SLOT_OCCUPANCY.set(self.cache.occupancy)
         st.req._finish(reason)
 
+    # -- watchdog: NaN/latency sentinel + auto-restart -----------------------
+    def _poison_slot(self, slot: int) -> None:
+        """serving_nan's effect: the slot's cached K/V become NaN, in
+        place (every block of its table when paged)."""
+        nan = float("nan")
+        if self.paged:
+            rows = torch.as_tensor(self.cache.block_tables[slot],
+                                   dtype=torch.long, device=self.device)
+            self.cache.kb.index_fill_(0, rows, nan)
+            self.cache.vb.index_fill_(0, rows, nan)
+        else:
+            self.cache.k[slot] = nan
+            self.cache.v[slot] = nan
+
+    def _watchdog_latency(self, tick_ms: float) -> None:
+        """The sentinel's latency rung: ``latency_trips`` consecutive
+        ticks over ``latency_budget_ms`` is a stall verdict, counted and
+        marked in the trace, not restarted (a restart cannot make compute
+        faster)."""
+        budget = self._watchdog["latency_budget_ms"]
+        if not budget:
+            return
+        if tick_ms <= float(budget):
+            self._slow_ticks = 0
+            return
+        self._slow_ticks += 1
+        if self._slow_ticks >= int(self._watchdog["latency_trips"]):
+            self._slow_ticks = 0
+            SERVING_WATCHDOG_TRIPS.add()
+            if recording():
+                emit_instant("serving.watchdog_stall", time.perf_counter(),
+                             cat="serving")
+
+    def _watchdog_restart(self, poisoned: List[int]) -> None:
+        """Restart from the last healthy state: fail only the poisoned
+        requests, requeue every healthy open stream with its token history
+        (admission replays it through the preemption-resume path, so its
+        continuation is token-identical: the sampling streams are pure
+        functions of (seed, request id, draw)), and reset the cache, the
+        prefix tree and the draft cache."""
+        self._restarts += 1
+        if self._restarts > int(self._watchdog["max_restarts"]):
+            # the last rung: the scheduler's _abort fails every open
+            # request with this cause (and writes the flight dump)
+            raise WatchdogTripped(
+                f"watchdog restart budget exhausted "
+                f"(max_restarts={self._watchdog['max_restarts']})")
+        SERVING_WATCHDOG_RESTARTS.add()
+        dump_flight("serving_watchdog_restart",
+                    extra={"replica": self.replica_id,
+                           "poisoned": sorted(poisoned),
+                           "restart": self._restarts})
+        bad = set(poisoned)
+        healthy = sorted(
+            ((st.admit_order, s) for s, st in enumerate(self._slots)
+             if st is not None and s not in bad), reverse=True)
+        with span("serving.watchdog_restart", cat="serving",
+                  args={"poisoned": sorted(bad), "healthy": len(healthy),
+                        "restart": self._restarts, "tick": self._ticks}):
+            for s in bad:
+                st = self._slots[s]
+                self._slots[s] = None
+                SERVING_EVICTIONS.add(1)
+                st.req._finish(WATCHDOG, WatchdogTripped(
+                    f"non-finite decode logits (request {st.req.rid})"))
+            # youngest first through appendleft: the oldest ends at the
+            # queue head, keeping the admission order on replay
+            for _, s in healthy:
+                st = self._slots[s]
+                self._slots[s] = None
+                st.req._resume = self._resume_record(st.req)
+                with self._cv:
+                    self._queue.appendleft(st.req)
+            self._reset_cache()
+        with self._cv:
+            SERVING_QUEUE_DEPTH.set(len(self._queue))
+        SERVING_SLOT_OCCUPANCY.set(0)
+
+    def _reset_cache(self) -> None:
+        """Zero the cache buffers in place and reset their accounting, and
+        start a fresh prefix tree (cached prefixes may name poisoned
+        blocks: dropping them costs recompute, never correctness) and a
+        zeroed draft cache (its K/V were computed beside the poisoned
+        rows). In place, so a restart allocates nothing."""
+        self.cache.reset()
+        if self._prefix is not None:
+            self._prefix = RadixPrefixCache(self.cache)
+        if self.draft_cache is not None:
+            self.draft_cache.reset()
+
     # -- gauges --------------------------------------------------------------
-    def _note_moe(self, counts, dropped: int) -> None:
+    def _note_moe(self, counts, dropped: int, span_args=None) -> None:
         """Publish a tick's router stats: the busiest expert's share of
         the routed tokens (ppm gauge) and the dropped assignments
         (cumulative counter; decode is dropless, so it stays 0 there).
@@ -1273,6 +2050,10 @@ class InferenceEngine:
             MOE_EXPERT_LOAD.set(int(float(counts.max() / total) * 1e6))
         if dropped:
             MOE_TOKENS_DROPPED.add(dropped)
+        if span_args is not None and total > 0:
+            span_args["moe_busiest_pct"] = round(
+                float(counts.max()) / total * 100.0, 2)
+            span_args["moe_dropped"] = dropped
 
     def _note_ms(self, gauge, attr: str, ms: float) -> None:
         old = getattr(self, attr)

@@ -61,9 +61,19 @@ class KVCache:
                  cfg.head_dim)
         self.k = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self._reset_accounting()
+
+    def _reset_accounting(self) -> None:
         # host-side per-slot token counts (== next write position)
         self.lengths = np.zeros(self.n_slots, np.int32)
         self._free: List[int] = list(range(self.n_slots))
+
+    def reset(self) -> None:
+        """Zero the buffers in place and free every slot: the state of a
+        fresh cache, without allocating a second one."""
+        self.k.zero_()
+        self.v.zero_()
+        self._reset_accounting()
 
     def alloc(self) -> Optional[int]:
         """Claim a free slot (None when full). Contents are whatever the
@@ -136,6 +146,9 @@ class PagedKVCache:
                  cfg.head_dim)
         self.kb = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.vb = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self._reset_accounting()
+
+    def _reset_accounting(self) -> None:
         self.lengths = np.zeros(self.n_slots, np.int32)
         self.block_tables: List[List[int]] = [[] for _ in range(self.n_slots)]
         self._free: List[int] = list(range(1, self.n_blocks))
@@ -143,6 +156,13 @@ class PagedKVCache:
         self._refs: dict = {}      # allocated block -> reference count
         self._slot_free: List[int] = list(range(self.n_slots))
         self.update_gauges()
+
+    def reset(self) -> None:
+        """Zero the pool in place and free every block and slot: the
+        state of a fresh pool, without allocating a second one."""
+        self.kb.zero_()
+        self.vb.zero_()
+        self._reset_accounting()
 
     @property
     def max_slot_blocks(self) -> int:

@@ -125,6 +125,29 @@ class RadixPrefixCache:
             level = best.children
         return used, blocks
 
+    def peek(self, tokens) -> int:
+        """Read-only twin of :meth:`match`: how many leading tokens of
+        ``tokens`` the tree could serve now, without touching the LRU
+        clock or the hit-rate gauges. Uncapped: a fully cached prompt
+        peeks at its full length (``match`` stops one token short)."""
+        toks = [int(t) for t in tokens]
+        limit = len(toks)
+        level = self._root
+        used = 0
+        while used < limit:
+            best, best_lcp = None, 0
+            for chunk, node in level.items():
+                lcp = _lcp(chunk, toks, used, limit)
+                if lcp > best_lcp:
+                    best, best_lcp = node, lcp
+            if best is None:
+                break
+            used += best_lcp
+            if best_lcp < len(best.chunk) or len(best.chunk) < self.block_size:
+                break
+            level = best.children
+        return used
+
     def note_lookup(self, matched: int, total: int) -> None:
         """Feed the hit-rate gauge (the engine calls this once per
         admission, with the prompt length it looked up)."""

@@ -74,6 +74,8 @@ def sum(x, axis=None, dtype=None, keepdim=False, name=None):  # noqa: A001
 
 
 def _mean(x, axis=None, keepdim=False):
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.float()     # int and bool inputs: the f32 mean, as JAX's
     if axis is None:
         out = torch.mean(x)
         return out.reshape([1] * x.dim()) if keepdim else out

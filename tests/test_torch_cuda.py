@@ -427,6 +427,76 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, tol, hd):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("poison", ["all", "one_block"])
+def test_paged_kernel_keeps_one_lanes_nan(cuda_device, dtype, hd, poison):
+    """The serving watchdog's premise on the paged path: NaN K/V in one
+    lane's blocks (all of them, or one) make that lane's output
+    non-finite, as the plain version's softmax does, and leave every
+    other lane bit-identical to the clean call's."""
+    B, nh, bs, W, L, layer = 4, 8, 16, 6, 3, 1
+    nb = 1 + B * W
+    kb = _randn((nb, L, nh, bs, hd), dtype, cuda_device, 5)
+    vb = _randn((nb, L, nh, bs, hd), dtype, cuda_device, 6)
+    q = _randn((B, nh, hd), dtype, cuda_device, 7)
+    tables = torch.zeros((B, W), dtype=torch.int32)
+    tables[0, :5] = torch.tensor([3, 9, 1, 12, 20])
+    tables[1, :2] = torch.tensor([4, 2])
+    tables[2, :1] = torch.tensor([7])
+    lengths = torch.tensor([70, 17, 1, 33], dtype=torch.int32)
+    tables, lengths = tables.to(cuda_device), lengths.to(cuda_device)
+    clean = tpa.paged_attention_arrays(q, kb, vb, tables, lengths,
+                                       layer=layer)
+    bad = [3, 9, 1, 12, 20] if poison == "all" else [12]
+    kb2, vb2 = kb.clone(), vb.clone()
+    kb2[bad] = float("nan")
+    vb2[bad] = float("nan")
+    got = tpa.paged_attention_arrays(q, kb2, vb2, tables, lengths,
+                                     layer=layer)
+    want = tpa._paged_attention_reference(q, kb2[:, layer], vb2[:, layer],
+                                          tables, lengths, 1.0 / hd ** 0.5)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(want[0]).any()
+    assert not torch.isfinite(got[0]).any()
+    assert torch.equal(got[1:], clean[1:])
+
+
+def test_int8_quantizer_keeps_a_nan_row_in_its_row(cuda_device):
+    """The serving watchdog's premise on the int8 decode path: with one
+    NaN or inf row of activations (the poisoned slot of an int8 tick)
+    the quantizing kernel leaves the NaN or inf out of the per-tensor
+    abs-max and gives that row a NaN scale, so its output row is NaN and
+    every other row equals the call with its non-finite entries zeroed;
+    the plain version does the same (the JAX package's per-tensor scale
+    would turn every row NaN)."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    M, K, N, r = 8, 2048, 384, 5
+    x = (torch.randn(M, K, generator=gen) * 3).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8)
+    ws = torch.rand(N, generator=gen) * 0.02 + 1e-4
+    x, wq, ws = x.to(cuda_device), wq.to(cuda_device), ws.to(cuda_device)
+    xn = x.clone()
+    xn[r] = float("nan")
+    xp = x.clone()
+    xp[r, ::7] = float("nan")            # a row only partly NaN
+    xi = x.clone()
+    xi[r, 3] = float("inf")              # one inf: an inf V's output
+    xi[r, 9] = -float("inf")
+    keep = [i for i in range(M) if i != r]
+    for xx in (xn, xp, xi):
+        got = tim.dynamic_int8_matmul(xx, wq, ws)
+        plain = tim._dynamic_int8_reference(xx, wq, ws)
+        zeroed = tim.dynamic_int8_matmul(
+            torch.nan_to_num(xx, nan=0.0, posinf=0.0, neginf=0.0), wq, ws)
+        torch.cuda.synchronize()
+        assert not torch.isfinite(got[r]).any()
+        assert not torch.isfinite(plain[r]).any()
+        assert torch.isfinite(got[keep]).all()
+        assert torch.equal(got[keep], plain[keep])
+        assert torch.equal(got[keep], zeroed[keep])
+
+
 def _paged_edge_case(B, nh, hd, bs, W, L, dtype, dev, seed):
     """Slots whose live blocks are 1, the cluster's size (8), one past it
     and the whole table (W = 11, no multiple of 8), a slot of length 0 and

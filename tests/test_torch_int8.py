@@ -181,6 +181,34 @@ def test_fused_quantization_plain_path_matches_jax(dt, case, M, K, N, bias):
                                       np.asarray(jq))
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("bad", ["nan_row", "nan_entries", "inf_entries"])
+def test_plain_quantization_keeps_a_non_finite_row_in_its_row(dt, bad):
+    """A NaN or inf in one row of activations (a poisoned decode slot)
+    reaches that output row and no other: the other rows equal JAX's
+    dynamic_int8_matmul of the input with its non-finite entries zeroed
+    (on the input itself JAX's per-tensor scale turns every row NaN)."""
+    jdt, tdt = DTYPES[dt]
+    M, K, N, r = 5, 64, 24, 2
+    x = _dynamic_x("random", M, K, seed=7)
+    _, wq, ws, _, b = _operands(M, K, N, seed=3)
+    if bad == "nan_row":
+        x[r] = np.nan
+    elif bad == "nan_entries":
+        x[r, ::5] = np.nan
+    else:
+        x[r, 3], x[r, 9] = np.inf, -np.inf
+    want = ji.dynamic_int8_matmul(
+        jnp.asarray(np.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0), jdt),
+        jnp.asarray(wq), jnp.asarray(ws), bias=jnp.asarray(b))
+    got = ti._dynamic_int8_reference(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(wq),
+        torch.from_numpy(ws), torch.from_numpy(b))
+    keep = [i for i in range(M) if i != r]
+    assert not torch.isfinite(got[r]).any()
+    np.testing.assert_array_equal(_np(got)[keep], _np(want)[keep])
+
+
 @pytest.mark.parametrize("param_dtype", ["f32", "bf16"])
 def test_quantize_gpt_weights_matches_jax(param_dtype):
     pj = jg.gpt_init(jg.gpt_tiny(param_dtype=DTYPES[param_dtype][0]),

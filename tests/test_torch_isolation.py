@@ -59,7 +59,13 @@ def test_scan_sees_every_module():
                  "paddle_tpu_torch/tensor/logic.py",
                  "paddle_tpu_torch/serving/tokenizer.py",
                  "paddle_tpu_torch/serving/constrained.py",
-                 "paddle_tpu_torch/serving/prefix_cache.py", "chip_smoke.py"):
+                 "paddle_tpu_torch/serving/prefix_cache.py",
+                 "paddle_tpu_torch/serving/overload.py",
+                 "paddle_tpu_torch/monitor/trace.py",
+                 "paddle_tpu_torch/monitor/tracectx.py",
+                 "paddle_tpu_torch/monitor/flight.py",
+                 "paddle_tpu_torch/resilience/faults.py",
+                 "paddle_tpu_torch/resilience/sentinel.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -77,7 +83,8 @@ def test_imports_without_triton_nvcc_or_jax():
         " paddle_tpu_torch.nn, paddle_tpu_torch.amp,"
         " paddle_tpu_torch.tools.profile_train, paddle_tpu_torch.ops.fused,"
         " paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.functional,"
-        " paddle_tpu_torch.serving.tokenizer,"
+        " paddle_tpu_torch.serving.tokenizer, paddle_tpu_torch.monitor,"
+        " paddle_tpu_torch.resilience, paddle_tpu_torch.serving.overload,"
         " paddle_tpu_torch.serving.constrained,"
         " paddle_tpu_torch.serving.prefix_cache\n"
         "bad = sorted(m for m in sys.modules"

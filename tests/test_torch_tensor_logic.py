@@ -212,3 +212,28 @@ def test_hash_is_identity_and_tensors_are_dict_keys():
     assert (x == y).numpy().all()
     # membership in a list would compare elements: the port goes by id()
     assert id(y) in {id(t) for t in (x, y)}
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64", "bool"])
+@pytest.mark.parametrize("axis", [None, 0, 1])
+@pytest.mark.parametrize("keepdim", [False, True])
+def test_mean_of_int_and_bool_is_the_f32_mean(dtype, axis, keepdim):
+    """``mean`` (and ``Tensor.mean``) of an int or bool input is its f32
+    mean, as the reference's ``jnp.mean`` gives: 2.5 for [[1, 2], [3, 4]]
+    and [1.5, 3.5] along axis 1."""
+    if dtype == "bool":
+        a = np.array([[True, False, True], [False, False, True]])
+    else:
+        a = np.array([[1, 2], [3, 4]], dtype=dtype)
+    want = paddle_tpu.mean(paddle_tpu.to_tensor(a), axis=axis,
+                           keepdim=keepdim)
+    t = paddle_tpu_torch.to_tensor(a)
+    for got in (paddle_tpu_torch.mean(t, axis=axis, keepdim=keepdim),
+                t.mean(axis=axis, keepdim=keepdim)):
+        assert str(got.dtype).endswith("float32")
+        _same(want, got)
+    if dtype == "int32":
+        full = paddle_tpu_torch.mean(t)
+        np.testing.assert_allclose(full.numpy(), 2.5)
+        np.testing.assert_allclose(
+            paddle_tpu_torch.mean(t, axis=1).numpy(), [1.5, 3.5])
