@@ -214,7 +214,29 @@ stamped with the card's name and power limit):
     refused with the cause); a traced paged run's chrome trace holds one
     decode_step a tick and per request its decode_tick events, prefill
     chunks, one request_done and one "f" flow; bf16 ms a tick with
-    tracing on and off.
+    tracing on and off;
+34. the replica router under chaos (bench.py's serving_chaos mix: 20
+    requests of 12-72 tokens, Poisson at ~24 rps, one in five with a
+    0.4 s deadline; replica_crash on replica 0, a slow_tick storm on
+    replica 1, conn_drop): f32 at 4 layers over two paged prefix-caching
+    replicas, every completed stream equal to a fault-free engine's,
+    every request with a finish reason, router_failovers >= 1,
+    first-token p50/p99, serving_replicas_healthy 2 then 1; bf16 at
+    full depth through the paged pair and a fixed-slot int8 pair:
+    launches of the flash forward, paged decode (each replica) and int8
+    matmul, tokens/s;
+35. the replica supervisor (f32, 4 layers, 16 requests on one 512-token
+    head): replica 0 crashes, the first respawn fails (spawn_fail), the
+    second rejoins and re-warms the head, streams equal a fault-free
+    engine's; the rejoined replica's first-token ms against a cold
+    engine's; a forced rung scales up to 3, rung 0 drains the newest
+    replica and its open stream migrates, equal to an undisturbed run;
+36. the HTTP front end over a router of two bf16 paged replicas at full
+    depth (byte tokenizer and vocabulary): completions JSON and SSE equal
+    to engine-direct greedy text, chat on a shared system prompt (prefix
+    hit rate > 0), /v1/models, /metrics parsed as Prometheus text (five
+    histograms, frontend_* series), a 429 with Retry-After, a bounded
+    regex ending "stop", first-token ms over HTTP and engine-direct.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -3464,6 +3486,614 @@ def failover_phase(dev, cfg, params, mods, stamp, flight_dir):
     return row
 
 
+# phases 34-36: the in-process serving orchestration
+# --------------------------------------------------------------------------
+
+# phases 34: bench.py's serving_chaos mix (20 requests of 12-72 tokens,
+# Poisson at ~24 rps, one in five with a tight deadline) and its faults
+CHAOS_N = 20
+CHAOS_LENS = (12, 24, 40, 72)
+CHAOS_RPS = 24.0
+CHAOS_NEW = 16
+CHAOS_TIGHT_S = 0.4
+CHAOS_FAULTS = ("replica_crash@step=20:replica=0,"
+                "slow_tick@step=8:secs=0.15:repeat=3:replica=1,"
+                "conn_drop@step=3")
+# phase 35: 16 requests on one shared 512-token head (8-token tails); the
+# crash comes late enough that replica 0 has decoded, the first respawn
+# fails; the scale-down victim's streams are long enough to outlive its
+# drain timeout and migrate
+LIFE_N = 16
+LIFE_HEAD = 512
+LIFE_NEW = 16
+LIFE_MIGRATE_NEW = 256
+LIFE_FAULTS = "replica_crash@step=24:replica=0,spawn_fail@restart=1"
+# phase 36: the front end's shared system prompt
+SYSTEM_PROMPT = ("You are a terse assistant. Answer every question in one "
+                 "short line, without preamble, and never repeat the "
+                 "question back to the user. ") * 2
+
+
+class _ThreadLaunches:
+    """Count a kernel module's launches by the thread that made them (an
+    engine's scheduler thread is its replica), by wrapping the module's
+    ``_launch`` for the duration of a ``with`` block. The module's own
+    ``LAUNCHES`` counts as before."""
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.by = {}
+
+    def __enter__(self):
+        self._orig = self.mod._launch
+
+        def counted(*args, **kw):
+            out = self._orig(*args, **kw)
+            key = threading.get_ident()
+            self.by[key] = self.by.get(key, 0) + 1
+            return out
+
+        self.mod._launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._launch = self._orig
+
+    def of(self, engines):
+        return [self.by.get(e._thread.ident, 0) for e in engines]
+
+
+def _chaos_mix(V, seed=1301):
+    """bench.py's serving_chaos mix: prompts, Poisson gaps, tight set."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, V, CHAOS_LENS[i % len(CHAOS_LENS)])
+               .astype(np.int32) for i in range(CHAOS_N)]
+    gaps = rng.exponential(1 / CHAOS_RPS, CHAOS_N)
+    tight = {i for i in range(CHAOS_N) if i % 5 == 4}
+    return prompts, gaps, tight
+
+
+def _chaos_run(router, prompts, gaps, tight=(), new=CHAOS_NEW):
+    """Submit ``prompts`` through ``router`` at ``gaps``, each consumed by
+    its own thread; a consumer whose index claims a ``conn_drop`` fault
+    abandons its stream after two tokens and cancels it (what the front
+    end does on a client's EOF). Returns per request (tokens or None if
+    abandoned or failed, finish reason, first-token ms)."""
+    from paddle_tpu_torch.resilience import faults
+
+    n = len(prompts)
+    results, finishes, first = [None] * n, [None] * n, [None] * n
+    sub_t = [0.0] * n
+
+    def consume(i, req):
+        dropped = faults.ENABLED[0] \
+            and faults.FAULTS.take_conn(i + 1) is not None
+        toks = []
+        try:
+            for k, tok in enumerate(req.stream(timeout=600)):
+                if first[i] is None:
+                    first[i] = (time.perf_counter() - sub_t[i]) * 1e3
+                toks.append(tok)
+                if dropped and k >= 1:
+                    req.cancel()
+                    try:
+                        req.result(timeout=600)
+                    except RuntimeError:
+                        pass
+                    break
+            results[i] = None if dropped else toks
+        except RuntimeError:
+            results[i] = None
+        finishes[i] = req.finish_reason
+
+    threads = []
+    for i, p in enumerate(prompts):
+        sub_t[i] = time.perf_counter()
+        req = router.submit(p, max_new_tokens=new,
+                            deadline_s=CHAOS_TIGHT_S if i in tight else 600)
+        th = threading.Thread(target=consume, args=(i, req))
+        th.start()
+        threads.append(th)
+        time.sleep(gaps[i])
+    for th in threads:
+        th.join(timeout=900)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a chaos consumer never finished")
+    return results, finishes, first
+
+
+def _pcts(vals):
+    vals = [v for v in vals if v is not None]
+    if not vals:
+        return {"p50_ms": None, "p99_ms": None, "n": 0}
+    return {"p50_ms": float(np.percentile(vals, 50)),
+            "p99_ms": float(np.percentile(vals, 99)), "n": len(vals)}
+
+
+def router_chaos_phase(dev, cfg, params, mods, stamp):
+    """Phase 34: bench.py's serving_chaos first leg on the port. Two paged
+    prefix-caching replicas behind an EngineRouter share one
+    OverloadController; CHAOS_N requests arrive Poisson at CHAOS_RPS, one
+    in five with a CHAOS_TIGHT_S deadline, under CHAOS_FAULTS. f32 at full
+    width, IDENTITY_LAYERS layers: every completed stream equals a
+    fault-free engine's (or parts at a near-tie, TIE_REL), every request
+    ends with a finish reason, router_failovers >= 1, first-token p50 and
+    p99, serving_replicas_healthy before and after. bf16 at full depth:
+    the same mix through the paged pair and through a fixed-slot
+    int8_weights pair, the crash armed: rows 1, 2 and 9's launches (row 2
+    on each paged replica) and each pair's tokens/s."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor import (get_histogram, hist_delta,
+                                          hist_quantile)
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.resilience import configure_faults
+    from paddle_tpu_torch.serving import (EngineRouter, InferenceEngine,
+                                          OverloadController)
+
+    pa = mods["paged_attention_decode"]
+    prompts, gaps, tight = _chaos_mix(cfg.vocab_size)
+    paged_kw = dict(n_slots=4, paged=True, block_size=16, n_blocks=65,
+                    prefill_chunk=64, prefix_cache=True)
+
+    def chaos(cfg_, params_, kw):
+        """One chaos run of a replica pair built from ``kw``."""
+        ctl = OverloadController(queue_wait_budget_ms=150.0,
+                                 tick_budget_ms=120.0, step_up_after=2,
+                                 step_down_after=6)
+        s0 = {k: stat_get(k) for k in ("router_failovers",
+                                       "serving_decode_ms",
+                                       "serving_deadline_sheds")}
+        h0 = get_histogram("serving_first_token_ms").snapshot()
+        configure_faults(CHAOS_FAULTS)
+        engines = [InferenceEngine(cfg_, params_, seed=0, overload=ctl,
+                                   queue_size=4 * CHAOS_N, **kw)
+                   for _ in range(2)]
+        router = EngineRouter(engines)
+        try:
+            healthy0 = stat_get("serving_replicas_healthy")
+            _counts(mods)
+            with _ThreadLaunches(pa) as tl:
+                t0 = time.perf_counter()
+                res, fin, first = _chaos_run(router, prompts, gaps, tight)
+                wall = time.perf_counter() - t0
+            launches = _read(mods)
+            healthy1 = stat_get("serving_replicas_healthy")
+            alive = router.healthy_replicas()
+        finally:
+            configure_faults("")
+            router.shutdown(drain=False, timeout=120)
+        d = hist_delta(h0, get_histogram("serving_first_token_ms")
+                       .snapshot())
+        done = [i for i in range(CHAOS_N) if fin[i] in ("length", "eos")
+                and res[i] is not None]
+        toks = sum(len(r) for r in res if r is not None)
+        decode_ms = stat_get("serving_decode_ms") - s0["serving_decode_ms"]
+        row = {"layers": cfg_.n_layers, "dtype": str(cfg_.dtype),
+               "finish_reasons": fin, "completed": len(done),
+               "abandoned": sum(r is None and f == "cancelled"
+                                for r, f in zip(res, fin)),
+               "deadline": sum(f == "deadline" for f in fin),
+               "silent": sum(f is None for f in fin),
+               "router_failovers": stat_get("router_failovers")
+               - s0["router_failovers"],
+               "deadline_sheds": stat_get("serving_deadline_sheds")
+               - s0["serving_deadline_sheds"],
+               "replicas_healthy_before": healthy0,
+               "replicas_healthy_after": healthy1,
+               "healthy_replicas_at_end": alive,
+               "first_token": _pcts(first),
+               "first_token_hist": {"count": d["count"],
+                                    "p50_ms": hist_quantile(d, 0.5),
+                                    "p99_ms": hist_quantile(d, 0.99)},
+               "wall_s": wall, "tokens": toks, "tok_s_wall": toks / wall,
+               "decode_tokens": sum(max(len(r) - 1, 0)
+                                    for r in res if r is not None),
+               "decode_ms_total": decode_ms,
+               "launches": launches,
+               "paged_launches_by_replica": tl.of(engines)}
+        # the decode ticks' summed ms over both replicas (phase 5's
+        # definition, per replica-busy second)
+        row["decode_tok_s"] = row["decode_tokens"] / max(decode_ms, 1) * 1e3
+        if row["silent"] or row["router_failovers"] < 1 or alive != [1] \
+                or healthy0 != 2 or healthy1 != 1 or not done:
+            raise AssertionError(f"router chaos run is off: {row}")
+        return row, res, done
+
+    # f32 identity at full width
+    cfg32 = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
+    p32 = _scaled_params(G, cfg32, dev)
+    ref = InferenceEngine(cfg32, p32, seed=0, queue_size=4 * CHAOS_N,
+                          **paged_kw)
+    try:
+        want = [ref.generate(p, max_new_tokens=CHAOS_NEW) for p in prompts]
+    finally:
+        ref.shutdown()
+    f32, res, done = chaos(cfg32, p32, paged_kw)
+    equal, ties = _streams_equal(G, cfg32, p32, [prompts[i] for i in done],
+                                 [want[i] for i in done],
+                                 [res[i] for i in done], dev)
+    f32.update(identity=1.0, streams_equal=equal, near_ties=ties)
+    del p32
+    torch.cuda.empty_cache()
+    # bf16 at full depth: the paged pair, then the fixed-slot int8 pair
+    bf16 = {"paged": chaos(cfg, params, paged_kw)[0],
+            "int8_fixed": chaos(cfg, params, dict(
+                n_slots=4, paged=False, int8_weights=True))[0]}
+    row = {"phase": "serving_router_chaos", "model": "gpt_1p3b",
+           "requests": CHAOS_N, "prompt_lens": list(CHAOS_LENS),
+           "rps": CHAOS_RPS, "new_tokens": CHAOS_NEW,
+           "tight_deadline_s": CHAOS_TIGHT_S, "faults": CHAOS_FAULTS,
+           "f32": f32, "bf16": bf16, **stamp}
+    emit(row)
+    pl = bf16["paged"]["launches"]
+    il = bf16["int8_fixed"]["launches"]
+    if pl["paged_attention_decode"] <= 0 \
+            or min(bf16["paged"]["paged_launches_by_replica"]) <= 0 \
+            or min(f32["paged_launches_by_replica"]) <= 0 \
+            or il["flash_attention_fwd"] <= 0 or il["int8_matmul"] <= 0:
+        raise AssertionError(f"router chaos launches are off: {row}")
+    return row
+
+
+def supervisor_phase(dev, mods, stamp):
+    """Phase 35: bench.py's lifecycle leg on the port, f32 at full width
+    and IDENTITY_LAYERS layers (every check is a token identity). Two
+    paged prefix-caching replicas and a ReplicaSupervisor over their
+    engine factory; LIFE_N requests on one LIFE_HEAD-token head arrive
+    Poisson under LIFE_FAULTS: replica 0 crashes, the first respawn fails
+    (spawn_fail), the second rejoins through the ladder, re-warms the
+    hot head and serves; streams equal a fault-free engine's. The
+    rejoined replica's first-token ms on a fresh tail against a cold
+    engine's. A forced rung scales the set up to 3; back at rung 0 the
+    least-loaded replica drains (a slow_tick fault on it keeps its stream
+    open past the drain timeout), and its open stream migrates to a
+    survivor, equal to an undisturbed run."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.resilience import configure_faults
+    from paddle_tpu_torch.serving import (EngineRouter, InferenceEngine,
+                                          ReplicaSupervisor)
+
+    pa = mods["paged_attention_decode"]
+    cfg32 = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
+    p32 = _scaled_params(G, cfg32, dev)
+    V = cfg32.vocab_size
+    rng = np.random.default_rng(35)
+    head = rng.integers(0, V, LIFE_HEAD).astype(np.int32)
+    tails = [np.concatenate([head, rng.integers(0, V, 8).astype(np.int32)])
+             for _ in range(LIFE_N + 1)]
+    gaps = rng.exponential(1 / CHAOS_RPS, LIFE_N)
+    mig = [rng.integers(0, V, 32).astype(np.int32) for _ in range(5)]
+    kw = dict(n_slots=4, paged=True, block_size=16, n_blocks=257,
+              prefill_chunk=64, prefix_cache=True, seed=0, queue_size=64)
+    ctl = _holding_controller()
+    made = []
+
+    def factory():
+        eng = InferenceEngine(cfg32, p32, overload=ctl, **kw)
+        made.append(eng)
+        return eng
+
+    ref = InferenceEngine(cfg32, p32, **kw)
+    try:
+        want = [ref.generate(t, max_new_tokens=LIFE_NEW)
+                for t in tails[:LIFE_N]]
+        want_mig = [ref.generate(p, max_new_tokens=LIFE_MIGRATE_NEW)
+                    for p in mig[4:]]
+    finally:
+        ref.shutdown()
+    s0 = {k: stat_get(k) for k in (
+        "serving_replica_restarts", "serving_scale_events",
+        "prefix_warm_tokens", "router_failovers")}
+    configure_faults(LIFE_FAULTS)
+    router = EngineRouter([factory(), factory()])
+    sup = ReplicaSupervisor(
+        router, factory, min_replicas=2, max_replicas=3, poll_s=0.05,
+        backoff_s=0.1, quarantine_s=1.0, stable_s=1.0, scale_up_rung=1,
+        scale_up_after=2, scale_down_after=6, scale_down_occupancy=0.9,
+        scale_cooldown_s=0.5, drain_timeout_s=0.2)
+
+    def wait(pred, what, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"supervisor never {what}: "
+                                     f"{sup.snapshot()}")
+            time.sleep(0.02)
+
+    try:
+        _counts(mods)
+        with _ThreadLaunches(pa) as tl:
+            res, fin, first = _chaos_run(router, tails[:LIFE_N], gaps,
+                                         new=LIFE_NEW)
+            wait(lambda: sup.snapshot()["rejoins"] >= 1 and all(
+                r["state"] == "live"
+                for r in sup.snapshot()["replicas"].values()), "rejoined")
+            configure_faults("")
+            rejoined = router.engine_for(0)
+            warm_peek = rejoined.run_on_scheduler(
+                lambda e: e._prefix.peek(head), timeout=600)
+            probe = rejoined.submit(tails[LIFE_N], max_new_tokens=LIFE_NEW)
+            probe_out = probe.result(timeout=600)
+            warm_ms = (probe._t_first - probe._t_submit) * 1e3
+            # scale up on a forced rung
+            ctl.force_rung(1)
+            wait(lambda: router.n_replicas == 3
+                 and sup.snapshot()["scale_ups"] == 1, "scaled up")
+            # open streams on every replica, the fewest on the newest;
+            # back at rung 0 it is the least-loaded victim and drains, and
+            # its ticks are stretched so that its stream outlasts the
+            # drain timeout and migrates
+            configure_faults("slow_tick@step=0:secs=0.02:repeat=100000:"
+                             "replica=2")
+            hogs = [router.engine_for(r).submit(p, max_new_tokens=
+                                                LIFE_MIGRATE_NEW)
+                    for r, p in ((0, mig[0]), (0, mig[1]), (1, mig[2]),
+                                 (1, mig[3]))]
+            moved = router.engine_for(2).submit(
+                mig[4], max_new_tokens=LIFE_MIGRATE_NEW)
+            fo_drain = stat_get("router_failovers")
+            ctl.force_rung(0)
+            wait(lambda: router.n_replicas == 2
+                 and sup.snapshot()["scale_downs"] == 1, "scaled down")
+            moved_out = moved.result(timeout=600)
+            for h in hogs:
+                h.result(timeout=600)
+            configure_faults("")
+        launches = _read(mods)
+        migrated = stat_get("router_failovers") - fo_drain
+        snap = sup.snapshot()
+        by_replica = tl.of(made)
+    finally:
+        configure_faults("")
+        router.shutdown(drain=False, timeout=120)
+    cold = InferenceEngine(cfg32, p32, **kw)
+    try:
+        c = cold.submit(tails[LIFE_N], max_new_tokens=LIFE_NEW)
+        cold_out = c.result(timeout=600)
+        cold_ms = (c._t_first - c._t_submit) * 1e3
+    finally:
+        cold.shutdown()
+    done = [i for i in range(LIFE_N) if fin[i] == "length"]
+    equal, ties = _streams_equal(G, cfg32, p32, [tails[i] for i in done],
+                                 [want[i] for i in done],
+                                 [res[i] for i in done], dev)
+    mig_equal, mig_ties = _streams_equal(G, cfg32, p32, [mig[4]],
+                                         want_mig, [moved_out], dev)
+    probe_equal, _ = _streams_equal(G, cfg32, p32, [tails[LIFE_N]],
+                                    [cold_out], [probe_out], dev)
+    row = {"phase": "serving_supervisor", "model": "gpt_1p3b",
+           "layers": IDENTITY_LAYERS, "dtype": "float32",
+           "requests": LIFE_N, "head_tokens": LIFE_HEAD,
+           "faults": LIFE_FAULTS, "finish_reasons": fin,
+           "completed": len(done), "streams_equal": equal,
+           "near_ties": ties, "identity": 1.0,
+           "first_token": _pcts(first),
+           "restarts": stat_get("serving_replica_restarts")
+           - s0["serving_replica_restarts"],
+           "spawns": snap["spawns"], "rejoins": snap["rejoins"],
+           "scale_events": stat_get("serving_scale_events")
+           - s0["serving_scale_events"],
+           "scale_ups": snap["scale_ups"],
+           "scale_downs": snap["scale_downs"],
+           "replicas_final": len(snap["replicas"]),
+           "warm_tokens": stat_get("prefix_warm_tokens")
+           - s0["prefix_warm_tokens"],
+           "rejoined_tree_holds_head": warm_peek,
+           "first_token_rejoined_ms": warm_ms,
+           "first_token_cold_ms": cold_ms,
+           "rejoined_vs_cold": warm_ms / cold_ms,
+           "probe_equal_to_cold": probe_equal == 1,
+           "migrated_streams": migrated,
+           "migrated_equal": mig_equal, "migrated_near_ties": mig_ties,
+           "migrated_to": getattr(moved, "_replica", 2),
+           "launches": launches, "paged_launches_by_replica": by_replica,
+           **stamp}
+    emit(row)
+    # spawns: the failed respawn, the rejoin, the scale-up
+    if len(done) != LIFE_N or snap["rejoins"] != 1 or snap["spawns"] != 3 \
+            or row["restarts"] != 3 or snap["scale_ups"] != 1 \
+            or snap["scale_downs"] != 1 or migrated < 1 \
+            or row["migrated_to"] == 2 or warm_peek < LIFE_HEAD \
+            or row["warm_tokens"] < LIFE_HEAD or len(made) != 4 \
+            or min(by_replica) <= 0:
+        raise AssertionError(f"supervisor run is off: {row}")
+    return row
+
+
+def prom_families(text):
+    """{metric family: type} of a Prometheus text exposition; every
+    sample line must parse."""
+    types = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            types[name] = kind
+        elif line and not line.startswith("#"):
+            m = re.fullmatch(r'([a-zA-Z_:][a-zA-Z0-9_:]*)'
+                             r'(\{le="[^"]+"\})? (\S+)', line)
+            if m is None:
+                raise AssertionError(f"/metrics line does not parse: "
+                                     f"{line!r}")
+            float(m.group(3))
+    return types
+
+
+def frontend_phase(dev, mods, stamp):
+    """Phase 36: the HTTP front end on 127.0.0.1 (an ephemeral port) over
+    an EngineRouter of two bf16 paged prefix-caching replicas at full
+    gpt_1p3b width and depth, with the byte tokenizer (the model's
+    vocabulary is the tokenizer's; block matrices x4 so that greedy text
+    varies): /v1/completions as JSON and SSE, whose
+    greedy text equals the same prompt's text engine-direct on the other
+    (cold) replica; /v1/chat/completions on a shared system prompt (prefix
+    hit rate > 0); /v1/models; /metrics parses as Prometheus text and
+    holds the five engine histograms and the frontend_* series; a 429
+    with Retry-After from an exhausted bucket; a bounded regex
+    response_format that ends "stop". First-token ms over HTTP (to the
+    first SSE piece) beside engine-direct."""
+    import http.client
+
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.serving import (ByteTokenizer, EngineRouter,
+                                          InferenceEngine, ServingFrontend,
+                                          Tenant)
+
+    pa = mods["paged_attention_decode"]
+    tok = ByteTokenizer()
+    cfg = G.gpt_1p3b(vocab_size=tok.vocab_size)
+    params = _scaled_params(G, cfg, dev)
+    engines = [InferenceEngine(cfg, params, n_slots=8, paged=True,
+                               prefix_cache=True, seed=5, tokenizer=tok)
+               for _ in range(2)]
+    router = EngineRouter(engines)
+    fe = ServingFrontend(router, tenants=[
+        Tenant("gold-co", "sk-gold", rate=1000, burst=1000, lane="gold"),
+        Tenant("tiny-co", "sk-tiny", rate=0.01, burst=1, lane="bronze")])
+
+    def call(method, path, body=None, key="sk-gold", stream=False):
+        conn = http.client.HTTPConnection("127.0.0.1", fe.port, timeout=600)
+        try:
+            t0 = time.perf_counter()
+            conn.request(method, path,
+                         json.dumps(body) if body is not None else None,
+                         {"Authorization": f"Bearer {key}"})
+            resp = conn.getresponse()
+            if not stream:
+                return resp.status, dict(resp.getheaders()), resp.read()
+            first_ms, chunks = None, []
+            while True:
+                line = resp.fp.readline()
+                if not line:
+                    break
+                if line.startswith(b"data: "):
+                    if first_ms is None:
+                        first_ms = (time.perf_counter() - t0) * 1e3
+                    chunks.append(line[len(b"data: "):].strip())
+            return resp.status, first_ms, chunks
+        finally:
+            conn.close()
+
+    def direct(replica, prompt, new):
+        """Greedy text of ``prompt`` on one replica, engine-direct, and
+        its first-token ms."""
+        req = router.engine_for(replica).submit(
+            tok.encode(prompt), max_new_tokens=new, eos_id=tok.eos_id)
+        text = req.text(timeout=600)
+        return text, (req._t_first - req._t_submit) * 1e3
+
+    out = {}
+    try:
+        fe.start()
+        _counts(mods)
+        with _ThreadLaunches(pa) as tl:
+            # JSON: routed to replica 0 (idle tie); engine-direct on the
+            # cold replica 1, each alone
+            a = "The quick brown fox jumps over the lazy dog. Then"
+            st, _, data = call("POST", "/v1/completions",
+                               {"prompt": a, "max_tokens": 16})
+            js = json.loads(data)
+            if st != 200:
+                raise AssertionError(f"/v1/completions {st}: {js}")
+            out["json_text"] = js["choices"][0]["text"]
+            out["json_usage"] = js["usage"]
+            out["json_direct_text"], _ = direct(1, a, 16)
+            # SSE: a second prompt, HTTP first (replica 0: idle tie, no
+            # affinity), then engine-direct on replica 1
+            b = "Once upon a time, in a land far away, there lived"
+            st, http_first, chunks = call(
+                "POST", "/v1/completions",
+                {"prompt": b, "max_tokens": 16, "stream": True},
+                stream=True)
+            if st != 200 or chunks[-1] != b"[DONE]":
+                raise AssertionError(f"SSE {st}: {chunks[-3:]}")
+            events = [json.loads(c) for c in chunks[:-1]]
+            out["sse_text"] = "".join(e["choices"][0]["text"]
+                                      for e in events)
+            out["sse_finish"] = events[-1]["choices"][0]["finish_reason"]
+            out["sse_direct_text"], direct_first = direct(1, b, 16)
+            out["first_token_http_ms"] = http_first
+            out["first_token_direct_ms"] = direct_first
+            # chat on a shared system prompt
+            m0 = (stat_get("prefix_matched_tokens"),
+                  stat_get("prefix_lookup_tokens"))
+            chat = []
+            for q in ("What is two plus two?", "Name a colour.",
+                      "Say hello."):
+                st, _, data = call("POST", "/v1/chat/completions", {
+                    "messages": [{"role": "system",
+                                  "content": SYSTEM_PROMPT},
+                                 {"role": "user", "content": q}],
+                    "max_tokens": 8})
+                if st != 200:
+                    raise AssertionError(f"chat {st}: {data[:200]}")
+                chat.append(json.loads(data)["choices"][0])
+            out["chat_finish_reasons"] = [c["finish_reason"] for c in chat]
+            out["chat_prefix_hit_rate"] = (
+                (stat_get("prefix_matched_tokens") - m0[0])
+                / max(stat_get("prefix_lookup_tokens") - m0[1], 1))
+            # a bounded regex
+            st, _, data = call("POST", "/v1/completions", {
+                "prompt": "Is it so? Answer: ", "max_tokens": TEXT_NEW,
+                "response_format": {"type": "regex", "regex": TEXT_REGEX}})
+            rc = json.loads(data)["choices"][0]
+            out["regex_text"], out["regex_finish"] = rc["text"], \
+                rc["finish_reason"]
+        launches = _read(mods)
+        by_replica = tl.of(engines)
+        st, _, data = call("GET", "/v1/models")
+        out["models"] = json.loads(data)["data"][0]["id"] \
+            if st == 200 else st
+        codes = [call("POST", "/v1/completions",
+                      {"prompt": "x", "max_tokens": 1}, key="sk-tiny")
+                 for _ in range(2)]
+        out["tiny_statuses"] = [c[0] for c in codes]
+        out["retry_after"] = codes[-1][1].get("Retry-After")
+        st, headers, data = call("GET", "/metrics")
+        text = data.decode()
+        fams = prom_families(text)
+        st_r, _, data_r = call("GET", "/readyz")
+        out["readyz"] = st_r
+        out["readyz_replicas"] = sorted(json.loads(data_r)["checks"]
+                                        ["replicas"])
+    finally:
+        fe.close()
+        router.shutdown(drain=False, timeout=120)
+        del params
+        torch.cuda.empty_cache()
+    hists = ("serving_first_token_ms", "serving_per_token_ms",
+             "serving_queue_wait_ms", "serving_decode_tick_ms",
+             "serving_prefill_chunk_ms")
+    frontend = sorted(f for f in fams if f.startswith("paddle_tpu_frontend_"))
+    row = {"phase": "serving_frontend", "model": "gpt_1p3b",
+           "layers": cfg.n_layers, "vocab": cfg.vocab_size,
+           "dtype": str(cfg.dtype), **out,
+           "metrics_status": st,
+           "metrics_content_type": headers.get("Content-Type"),
+           "metrics_families": len(fams),
+           "metrics_histograms": [h for h in hists
+                                  if fams.get(f"paddle_tpu_{h}")
+                                  == "histogram"],
+           "metrics_frontend_series": frontend,
+           "launches": launches, "paged_launches_by_replica": by_replica,
+           **stamp}
+    emit(row)
+    if out["json_text"] != out["json_direct_text"] \
+            or out["sse_text"] != out["sse_direct_text"] \
+            or out["sse_finish"] not in ("length", "eos") \
+            or out["chat_prefix_hit_rate"] <= 0 \
+            or out["regex_finish"] != "stop" \
+            or not re.fullmatch(TEXT_REGEX, out["regex_text"]) \
+            or out["tiny_statuses"] != [200, 429] \
+            or not out["retry_after"] or int(out["retry_after"]) < 1 \
+            or st != 200 or len(row["metrics_histograms"]) != 5 \
+            or len(frontend) < 5 or out["readyz"] != 200 \
+            or out["models"] != fe.model_id or min(by_replica) <= 0:
+        raise AssertionError(f"front end run is off: {row}")
+    return row
+
+
 def _kernel(name, source, replaces, launches, row, err, keys, library):
     ms, plain, bnd, by = keys
     return {"name": name, "route": "cuda", "source": source,
@@ -3603,8 +4233,18 @@ def main():
                    stamp)
         fo_run = timed("failover", failover_phase, dev, cfg, params, mods,
                        stamp, flight_dir)
+    orch_s = {}                        # phases 34-36's seconds each
+    t = time.perf_counter()
+    chaos = router_chaos_phase(dev, cfg, params, mods, stamp)
+    orch_s["router_chaos"] = time.perf_counter() - t
     del params
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    life = supervisor_phase(dev, mods, stamp)
+    orch_s["supervisor"] = time.perf_counter() - t
+    t = time.perf_counter()
+    front = frontend_phase(dev, mods, stamp)
+    orch_s["frontend"] = time.perf_counter() - t
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -3762,12 +4402,20 @@ def main():
                 for k, v in wd["launches"].items()},
              "serving_overload_spec_paged": ov["launches"],
              "serving_kv_stream_paged": kv["launches"],
-             "serving_failover_fixed": fo_run["launches"]}
+             "serving_failover_fixed": fo_run["launches"],
+             "serving_router_chaos_f32_paged": chaos["f32"]["launches"],
+             "serving_router_chaos_paged": chaos["bf16"]["paged"]["launches"],
+             "serving_router_chaos_int8_fixed":
+                 chaos["bf16"]["int8_fixed"]["launches"],
+             "serving_supervisor_f32_paged": life["launches"],
+             "serving_frontend_paged": front["launches"]}
     for k in kernels:
         k["launches_by_path"] = {name: counts.get(k["name"], 0)
                                  for name, counts in paths.items()}
     emit({"phase": "seconds", "resilience_phases_s": res_s,
           "resilience_total_s": sum(res_s.values()),
+          "orchestration_phases_s": orch_s,
+          "orchestration_total_s": sum(orch_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -6,8 +6,9 @@ from .flight import (FlightRecorder, arm_flight_recorder,
                      get_flight_recorder, host_id, set_host_id)
 from .stats import (DEFAULT_HISTOGRAMS, Histogram, Stat, StatRegistry,
                     get_histogram, hist_delta, hist_observe, hist_quantile,
-                    histogram_snapshot, reset_all_stats, stat_add, stat_get,
-                    stat_names, stat_reset, stat_snapshot)
+                    histogram_snapshot, prometheus_text, reset_all_stats,
+                    stat_add, stat_get, stat_names, stat_reset,
+                    stat_snapshot)
 from .trace import (TraceWriter, get_writer, is_tracing, recording, span,
                     start_tracing, stop_tracing)
 from .tracectx import TraceContext, mint_trace
@@ -16,7 +17,7 @@ __all__ = [
     "Stat", "StatRegistry", "stat_add", "stat_get", "stat_reset",
     "stat_names", "stat_snapshot", "reset_all_stats",
     "Histogram", "DEFAULT_HISTOGRAMS", "hist_observe", "get_histogram",
-    "histogram_snapshot", "hist_delta", "hist_quantile",
+    "histogram_snapshot", "hist_delta", "hist_quantile", "prometheus_text",
     "TraceWriter", "get_writer", "is_tracing", "recording", "span",
     "start_tracing", "stop_tracing",
     "TraceContext", "mint_trace",

@@ -6,22 +6,27 @@ fp8 matmuls, the MoE router's ``moe_expert_load`` gauge and
 ``moe_tokens_dropped`` counter, the ``fused_kernel_calls`` counter of
 ``ops/fused.py``, the engine's speculative-decoding, prefix-cache and
 constrained-decoding stats, its watchdog and brownout stats, the
-injected-fault counter, and the engine's latency histograms (a subset of
+injected-fault counter, the router's, replica supervisor's and HTTP front
+end's stats, and the engine's latency histograms (a subset of
 ``paddle_tpu/monitor/stats.py``, with its names).
 
 A :class:`Stat` is a named int64 gauge; a :class:`Histogram` a
 fixed-bucket (log2) latency histogram with count and sum;
 :class:`StatRegistry` the process-wide thread-safe registry of both.
-``prometheus_text`` and the memory gauges wait for the front end.
+:func:`prometheus_text` renders the registry as the front end's
+``GET /metrics`` serves it, under the reference's metric names. The
+memory gauges are not ported.
 """
 from __future__ import annotations
 
+import re
 import threading
 
 __all__ = ["Stat", "StatRegistry", "stat_get", "stat_add", "stat_reset",
            "stat_names", "stat_snapshot", "reset_all_stats", "Histogram",
            "DEFAULT_HISTOGRAMS", "hist_observe", "get_histogram",
-           "histogram_snapshot", "hist_delta", "hist_quantile"]
+           "histogram_snapshot", "hist_delta", "hist_quantile",
+           "prometheus_text"]
 
 
 class Stat:
@@ -281,6 +286,26 @@ BROWNOUT_RUNG = _registry.get_stat("brownout_rung")
 BROWNOUT_STEPS = _registry.get_stat("brownout_steps")
 # FLAGS_fault_inject faults that fired
 FAULTS_INJECTED = _registry.get_stat("faults_injected")
+# the HTTP front end: generation requests accepted, tenant-admission
+# rejections (429), the cumulative lane wait before submission (ms), open
+# generation streams (gauge), requests answered 503 (overload or deadline
+# shed)
+FRONTEND_REQUESTS = _registry.get_stat("frontend_requests")
+FRONTEND_429S = _registry.get_stat("frontend_429s")
+FRONTEND_QUEUE_WAIT_MS = _registry.get_stat("frontend_queue_wait_ms")
+FRONTEND_ACTIVE_STREAMS = _registry.get_stat("frontend_active_streams")
+FRONTEND_LOAD_SHEDS = _registry.get_stat("frontend_load_sheds")
+# the replica router: streams adopted by a survivor, and the routable
+# replicas (gauge)
+ROUTER_FAILOVERS = _registry.get_stat("router_failovers")
+SERVING_REPLICAS_HEALTHY = _registry.get_stat("serving_replicas_healthy")
+# the replica supervisor: the replica count it steers toward (gauge),
+# respawns, completed scale events, prompt tokens replayed to re-warm a
+# rejoined replica's radix tree
+SERVING_REPLICAS_TARGET = _registry.get_stat("serving_replicas_target")
+SERVING_REPLICA_RESTARTS = _registry.get_stat("serving_replica_restarts")
+SERVING_SCALE_EVENTS = _registry.get_stat("serving_scale_events")
+PREFIX_WARM_TOKENS = _registry.get_stat("prefix_warm_tokens")
 
 # the engine's latency histograms, recorded at the source (ms)
 DEFAULT_HISTOGRAMS = (
@@ -290,13 +315,16 @@ DEFAULT_HISTOGRAMS = (
      "steady-state inter-token latency per request, "
      "(t_last - t_first)/(n-1) (ms)"),
     ("serving_queue_wait_ms",
-     "queue wait before the engine admits a request (ms)"),
+     "queue wait before work starts: WFQ lane wait and engine "
+     "admission wait (ms)"),
     ("serving_decode_tick_ms",
      "batched decode tick wall latency (ms)"),
     ("serving_prefill_chunk_ms",
      "prefill work quantum wall latency: one chunk (paged) or one "
      "whole-prompt prefill (fixed) (ms)"),
 )
+
+HISTOGRAM_HELP = dict(DEFAULT_HISTOGRAMS)
 
 for _n, _ in DEFAULT_HISTOGRAMS:
     _registry.get_histogram(_n)
@@ -307,3 +335,52 @@ SERVING_QUEUE_WAIT_MS = _registry.get_histogram("serving_queue_wait_ms")
 SERVING_DECODE_TICK_MS = _registry.get_histogram("serving_decode_tick_ms")
 SERVING_PREFILL_CHUNK_MS = _registry.get_histogram(
     "serving_prefill_chunk_ms")
+
+
+# -- Prometheus text exposition (the front end's GET /metrics) --------------
+
+_PROM_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name: str, prefix: str = "paddle_tpu_") -> str:
+    """Sanitize to a legal Prometheus metric name: invalid characters
+    (a per-axis gauge's ``.``, a benchmark row's ``@``) become ``_``, and
+    a leading digit is prefixed. The prefix is the reference's, so a
+    scrape of the port reads like a scrape of the reference."""
+    n = _PROM_BAD.sub("_", str(name))
+    if n and n[0].isdigit():
+        n = "_" + n
+    return prefix + n
+
+
+def _prom_num(v: float) -> str:
+    """Format a float the Prometheus text format accepts (no trailing
+    noise: 0.125 -> '0.125', 8192.0 -> '8192')."""
+    return format(float(v), "g")
+
+
+def prometheus_text(prefix: str = "paddle_tpu_") -> str:
+    """The full registry in Prometheus text exposition format 0.0.4:
+    every gauge with ``# HELP``/``# TYPE``, every histogram as
+    cumulative ``_bucket{le=...}`` series plus ``_sum``/``_count``. It
+    reads registry snapshots only, so a scrape never waits on a
+    scheduler tick."""
+    lines = []
+    for name, value in stat_snapshot().items():
+        m = _prom_name(name, prefix)
+        lines.append(f"# HELP {m} int64 gauge {name}")
+        lines.append(f"# TYPE {m} gauge")
+        lines.append(f"{m} {int(value)}")
+    for name, snap in histogram_snapshot().items():
+        m = _prom_name(name, prefix)
+        help_txt = HISTOGRAM_HELP.get(name, f"latency histogram {name}")
+        lines.append(f"# HELP {m} {help_txt}")
+        lines.append(f"# TYPE {m} histogram")
+        cum = 0
+        for bound, c in zip(snap["bounds"], snap["counts"]):
+            cum += c
+            lines.append(f'{m}_bucket{{le="{_prom_num(bound)}"}} {cum}')
+        lines.append(f'{m}_bucket{{le="+Inf"}} {snap["count"]}')
+        lines.append(f"{m}_sum {_prom_num(snap['sum'])}")
+        lines.append(f"{m}_count {snap['count']}")
+    return "\n".join(lines) + "\n"

@@ -29,10 +29,19 @@ slow_tick      ``time.sleep(secs)`` in the scheduler loop  serving/engine.py
                at tick >= N (``repeat=K`` consecutive
                ticks, between them: it stretches the
                queue waits the brownout EWMA reads)
+spawn_fail     the supervisor's engine factory raises at   serving/
+               its spawn attempt >= N (``restart=N``,      lifecycle.py
+               ``times=K``)
+replica_flap   a rejoined replica crashes at its next      serving/
+               busy tick, for rejoin >= N (``restart=N``)  lifecycle.py
+conn_drop      the front end aborts its streaming          serving/
+               response >= N after the first piece         frontend.py
+               (``step=N`` or ``p=F``; keyed by the
+               front end's connection index)
 =============  ==========================================  ===============
 
-The train-step, input, checkpoint, rpc, connection and partition kinds
-parse, but their hooks wait for the modules that consume them.
+The train-step, input, checkpoint, rpc and partition kinds parse, but
+their hooks wait for the modules that consume them.
 
 Cost when idle: every hook site guards on ``ENABLED[0]`` (one list
 index); with the flag unset nothing is touched.
@@ -193,7 +202,7 @@ def parse_spec(text: str) -> List[FaultSpec]:
 
 class FaultRegistry:
     """Holds the configured faults and evaluates them at the serving hook
-    points (request-id and tick keyed)."""
+    points (request-id, tick, restart and connection keyed)."""
 
     def __init__(self):
         self.faults: List[FaultSpec] = []
@@ -243,6 +252,32 @@ class FaultRegistry:
                                           or int(replica) != f.replica):
                 continue
             if tick >= f.step:
+                f.consume()
+                return f
+        return None
+
+    def take_restart(self, kind: str, index: int) -> Optional[FaultSpec]:
+        """Claim a supervisor-RESTART-keyed fault (spawn_fail /
+        replica_flap) for one ReplicaSupervisor spawn-attempt or rejoin
+        index: the supervisor owns both counters, so no tick or request
+        hook can spend these budgets."""
+        for f in self.faults:
+            if f.kind != kind or f.kind not in _RESTART_KINDS \
+                    or f.spent() or f.restart is None:
+                continue
+            if index >= f.restart:
+                f.consume()
+                return f
+        return None
+
+    def take_conn(self, index: int) -> Optional[FaultSpec]:
+        """Claim a connection-indexed fault (conn_drop) for the front
+        end's Nth streaming response (its own index space)."""
+        for f in self.faults:
+            if f.kind not in _CONN_KINDS or f.spent():
+                continue
+            if (f.step is not None and index >= f.step) or \
+                    (f.p is not None and f._rng.random() < f.p):
                 f.consume()
                 return f
         return None

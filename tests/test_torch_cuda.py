@@ -652,6 +652,61 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert tpa.LAUNCHES > p0
 
 
+def test_router_failover_on_card(cuda_device, monkeypatch):
+    """Two paged replicas on the card under an EngineRouter; replica 0
+    is crashed by ``fail_at_tick`` once its streams decode: every stream
+    ends on the survivor, equal to the same router's undisturbed card run
+    (f32), and the paged decode kernel launched on both replicas'
+    scheduler threads."""
+    import threading
+    import time
+
+    from paddle_tpu_torch.serving import EngineRouter
+
+    cfg, params = _small_engine_model()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n) for n in (5, 40, 77, 21)]
+    threads = {}
+    launch = tpa._launch
+
+    def counted(*args, **kw):
+        key = threading.get_ident()
+        threads[key] = threads.get(key, 0) + 1
+        return launch(*args, **kw)
+
+    monkeypatch.setattr(tpa, "_launch", counted)
+
+    def run(crash):
+        engines = [InferenceEngine(cfg, params, n_slots=2, paged=True,
+                                   device=cuda_device) for _ in range(2)]
+        router = EngineRouter(engines)
+        try:
+            reqs = [router.submit(p, max_new_tokens=16) for p in prompts]
+            on0 = [r for r in reqs if r._replica == 0]
+            if crash:
+                deadline = time.monotonic() + 300
+                while not all(len(r.tokens) >= 2 for r in on0):
+                    assert time.monotonic() < deadline, "no decode on 0"
+                    time.sleep(0.001)
+                engines[0].fail_at_tick(1)
+            return ([r.result(timeout=300) for r in reqs], reqs,
+                    router.healthy_replicas(),
+                    [e._thread.ident for e in engines])
+        finally:
+            router.shutdown(drain=False, timeout=60)
+
+    want = run(False)[0]
+    threads.clear()
+    p0 = tpa.LAUNCHES
+    got, reqs, healthy, idents = run(True)
+    assert got == want
+    assert all(r.finish_reason == "length" and r._replica == 1
+               for r in reqs)
+    assert healthy == [1]
+    assert tpa.LAUNCHES - p0 == sum(threads.values())
+    assert all(threads.get(i, 0) > 0 for i in idents)
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_spec_engine_on_card_matches_non_spec(cuda_device, paged):
     """A speculative engine on the card (a 1-layer gpt_truncate draft,

@@ -65,7 +65,10 @@ def test_scan_sees_every_module():
                  "paddle_tpu_torch/monitor/tracectx.py",
                  "paddle_tpu_torch/monitor/flight.py",
                  "paddle_tpu_torch/resilience/faults.py",
-                 "paddle_tpu_torch/resilience/sentinel.py", "chip_smoke.py"):
+                 "paddle_tpu_torch/resilience/sentinel.py",
+                 "paddle_tpu_torch/serving/router.py",
+                 "paddle_tpu_torch/serving/lifecycle.py",
+                 "paddle_tpu_torch/serving/frontend.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -86,7 +89,10 @@ def test_imports_without_triton_nvcc_or_jax():
         " paddle_tpu_torch.serving.tokenizer, paddle_tpu_torch.monitor,"
         " paddle_tpu_torch.resilience, paddle_tpu_torch.serving.overload,"
         " paddle_tpu_torch.serving.constrained,"
-        " paddle_tpu_torch.serving.prefix_cache\n"
+        " paddle_tpu_torch.serving.prefix_cache,"
+        " paddle_tpu_torch.serving.router,"
+        " paddle_tpu_torch.serving.lifecycle,"
+        " paddle_tpu_torch.serving.frontend\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"

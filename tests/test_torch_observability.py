@@ -1,7 +1,10 @@
 """paddle_tpu_torch's observability against paddle_tpu's.
 
 - ``monitor/stats.py``: the same observations give equal histogram
-  snapshots, deltas, quantiles and ``stat_snapshot`` values;
+  snapshots, deltas, quantiles and ``stat_snapshot`` values, and
+  ``prometheus_text`` over the same registry contents equals the
+  reference's byte for byte; the router's, supervisor's and front end's
+  stats carry the reference's names;
 - ``monitor/trace.py`` / ``tracectx.py``: spans, flows, instants and
   ``TraceContext`` args give the same event names, phases and args;
 - ``monitor/flight.py``: a dump has the reference's keys, and
@@ -111,6 +114,61 @@ def test_engine_stats_and_histograms_carry_the_reference_names():
         assert hists[n]["bounds"] == list(jstats.DEFAULT_BUCKETS_MS)
     assert tstats.SERVING_QUEUE_WAIT_MS is tstats.get_histogram(
         "serving_queue_wait_ms")
+
+
+def _fill(reg):
+    """One scripted registry: counters and gauges (negative, zero, names a
+    Prometheus exposition must sanitize), the engine histograms and one
+    with default help text."""
+    for name, v in (("frontend_requests", 7), ("frontend_active_streams", -1),
+                    ("router_failovers", 0), ("kv_blocks_used", 12),
+                    ("device_memory_bytes.data", 4096),
+                    ("op@grad_jit_compile", 3), ("9lives", 9)):
+        reg.get_stat(name).set(v)
+    obs = np.random.default_rng(15).exponential(30.0, 60)
+    for name, _ in tstats.DEFAULT_HISTOGRAMS:
+        h = reg.get_histogram(name)
+        for v in obs[:len(name)]:
+            h.observe(float(v))
+    reg.get_histogram("custom_ms").observe(0.3)
+    reg.get_histogram("custom_ms").observe(1e6)
+    reg.get_histogram("empty_ms")
+
+
+@pytest.mark.parametrize("prefix", ["paddle_tpu_", "svc:"])
+def test_prometheus_text_is_the_references_byte_for_byte(monkeypatch,
+                                                         prefix):
+    regs = {mod: mod.StatRegistry() for mod in (jstats, tstats)}
+    for mod, reg in regs.items():
+        _fill(reg)
+        monkeypatch.setattr(mod, "_registry", reg)
+    got, want = tstats.prometheus_text(prefix), jstats.prometheus_text(prefix)
+    assert got == want
+    assert f"{prefix}device_memory_bytes_data 4096\n" in got
+    assert f"{prefix}_9lives 9\n" in got
+    assert f'{prefix}custom_ms_bucket{{le="+Inf"}} 2\n' in got
+    assert f"# HELP {prefix}serving_queue_wait_ms " \
+        f"{jstats.HISTOGRAM_HELP['serving_queue_wait_ms']}\n" in got
+    for v in (0.125, 8192.0, 1e-7, 3.0, 2.5e10):
+        assert tstats._prom_num(v) == jstats._prom_num(v)
+    for n in ("a.b", "x@y", "0ab", "ok_name:sub"):
+        assert tstats._prom_name(n) == jstats._prom_name(n)
+
+
+def test_orchestration_stats_carry_the_reference_names():
+    names = ("router_failovers", "serving_replicas_healthy",
+             "serving_replica_restarts", "serving_replicas_target",
+             "serving_scale_events", "prefix_warm_tokens", "frontend_429s",
+             "frontend_active_streams", "frontend_load_sheds",
+             "frontend_requests", "frontend_queue_wait_ms")
+    snap = tstats.stat_snapshot()
+    for n in names:
+        assert n in snap and n in jstats.DEFAULT_STATS
+        const = getattr(tstats, n.upper())
+        assert const is tstats._registry.get_stat(n)
+    assert tmon.prometheus_text is tstats.prometheus_text
+    for n, help_txt in tstats.DEFAULT_HISTOGRAMS:
+        assert help_txt == jstats.HISTOGRAM_HELP[n]
 
 
 def _events(mon, trace_mod, ctx_mod):

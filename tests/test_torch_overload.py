@@ -5,7 +5,8 @@ paddle_tpu's.
 both packages: the same observation sequence must step both controllers
 through the same rungs with the same gauges and snapshots, every spec
 string the reference parses must parse here to the same fields, and the
-request- and tick-keyed claims must follow the same budgets. Mirrors
+request-, tick-, restart- and connection-keyed claims must follow the
+same budgets. Mirrors
 ``tests/test_serving_overload.py``'s controller and fault-spec cases.
 """
 import numpy as np
@@ -200,6 +201,50 @@ def test_take_tick_and_take_request_follow_the_budgets(case):
     tfaults.configure_faults(spec)
     assert tfaults.ENABLED[0] is True
     assert _claims(tfaults, calls) == _claims(jfaults, calls)
+
+
+def _restart_and_conn_claims(faults, calls):
+    out = []
+    for kind, idx in calls:
+        if kind == "conn":
+            f = faults.FAULTS.take_conn(idx)
+        else:
+            f = faults.FAULTS.take_restart(kind, idx)
+        out.append(None if f is None else (f.kind, f.remaining))
+    return out
+
+
+RESTART_CONN_CASES = {
+    "spawn_fail_times": (
+        "spawn_fail@restart=2:times=2",
+        [("spawn_fail", i) for i in (1, 2, 3, 4, 5)]),
+    "flap_and_spawn_apart": (
+        "spawn_fail@restart=1,replica_flap@restart=2:times=3",
+        [("replica_flap", 1), ("spawn_fail", 1), ("replica_flap", 2),
+         ("spawn_fail", 2), ("replica_flap", 7), ("replica_flap", 8),
+         ("replica_flap", 9)]),
+    "restart_budget_invisible_elsewhere": (
+        "spawn_fail@restart=1:times=2,conn_drop@step=2",
+        [("conn", 1), ("spawn_fail", 0), ("conn", 2), ("conn", 3),
+         ("spawn_fail", 1), ("replica_flap", 5), ("spawn_fail", 9),
+         ("spawn_fail", 10)]),
+    "conn_drop_repeat": (
+        "conn_drop@step=3:repeat=2", [("conn", i) for i in range(1, 8)]),
+    "conn_drop_seeded": (
+        "conn_drop@p=0.4:seed=5", [("conn", i) for i in range(1, 16)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESTART_CONN_CASES))
+def test_take_restart_and_take_conn_match(case):
+    spec, calls = RESTART_CONN_CASES[case]
+    jfaults.configure_faults(spec)
+    tfaults.configure_faults(spec)
+    assert _restart_and_conn_claims(tfaults, calls) \
+        == _restart_and_conn_claims(jfaults, calls)
+    # the tick and request spaces never claim these kinds
+    assert tfaults.FAULTS.take_tick("replica_crash", 0, 99) is None
+    assert tfaults.FAULTS.take_request("serving_nan", 99) is None
 
 
 def test_flag_reconfigures_the_registry():
