@@ -236,7 +236,21 @@ stamped with the card's name and power limit):
     to engine-direct greedy text, chat on a shared system prompt (prefix
     hit rate > 0), /v1/models, /metrics parsed as Prometheus text (five
     histograms, frontend_* series), a 429 with Retry-After, a bounded
-    regex ending "stop", first-token ms over HTTP and engine-direct.
+    regex ending "stop", first-token ms over HTTP and engine-direct;
+37. LeNet through the Paddle surface (bench.py's bench_lenet: Adam 1e-3,
+    f32, batch 256 of 1×28×28, seed 0), 6 eager steps: step ms (median
+    of the last 3), samples/s, peak memory, every loss finite, the first
+    loss against the port's CPU run of the same weights and batch;
+38. ResNet-50 (bench.py's bench_resnet50 at full size: 1000 classes,
+    batch 256 of 3×224×224, ``amp.decorate`` O2 bf16, the loss under
+    ``auto_cast`` O2, Momentum 0.1 / 0.9), 6 eager steps: step ms,
+    samples/s, peak memory, every loss finite, every batch-norm buffer
+    moved; one more step under torch.profiler (device ms, idle share,
+    device launches, the 8 largest device items); then resnet50 in f32
+    at batch 2 on the card against the CPU with the same weights: the
+    first loss, conv1's and fc's gradients, bn1's running statistics
+    after one Momentum step. Neither phase runs a hand-written kernel
+    (their launch counts are on the kernels line, 0 expected).
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -4094,6 +4108,302 @@ def frontend_phase(dev, mods, stamp):
     return row
 
 
+# --------------------------------------------------------------------------
+# phases 37-38: Paddle vision training (BASELINE configs 1 and 2)
+# --------------------------------------------------------------------------
+
+# bench.py's bench_lenet and bench_resnet50 on the card: batch, image
+# side, steps
+LENET_BATCH = 256
+RESNET_BATCH = 256
+RESNET_SIDE = 224
+VISION_STEPS = 6
+# phase 37: LeNet's first loss on the card against the port's CPU run of
+# the same weights and batch, relative. f32 throughout (cuDNN with TF32
+# off, cuBLAS f32); only summation orders and cuDNN's choice of algorithm
+# differ
+LENET_FIRST_LOSS_REL = 1e-5
+# phase 38's f32 check, ResNet-50 at batch 2 on the card against the CPU
+# port with the same weights: the first loss relative, and bn1's running
+# statistics after one step as max |Δ| / max |CPU| (one conv's output and
+# its moments, summed in another order). conv1's and fc's gradients are
+# held to the CPU's f64 run of the same model: at batch 2 a random-init
+# ResNet-50's backward is ill-conditioned (the batch norms' backward
+# subtracts projections that nearly cancel), so the CPU's own f32
+# gradient of conv1 sits 2.5e-2 of its largest value from the f64 one
+# (fc's 3.3e-5; measured on the CPU). The card must land within
+# "grad_vs_f64" times the CPU f32 run's distance from f64: two f32 runs
+# summing in other orders land at comparable distances, TF32's 10-bit
+# operands far outside
+RESNET_CHECK_TOL = {"loss": 1e-5, "grad_vs_f64": 3.0, "stats": 1e-5}
+
+
+# every hand-written kernel's launch counter: (the kernels line's name,
+# the module's key in the phases' ``mods``, its counter)
+_KERNEL_COUNTERS = (
+    ("flash_attention_fwd", "fa", "LAUNCHES"),
+    ("paged_attention_decode", "pa", "LAUNCHES"),
+    ("flash_attention_bwd", "fa", "BWD_LAUNCHES"),
+    ("fused_ln_mlp_fwd", "fk", "FWD_LAUNCHES"),
+    ("fused_ln_mlp_bwd", "fk", "BWD_LAUNCHES"),
+    ("fused_ln_mlp_bwd_dw2", "fk", "DW2_LAUNCHES"),
+    ("fused_adamw", "fo", "ADAMW_LAUNCHES"),
+    ("fused_lamb", "fo", "LAMB_LAUNCHES"),
+    ("int8_matmul", "im", "LAUNCHES"), ("fp8_matmul", "fm", "LAUNCHES"),
+    ("moe_dispatch_gather", "md", "LAUNCHES"),
+    ("fused_add_ln_fwd", "fk", "ADDLN_FWD_LAUNCHES"),
+    ("fused_add_ln_bwd", "fk", "ADDLN_BWD_LAUNCHES"))
+
+
+def _vision_counts(mods):
+    """Every hand-written kernel's launch count (the vision path should
+    launch none of them)."""
+    return {n: getattr(mods[m], c) for n, m, c in _KERNEL_COUNTERS}
+
+
+def _reset_vision_counts(mods):
+    for _, m, c in _KERNEL_COUNTERS:
+        setattr(mods[m], c, 0)
+
+
+def _eager_steps(step, steps, dev, mods):
+    """``steps`` eager steps of ``step`` (which returns the loss as a
+    float, the host read that syncs it): losses, host ms a step, CUDA
+    event ms a step, peak memory (and its rise over what earlier phases
+    still hold when the run starts) and the kernels' launches (counts
+    set to 0 just before the run)."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    losses, host_ms, dev_ms = [], [], []
+    _reset_vision_counts(mods)
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        losses.append(step())
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+    return {"losses": losses, "step_ms": host_ms, "event_ms": dev_ms,
+            "step_ms_median_last3": float(np.median(host_ms[-3:])),
+            "event_ms_median_last3": float(np.median(dev_ms[-3:])),
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "peak_over_start_gib": (torch.cuda.max_memory_allocated(dev)
+                                    - base) / 2**30,
+            "launches": _vision_counts(mods)}
+
+
+def _profiled_step(step, host_ms, top=8):
+    """One more step under torch.profiler: the summed device time of its
+    kernels and copies, the device's idle share against ``host_ms`` (the
+    unprofiled step), the device items launched and the ``top`` largest
+    by device time."""
+    from paddle_tpu_torch.tools.profile_decode import _device_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = sorted(((_device_us(e), e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and _device_us(e) > 0), reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    return {"profiled_device_ms": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
+            "profiled_launches": sum(r[2] for r in rows),
+            "top_device_items": [{"name": k[:80], "ms": us / 1e3,
+                                  "calls": c}
+                                 for us, k, c in rows[:top]]}
+
+
+def lenet_phase(dev, mods, stamp):
+    """Phase 37: bench_lenet's user code on the card (LeNet, Adam 1e-3,
+    f32, batch 256 of 1×28×28, seed 0) for VISION_STEPS eager steps; the
+    first loss against the port's CPU run of the same weights and
+    batch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import LeNet
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = LeNet()
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=model.parameters())
+    rng = np.random.default_rng(0)
+    images_np = rng.normal(size=(LENET_BATCH, 1, 28, 28)).astype("float32")
+    labels_np = rng.integers(0, 10, (LENET_BATCH,)).astype("int64")
+    images, labels = paddle.to_tensor(images_np), paddle.to_tensor(labels_np)
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+
+    def step():
+        loss = paddle.nn.functional.cross_entropy(model(images), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss)
+
+    run = _eager_steps(step, VISION_STEPS, dev, mods)
+    paddle.set_device("cpu")
+    try:
+        cpu = LeNet()
+        cpu.set_state_dict(state)
+        loss_cpu = float(paddle.nn.functional.cross_entropy(
+            cpu(paddle.to_tensor(images_np)), paddle.to_tensor(labels_np)))
+    finally:
+        paddle.set_device("gpu")
+    rel = abs(run["losses"][0] - loss_cpu) / abs(loss_cpu)
+    ok = {"losses_finite": all(map(math.isfinite, run["losses"])),
+          "first_loss_vs_cpu": rel <= LENET_FIRST_LOSS_REL}
+    row = {"phase": "train_paddle_lenet", "model": "LeNet",
+           "config": "BASELINE config 1 (bench.py bench_lenet)",
+           "batch": [LENET_BATCH, 1, 28, 28], "dtype": "float32",
+           "optimizer": "Adam(lr=1e-3)", "steps": VISION_STEPS, **run,
+           "samples_per_s": LENET_BATCH / run["step_ms_median_last3"] * 1e3,
+           "first_loss_cpu": loss_cpu, "first_loss_rel_to_cpu": rel,
+           "tol_first_loss_rel": LENET_FIRST_LOSS_REL, "checks": ok,
+           "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"LeNet phase failed: {ok}")
+    return row
+
+
+def _bn_stats(model):
+    return {k: b._data.detach().clone() for k, b in model.named_buffers()}
+
+
+def resnet50_phase(dev, mods, stamp):
+    """Phase 38: bench_resnet50's user code on the card at full size
+    (resnet50(num_classes=1000), amp.decorate O2 bf16, the loss under
+    auto_cast O2, Momentum 0.1 / 0.9, batch 256 of 3×224×224, seed 0)
+    for VISION_STEPS eager steps, then one step under torch.profiler."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = paddle.amp.decorate(resnet50(num_classes=1000), level="O2",
+                                dtype="bfloat16")
+    opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters())
+    rng = np.random.default_rng(0)
+    images = paddle.to_tensor(rng.normal(
+        size=(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE)).astype("float32"))
+    labels = paddle.to_tensor(rng.integers(0, 1000, (RESNET_BATCH,)).astype(
+        "int64"))
+    before = _bn_stats(model)
+
+    def step():
+        with paddle.amp.auto_cast(enable=True, level="O2"):
+            out = model(images)
+        loss = paddle.nn.functional.cross_entropy(out, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss)
+
+    run = _eager_steps(step, VISION_STEPS, dev, mods)
+    after = _bn_stats(model)
+    moved = sum(not torch.equal(before[k], after[k]) for k in before)
+    prof = _profiled_step(step, run["step_ms_median_last3"])
+    dtypes = {str(p.dtype).split(".")[-1] for p in model.parameters()}
+    ok = {"losses_finite": all(map(math.isfinite, run["losses"])),
+          "bn_stats_moved": moved == len(before) == 106,
+          "bf16_and_f32_params": dtypes == {"bfloat16", "float32"}}
+    row = {"phase": "train_paddle_resnet50_o2", "model": "resnet50",
+           "config": "BASELINE config 2 (bench.py bench_resnet50)",
+           "batch": [RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE],
+           "num_classes": 1000, "amp": "O2 bfloat16 (norms f32)",
+           "optimizer": "Momentum(lr=0.1, momentum=0.9)",
+           "params": sum(p.size for p in model.parameters()),
+           "steps": VISION_STEPS, **run,
+           "samples_per_s": RESNET_BATCH / run["step_ms_median_last3"] * 1e3,
+           "bn_buffers_moved": moved, **prof, "checks": ok,
+           "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"ResNet-50 phase failed: {ok}")
+    del model, opt, images, labels, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def resnet50_check_phase(dev, stamp, batch=2):
+    """Phase 38's f32 check: resnet50 in f32 at ``batch`` × 3×224×224,
+    one Momentum step on the card against the CPU port with the same
+    weights (and the CPU in f64 as the gradients' yardstick): the first
+    loss, conv1's and fc's gradients and bn1's running statistics after
+    the step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet50
+
+    rng = np.random.default_rng(38)
+    images = rng.normal(size=(batch, 3, RESNET_SIDE, RESNET_SIDE)).astype(
+        "float32")
+    labels = rng.integers(0, 1000, (batch,)).astype("int64")
+    paddle.set_device("cpu")
+    try:
+        paddle.seed(38)
+        state = {k: v.numpy() for k, v in resnet50().state_dict().items()}
+        out = {}
+        for run, where, dt in (("cpu", "cpu", "float32"),
+                               ("cpu_f64", "cpu", "float64"),
+                               ("card", "gpu", "float32")):
+            paddle.set_device(where)
+            model = resnet50()
+            model.set_state_dict(state)
+            model.to(dtype=dt)
+            opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                            parameters=model.parameters())
+            t0 = time.perf_counter()
+            loss = paddle.nn.functional.cross_entropy(
+                model(paddle.to_tensor(images, dtype=dt)),
+                paddle.to_tensor(labels))
+            loss.backward()
+            grads = {n: getattr(model, n).weight.grad._data.cpu()
+                     for n in ("conv1", "fc")}
+            opt.step()
+            stats = {k: model.bn1._buffers[k]._data.cpu()
+                     for k in ("_mean", "_variance")}
+            out[run] = (float(loss), grads, stats,
+                        time.perf_counter() - t0)
+            del model, opt
+    finally:
+        paddle.set_device("gpu")
+    (l_cpu, g_cpu, s_cpu, t_cpu), (_, g64, _, t64), (
+        l_card, g_card, s_card, t_card) = (out["cpu"], out["cpu_f64"],
+                                           out["card"])
+    err = {"loss": abs(l_card - l_cpu) / abs(l_cpu),
+           "grad": {n: _rel(g_card[n], g) for n, g in g_cpu.items()},
+           "grad_card_vs_f64": {n: _rel(g_card[n], g)
+                                for n, g in g64.items()},
+           "grad_cpu_vs_f64": {n: _rel(g_cpu[n], g) for n, g in g64.items()},
+           "stats": {k: _rel(s_card[k], s) for k, s in s_cpu.items()}}
+    ok = {"loss": err["loss"] <= RESNET_CHECK_TOL["loss"],
+          "grad": all(err["grad_card_vs_f64"][n]
+                      <= RESNET_CHECK_TOL["grad_vs_f64"]
+                      * err["grad_cpu_vs_f64"][n] for n in g64),
+          "stats": max(err["stats"].values()) <= RESNET_CHECK_TOL["stats"]}
+    row = {"phase": "paddle_resnet50_card_vs_cpu", "model": "resnet50",
+           "batch": [batch, 3, RESNET_SIDE, RESNET_SIDE], "dtype": "float32",
+           "loss_card": l_card, "loss_cpu": l_cpu, "err": err,
+           "tol": RESNET_CHECK_TOL, "checks": ok, "card_s": t_card,
+           "cpu_s": t_cpu, "cpu_f64_s": t64, "ok": all(ok.values()),
+           **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"ResNet-50 card and CPU disagree: {row}")
+    return row
+
+
 def _kernel(name, source, replaces, launches, row, err, keys, library):
     ms, plain, bnd, by = keys
     return {"name": name, "route": "cuda", "source": source,
@@ -4245,6 +4555,19 @@ def main():
     t = time.perf_counter()
     front = frontend_phase(dev, mods, stamp)
     orch_s["frontend"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    vision_mods = {"fa": fa, "pa": pa, "fk": fk, "fo": fo, "im": im,
+                   "fm": fm, "md": md}
+    vision_s = {}                      # phases 37-38's seconds each
+    t = time.perf_counter()
+    lenet = lenet_phase(dev, vision_mods, stamp)
+    vision_s["lenet"] = time.perf_counter() - t
+    t = time.perf_counter()
+    resnet = resnet50_phase(dev, vision_mods, stamp)
+    vision_s["resnet50"] = time.perf_counter() - t
+    t = time.perf_counter()
+    resnet50_check_phase(dev, stamp)
+    vision_s["resnet50_check"] = time.perf_counter() - t
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -4408,7 +4731,9 @@ def main():
              "serving_router_chaos_int8_fixed":
                  chaos["bf16"]["int8_fixed"]["launches"],
              "serving_supervisor_f32_paged": life["launches"],
-             "serving_frontend_paged": front["launches"]}
+             "serving_frontend_paged": front["launches"],
+             "training_paddle_lenet": lenet["launches"],
+             "training_paddle_resnet50_o2": resnet["launches"]}
     for k in kernels:
         k["launches_by_path"] = {name: counts.get(k["name"], 0)
                                  for name, counts in paths.items()}
@@ -4416,6 +4741,8 @@ def main():
           "resilience_total_s": sum(res_s.values()),
           "orchestration_phases_s": orch_s,
           "orchestration_total_s": sum(orch_s.values()),
+          "vision_phases_s": vision_s,
+          "vision_total_s": sum(vision_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

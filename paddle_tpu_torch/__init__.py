@@ -17,7 +17,8 @@ version instead.
 The package is also the eager Paddle surface (``import paddle_tpu_torch
 as paddle``): ``paddle.to_tensor``, ``Tensor``, ``nn``,
 ``nn.functional``, ``optimizer``, ``ops`` (the fused transformer ops),
-``seed``, ``set_flags`` / ``get_flags`` and ``set_device``. Its tensors
+``amp`` (``auto_cast``, ``decorate``, ``GradScaler``), ``vision``
+(LeNet and the ResNets), ``seed``, ``set_flags`` / ``get_flags`` and ``set_device``. Its tensors
 and parameters go to the card unless ``paddle.set_device("cpu")`` was
 called. Importing it builds nothing.
 """
@@ -46,7 +47,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 # the Paddle surface (imported after resolve_device, which it uses)
-from . import device, nn, ops, optimizer, regularizer, tensor  # noqa: E402
+from . import (amp, device, nn, ops, optimizer, regularizer,  # noqa: E402
+               tensor, vision)
 from .core.flags import get_flag as _get_flag  # noqa: E402
 from .core.flags import set_flag as _set_flag  # noqa: E402
 from .device import (device_count, get_device,  # noqa: E402
@@ -75,8 +77,8 @@ def get_flags(flags):
     return {k: _get_flag(k) for k in flags}
 
 
-__all__ = ["resolve_device", "__version__", "device", "nn", "ops",
-           "optimizer", "regularizer", "tensor", "set_flags", "get_flags",
+__all__ = ["resolve_device", "__version__", "amp", "device", "nn", "ops",
+           "optimizer", "regularizer", "tensor", "vision", "set_flags", "get_flags",
            "set_device", "get_device", "device_count",
            "is_compiled_with_cuda", "Tensor", "Parameter", "no_grad",
            "enable_grad", "grad", "is_grad_enabled", "set_grad_enabled",

@@ -1,6 +1,7 @@
 """``linear``, ``dropout`` and ``embedding`` (a subset of
 ``paddle_tpu/nn/functional/common.py``). ``linear`` takes Paddle's
-``(in, out)`` weight; ``dropout`` draws its mask from the input
+``(in, out)`` weight and, under ``amp.auto_cast``, casts ``x`` and the
+weight (not the bias) to the AMP dtype; ``dropout`` draws its mask from the input
 device's seeded generator."""
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ def _linear(x, w, b=None):
 
 
 def linear(x, weight, bias=None, name=None):
+    from ...amp import maybe_autocast
+
+    x, weight = maybe_autocast(x, weight)
     if bias is None:
         return apply_op(_linear, x, weight)
     return apply_op(_linear, x, weight, bias)

@@ -14,7 +14,25 @@ import torch
 from ...framework import random as grandom
 
 __all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
-           "XavierNormal", "XavierUniform"]
+           "XavierNormal", "XavierUniform", "KaimingNormal", "KaimingUniform",
+           "calculate_gain"]
+
+
+def calculate_gain(nonlinearity, param=None):
+    gains = {
+        "sigmoid": 1.0, "linear": 1.0,
+        "conv1d": 1.0, "conv2d": 1.0, "conv3d": 1.0,
+        "conv_transpose1d": 1.0, "conv_transpose2d": 1.0,
+        "conv_transpose3d": 1.0,
+        "tanh": 5.0 / 3,
+        "relu": math.sqrt(2.0),
+        "leaky_relu": math.sqrt(
+            2.0 / (1 + (param if param is not None else 0.01) ** 2)),
+        "selu": 3.0 / 4,
+    }
+    if nonlinearity not in gains:
+        raise ValueError(f"unknown nonlinearity {nonlinearity}")
+    return gains[nonlinearity]
 
 
 def _fan_in_out(shape):
@@ -103,4 +121,35 @@ class XavierUniform(Initializer):
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
         limit = self.gain * math.sqrt(6.0 / (fi + fo))
+        return Uniform(-limit, limit)(shape, dtype, device)
+
+
+class KaimingNormal(Initializer):
+    """Normal(0, gain / sqrt(fan_in)); ``fan_in`` defaults to the
+    shape's."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0,
+                 nonlinearity="relu"):
+        self.fan_in, self.negative_slope = fan_in, negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, dtype, device):
+        fi = self.fan_in if self.fan_in is not None else _fan_in_out(shape)[0]
+        gain = calculate_gain(self.nonlinearity, self.negative_slope)
+        return Normal(0.0, gain / math.sqrt(fi))(shape, dtype, device)
+
+
+class KaimingUniform(Initializer):
+    """Uniform(-gain·sqrt(3 / fan_in), +gain·sqrt(3 / fan_in)): the conv
+    layers' default weight initializer."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0,
+                 nonlinearity="relu"):
+        self.fan_in, self.negative_slope = fan_in, negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, dtype, device):
+        fi = self.fan_in if self.fan_in is not None else _fan_in_out(shape)[0]
+        gain = calculate_gain(self.nonlinearity, self.negative_slope)
+        limit = gain * math.sqrt(3.0 / fi)
         return Uniform(-limit, limit)(shape, dtype, device)

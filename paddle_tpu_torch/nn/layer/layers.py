@@ -1,13 +1,14 @@
 """nn.Layer — module base class.
 
 Counterpart of ``paddle_tpu/nn/layer/layers.py``: the same registration
-semantics (``__setattr__`` routes Parameters and sub-Layers; buffers are
-not ported yet), the same state_dict names ("sub.sub.param") and
-parameter names ("<scope>_<k>.w_<i>"), the same hooks. Parameters are
-created on the
-current device (``paddle_tpu_torch.device``), the card by default.
+semantics (``__setattr__`` routes Parameters, sub-Layers and
+buffers), the same state_dict names ("sub.sub.param", persistable
+buffers after the parameters) and parameter names ("<scope>_<k>.w_<i>"),
+the same hooks. Parameters are created on the current device
+(``paddle_tpu_torch.device``), the card by default.
 :meth:`Layer.set_state_dict` takes Tensors or numpy arrays by those
-names, which is how weights carry across from the JAX package.
+names, buffers included, which is how weights carry across from the JAX
+package.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ class Layer:
         self._dtype = dtypes.convert_dtype(dtype)
         self._parameters = collections.OrderedDict()
         self._sub_layers = collections.OrderedDict()
+        self._buffers = collections.OrderedDict()
+        self._non_persistable_buffer_names = set()
         self._forward_pre_hooks = collections.OrderedDict()
         self._forward_post_hooks = collections.OrderedDict()
         self._hook_id = 0
@@ -85,10 +88,24 @@ class Layer:
         p.need_clip = attr.need_clip
         return p
 
+    def register_buffer(self, name, tensor, persistable=True):
+        """A Tensor the layer owns that is not trained (batch norm's
+        running statistics); in ``state_dict`` unless not
+        ``persistable``."""
+        if tensor is not None and not isinstance(tensor, Tensor):
+            tensor = Tensor(tensor)
+        self._buffers[name] = tensor
+        if persistable:
+            self._non_persistable_buffer_names.discard(name)
+        else:
+            self._non_persistable_buffer_names.add(name)
+        return tensor
+
     # -- attribute routing --------------------------------------------------
     def __setattr__(self, name, value):
         params = self.__dict__.get("_parameters")
         layers = self.__dict__.get("_sub_layers")
+        buffers = self.__dict__.get("_buffers")
         if isinstance(value, (Parameter, Layer)):
             if params is None:
                 raise RuntimeError("call Layer.__init__() before assigning "
@@ -97,7 +114,11 @@ class Layer:
                           else (layers, params))
             own[name] = value
             other.pop(name, None)
+            buffers.pop(name, None)
             self.__dict__.pop(name, None)
+            return
+        if buffers is not None and name in buffers:
+            buffers[name] = value
             return
         if params is not None and name in params and value is None:
             params.pop(name)
@@ -107,12 +128,20 @@ class Layer:
 
     def __getattr__(self, name):
         # only called when normal lookup fails
-        for store in ("_parameters", "_sub_layers"):
+        for store in ("_parameters", "_sub_layers", "_buffers"):
             d = self.__dict__.get(store)
             if d is not None and name in d:
                 return d[name]
         raise AttributeError(f"'{type(self).__name__}' object has no "
                              f"attribute '{name}'")
+
+    def __delattr__(self, name):
+        for store in ("_parameters", "_sub_layers", "_buffers"):
+            d = self.__dict__.get(store)
+            if d is not None and name in d:
+                del d[name]
+                return
+        object.__delattr__(self, name)
 
     # -- traversal ----------------------------------------------------------
     def add_sublayer(self, name, sublayer):
@@ -159,6 +188,27 @@ class Layer:
                 seen.add(id(p))
                 yield lp + ("." if lp else "") + name, p
 
+    def buffers(self, include_sublayers=True):
+        return [b for _, b in self.named_buffers(
+            include_sublayers=include_sublayers)]
+
+    def named_buffers(self, prefix="", include_sublayers=True):
+        for name, b, _ in self._named_buffers(prefix, include_sublayers):
+            yield name, b
+
+    def _named_buffers(self, prefix="", include_sublayers=True):
+        """(structured name, buffer, persistable) of every buffer."""
+        seen = set()
+        layers = (self.named_sublayers(prefix=prefix, include_self=True)
+                  if include_sublayers else [(prefix, self)])
+        for lp, layer in layers:
+            for name, b in layer._buffers.items():
+                if b is None or id(b) in seen:
+                    continue
+                seen.add(id(b))
+                yield (lp + ("." if lp else "") + name, b,
+                       name not in layer._non_persistable_buffer_names)
+
     # -- modes --------------------------------------------------------------
     def train(self):
         self.training = True
@@ -173,16 +223,20 @@ class Layer:
         return self
 
     def to(self, device=None, dtype=None, blocking=None):
-        """Move every parameter to ``device`` and/or cast the floating ones
-        to ``dtype`` (parameters stay leaves)."""
+        """Move every parameter and buffer to ``device`` and/or cast the
+        floating ones to ``dtype`` (parameters stay leaves)."""
         d = dtypes.convert_dtype(dtype)
         dev = None if device is None else torch.device(
             "cuda" if str(device).startswith("gpu") else device)
+
+        def moved(data):
+            return data.detach().to(device=dev, dtype=d if d is not None
+                                    and data.is_floating_point() else None)
+
         for p in self.parameters():
-            data = p._data.detach()
-            data = data.to(device=dev, dtype=d if d is not None
-                           and data.is_floating_point() else None)
-            p._data = data.requires_grad_(p.trainable)
+            p._data = moved(p._data).requires_grad_(p.trainable)
+        for b in self.buffers():
+            b._data = moved(b._data)
         if d is not None:
             self._dtype = d
         return self
@@ -195,14 +249,19 @@ class Layer:
         for name, p in self.named_parameters(
                 include_sublayers=include_sublayers):
             dest[name] = p
+        for name, b, persistable in self._named_buffers(
+                include_sublayers=include_sublayers):
+            if persistable:
+                dest[name] = b
         return dest
 
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy values (Tensors, torch tensors or numpy arrays, by
-        structured name) into this layer's parameters, cast to their
-        dtypes; returns (missing, unexpected) names."""
+        structured name) into this layer's parameters and persistable
+        buffers, cast to their dtypes; returns (missing, unexpected)
+        names."""
         own = self.state_dict()
-        missing, unexpected = [], []
+        missing = []
         for name, t in own.items():
             if name not in state_dict:
                 missing.append(name)

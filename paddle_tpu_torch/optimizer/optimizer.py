@@ -30,6 +30,12 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+def _weak(c, t) -> float:
+    """A Python scalar as ``jnp`` applies it to the tensor ``t``: rounded
+    to t's dtype first (0.1 is 0.10009765625 beside a bf16 tensor)."""
+    return torch.tensor(c, dtype=t.dtype).item()
+
+
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
@@ -169,7 +175,9 @@ class Momentum(Optimizer):
 
     def _update(self, p, g, lr, slots, mu, nesterov):
         (v,) = slots
-        lr = _f32(lr)
+        # the rate in the parameter's dtype, as the reference casts it;
+        # the velocity is p's dtype too
+        lr, mu = _weak(lr, p), _weak(mu, v)
         v.copy_(mu * v + g)
         p.copy_(p - (g + mu * v) * lr if nesterov else p - v * lr)
 
@@ -209,8 +217,13 @@ class Adam(Optimizer):
     @staticmethod
     def _adam(p, g, lr, slots, b1, b2, eps):
         m1, m2, b1p, b2p = slots
-        m1.copy_(b1 * m1 + (1 - b1) * g)
-        m2.copy_(b2 * m2 + (1 - b2) * torch.square(g))
+        # jnp rounds each scalar to the dtype of the tensor beside it; the
+        # reference's fused update then takes (1 - β)·g and (1 - β)·g² of a
+        # bf16 gradient into f32 master moments (multi_precision) without
+        # rounding those products to bf16 (g² itself is rounded)
+        sq = torch.square(g)
+        m1.copy_(_weak(b1, m1) * m1 + _weak(1 - b1, g) * g.to(m1.dtype))
+        m2.copy_(_weak(b2, m2) * m2 + _weak(1 - b2, g) * sq.to(m2.dtype))
         lr_t = _f32(lr) * torch.sqrt(1 - b2p) / (1 - b1p)
         p.copy_(p - (lr_t * m1 / (torch.sqrt(m2) + eps)).to(p.dtype))
         b1p.mul_(b1)

@@ -1,6 +1,8 @@
 """Shape ops (a subset of ``paddle_tpu/tensor/manipulation.py``), with
 Paddle's conventions: ``reshape`` takes 0 for "keep this dimension",
-``split`` a section count or a list of sizes (one may be -1)."""
+``split`` a section count or a list of sizes (one may be -1),
+``flatten`` folds the axes from ``start_axis`` to ``stop_axis`` into
+one (a 0-d tensor becomes shape [1])."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +10,8 @@ import torch
 from ..framework import dtype as dtypes
 from ..framework.core import Tensor, apply_op
 
-__all__ = ["reshape", "transpose", "concat", "split", "unsqueeze", "cast"]
+__all__ = ["reshape", "transpose", "concat", "split", "unsqueeze", "cast",
+           "flatten"]
 
 
 def _reshape(x, shape):
@@ -73,3 +76,14 @@ def _cast(x, dtype):
 
 def cast(x, dtype):
     return apply_op(_cast, x, dtype=dtypes.convert_dtype(dtype))
+
+
+def _flatten(x, start_axis=0, stop_axis=-1):
+    if x.dim() == 0:
+        return x.reshape(1)
+    return torch.flatten(x, start_axis % x.dim(), stop_axis % x.dim())
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    return apply_op(_flatten, x, start_axis=int(start_axis),
+                    stop_axis=int(stop_axis))

@@ -1,7 +1,8 @@
 """Math ops (a subset of ``paddle_tpu/tensor/math.py``): elementwise
 arithmetic with broadcasting (``floor_divide`` and ``remainder`` round
 toward minus infinity, as Python's ``//`` and ``%``), ``abs``,
-``matmul`` with Paddle's ``transpose_x``/``transpose_y``, ``sum``,
+``matmul`` (and ``mm``, ``bmm``) with Paddle's ``transpose_x`` /
+``transpose_y``, cast to the AMP dtype under ``amp.auto_cast``, ``sum``,
 ``mean`` and ``scale``."""
 from __future__ import annotations
 
@@ -11,8 +12,8 @@ from ..framework import dtype as dtypes
 from ..framework.core import Tensor, _as_torch, apply_op
 
 __all__ = ["add", "subtract", "multiply", "divide", "floor_divide",
-           "remainder", "mod", "pow", "matmul", "sum", "mean", "scale", "neg",
-           "abs"]
+           "remainder", "mod", "pow", "matmul", "mm", "bmm", "sum", "mean",
+           "scale", "neg", "abs"]
 
 
 def _operand(v, like):
@@ -51,8 +52,21 @@ def _matmul(x, y, transpose_x=False, transpose_y=False):
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    from ..amp import maybe_autocast
+
+    x, y = maybe_autocast(x, y)
     return apply_op(_matmul, x, y, transpose_x=bool(transpose_x),
                     transpose_y=bool(transpose_y))
+
+
+mm = matmul
+
+
+def bmm(x, y, name=None):
+    from ..amp import maybe_autocast
+
+    x, y = maybe_autocast(x, y)
+    return apply_op(torch.matmul, x, y)
 
 
 def _axis(axis):

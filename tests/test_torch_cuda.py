@@ -19,6 +19,10 @@ bf16 rounding, 3.9e-3 of a value).
 The add-LN kernels: f32 1e-4 (sums in another order), bf16 2e-2 (such
 a sum can cross one bf16 rounding of out or dx, 3.9e-3 of a value).
 
+A Paddle Conv2D → BatchNorm2D → pool stack in f32 on the card against
+the CPU (1e-4): the port's f32 convolutions run with cuDNN's TF32 off
+for the call, whatever the global flag says.
+
 The Hopper flash backward adds dQ with reduce-adds whose order between
 blocks changes from run to run, and the Hopper LN-MLP backward sums db1
 with atomics: the low bits of those outputs vary between runs, inside
@@ -1206,3 +1210,57 @@ def test_paddle_bert_on_card_matches_cpu(cuda_device):
     assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
     for name, g in out["cpu"][1].items():
         assert _rel(out["gpu"][1][name], g) <= 1e-4, name
+
+
+@pytest.mark.parametrize("tf32_global", [True, False])
+def test_conv_bn_pool_stack_f32_on_card_matches_cpu(cuda_device,
+                                                    tf32_global):
+    """Conv2D → BatchNorm2D → ReLU → MaxPool2D → Conv2D → AdaptiveAvgPool2D
+    in f32 through the Paddle surface, one train-mode step on the card
+    against the CPU with the same weights: the output, every gradient and
+    the running statistics within 1e-4 of each one's largest value (the
+    CPU's own f32 run sits within 2e-6 of its f64 run there). The
+    convs reduce over 32·3·3 = 288 products, where TF32's 10-bit operands
+    would be ~1e-3 apart; the port turns TF32 off for its f32 convs only
+    for the call, so the global flag reads as it was set."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+
+    rng = np.random.default_rng(0)
+    x_np = rng.standard_normal((4, 32, 20, 20)).astype(np.float32)
+    old = (tdevice._current[0], torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32_global
+    try:
+        paddle.set_device("cpu")
+        paddle.seed(3)
+        nn = paddle.nn
+        model = nn.Sequential(
+            # no bias before the batch norm: its gradient is 0 in exact
+            # arithmetic, so its f32 value is summation noise alone
+            nn.Conv2D(32, 48, 3, padding=1, bias_attr=False),
+            nn.BatchNorm2D(48), nn.ReLU(),
+            nn.MaxPool2D(3, 2, 1, ceil_mode=True),
+            nn.Conv2D(48, 16, 3, stride=2, padding="SAME", bias_attr=False),
+            nn.AdaptiveAvgPool2D((2, 3)))
+        state = {k: v.numpy() for k, v in model.state_dict().items()}
+        out = {}
+        for where in ("cpu", "gpu"):
+            paddle.set_device(where)
+            model.set_state_dict(state)
+            model.to(device=where)
+            x = paddle.to_tensor(x_np)
+            x.stop_gradient = False
+            y = model(x)
+            c = np.cos(np.arange(y.size, dtype=np.float32)).reshape(y.shape)
+            (y * paddle.to_tensor(c)).sum().backward()
+            assert torch.backends.cudnn.allow_tf32 == tf32_global
+            # copies: on the CPU .cpu() is the buffer itself, which the
+            # next set_state_dict overwrites
+            out[where] = [t._data.detach().cpu().clone() for t in (
+                [y, x.grad] + [p.grad for p in model.parameters()]
+                + model.buffers())]
+            model.clear_gradients()
+    finally:
+        tdevice._current[0], torch.backends.cudnn.allow_tf32 = old
+    rel = [_rel(card, cpu) for card, cpu in zip(out["gpu"], out["cpu"])]
+    assert max(rel) <= 1e-4, rel

@@ -6,10 +6,11 @@
   fall-back, warming / draining / removed replicas), and
   ``hot_prefixes`` returns the same re-warm list;
 - failover: under ``replica_crash@step=4:replica=0`` the port's greedy
-  router streams equal the JAX EngineRouter's token for token (and the
-  fault-free engine's), fixed and paged; sampled streams equal the
-  port's undisturbed run; the survivor set, ``router_failovers``,
-  ``serving_replicas_healthy`` and the ``router.replica_down`` span;
+  router streams equal the fault-free JAX engine's token for token,
+  fixed and paged (the JAX router's own failover identity is the JAX
+  package's test); sampled streams equal the port's undisturbed run; the
+  survivor set, ``router_failovers``, ``serving_replicas_healthy`` and
+  the ``router.replica_down`` span;
 - real-engine affinity, a whole-set death without a supervisor, the
   single-replica pass-through and the validation errors.
 
@@ -26,7 +27,6 @@ import pytest
 import torch
 
 from paddle_tpu.models import gpt as jg
-from paddle_tpu.resilience import faults as jfaults
 from paddle_tpu.serving import EngineRouter as JaxRouter
 from paddle_tpu.serving import InferenceEngine as JaxEngine
 from paddle_tpu_torch import monitor
@@ -71,26 +71,19 @@ def engine():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_streams(paged, crash):
-    """Greedy streams of ``_prompts()`` through a 2-replica JAX router
-    (``crash``: under CRASH) or one 4-slot JAX engine (fault-free)."""
+def _jax_streams(paged):
+    """Greedy streams of ``_prompts()`` through one fault-free 4-slot JAX
+    engine. The port's router is held to these under a crash; the JAX
+    router is not run under the fault here (on a loaded machine its
+    failover can lose a request to the injected crash, which its own
+    test covers)."""
     tree, _ = _params()
     jt = jax.tree.map(jnp.asarray, tree)
-    kw = {**KW, "paged": paged}
-    if not crash:
-        eng = JaxEngine(CFG_J, jt, **{**kw, "n_slots": 4})
-        try:
-            return [eng.generate(p, max_new_tokens=NEW) for p in _prompts()]
-        finally:
-            eng.shutdown()
-    jfaults.configure_faults(CRASH)
-    router = JaxRouter([JaxEngine(CFG_J, jt, **kw) for _ in range(2)])
+    eng = JaxEngine(CFG_J, jt, **{**KW, "paged": paged, "n_slots": 4})
     try:
-        reqs = [router.submit(p, max_new_tokens=NEW) for p in _prompts()]
-        return [r.result(timeout=120) for r in reqs]
+        return [eng.generate(p, max_new_tokens=NEW) for p in _prompts()]
     finally:
-        jfaults.configure_faults("")
-        router.shutdown(drain=False, timeout=60)
+        eng.shutdown()
 
 
 # ==========================================================================
@@ -191,12 +184,13 @@ def test_place_without_a_prefix_cache_is_least_loaded():
 
 @pytest.mark.parametrize("paged", [True, False])
 def test_failover_greedy_streams_equal_jax_router(engine, paged):
+    """The failover streams equal the fault-free JAX engine's."""
     fo0 = monitor.stat_get("router_failovers")
     tfaults.configure_faults(CRASH)
     router = EngineRouter([engine(paged=paged) for _ in range(2)])
     reqs = [router.submit(p, max_new_tokens=NEW) for p in _prompts()]
     outs = [r.result(timeout=120) for r in reqs]
-    assert outs == _jax_streams(paged, True) == _jax_streams(paged, False)
+    assert outs == _jax_streams(paged)
     assert all(r.finish_reason == "length" for r in reqs)
     assert monitor.stat_get("router_failovers") > fo0
     assert router.healthy_replicas() == [1]
