@@ -250,7 +250,29 @@ stamped with the card's name and power limit):
     at batch 2 on the card against the CPU with the same weights: the
     first loss, conv1's and fc's gradients, bn1's running statistics
     after one Momentum step. Neither phase runs a hand-written kernel
-    (their launch counts are on the kernels line, 0 expected).
+    (their launch counts are on the kernels line, 0 expected);
+39. the cross-host serving fleet in one process (bench.py's
+    _fleet_burst): a prefill-role and two decode-role HostAgents over
+    real loopback RPC and a FileKVStore registry, connect_fleet, paged
+    prefix-caching engines. (a) f32 at gpt_1p3b's width and 4 layers:
+    12 requests of 40/72/24/56 tokens (even greedy, odd sampled) at 24
+    req/s, one decode host closed abruptly mid-burst: every stream
+    completes equal to a monolithic engine's (or parts at a near-tie),
+    prefill routed >= 1, reroutes >= 1; (b) the same under a
+    net_partition window between the router and one decode host
+    (rpc_errors or the breaker gauge moved); (c) bf16 at full depth:
+    phase 5's requests through the disaggregated path: first-token
+    p50/p99, KV transfer ms, bytes and GB/s, decode tok/s, row 2's
+    launches on each decode host; the first streamed block against a
+    stop-and-copy for one cold 1500-token prompt, and that payload's
+    byte path (card to host, codec, socket, host to card);
+40. the fleet across processes: a prefill-role and a decode-role
+    HostAgent, each a spawned process on the card (byte tokenizer, f32,
+    4 layers at full width), the parent's connect_fleet router behind
+    ServingFrontend; 6 text prompts POSTed to /v1/completions (SSE):
+    every text equals a monolithic engine's, prefill routed > 0;
+    first-token ms over HTTP, each host's peak memory and launches from
+    its own report.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -4404,6 +4426,659 @@ def resnet50_check_phase(dev, stamp, batch=2):
     return row
 
 
+# --------------------------------------------------------------------------
+# phases 39-40: the cross-host serving fleet
+# --------------------------------------------------------------------------
+
+# phase 39: bench.py's _fleet_burst mix (prompt lengths, greedy / sampled
+# interleave, Poisson arrivals, new tokens) over one prefill-role and two
+# decode-role hosts; leg (b)'s partition window between the router and
+# one decode host (bench.py's chaos leg); leg (c)'s cold prompt for the
+# first-block against stop-and-copy comparison
+FLEET_N = 12
+FLEET_LENS = (40, 72, 24, 56)
+FLEET_RPS = 24.0
+FLEET_NEW = 16
+FLEET_SAMPLED = {"temperature": 0.7, "top_k": 5}
+FLEET_HOSTS = (("prefill0", "prefill"), ("decode0", "decode"),
+               ("decode1", "decode"))
+FLEET_PARTITION = "net_partition@step=6:secs=1.5:hosts=router|decode0"
+FLEET_COLD = 1500
+# phase 40: text prompts posted to /v1/completions, new tokens each
+FLEET_PROC_N = 6
+FLEET_PROC_NEW = 16
+
+
+def _fleet_mix(V, seed=1901):
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, V, FLEET_LENS[i % len(FLEET_LENS)])
+               .astype(np.int32) for i in range(FLEET_N)]
+    sample_kw = [{} if i % 2 == 0 else dict(FLEET_SAMPLED)
+                 for i in range(FLEET_N)]
+    gaps = rng.exponential(1 / FLEET_RPS, FLEET_N)
+    return prompts, sample_kw, gaps
+
+
+def _fleet_up(store_dir, job, factory, hosts=FLEET_HOSTS, **connect_kw):
+    """HostAgents over real loopback RPC and a FileKVStore registry in
+    ``store_dir``, and a FleetRouter over them."""
+    from paddle_tpu_torch.distributed import FileKVStore
+    from paddle_tpu_torch.serving import HostAgent, connect_fleet
+
+    store = FileKVStore(store_dir)
+    agents = {}
+    try:
+        for host, role in hosts:
+            agents[host] = HostAgent(store, job, host, factory, role=role,
+                                     heartbeat_s=0.1)
+        router = connect_fleet(store, job, min_hosts=len(hosts),
+                               registry_ttl=0.9, rpc_timeout=120.0,
+                               poll_s=0.2, monitor_poll_s=0.1, **connect_kw)
+    except BaseException:
+        for a in agents.values():
+            a.close()
+        raise
+    return agents, router
+
+
+def _fleet_down(agents, router):
+    if router is not None:
+        router.shutdown(drain=False, timeout=120)
+    for a in agents.values():
+        a.close()                   # an abruptly closed host's engines too
+
+
+def _fleet_burst(dev, cfg, params, mods, job, lose_host=False,
+                 fault_spec=None):
+    """One ``_fleet_burst`` leg (bench.py:1162) on the port, f32: returns
+    its row. Every completed stream must equal a monolithic engine's
+    (greedy: or part at a near-tie, TIE_REL; sampled: the fleet's rid
+    replayed on the monolithic engine), every request must end with a
+    finish reason."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor import (get_histogram, hist_delta,
+                                          hist_quantile)
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.resilience import configure_faults
+    from paddle_tpu_torch.serving import InferenceEngine
+    from paddle_tpu_torch.serving.engine import GenerationRequest
+
+    def factory():
+        return InferenceEngine(cfg, params, n_slots=4, paged=True,
+                               block_size=16, n_blocks=129,
+                               prefill_chunk=64, queue_size=4 * FLEET_N,
+                               prefix_cache=True, seed=0, device=dev)
+
+    pa = mods["pa"]
+    prompts, sample_kw, gaps = _fleet_mix(cfg.vocab_size)
+    mono = factory()
+    try:
+        want = {i: mono.generate(prompts[i], max_new_tokens=FLEET_NEW)
+                for i in range(FLEET_N) if not sample_kw[i]}
+    finally:
+        mono.shutdown(drain=False)
+    keys = ("fleet_prefill_routed", "fleet_direct_fallbacks",
+            "fleet_kv_transfer_bytes", "fleet_reroutes", "rpc_calls",
+            "rpc_errors", "rpc_retries", "fleet_kv_chunks_streamed",
+            "router_failovers")
+    s0 = {k: stat_get(k) for k in keys}
+    kv0 = get_histogram("fleet_kv_transfer_ms").snapshot()
+    # breakers stay counted open after their client closed, so the leg
+    # reads the gauge's rise over its start
+    breaker0 = stat_get("rpc_breaker_state")
+    breaker_max = [breaker0]
+    agents, router = {}, None
+    results, first, reqs = [None] * FLEET_N, [None] * FLEET_N, \
+        [None] * FLEET_N
+    sub_t = [0.0] * FLEET_N
+    lost = None
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            agents, router = _fleet_up(root, job, factory)
+            decoders = [agents[h]._engines[0] for h, r in FLEET_HOSTS
+                        if r == "decode"]
+            if fault_spec:
+                configure_faults(fault_spec)   # clean per-peer indices
+            stop = threading.Event()
+
+            def watch():
+                while not stop.wait(0.02):
+                    breaker_max[0] = max(breaker_max[0],
+                                         stat_get("rpc_breaker_state"))
+
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+
+            def consume(i, req):
+                toks = []
+                try:
+                    for tok in req.stream(timeout=600):
+                        if first[i] is None:
+                            first[i] = (time.perf_counter() - sub_t[i]) * 1e3
+                        toks.append(tok)
+                    results[i] = toks
+                except RuntimeError:
+                    results[i] = None
+
+            _reset_vision_counts(mods)
+            threads = []
+            with _ThreadLaunches(pa) as tl:
+                t0 = time.perf_counter()
+                for i in range(FLEET_N):
+                    sub_t[i] = time.perf_counter()
+                    reqs[i] = router.submit(prompts[i],
+                                            max_new_tokens=FLEET_NEW,
+                                            **sample_kw[i])
+                    th = threading.Thread(target=consume, args=(i, reqs[i]))
+                    th.start()
+                    threads.append(th)
+                    if lose_host and lost is None and i == FLEET_N // 2:
+                        # close the decode host of an open stream: its
+                        # streams must reroute token-identically
+                        for r in reqs[:i + 1]:
+                            rep = getattr(r, "_replica", None)
+                            if r.finish_reason is None and rep is not None:
+                                host = router.engine_for(rep).host
+                                lost = host
+                                agents[host].close(abrupt=True)
+                                break
+                    time.sleep(gaps[i])
+                for th in threads:
+                    th.join(timeout=900)
+                wall = time.perf_counter() - t0
+            stop.set()
+            watcher.join(timeout=5)
+            if any(th.is_alive() for th in threads):
+                raise AssertionError("a fleet consumer never finished")
+            by_decoder = tl.of(decoders)
+            launches = _vision_counts(mods)
+            stream = dict(router.last_stream_stats or {})
+        finally:
+            if fault_spec:
+                configure_faults("")
+            _fleet_down(agents, router)
+    oracle = factory()
+    try:
+        for i in range(FLEET_N):
+            if not sample_kw[i] or results[i] is None:
+                continue
+            o = GenerationRequest(prompts[i], FLEET_NEW,
+                                  sample_kw[i]["temperature"],
+                                  sample_kw[i]["top_k"], 1.0, None, None)
+            o.rid = reqs[i].rid
+            oracle.adopt_request(o)
+            want[i] = o.result(timeout=600)
+    finally:
+        oracle.shutdown(drain=False)
+    fin = [r.finish_reason for r in reqs]
+    done = [i for i in range(FLEET_N) if results[i] is not None]
+    sampled_bad = [i for i in done if sample_kw[i] and results[i] != want[i]]
+    greedy = [i for i in done if not sample_kw[i]]
+    equal, ties = _streams_equal(G, cfg, params,
+                                 [prompts[i] for i in greedy],
+                                 [want[i] for i in greedy],
+                                 [results[i] for i in greedy], dev)
+    d = {k: stat_get(k) - s0[k] for k in keys}
+    kv = hist_delta(kv0, get_histogram("fleet_kv_transfer_ms").snapshot())
+    row = {"layers": cfg.n_layers, "dtype": str(cfg.dtype),
+           "finish_reasons": fin, "completed": len(done),
+           "lost_host": lost, "fault_spec": fault_spec,
+           "greedy_equal": equal, "near_ties": ties,
+           "sampled_equal": sum(1 for i in done if sample_kw[i])
+           - len(sampled_bad), "sampled_differ": sampled_bad,
+           "first_token": _pcts(first), "wall_s": wall,
+           "kv_transfer_ms": {"count": kv["count"],
+                              "p50": hist_quantile(kv, 0.5),
+                              "p99": hist_quantile(kv, 0.99)},
+           "rpc_breaker_state_rise": breaker_max[0] - breaker0,
+           "last_stream": stream, "launches": launches,
+           "paged_launches_by_decode_host": by_decoder, **d}
+    if sampled_bad or any(f is None for f in fin) \
+            or len(done) != FLEET_N or any(f != "length" for f in fin) \
+            or d["fleet_prefill_routed"] < 1:
+        raise AssertionError(f"fleet burst is off: {row}")
+    return row
+
+
+def _cold_stream_vs_copy(dev, src, dst_stream, dst_copy, V):
+    """bench.py:1496-1560's comparison on one cold FLEET_COLD-token
+    prompt each, engine to engine: the first streamed block spliced into
+    a decode engine (chunks ship while the next chunk computes) against a
+    whole-prefix stop-and-copy (prefill, export, import). Then the bytes
+    of that stop-and-copy payload step by step: the export (card to host,
+    on the scheduler thread), the codec's encode and decode, one RPC
+    round trip over loopback carrying the payload, the import (host to
+    card and the radix splice)."""
+    from paddle_tpu_torch.serving import rpc
+
+    rng = np.random.default_rng(1560)
+    p_stream, p_copy = (rng.integers(0, V, FLEET_COLD).astype(np.int32)
+                        for _ in range(2))
+    t0 = time.perf_counter()
+    wreq = src.warm_prefix(p_stream)      # non-blocking: chunks compute
+    first_block_ms = None
+    while time.perf_counter() < t0 + 600:
+        exp1 = src.export_kv_range(p_stream, start_block=0, max_blocks=1)
+        if exp1["n_blocks"] > 0:
+            dst_stream.import_kv_chunk(p_stream, exp1["kb"], exp1["vb"],
+                                       int(exp1["start_block"]),
+                                       int(exp1["covered_tokens"]))
+            first_block_ms = (time.perf_counter() - t0) * 1e3
+            break
+        time.sleep(0.002)
+    wreq.result(timeout=600)
+    t0 = time.perf_counter()
+    src.warm_prefix(p_copy).result(timeout=600)
+    t1 = time.perf_counter()
+    exp = src.export_kv_prefix(p_copy)
+    t2 = time.perf_counter()
+    got = dst_copy.import_kv_prefix(p_copy, exp["kb"], exp["vb"],
+                                    exp["matched_len"])
+    t3 = time.perf_counter()
+    nbytes = exp["kb"].nbytes + exp["vb"].nbytes
+    arrays = {"kb": exp["kb"], "vb": exp["vb"]}
+    t4 = time.perf_counter()
+    manifest, blob = rpc.encode_arrays(arrays)
+    t5 = time.perf_counter()
+    buf = bytearray(blob)
+    t6 = time.perf_counter()
+    back = rpc.decode_arrays(manifest, buf)
+    t7 = time.perf_counter()
+    if back["kb"].dtype != torch.bfloat16 \
+            or not torch.equal(back["kb"].view(torch.int16),
+                               exp["kb"].view(torch.int16)):
+        raise AssertionError("the codec changed a bf16 KV payload")
+    del blob, buf, back
+    srv = rpc.RpcServer({"sink": lambda p, a: {"bytes": sum(
+        v.nbytes for v in a.values())}})
+    cli = rpc.RpcClient(srv.addr, timeout=600.0)
+    try:
+        cli.call("sink", {}, {"x": np.zeros(16, np.float32)})   # dial
+        t8 = time.perf_counter()
+        res, _ = cli.call("sink", {}, arrays)
+        t9 = time.perf_counter()
+    finally:
+        cli.close()
+        srv.close()
+    if res["bytes"] != nbytes or got < FLEET_COLD - 1:
+        raise AssertionError(f"stop-and-copy payload is off: {res}, {got}")
+
+    def gbs(ms):
+        return nbytes / (ms * 1e-3) / 1e9 if ms > 0 else None
+
+    steps = {"export_ms": (t2 - t1) * 1e3, "encode_ms": (t5 - t4) * 1e3,
+             "decode_ms": (t7 - t6) * 1e3, "rpc_ms": (t9 - t8) * 1e3,
+             "import_ms": (t3 - t2) * 1e3}
+    return {"prompt": FLEET_COLD, "first_block_ms": first_block_ms,
+            "stop_copy_ms": (t3 - t0) * 1e3,
+            "stop_copy_prefill_ms": (t1 - t0) * 1e3,
+            "first_block_lt_stop_copy": first_block_ms is not None
+            and first_block_ms < (t3 - t0) * 1e3,
+            "payload_bytes": nbytes,
+            "byte_path": {**steps, **{k.replace("_ms", "_gb_s"): gbs(v)
+                                      for k, v in steps.items()}}}
+
+
+def fleet_phase(dev, cfg, params, mods, stamp, ref_outs=None):
+    """Phase 39: the fleet in one process (bench.py:1162 _fleet_burst on
+    the port): a prefill-role and two decode-role HostAgents over real
+    loopback RPC and a FileKVStore registry in a temp directory,
+    connect_fleet, paged prefix-caching engines. (a) f32 at gpt_1p3b's
+    width and IDENTITY_LAYERS layers: FLEET_N requests of FLEET_LENS
+    tokens, even ones greedy, odd ones sampled, Poisson at FLEET_RPS,
+    FLEET_NEW new tokens; one decode host closed abruptly mid-burst;
+    every stream completes and equals a monolithic engine's (greedy: or
+    parts at a near-tie, TIE_REL), fleet_prefill_routed >= 1,
+    fleet_reroutes >= 1. (b) the same under a FLEET_PARTITION window:
+    the same gates, and rpc_errors or rpc_breaker_state moved. (c) bf16
+    at full depth: phase 5's requests through the disaggregated path,
+    submitted one after another (a long prompt's submit returns once its
+    KV has streamed; the router places by the decode hosts' load, which
+    an in-flight stream does not raise, so concurrent submits would all
+    land on one host), each consumed on its own thread: first-token p50
+    / p99, fleet_kv_transfer_ms p50 / p99, bytes and GB/s, decode tok/s,
+    row 2's launches on each decode host (> 0), the share of greedy
+    tokens equal to phase 5's paged streams ``ref_outs`` (reported, not
+    gated:
+    bf16 sums in another batch can part them); then the first-block
+    against stop-and-copy comparison and the stop-and-copy payload's
+    byte path (``_cold_stream_vs_copy``)."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor import (get_histogram, hist_delta,
+                                          hist_quantile)
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    pa = mods["pa"]
+    cfg32 = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32)
+    p32 = _scaled_params(G, cfg32, dev)
+    loss = _fleet_burst(dev, cfg32, p32, mods, "fleet_loss",
+                        lose_host=True)
+    part = _fleet_burst(dev, cfg32, p32, mods, "fleet_partition",
+                        fault_spec=FLEET_PARTITION)
+    del p32
+    _fresh_peak(dev)
+    if loss["fleet_reroutes"] < 1 or loss["lost_host"] is None:
+        raise AssertionError(f"fleet host loss rerouted nothing: {loss}")
+    if part["rpc_errors"] < 1 and part["rpc_breaker_state_rise"] < 1:
+        raise AssertionError(f"fleet partition moved nothing: {part}")
+
+    # (c) bf16, full depth, phase 5's requests
+    requests = phase5_requests(cfg.vocab_size)
+
+    def factory():
+        return InferenceEngine(cfg, params, n_slots=8, paged=True,
+                               prefix_cache=True, seed=5, device=dev)
+
+    keys = ("fleet_prefill_routed", "fleet_direct_fallbacks",
+            "fleet_kv_transfer_bytes", "fleet_kv_chunks_streamed",
+            "serving_decode_ms")
+    n = len(requests)
+    first, outs, reqs = [None] * n, [None] * n, [None] * n
+    agents, router = {}, None
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            agents, router = _fleet_up(root, "fleet_bf16", factory)
+            decoders = [agents[h]._engines[0] for h, r in FLEET_HOSTS
+                        if r == "decode"]
+            s0 = {k: stat_get(k) for k in keys}
+            kv0 = get_histogram("fleet_kv_transfer_ms").snapshot()
+
+            def consume(i, t):
+                toks = []
+                for tok in reqs[i].stream(timeout=600):
+                    if first[i] is None:
+                        first[i] = (time.perf_counter() - t) * 1e3
+                    toks.append(tok)
+                outs[i] = toks
+
+            _reset_vision_counts(mods)
+            threads = []
+            with _ThreadLaunches(pa) as tl:
+                t0 = time.perf_counter()
+                # bench.py's shape: the submit of a long prompt returns
+                # once its KV has streamed; consumers run meanwhile
+                for i, (p, kw) in enumerate(requests):
+                    t = time.perf_counter()
+                    reqs[i] = router.submit(p, max_new_tokens=FLEET_NEW,
+                                            **kw)
+                    th = threading.Thread(target=consume, args=(i, t))
+                    th.start()
+                    threads.append(th)
+                for th in threads:
+                    th.join(timeout=900)
+                wall = time.perf_counter() - t0
+            launches = _vision_counts(mods)
+            by_decoder = tl.of(decoders)
+            if any(th.is_alive() for th in threads) or None in outs:
+                raise AssertionError(f"a bf16 fleet stream failed: {outs}")
+            d = {k: stat_get(k) - s0[k] for k in keys}
+            kv = hist_delta(kv0, get_histogram("fleet_kv_transfer_ms")
+                            .snapshot())
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            cold = _cold_stream_vs_copy(
+                dev, agents["prefill0"]._engines[0], decoders[0],
+                decoders[1], cfg.vocab_size)
+        finally:
+            _fleet_down(agents, router)
+    decode_tokens = sum(len(o) - 1 for o in outs)
+    kv_s = kv["sum"] / 1e3
+    identity = None
+    if ref_outs is not None:
+        pairs = [(o, r[:FLEET_NEW]) for (_, kw), o, r in
+                 zip(requests, outs, ref_outs) if not kw]
+        identity = sum(a == b for o, r in pairs for a, b in zip(o, r)) \
+            / max(1, sum(len(r) for _, r in pairs))
+    bf16 = {"layers": cfg.n_layers, "dtype": str(cfg.dtype),
+            "requests": n, "prompt_lens": [len(p) for p, _ in requests],
+            "new_tokens": FLEET_NEW, "wall_s": wall,
+            "finish_reasons": [r.finish_reason for r in reqs],
+            "first_token": _pcts(first),
+            "kv_transfer_ms": {"count": kv["count"],
+                               "p50": hist_quantile(kv, 0.5),
+                               "p99": hist_quantile(kv, 0.99),
+                               "sum": kv["sum"]},
+            "kv_transfer_bytes": d["fleet_kv_transfer_bytes"],
+            # the streams overlap: bytes over the summed stream ms is the
+            # rate one stream saw on average; over the wall, the fleet's
+            "kv_gb_s_per_stream": d["fleet_kv_transfer_bytes"] / kv_s / 1e9
+            if kv_s > 0 else None,
+            "kv_gb_s_wall": d["fleet_kv_transfer_bytes"] / wall / 1e9,
+            "greedy_token_identity_vs_phase5": identity,
+            "prefill_routed": d["fleet_prefill_routed"],
+            "direct_fallbacks": d["fleet_direct_fallbacks"],
+            "kv_chunks": d["fleet_kv_chunks_streamed"],
+            "decode_tokens": decode_tokens,
+            "decode_ms_total": d["serving_decode_ms"],
+            "decode_tok_s": decode_tokens
+            / max(d["serving_decode_ms"], 1) * 1e3,
+            "peak_gib": peak, "launches": launches,
+            "paged_launches_by_decode_host": by_decoder,
+            "cold_1500": cold}
+    row = {"phase": "serving_fleet", "model": "gpt_1p3b",
+           "requests": FLEET_N, "prompt_lens": list(FLEET_LENS),
+           "rps": FLEET_RPS, "new_tokens": FLEET_NEW,
+           "hosts": [h for h, _ in FLEET_HOSTS], "f32_host_loss": loss,
+           "f32_partition": part, "bf16": bf16, **stamp}
+    emit(row)
+    if min(by_decoder) <= 0 or bf16["prefill_routed"] != n \
+            or bf16["direct_fallbacks"] \
+            or any(f not in ("length", "eos") for f in
+                   bf16["finish_reasons"]) \
+            or min(loss["paged_launches_by_decode_host"]) <= 0:
+        raise AssertionError(f"bf16 fleet run is off: {row}")
+    return row
+
+
+def _fleet_host_proc(root, job, host, role, stop_file, report_file):
+    """Phase 40's host process (spawned): one HostAgent over a byte-
+    tokenizer f32 engine on the card at gpt_1p3b's width and
+    IDENTITY_LAYERS layers, serving until ``stop_file`` appears; then its
+    peak memory, kernel launches and whether it found the parent's
+    kernel builds go to ``report_file`` and to its own line. Without a
+    card it reports that and exits nonzero: a host never falls back to
+    the CPU."""
+    report = {"host": host, "role": role, "pid": os.getpid()}
+    if not torch.cuda.is_available():
+        report["error"] = "no CUDA device in the host process"
+        with open(report_file, "w") as f:
+            json.dump(report, f)
+        sys.exit(3)
+    from paddle_tpu_torch.distributed import FileKVStore
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import (ByteTokenizer, HostAgent,
+                                          InferenceEngine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    report["prebuilt"] = all(_build._target(n).exists()
+                             for n in _build.SOURCES)
+    tok = ByteTokenizer()
+    cfg = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32,
+                     vocab_size=tok.vocab_size)
+    params = _scaled_params(G, cfg, dev)
+
+    def factory():
+        return InferenceEngine(cfg, params, n_slots=4, paged=True,
+                               block_size=16, n_blocks=129,
+                               prefill_chunk=64, prefix_cache=True, seed=0,
+                               tokenizer=tok, device=dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    agent = HostAgent(FileKVStore(root), job, host, factory, role=role,
+                      heartbeat_s=0.2)
+    try:
+        while not os.path.exists(stop_file):
+            time.sleep(0.05)
+    finally:
+        agent.close()
+    report.update(device=torch.cuda.get_device_name(0),
+                  engine_device=str(agent._engines[0].device),
+                  peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                  paged_launches=pa.LAUNCHES, flash_launches=fa.LAUNCHES)
+    with open(report_file, "w") as f:
+        json.dump(report, f)
+    print(json.dumps({"fleet_host": report}), flush=True)
+
+
+def fleet_process_phase(dev, stamp):
+    """Phase 40: one prefill-role and one decode-role HostAgent, each a
+    spawned process on the card (tests/test_serving_fleet.py:625's
+    shape); the parent holds a connect_fleet router behind
+    ServingFrontend. FLEET_PROC_N text prompts POSTed to /v1/completions
+    (SSE) at Poisson gaps: every text equals a monolithic card engine's,
+    fleet_prefill_routed > 0; first-token ms over HTTP (after one
+    warm-up request, whose own first token is reported apart); each
+    host's peak memory and launches from its own report; both hosts on
+    the card and loading the parent's kernel builds."""
+    import http.client
+    import multiprocessing
+
+    from paddle_tpu_torch.distributed import FileKVStore
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor.stats import stat_get
+    from paddle_tpu_torch.serving import (ByteTokenizer, InferenceEngine,
+                                          ServingFrontend, Tenant,
+                                          connect_fleet)
+
+    tok = ByteTokenizer()
+    cfg = G.gpt_1p3b(n_layers=IDENTITY_LAYERS, dtype=torch.float32,
+                     vocab_size=tok.vocab_size)
+    params = _scaled_params(G, cfg, dev)
+    prompts = [f"request {i}: the quick brown fox number {i} jumps over "
+               f"the lazy dog" for i in range(FLEET_PROC_N)]
+    mono = InferenceEngine(cfg, params, n_slots=4, paged=True,
+                           block_size=16, n_blocks=129, prefill_chunk=64,
+                           prefix_cache=True, seed=0, tokenizer=tok,
+                           device=dev)
+    try:
+        want = [mono.submit(text=p, max_new_tokens=FLEET_PROC_NEW)
+                .text(timeout=600) for p in prompts]
+    finally:
+        mono.shutdown(drain=False)
+    del params
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    routed0 = stat_get("fleet_prefill_routed")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kv")
+        stop_file = os.path.join(tmp, "stop")
+        hosts = (("pf", "prefill"), ("dec", "decode"))
+        reports = {h: os.path.join(tmp, f"{h}.json") for h, _ in hosts}
+        procs = [ctx.Process(target=_fleet_host_proc,
+                             args=(root, "procs", h, r, stop_file,
+                                   reports[h]))
+                 for h, r in hosts]
+        t_spawn = time.perf_counter()
+        for p in procs:
+            p.start()
+        router = fe = None
+        results = [None] * FLEET_PROC_N
+        try:
+            deadline = time.perf_counter() + 300.0
+            while router is None:
+                dead = [p.exitcode for p in procs if p.exitcode is not None]
+                if dead or time.perf_counter() > deadline:
+                    raise AssertionError(f"a fleet host process ended "
+                                         f"before serving: {dead}")
+                try:
+                    router = connect_fleet(FileKVStore(root), "procs",
+                                           min_hosts=2, timeout=5.0,
+                                           registry_ttl=2.0, poll_s=0.2)
+                except TimeoutError:
+                    continue
+            up_s = time.perf_counter() - t_spawn
+            fe = ServingFrontend(router, tenants=[
+                Tenant("t", "sk-t", rate=1000, burst=1000)]).start()
+            gaps = np.random.default_rng(7).exponential(1 / 20.0,
+                                                        FLEET_PROC_N)
+
+            def post(i, prompt=None):
+                conn = http.client.HTTPConnection("127.0.0.1", fe.port,
+                                                  timeout=600)
+                try:
+                    t0 = time.perf_counter()
+                    conn.request("POST", "/v1/completions", json.dumps(
+                        {"model": "m",
+                         "prompt": prompts[i] if prompt is None else prompt,
+                         "max_tokens": FLEET_PROC_NEW, "temperature": 0.0,
+                         "stream": True}),
+                        {"Authorization": "Bearer sk-t",
+                         "Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    first_ms, chunks = None, []
+                    while True:
+                        line = resp.fp.readline()
+                        if not line:
+                            break
+                        if line.startswith(b"data: "):
+                            if first_ms is None:
+                                first_ms = (time.perf_counter() - t0) * 1e3
+                            chunks.append(line[len(b"data: "):].strip())
+                    text = "".join(json.loads(c)["choices"][0]["text"]
+                                   for c in chunks if c != b"[DONE]")
+                    out = (resp.status, text, first_ms)
+                    if prompt is None:
+                        results[i] = out
+                    return out
+                finally:
+                    conn.close()
+
+            # one request first: the host processes' first prefill,
+            # stream and decode start their CUDA libraries
+            cold = post(0, "a warm-up request through both hosts")
+            threads = []
+            for i in range(FLEET_PROC_N):
+                th = threading.Thread(target=post, args=(i,))
+                th.start()
+                threads.append(th)
+                time.sleep(float(gaps[i]))
+            for th in threads:
+                th.join(timeout=600)
+        finally:
+            with open(stop_file, "w") as f:
+                f.write("stop")
+            if fe is not None:
+                fe.close()
+            if router is not None:
+                router.shutdown(drain=False, timeout=120)
+            for p in procs:
+                p.join(timeout=120)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=30)
+        host_reports = {}
+        for h, path in reports.items():
+            with open(path) as f:
+                host_reports[h] = json.load(f)
+    routed = stat_get("fleet_prefill_routed") - routed0
+    row = {"phase": "serving_fleet_processes", "model": "gpt_1p3b",
+           "layers": cfg.n_layers, "vocab": cfg.vocab_size,
+           "dtype": str(cfg.dtype), "prompts": FLEET_PROC_N,
+           "new_tokens": FLEET_PROC_NEW, "hosts_up_s": up_s,
+           "statuses": [r and r[0] for r in results],
+           "texts_equal": sum(1 for r, w in zip(results, want)
+                              if r and r[1] == w),
+           "first_token_http": _pcts([r and r[2] for r in results]),
+           "first_token_http_cold_ms": cold[2], "cold_status": cold[0],
+           "prefill_routed": routed, "host_reports": host_reports,
+           "exit_codes": [p.exitcode for p in procs], **stamp}
+    emit(row)
+    if row["texts_equal"] != FLEET_PROC_N or routed <= 0 \
+            or any(s != 200 for s in row["statuses"]) \
+            or cold[0] != 200 \
+            or any(c != 0 for c in row["exit_codes"]) \
+            or any("error" in r or not r["prebuilt"]
+                   or not r["engine_device"].startswith("cuda")
+                   for r in host_reports.values()) \
+            or host_reports["dec"]["paged_launches"] <= 0:
+        raise AssertionError(f"fleet process run is off: {row}")
+    return row
+
+
 def _kernel(name, source, replaces, launches, row, err, keys, library):
     ms, plain, bnd, by = keys
     return {"name": name, "route": "cuda", "source": source,
@@ -4568,6 +5243,17 @@ def main():
     t = time.perf_counter()
     resnet50_check_phase(dev, stamp)
     vision_s["resnet50_check"] = time.perf_counter() - t
+    fleet_s = {}                       # phases 39-40's seconds each
+    t = time.perf_counter()
+    params = G.gpt_init(cfg, seed=0, device=dev)
+    fleet = fleet_phase(dev, cfg, params, vision_mods, stamp,
+                        ref_outs=runs[True]["outs"])
+    del params
+    _fresh_peak(dev)
+    fleet_s["fleet_inprocess"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fleet_procs = fleet_process_phase(dev, stamp)
+    fleet_s["fleet_processes"] = time.perf_counter() - t
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -4612,7 +5298,15 @@ def main():
              kernels_per_call=p["kernels_per_call"],
              engine_shape={k: pe[k] for k in (
                  "kernel_ms", "kernel_ms_warm", "kernel_ms_clean", "ms",
-                 "bound_ms", "max_abs_err")}),
+                 "bound_ms", "max_abs_err")},
+             fleet_launches_by_decode_host={
+                 "f32_host_loss":
+                     fleet["f32_host_loss"]["paged_launches_by_decode_host"],
+                 "f32_partition":
+                     fleet["f32_partition"]["paged_launches_by_decode_host"],
+                 "bf16": fleet["bf16"]["paged_launches_by_decode_host"],
+                 "processes": {h: r["paged_launches"] for h, r in
+                               fleet_procs["host_reports"].items()}}),
         dict(_kernel("flash_attention_bwd",
                      "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                      "paddle_tpu/ops/flash_attention.py:200",
@@ -4733,7 +5427,20 @@ def main():
              "serving_supervisor_f32_paged": life["launches"],
              "serving_frontend_paged": front["launches"],
              "training_paddle_lenet": lenet["launches"],
-             "training_paddle_resnet50_o2": resnet["launches"]}
+             "training_paddle_resnet50_o2": resnet["launches"],
+             "serving_fleet_f32_host_loss":
+                 fleet["f32_host_loss"]["launches"],
+             "serving_fleet_f32_partition":
+                 fleet["f32_partition"]["launches"],
+             "serving_fleet_bf16_paged": fleet["bf16"]["launches"],
+             # counted in the host processes, which report them
+             "serving_fleet_processes": {
+                 "paged_attention_decode": sum(
+                     r["paged_launches"]
+                     for r in fleet_procs["host_reports"].values()),
+                 "flash_attention_fwd": sum(
+                     r["flash_launches"]
+                     for r in fleet_procs["host_reports"].values())}}
     for k in kernels:
         k["launches_by_path"] = {name: counts.get(k["name"], 0)
                                  for name, counts in paths.items()}
@@ -4743,6 +5450,8 @@ def main():
           "orchestration_total_s": sum(orch_s.values()),
           "vision_phases_s": vision_s,
           "vision_total_s": sum(vision_s.values()),
+          "fleet_phases_s": fleet_s,
+          "fleet_total_s": sum(fleet_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -7,7 +7,9 @@ fp8 matmuls, the MoE router's ``moe_expert_load`` gauge and
 ``ops/fused.py``, the engine's speculative-decoding, prefix-cache and
 constrained-decoding stats, its watchdog and brownout stats, the
 injected-fault counter, the router's, replica supervisor's and HTTP front
-end's stats, and the engine's latency histograms (a subset of
+end's stats, the cross-host fleet's and its RPC transport's stats, and
+the latency histograms of the engine, the fleet's KV stream, its
+arrivals and its RPC round trips (a subset of
 ``paddle_tpu/monitor/stats.py``, with its names).
 
 A :class:`Stat` is a named int64 gauge; a :class:`Histogram` a
@@ -306,6 +308,42 @@ SERVING_REPLICAS_TARGET = _registry.get_stat("serving_replicas_target")
 SERVING_REPLICA_RESTARTS = _registry.get_stat("serving_replica_restarts")
 SERVING_SCALE_EVENTS = _registry.get_stat("serving_scale_events")
 PREFIX_WARM_TOKENS = _registry.get_stat("prefix_warm_tokens")
+# the cross-host serving fleet (serving/pod.py) and its RPC transport
+# (serving/rpc.py); the reference's comments, one per name:
+# gauge: fleet hosts with a fresh heartbeat
+FLEET_HOSTS = _registry.get_stat("fleet_hosts")
+# gauge: remote replica proxies attached to the router
+FLEET_REPLICAS = _registry.get_stat("fleet_replicas")
+# KV block bytes streamed prefill-host -> decode-host
+FLEET_KV_TRANSFER_BYTES = _registry.get_stat("fleet_kv_transfer_bytes")
+# prefix exports served by prefill-role replicas
+FLEET_KV_EXPORTS = _registry.get_stat("fleet_kv_exports")
+# prefix imports spliced into decode-role pools
+FLEET_KV_IMPORTS = _registry.get_stat("fleet_kv_imports")
+# requests whose prefill ran on a prefill-role host
+FLEET_PREFILL_ROUTED = _registry.get_stat("fleet_prefill_routed")
+# disaggregated submits that fell back to direct decode
+FLEET_DIRECT_FALLBACKS = _registry.get_stat("fleet_direct_fallbacks")
+# host-loss events that re-routed streams to survivors
+FLEET_REROUTES = _registry.get_stat("fleet_reroutes")
+# replicas pre-warmed by the arrival-rate forecaster
+FLEET_PREWARMS = _registry.get_stat("fleet_prewarms")
+# RPC round trips issued by remote replica proxies
+RPC_CALLS = _registry.get_stat("rpc_calls")
+# RPC round trips that failed (transport or remote)
+RPC_ERRORS = _registry.get_stat("rpc_errors")
+# idempotent RPC calls re-sent after a transport error
+RPC_RETRIES = _registry.get_stat("rpc_retries")
+# gauge: per-peer circuit breakers currently OPEN
+RPC_BREAKER_STATE = _registry.get_stat("rpc_breaker_state")
+# frames shed by the receiver: deadline already expired
+RPC_DEADLINE_SHEDS = _registry.get_stat("rpc_deadline_sheds")
+# KV chunks shipped by the resumable streaming path
+FLEET_KV_CHUNKS_STREAMED = _registry.get_stat("fleet_kv_chunks_streamed")
+# decode-side local tail prefills after a mid-stream loss
+FLEET_KV_RESUME_TAILS = _registry.get_stat("fleet_kv_resume_tails")
+# fleet-wide flight-recorder collection sweeps
+FLIGHT_COLLECTS = _registry.get_stat("flight_collects")
 
 # the engine's latency histograms, recorded at the source (ms)
 DEFAULT_HISTOGRAMS = (
@@ -322,6 +360,15 @@ DEFAULT_HISTOGRAMS = (
     ("serving_prefill_chunk_ms",
      "prefill work quantum wall latency: one chunk (paged) or one "
      "whole-prompt prefill (fixed) (ms)"),
+    ("fleet_kv_transfer_ms",
+     "prefill-host -> decode-host KV block stream wall latency per "
+     "prompt: export + transport + pool splice (ms)"),
+    ("fleet_arrival_gap_ms",
+     "inter-arrival gap between fleet submissions (ms) — the "
+     "arrival-rate series the pre-warm forecaster reads (rps = "
+     "1000/median gap)"),
+    ("rpc_call_ms",
+     "remote-replica RPC round-trip wall latency (ms)"),
 )
 
 HISTOGRAM_HELP = dict(DEFAULT_HISTOGRAMS)
@@ -335,6 +382,9 @@ SERVING_QUEUE_WAIT_MS = _registry.get_histogram("serving_queue_wait_ms")
 SERVING_DECODE_TICK_MS = _registry.get_histogram("serving_decode_tick_ms")
 SERVING_PREFILL_CHUNK_MS = _registry.get_histogram(
     "serving_prefill_chunk_ms")
+FLEET_KV_TRANSFER_MS = _registry.get_histogram("fleet_kv_transfer_ms")
+FLEET_ARRIVAL_GAP_MS = _registry.get_histogram("fleet_arrival_gap_ms")
+RPC_CALL_MS = _registry.get_histogram("rpc_call_ms")
 
 
 # -- Prometheus text exposition (the front end's GET /metrics) --------------

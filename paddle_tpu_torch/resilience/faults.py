@@ -38,10 +38,29 @@ conn_drop      the front end aborts its streaming          serving/
                response >= N after the first piece         frontend.py
                (``step=N`` or ``p=F``; keyed by the
                front end's connection index)
+rpc_drop       the client's socket dies before the frame   serving/rpc.py
+               leaves (keyed by the client's per-peer
+               CALL index; ``method=`` / ``host=``
+               filter which calls qualify)
+rpc_delay      the receiver sleeps ``secs`` before         serving/rpc.py
+               dispatch (the header-deadline shed path)
+rpc_corrupt    one byte of the frame flips in flight       serving/rpc.py
+               (in the blob when the call carries a crc,
+               in the JSON header otherwise)
+net_partition  every RPC between host groups               serving/rpc.py
+               ``hosts=A|B`` (members joined with ``+``)
+               fails fast for ``secs``, both directions
+               (``step=N``: the client call index that
+               opens the window)
+kv_partition   :class:`~paddle_tpu_torch.distributed.      distributed/
+               elastic.FileKVStore` raises ``OSError``     elastic.py
+               while the window (:func:`begin_kv_partition`)
+               is open
 =============  ==========================================  ===============
 
-The train-step, input, checkpoint, rpc and partition kinds parse, but
-their hooks wait for the modules that consume them.
+The train-step, input and checkpoint kinds parse, but their hooks wait
+for the modules that consume them (``kv_partition``'s ``step=N``
+trigger is the training pod's, so only its window is ported).
 
 Cost when idle: every hook site guards on ``ENABLED[0]`` (one list
 index); with the flag unset nothing is touched.
@@ -49,12 +68,16 @@ index); with the flag unset nothing is touched.
 from __future__ import annotations
 
 import random as _random
+import time
 from typing import Dict, List, Optional
 
 from ..core import flags as _flags
 
 __all__ = ["FaultSpec", "FaultRegistry", "InjectedCrash", "FAULTS",
-           "ENABLED", "configure_faults", "parse_spec"]
+           "ENABLED", "configure_faults", "parse_spec",
+           "begin_kv_partition", "kv_partition_active",
+           "begin_net_partition", "net_partition_active",
+           "net_partition_blocks"]
 
 # fast-path gate: hook sites read ENABLED[0] before touching the registry
 ENABLED = [False]
@@ -74,6 +97,45 @@ _RESTART_KINDS = ("spawn_fail", "replica_flap")
 _RPC_KINDS = ("rpc_drop", "rpc_delay", "rpc_corrupt")
 # net_partition fires off a client call index too (``step=N``)
 _NET_KINDS = ("net_partition",)
+
+# monotonic deadline of the injected shared-store partition window (0.0:
+# none); FileKVStore consults kv_partition_active() on every operation
+_PARTITION_UNTIL = [0.0]
+
+# injected NETWORK partition: [deadline, (frozenset_a, frozenset_b)];
+# RpcClient consults net_partition_blocks(local, peer) before dialing
+_NET_PARTITION = [0.0, ()]
+
+
+def begin_kv_partition(secs: float) -> None:
+    """Open an injected shared-store partition window: every FileKVStore
+    operation raises OSError until it closes."""
+    _PARTITION_UNTIL[0] = time.monotonic() + float(secs)
+
+
+def kv_partition_active() -> bool:
+    return ENABLED[0] and time.monotonic() < _PARTITION_UNTIL[0]
+
+
+def begin_net_partition(secs: float, groups) -> None:
+    """Open an injected network partition window between two host
+    groups: every RPC between a host of one group and a host of the other
+    fails fast (both directions) until it closes."""
+    _NET_PARTITION[1] = tuple(frozenset(str(h) for h in g) for g in groups)
+    _NET_PARTITION[0] = time.monotonic() + float(secs)
+
+
+def net_partition_active() -> bool:
+    return ENABLED[0] and time.monotonic() < _NET_PARTITION[0]
+
+
+def net_partition_blocks(a: str, b: str) -> bool:
+    """True when hosts ``a`` and ``b`` sit on opposite sides of the open
+    injected partition."""
+    if not net_partition_active() or len(_NET_PARTITION[1]) != 2:
+        return False
+    ga, gb = _NET_PARTITION[1]
+    return (a in ga and b in gb) or (a in gb and b in ga)
 
 
 class InjectedCrash(RuntimeError):
@@ -215,6 +277,9 @@ class FaultRegistry:
         self.faults = parse_spec(text or "")
         self._cur_rid = None
         self._rid_fired = {}
+        _PARTITION_UNTIL[0] = 0.0
+        _NET_PARTITION[0] = 0.0
+        _NET_PARTITION[1] = ()
         ENABLED[0] = bool(self.faults)
 
     def _fires(self, f: FaultSpec, step: Optional[int]) -> bool:
@@ -269,6 +334,34 @@ class FaultRegistry:
                 f.consume()
                 return f
         return None
+
+    def take_rpc(self, host: str, method: str, index: int
+                 ) -> Dict[str, FaultSpec]:
+        """Claim every RPC-call-keyed fault due at one client call.
+
+        ``index`` is the calling RpcClient's private per-peer call
+        counter, its own index space. ``host=H`` (the PEER host) and
+        ``method=M`` in a spec restrict which calls a clause can claim.
+        A due ``net_partition`` is consumed here too: it opens the
+        module-level window (:func:`net_partition_blocks`) instead of
+        riding the returned dict."""
+        fired: Dict[str, FaultSpec] = {}
+        for f in self.faults:
+            if f.spent():
+                continue
+            if f.kind in _RPC_KINDS:
+                if f.host is not None and f.host != host:
+                    continue
+                if f.method is not None and f.method != method:
+                    continue
+                if index >= f.call and f.kind not in fired:
+                    f.consume()
+                    fired[f.kind] = f
+            elif f.kind in _NET_KINDS and f.step is not None \
+                    and index >= f.step:
+                f.consume()
+                begin_net_partition(f.secs, f.hosts)
+        return fired
 
     def take_conn(self, index: int) -> Optional[FaultSpec]:
         """Claim a connection-indexed fault (conn_drop) for the front

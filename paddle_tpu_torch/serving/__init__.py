@@ -1,7 +1,9 @@
 """Serving path of the port: KV caches, sampling, the prefix cache, the
-tokenizer and constraints, overload control, the engine, and the
-in-process orchestration over it: the replica router with failover, the
-replica supervisor, and the HTTP front end."""
+tokenizer and constraints, overload control, the engine, the in-process
+orchestration over it (the replica router with failover, the replica
+supervisor, the HTTP front end), and the cross-host fleet (the RPC
+transport, host agents, remote replicas and the fleet router with
+disaggregated prefill -> decode KV streaming)."""
 from .constrained import (ConstraintCursor, TokenConstraint,
                           compile_constraint, compile_regex, schema_to_regex)
 from .engine import (GenerationRequest, InferenceEngine, QueueFull,
@@ -9,19 +11,26 @@ from .engine import (GenerationRequest, InferenceEngine, QueueFull,
 from .kv_cache import KVCache, PagedKVCache, cache_insert
 from .lifecycle import ReplicaFailed, ReplicaSupervisor
 from .overload import OverloadController
+from .pod import (ArrivalRateForecaster, FleetRegistry, FleetRouter,
+                  FleetScheduler, HostAgent, RemoteReplica,
+                  RemoteReplicaError, connect_fleet)
 from .prefix_cache import RadixPrefixCache
 from .router import EngineRouter
+from .rpc import RpcClient, RpcError, RpcRemoteError, RpcServer
 from .sampling import sample_tokens_streams, spec_accept
 from .tokenizer import ByteTokenizer, StreamDetokenizer
 
-__all__ = ["ByteTokenizer", "ConstraintCursor", "EngineRouter",
-           "GenerationRequest", "InferenceEngine", "KVCache",
+__all__ = ["ArrivalRateForecaster", "ByteTokenizer", "ConstraintCursor",
+           "EngineRouter", "FleetRegistry", "FleetRouter", "FleetScheduler",
+           "GenerationRequest", "HostAgent", "InferenceEngine", "KVCache",
            "OverloadController", "PagedKVCache", "QueueFull",
-           "RadixPrefixCache", "ReplicaEvacuated", "ReplicaFailed",
-           "ReplicaSupervisor", "ServingFrontend", "StreamDetokenizer",
-           "Tenant", "TokenConstraint", "WatchdogTripped", "cache_insert", "compile_constraint",
-           "compile_regex", "sample_tokens_streams", "schema_to_regex",
-           "spec_accept"]
+           "RadixPrefixCache", "RemoteReplica", "RemoteReplicaError",
+           "ReplicaEvacuated", "ReplicaFailed", "ReplicaSupervisor",
+           "RpcClient", "RpcError", "RpcRemoteError", "RpcServer",
+           "ServingFrontend", "StreamDetokenizer", "Tenant",
+           "TokenConstraint", "WatchdogTripped", "cache_insert",
+           "compile_constraint", "compile_regex", "connect_fleet",
+           "sample_tokens_streams", "schema_to_regex", "spec_accept"]
 
 
 def __getattr__(name):

@@ -383,6 +383,11 @@ class ReplicaSupervisor:
         dump_flight(f"lifecycle_give_up_r{rid}",
                     extra={"replica": rid, "attempts": attempts,
                            "cause": str(cause)})
+        # a fleet router also pulls every OTHER host's ring, on a thread
+        # of its own (the collection does bounded-per-host RPC)
+        collect = getattr(self.router, "collect_flight_async", None)
+        if callable(collect):
+            collect(f"give_up_r{rid}")
         self.router.fail_orphans(ReplicaFailed(
             f"replica {rid} gave up after {attempts} restart(s) "
             f"(max_restarts={self.max_restarts}; last cause: {cause})"))

@@ -1264,3 +1264,105 @@ def test_conv_bn_pool_stack_f32_on_card_matches_cpu(cuda_device,
         tdevice._current[0], torch.backends.cudnn.allow_tf32 = old
     rel = [_rel(card, cpu) for card, cpu in zip(out["gpu"], out["cpu"])]
     assert max(rel) <= 1e-4, rel
+
+
+def test_kv_block_through_codec_and_rpc_is_bit_identical(cuda_device):
+    """A bf16 pool block exported on the card (the scheduler thread
+    copies it to the host), sent through the RPC codec and a loopback
+    ``RpcServer``, and imported into a second engine on the card, lands
+    bit-identical: bf16 stays bf16 on the wire."""
+    from paddle_tpu_torch.serving.rpc import RpcClient, RpcServer
+
+    import dataclasses
+
+    cfg, params = _small_engine_model()
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    kw = dict(n_slots=2, paged=True, block_size=16, prefill_chunk=32,
+              prefix_cache=True, n_blocks=33, device=cuda_device)
+    src, dst = InferenceEngine(cfg, params, **kw), \
+        InferenceEngine(cfg, params, **kw)
+    srv = None
+    try:
+        prompt = np.random.default_rng(5).integers(0, 512, 70)
+        src.warm_prefix(prompt).result(timeout=120)
+
+        def export(p, arrays):
+            exp = src.export_kv_range(arrays["prompt"], int(p["start"]))
+            meta = {k: exp[k] for k in ("start_block", "n_blocks",
+                                        "covered_tokens")}
+            return meta, {"kb": exp["kb"], "vb": exp["vb"]}
+
+        srv = RpcServer({"export": export})
+        cli = RpcClient(srv.addr, timeout=60.0)
+        meta, arrs = cli.call("export", {"start": 0},
+                              {"prompt": np.asarray(prompt, np.int32)},
+                              crc=True)
+        cli.close()
+        assert arrs["kb"].dtype == torch.bfloat16
+        assert arrs["kb"].device.type == "cpu"
+        got = dst.import_kv_chunk(prompt, arrs["kb"], arrs["vb"],
+                                  meta["start_block"],
+                                  meta["covered_tokens"])
+        assert got == meta["covered_tokens"] == 69
+
+        def rows(eng):
+            _, blocks = eng._prefix.match(np.asarray(prompt, np.int32))
+            idx = torch.as_tensor(blocks, device=cuda_device)
+            return (eng.cache.kb.index_select(0, idx).cpu(),
+                    eng.cache.vb.index_select(0, idx).cpu())
+
+        a = src.run_on_scheduler(rows)
+        b = dst.run_on_scheduler(rows)
+        for x, y in zip(a, b):
+            assert x.dtype == torch.bfloat16
+            assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+    finally:
+        if srv is not None:
+            srv.close()
+        src.shutdown(drain=False)
+        dst.shutdown(drain=False)
+
+
+def test_two_host_fleet_on_card_matches_monolithic(cuda_device, tmp_path):
+    """A prefill-role and a decode-role host in one process on the card,
+    over loopback RPC and a FileKVStore registry: greedy streams through
+    the disaggregated path equal one monolithic card engine's (f32), and
+    the decode host launched the paged decode kernel."""
+    from paddle_tpu_torch.distributed import FileKVStore
+    from paddle_tpu_torch.monitor import stat_get
+    from paddle_tpu_torch.serving import HostAgent, connect_fleet
+
+    cfg, params = _small_engine_model()
+
+    def factory():
+        return InferenceEngine(cfg, params, n_slots=2, paged=True,
+                               block_size=16, prefill_chunk=32,
+                               prefix_cache=True, n_blocks=65,
+                               device=cuda_device)
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (70, 40, 9)]
+    mono = factory()
+    try:
+        want = [mono.generate(p, max_new_tokens=12) for p in prompts]
+    finally:
+        mono.shutdown()
+    store = FileKVStore(str(tmp_path / "kv"))
+    agents = [HostAgent(store, "card", h, factory, role=r, heartbeat_s=0.1)
+              for h, r in (("pf", "prefill"), ("dec", "decode"))]
+    router = None
+    routed0 = stat_get("fleet_prefill_routed")
+    try:
+        router = connect_fleet(store, "card", min_hosts=2)
+        p0 = tpa.LAUNCHES
+        got = [router.submit(p, max_new_tokens=12).result(timeout=300)
+               for p in prompts]
+        assert got == want
+        assert stat_get("fleet_prefill_routed") - routed0 == 2
+        assert tpa.LAUNCHES > p0
+    finally:
+        if router is not None:
+            router.shutdown(drain=False)
+        for a in agents:
+            a.close()

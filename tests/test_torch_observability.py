@@ -219,6 +219,11 @@ def test_span_flow_and_context_events_match():
 
 
 def _dump(mon, flight_mod, trace_mod, d):
+    # the dump is named after the process-wide host id, which an earlier
+    # test on the same worker may have left set (the JAX TrainGuardian
+    # with a pod sets it to the pod's host and keeps it): pin it here
+    prev_host = flight_mod.host_id()
+    flight_mod.set_host_id("h0")
     flight_mod.disarm_flight_recorder()
     rec = flight_mod.arm_flight_recorder(str(d), capacity=8, gauge_every=3)
     assert flight_mod.arm_flight_recorder() is rec        # idempotent
@@ -235,6 +240,7 @@ def _dump(mon, flight_mod, trace_mod, d):
             .startswith(str(d / "y"))
     finally:
         flight_mod.disarm_flight_recorder()
+        flight_mod.set_host_id(prev_host)
     assert flight_mod.dump_flight("unarmed") is None
     return path, len(rec)
 
@@ -245,8 +251,7 @@ def test_flight_dump_matches_the_reference(tmp_path):
     assert tn == jn == 8                                  # the ring's cap
     assert os.path.basename(tpath).split("_", 3)[3] \
         == os.path.basename(jpath).split("_", 3)[3]
-    assert os.path.basename(tpath).startswith(
-        f"flight_{tflight.host_id()}_{os.getpid()}_")
+    assert os.path.basename(tpath).startswith(f"flight_h0_{os.getpid()}_")
     with open(jpath) as f:
         jd = json.load(f)
     with open(tpath) as f:
@@ -269,11 +274,12 @@ def test_flight_dump_matches_the_reference(tmp_path):
         assert trep["dumps"][0][k] == jrep["dumps"][0][k], k
     assert trep["dumps"][0]["reason"] == "serving_watchdog_restart"
     assert trep["dumps"][0]["watchdog_trips"] >= 1
+    prev_host = tflight.host_id()
     tflight.set_host_id("h7")
     try:
         assert tflight.host_id() == "h7"
     finally:
-        tflight.set_host_id("h0")
+        tflight.set_host_id(prev_host)
 
 
 # -- trace parity of the two engines ---------------------------------------
