@@ -272,7 +272,30 @@ stamped with the card's name and power limit):
     ServingFrontend; 6 text prompts POSTed to /v1/completions (SSE):
     every text equals a monolithic engine's, prefill routed > 0;
     first-token ms over HTTP, each host's peak memory and launches from
-    its own report.
+    its own report;
+41. LeNet through ``paddle.Model`` (BASELINE config 1 as Paddle users
+    write it: f32, batch 256, Adam 1e-3, FLAGS_fused_optimizer=1,
+    FLAGS_fast_step=1): ``fit`` one epoch over a ``DataLoader`` of a
+    ``TensorDataset`` of 60,000 seeded 1×28×28 images (shuffled; the
+    last batch of 96 rows is a second capture), ``evaluate`` on 10,000,
+    ``predict``, and ``save`` → ``load`` into a fresh ``Model`` whose
+    predictions are bit-equal; fit's samples/s with the loader, the
+    captured step's host ms a call and ms a step beside phase 37's eager
+    step, "device" samples/s over 50 replays with one host read,
+    captures, row 7's launches (one a replayed step), peak memory;
+    gates: every loss finite, the params after 5 captured steps against
+    the uncaptured step's and the FLAGS_fused_optimizer=0 step's, and a
+    warm-up + cosine schedule with a global-norm clip over 10 captured
+    steps against the uncaptured run (max |Δ| / max |p| ≤ 1e-6, cuDNN
+    deterministic for the gates);
+42. ResNet-50 through ``jit.TrainStep`` (phase 38's configuration): 3
+    warm-up calls (the first eager, then the capture), 15 per-call steps
+    each read with float(loss), 10 replays back to back with one read,
+    one replay under torch.profiler (device ms, idle share, launches,
+    the top items), beside phase 38's eager step; every loss finite,
+    every batch-norm buffer moved, the first 3 losses within 1e-3 of
+    the uncaptured step's from the same weights and batch, and the
+    params' max |Δ| after them.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -4427,6 +4450,346 @@ def resnet50_check_phase(dev, stamp, batch=2):
 
 
 # --------------------------------------------------------------------------
+# phases 41-42: Paddle's training entry points (paddle.Model, jit.TrainStep)
+# --------------------------------------------------------------------------
+
+# phase 41: MNIST's shape (60,000 training and 10,000 test images of
+# 1x28x28, seeded), K replays for the "device" rate, the gates' steps
+MNIST_TRAIN, MNIST_TEST = 60000, 10000
+MODEL_K = 50
+MODEL_GATE_STEPS, MODEL_SCHED_STEPS = 5, 10
+# phase 41's gates: params of the captured step against the uncaptured
+# one and against FLAGS_fused_optimizer=0, as max |Δ| over every param /
+# max |p| over every param. The same Adam in another rounding order (the
+# fused kernel's eager form against the per-parameter update) moves the
+# params by 1.4e-7 of the largest after 5 steps at batch 256 on the CPU
+# (one element of fc.0's weight, whose gradient is near 0, by 1.0e-6 of
+# that leaf's largest: each leaf's own ratio is printed beside)
+MODEL_PARAM_REL = 1e-6
+# phase 42: ResNet-50's warm-up calls, per-call steps, K replays, and the
+# first 3 losses of the captured step against the uncaptured one,
+# relative (bf16 activations; the same kernels in the same order)
+RESNET_WARM, RESNET_CALLS, RESNET_K = 3, 15, 10
+RESNET_STEP_LOSS_REL = 1e-3
+
+
+def _param_rel(a, b):
+    """(max |Δ| over every param / max |b| over every param, each leaf's
+    own max |Δ| / max |b|) of two {name: tensor} state dicts."""
+    d = {k: (a[k].float() - b[k].float()).abs().max().item() for k in a}
+    m = {k: b[k].float().abs().max().item() for k in b}
+    return (max(d.values()) / max(max(m.values()), 1e-30),
+            {k: d[k] / max(m[k], 1e-30) for k in d})
+
+
+def _lenet_trainer(paddle, state, fused, capture, sched=False):
+    """A LeNet from ``state`` under Adam (1e-3, or phase 41's warm-up +
+    cosine schedule with a global-norm clip) and its TrainStep."""
+    from paddle_tpu_torch.vision.models import LeNet
+
+    paddle.set_flags({"FLAGS_fused_optimizer": fused})
+    net = LeNet()
+    net.set_state_dict(state)
+    lr = (paddle.optimizer.lr.LinearWarmup(
+        paddle.optimizer.lr.CosineAnnealingDecay(1e-3, T_max=20),
+        warmup_steps=5, start_lr=0.0, end_lr=1e-3) if sched else 1e-3)
+    opt = paddle.optimizer.Adam(
+        lr, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0) if sched else None)
+    step = paddle.jit.TrainStep(
+        net, lambda run, x, y: paddle.nn.functional.cross_entropy(run(x), y),
+        opt, capture=capture)
+    return net, step, lr
+
+
+def _lenet_gate_run(paddle, state, batches, fused, capture, sched=False):
+    net, step, lr = _lenet_trainer(paddle, state, fused, capture, sched)
+    losses = []
+    for x, y in batches:
+        losses.append(step(x, y))
+        if sched:
+            lr.step()
+    losses = [float(v) for v in losses]
+    return ({k: v._data.detach().clone() for k, v in net.state_dict().items()},
+            losses, step.captures)
+
+
+def lenet_model_phase(dev, mods, stamp, eager_ms):
+    """Phase 41: BASELINE config 1 as Paddle users write it: LeNet
+    through paddle.Model (f32, batch 256, Adam 1e-3, FLAGS_fused_optimizer=1,
+    FLAGS_fast_step=1) fitted one epoch over a DataLoader of a
+    TensorDataset of MNIST's shape (shuffle, the last batch 96 rows: a
+    second capture), then evaluate, predict and save -> load into a fresh
+    Model (predictions bit-equal). Timed: fit's samples/s with the loader,
+    the captured step's host ms a call and ms a step, "device" samples/s
+    over MODEL_K replays with one host read. Gated: every loss finite,
+    row 7 launched, 2 captures, the captured step against the uncaptured
+    one and against FLAGS_fused_optimizer=0 (5 steps), and a warm-up +
+    cosine schedule with a global-norm clip captured against uncaptured
+    (10 steps)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import LeNet
+
+    fo = mods["fo"]
+    paddle.set_device("gpu")
+    old = paddle.get_flags(["FLAGS_fused_optimizer", "FLAGS_fast_step"])
+    paddle.set_flags({"FLAGS_fused_optimizer": 1, "FLAGS_fast_step": 1})
+    old_det = torch.backends.cudnn.deterministic
+    t_phase = time.perf_counter()
+    try:
+        rng = np.random.default_rng(41)
+        data = {}
+        for split, n in (("train", MNIST_TRAIN), ("test", MNIST_TEST)):
+            x = rng.normal(size=(n, 1, 28, 28)).astype("float32")
+            y = rng.integers(0, 10, (n,)).astype("int64")
+            data[split] = paddle.io.TensorDataset(
+                [paddle.to_tensor(x, place="cpu"),
+                 paddle.to_tensor(y, place="cpu")])
+        paddle.seed(0)
+        net = LeNet()
+        state = {k: v.numpy() for k, v in net.state_dict().items()}
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Adam(1e-3,
+                                            parameters=net.parameters()),
+                      paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        raws = []
+        train_batch = model.train_batch
+
+        def recording(*a, **k):
+            out = train_batch(*a, **k)
+            raws.append(out[0])
+            return out
+
+        model.train_batch = recording
+        _fresh_peak(dev)
+        base = torch.cuda.memory_allocated(dev)
+        np.random.seed(41)
+        _reset_vision_counts(mods)
+        t0 = time.perf_counter()
+        model.fit(data["train"], batch_size=LENET_BATCH, epochs=1,
+                  shuffle=True, drop_last=False, verbose=0, log_freq=50)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _vision_counts(mods)
+        fit_losses = [float(r) for r in raws]
+        st = model._train_step
+        captures_fit = st.captures
+        t0 = time.perf_counter()
+        ev = model.evaluate(data["test"], batch_size=LENET_BATCH, verbose=0)
+        eval_s = time.perf_counter() - t0
+        preds = model.predict(data["test"], batch_size=LENET_BATCH,
+                              stack_outputs=True)[0]
+        with tempfile.TemporaryDirectory() as tmp:
+            model.save(os.path.join(tmp, "lenet"))
+            fresh = paddle.Model(LeNet())
+            fresh.prepare(paddle.optimizer.Adam(
+                1e-3, parameters=fresh.parameters()),
+                paddle.nn.CrossEntropyLoss())
+            fresh.load(os.path.join(tmp, "lenet"))
+            again = fresh.predict(data["test"], batch_size=LENET_BATCH,
+                                  stack_outputs=True)[0]
+        # the captured step itself, on one staged batch
+        x = paddle.to_tensor(data["train"].tensors[0]._data[:LENET_BATCH]
+                             .numpy())
+        y = paddle.to_tensor(data["train"].tensors[1]._data[:LENET_BATCH]
+                             .numpy())
+        host_ms, step_ms, timed = [], [], []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = st(x, y)
+            t1 = time.perf_counter()
+            timed.append(float(loss))
+            host_ms.append((t1 - t0) * 1e3)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = st.steps(MODEL_K, x, y)
+        timed.append(float(last))
+        k_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        # the gates: the same weights and batches through three steps
+        torch.backends.cudnn.deterministic = True
+        batches = [(x, y)] + [
+            (paddle.to_tensor(data["train"].tensors[0]._data[i:i + LENET_BATCH]
+                              .numpy()),
+             paddle.to_tensor(data["train"].tensors[1]._data[i:i + LENET_BATCH]
+                              .numpy()))
+            for i in range(LENET_BATCH, LENET_BATCH * MODEL_SCHED_STEPS,
+                           LENET_BATCH)]
+        five = batches[:MODEL_GATE_STEPS]
+        n0 = fo.ADAMW_LAUNCHES
+        cap, cap_l, cap_n = _lenet_gate_run(paddle, state, five, 1, True)
+        gate_launches = fo.ADAMW_LAUNCHES - n0
+        unc, unc_l, _ = _lenet_gate_run(paddle, state, five, 1, False)
+        unf, unf_l, _ = _lenet_gate_run(paddle, state, five, 0, True)
+        sc_cap, sc_l, sc_n = _lenet_gate_run(paddle, state, batches, 1, True,
+                                             sched=True)
+        sc_unc, sc_ul, _ = _lenet_gate_run(paddle, state, batches, 1, False,
+                                           sched=True)
+        rel_unc, leaf_unc = _param_rel(cap, unc)
+        rel_unf, leaf_unf = _param_rel(cap, unf)
+        rel_sched, leaf_sched = _param_rel(sc_cap, sc_unc)
+        moved = _param_rel(sc_cap, {k: torch.as_tensor(v, device=dev)
+                                    for k, v in state.items()})[0]
+    finally:
+        paddle.set_flags(old)
+        torch.backends.cudnn.deterministic = old_det
+    all_losses = fit_losses + timed + cap_l + unc_l + unf_l + sc_l + sc_ul
+    ok = {"losses_finite": all(map(math.isfinite, all_losses)),
+          "fit_steps": len(fit_losses) == -(-MNIST_TRAIN // LENET_BATCH),
+          "two_captures": captures_fit == 2,
+          "row7_launched": launches["fused_adamw"] == len(fit_losses),
+          "gate_row7_launched": gate_launches == MODEL_GATE_STEPS
+          and cap_n == 1 and sc_n == 1,
+          "predict_after_load_bit_equal": bool(np.array_equal(preds, again)),
+          "captured_vs_uncaptured": rel_unc <= MODEL_PARAM_REL,
+          "captured_vs_unfused": rel_unf <= MODEL_PARAM_REL,
+          "schedule_captured_vs_uncaptured": rel_sched <= MODEL_PARAM_REL,
+          "schedule_moved_params": moved > 1e-4}
+    row = {"phase": "train_paddle_model_lenet", "model": "LeNet",
+           "config": "BASELINE config 1 (bench.py bench_lenet) through "
+                     "paddle.Model",
+           "batch": [LENET_BATCH, 1, 28, 28], "dtype": "float32",
+           "optimizer": "Adam(lr=1e-3), FLAGS_fused_optimizer=1, "
+                        "FLAGS_fast_step=1",
+           "fit_steps": len(fit_losses), "fit_s": fit_s,
+           "fit_samples_per_s": MNIST_TRAIN / fit_s,
+           "fit_loss_first_last": [fit_losses[0], fit_losses[-1]],
+           "eval": ev, "eval_s": eval_s, "captures": captures_fit,
+           "train_step_host_ms_median": float(np.median(host_ms)),
+           "step_ms_median": float(np.median(step_ms)),
+           "eager_step_ms_phase37": eager_ms,
+           "device_k": MODEL_K, "device_k_s": k_s,
+           "device_samples_per_s": MODEL_K * LENET_BATCH / k_s,
+           "peak_mem_gib": peak / 2**30,
+           "peak_over_start_gib": (peak - base) / 2**30,
+           "launches": launches,
+           "gate_rel_captured_vs_uncaptured": rel_unc,
+           "gate_rel_captured_vs_unfused": rel_unf,
+           "gate_rel_schedule": rel_sched,
+           "gate_leaf_worst": {"uncaptured": max(leaf_unc.values()),
+                               "unfused": max(leaf_unf.values()),
+                               "schedule": max(leaf_sched.values())},
+           "tol_param_rel": MODEL_PARAM_REL,
+           "schedule_params_moved_rel": moved,
+           "seconds": time.perf_counter() - t_phase,
+           "checks": ok, "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"paddle.Model LeNet phase failed: {ok}")
+    return row
+
+
+def resnet50_trainstep_phase(dev, mods, stamp, eager_ms):
+    """Phase 42: BASELINE config 2 as bench_resnet50 times it, through
+    jit.TrainStep (resnet50(num_classes=1000), amp.decorate O2 bf16, the
+    loss under auto_cast O2, Momentum 0.1 / 0.9, batch 256 of
+    3x224x224): RESNET_WARM calls (the first runs eagerly and captures),
+    RESNET_CALLS per-call steps each read with float(loss) (the
+    per-call dispatch rate), RESNET_K replays back to back with one host
+    read (the device rate), one replay under torch.profiler; then the
+    uncaptured step from the same weights on the same batch: its first 3
+    losses against the captured step's."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+
+    def build():
+        model = paddle.amp.decorate(resnet50(num_classes=1000), level="O2",
+                                    dtype="bfloat16")
+        opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                        parameters=model.parameters())
+
+        def loss_fn(run, x, y):
+            with paddle.amp.auto_cast(enable=True, level="O2"):
+                out = run(x)
+            return paddle.nn.functional.cross_entropy(out, y)
+
+        return model, opt, loss_fn
+
+    rng = np.random.default_rng(0)
+    images = paddle.to_tensor(rng.normal(
+        size=(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE)).astype("float32"))
+    labels = paddle.to_tensor(rng.integers(0, 1000, (RESNET_BATCH,)).astype(
+        "int64"))
+    model, opt, loss_fn = build()
+    state = {k: v._data.detach().clone()
+             for k, v in model.state_dict().items()}
+    before = _bn_stats(model)
+    _fresh_peak(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _reset_vision_counts(mods)
+    step = paddle.jit.TrainStep(model, loss_fn, opt)
+    t0 = time.perf_counter()
+    warm = [float(step(images, labels)) for _ in range(RESNET_WARM)]
+    warm_s = time.perf_counter() - t0
+    after3 = {k: v._data.detach().clone()
+              for k, v in model.state_dict().items()}
+    call_ms, losses = [], []
+    for _ in range(RESNET_CALLS):
+        t0 = time.perf_counter()
+        losses.append(float(step(images, labels)))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(float(step.steps(RESNET_K, images, labels)))
+    k_s = time.perf_counter() - t0
+    replay_ms = k_s / RESNET_K * 1e3
+    prof = _profiled_step(lambda: step(images, labels), replay_ms)
+    launches = _vision_counts(mods)
+    peak = torch.cuda.max_memory_allocated(dev)
+    after = _bn_stats(model)
+    moved = sum(not torch.equal(before[k], after[k]) for k in before)
+    captures = step.captures
+    del step
+    _fresh_peak(dev)
+    # the uncaptured step from the same weights on the same batch
+    model.set_state_dict(state)
+    opt2 = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                     parameters=model.parameters())
+    ref = paddle.jit.TrainStep(model, loss_fn, opt2, capture=False)
+    ref_losses = [float(ref(images, labels)) for _ in range(RESNET_WARM)]
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(warm, ref_losses))
+    max_param = max((v._data.float() - after3[k].float()).abs().max().item()
+                    for k, v in model.state_dict().items())
+    del ref, model, opt, opt2, state, after3, before, after
+    _fresh_peak(dev)
+    ok = {"losses_finite": all(map(math.isfinite,
+                                   warm + losses + ref_losses)),
+          "bn_stats_moved": moved == 106,
+          "one_capture": captures == 1,
+          "first_losses_vs_uncaptured": rel_loss <= RESNET_STEP_LOSS_REL}
+    row = {"phase": "train_paddle_trainstep_resnet50_o2", "model": "resnet50",
+           "config": "BASELINE config 2 (bench.py bench_resnet50) through "
+                     "jit.TrainStep",
+           "batch": [RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE],
+           "amp": "O2 bfloat16 (norms f32)",
+           "optimizer": "Momentum(lr=0.1, momentum=0.9)",
+           "warm_calls": RESNET_WARM, "warm_s": warm_s,
+           "call_ms": call_ms,
+           "call_ms_median": float(np.median(call_ms)),
+           "per_call_samples_per_s":
+               RESNET_BATCH / float(np.median(call_ms)) * 1e3,
+           "k": RESNET_K, "replay_ms": replay_ms,
+           "device_samples_per_s": RESNET_BATCH / replay_ms * 1e3,
+           "eager_step_ms_phase38": eager_ms, **prof,
+           "captures": captures, "peak_mem_gib": peak / 2**30,
+           "peak_over_start_gib": (peak - base) / 2**30,
+           "first_losses": warm, "first_losses_uncaptured": ref_losses,
+           "first_loss_rel": rel_loss, "tol_loss_rel": RESNET_STEP_LOSS_REL,
+           "max_abs_param_diff_after_3": max_param,
+           "bn_buffers_moved": moved, "launches": launches,
+           "checks": ok, "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"ResNet-50 TrainStep phase failed: {ok}")
+    return row
+
+
+# --------------------------------------------------------------------------
 # phases 39-40: the cross-host serving fleet
 # --------------------------------------------------------------------------
 
@@ -5254,6 +5617,15 @@ def main():
     t = time.perf_counter()
     fleet_procs = fleet_process_phase(dev, stamp)
     fleet_s["fleet_processes"] = time.perf_counter() - t
+    entry_s = {}                       # phases 41-42's seconds each
+    t = time.perf_counter()
+    lenet_m = lenet_model_phase(dev, vision_mods, stamp,
+                                lenet["step_ms_median_last3"])
+    entry_s["lenet_model"] = time.perf_counter() - t
+    t = time.perf_counter()
+    resnet_ts = resnet50_trainstep_phase(dev, vision_mods, stamp,
+                                         resnet["step_ms_median_last3"])
+    entry_s["resnet50_trainstep"] = time.perf_counter() - t
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -5341,12 +5713,16 @@ def main():
                 tl["fused_ln_mlp_bwd_dw2"], fm, fm["max_abs_err_dw2"],
                 ("dw2_ms", "dw2_plain_ms", "dw2_bound_ms", "dw2_bound_by"),
                 None),
-        _kernel("fused_adamw", "paddle_tpu_torch/csrc/fused_optimizer.cu",
-                "paddle_tpu/ops/fused_optimizer.py:113",
-                train_f["launches"]["fused_adamw"], ob,
-                ob["adamw_max_abs_err"],
-                ("adamw_ms", "adamw_plain_ms", "adamw_bound_ms",
-                 "adamw_bound_by"), "adamw_library_ms"),
+        # "captured_launches": phase 41's, replayed inside the captured
+        # TrainStep of paddle.Model.fit (one a step)
+        dict(_kernel("fused_adamw",
+                     "paddle_tpu_torch/csrc/fused_optimizer.cu",
+                     "paddle_tpu/ops/fused_optimizer.py:113",
+                     train_f["launches"]["fused_adamw"], ob,
+                     ob["adamw_max_abs_err"],
+                     ("adamw_ms", "adamw_plain_ms", "adamw_bound_ms",
+                      "adamw_bound_by"), "adamw_library_ms"),
+             captured_launches=lenet_m["launches"]["fused_adamw"]),
         _kernel("fused_lamb", "paddle_tpu_torch/csrc/fused_optimizer.cu",
                 "paddle_tpu/ops/fused_optimizer.py:209",
                 lamb["launches"]["fused_lamb"], ob, ob["lamb_max_abs_err"],
@@ -5428,6 +5804,10 @@ def main():
              "serving_frontend_paged": front["launches"],
              "training_paddle_lenet": lenet["launches"],
              "training_paddle_resnet50_o2": resnet["launches"],
+             # phase 41: row 7 inside the captured TrainStep of
+             # paddle.Model.fit (one launch a replayed step)
+             "training_paddle_model_lenet": lenet_m["launches"],
+             "training_paddle_trainstep_resnet50_o2": resnet_ts["launches"],
              "serving_fleet_f32_host_loss":
                  fleet["f32_host_loss"]["launches"],
              "serving_fleet_f32_partition":
@@ -5452,6 +5832,8 @@ def main():
           "vision_total_s": sum(vision_s.values()),
           "fleet_phases_s": fleet_s,
           "fleet_total_s": sum(fleet_s.values()),
+          "entry_phases_s": entry_s,
+          "entry_total_s": sum(entry_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

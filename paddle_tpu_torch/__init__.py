@@ -18,8 +18,12 @@ The package is also the eager Paddle surface (``import paddle_tpu_torch
 as paddle``): ``paddle.to_tensor``, ``Tensor``, ``nn``,
 ``nn.functional``, ``optimizer``, ``ops`` (the fused transformer ops),
 ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``), ``vision``
-(LeNet and the ResNets), ``seed``, ``set_flags`` / ``get_flags`` and ``set_device``. Its tensors
-and parameters go to the card unless ``paddle.set_device("cpu")`` was
+(LeNet and the ResNets), the training entry points (``jit``'s
+``TrainStep`` and ``to_static``, ``optimizer.lr``, ``nn.ClipGrad*``,
+``io`` (``DataLoader``, ``DevicePrefetcher``), ``metric``, ``Model``
+and ``callbacks``, ``summary``, ``save`` / ``load``), ``seed``,
+``set_flags`` / ``get_flags`` and ``set_device``. Its tensors and
+parameters go to the card unless ``paddle.set_device("cpu")`` was
 called. Importing it builds nothing.
 """
 from __future__ import annotations
@@ -47,8 +51,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 # the Paddle surface (imported after resolve_device, which it uses)
-from . import (amp, device, nn, ops, optimizer, regularizer,  # noqa: E402
-               tensor, vision)
+from . import (amp, device, io, jit, metric, nn, ops,  # noqa: E402
+               optimizer, regularizer, tensor, vision)
 from .core.flags import get_flag as _get_flag  # noqa: E402
 from .core.flags import set_flag as _set_flag  # noqa: E402
 from .device import (device_count, get_device,  # noqa: E402
@@ -59,7 +63,11 @@ from .framework.core import (Parameter, Tensor, enable_grad,  # noqa: E402
 from .framework.dtype import (bfloat16, bool, float16,  # noqa: E402,A004
                               float32, float64, get_default_dtype, int8,
                               int16, int32, int64, set_default_dtype, uint8)
+from .framework.io import load, save  # noqa: E402
 from .framework.param_attr import ParamAttr  # noqa: E402
+from .hapi import callbacks  # noqa: E402
+from .hapi.model import Model  # noqa: E402
+from .jit import to_static  # noqa: E402
 from .framework.random import get_rng_state, seed, set_rng_state  # noqa: E402
 from .tensor import *  # noqa: E402,F401,F403
 
@@ -71,14 +79,35 @@ def set_flags(flags):
         _set_flag(k, v)
 
 
+def in_dynamic_mode() -> bool:
+    """The port runs eagerly: always True (no static mode yet)."""
+    return True
+
+
+def enable_static():
+    raise NotImplementedError(
+        "paddle_tpu_torch has no static-graph mode yet (ROADMAP.md Queue 1 "
+        "item 8 step 7)")
+
+
+def summary(net, input_size=None, dtypes=None, input=None):  # noqa: A002
+    """paddle.summary: each layer's parameter count and the totals."""
+    from .hapi.summary import summary as _summary
+
+    return _summary(net, input_size, dtypes, input)
+
+
 def get_flags(flags):
     if isinstance(flags, str):
         flags = [flags]
     return {k: _get_flag(k) for k in flags}
 
 
-__all__ = ["resolve_device", "__version__", "amp", "device", "nn", "ops",
-           "optimizer", "regularizer", "tensor", "vision", "set_flags", "get_flags",
+__all__ = ["resolve_device", "__version__", "amp", "device", "io", "jit",
+           "metric", "nn", "ops", "optimizer", "regularizer", "tensor",
+           "vision", "set_flags", "get_flags", "Model", "callbacks",
+           "summary", "save", "load", "to_static", "in_dynamic_mode",
+           "enable_static",
            "set_device", "get_device", "device_count",
            "is_compiled_with_cuda", "Tensor", "Parameter", "no_grad",
            "enable_grad", "grad", "is_grad_enabled", "set_grad_enabled",

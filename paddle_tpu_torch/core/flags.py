@@ -15,6 +15,10 @@ Own copy of the ``_truthy`` cells of ``paddle_tpu/core/native.py``:
   ``GPTConfig.fp8`` is None (the serving engine pins it at construction);
 - ``FLAGS_prefix_cache``: the engine's radix prefix cache when
   ``InferenceEngine(prefix_cache=None)`` (paged mode only);
+- ``FLAGS_fast_step`` (default 1, ``paddle_tpu/core/native.py:116``):
+  ``jit.TrainStep`` returns an ``AsyncLoss`` without blocking and syncs
+  the optimizer's slot mirrors lazily (``sync()``); ``hapi.Model.fit``
+  stages batches on the card a step ahead (``io.DevicePrefetcher``);
 - ``FLAGS_fault_inject``: the fault-injection spec string; setting it
   reconfigures ``resilience/faults.py``'s registry (its watcher), whose
   serving kinds the engine fires (``DistributedTrainStep`` raises while
@@ -29,7 +33,7 @@ from __future__ import annotations
 import os
 
 __all__ = ["paged_kv", "ragged_decode", "fused_kernels", "fused_optimizer",
-           "fp8_matmul", "prefix_cache", "fault_inject", "set_flag",
+           "fp8_matmul", "prefix_cache", "fast_step", "fault_inject", "set_flag",
            "get_flag"]
 
 
@@ -60,6 +64,10 @@ fp8_matmul = [_truthy(os.environ.get("FLAGS_fp8_matmul", "0"))]
 # when the engine leaves prefix_cache unset
 prefix_cache = [_truthy(os.environ.get("FLAGS_prefix_cache", "0"))]
 
+# jit.TrainStep: asynchronous loss, lazy slot mirrors; hapi fit: device
+# prefetch of the next batch
+fast_step = [_truthy(os.environ.get("FLAGS_fast_step", "1"))]
+
 # deterministic fault injection spec; resilience.faults registers a
 # watcher here so set_flag reconfigures its registry at once
 fault_inject = [os.environ.get("FLAGS_fault_inject", "")]
@@ -71,14 +79,14 @@ def _cell(name: str) -> list:
     cell = {"paged_kv": paged_kv, "ragged_decode": ragged_decode,
             "fused_kernels": fused_kernels,
             "fused_optimizer": fused_optimizer, "fp8_matmul": fp8_matmul,
-            "prefix_cache": prefix_cache,
+            "prefix_cache": prefix_cache, "fast_step": fast_step,
             "fault_inject": fault_inject}.get(key)
     if cell is None:
         raise ValueError(f"{name} is not a flag of paddle_tpu_torch (it "
                          f"has FLAGS_paged_kv, FLAGS_ragged_decode, "
                          f"FLAGS_fused_kernels, FLAGS_fused_optimizer, "
                          f"FLAGS_fp8_matmul, FLAGS_prefix_cache, "
-                         f"FLAGS_fault_inject)")
+                         f"FLAGS_fast_step, FLAGS_fault_inject)")
     return cell
 
 

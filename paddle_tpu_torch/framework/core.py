@@ -24,6 +24,7 @@ from . import dtype as dtypes
 __all__ = [
     "Tensor", "Parameter", "apply_op", "backward", "grad", "no_grad",
     "enable_grad", "is_grad_enabled", "set_grad_enabled", "to_tensor",
+    "AsyncLoss",
 ]
 
 
@@ -264,6 +265,58 @@ class Parameter(Tensor):
         self.regularizer = None
         self.need_clip = True
         self.is_distributed = False
+
+
+class AsyncLoss(Tensor):
+    """Loss handle of an asynchronous (``FLAGS_fast_step``) train step
+    (``paddle_tpu/framework/core.py``'s ``AsyncLoss``).
+
+    The step is queued on the card and not waited for; the handle acts
+    as any scalar Tensor, and its first host read (``float()``,
+    ``numpy()``, ``item()``, ``bool()``...) is the sync point, counted
+    once per handle by the ``step_async_syncs`` gauge."""
+
+    __slots__ = ("_synced",)
+
+    def __init__(self, data, name=None):
+        super().__init__(data, stop_gradient=True, name=name)
+        self._synced = False
+
+    def _materialize(self):
+        if not self._synced:
+            self._synced = True
+            from ..monitor.stats import STEP_ASYNC_SYNCS
+
+            STEP_ASYNC_SYNCS.add()
+
+    def numpy(self):
+        self._materialize()
+        return super().numpy()
+
+    def item(self, *args):
+        self._materialize()
+        return super().item(*args)
+
+    def tolist(self):
+        self._materialize()
+        return super().tolist()
+
+    def __float__(self):
+        self._materialize()
+        return super().__float__()
+
+    def __int__(self):
+        self._materialize()
+        return super().__int__()
+
+    def __bool__(self):
+        self._materialize()
+        return super().__bool__()
+
+    def __array__(self, dtype=None, copy=None):
+        self._materialize()
+        a = super().numpy()
+        return a.astype(dtype) if dtype is not None else a
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):

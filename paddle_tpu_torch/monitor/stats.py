@@ -434,3 +434,9 @@ def prometheus_text(prefix: str = "paddle_tpu_") -> str:
         lines.append(f"{m}_sum {_prom_num(snap['sum'])}")
         lines.append(f"{m}_count {snap['count']}")
     return "\n".join(lines) + "\n"
+# gauge: batches DevicePrefetcher holds staged on the card
+PREFETCH_QUEUE_DEPTH = _registry.get_stat("prefetch_queue_depth")
+# host ms spent issuing DevicePrefetcher's copies to the card
+H2D_COPY_MS = _registry.get_stat("h2d_copy_ms")
+# AsyncLoss handles whose value was read on the host (one each)
+STEP_ASYNC_SYNCS = _registry.get_stat("step_async_syncs")

@@ -40,7 +40,8 @@ from . import _build
 
 __all__ = ["adamw_flat", "lamb_moments_flat", "fused_adamw_update",
            "fused_lamb_update", "flatten_bucket", "unflatten_bucket",
-           "fused_eager_step", "ADAMW_LAUNCHES", "LAMB_LAUNCHES"]
+           "fused_eager_step", "fused_update_from_slots", "SlotTables",
+           "ADAMW_LAUNCHES", "LAMB_LAUNCHES"]
 
 # kernel launches since the last reset (the wrappers add one per launch)
 ADAMW_LAUNCHES = 0
@@ -128,13 +129,7 @@ def _load():
 def _table(ps, gs, ms, vs, rs, chunk):
     """The kernel's leaf table (8 int64 per leaf) on the device, and the
     bucket's chunk count. Pinned and copied without a sync."""
-    rows, c0 = [], 0
-    for i, p in enumerate(ps):
-        n = p.numel()
-        r = rs[i].data_ptr() if rs is not None else 0
-        rows += [p.data_ptr(), gs[i].data_ptr(), ms[i].data_ptr(),
-                 vs[i].data_ptr(), r, n, c0, 0]
-        c0 += -(-n // chunk)
+    rows, c0 = _rows(ps, gs, ms, vs, rs, chunk)
     host = torch.tensor(rows, dtype=torch.int64).pin_memory()
     return host.to(ps[0].device, non_blocking=True), c0
 
@@ -173,11 +168,16 @@ def _grid(dev, chunks):
     return max(1, min(chunks, sms * 8))
 
 
-def _launch_adamw(ps, gs, ms, vs, sc, *, b1, b2, eps, wd, l2, eager_form):
+def _launch_adamw(ps, gs, ms, vs, sc, *, b1, b2, eps, wd, l2, eager_form,
+                  tables=None, key=None):
     global ADAMW_LAUNCHES
     dts = _check_leaves(ps, gs, ms, vs, "fused AdamW")
     lib = _load()
-    table, chunks = _table(ps, gs, ms, vs, None, lib.fused_opt_chunk())
+    if tables is None:
+        table, chunks = _table(ps, gs, ms, vs, None, lib.fused_opt_chunk())
+    else:
+        table, chunks = tables.table(key, ps, gs, ms, vs,
+                                     lib.fused_opt_chunk())
     if chunks == 0:
         return
     dev = ps[0].device
@@ -226,13 +226,14 @@ def _scalars(lr, bc1, bc2, dev):
 # -- bucket executors (in place) ----------------------------------------------
 
 def _bucket_adamw(ps, gs, ms, vs, sc, *, b1, b2, eps, wd, l2=0.0,
-                  eager_form=False):
+                  eager_form=False, tables=None, key=None):
     """AdamW over one bucket's leaves, in place: one kernel launch on the
-    card, the plain version leaf by leaf on the CPU."""
+    card (its leaf table from ``tables`` under ``key`` when given, else
+    made for the call), the plain version leaf by leaf on the CPU."""
     kw = dict(b1=float(b1), b2=float(b2), eps=float(eps), wd=float(wd),
               l2=float(l2), eager_form=bool(eager_form))
     if ps[0].device.type == "cuda":
-        _launch_adamw(ps, gs, ms, vs, sc, **kw)
+        _launch_adamw(ps, gs, ms, vs, sc, tables=tables, key=key, **kw)
         return
     for p, g, m, v in zip(ps, gs, ms, vs):
         np_, nm, nv = _adamw_flat_reference(p, g, m, v, sc[0], sc[1], sc[2],
@@ -411,6 +412,118 @@ def fused_lamb_update(params, grads, state, lr, beta1=0.9, beta2=0.999,
                 _apply_trust(ps[j], r, lr)
     FUSED_OPTIMIZER_STEPS.add()
     return params, state
+
+
+# -- jit.TrainStep: the update from the optimizer's own slots -----------------
+
+def _rows(ps, gs, ms, vs, rs, chunk):
+    """The leaf table's rows (8 int64 per leaf) and the chunk count."""
+    rows, c0 = [], 0
+    for i, p in enumerate(ps):
+        n = p.numel()
+        r = rs[i].data_ptr() if rs is not None else 0
+        rows += [p.data_ptr(), gs[i].data_ptr(), ms[i].data_ptr(),
+                 vs[i].data_ptr(), r, n, c0, 0]
+        c0 += -(-n // chunk)
+    return rows, c0
+
+
+class SlotTables:
+    """The device leaf tables of one captured ``TrainStep``: one int64
+    tensor per bucket, made once and kept alive with the step's graph.
+
+    A table written while its stream is being captured cannot come from
+    a host buffer (the captured copy would read it at every replay, long
+    after it is gone), and the gradients' addresses are known only
+    inside the capture, where autograd allocates them from the graph's
+    pool. So the rows a table gets during the capture are kept aside,
+    and :meth:`finalize` writes them once the capture has ended: the
+    kernel node holds the table's address and reads its rows at every
+    replay. Outside a capture (the uncaptured warm-up step) a table is
+    made and written at once. The tables must be made there, before the
+    capture: one allocated inside it could take the memory of a tensor
+    freed earlier in the capture, which every replay writes before the
+    kernel reads the table."""
+
+    def __init__(self):
+        self._tables: dict = {}
+        self._pending: list = []
+
+    def table(self, key, ps, gs, ms, vs, chunk):
+        rows, chunks = _rows(ps, gs, ms, vs, None, chunk)
+        entry = self._tables.get(key)
+        capturing = torch.cuda.is_current_stream_capturing()
+        if entry is None or entry[1] != rows:
+            if entry is not None and entry[0].numel() == len(rows):
+                t = entry[0]
+            elif capturing:
+                raise RuntimeError(
+                    "SlotTables: a bucket's table must be made before the "
+                    "capture (run the step once uncaptured first)")
+            else:
+                t = torch.empty(len(rows), dtype=torch.int64,
+                                device=ps[0].device)
+            self._tables[key] = (t, rows)
+            if capturing:
+                self._pending.append((t, rows))
+            else:
+                t.copy_(torch.tensor(rows, dtype=torch.int64))
+        return self._tables[key][0], chunks
+
+    def finalize(self):
+        """Write the rows kept aside during the capture (call after it)."""
+        for t, rows in self._pending:
+            t.copy_(torch.tensor(rows, dtype=torch.int64))
+        self._pending = []
+
+
+@torch.no_grad()
+def fused_update_from_slots(opt, param_names, params, grads, slots, lr,
+                            hyper, tables=None):
+    """Fused Adam/AdamW over ``jit.TrainStep``'s named state, in place
+    (``paddle_tpu/ops/fused_optimizer.py:421``).
+
+    ``params[k]`` is a Parameter, ``grads[k]`` a torch tensor, ``slots[k]`` the optimizer's own ``[moment1,
+    moment2, beta1_pow, beta2_pow]``, ``lr`` a 0-dim f32 device tensor
+    and ``hyper[k]`` the parameter's hyperparameter items. Buckets are
+    keyed by (param dtype, moment dtype, decay coefficient, eps), so
+    AdamW's ``apply_decay_param_fun`` exclusions get their own; the port
+    adds the parameter's L2 regularizer coefficient and lr multiplier
+    to the key, as its eager step does. The first leaf's beta-pow pair
+    gives the bias corrections, and every leaf's pair becomes that pair
+    times β after the update, as in JAX. One kernel launch per bucket on
+    the card, its leaf table from ``tables`` (:class:`SlotTables`) when
+    given; on the CPU each leaf runs the plain version."""
+    k0 = param_names[0]
+    b1p, b2p = slots[k0][2], slots[k0][3]
+    h0 = dict(hyper[k0])
+    b1, b2 = float(h0["b1"]), float(h0["b2"])
+    data = {k: params[k]._data for k in param_names}
+    buckets: dict = {}
+    for k in param_names:
+        h, p = dict(hyper[k]), params[k]
+        reg = p.regularizer if p.regularizer is not None \
+            else opt._weight_decay
+        l2 = (float(reg.coeff) if isinstance(reg, L2Decay)
+              and not opt._decoupled_wd() else 0.0)
+        mult = float(p.optimize_attr.get("learning_rate", 1.0))
+        key = (data[k].dtype, slots[k][0].dtype, float(h.get("coeff", 0.0)),
+               float(h["eps"]), l2, mult)
+        buckets.setdefault(key, []).append(k)
+    lr = lr.reshape(()).float()
+    bc = torch.stack([1.0 - b1p, 1.0 - b2p])
+    for key, keys in buckets.items():
+        _, _, wd, eps, l2, mult = key
+        sc = torch.cat([(lr if mult == 1.0 else lr * mult).reshape(1), bc])
+        _bucket_adamw([data[k] for k in keys],
+                      [grads[k].contiguous() for k in keys],
+                      [slots[k][0] for k in keys], [slots[k][1] for k in keys],
+                      sc, b1=b1, b2=b2, eps=eps, wd=wd, l2=l2,
+                      eager_form=True, tables=tables, key=key)
+    nb1, nb2 = b1p * b1, b2p * b2
+    for k in param_names:
+        slots[k][2].copy_(nb1)
+        slots[k][3].copy_(nb2)
 
 
 # -- eager Optimizer.step (the Paddle surface) --------------------------------

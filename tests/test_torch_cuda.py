@@ -1366,3 +1366,161 @@ def test_two_host_fleet_on_card_matches_monolithic(cuda_device, tmp_path):
             router.shutdown(drain=False)
         for a in agents:
             a.close()
+
+
+def test_adamw_kernel_replayed_in_a_graph_matches_a_lone_launch(
+        cuda_device):
+    """Row 7 captured with a leaf table made before the capture and
+    written after it (``SlotTables``), replayed 3 times with the rate
+    written into a device scalar before each replay: bit-identical to 3
+    uncaptured launches (tables made per call) on the same leaves and
+    rates."""
+    gen = torch.Generator().manual_seed(70)
+    shapes = [(37,), (64, 33), (5, 7, 3)]
+
+    def leaves():
+        return [[torch.randn(s, generator=gen).to(cuda_device)
+                 for s in shapes] for _ in range(4)]
+
+    ps, gs, ms, vs = leaves()
+    vs = [v.abs() for v in vs]
+    ref = [[t.clone() for t in group] for group in (ps, gs, ms, vs)]
+    rates = [1e-3, 5e-4, 2e-4]
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, eager_form=True)
+    lr = torch.zeros((), device=cuda_device)
+    bc = torch.tensor([0.1, 0.001], device=cuda_device)
+    tables = tfo.SlotTables()
+    # the table is made outside the capture, for leaves of the same sizes
+    tables.table("k", ps, [g.clone() for g in gs], ms, vs,
+                 tfo._load().fused_opt_chunk())
+    graph = torch.cuda.CUDAGraph()
+    n0 = tfo.ADAMW_LAUNCHES
+    with torch.cuda.graph(graph):
+        g_static = [g.clone() for g in gs]
+        sc = torch.cat([lr.reshape(1), bc])
+        tfo._bucket_adamw(ps, g_static, ms, vs, sc, tables=tables,
+                          key="k", **kw)
+    tables.finalize()
+    assert tfo.ADAMW_LAUNCHES == n0 + 1          # counted at capture
+    for rate in rates:
+        for dst, src in zip(g_static, gs):
+            dst.copy_(src)
+        lr.fill_(rate)
+        graph.replay()
+        rp, rg, rm, rv = ref
+        tfo._bucket_adamw(rp, rg, rm, rv, torch.cat(
+            [torch.full((1,), rate, device=cuda_device), bc]), **kw)
+    torch.cuda.synchronize()
+    for got, want in zip(ps + ms + vs, ref[0] + ref[2] + ref[3]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("opt_name,fused", [("adam", 1), ("adam", 0),
+                                             ("momentum", 0)])
+def test_captured_train_step_matches_uncaptured(cuda_device, opt_name,
+                                                fused):
+    """A small conv + batch-norm + linear net through ``TrainStep`` on the
+    card: captured (one graph, replays) against ``capture=False`` from
+    the same weights on the same batches, 4 steps, an LR schedule and a
+    global-norm clip: losses, params and batch-norm buffers within 1e-6
+    of the largest value; the fused Adam's launches come from the
+    replays."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    paddle.seed(3)
+    old = paddle.get_flags("FLAGS_fused_optimizer")["FLAGS_fused_optimizer"]
+    paddle.set_flags({"FLAGS_fused_optimizer": fused})
+    try:
+        class Net(paddle.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.conv = paddle.nn.Conv2D(3, 8, 3, padding=1)
+                self.bn = paddle.nn.BatchNorm2D(8)
+                self.fc = paddle.nn.Linear(8 * 4 * 4, 5)
+
+            def forward(self, x):
+                y = paddle.nn.functional.relu(self.bn(self.conv(x)))
+                return self.fc(paddle.flatten(
+                    paddle.nn.functional.max_pool2d(y, 2), 1))
+
+        a, b = Net(), Net()
+        b.set_state_dict(a.state_dict())
+        rng = np.random.default_rng(5)
+        batches = [(rng.normal(size=(6, 3, 8, 8)).astype("float32"),
+                    rng.integers(0, 5, (6,)).astype("int64"))
+                   for _ in range(4)]
+
+        def run(net, capture):
+            sched = paddle.optimizer.lr.LinearWarmup(
+                paddle.optimizer.lr.CosineAnnealingDecay(1e-2, T_max=4),
+                warmup_steps=2, start_lr=0.0, end_lr=1e-2)
+            clip = paddle.nn.ClipGradByGlobalNorm(1.0)
+            opt = (paddle.optimizer.Adam(sched, parameters=net.parameters(),
+                                         grad_clip=clip)
+                   if opt_name == "adam" else
+                   paddle.optimizer.Momentum(sched, 0.9,
+                                             parameters=net.parameters(),
+                                             grad_clip=clip))
+            step = paddle.jit.TrainStep(
+                net, lambda run_model, x, y: paddle.nn.functional
+                .cross_entropy(run_model(x), y), opt, capture=capture)
+            n0 = tfo.ADAMW_LAUNCHES
+            losses = []
+            for x, y in batches:
+                losses.append(float(step(paddle.to_tensor(x),
+                                         paddle.to_tensor(y))))
+                sched.step()
+            return losses, step, tfo.ADAMW_LAUNCHES - n0
+
+        la, sa, na = run(a, True)
+        lb, sb, nb = run(b, False)
+        assert sa.captures == 1 and sb.captures == 0
+        if fused:
+            assert na == nb == 4
+        np.testing.assert_allclose(la, lb, rtol=1e-6)
+        for (k, va), (_, vb) in zip(a.state_dict().items(),
+                                    b.state_dict().items()):
+            va, vb = va.numpy(), vb.numpy()
+            assert np.abs(va - vb).max() <= 1e-6 * max(np.abs(vb).max(),
+                                                       1e-3), k
+    finally:
+        paddle.set_flags({"FLAGS_fused_optimizer": old})
+
+
+def test_captured_step_refuses_a_host_read(cuda_device):
+    """A loss that reads a value on the host cannot be captured: the
+    step raises and says why (no fallback)."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    net = paddle.nn.Linear(4, 2)
+    opt = paddle.optimizer.SGD(0.1, parameters=net.parameters())
+
+    def loss_fn(run_model, x):
+        out = run_model(x).mean()
+        if float(out) > 1e9:            # a host read
+            out = out * 0
+        return out
+
+    step = paddle.jit.TrainStep(net, loss_fn, opt)
+    x = paddle.to_tensor(np.ones((3, 4), "float32"))
+    with pytest.raises(RuntimeError, match="cannot capture"):
+        step(x)
+
+
+def test_device_prefetcher_keeps_order_on_the_card(cuda_device):
+    """DevicePrefetcher stages host batches on the card in their order,
+    values unchanged, Tensors staying Tensors."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import DevicePrefetcher
+
+    paddle.set_device("gpu")
+    host = [(paddle.to_tensor(np.full((64, 3), i, "float32"), place="cpu"),
+             np.full((64,), i, "int64")) for i in range(20)]
+    got = list(DevicePrefetcher(host, size=2))
+    assert len(got) == 20
+    for i, (x, y) in enumerate(got):
+        assert isinstance(x, paddle.Tensor) and x.place.type == "cuda"
+        assert y.device.type == "cuda"
+        assert float(x._data[0, 0]) == i and int(y[0]) == i
