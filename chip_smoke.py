@@ -296,6 +296,31 @@ stamped with the card's name and power limit):
     every batch-norm buffer moved, the first 3 losses within 1e-3 of
     the uncaptured step's from the same weights and batch, and the
     params' max |Δ| after them.
+43. MobileNetV2 at full width (scale 1.0, 1000 classes) through
+    ``jit.TrainStep`` with phase 42's recipe (O2 bf16, Momentum 0.1 /
+    0.9, batch 256 of 3×224×224): 3 warm-up calls, 15 per-call steps,
+    10 replays with one read, one profiled replay (device ms, idle
+    share, the top items); samples/s, step ms, peak memory; every loss
+    finite, every batch-norm buffer moved, the first 3 captured losses
+    within 1e-3 of the uncaptured step's from the same weights and
+    generator state (the classifier's Dropout(0.2) drawing in both), and
+    5 replays at learning rate 0 on one batch giving at least two
+    distinct losses (each replay draws fresh dropout masks);
+43b. MobileNetV2, MobileNetV1, AlexNet, VGG-16 and ResNeXt-50 32x4d in
+    f32 at batch 2 on the card against the CPU with the same weights
+    (dropout off): the first loss (1e-5), the last linear layer's weight
+    gradient against the CPU's f64 run by phase 38's ratio rule, the
+    first batch norm's running statistics after one Momentum step;
+44. a sweep of the tensor and activation surface: every function this
+    slice added (tensor, paddle.linalg, the activation and common
+    functionals), once on the card and once on the CPU port from the
+    same numpy inputs ((64, 1024) f32, an (8, 32, 56, 56) image, 64 × 64
+    matrices): outputs on the card in the CPU's dtype, f32 values within
+    1e-5 (elementwise) or 1e-4 (reductions, linalg, resizing) of the
+    largest value, index outputs exact, the differentiable ones'
+    gradients too; the count swept and the worst errors on a line of
+    their own. Phases 43–44 run no hand-written kernel (their launches
+    read 0).
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -4790,6 +4815,699 @@ def resnet50_trainstep_phase(dev, mods, stamp, eager_ms):
 
 
 # --------------------------------------------------------------------------
+# phases 43-44: MobileNetV2 through jit.TrainStep, the new vision models
+# card against CPU, and a sweep of the tensor and activation surface
+# --------------------------------------------------------------------------
+
+# phase 43: phase 42's recipe on mobilenet_v2(scale=1.0, num_classes=1000):
+# warm-up calls, per-call steps, K replays; the first 3 captured losses
+# against the uncaptured step from the same weights and generator state,
+# relative (bf16 activations, the same kernels in the same order, the
+# same dropout masks if the replays draw what the eager steps draw); the
+# fresh-mask gate's replays at learning rate 0 on one batch
+MOBILENET_WARM, MOBILENET_CALLS, MOBILENET_K = 3, 15, 10
+MOBILENET_STEP_LOSS_REL = 1e-3
+MOBILENET_FRESH_REPLAYS = 5
+# phase 43b: each model at batch 2 of 3x224x224 in f32, card against the
+# CPU port from the same weights (dropout off: the card's and the CPU's
+# generators differ): the first loss relative, the last linear layer's
+# weight gradient against the CPU's f64 run by phase 38's ratio rule (the
+# card within "grad_vs_f64" times the CPU f32 run's distance from f64, or
+# within "grad_floor" of the largest value, where both sit at f32's
+# rounding floor and their ratio is noise), the first batch norm's running
+# statistics after the step
+VISION_CHECK_MODELS = ("mobilenet_v2", "mobilenet_v1", "alexnet", "vgg16",
+                       "resnext50_32x4d")
+VISION_CHECK_TOL = {"loss": 1e-5, "grad_vs_f64": 3.0, "grad_floor": 1e-5,
+                    "stats": 1e-5}
+# phase 44: every function this slice adds, on the card and on the CPU
+# port from the same numpy inputs; f32 as max |Δ| / max |CPU|: elementwise
+# 1e-5 (the same formula, the card's own libm and rounding), reductions,
+# linalg and resizing 1e-4 (sums in another order; cuSOLVER against
+# LAPACK); index outputs exactly on inputs without ties
+SURFACE_TOL = {"elem": 1e-5, "reduce": 1e-4}
+SURFACE_ROWS, SURFACE_COLS = 64, 1024
+SURFACE_IMAGE = (8, 32, 56, 56)
+# the names of tensor.__all__ and of nn.functional's activation and common
+# modules that earlier slices ported: everything else there is this
+# slice's, and phase 44 must sweep it
+SURFACE_EARLIER = {
+    "to_tensor", "zeros", "ones", "full", "arange", "add", "subtract",
+    "multiply", "divide", "floor_divide", "remainder", "mod", "pow",
+    "matmul", "mm", "bmm", "sum", "mean", "scale", "neg", "abs", "reshape",
+    "transpose", "concat", "split", "unsqueeze", "cast", "flatten", "equal",
+    "not_equal", "less_than", "less_equal", "greater_than", "greater_equal",
+    "logical_and", "logical_or", "logical_xor", "logical_not", "equal_all",
+    "allclose", "isclose", "is_tensor", "relu", "gelu", "softmax", "linear",
+    "dropout", "embedding"}
+
+
+def mobilenet_v2_trainstep_phase(dev, mods, stamp):
+    """Phase 43: MobileNetV2 at full width (scale 1.0, 1000 classes)
+    through jit.TrainStep with phase 42's recipe (amp.decorate O2 bf16,
+    the loss under auto_cast O2, Momentum 0.1 / 0.9, batch 256 of
+    3x224x224 from seed 0): MOBILENET_WARM calls (the first eager, then
+    the capture), MOBILENET_CALLS per-call steps, MOBILENET_K replays
+    with one host read, one profiled replay; the first 3 captured losses
+    against the uncaptured step from the same weights and generator
+    state (the classifier's Dropout(0.2) drawing its masks in both), and
+    MOBILENET_FRESH_REPLAYS replays at learning rate 0 on one batch,
+    which must give at least two distinct losses (fresh masks a
+    replay)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+
+    def build():
+        model = paddle.amp.decorate(mobilenet_v2(scale=1.0, num_classes=1000),
+                                    level="O2", dtype="bfloat16")
+        opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                        parameters=model.parameters())
+
+        def loss_fn(run, x, y):
+            with paddle.amp.auto_cast(enable=True, level="O2"):
+                out = run(x)
+            return paddle.nn.functional.cross_entropy(out, y)
+
+        return model, opt, loss_fn
+
+    rng = np.random.default_rng(0)
+    images = paddle.to_tensor(rng.normal(
+        size=(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE)).astype("float32"))
+    labels = paddle.to_tensor(rng.integers(0, 1000, (RESNET_BATCH,)).astype(
+        "int64"))
+    model, opt, loss_fn = build()
+    state = {k: v._data.detach().clone()
+             for k, v in model.state_dict().items()}
+    gen_state = paddle.get_rng_state()
+    before = _bn_stats(model)
+    _fresh_peak(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _reset_vision_counts(mods)
+    step = paddle.jit.TrainStep(model, loss_fn, opt)
+    t0 = time.perf_counter()
+    warm = [float(step(images, labels)) for _ in range(MOBILENET_WARM)]
+    warm_s = time.perf_counter() - t0
+    call_ms, losses = [], []
+    for _ in range(MOBILENET_CALLS):
+        t0 = time.perf_counter()
+        losses.append(float(step(images, labels)))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(float(step.steps(MOBILENET_K, images, labels)))
+    k_s = time.perf_counter() - t0
+    replay_ms = k_s / MOBILENET_K * 1e3
+    prof = _profiled_step(lambda: step(images, labels), replay_ms)
+    launches = _vision_counts(mods)
+    peak = torch.cuda.max_memory_allocated(dev)
+    after = _bn_stats(model)
+    moved = sum(not torch.equal(before[k], after[k]) for k in before)
+    # fresh masks: the same batch, no update, only the dropout draws move
+    step.scale_lr(0.0)
+    fresh = [float(step(images, labels))
+             for _ in range(MOBILENET_FRESH_REPLAYS)]
+    captures = step.captures
+    del step
+    _fresh_peak(dev)
+    # the uncaptured step from the same weights and generator state
+    model.set_state_dict(state)
+    paddle.set_rng_state(gen_state)
+    opt2 = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                     parameters=model.parameters())
+    ref = paddle.jit.TrainStep(model, loss_fn, opt2, capture=False)
+    ref_losses = [float(ref(images, labels)) for _ in range(MOBILENET_WARM)]
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(warm, ref_losses))
+    del ref, model, opt, opt2, state, before, after
+    _fresh_peak(dev)
+    ok = {"losses_finite": all(map(math.isfinite,
+                                   warm + losses + ref_losses + fresh)),
+          "bn_stats_moved": moved == 104,
+          "one_capture": captures == 1,
+          "first_losses_vs_uncaptured": rel_loss <= MOBILENET_STEP_LOSS_REL,
+          "fresh_masks": len(set(fresh)) >= 2}
+    row = {"phase": "train_paddle_trainstep_mobilenet_v2_o2",
+           "model": "mobilenet_v2(scale=1.0, num_classes=1000)",
+           "batch": [RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE],
+           "amp": "O2 bfloat16 (norms f32)",
+           "optimizer": "Momentum(lr=0.1, momentum=0.9)",
+           "dropout": "classifier Dropout(0.2) active in every step "
+                      "compared (captured and uncaptured draw from the "
+                      "same generator state)",
+           "warm_calls": MOBILENET_WARM, "warm_s": warm_s,
+           "call_ms": call_ms,
+           "call_ms_median": float(np.median(call_ms)),
+           "per_call_samples_per_s":
+               RESNET_BATCH / float(np.median(call_ms)) * 1e3,
+           "k": MOBILENET_K, "replay_ms": replay_ms,
+           "device_samples_per_s": RESNET_BATCH / replay_ms * 1e3, **prof,
+           "captures": captures, "peak_mem_gib": peak / 2**30,
+           "peak_over_start_gib": (peak - base) / 2**30,
+           "first_losses": warm, "first_losses_uncaptured": ref_losses,
+           "first_loss_rel": rel_loss,
+           "tol_loss_rel": MOBILENET_STEP_LOSS_REL,
+           "fresh_mask_losses_lr0": fresh, "bn_buffers_moved": moved,
+           "launches": launches, "checks": ok, "ok": all(ok.values()),
+           **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"MobileNetV2 TrainStep phase failed: {ok}")
+    return row
+
+
+def vision_models_check_phase(dev, stamp, batch=2, card="gpu",
+                              side=RESNET_SIDE):
+    """Phase 43b: each of VISION_CHECK_MODELS in f32 at ``batch`` x
+    3x224x224, one Momentum step on the card against the CPU port with
+    the same weights (and the CPU in f64 as the gradients' yardstick),
+    dropout off: the first loss, the last linear layer's weight gradient
+    and the first batch norm's running statistics after the step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import models as M
+
+    rng = np.random.default_rng(43)
+    images = rng.normal(size=(batch, 3, side, side)).astype("float32")
+    labels = rng.integers(0, 1000, (batch,)).astype("int64")
+    rows = {}
+    try:
+        for name in VISION_CHECK_MODELS:
+            out, state = {}, None
+            for run, where, dt in (("cpu", "cpu", "float32"),
+                                   ("cpu_f64", "cpu", "float64"),
+                                   ("card", card, "float32")):
+                paddle.set_device(where)
+                paddle.seed(43)
+                model = getattr(M, name)()
+                if state is None:       # the CPU f32 model's own weights
+                    state = {k: v.numpy()
+                             for k, v in model.state_dict().items()}
+                else:
+                    model.set_state_dict(state)
+                model.to(dtype=dt)
+                for layer in model.sublayers():
+                    if isinstance(layer, paddle.nn.Dropout):
+                        layer.p = 0.0
+                opt = paddle.optimizer.Momentum(
+                    learning_rate=0.1, momentum=0.9,
+                    parameters=model.parameters())
+                t0 = time.perf_counter()
+                loss = paddle.nn.functional.cross_entropy(
+                    model(paddle.to_tensor(images, dtype=dt)),
+                    paddle.to_tensor(labels))
+                loss.backward()
+                head = [m for m in model.sublayers()
+                        if isinstance(m, paddle.nn.Linear)][-1]
+                grad = head.weight.grad._data.cpu()
+                opt.step()
+                bns = [m for m in model.sublayers()
+                       if isinstance(m, paddle.nn.BatchNorm2D)]
+                stats = ({k: bns[0]._buffers[k]._data.cpu()
+                          for k in ("_mean", "_variance")} if bns else {})
+                out[run] = (float(loss), grad, stats,
+                            time.perf_counter() - t0)
+                del model, opt, loss, head, bns
+            (l_cpu, g_cpu, s_cpu, t_cpu), (_, g64, _, t64), (
+                l_card, g_card, s_card, t_card) = (out["cpu"], out["cpu_f64"],
+                                                   out["card"])
+            err = {"loss": abs(l_card - l_cpu) / abs(l_cpu),
+                   "grad": _rel(g_card, g_cpu),
+                   "grad_card_vs_f64": _rel(g_card, g64),
+                   "grad_cpu_vs_f64": _rel(g_cpu, g64),
+                   "stats": {k: _rel(s_card[k], s) for k, s in s_cpu.items()}}
+            tol = VISION_CHECK_TOL
+            ok = {"loss": err["loss"] <= tol["loss"],
+                  "grad": err["grad_card_vs_f64"] <= max(
+                      tol["grad_vs_f64"] * err["grad_cpu_vs_f64"],
+                      tol["grad_floor"]),
+                  "stats": max(err["stats"].values(), default=0.0)
+                  <= tol["stats"]}
+            rows[name] = {"loss_card": l_card, "loss_cpu": l_cpu,
+                          "err": err, "checks": ok, "card_s": t_card,
+                          "cpu_s": t_cpu, "cpu_f64_s": t64,
+                          "ok": all(ok.values())}
+            del out, state
+            gc.collect()
+    finally:
+        paddle.set_device(card)
+    row = {"phase": "paddle_vision_models_card_vs_cpu",
+           "models": rows, "batch": [batch, 3, side, side],
+           "dtype": "float32", "dropout": "p = 0 (the generators differ)",
+           "tol": VISION_CHECK_TOL,
+           "ok": all(r["ok"] for r in rows.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"vision models: card and CPU disagree: {row}")
+    return row
+
+
+def _surface_cases():
+    """(name, the functions it covers, fn(paddle, *tensors), numpy
+    inputs, kind, differentiable) for phase 44. Kinds: "elem" and
+    "reduce" compare values at SURFACE_TOL, "index" exactly, "abs" the
+    absolute values (factors defined up to sign), "eig" the eigenvalues
+    sorted, "random" only device, dtype and shape."""
+    rng = np.random.default_rng(44)
+    R, C = SURFACE_ROWS, SURFACE_COLS
+    x = rng.normal(size=(R, C)).astype("float32")
+    y = rng.normal(size=(R, C)).astype("float32")
+    pos = rng.uniform(0.5, 2.0, (R, C)).astype("float32")
+    unit = rng.uniform(-0.9, 0.9, (R, C)).astype("float32")
+    perm = (np.stack([rng.permutation(C) for _ in range(R)]).astype(
+        "float32") - C / 2) / 16                     # rows without ties
+    ints = rng.integers(-50, 50, (R, C)).astype("int64")
+    pints = rng.integers(1, 50, (R, C)).astype("int64")
+    img = rng.normal(size=SURFACE_IMAGE).astype("float32")
+    mat = rng.normal(size=(64, 64)).astype("float32")
+    spd = (mat @ mat.T / 64 + np.eye(64)).astype("float32")
+    # 16 x 16 with spectra 1, 2, ..., 16: singular vectors and
+    # eigenvectors well defined (a clustered spectrum leaves them free
+    # within the cluster; at 64 x 64 spaced 1/7 apart cuSOLVER's vectors
+    # sat 8.3e-5 from LAPACK's)
+    q1 = np.linalg.qr(rng.normal(size=(16, 16)))[0]
+    q2 = np.linalg.qr(rng.normal(size=(16, 16)))[0]
+    spread = np.arange(1.0, 17.0)
+    sep = (q1 * spread @ q2.T).astype("float32")
+    sym = (q1 * spread @ q1.T).astype("float32")
+    vec = rng.normal(size=(64,)).astype("float32")
+    small = rng.integers(0, 100, (R, C)).astype("int64")
+    idx = rng.integers(0, C, (256,)).astype("int64")
+    rows = rng.permutation(R)[:16].astype("int64")
+    cases = []
+
+    def add(name, fn, arrays, kind="elem", grad=False, covers=None):
+        cases.append((name, covers or (name,), fn, arrays, kind, grad))
+
+    unary = {
+        "exp": x, "expm1": x, "log": pos, "log2": pos, "log10": pos,
+        "log1p": pos, "sqrt": pos, "rsqrt": pos, "square": x, "sign": x,
+        "floor": x * 4, "ceil": x * 4, "round": x * 4, "trunc": x * 4,
+        "sin": x, "cos": x, "tan": unit, "asin": unit, "acos": unit,
+        "atan": x, "sinh": x, "cosh": x, "tanh": x, "asinh": x,
+        "acosh": pos + 1, "atanh": unit, "reciprocal": pos, "sigmoid": x,
+        "erf": x, "erfinv": unit, "lgamma": pos, "digamma": pos,
+        "isnan": x, "isinf": x, "isfinite": x, "deg2rad": x,
+        "rad2deg": x, "frac": x * 4, "angle": x, "conj": x, "real": x,
+        "imag": x}
+    smooth = {"exp", "log", "sqrt", "tanh", "sin", "sigmoid", "erf",
+              "lgamma"}
+    for n, a in unary.items():
+        add(n, (lambda n: lambda p, t: getattr(p, n)(t))(n), [a], "elem",
+            n in smooth)
+    for n in ("maximum", "minimum", "fmax", "fmin", "atan2", "floor_mod",
+              "heaviside"):
+        add(n, (lambda n: lambda p, a, b: getattr(p, n)(a, b))(n),
+            [x * 3, pos if n == "floor_mod" else y], "elem",
+            n in ("maximum", "atan2"))
+    for n in ("gcd", "lcm"):
+        add(n, (lambda n: lambda p, a, b: getattr(p, n)(a, b))(n),
+            [ints, pints], "index")
+    for n in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        add(n, (lambda n: lambda p, a, b: getattr(p, n)(a, b))(n),
+            [ints, pints], "index")
+    add("bitwise_not", lambda p, a: p.bitwise_not(a), [ints], "index")
+    add("clip", lambda p, a: p.clip(a, -0.5, 0.7), [x], "elem", True)
+    add("stanh", lambda p, a: p.stanh(a), [x], "elem")
+    add("lerp", lambda p, a, b: p.lerp(a, b, 0.3), [x, y], "elem", True)
+    add("increment", lambda p, a: p.increment(a * 1.0, 2.0), [x])
+    add("nan_to_num", lambda p, a: p.nan_to_num(p.log(a)), [x])
+    add("kron", lambda p, a, b: p.kron(a, b), [mat[:8, :8], mat[8:16, :8]])
+    add("dot", lambda p, a, b: p.dot(a, b), [mat, spd], "reduce", True)
+    add("inner", lambda p, a, b: p.inner(a, b), [x[:8], y[:8]], "reduce")
+    add("outer", lambda p, a, b: p.outer(a, b), [vec, vec])
+    add("addmm", lambda p, i, a, b: p.addmm(i, a, b, 0.5, 2.0),
+        [mat, mat, spd], "reduce", True)
+    add("mv", lambda p, a, v: p.mv(a, v), [mat, vec], "reduce")
+    add("multiplex", lambda p, a, b, i: p.multiplex([a, b], i),
+        [mat, spd, (np.arange(64) % 2).reshape(64, 1)], "index")
+    add("add_n", lambda p, a, b: p.add_n([a, b, a]), [x, y], "elem", True)
+    add("diagonal", lambda p, a: p.diagonal(a, 1), [mat])
+    add("trace", lambda p, a: p.trace(a), [mat], "reduce")
+    add("diff", lambda p, a: p.diff(a, axis=1), [x], "elem", True)
+    add("rot90", lambda p, a: p.rot90(a), [x], "index")
+    add("count_nonzero", lambda p, a: p.count_nonzero(a, axis=1), [ints],
+        "index")
+    add("logcumsumexp", lambda p, a: p.logcumsumexp(a, axis=1), [x],
+        "reduce", True)
+    add("nansum", lambda p, a: p.nansum(p.log(a), axis=1), [x], "reduce")
+    add("nanmean", lambda p, a: p.nanmean(p.log(a), axis=0), [x], "reduce")
+    for n in ("max", "min", "amax", "amin", "prod", "logsumexp", "std",
+              "var", "median"):
+        a = pos if n == "prod" else x
+        add(n, (lambda n: lambda p, t: getattr(p, n)(t, axis=1))(n),
+            [a[:, :64] if n == "prod" else a], "reduce", n != "median")
+        add(n + "_all", (lambda n: lambda p, t: getattr(p, n)(t))(n),
+            [a[:8, :16] if n == "prod" else a], "reduce", False, (n,))
+    add("cumsum", lambda p, a: p.cumsum(a, axis=1), [x], "reduce", True)
+    add("cumprod", lambda p, a: p.cumprod(a, dim=1), [pos[:, :32]],
+        "reduce", True)
+    add("all", lambda p, a: p.all(a > -3.0, axis=1), [x], "index")
+    add("any", lambda p, a: p.any(a > 3.0, axis=0), [x], "index")
+    add("tanh_", lambda p, a: p.tanh_(a * 1.0), [x])
+    # manipulation
+    add("stack", lambda p, a, b: p.stack([a, b], axis=1), [x, y], "elem",
+        True)
+    add("chunk", lambda p, a: p.chunk(a, 4, axis=1), [x])
+    add("split_sections", lambda p, a: p.split_sections(a, [512, -1], 1),
+        [x])
+    add("squeeze", lambda p, a: p.squeeze(p.unsqueeze(a, 1), axis=1), [x])
+    add("flip", lambda p, a: p.flip(a, [0, 1]), [x])
+    add("reverse", lambda p, a: p.reverse(a, 1), [x])
+    add("roll", lambda p, a: p.roll(a, [3, -5], [0, 1]), [x])
+    add("tile", lambda p, a: p.tile(a[:8], [2, 3]), [x], "elem", True)
+    add("expand", lambda p, a: p.expand(a[:1], [4, -1]), [x], "elem", True)
+    add("expand_as", lambda p, a, b: p.expand_as(a[:1], b), [x, y])
+    add("broadcast_to", lambda p, a: p.broadcast_to(a[:1], [8, C]), [x])
+    add("broadcast_tensors",
+        lambda p, a, b: p.broadcast_tensors([a[:1], b[:, :1]]), [x, y])
+    add("broadcast_shape", lambda p: p.to_tensor(
+        p.broadcast_shape([64, 1], [1, 1024])), [], "index")
+    add("gather", lambda p, a, i: p.gather(a, i, axis=1), [x, idx], "elem",
+        True)
+    add("gather_nd", lambda p, a, i: p.gather_nd(a, i),
+        [x, np.stack([rows, idx[:16]], 1)], "elem", True)
+    add("index_select", lambda p, a, i: p.index_select(a, i), [x, rows])
+    add("index_sample", lambda p, a, i: p.index_sample(a, i),
+        [x, idx.reshape(64, 4)], "elem", True)
+    add("index_add", lambda p, a, i, v: p.index_add(a, i, 0, v),
+        [x, rows, y[:16]], "reduce", True)
+    add("scatter", lambda p, a, i, u: p.scatter(a, i, u), [x, rows, y[:16]],
+        "elem", True)
+    add("scatter_", lambda p, a, i, u: p.scatter_(a * 1.0, i, u),
+        [x, rows, y[:16]])
+    add("scatter_nd_add", lambda p, a, i, u: p.scatter_nd_add(a, i, u),
+        [x, np.concatenate([rows, rows])[:, None], y[:32]], "reduce", True)
+    add("scatter_nd", lambda p, i, u: p.scatter_nd(i, u, [R, C]),
+        [np.concatenate([rows, rows])[:, None], y[:32]], "reduce")
+    add("masked_select", lambda p, a: p.masked_select(a, a > 1.0), [x],
+        "elem", True)
+    add("where", lambda p, a, b: p.where(a > 0, a, b), [x, y], "elem", True)
+    add("nonzero", lambda p, a: p.nonzero(a > 2.0), [x], "index")
+    add("slice", lambda p, a: p.slice(a, [0, 1], [3, 100], [40, 900]), [x])
+    add("strided_slice", lambda p, a: p.strided_slice(
+        a, [0, 1], [60, 900], [2, 10], [-3, -7]), [x], "elem", True)
+    add("crop", lambda p, a: p.crop(a, [16, 256], [8, 100]), [x])
+    add("unbind", lambda p, a: p.unbind(a[:4], 0), [x])
+    add("unstack", lambda p, a: p.unstack(a[:, :4], 1), [x])
+    add("unique", lambda p, a: p.unique(a, return_index=True,
+                                        return_inverse=True,
+                                        return_counts=True), [small],
+        "index")
+    add("unique_consecutive", lambda p, a: p.unique_consecutive(
+        a, return_inverse=True, return_counts=True),
+        [np.sort(small // 7, axis=None)], "index")
+    add("repeat_interleave", lambda p, a: p.repeat_interleave(a, 3, 1),
+        [x[:, :256]], "elem", True)
+    add("take_along_axis", lambda p, a, i: p.take_along_axis(a, i, 1),
+        [x, idx.reshape(64, 4)], "elem", True)
+    add("put_along_axis", lambda p, a, i, v: p.put_along_axis(a, i, v, 1),
+        [x, np.argsort(perm, 1)[:, :4], y[:, :4]])
+    add("moveaxis", lambda p, a: p.moveaxis(a, 0, 2), [img[:2]])
+    add("tensordot", lambda p, a, b: p.tensordot(a, b, [[1], [1]]),
+        [x[:16], y[:16]], "reduce", True)
+    add("as_real", lambda p, a: p.as_real(p.as_complex(a)),
+        [x.reshape(R, C // 2, 2)], "elem", False, ("as_real", "as_complex"))
+    add("pad", lambda p, a: p.pad(a, [1, 2, 3, 4], mode="reflect"), [img],
+        "elem", True)
+    add("tolist", lambda p, a: p.to_tensor(p.tolist(a[:2, :3])), [ints],
+        "index")
+    add("shape", lambda p, a: p.shape(a), [img], "index")
+    add("rank", lambda p, a: p.rank(a), [img], "index")
+    add("shard_index", lambda p, a: p.shard_index(a, 100, 4, 2), [small],
+        "index")
+    add("reshape_", lambda p, a: p.reshape_(a * 1.0, [C, R]), [x])
+    add("squeeze_", lambda p, a: p.squeeze_(a[None] * 1.0, 0), [x])
+    add("unsqueeze_", lambda p, a: p.unsqueeze_(a * 1.0, 1), [x])
+    # creation
+    add("zeros_like", lambda p, a: p.zeros_like(a), [x])
+    add("ones_like", lambda p, a: p.ones_like(a, dtype="int32"), [x],
+        "index")
+    add("full_like", lambda p, a: p.full_like(a, 2.5), [x])
+    add("empty", lambda p: p.empty([R, C]), [])
+    add("empty_like", lambda p, a: p.empty_like(a), [x])
+    add("linspace", lambda p: p.linspace(-3.0, 5.0, C), [])
+    add("logspace", lambda p: p.logspace(0.0, 3.0, C, base=2.0), [])
+    add("eye", lambda p: p.eye(R, C), [])
+    add("tril", lambda p, a: p.tril(a, -1), [mat], "elem", True)
+    add("triu", lambda p, a: p.triu(a, 2), [mat])
+    add("diag", lambda p, v: p.diag(v, 1, padding_value=3.0), [vec])
+    add("diagflat", lambda p, a: p.diagflat(a), [mat[:4]])
+    add("meshgrid", lambda p, a, b: p.meshgrid(a, b), [vec, vec[:10]])
+    add("assign", lambda p, a: p.assign(a), [x])
+    add("clone", lambda p, a: p.clone(a), [x], "elem", True)
+    add("numel", lambda p, a: p.numel(a), [img], "index")
+    add("complex", lambda p, a, b: p.complex(a, b), [x, y])
+    add("create_parameter", lambda p: p.create_parameter([R, C], "float32"),
+        [], "random")
+    add("check_shape", lambda p: (p.check_shape([R, -1]) or
+                                  p.to_tensor([1])), [], "index")
+    add("is_empty", lambda p, a: p.is_empty(a), [x], "index")
+    add("einsum", lambda p, a, b: p.einsum("ij,kj->ik", a, b),
+        [x[:32], y[:16]], "reduce", True)
+    # search
+    add("argmax", lambda p, a: p.argmax(a, axis=1), [perm], "index")
+    add("argmin", lambda p, a: p.argmin(a, axis=0), [perm.T.copy()],
+        "index")
+    add("argsort", lambda p, a: p.argsort(a, axis=1, descending=True),
+        [perm], "index")
+    add("sort", lambda p, a: p.sort(a, axis=1), [x], "elem", True)
+    add("topk", lambda p, a: p.topk(a, 8, axis=1), [perm], "index")
+    add("searchsorted", lambda p, s, v: p.searchsorted(s, v, right=True),
+        [np.sort(x, axis=1), y[:, :100]], "index")
+    add("kthvalue", lambda p, a: p.kthvalue(a, 100, axis=1), [perm],
+        "index")
+    add("mode", lambda p, a: p.mode(a), [small // 5], "index")
+    # linalg
+    add("norm", lambda p, a: p.norm(a, p=3, axis=1), [x], "reduce", True)
+    add("dist", lambda p, a, b: p.dist(a, b), [x, y], "reduce", True)
+    add("t", lambda p, a: p.t(a), [mat])
+    add("cross", lambda p, a, b: p.cross(a, b), [x[:3], y[:3]], "reduce",
+        True)
+    add("cholesky", lambda p, a: p.cholesky(a), [spd], "reduce", True)
+    add("qr", lambda p, a: p.linalg.qr(a), [mat], "abs")
+    add("svd", lambda p, a: p.linalg.svd(a), [sep], "abs")
+    add("inv", lambda p, a: p.inv(a), [spd], "reduce", True,
+        ("inv", "inverse"))
+    add("det", lambda p, a: p.linalg.det(a / 2), [spd], "reduce")
+    add("slogdet", lambda p, a: p.linalg.slogdet(a), [mat], "reduce")
+    add("solve", lambda p, a, b: p.linalg.solve(a, b), [spd, mat], "reduce",
+        True)
+    add("triangular_solve", lambda p, a, b: p.triangular_solve(a, b),
+        [np.triu(spd), mat], "reduce")
+    add("matrix_power", lambda p, a: p.linalg.matrix_power(a, 3),
+        [spd / 2], "reduce")
+    add("pinv", lambda p, a: p.linalg.pinv(a), [mat[:, :40]], "reduce")
+    add("multi_dot", lambda p, a, b: p.linalg.multi_dot([a, b, a]),
+        [mat, spd], "reduce")
+    add("eig", lambda p, a: p.linalg.eig(a)[0], [mat], "eig")
+    add("eigvals", lambda p, a: p.linalg.eigvals(a), [mat], "eig")
+    add("eigh", lambda p, a: p.linalg.eigh(a), [sym], "abs")
+    add("eigvalsh", lambda p, a: p.eigvalsh(a), [spd], "reduce")
+    add("matrix_rank", lambda p, a: p.linalg.matrix_rank(a),
+        [np.concatenate([mat[:40], mat[:24] * 2])], "index")
+    add("histogram", lambda p, a: p.histogram(a, 100, -0.5, 99.5), [small],
+        "index")
+    add("bincount", lambda p, a: p.bincount(a, minlength=120),
+        [small.reshape(-1)], "index")
+    add("lu", lambda p, a: p.lu(a), [mat], "reduce")
+    add("lstsq", lambda p, a, b: p.linalg.lstsq(a, b),
+        [np.concatenate([mat, spd]), mat[:, :8].repeat(2, 0)], "reduce")
+    add("cov", lambda p, a: p.cov(a), [mat], "reduce")
+    add("corrcoef", lambda p, a: p.corrcoef(a), [mat], "reduce")
+    add("cond", lambda p, a: p.linalg.cond(a), [spd], "reduce")
+    # activations
+    F_act = {
+        "relu6": x * 4, "sigmoid": x, "tanh": x, "silu": x, "swish": x,
+        "mish": x, "log_softmax": x, "leaky_relu": x, "elu": x, "selu": x,
+        "celu": x, "hardshrink": x, "hardsigmoid": x * 4, "hardswish": x * 4,
+        "hardtanh": x, "softplus": x, "softshrink": x, "softsign": x,
+        "tanhshrink": x, "thresholded_relu": x * 2, "glu": x,
+        "log_sigmoid": x}
+    for n, a in F_act.items():
+        add(n, (lambda n: lambda p, t: getattr(p.nn.functional, n)(t))(n),
+            [a], "elem", n in ("mish", "selu", "log_softmax", "glu"),
+            (n,))
+    add("maxout", lambda p, a: p.nn.functional.maxout(a, 4), [img],
+        "elem", True)
+    add("prelu", lambda p, a, w: p.nn.functional.prelu(a, w),
+        [img, np.linspace(0.1, 0.4, 32).astype("float32")], "elem", True)
+    add("rrelu", lambda p, a: p.nn.functional.rrelu(a), [x], "random")
+    add("gumbel_softmax", lambda p, a: p.nn.functional.gumbel_softmax(a),
+        [x], "random")
+    for n in ("relu_", "elu_", "softmax_"):
+        add(n, (lambda n: lambda p, a: getattr(p.nn.functional, n)(
+            a * 1.0))(n), [x])
+    # the common functionals
+    add("dropout2d", lambda p, a: p.nn.functional.dropout2d(a), [img],
+        "random")
+    add("dropout3d", lambda p, a: p.nn.functional.dropout3d(
+        p.unsqueeze(a, 2)), [img], "random")
+    add("alpha_dropout", lambda p, a: p.nn.functional.alpha_dropout(a),
+        [x], "random")
+    for mode, size, ac in (("nearest", (112, 100), False),
+                           ("nearest", (28, 42), True),
+                           ("bilinear", (80, 30), False),
+                           ("bilinear", (112, 112), True),
+                           ("bicubic", (100, 64), False),
+                           ("bicubic", (28, 28), False)):
+        add(f"interpolate_{mode}_{size[0]}x{size[1]}_{ac}",
+            (lambda m, s, ac: lambda p, a: p.nn.functional.interpolate(
+                a, size=list(s), mode=m, align_corners=ac))(mode, size, ac),
+            [img], "reduce", mode == "bilinear", ("interpolate",))
+    add("upsample", lambda p, a: p.nn.functional.upsample(
+        a, scale_factor=2, mode="bilinear"), [img], "reduce")
+    add("unfold", lambda p, a: p.nn.functional.unfold(a, 3, 1, 1), [img],
+        "elem", True)
+    add("fold", lambda p, a: p.nn.functional.fold(a, [56, 56], 3, 1, 1),
+        [rng.normal(size=(2, 288, 3136)).astype("float32")], "reduce",
+        True)
+    add("cosine_similarity", lambda p, a, b: p.nn.functional.
+        cosine_similarity(a, b), [x, y], "reduce", True)
+    add("pixel_shuffle", lambda p, a: p.nn.functional.pixel_shuffle(a, 2),
+        [img], "elem")
+    add("pixel_unshuffle", lambda p, a: p.nn.functional.pixel_unshuffle(
+        a, 2), [img], "elem")
+    add("normalize", lambda p, a: p.nn.functional.normalize(a), [x],
+        "reduce", True)
+    add("label_smooth", lambda p, a: p.nn.functional.label_smooth(a),
+        [np.eye(C, dtype="float32")[small[0, :R] % C]])
+    add("one_hot", lambda p, a: p.nn.functional.one_hot(a, 100),
+        [small[0]], "index")
+    add("class_center_sample", lambda p, a: p.nn.functional.
+        class_center_sample(a, 1000, 200), [small[0]], "random")
+    add("bilinear", lambda p, a, b, w: p.nn.functional.bilinear(a, b, w),
+        [x[:, :32], y[:, :48], rng.normal(size=(16, 32, 48)).astype(
+            "float32")], "reduce", True)
+    grid = rng.uniform(-1.1, 1.1, (8, 28, 28, 2)).astype("float32")
+    for pm in ("zeros", "border", "reflection"):
+        add(f"grid_sample_{pm}", (lambda pm: lambda p, a, g: p.nn.functional
+                                  .grid_sample(a, g, padding_mode=pm))(pm),
+            [img, grid], "reduce", pm == "zeros", ("grid_sample",))
+    add("affine_grid", lambda p, t: p.nn.functional.affine_grid(
+        t, [8, 32, 56, 56]), [rng.normal(size=(8, 2, 3)).astype("float32")],
+        "reduce", True)
+    return cases
+
+
+def _sweep_run(paddle, where, fn, arrays, grad):
+    paddle.set_device(where)
+    ts = [paddle.to_tensor(a, stop_gradient=not (grad and a.dtype.kind
+                                                 == "f"))
+          for a in arrays]
+    outs = fn(paddle, *ts)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    grads = []
+    if grad:
+        w = np.random.default_rng(45).normal(size=outs[0].shape).astype(
+            "float32")
+        outs[0].backward(paddle.to_tensor(w))
+        grads = [t.grad for t in ts if not t.stop_gradient]
+    return outs, grads
+
+
+def _sweep_err(kind, card, cpu):
+    """(max |Δ| / max |CPU|, exact equality) of one output."""
+    c, h = card._data.detach().cpu(), cpu._data.detach()
+    if kind == "eig":
+        key = lambda v: v[np.lexsort((np.round(v.imag, 3),  # noqa: E731
+                                      np.round(v.real, 3)))]
+        c, h = (torch.as_tensor(key(v.numpy())) for v in (c, h))
+    if kind == "abs":
+        c, h = c.abs(), h.abs()
+    if c.is_complex():
+        c, h = torch.view_as_real(c), torch.view_as_real(h)
+    if not (c.is_floating_point()):
+        return 0.0, bool(torch.equal(c, h))
+    return _rel(c, h), True
+
+
+def surface_sweep_phase(dev, stamp, card="gpu"):
+    """Phase 44: every function this slice adds (the names of
+    tensor.__all__, paddle.linalg and nn.functional's activation and
+    common modules that SURFACE_EARLIER does not list) on the card and on
+    the CPU port from the same numpy inputs, one moderate shape a kind
+    ((64, 1024) f32, an (8, 32, 56, 56) image, 64 x 64 matrices): each
+    output on the card in the CPU output's dtype and shape, values
+    within SURFACE_TOL, index outputs exactly, and the differentiable
+    ones' input gradients at their kind's tolerance. A name no case
+    covers fails the phase."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import linalg, tensor
+    from paddle_tpu_torch.nn.functional import activation, common
+
+    want = (set(tensor.__all__) | set(linalg.__all__)
+            | set(activation.__all__) | set(common.__all__)) \
+        - SURFACE_EARLIER
+    cases = _surface_cases()
+    covered = {n for _, covers, *_ in cases for n in covers}
+    t_phase = time.perf_counter()
+    worst = {"elem": (0.0, None), "reduce": (0.0, None),
+             "grad": (0.0, None)}
+    bad, n_grads = [], 0
+    try:
+        for name, covers, fn, arrays, kind, grad in cases:
+            paddle.seed(44)
+            c_outs, c_grads = _sweep_run(paddle, card, fn, arrays, grad)
+            paddle.seed(44)
+            h_outs, h_grads = _sweep_run(paddle, "cpu", fn, arrays, grad)
+            tol = SURFACE_TOL["elem" if kind == "elem" else "reduce"]
+            if len(c_outs) != len(h_outs):
+                bad.append((name, "output count"))
+                continue
+            for c, h in zip(c_outs, h_outs):
+                if (c.place.type != torch.device(card.replace(
+                        "gpu", "cuda")).type or c.dtype != h.dtype
+                        or c.shape != h.shape):
+                    bad.append((name, "device, dtype or shape",
+                                str(c.place), str(c.dtype), str(h.dtype)))
+                    continue
+                if kind == "random":
+                    continue
+                err, equal = _sweep_err(kind, c, h)
+                if kind == "index" and (err or not equal):
+                    bad.append((name, "index outputs differ"))
+                elif not equal or err > tol:
+                    bad.append((name, "values", err))
+                key = "elem" if kind == "elem" else "reduce"
+                if kind != "index" and err > worst[key][0]:
+                    worst[key] = (err, name)
+            for c, h in zip(c_grads, h_grads):
+                n_grads += 1
+                if c is None or h is None:
+                    if (c is None) != (h is None):
+                        bad.append((name, "gradient missing"))
+                    continue
+                err = _rel(c._data.cpu(), h._data)
+                if err > tol:
+                    bad.append((name, "gradient", err))
+                if err > worst["grad"][0]:
+                    worst["grad"] = (err, name)
+    finally:
+        paddle.set_device(card)
+    missing = sorted(want - covered)
+    row = {"phase": "paddle_surface_sweep_card_vs_cpu",
+           "functions_swept": len(want & covered), "functions_new":
+           len(want), "cases": len(cases), "gradients_compared": n_grads,
+           "missing": missing, "failures": bad[:20],
+           "worst_err": {k: {"err": v[0], "case": v[1]}
+                         for k, v in worst.items()},
+           "tol": SURFACE_TOL, "shapes": {
+               "rows": [SURFACE_ROWS, SURFACE_COLS],
+               "image": list(SURFACE_IMAGE), "matrix": [64, 64]},
+           "seconds": time.perf_counter() - t_phase,
+           "ok": not bad and not missing, **stamp}
+    emit(row)
+    print(f"surface sweep: {row['functions_swept']} functions in "
+          f"{len(cases)} cases, worst errors {row['worst_err']}",
+          flush=True)
+    if not row["ok"]:
+        raise AssertionError(f"surface sweep failed: {bad[:20]} "
+                             f"missing {missing}")
+    return row
+
+
+# --------------------------------------------------------------------------
 # phases 39-40: the cross-host serving fleet
 # --------------------------------------------------------------------------
 
@@ -5626,6 +6344,16 @@ def main():
     resnet_ts = resnet50_trainstep_phase(dev, vision_mods, stamp,
                                          resnet["step_ms_median_last3"])
     entry_s["resnet50_trainstep"] = time.perf_counter() - t
+    surface_s = {}                     # phases 43-44's seconds each
+    t = time.perf_counter()
+    mobilenet_ts = mobilenet_v2_trainstep_phase(dev, vision_mods, stamp)
+    surface_s["mobilenet_v2_trainstep"] = time.perf_counter() - t
+    t = time.perf_counter()
+    vision_models_check_phase(dev, stamp)
+    surface_s["vision_models_check"] = time.perf_counter() - t
+    t = time.perf_counter()
+    surface_sweep_phase(dev, stamp)
+    surface_s["surface_sweep"] = time.perf_counter() - t
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -5808,6 +6536,8 @@ def main():
              # paddle.Model.fit (one launch a replayed step)
              "training_paddle_model_lenet": lenet_m["launches"],
              "training_paddle_trainstep_resnet50_o2": resnet_ts["launches"],
+             "training_paddle_trainstep_mobilenet_v2_o2":
+                 mobilenet_ts["launches"],
              "serving_fleet_f32_host_loss":
                  fleet["f32_host_loss"]["launches"],
              "serving_fleet_f32_partition":
@@ -5834,6 +6564,8 @@ def main():
           "fleet_total_s": sum(fleet_s.values()),
           "entry_phases_s": entry_s,
           "entry_total_s": sum(entry_s.values()),
+          "surface_phases_s": surface_s,
+          "surface_total_s": sum(surface_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

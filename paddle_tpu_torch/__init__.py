@@ -21,8 +21,10 @@ as paddle``): ``paddle.to_tensor``, ``Tensor``, ``nn``,
 (LeNet and the ResNets), the training entry points (``jit``'s
 ``TrainStep`` and ``to_static``, ``optimizer.lr``, ``nn.ClipGrad*``,
 ``io`` (``DataLoader``, ``DevicePrefetcher``), ``metric``, ``Model``
-and ``callbacks``, ``summary``, ``save`` / ``load``), ``seed``,
-``set_flags`` / ``get_flags`` and ``set_device``. Its tensors and
+and ``callbacks``, ``summary``, ``save`` / ``load``), the tensor ops at
+the top level (creation, math, manipulation, logic, search, linalg,
+``einsum``) and ``linalg``, ``seed``, ``set_flags`` / ``get_flags`` and
+``set_device``. Its tensors and
 parameters go to the card unless ``paddle.set_device("cpu")`` was
 called. Importing it builds nothing.
 """
@@ -60,9 +62,10 @@ from .device import (device_count, get_device,  # noqa: E402
 from .framework.core import (Parameter, Tensor, enable_grad,  # noqa: E402
                              grad, is_grad_enabled, no_grad,
                              set_grad_enabled)
-from .framework.dtype import (bfloat16, bool, float16,  # noqa: E402,A004
-                              float32, float64, get_default_dtype, int8,
-                              int16, int32, int64, set_default_dtype, uint8)
+from .framework.dtype import (bfloat16, bool, complex64,  # noqa: E402,A004
+                              complex128, dtype, float16, float32, float64,
+                              get_default_dtype, int8, int16, int32, int64,
+                              set_default_dtype, uint8)
 from .framework.io import load, save  # noqa: E402
 from .framework.param_attr import ParamAttr  # noqa: E402
 from .hapi import callbacks  # noqa: E402
@@ -70,6 +73,7 @@ from .hapi.model import Model  # noqa: E402
 from .jit import to_static  # noqa: E402
 from .framework.random import get_rng_state, seed, set_rng_state  # noqa: E402
 from .tensor import *  # noqa: E402,F401,F403
+from . import linalg  # noqa: E402  (after the star import: paddle.linalg)
 
 
 def set_flags(flags):
@@ -112,6 +116,7 @@ __all__ = ["resolve_device", "__version__", "amp", "device", "io", "jit",
            "is_compiled_with_cuda", "Tensor", "Parameter", "no_grad",
            "enable_grad", "grad", "is_grad_enabled", "set_grad_enabled",
            "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
-           "bfloat16", "float32", "float64", "set_default_dtype",
+           "bfloat16", "float32", "float64", "complex64", "complex128",
+           "dtype", "linalg", "set_default_dtype",
            "get_default_dtype", "ParamAttr", "seed", "get_rng_state",
            "set_rng_state"] + tensor.__all__

@@ -24,7 +24,7 @@ from . import dtype as dtypes
 __all__ = [
     "Tensor", "Parameter", "apply_op", "backward", "grad", "no_grad",
     "enable_grad", "is_grad_enabled", "set_grad_enabled", "to_tensor",
-    "AsyncLoss",
+    "AsyncLoss", "inplace_apply",
 ]
 
 
@@ -351,6 +351,21 @@ def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **attrs):
     if isinstance(out, (tuple, list)):
         return tuple(Tensor._wrap(o) for o in out)
     return Tensor._wrap(out)
+
+
+def inplace_apply(x: Tensor, fn: Callable, *args, **kwargs) -> Tensor:
+    """The trailing-underscore ops (``tanh_``, ``reshape_``, ``scatter_``,
+    ...): run the out-of-place ``fn(x, ...)`` and rebind ``x`` to its
+    result, so a non-leaf keeps its graph through the op. A leaf that
+    needs a gradient is refused, as the reference's ``inplace_apply``
+    refuses it (``paddle_tpu/framework/core.py``)."""
+    if torch.is_grad_enabled() and x._data.requires_grad \
+            and x._data.is_leaf:
+        raise ValueError(
+            "in-place operation on a leaf Tensor that requires grad is not "
+            "supported (matches reference dygraph inplace semantics)")
+    x._data = fn(x, *args, **kwargs)._data
+    return x
 
 
 def _seed_grad(t: torch.Tensor, g):

@@ -12,7 +12,7 @@ import torch
 __all__ = [
     "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
     "bfloat16", "float32", "float64", "complex64", "complex128",
-    "set_default_dtype", "get_default_dtype", "convert_dtype",
+    "dtype", "set_default_dtype", "get_default_dtype", "convert_dtype",
 ]
 
 _NAME_TO_DTYPE = {
@@ -43,6 +43,9 @@ float32 = torch.float32
 float64 = torch.float64
 complex64 = torch.complex64
 complex128 = torch.complex128
+# paddle.dtype: the type of every dtype above (``np.dtype`` in the JAX
+# package), so ``isinstance(t.dtype, paddle.dtype)`` holds
+dtype = torch.dtype
 
 _DEFAULT_DTYPE = [torch.float32]
 

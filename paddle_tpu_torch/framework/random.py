@@ -15,7 +15,8 @@ import torch
 
 from ..device import current_device
 
-__all__ = ["seed", "get_rng_state", "set_rng_state", "generator"]
+__all__ = ["seed", "get_rng_state", "set_rng_state", "generator",
+           "renew_generator"]
 
 _lock = threading.Lock()
 _seed = [0]
@@ -35,6 +36,24 @@ def generator(device=None) -> torch.Generator:
             gen.manual_seed(_seed[0])
             _generators[dev] = gen
         return gen
+
+
+def renew_generator(device):
+    """Give ``device`` a new generator at the old one's state. A CUDA graph
+    capture that failed leaves a generator registered with it marked as
+    capturing (torch closes that only when the capture ends cleanly), and
+    its next draw outside a capture raises."""
+    dev = torch.device(device)
+    with _lock:
+        old = _generators.get(dev)
+        if old is None:
+            return
+        new = torch.Generator(device=dev)
+        try:
+            new.set_state(old.get_state())
+        except RuntimeError:
+            new.manual_seed(_seed[0])
+        _generators[dev] = new
 
 
 def seed(s: int):

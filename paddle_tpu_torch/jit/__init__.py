@@ -434,9 +434,15 @@ class TrainStep:
         counters = _counters()
         before = [getattr(m, c) for m, c in counters]
         try:
-            with torch.cuda.graph(g.graph):
+            # thread-local: another thread's CUDA work during the capture
+            # (the DevicePrefetcher pinning and copying the next batch on
+            # its own stream) is not captured and must not invalidate it
+            with torch.cuda.graph(g.graph, capture_error_mode="thread_local"):
                 g.loss = self._run(batch, g.tables)
         except Exception as e:
+            from ..framework import random as grandom
+
+            grandom.renew_generator(self.device)
             raise RuntimeError(
                 f"TrainStep cannot capture this step into a CUDA graph: "
                 f"{type(e).__name__}: {e}. A host read in the model or the "
@@ -457,7 +463,9 @@ class TrainStep:
 
     def _register_rng(self, graph):
         from ..framework import random as grandom
-        from ..nn.layer.common import Dropout
+        from ..nn.layer.activation import RReLU
+        from ..nn.layer.common import (AlphaDropout, Dropout, Dropout2D,
+                                       Dropout3D)
         from ..optimizer.optimizer import Dpsgd
 
         gen = grandom.generator(self.device)
@@ -466,7 +474,9 @@ class TrainStep:
             register(gen)
             return
         uses = isinstance(self.optimizer, Dpsgd) or any(
-            isinstance(m, Dropout) and getattr(m, "p", 0) > 0
+            isinstance(m, RReLU) or (
+                isinstance(m, (Dropout, Dropout2D, Dropout3D, AlphaDropout))
+                and getattr(m, "p", 0) > 0)
             for m in self.model.sublayers(include_self=True))
         if uses:
             raise RuntimeError(

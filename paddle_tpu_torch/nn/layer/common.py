@@ -1,7 +1,7 @@
-"""Linear, Embedding and Dropout (a subset of
-``paddle_tpu/nn/layer/common.py``). ``Linear.weight`` keeps Paddle's
-``(in_features, out_features)`` layout, not ``torch.nn.Linear``'s
-``(out, in)``, so a Paddle state dict carries across unchanged."""
+"""The common layers (``paddle_tpu/nn/layer/common.py``).
+``Linear.weight`` keeps Paddle's ``(in_features, out_features)`` layout,
+not ``torch.nn.Linear``'s ``(out, in)``, and ``Bilinear.weight`` is
+``(out, in1, in2)``, so a Paddle state dict carries across unchanged."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +10,21 @@ from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = [
+    "Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
+    "AlphaDropout", "Flatten", "Upsample", "UpsamplingBilinear2D",
+    "UpsamplingNearest2D", "CosineSimilarity", "Bilinear", "Pad1D", "Pad2D",
+    "Pad3D", "ZeroPad2D", "PixelShuffle", "PixelUnshuffle", "Identity",
+    "Unfold", "Fold", "PairwiseDistance",
+]
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
@@ -70,6 +84,196 @@ class Dropout(Layer):
     def forward(self, x):
         return F.dropout(x, self.p, axis=self.axis, training=self.training,
                          mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        from ...tensor.manipulation import flatten
+
+        return flatten(x, self.start_axis, self.stop_axis)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            shape=[out_features, in1_features, in2_features],
+            attr=weight_attr)
+        self.bias = self.create_parameter(shape=[out_features],
+                                          attr=bias_attr, is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    pass
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(_PadNd):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor = upscale_factor
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.factor)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor = downscale_factor
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.factor)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
+
+
+class PairwiseDistance(Layer):
+    """The p-norm of x - y + epsilon along the last axis."""
+
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = float(p), float(epsilon), keepdim
+
+    def forward(self, x, y):
+        from ...tensor.linalg import norm
+
+        return norm(x - y + self.epsilon, p=self.p, axis=-1,
+                    keepdim=self.keepdim)
 
     def extra_repr(self):
         return f"p={self.p}"

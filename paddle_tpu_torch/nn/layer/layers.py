@@ -88,6 +88,11 @@ class Layer:
         p.need_clip = attr.need_clip
         return p
 
+    def add_parameter(self, name, parameter):
+        """Register ``parameter`` (a Parameter, or None) under ``name``."""
+        self._parameters[str(name)] = parameter
+        return parameter
+
     def register_buffer(self, name, tensor, persistable=True):
         """A Tensor the layer owns that is not trained (batch norm's
         running statistics); in ``state_dict`` unless not

@@ -1,19 +1,33 @@
-"""paddle_tpu_torch.tensor — the op namespace, plus the Tensor methods
-and arithmetic operators (as ``paddle_tpu/tensor/__init__.py`` attaches
-them)."""
+"""paddle_tpu_torch.tensor — the op namespace (creation, math,
+manipulation, logic, search, linalg and ``einsum``), plus the Tensor
+methods and arithmetic operators (as ``paddle_tpu/tensor/__init__.py``
+attaches them: its ``_METHODS`` list, ``dim`` and ``rank``)."""
 from __future__ import annotations
 
 import torch
 
 from ..framework.core import Tensor, _unwrap, apply_op
-from . import creation, logic, manipulation, math  # noqa: F401
+from . import creation, linalg, logic, manipulation, math, search  # noqa: F401
 from .creation import *  # noqa: F401,F403
+from .linalg import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
+from .search import *  # noqa: F401,F403
 
-__all__ = creation.__all__ + math.__all__ + manipulation.__all__ \
-    + logic.__all__
+__all__ = list(dict.fromkeys(
+    creation.__all__ + math.__all__ + manipulation.__all__ + logic.__all__
+    + search.__all__ + linalg.__all__ + ["einsum"]))
+
+
+def _einsum(*ops, equation):
+    return torch.einsum(equation, *ops)
+
+
+def einsum(equation, *operands):
+    if len(operands) == 1 and isinstance(operands[0], (list, tuple)):
+        operands = tuple(operands[0])
+    return apply_op(_einsum, *operands, equation=equation)
 
 
 def _index(idx):
@@ -70,8 +84,18 @@ for _name, _fn in _DUNDERS.items():
 # set member by identity while == compares elements, so membership tests
 # on Tensors in this package go by id()
 
-# t.sum(), t.reshape(...), ...: every op of this namespace that takes the
-# tensor first, unless Tensor defines it itself
-for _name in math.__all__ + manipulation.__all__ + logic.__all__:
+# t.sum(), t.reshape(...), ...: the reference's method list and every op
+# of math, manipulation, logic and search (each takes the tensor first),
+# unless Tensor defines it itself
+_METHODS = [
+    # linalg
+    "norm", "dist", "t", "cross", "cholesky", "inv", "matrix_power",
+    # creation
+    "tril", "triu", "diag",
+]
+for _name in (math.__all__ + manipulation.__all__ + logic.__all__
+              + search.__all__ + _METHODS):
     if _name != "is_tensor" and not hasattr(Tensor, _name):
         setattr(Tensor, _name, globals()[_name])
+Tensor.dim = lambda self: self.ndim
+Tensor.rank = lambda self: rank(self)

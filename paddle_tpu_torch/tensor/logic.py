@@ -1,6 +1,7 @@
-"""Comparison and logical ops (counterpart of
-``paddle_tpu/tensor/logic.py``): elementwise results are bool Tensors;
-a Python scalar or a numpy array beside a Tensor is taken on the
+"""Comparison, logical and bitwise ops (counterpart of
+``paddle_tpu/tensor/logic.py``): elementwise comparisons and logical ops
+give bool Tensors, the bitwise ops the operands' integer (or bool)
+dtype; a Python scalar or a numpy array beside a Tensor is taken on the
 Tensor's device, as the arithmetic ops take it."""
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ from .math import _operand
 
 __all__ = ["equal", "not_equal", "less_than", "less_equal", "greater_than",
            "greater_equal", "logical_and", "logical_or", "logical_xor",
-           "logical_not", "equal_all", "allclose", "isclose", "is_tensor"]
+           "logical_not", "bitwise_and", "bitwise_or", "bitwise_xor",
+           "bitwise_not", "equal_all", "allclose", "isclose", "is_empty",
+           "is_tensor"]
 
 
 def _tensor(v, like):
@@ -56,8 +59,22 @@ logical_or = _logical(torch.logical_or, "logical_or")
 logical_xor = _logical(torch.logical_xor, "logical_xor")
 
 
+bitwise_and = _logical(torch.bitwise_and, "bitwise_and")
+bitwise_or = _logical(torch.bitwise_or, "bitwise_or")
+bitwise_xor = _logical(torch.bitwise_xor, "bitwise_xor")
+
+
 def logical_not(x, name=None):
     return apply_op(torch.logical_not, _tensor(x, None))
+
+
+def bitwise_not(x, name=None):
+    return apply_op(torch.bitwise_not, _tensor(x, None))
+
+
+def is_empty(x, name=None):
+    """A 0-d bool tensor: whether ``x`` has no elements."""
+    return Tensor(torch.tensor(x.size == 0, device=x._data.device))
 
 
 def _promoted(x, y):

@@ -1524,3 +1524,156 @@ def test_device_prefetcher_keeps_order_on_the_card(cuda_device):
         assert isinstance(x, paddle.Tensor) and x.place.type == "cuda"
         assert y.device.type == "cuda"
         assert float(x._data[0, 0]) == i and int(y[0]) == i
+
+
+def _card_and_cpu(fn, *arrays):
+    """``fn(paddle, *tensors)`` on the card and on the CPU port, from the
+    same numpy inputs; the card's outputs must stay on the card."""
+    import paddle_tpu_torch as paddle
+
+    outs = []
+    try:
+        for where in ("gpu", "cpu"):
+            paddle.set_device(where)
+            out = fn(paddle, *[paddle.to_tensor(a) for a in arrays])
+            out = list(out) if isinstance(out, (list, tuple)) else [out]
+            outs.append(out)
+    finally:
+        paddle.set_device("gpu")
+    for c, h in zip(*outs):
+        assert c.place.type == "cuda" and c.dtype == h.dtype
+    return [o.numpy() for o in outs[0]], [o.numpy() for o in outs[1]]
+
+
+@pytest.mark.parametrize("mode,size,align", [
+    ("nearest", (16, 14), False), ("nearest", (6, 4), True),
+    ("bilinear", (16, 14), False), ("bilinear", (6, 4), False),
+    ("bilinear", (8, 24), True), ("bicubic", (16, 14), False),
+    ("bicubic", (6, 4), False)])
+def test_interpolate_on_card_matches_cpu(cuda_device, mode, size, align):
+    """The port's resize (jax.image.resize's weights, built per axis) on
+    the card against the CPU port, 1e-5 of the largest value (f32 weight
+    sums in another order)."""
+    x = np.random.default_rng(44).normal(size=(2, 3, 8, 10)).astype(
+        "float32")
+    (card,), (cpu,) = _card_and_cpu(
+        lambda p, t: p.nn.functional.interpolate(
+            t, size=list(size), mode=mode, align_corners=align), x)
+    np.testing.assert_allclose(card, cpu, rtol=1e-5,
+                               atol=1e-5 * np.abs(cpu).max())
+
+
+def test_median_on_card_matches_cpu(cuda_device):
+    """jnp.median's even-count mean on the card: exact (a sort and one
+    add)."""
+    x = np.random.default_rng(45).normal(size=(6, 8, 10)).astype("float32")
+    for kw in ({}, {"axis": 1}, {"axis": 2, "keepdim": True}):
+        card, cpu = _card_and_cpu(lambda p, t: p.median(t, **kw), x)
+        np.testing.assert_array_equal(card[0], cpu[0])
+
+
+def test_unique_on_card_matches_cpu(cuda_device):
+    """unique (first positions, inverse, counts) and unique_consecutive
+    computed on the card, equal to the CPU port's."""
+    x = np.random.default_rng(46).integers(0, 9, (40,)).astype("int64")
+    card, cpu = _card_and_cpu(
+        lambda p, t: p.unique(t, return_index=True, return_inverse=True,
+                              return_counts=True), x)
+    for c, h in zip(card, cpu):
+        np.testing.assert_array_equal(c, h)
+    np.testing.assert_array_equal(x[card[1]], card[0])
+    card, cpu = _card_and_cpu(
+        lambda p, t: p.unique_consecutive(t, return_inverse=True,
+                                          return_counts=True), np.sort(x))
+    for c, h in zip(card, cpu):
+        np.testing.assert_array_equal(c, h)
+
+
+def test_argsort_on_card_is_stable_and_matches_cpu(cuda_device):
+    """argsort keeps the order of equal keys on the card, ascending and
+    descending, as jnp.argsort does."""
+    x = np.random.default_rng(47).integers(0, 4, (5, 300)).astype("float32")
+    card, cpu = _card_and_cpu(
+        lambda p, t: [p.argsort(t, axis=1), p.argsort(t, descending=True),
+                      p.sort(t, axis=0)], x)
+    for c, h in zip(card, cpu):
+        np.testing.assert_array_equal(c, h)
+    np.testing.assert_array_equal(card[0], np.argsort(x, axis=1,
+                                                      kind="stable"))
+
+
+def test_capture_survives_another_threads_copies(cuda_device):
+    """A TrainStep captures while another thread pins host memory and
+    copies it to the card on its own stream (what DevicePrefetcher does
+    for the next batch during paddle.Model.fit): that work is not the
+    capture's and must not invalidate it (the capture is thread-local),
+    and the captured steps equal the uncaptured ones."""
+    import threading
+
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    stop = threading.Event()
+
+    def copier():
+        side = torch.cuda.Stream(cuda_device)
+        while not stop.is_set():
+            with torch.cuda.stream(side):
+                host = torch.empty(1 << 18, pin_memory=True)
+                host.to(cuda_device, non_blocking=True)
+            side.synchronize()
+
+    x = paddle.to_tensor(np.random.default_rng(48).normal(
+        size=(32, 16)).astype("float32"))
+    y = paddle.to_tensor(np.random.default_rng(49).integers(
+        0, 4, (32,)).astype("int64"))
+    losses = {}
+    for capture in (True, False):
+        paddle.seed(0)
+        net = paddle.nn.Sequential(paddle.nn.Linear(16, 32),
+                                   paddle.nn.ReLU(), paddle.nn.Linear(32, 4))
+        opt = paddle.optimizer.SGD(0.1, parameters=net.parameters())
+        step = paddle.jit.TrainStep(
+            net, lambda run, a, b: paddle.nn.functional.cross_entropy(
+                run(a), b), opt, capture=capture)
+        t = threading.Thread(target=copier, daemon=True)
+        stop.clear()
+        t.start()
+        try:
+            losses[capture] = [float(step(x, y)) for _ in range(4)]
+        finally:
+            stop.set()
+            t.join(timeout=30)
+        assert not t.is_alive()
+        if capture:
+            assert step.captures == 1
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-6)
+
+
+def test_failed_capture_leaves_the_generator_usable(cuda_device):
+    """A capture that raises (a host read in the loss) never closes the
+    capture of the generator registered with it; the step renews the
+    device's generator, so dropout and initializers draw on the card
+    afterwards, and a model with dropout captures again."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    net = paddle.nn.Sequential(paddle.nn.Linear(4, 8), paddle.nn.Dropout(0.5),
+                               paddle.nn.Linear(8, 2))
+    opt = paddle.optimizer.SGD(0.1, parameters=net.parameters())
+
+    def reads_host(run, x):
+        out = run(x).mean()
+        if float(out) > 1e9:            # a host read
+            out = out * 0
+        return out
+
+    x = paddle.to_tensor(np.ones((16, 4), "float32"))
+    with pytest.raises(RuntimeError, match="cannot capture"):
+        paddle.jit.TrainStep(net, reads_host, opt)(x)
+    drawn = paddle.nn.functional.dropout(x, 0.5).numpy()
+    assert set(np.unique(drawn)) <= {0.0, 2.0}
+    paddle.nn.Linear(4, 4)
+    step = paddle.jit.TrainStep(net, lambda run, a: run(a).mean(), opt)
+    losses = [float(step(x)) for _ in range(4)]
+    assert step.captures == 1 and all(map(math.isfinite, losses))
