@@ -321,6 +321,35 @@ stamped with the card's name and power limit):
     gradients too; the count swept and the worst errors on a line of
     their own. Phases 43–44 run no hand-written kernel (their launches
     read 0).
+45. PaddleNLP's attention seq2seq at its IWSLT'15 en→vi widths
+    (vocabularies 17,191 and 7,709, width 512, a 2-layer LSTM encoder
+    reading ``sequence_length``, a decoder cell of two LSTMCells with
+    input feeding and Luong attention, dropout 0.2, weights uniform in
+    ±0.1) on seeded token ids, batches of 128 padded to 50, through
+    ``jit.TrainStep`` (Adam 1e-3, ClipGradByGlobalNorm(5),
+    FLAGS_fused_optimizer=1: row 7 launches inside the replayed step):
+    the eager step's ms, then the captured one's per-call and replay ms,
+    target tokens/s and samples/s, the graph pool's GiB, one profiled
+    replay (launches, idle share, top items); the first 3 captured
+    losses within 1e-6 of the uncaptured step's from the same weights
+    and generator state; then a beam-10, 256-step decode of 128
+    sentences with torch's sync debug mode at "error" (no host read
+    inside), its ms, sentences/s, launches and idle share;
+45b. the same model in f32 at batch 2, dropout 0, card against CPU: the
+    first loss (1e-5 relative), every gradient (1e-4 of its largest), a
+    32-step beam decode of both rows (the same sequences, scores within
+    1e-4, or a near tie within 1e-5 where two decodes part);
+46. the rest of ``paddle.nn`` card against CPU in f32 at realistic
+    sizes: transposed convolutions, pool masks and ``max_unpool2d``
+    (exact), group / instance / local response norms and SpectralNorm,
+    every loss of the slice (ctc at T 100, B 16, 30 classes, labels of
+    30), GRU / LSTM / SimpleRNN / BiRNN / RNN at 512 with
+    ``sequence_length``, the Transformer decoder at Transformer-base width
+    (and its 32-step incremental decode through ``gen_cache`` against
+    the full causal pass, on both devices), the extension and sequence
+    functions, ``PyLayer``, a beam decode; the random functions' moments
+    on 10⁶ draws within 5 standard errors and their draws repeated after
+    ``paddle.seed``; the worst error of each kind and the seconds.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -5436,9 +5465,10 @@ def surface_sweep_phase(dev, stamp, card="gpu"):
     from paddle_tpu_torch import linalg, tensor
     from paddle_tpu_torch.nn.functional import activation, common
 
+    # tensor/random.py came with a later slice: phase 46 sweeps it
     want = (set(tensor.__all__) | set(linalg.__all__)
             | set(activation.__all__) | set(common.__all__)) \
-        - SURFACE_EARLIER
+        - SURFACE_EARLIER - set(tensor.random.__all__)
     cases = _surface_cases()
     covered = {n for _, covers, *_ in cases for n in covers}
     t_phase = time.perf_counter()
@@ -5505,6 +5535,998 @@ def surface_sweep_phase(dev, stamp, card="gpu"):
         raise AssertionError(f"surface sweep failed: {bad[:20]} "
                              f"missing {missing}")
     return row
+
+
+# --------------------------------------------------------------------------
+# phases 45-46: PaddleNLP's attention seq2seq (IWSLT'15 en->vi) trained
+# through jit.TrainStep and beam-decoded, and a sweep of the rest of
+# paddle.nn
+# --------------------------------------------------------------------------
+
+# PaddleNLP examples/machine_translation/seq2seq at its published IWSLT'15
+# en->vi settings: the vocabularies, embedding and hidden width, depth,
+# dropout and init scale; batches of 128 with lengths 10-50 padded to 50;
+# Adam 1e-3 with a global-norm clip of 5; beam 10, max_out_len 256
+S2S = {"src_vocab": 17191, "trg_vocab": 7709, "hidden": 512, "layers": 2,
+       "dropout": 0.2, "init_scale": 0.1}
+S2S_BATCH, S2S_MAXLEN, S2S_LENS = 128, 50, (10, 50)
+S2S_BOS, S2S_EOS = 0, 1
+S2S_LR, S2S_CLIP = 1e-3, 5.0
+S2S_BEAM, S2S_MAX_OUT = 10, 256
+S2S_WARM, S2S_EAGER, S2S_CALLS, S2S_K = 3, 5, 10, 10
+# phase 45: the first 3 captured losses against the uncaptured step's from
+# the same weights and generator state (the same kernels on the same
+# inputs, the same dropout masks), relative
+S2S_CAPTURE_LOSS_REL = 1e-6
+# phase 45b: the model in f32 at batch 2 on the card against the CPU port
+# with the same weights (dropout off): the first loss relative, each
+# gradient as max |d| / max |CPU|, a 32-step beam decode's scores
+# (absolute: sums of 32 log-probabilities), and the gap between the K-th
+# and (K+1)-th totals under which two decodes may part (a near tie)
+S2S_CHECK_BATCH, S2S_CHECK_STEPS = 2, 32
+S2S_CHECK_TOL = {"loss": 1e-5, "grad": 1e-4, "score": 1e-4, "tie": 1e-5}
+
+
+def seq2seq_model(paddle, src_vocab, trg_vocab, hidden, layers, dropout=0.0,
+                  init_scale=0.1):
+    """PaddleNLP's attention seq2seq (``seq2seq_attn.py``) as a Paddle
+    user writes it, on either package's Paddle surface (``paddle_tpu`` or
+    ``paddle_tpu_torch``): a source embedding and an ``nn.LSTM`` encoder
+    that reads ``sequence_length``; a decoder cell of ``LSTMCell``s fed
+    the target embedding and the previous attention output (input
+    feeding), dropout after each; Luong attention over the encoder
+    outputs (keys ``input_proj(outputs)``, made once a batch; the padding
+    masked by -1e9), ``tanh(output_proj([context, h]))``; an output
+    projection without bias. Every weight uniform in ±``init_scale``."""
+    nn = paddle.nn
+    F = nn.functional
+
+    def uni():
+        return paddle.ParamAttr(initializer=nn.initializer.Uniform(
+            -init_scale, init_scale))
+
+    def lstm_attrs():
+        return {"weight_ih_attr": uni(), "weight_hh_attr": uni(),
+                "bias_ih_attr": uni(), "bias_hh_attr": uni()}
+
+    class Attention(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.input_proj = nn.Linear(hidden, hidden, weight_attr=uni(),
+                                        bias_attr=False)
+            self.output_proj = nn.Linear(2 * hidden, hidden,
+                                         weight_attr=uni(), bias_attr=False)
+
+        def forward(self, h, keys, mask):
+            scores = paddle.matmul(paddle.unsqueeze(h, [1]), keys,
+                                   transpose_y=True) + mask
+            ctx = paddle.matmul(F.softmax(scores, axis=-1), keys)
+            return paddle.tanh(self.output_proj(
+                paddle.concat([paddle.squeeze(ctx, [1]), h], 1)))
+
+    class DecoderCell(nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.dropout = nn.Dropout(dropout)
+            self.lstm_cells = nn.LayerList([
+                nn.LSTMCell(2 * hidden if i == 0 else hidden, hidden,
+                            **lstm_attrs()) for i in range(layers)])
+            self.attention = Attention()
+
+        def forward(self, step_input, states, keys, mask):
+            lstm_states, feed = states
+            x = paddle.concat([step_input, feed], 1)
+            new = []
+            for cell, st in zip(self.lstm_cells, lstm_states):
+                out, st = cell(x, st)
+                x = self.dropout(out)
+                new.append(st)
+            out = self.attention(x, keys, mask)
+            return out, [new, out]
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embedder = nn.Embedding(src_vocab, hidden,
+                                             weight_attr=uni())
+            self.encoder = nn.LSTM(hidden, hidden, layers, dropout=dropout,
+                                   **lstm_attrs())
+            self.trg_embedder = nn.Embedding(trg_vocab, hidden,
+                                             weight_attr=uni())
+            self.cell = DecoderCell()
+            self.output_layer = nn.Linear(hidden, trg_vocab,
+                                          weight_attr=uni(),
+                                          bias_attr=False)
+
+        def encode(self, src, src_len):
+            """(keys [B, S, H], the additive mask [B, 1, S], the decoder's
+            initial states: each layer's final (h, c) and a zero feed)."""
+            out, (h, c) = self.encoder(self.src_embedder(src),
+                                       sequence_length=src_len)
+            valid = F.sequence_mask(src_len, maxlen=src.shape[1],
+                                    dtype="float32")
+            mask = paddle.unsqueeze((valid - 1.0) * 1e9, [1])
+            states = [[(h[i], c[i]) for i in range(layers)],
+                      paddle.zeros([src.shape[0], hidden])]
+            return self.cell.attention.input_proj(out), mask, states
+
+        def forward(self, src, src_len, trg):
+            keys, mask, states = self.encode(src, src_len)
+            emb = self.trg_embedder(trg)
+            outs = []
+            for t in range(trg.shape[1]):
+                out, states = self.cell(emb[:, t], states, keys, mask)
+                outs.append(out)
+            return self.output_layer(paddle.stack(outs, 1))
+
+    return Seq2Seq()
+
+
+def seq2seq_loss(paddle, logits, label, trg_len):
+    """PaddleNLP's ``CrossEntropyCriterion``: each token's softmax
+    cross-entropy, masked by ``sequence_mask``, averaged over the batch
+    and summed over time."""
+    F = paddle.nn.functional
+    cost = F.cross_entropy(logits, label, reduction="none")
+    mask = F.sequence_mask(trg_len, maxlen=label.shape[1], dtype="float32")
+    return paddle.sum(paddle.mean(cost * mask, axis=0))
+
+
+def seq2seq_batch(rng, batch, src_vocab, trg_vocab, maxlen=S2S_MAXLEN,
+                  lens=S2S_LENS, full=False):
+    """Seeded token ids (no corpus in the repository) at the given
+    vocabularies: (src [B, maxlen], src_len, trg_in, label, trg_len), int64;
+    lengths uniform in ``lens`` (every row ``maxlen`` long with ``full``),
+    padding the end token, ``trg_in`` the label shifted right behind the
+    start token."""
+    def lengths():
+        if full:
+            return np.full(batch, maxlen)
+        return rng.integers(lens[0], lens[1] + 1, batch)
+
+    src_len, trg_len = lengths(), lengths()
+    steps = np.arange(maxlen)
+    src = np.where(steps < src_len[:, None],
+                   rng.integers(2, src_vocab, (batch, maxlen)), S2S_EOS)
+    label = np.where(steps < trg_len[:, None],
+                     rng.integers(2, trg_vocab, (batch, maxlen)), S2S_EOS)
+    trg = np.concatenate([np.full((batch, 1), S2S_BOS), label[:, :-1]], 1)
+    return [a.astype("int64") for a in (src, src_len, trg, label, trg_len)]
+
+
+def seq2seq_decoder(paddle, model, src, src_len, beam):
+    """(``nn.BeamSearchDecoder`` over the model's decoder cell, the
+    initial states): the cell closes over the keys and the mask, each
+    repeated per beam (``repeat_interleave``, the search's order)."""
+    keys, mask, states = model.encode(src, src_len)
+    keys = paddle.repeat_interleave(keys, beam, axis=0)
+    mask = paddle.repeat_interleave(mask, beam, axis=0)
+    decoder = paddle.nn.BeamSearchDecoder(
+        lambda x, st: model.cell(x, st, keys, mask), S2S_BOS, S2S_EOS, beam,
+        embedding_fn=model.trg_embedder, output_fn=model.output_layer)
+    return decoder, states
+
+
+def seq2seq_decode(paddle, model, src, src_len, beam, max_len):
+    """The beam decode of a batch through ``nn.dynamic_decode``:
+    (sequences [B, beam, max_len], scores [B, beam], lengths)."""
+    decoder, states = seq2seq_decoder(paddle, model, src, src_len, beam)
+    return paddle.nn.dynamic_decode(decoder, inits=states,
+                                     max_step_num=max_len)
+
+
+def seq2seq_trainstep_phase(dev, mods, stamp):
+    """Phase 45: the full-width seq2seq (S2S) trained on seeded batches of
+    128 through jit.TrainStep (Adam 1e-3, ClipGradByGlobalNorm(5),
+    FLAGS_fused_optimizer=1, dropout 0.2): first the uncaptured step
+    (S2S_WARM steps whose losses are the yardstick, then S2S_EAGER timed
+    ones); then from the same weights and generator state the captured
+    step: S2S_WARM calls (the first eager, then the capture), the first 3
+    losses against the yardstick's, S2S_CALLS per-call steps, S2S_K
+    replays with one host read, one profiled replay; then a beam-10,
+    256-step decode of one batch with torch's sync debug mode at "error"
+    (a host read inside raises), timed and profiled."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    old = paddle.get_flags(["FLAGS_fused_optimizer", "FLAGS_fast_step"])
+    paddle.set_flags({"FLAGS_fused_optimizer": 1, "FLAGS_fast_step": 1})
+    try:
+        return _seq2seq_trainstep(paddle, dev, mods, stamp)
+    finally:
+        paddle.set_flags(old)
+
+
+def _seq2seq_trainstep(paddle, dev, mods, stamp):
+    paddle.seed(0)
+    rng = np.random.default_rng(45)
+    batches = [[paddle.to_tensor(a) for a in seq2seq_batch(
+        rng, S2S_BATCH, S2S["src_vocab"], S2S["trg_vocab"])]
+        for _ in range(3)]
+    tokens = [int(b[4].numpy().sum()) for b in batches]
+    model = seq2seq_model(paddle, **S2S)
+    n_params = sum(p.size for p in model.parameters())
+    state = {k: v._data.detach().clone()
+             for k, v in model.state_dict().items()}
+    gen_state = paddle.get_rng_state()
+
+    def make_opt():
+        return paddle.optimizer.Adam(
+            learning_rate=S2S_LR, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(S2S_CLIP))
+
+    def loss_fn(run, src, src_len, trg, label, trg_len):
+        return seq2seq_loss(paddle, run(src, src_len, trg), label, trg_len)
+
+    _fresh_peak(dev)
+    _reset_vision_counts(mods)
+    ref = paddle.jit.TrainStep(model, loss_fn, make_opt(), capture=False)
+    ref_losses, eager_ms = [], []
+    for i in range(S2S_WARM + S2S_EAGER):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_losses.append(float(ref(*batches[i % 3])))
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    eager_launches = _vision_counts(mods)
+    eager_ms = eager_ms[S2S_WARM:]
+    del ref
+    model.set_state_dict(state)
+    paddle.set_rng_state(gen_state)
+    _fresh_peak(dev)
+    step = paddle.jit.TrainStep(model, loss_fn, make_opt())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    base_reserved = torch.cuda.memory_reserved(dev)
+    _reset_vision_counts(mods)
+    t0 = time.perf_counter()
+    warm = [float(step(*batches[i % 3])) for i in range(S2S_WARM)]
+    warm_s = time.perf_counter() - t0
+    # the memory reserved over the warm calls: the graph's private pool
+    # (its intermediates freed back into it stay reserved) and what the
+    # eager warm-up left cached; "allocated" counts only what is live
+    pool_gib = (torch.cuda.memory_reserved(dev) - base_reserved) / 2**30
+    held_gib = (torch.cuda.memory_allocated(dev) - base) / 2**30
+    call_ms, losses = [], []
+    for i in range(S2S_CALLS):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batches[i % 3])))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(float(step.steps(S2S_K, *batches[0])))
+    replay_ms = (time.perf_counter() - t0) / S2S_K * 1e3
+    prof = _profiled_step(lambda: step(*batches[0]), replay_ms)
+    launches = _vision_counts(mods)
+    steps_run = S2S_WARM + S2S_CALLS + S2S_K + 1
+    peak = torch.cuda.max_memory_allocated(dev)
+    captures = step.captures
+    rel_loss = max(abs(a - b) / abs(b)
+                   for a, b in zip(warm, ref_losses[:S2S_WARM]))
+    del step
+    _fresh_peak(dev)
+
+    # the decode: one batch of 128, beam 10, 256 steps, no host read
+    model.eval()
+    src, src_len = batches[0][0], batches[0][1]
+
+    def decode():
+        with paddle.no_grad():
+            return seq2seq_decode(paddle, model, src, src_len, S2S_BEAM,
+                                  S2S_MAX_OUT)
+
+    decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # a host read or a host-to-device write inside the loop raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seqs, scores, lengths = decode()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    dprof = _profiled_step(decode, decode_ms)
+    model.train()
+    s, sc, ln = seqs.numpy(), scores.numpy(), lengths.numpy()
+    ok = {"losses_finite": all(map(math.isfinite,
+                                   warm + losses + ref_losses)),
+          "one_capture": captures == 1,
+          "first_losses_vs_uncaptured": rel_loss <= S2S_CAPTURE_LOSS_REL,
+          "fused_adamw_each_step":
+              launches["fused_adamw"] >= steps_run
+              and eager_launches["fused_adamw"] >= S2S_WARM + S2S_EAGER,
+          "decode_shapes": list(s.shape) == [S2S_BATCH, S2S_BEAM,
+                                             S2S_MAX_OUT]
+              and list(sc.shape) == [S2S_BATCH, S2S_BEAM],
+          "decode_tokens_in_vocab": bool(((s >= 0)
+                                          & (s < S2S["trg_vocab"])).all()),
+          "decode_scores_best_first": bool(np.isfinite(sc).all()
+                                           and (np.diff(sc, axis=1)
+                                                <= 0).all()),
+          "decode_lengths": bool(((ln >= 1) & (ln <= S2S_MAX_OUT)).all())}
+    row = {"phase": "train_paddle_trainstep_seq2seq_attn",
+           "model": "PaddleNLP seq2seq_attn, IWSLT'15 en-vi widths",
+           "config": dict(S2S), "params": n_params,
+           "batch": S2S_BATCH, "padded_len": S2S_MAXLEN,
+           "lengths": list(S2S_LENS),
+           "target_tokens_per_batch": tokens,
+           "optimizer": f"Adam({S2S_LR}) + ClipGradByGlobalNorm({S2S_CLIP}),"
+                        f" FLAGS_fused_optimizer=1",
+           "eager_step_ms": eager_ms,
+           "eager_step_ms_median": float(np.median(eager_ms)),
+           "eager_launches": eager_launches,
+           "warm_calls": S2S_WARM, "warm_s": warm_s, "call_ms": call_ms,
+           "call_ms_median": float(np.median(call_ms)),
+           "k": S2S_K, "replay_ms": replay_ms,
+           "samples_per_s": S2S_BATCH / replay_ms * 1e3,
+           "target_tokens_per_s": float(np.mean(tokens)) / replay_ms * 1e3,
+           "per_call_target_tokens_per_s":
+               float(np.mean(tokens)) / float(np.median(call_ms)) * 1e3,
+           "graph_pool_gib": pool_gib, "allocated_after_capture_gib":
+               held_gib, **prof, "captures": captures,
+           "peak_mem_gib": peak / 2**30,
+           "first_losses": warm, "first_losses_uncaptured":
+               ref_losses[:S2S_WARM], "first_loss_rel": rel_loss,
+           "tol_loss_rel": S2S_CAPTURE_LOSS_REL, "last_loss": losses[-1],
+           "launches": launches, "steps_run": steps_run,
+           "decode": {"batch": S2S_BATCH, "beam": S2S_BEAM,
+                      "max_step_num": S2S_MAX_OUT,
+                      "enqueue_ms": enqueue_ms, "ms": decode_ms,
+                      "sentences_per_s": S2S_BATCH / decode_ms * 1e3,
+                      "sync_debug_mode": "error",
+                      "mean_length": float(ln[:, 0].mean()),
+                      **{k: dprof[k] for k in (
+                          "profiled_device_ms", "device_idle_share",
+                          "profiled_launches", "top_device_items")}},
+           "checks": ok, "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"seq2seq TrainStep phase failed: {ok}")
+    return row
+
+
+def _beam_trace(decoder, states, batch, beam, steps, device):
+    """The search of ``nn/decode.py`` re-run plainly on the host over the
+    decoder's own step: per step and row, the set of live prefixes and
+    the gap between the K-th and (K+1)-th totals; and the final
+    sequences and scores."""
+    from paddle_tpu_torch.nn.decode import _tree_map, _unwrap_tree
+
+    st = _tree_map(lambda s: s.repeat_interleave(beam, 0),
+                   _unwrap_tree(states))
+    logprob = np.full((batch, beam), -1e9, np.float32)
+    logprob[:, 0] = 0.0
+    finished = np.zeros((batch, beam), bool)
+    prefixes = [[()] * beam for _ in range(batch)]
+    tokens = np.full(batch * beam, S2S_BOS)
+    sets, gaps = [], []
+    for _ in range(steps):
+        lp, new = decoder._step(torch.as_tensor(tokens, device=device), st)
+        lp = lp.detach().cpu().numpy().reshape(batch, beam, -1)
+        V = lp.shape[-1]
+        eos_row = np.full(V, -1e9, np.float32)
+        eos_row[S2S_EOS] = 0.0
+        lp = np.where(finished[:, :, None], eos_row, lp)
+        flat = (logprob[:, :, None] + lp).reshape(batch, beam * V)
+        order = np.argsort(-flat, axis=1, kind="stable")[:, :beam + 1]
+        gaps.append([float(flat[b, order[b, beam - 1]]
+                           - flat[b, order[b, beam]]) for b in range(batch)])
+        top = order[:, :beam]
+        parent, token = top // V, top % V
+        prefixes = [[prefixes[b][parent[b, k]] + (int(token[b, k]),)
+                     for k in range(beam)] for b in range(batch)]
+        sets.append([frozenset(p) for p in prefixes])
+        finished = (np.take_along_axis(finished, parent, 1)
+                    | (token == S2S_EOS))
+        logprob = np.take_along_axis(flat, top, 1)
+        rows = torch.as_tensor((parent + np.arange(batch)[:, None] * beam)
+                               .reshape(-1), device=device)
+        st = _tree_map(lambda s: s.index_select(0, rows), new)
+        tokens = token.reshape(-1)
+    return sets, gaps, prefixes, logprob
+
+
+def seq2seq_check_phase(dev, stamp, card="gpu"):
+    """Phase 45b: the S2S model at full width, dropout 0, f32, batch 2,
+    on ``card`` and on the CPU port with the same weights: the first
+    loss, every parameter's gradient, and a 32-step beam-10 decode of
+    both rows through ``nn.dynamic_decode`` (the same sequences, scores
+    within S2S_CHECK_TOL; a row whose sequences part must show, at the
+    first step where the two searches' live prefixes part, a K-th and
+    (K+1)-th total within S2S_CHECK_TOL["tie"] of each other), each
+    decode held to a plain host re-run of its search."""
+    import paddle_tpu_torch as paddle
+
+    t_phase = time.perf_counter()
+    cfg = dict(S2S, dropout=0.0)
+    arrays = seq2seq_batch(np.random.default_rng(451), S2S_CHECK_BATCH,
+                           S2S["src_vocab"], S2S["trg_vocab"])
+    out = []
+    state = None
+    try:
+        for where in ("cpu", card):
+            paddle.set_device(where)
+            paddle.seed(0)
+            model = seq2seq_model(paddle, **cfg)
+            if state is None:
+                state = {k: v.numpy() for k, v in model.state_dict().items()}
+            model.set_state_dict(state)
+            ts = [paddle.to_tensor(a) for a in arrays]
+            loss = seq2seq_loss(paddle, model(*ts[:3]), ts[3], ts[4])
+            loss.backward()
+            grads = {k: p.grad._data.detach().cpu()
+                     for k, p in model.named_parameters()}
+            model.eval()
+            with paddle.no_grad():
+                seqs, scores, _ = seq2seq_decode(
+                    paddle, model, ts[0], ts[1], S2S_BEAM, S2S_CHECK_STEPS)
+                decoder, states = seq2seq_decoder(paddle, model, ts[0],
+                                                  ts[1], S2S_BEAM)
+                trace = _beam_trace(decoder, states, S2S_CHECK_BATCH,
+                                    S2S_BEAM, S2S_CHECK_STEPS,
+                                    paddle.get_device().replace("gpu",
+                                                                "cuda"))
+            out.append((float(loss), grads, seqs.numpy(), scores.numpy(),
+                        trace))
+    finally:
+        paddle.set_device(card)
+    (l_cpu, g_cpu, s_cpu, sc_cpu, tr_cpu), (l_dev, g_dev, s_dev, sc_dev,
+                                            tr_dev) = out
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    grad_err = {k: _rel(g_dev[k], g_cpu[k]) for k in g_cpu}
+    rows, bad = [], []
+    for b in range(S2S_CHECK_BATCH):
+        # each decode against its own plain re-run (sets: the order of
+        # equal totals is free)
+        for name, s, tr in (("cpu", s_cpu, tr_cpu), (card, s_dev, tr_dev)):
+            if set(map(tuple, s[b])) != set(tr[2][b]):
+                bad.append((b, name, "dynamic_decode vs plain search"))
+        same = set(map(tuple, s_dev[b])) == set(map(tuple, s_cpu[b]))
+        score_err = float(np.abs(np.sort(sc_dev[b]) - np.sort(sc_cpu[b]))
+                          .max())
+        row = {"row": b, "same_sequences": same, "max_score_err": score_err}
+        if same:
+            if score_err > S2S_CHECK_TOL["score"]:
+                bad.append((b, "scores", score_err))
+        else:
+            t = next(t for t in range(S2S_CHECK_STEPS)
+                     if tr_cpu[0][t][b] != tr_dev[0][t][b])
+            gap = min(tr_cpu[1][t][b], tr_dev[1][t][b])
+            row.update(parted_at_step=t, kth_gap=gap)
+            if gap > S2S_CHECK_TOL["tie"]:
+                bad.append((b, "parted without a near tie", t, gap))
+        rows.append(row)
+    ok = {"loss": loss_rel <= S2S_CHECK_TOL["loss"],
+          "grads": max(grad_err.values()) <= S2S_CHECK_TOL["grad"],
+          "decode": not bad}
+    worst = max(grad_err, key=grad_err.get)
+    result = {"phase": "seq2seq_attn_card_vs_cpu", "config": cfg,
+              "batch": S2S_CHECK_BATCH, "beam": S2S_BEAM,
+              "decode_steps": S2S_CHECK_STEPS, "loss_cpu": l_cpu,
+              "loss_card": l_dev, "loss_rel": loss_rel,
+              "grad_max_rel": grad_err[worst], "grad_worst_leaf": worst,
+              "grads_compared": len(grad_err), "decode_rows": rows,
+              "failures": bad, "tol": S2S_CHECK_TOL,
+              "seconds": time.perf_counter() - t_phase, "checks": ok,
+              "ok": all(ok.values()), **stamp}
+    emit(result)
+    if not result["ok"]:
+        raise AssertionError(f"seq2seq card-vs-CPU check failed: {ok} "
+                             f"{bad}")
+    return result
+
+
+# phase 46: the rest of paddle.nn, card against CPU in f32 at realistic
+# sizes, as max |d| / max |CPU|: elementwise 1e-5, anything that sums
+# (convolutions, norms, losses, recurrences, attention) 1e-4; index
+# outputs (pool masks, unpooled planes, decoded tokens) exactly; the
+# Transformer decoder's 32-step incremental decode through gen_cache
+# against its full causal pass, on each device; the random functions'
+# means and variances on 10^6 draws within 5 standard errors, and their
+# draws repeated after paddle.seed
+SLICE_TOL = {"elem": 1e-5, "reduce": 1e-4, "incremental": 1e-5,
+             "moment_se": 5.0}
+SLICE_IMAGE = (8, 64, 56, 56)
+SLICE_POOL = (8, 64, 112, 112)
+SLICE_RNN = (16, 32, 512)            # batch, steps, width
+SLICE_CTC = (100, 16, 30, 30)        # T, B, classes, label length
+SLICE_TRANSFORMER = {"d_model": 512, "nhead": 8, "layers": 6,
+                     "dim_feedforward": 2048, "batch": 2, "tgt": 32,
+                     "memory": 64}
+SLICE_DRAWS = 10**6
+
+
+def _seeded_weights(layer, seed):
+    """Give ``layer`` numpy weights from ``seed`` (in state_dict order,
+    N(0, 0.05²), around 1 for a norm's 1-d ``weight``: a scale near 0
+    would shrink each normalized activation and let the next norm's
+    backward amplify rounding) on its own device, so the card's and the
+    CPU's layers hold the same numbers."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for k, v in layer.state_dict().items():
+        w = rng.normal(size=v.shape) * 0.05
+        if k.endswith("weight") and len(v.shape) == 1:
+            w += 1.0
+        state[k] = w.astype("float32")
+    layer.set_state_dict(state)
+    return layer
+
+
+def _slice_cases():
+    """(name, the names it covers, fn(paddle, *tensors), numpy inputs,
+    kind, differentiable), phase 44's format, for phase 46."""
+    rng = np.random.default_rng(46)
+    f32 = lambda *s: rng.normal(size=s).astype("float32")  # noqa: E731
+    img = f32(*SLICE_IMAGE)
+    cases = []
+
+    def add(name, fn, arrays, kind="reduce", grad=False, covers=None):
+        cases.append((name, covers or (name,), fn, arrays, kind, grad))
+
+    # transposed convolutions (the 2-d one at the issue's size)
+    add("conv2d_transpose", lambda p, x, w, b: p.nn.functional
+        .conv2d_transpose(x, w, b, stride=2, padding=1, output_padding=1),
+        [img, f32(64, 128, 3, 3) * 0.05, f32(128)], grad=True)
+    add("conv1d_transpose", lambda p, x, w: p.nn.functional
+        .conv1d_transpose(x, w, stride=2, padding=[0, 1], groups=2,
+                          dilation=2), [f32(4, 16, 40), f32(16, 8, 3)],
+        grad=True)
+    add("conv3d_transpose", lambda p, x, w: p.nn.functional
+        .conv3d_transpose(x, w, stride=2, padding=1, output_size=[16, 16,
+                                                                  16]),
+        [f32(2, 8, 8, 8, 8), f32(8, 4, 3, 3, 3)], grad=True)
+    for n, shape in (("Conv1DTranspose", (4, 16, 40)),
+                     ("Conv2DTranspose", (4, 16, 20, 20)),
+                     ("Conv3DTranspose", (2, 16, 6, 6, 6))):
+        add(n, (lambda n: lambda p, x: _seeded_weights(
+            getattr(p.nn, n)(16, 8, 3, stride=2, padding=1), 46)(x))(n),
+            [f32(*shape)], grad=True)
+    # pooling masks and unpooling, exactly
+    pool_x = f32(*SLICE_POOL)
+    add("max_pool2d_mask", lambda p, x: p.nn.functional.max_pool2d(
+        x, 3, 2, 1, return_mask=True)[1], [pool_x], "index",
+        covers=("max_pool2d",))
+    add("max_pool2d_mask_ceil", lambda p, x: p.nn.functional.max_pool2d(
+        x, 3, 2, 0, ceil_mode=True, return_mask=True)[1], [pool_x],
+        "index")
+    add("max_unpool2d", lambda p, x: p.nn.functional.max_unpool2d(
+        *p.nn.functional.max_pool2d(x, 2, 2, return_mask=True), 2, 2),
+        [pool_x], "index")
+    add("max_pool1d_mask", lambda p, x: p.nn.functional.max_pool1d(
+        x, 4, 3, 1, return_mask=True, ceil_mode=True)[1],
+        [f32(8, 64, 1000)], "index", covers=("max_pool1d",))
+    add("max_pool3d_mask", lambda p, x: p.nn.functional.max_pool3d(
+        x, 3, 2, 1, return_mask=True)[1], [f32(2, 16, 20, 20, 20)],
+        "index", covers=("max_pool3d",))
+    for n, shape in (("adaptive_max_pool1d", (8, 64, 1000)),
+                     ("adaptive_max_pool2d", (8, 64, 56, 56)),
+                     ("adaptive_max_pool3d", (2, 16, 20, 20, 20))):
+        add(n + "_mask", (lambda n: lambda p, x: getattr(
+            p.nn.functional, n)(x, 7, return_mask=True)[1])(n),
+            [f32(*shape)], "index", covers=(n,))
+    # the other norms
+    add("group_norm", lambda p, x, w, b: p.nn.functional.group_norm(
+        x, 32, weight=w, bias=b), [img, f32(64), f32(64)], grad=True)
+    add("instance_norm", lambda p, x, w, b: p.nn.functional.instance_norm(
+        x, weight=w, bias=b), [img, f32(64), f32(64)], grad=True)
+    add("local_response_norm", lambda p, x: p.nn.functional
+        .local_response_norm(x, 5), [img], grad=True)
+    for n, shape in (("GroupNorm", None), ("InstanceNorm1D", (8, 64, 300)),
+                     ("InstanceNorm2D", SLICE_IMAGE),
+                     ("InstanceNorm3D", (2, 64, 10, 10, 10)),
+                     ("LocalResponseNorm", SLICE_IMAGE)):
+        make = {"GroupNorm": lambda p: p.nn.GroupNorm(32, 64),
+                "LocalResponseNorm": lambda p: p.nn.LocalResponseNorm(5)}.get(
+            n, (lambda n: lambda p: getattr(p.nn, n)(64))(n))
+        add(n, (lambda make: lambda p, x: _seeded_weights(make(p), 46)(x))(
+            make), [img if shape is None else f32(*shape)], grad=True)
+    add("SpectralNorm", lambda p, w: _seeded_weights(
+        p.nn.SpectralNorm([128, 64, 3, 3], power_iters=2), 46)(w),
+        [f32(128, 64, 3, 3)], grad=True)
+    # losses
+    B, D = 256, 128
+    a, pos, neg = f32(B, D), f32(B, D), f32(B, D)
+    sign = np.where(rng.uniform(size=B) < 0.5, -1.0, 1.0).astype("float32")
+    prob = rng.uniform(0.05, 0.95, (B, 10)).astype("float32")
+    lab10 = rng.integers(0, 10, (B, 1)).astype("int64")
+    L = lambda n: (lambda p, *t: getattr(p.nn.functional, n)(*t))  # noqa: E731
+    add("softmax_with_cross_entropy", L("softmax_with_cross_entropy"),
+        [f32(B, 1000), rng.integers(0, 1000, (B, 1)).astype("int64")],
+        grad=True)
+    add("margin_ranking_loss", L("margin_ranking_loss"),
+        [f32(B), f32(B), sign], grad=True)
+    add("hinge_embedding_loss", L("hinge_embedding_loss"), [f32(B), sign],
+        grad=True)
+    add("cosine_embedding_loss", L("cosine_embedding_loss"),
+        [a, pos, sign], grad=True)
+    add("log_loss", L("log_loss"), [prob, (prob > 0.5).astype("float32")],
+        grad=True)
+    add("sigmoid_focal_loss", L("sigmoid_focal_loss"),
+        [f32(B, 10), (prob > 0.5).astype("float32")], grad=True)
+    add("dice_loss", lambda p, x, y: p.nn.functional.dice_loss(
+        p.nn.functional.softmax(x), y), [f32(B, 10), lab10], grad=True)
+    add("npair_loss", L("npair_loss"),
+        [a, pos, rng.integers(0, 20, (B,)).astype("int64")], grad=True)
+    add("triplet_margin_loss", L("triplet_margin_loss"), [a, pos, neg],
+        grad=True)
+    add("margin_cross_entropy", lambda p, x, y: p.nn.functional
+        .margin_cross_entropy(x, y), [np.tanh(f32(B, 1000)),
+                                      rng.integers(0, 1000, (B,))
+                                      .astype("int64")], grad=True)
+    add("hsigmoid_loss", lambda p, x, y, w, b: p.nn.functional
+        .hsigmoid_loss(x, y, 1000, w, b), [a, rng.integers(
+            0, 1000, (B,)).astype("int64"), f32(999, D) * 0.1,
+            f32(999) * 0.1], grad=True)
+    T, Bc, C, Lc = SLICE_CTC
+    ctc_lens = rng.integers(Lc // 2, Lc + 1, Bc).astype("int64")
+    ctc_in = [np.log(np.exp(f32(T, Bc, C)) / np.exp(f32(T, Bc, C)).sum(
+        -1, keepdims=True)).astype("float32"),
+        rng.integers(1, C, (Bc, Lc)).astype("int64"),
+        rng.integers(T - 20, T + 1, Bc).astype("int64"), ctc_lens]
+    add("ctc_loss", L("ctc_loss"), ctc_in, grad=True)
+    path_table = rng.integers(-1, 999, (B, 12)).astype("int64")
+    path_table[:, 0] = rng.integers(0, 999, B)
+    path_code = rng.integers(0, 2, (B, 12)).astype("int64")
+    layers = {
+        "MarginRankingLoss": ([f32(B), f32(B), sign], lambda p: p.nn
+                              .MarginRankingLoss(0.1)),
+        "HingeEmbeddingLoss": ([f32(B), sign], lambda p: p.nn
+                               .HingeEmbeddingLoss()),
+        "CosineEmbeddingLoss": ([a, pos, sign], lambda p: p.nn
+                                .CosineEmbeddingLoss(0.2)),
+        "TripletMarginLoss": ([a, pos, neg], lambda p: p.nn
+                              .TripletMarginLoss(swap=True)),
+        "CTCLoss": (ctc_in, lambda p: p.nn.CTCLoss(reduction="sum")),
+        "HSigmoidLoss": ([a, rng.integers(0, 1000, (B,)).astype("int64"),
+                          path_table, path_code],
+                         lambda p: _seeded_weights(p.nn.HSigmoidLoss(
+                             D, 1000, is_custom=True), 46))}
+    for n, (arrays, make) in layers.items():
+        add(n, (lambda make: lambda p, *t: make(p)(*t))(make), arrays,
+            grad=True)
+    # recurrent layers at 512
+    Br, Tr, H = SLICE_RNN
+    seq_x = f32(Br, Tr, H)
+    seq_len = rng.integers(Tr // 2, Tr + 1, Br).astype("int64")
+    for n, make in (
+            ("GRU", lambda p: p.nn.GRU(H, H, 2, direction="bidirect")),
+            ("LSTM", lambda p: p.nn.LSTM(H, H, 2)),
+            ("SimpleRNN", lambda p: p.nn.SimpleRNN(H, H, 1,
+                                                   activation="relu")),
+            ("BiRNN", lambda p: p.nn.BiRNN(p.nn.GRUCell(H, H),
+                                           p.nn.GRUCell(H, H))),
+            ("RNN", lambda p: p.nn.RNN(p.nn.LSTMCell(H, H),
+                                       is_reverse=True))):
+        add(n, (lambda make: lambda p, x, sl: _seeded_weights(make(p), 46)(
+            x, sequence_length=sl)[0])(make), [seq_x, seq_len], grad=True,
+            covers=(n, "GRUCell", "LSTMCell") if n in ("BiRNN", "RNN")
+            else (n,))
+    for n in ("SimpleRNNCell", "LSTMCell", "GRUCell"):
+        add(n + "_step", (lambda n: lambda p, x: _seeded_weights(
+            getattr(p.nn, n)(H, H), 46)(x)[0])(n), [f32(Br, H)], grad=True,
+            covers=(n, "RNNCellBase"))
+    # the Transformer decoder stack and the whole Transformer
+    tc = SLICE_TRANSFORMER
+    tgt, mem = f32(tc["batch"], tc["tgt"], 512), f32(tc["batch"],
+                                                     tc["memory"], 512)
+    # a bool mask (True = attend): no gradient flows into it
+    causal = np.tril(np.ones((tc["tgt"], tc["tgt"]), bool))
+
+    def decoder(p):
+        return _seeded_weights(p.nn.TransformerDecoder(
+            p.nn.TransformerDecoderLayer(512, 8, 2048, dropout=0.0),
+            tc["layers"]), 46)
+
+    add("TransformerDecoder", lambda p, t, m, c: decoder(p)(t, m, c),
+        [tgt, mem, causal], grad=True,
+        covers=("TransformerDecoder", "TransformerDecoderLayer"))
+    add("Transformer", lambda p, s, t, c: _seeded_weights(p.nn.Transformer(
+        512, 8, 2, 2, 2048, dropout=0.0), 46)(s, t, tgt_mask=c),
+        [mem, tgt, causal], grad=True)
+    # the extension and sequence functions
+    add("diag_embed", L("diag_embed"), [f32(64, 100)], "elem", True)
+    ids = rng.integers(0, 50, (20, 16, 4)).astype("int64")
+    parents = rng.integers(0, 4, (20, 16, 4)).astype("int64")
+    add("gather_tree", L("gather_tree"), [ids, parents], "index")
+    add("temporal_shift", lambda p, x: p.nn.functional.temporal_shift(
+        x, 8), [img], "elem", True)
+    offs = np.sort(rng.integers(0, 33, (2, 4, 33)), -1)
+    offs[..., 0] = 0
+    cols = np.stack([np.stack([np.concatenate([rng.permutation(32)[:n]
+                                               for n in np.diff(o)]
+                                              + [np.zeros(32 * 32 - o[-1],
+                                                          int)])
+                               for o in ob]) for ob in offs])
+    add("sparse_attention", lambda p, q, k, v, o, c: p.nn.functional
+        .sparse_attention(q, k, v, o, c), [f32(2, 4, 32, 64),
+                                           f32(2, 4, 32, 64),
+                                           f32(2, 4, 32, 64),
+                                           offs.astype("int64"),
+                                           cols.astype("int64")], grad=True)
+    lens = rng.integers(1, 40, 64).astype("int64")
+    sx = f32(64, 40, 32)
+    S = lambda n, *kw: (lambda p, *t: getattr(p.nn.functional, n)(*t))  # noqa: E731
+    add("sequence_mask", lambda p, n: p.nn.functional.sequence_mask(
+        n, maxlen=40), [lens], "index")
+    add("sequence_reverse", S("sequence_reverse"), [sx, lens], "elem", True)
+    add("sequence_softmax", S("sequence_softmax"), [sx[..., 0], lens],
+        "elem", True)
+    for pool in ("sum", "average", "sqrt", "max", "first", "last"):
+        add("sequence_pool_" + pool, (lambda pool: lambda p, x, n: p.nn
+            .functional.sequence_pool(x, n, pool))(pool), [sx, lens],
+            "reduce", True, covers=("sequence_pool",))
+    add("sequence_first_step", S("sequence_first_step"), [sx, lens], "elem")
+    add("sequence_last_step", S("sequence_last_step"), [sx, lens], "elem")
+    add("sequence_expand", S("sequence_expand"), [sx[:8], lens[:8]], "elem",
+        covers=("sequence_expand", "sequence_expand_as"))
+    add("sequence_enumerate", lambda p, x: p.nn.functional
+        .sequence_enumerate(x, 3), [ids[:, :, 0]], "index")
+    add("sequence_conv", lambda p, x, n, w: p.nn.functional.sequence_conv(
+        x, n, w), [sx, lens, f32(96, 16)], "reduce", True)
+    add("sequence_reshape", lambda p, x, n: p.nn.functional
+        .sequence_reshape(x, n * 2, 16)[0], [sx, lens], "elem")
+    add("sequence_scatter", S("sequence_scatter"),
+        [f32(100, 8), rng.integers(0, 100, (16, 6)).astype("int64"),
+         f32(16, 6, 8), rng.integers(1, 7, 16).astype("int64")], "reduce")
+    add("sequence_slice", lambda p, x, o, n: p.nn.functional
+        .sequence_slice(x, o, n)[0], [sx, np.zeros(64, "int64"),
+                                      np.minimum(lens, 20)], "elem")
+    add("sequence_concat", lambda p, x, y, n, m: p.nn.functional
+        .sequence_concat([x, y], [n, m])[0], [sx[:8], sx[8:16], lens[:8],
+                                              lens[8:16]], "elem")
+    add("sequence_pad", lambda p, x, y: p.nn.functional.sequence_pad(
+        [x, y], 0.0)[0], [sx[0, :7], sx[1, :12]], "elem",
+        covers=("sequence_pad", "sequence_unpad"))
+    add("edit_distance", lambda p, h, r: p.nn.functional.edit_distance(
+        h, r)[0], [rng.integers(0, 5, (64, 30)).astype("int64"),
+                   rng.integers(0, 5, (64, 25)).astype("int64")], "reduce")
+
+    add("PyLayer", lambda p, x: _cube(p).apply(x), [f32(256, 256)],
+        "elem", True)
+    # beam search over a GRU cell: tokens and lengths exactly
+    V = 64
+    add("dynamic_decode", lambda p, h: _decode_case(p, h, V),
+        [f32(16, 32)], "index", covers=("BeamSearchDecoder",
+                                        "dynamic_decode", "beam_search"))
+    return cases
+
+
+def _cube(p):
+    """A PyLayer: x³ with its own backward."""
+    class Cube(p.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x * x * x
+
+        @staticmethod
+        def backward(ctx, g):
+            x, = ctx.saved_tensor
+            return 3.0 * x * x * g
+    return Cube
+
+
+def _decode_case(p, h, V):
+    cell = _seeded_weights(p.nn.GRUCell(32, 32), 46)
+    emb = _seeded_weights(p.nn.Embedding(V, 32), 47)
+    proj = _seeded_weights(p.nn.Linear(32, V), 48)
+    for layer in (emb, proj):
+        with p.no_grad():
+            for w in layer.parameters():
+                w.set_value(w * 40.0)            # peaked: no near ties
+    dec = p.nn.BeamSearchDecoder(cell, 0, 1, 4, embedding_fn=emb,
+                                 output_fn=proj)
+    seqs, scores, lengths = p.nn.dynamic_decode(dec, inits=h,
+                                                max_step_num=12)
+    return seqs, lengths
+
+
+def _random_checks(paddle, card):
+    """Each random function on ``card``: SLICE_DRAWS draws' mean and
+    variance within SLICE_TOL["moment_se"] standard errors of the
+    distribution's (the variance's standard error from its fourth
+    moment), and the same draws after paddle.seed; randperm and
+    multinomial without replacement distinct."""
+    n = SLICE_DRAWS
+    se = SLICE_TOL["moment_se"]
+    pr = paddle.to_tensor(np.full(n, 0.3, "float32"))
+    lam = paddle.to_tensor(np.full(n, 4.0, "float32"))
+    # name: (draw, mean, variance, fourth central moment)
+    dists = {
+        "rand": (lambda: paddle.rand([n]), 0.5, 1 / 12, 1 / 80),
+        "randn": (lambda: paddle.randn([n]), 0.0, 1.0, 3.0),
+        "standard_normal": (lambda: paddle.standard_normal([n]), 0.0, 1.0,
+                            3.0),
+        "uniform": (lambda: paddle.uniform([n], min=-2.0, max=2.0), 0.0,
+                    4 / 3, 16 / 5),
+        "normal": (lambda: paddle.normal(1.0, 2.0, [n]), 1.0, 4.0, 48.0),
+        "randint": (lambda: paddle.randint(0, 10, [n]), 4.5, 8.25,
+                    120.8625),
+        "randint_like": (lambda: paddle.randint_like(lam, 0, 10), 4.5, 8.25,
+                         120.8625),
+        "bernoulli": (lambda: paddle.bernoulli(pr), 0.3, 0.21,
+                      0.21 * (1 - 3 * 0.21)),
+        "poisson": (lambda: paddle.poisson(lam), 4.0, 4.0, 4.0 + 3 * 16.0),
+        "uniform_": (lambda: paddle.uniform_(paddle.zeros([n]), 0.0, 1.0),
+                     0.5, 1 / 12, 1 / 80),
+        "normal_": (lambda: paddle.normal_(paddle.zeros([n]), 0.0, 1.0),
+                    0.0, 1.0, 3.0),
+        "exponential_": (lambda: paddle.exponential_(paddle.zeros([n]),
+                                                     2.0), 0.5, 0.25,
+                         9 / 16)}
+    bad, worst = [], {"mean_se": 0.0, "var_se": 0.0}
+    for name, (draw, mu, var, m4) in dists.items():
+        paddle.seed(4600)
+        x = draw()
+        paddle.seed(4600)
+        y = draw()
+        xd = x._data.double()
+        if x.place.type != torch.device(card.replace("gpu", "cuda")).type:
+            bad.append((name, "device"))
+        if not torch.equal(x._data, y._data):
+            bad.append((name, "not repeated after paddle.seed"))
+        m_se = abs(xd.mean().item() - mu) / math.sqrt(var / n)
+        v_se = abs(xd.var().item() - var) / math.sqrt((m4 - var * var) / n)
+        worst["mean_se"] = max(worst["mean_se"], m_se)
+        worst["var_se"] = max(worst["var_se"], v_se)
+        if m_se > se or v_se > se:
+            bad.append((name, "moments", m_se, v_se))
+    paddle.seed(4601)
+    perm = paddle.randperm(n).numpy()
+    if not np.array_equal(np.sort(perm), np.arange(n)):
+        bad.append(("randperm", "not a permutation"))
+    w = paddle.to_tensor(np.random.default_rng(46).uniform(
+        0.1, 1.0, (64, 1000)).astype("float32"))
+    m = paddle.multinomial(w, 50).numpy()
+    if any(len(set(r)) != 50 for r in m) or m.min() < 0 or m.max() >= 1000:
+        bad.append(("multinomial", "draws without replacement repeat"))
+    counts = np.bincount(paddle.multinomial(
+        paddle.to_tensor(np.array([0.1, 0.2, 0.3, 0.4], "float32")), n,
+        replacement=True).numpy(), minlength=4) / n
+    m_se = float(np.max(np.abs(counts - [0.1, 0.2, 0.3, 0.4])
+                        / np.sqrt(np.array([0.09, 0.16, 0.21, 0.24]) / n)))
+    worst["mean_se"] = max(worst["mean_se"], m_se)
+    if m_se > se:
+        bad.append(("multinomial", "frequencies", m_se))
+    return bad, worst, sorted(dists) + ["randperm", "multinomial"]
+
+
+def _incremental_check(paddle, where):
+    """The Transformer decoder (SLICE_TRANSFORMER, dropout 0) decoding
+    ``tgt`` steps one at a time through ``gen_cache`` against its full
+    causal pass on ``where``: max |d| / max |full|."""
+    tc = SLICE_TRANSFORMER
+    paddle.set_device(where)
+    rng = np.random.default_rng(461)
+    dec = _seeded_weights(paddle.nn.TransformerDecoder(
+        paddle.nn.TransformerDecoderLayer(tc["d_model"], tc["nhead"],
+                                          tc["dim_feedforward"],
+                                          dropout=0.0), tc["layers"]), 46)
+    tgt = paddle.to_tensor(rng.normal(size=(tc["batch"], tc["tgt"],
+                                            tc["d_model"])).astype("float32"))
+    mem = paddle.to_tensor(rng.normal(size=(tc["batch"], tc["memory"],
+                                            tc["d_model"])).astype("float32"))
+    with paddle.no_grad():
+        full = dec(tgt, mem, paddle.nn.Transformer
+                   .generate_square_subsequent_mask(tc["tgt"]))
+        cache = dec.gen_cache(mem)
+        steps = []
+        for t in range(tc["tgt"]):
+            out, cache = dec(tgt[:, t:t + 1], mem, None, None, cache)
+            steps.append(out)
+        inc = paddle.concat(steps, 1)
+    return _rel(inc._data, full._data)
+
+
+def slice_sweep_phase(dev, mods, stamp, card="gpu"):
+    """Phase 46: every function and layer this slice adds besides phase
+    45's path, on ``card`` and on the CPU port from the same numpy inputs
+    and the same numpy weights (``_slice_cases``), at SLICE_TOL; the
+    Transformer decoder's incremental decode against its full pass on
+    both devices; the random functions on ``card`` (``_random_checks``).
+    A name of this slice no case covers fails. The hand-written kernels'
+    launches are counted (none is expected: every attention here is
+    masked or shorter than the flash threshold)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn.functional import extension, sequence
+    from paddle_tpu_torch.nn.layer import rnn, transformer
+    from paddle_tpu_torch.tensor import random as trandom
+
+    want = (set(extension.__all__) | set(sequence.__all__)
+            | set(rnn.__all__) | set(trandom.__all__)
+            | set(SLICE_NAMES) | {"PyLayer", "BeamSearchDecoder",
+                                  "dynamic_decode", "beam_search"}
+            | (set(transformer.__all__) - {
+                "MultiHeadAttention", "TransformerEncoderLayer",
+                "TransformerEncoder"}))
+    cases = _slice_cases()
+    t_phase = time.perf_counter()
+    worst = {"elem": (0.0, None), "reduce": (0.0, None),
+             "grad": (0.0, None)}
+    bad, n_grads = [], 0
+    _reset_vision_counts(mods)
+    try:
+        for name, covers, fn, arrays, kind, grad in cases:
+            paddle.seed(46)
+            c_outs, c_grads = _sweep_run(paddle, card, fn, arrays, grad)
+            paddle.seed(46)
+            h_outs, h_grads = _sweep_run(paddle, "cpu", fn, arrays, grad)
+            tol = SLICE_TOL["elem" if kind == "elem" else "reduce"]
+            for c, h in zip(c_outs, h_outs):
+                if c.dtype != h.dtype or c.shape != h.shape:
+                    bad.append((name, "dtype or shape"))
+                    continue
+                err, equal = _sweep_err(kind, c, h)
+                if kind == "index" and (err or not equal):
+                    bad.append((name, "index outputs differ"))
+                elif err > tol:
+                    bad.append((name, "values", err))
+                if kind != "index" and err > worst[kind][0]:
+                    worst[kind] = (err, name)
+            for c, h in zip(c_grads, h_grads):
+                n_grads += 1
+                if (c is None) != (h is None):
+                    bad.append((name, "gradient missing"))
+                    continue
+                if c is None:
+                    continue
+                err = _rel(c._data.cpu(), h._data)
+                if err > tol:
+                    bad.append((name, "gradient", err))
+                if err > worst["grad"][0]:
+                    worst["grad"] = (err, name)
+        launches = _vision_counts(mods)
+        inc = {w: _incremental_check(paddle, w) for w in (card, "cpu")}
+        for w, e in inc.items():
+            if e > SLICE_TOL["incremental"]:
+                bad.append(("incremental decode", w, e))
+        paddle.set_device(card)
+        rbad, rworst, rcovered = _random_checks(paddle, card)
+        bad += rbad
+    finally:
+        paddle.set_device(card)
+    covered = {n for _, cov, *_ in cases for n in cov} | set(rcovered)
+    missing = sorted(want - covered)
+    row = {"phase": "paddle_nn_rest_card_vs_cpu",
+           "names_swept": len(want & covered), "names_new": len(want),
+           "cases": len(cases), "gradients_compared": n_grads,
+           "missing": missing, "failures": bad[:20],
+           "worst_err": {k: {"err": v[0], "case": v[1]}
+                         for k, v in worst.items()},
+           "incremental_vs_full": inc, "random_worst_se": rworst,
+           "launches": launches, "tol": SLICE_TOL,
+           "shapes": {"image": list(SLICE_IMAGE), "pool": list(SLICE_POOL),
+                      "rnn": list(SLICE_RNN), "ctc": list(SLICE_CTC),
+                      "transformer": SLICE_TRANSFORMER,
+                      "draws": SLICE_DRAWS},
+           "seconds": time.perf_counter() - t_phase,
+           "ok": not bad and not missing, **stamp}
+    emit(row)
+    print(f"paddle.nn sweep: {row['names_swept']} names in {len(cases)} "
+          f"cases, worst errors {row['worst_err']}, incremental "
+          f"{inc}, random {rworst}, {row['seconds']:.1f} s", flush=True)
+    if not row["ok"]:
+        raise AssertionError(f"paddle.nn sweep failed: {bad[:20]} missing "
+                             f"{missing}")
+    return row
+
+
+# the functions and layers phase 46 must cover besides whole modules
+SLICE_NAMES = (
+    "conv1d_transpose", "conv2d_transpose", "conv3d_transpose",
+    "Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose", "max_pool1d",
+    "max_pool2d", "max_pool3d", "adaptive_max_pool1d", "adaptive_max_pool2d",
+    "adaptive_max_pool3d", "max_unpool2d", "instance_norm", "group_norm",
+    "local_response_norm", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
+    "InstanceNorm3D", "LocalResponseNorm", "SpectralNorm",
+    "softmax_with_cross_entropy", "margin_ranking_loss",
+    "hinge_embedding_loss", "cosine_embedding_loss", "ctc_loss", "log_loss",
+    "sigmoid_focal_loss", "dice_loss", "npair_loss", "triplet_margin_loss",
+    "hsigmoid_loss", "margin_cross_entropy", "MarginRankingLoss",
+    "HingeEmbeddingLoss", "CosineEmbeddingLoss", "CTCLoss",
+    "TripletMarginLoss", "HSigmoidLoss")
 
 
 # --------------------------------------------------------------------------
@@ -6354,6 +7376,16 @@ def main():
     t = time.perf_counter()
     surface_sweep_phase(dev, stamp)
     surface_s["surface_sweep"] = time.perf_counter() - t
+    nn_s = {}                          # phases 45-46's seconds each
+    t = time.perf_counter()
+    s2s = seq2seq_trainstep_phase(dev, vision_mods, stamp)
+    nn_s["seq2seq_trainstep"] = time.perf_counter() - t
+    t = time.perf_counter()
+    seq2seq_check_phase(dev, stamp)
+    nn_s["seq2seq_check"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sweep46 = slice_sweep_phase(dev, vision_mods, stamp)
+    nn_s["nn_sweep"] = time.perf_counter() - t
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -6450,7 +7482,8 @@ def main():
                      ob["adamw_max_abs_err"],
                      ("adamw_ms", "adamw_plain_ms", "adamw_bound_ms",
                       "adamw_bound_by"), "adamw_library_ms"),
-             captured_launches=lenet_m["launches"]["fused_adamw"]),
+             captured_launches=lenet_m["launches"]["fused_adamw"],
+             seq2seq_captured_launches=s2s["launches"]["fused_adamw"]),
         _kernel("fused_lamb", "paddle_tpu_torch/csrc/fused_optimizer.cu",
                 "paddle_tpu/ops/fused_optimizer.py:209",
                 lamb["launches"]["fused_lamb"], ob, ob["lamb_max_abs_err"],
@@ -6538,6 +7571,9 @@ def main():
              "training_paddle_trainstep_resnet50_o2": resnet_ts["launches"],
              "training_paddle_trainstep_mobilenet_v2_o2":
                  mobilenet_ts["launches"],
+             # phase 45: row 7 inside the captured seq2seq step
+             "training_paddle_trainstep_seq2seq": s2s["launches"],
+             "paddle_nn_sweep": sweep46["launches"],
              "serving_fleet_f32_host_loss":
                  fleet["f32_host_loss"]["launches"],
              "serving_fleet_f32_partition":
@@ -6566,6 +7602,7 @@ def main():
           "entry_total_s": sum(entry_s.values()),
           "surface_phases_s": surface_s,
           "surface_total_s": sum(surface_s.values()),
+          "nn_phases_s": nn_s, "nn_total_s": sum(nn_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

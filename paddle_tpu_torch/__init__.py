@@ -16,14 +16,15 @@ version instead.
 
 The package is also the eager Paddle surface (``import paddle_tpu_torch
 as paddle``): ``paddle.to_tensor``, ``Tensor``, ``nn``,
-``nn.functional``, ``optimizer``, ``ops`` (the fused transformer ops),
+``nn.functional``, ``autograd`` (``PyLayer``), ``optimizer``, ``ops``
+(the fused transformer ops),
 ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``), ``vision``
 (LeNet and the ResNets), the training entry points (``jit``'s
 ``TrainStep`` and ``to_static``, ``optimizer.lr``, ``nn.ClipGrad*``,
 ``io`` (``DataLoader``, ``DevicePrefetcher``), ``metric``, ``Model``
 and ``callbacks``, ``summary``, ``save`` / ``load``), the tensor ops at
 the top level (creation, math, manipulation, logic, search, linalg,
-``einsum``) and ``linalg``, ``seed``, ``set_flags`` / ``get_flags`` and
+``einsum``, random sampling) and ``linalg``, ``seed``, ``set_flags`` / ``get_flags`` and
 ``set_device``. Its tensors and
 parameters go to the card unless ``paddle.set_device("cpu")`` was
 called. Importing it builds nothing.
@@ -53,8 +54,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 # the Paddle surface (imported after resolve_device, which it uses)
-from . import (amp, device, io, jit, metric, nn, ops,  # noqa: E402
-               optimizer, regularizer, tensor, vision)
+from . import (amp, autograd, device, io, jit, metric, nn,  # noqa: E402
+               ops, optimizer, regularizer, tensor, vision)
 from .core.flags import get_flag as _get_flag  # noqa: E402
 from .core.flags import set_flag as _set_flag  # noqa: E402
 from .device import (device_count, get_device,  # noqa: E402
@@ -107,7 +108,8 @@ def get_flags(flags):
     return {k: _get_flag(k) for k in flags}
 
 
-__all__ = ["resolve_device", "__version__", "amp", "device", "io", "jit",
+__all__ = ["resolve_device", "__version__", "amp", "autograd", "device",
+           "io", "jit",
            "metric", "nn", "ops", "optimizer", "regularizer", "tensor",
            "vision", "set_flags", "get_flags", "Model", "callbacks",
            "summary", "save", "load", "to_static", "in_dynamic_mode",

@@ -1,5 +1,6 @@
-"""``conv1d``, ``conv2d`` and ``conv3d`` (``paddle_tpu/nn/functional/
-conv.py``), NC* layouts, weight (out, in / groups, *kernel).
+"""``conv1d``, ``conv2d`` and ``conv3d`` and their transposes
+(``paddle_tpu/nn/functional/conv.py``), NC* layouts, weight (out, in /
+groups, *kernel), a transpose's (in, out / groups, *kernel).
 
 The JAX package computes them with ``lax.conv_general_dilated`` and no
 Pallas kernel; here ``aten.convolution`` (cuDNN on the card) stands in
@@ -13,6 +14,27 @@ f32 on the card is f32: cuDNN may use TF32 for f32 convolutions by
 default (``torch.backends.cudnn.allow_tf32``), which the reference's
 f32 convolution does not, so the forward and both backward products run
 with it off, for the call only.
+
+The transposes (``conv*d_transpose``) run ``aten.convolution`` with
+``transposed=True``, the JAX package's flipped-kernel, input-dilated
+convolution. A padding (lo, hi) crops lo positions from the low end of
+the full transposed output and hi from the high end, ``output_padding``
+adds that many at the high end; pads that differ, or an
+``output_padding`` at least the stride and the dilation, take the full
+output (no padding) and crop or extend it with ``F.pad``. Two arguments
+follow Paddle where the JAX package does not:
+
+- ``output_size`` (ignored by the JAX package) sets ``output_padding``
+  to the output size asked for less the size without it, which must lie
+  in [0, stride); it and a nonzero ``output_padding`` exclude each
+  other;
+- ``"SAME"`` pads as Paddle's ``conv2d_transpose`` does: a total of
+  max((ceil(in / stride) − 1)·stride + k_eff − in, 0), the smaller half
+  at the low end (the JAX package pads both ends by min(k_eff − 1,
+  k_eff // 2)).
+
+A channels-last ``data_format`` raises ``NotImplementedError``: the JAX
+package has no channels-last path either.
 """
 from __future__ import annotations
 
@@ -25,7 +47,8 @@ import torch.nn.functional as TF
 
 from ...framework.core import apply_op
 
-__all__ = ["conv1d", "conv2d", "conv3d"]
+__all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
+           "conv2d_transpose", "conv3d_transpose"]
 
 
 def _ntuple(v, n):
@@ -97,29 +120,31 @@ def _f32_exact(t):
 
 
 class _Conv(torch.autograd.Function):
-    """``aten.convolution`` without bias, forward and backward each with
-    TF32 off for f32 (the backward otherwise reads the global flag when
-    it runs, outside the forward's scope)."""
+    """``aten.convolution`` without bias (transposed or not), forward and
+    backward each with TF32 off for f32 (the backward otherwise reads the
+    global flag when it runs, outside the forward's scope)."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, groups):
+    def forward(ctx, x, w, stride, padding, dilation, groups,
+                transposed=False, output_padding=None):
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, padding, dilation, groups)
+        out_pad = output_padding or [0] * len(stride)
+        ctx.conf = (stride, padding, dilation, groups, transposed, out_pad)
         with _f32_exact(x):
             return torch.ops.aten.convolution(
-                x, w, None, stride, padding, dilation, False,
-                [0] * len(stride), groups)
+                x, w, None, stride, padding, dilation, transposed, out_pad,
+                groups)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
-        stride, padding, dilation, groups = ctx.conf
+        stride, padding, dilation, groups, transposed, out_pad = ctx.conf
         with _f32_exact(x):
             gx, gw, _ = torch.ops.aten.convolution_backward(
-                gy, x, w, None, stride, padding, dilation, False,
-                [0] * len(stride), groups,
+                gy, x, w, None, stride, padding, dilation, transposed,
+                out_pad, groups,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return gx, gw, None, None, None, None
+        return gx, gw, None, None, None, None, None, None
 
 
 def _conv(x, w, b=None, strides=(), pads=(), dils=(), groups=1):
@@ -173,3 +198,95 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW", name=None):
     return _convnd(x, weight, bias, stride, padding, dilation, groups, 3,
                    data_format)
+
+
+def _conv_transpose(x, w, b=None, strides=(), pads=(), out_pad=(),
+                    dils=(), groups=1):
+    n = len(strides)
+    native = all(lo == hi for lo, hi in pads) and all(
+        op < s or op < d for op, s, d in zip(out_pad, strides, dils))
+    if native:
+        y = _Conv.apply(x, w, list(strides), [lo for lo, _ in pads],
+                        list(dils), groups, True, list(out_pad))
+    else:
+        y = _Conv.apply(x, w, list(strides), [0] * n, list(dils), groups,
+                        True, [0] * n)
+        # crop lo / hi (negative pads) and extend by output_padding
+        y = TF.pad(y, [v for (lo, hi), op in zip(reversed(pads),
+                                                 reversed(out_pad))
+                       for v in (-lo, op - hi)])
+    if b is not None:
+        y = y + b.reshape((1, -1) + (1,) * n)
+    return y
+
+
+def _transpose_pads(padding, n, sizes, window, strides):
+    kind, pads = _norm_padding(padding, n)
+    if kind == "VALID":
+        return ((0, 0),) * n
+    if kind == "SAME":
+        # Paddle's conv_transpose "SAME": the pads a forward "SAME" conv
+        # of the input's size would take
+        out = []
+        for size, k, s in zip(sizes, window, strides):
+            total = max((-(-size // s) - 1) * s + k - size, 0)
+            out.append((total // 2, total - total // 2))
+        return tuple(out)
+    return pads
+
+
+def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                       dilation, groups, output_size, data_format, n):
+    from ...amp import maybe_autocast
+
+    if data_format not in ("NCL", "NCHW", "NCDHW"):
+        raise NotImplementedError(f"conv{n}d_transpose takes channels-first "
+                                  f"input; data_format={data_format!r} is "
+                                  f"not ported")
+    x, weight = maybe_autocast(x, weight)
+    strides = _ntuple(stride, n)
+    dils = _ntuple(dilation, n)
+    out_pad = _ntuple(output_padding, n)
+    window = [d * (k - 1) + 1 for d, k in zip(dils, weight.shape[2:])]
+    sizes = x.shape[2:]
+    pads = _transpose_pads(padding, n, sizes, window, strides)
+    if output_size is not None:
+        if any(out_pad):
+            raise ValueError("output_padding and output_size exclude each "
+                             "other")
+        want = (list(output_size) if isinstance(output_size, (list, tuple))
+                else [output_size] * n)
+        want = [int(v) for v in want[-n:]]
+        base = [(i - 1) * s + k - lo - hi for i, s, k, (lo, hi) in
+                zip(sizes, strides, window, pads)]
+        out_pad = tuple(int(o) - b for o, b in zip(want, base))
+        if any(op < 0 or op >= s for op, s in zip(out_pad, strides)):
+            raise ValueError(f"output_size {list(want)} must lie in "
+                             f"[{base}, {[b + s for b, s in zip(base, strides)]})")
+    args = (x, weight) if bias is None else (x, weight, bias)
+    return apply_op(_conv_transpose, *args, strides=strides, pads=pads,
+                    out_pad=out_pad, dils=dils, groups=int(groups))
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, output_size,
+                              data_format, 1)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW", name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, output_size,
+                              data_format, 2)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, output_size,
+                              data_format, 3)

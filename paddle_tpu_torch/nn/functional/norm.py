@@ -1,5 +1,5 @@
-"""``batch_norm`` and ``layer_norm`` (``paddle_tpu/nn/functional/
-norm.py``).
+"""``batch_norm``, ``layer_norm``, ``instance_norm``, ``group_norm``
+and ``local_response_norm`` (``paddle_tpu/nn/functional/norm.py``).
 
 ``batch_norm`` follows the reference's statistics, not PyTorch's
 defaults:
@@ -19,6 +19,16 @@ takes the unbiased variance with the opposite momentum convention, so
 it writes into zeroed scratch vectors at momentum 1 (the batch's
 statistics), and the reference's update is applied from those, the
 unbiased variance scaled back by (n − 1) / n.
+
+``instance_norm`` and ``group_norm`` are composed as the JAX package
+composes them: (x − mean)·rsqrt(biased var + ε) over each sample's
+channel (or group of channels), then the scale and shift.
+``instance_norm`` normalizes by the input's own statistics only: given
+running statistics, or ``use_input_stats=False``, it raises
+``NotImplementedError``, where the JAX package ignores them.
+``local_response_norm`` divides by (k + α·Σ x²)^β, the sum over
+``size`` neighbouring channels, as the JAX package does. A channels-last
+``data_format`` raises ``NotImplementedError`` in all three.
 """
 from __future__ import annotations
 
@@ -29,7 +39,8 @@ import torch.nn.functional as TF
 
 from ...framework.core import apply_op
 
-__all__ = ["batch_norm", "layer_norm"]
+__all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
+           "local_response_norm"]
 
 
 def _bn(x, mean, var, w=None, b=None, training=False, epsilon=1e-5,
@@ -85,3 +96,76 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     return apply_op(_layer_norm, x, weight, bias,
                     shape=tuple(int(s) for s in normalized_shape),
                     epsilon=float(epsilon))
+
+
+def _channels_first(data_format, what):
+    if data_format not in ("NC", "NCL", "NCHW", "NCDHW"):
+        raise NotImplementedError(f"{what} takes channels-first input; "
+                                  f"data_format={data_format!r} is not "
+                                  f"ported")
+
+
+def _affine(y, w, b):
+    shape = (1, -1) + (1,) * (y.ndim - 2)
+    if w is not None:
+        y = y * w.reshape(shape)
+    if b is not None:
+        y = y + b.reshape(shape)
+    return y
+
+
+def _instance_norm(x, w=None, b=None, epsilon=1e-5):
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(axes, keepdim=True)
+    var = x.var(axes, unbiased=False, keepdim=True)
+    return _affine((x - mean) * torch.rsqrt(var + epsilon), w, b)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
+                  data_format="NCHW", name=None):
+    _channels_first(data_format, "instance_norm")
+    if running_mean is not None or running_var is not None \
+            or not use_input_stats:
+        raise NotImplementedError(
+            "instance_norm normalizes by the input's own statistics; "
+            "running statistics and use_input_stats=False are not ported")
+    affine = (weight, bias) if weight is not None and bias is not None \
+        else ()
+    return apply_op(_instance_norm, x, *affine, epsilon=float(eps))
+
+
+def _group_norm(x, w=None, b=None, groups=1, epsilon=1e-5):
+    n, c = x.shape[:2]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.ndim))
+    mean = xg.mean(axes, keepdim=True)
+    var = xg.var(axes, unbiased=False, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    return _affine(y, w, b)
+
+
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    _channels_first(data_format, "group_norm")
+    if x.shape[1] % int(num_groups):
+        raise ValueError(f"group_norm: {x.shape[1]} channels do not split "
+                         f"into {num_groups} groups")
+    return apply_op(_group_norm, x, weight, bias, groups=int(num_groups),
+                    epsilon=float(epsilon))
+
+
+def _lrn(x, size=5, alpha=1e-4, beta=0.75, k=1.0):
+    half = size // 2
+    sq = TF.pad(x * x, (0, 0) * (x.ndim - 2) + (half, size - 1 - half))
+    acc = torch.zeros_like(x)
+    for i in range(size):
+        acc = acc + sq.narrow(1, i, x.shape[1])
+    return x / torch.pow(k + alpha * acc, beta)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    _channels_first(data_format, "local_response_norm")
+    return apply_op(_lrn, x, size=int(size), alpha=float(alpha),
+                    beta=float(beta), k=float(k))

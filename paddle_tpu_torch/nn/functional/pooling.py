@@ -17,7 +17,20 @@ windows, and these follow its edge rules rather than PyTorch's:
   (:func:`_adaptive_starts_ends`); an average over windows of unequal
   sizes sums each joint window and divides once.
 
-``return_mask`` and ``max_unpool2d`` are not ported yet.
+``return_mask=True`` (every max pool and adaptive max pool) also returns
+the mask: for each output, the flat index of its maximum over the
+unpadded spatial positions of its sample and channel (int32, as
+Paddle's), the first in window order on a tie, as the JAX package's
+``_max_pool_indices`` emits them for ``max_pool2d``. The port honours it
+wherever Paddle does, where the JAX package drops it (``max_pool1d``,
+``max_pool3d``, the adaptive pools) or takes it without ``ceil_mode``'s
+extra windows (``max_pool2d``): the mask is taken under the windows the
+values are. A window holding no input position (possible only under
+``ceil_mode``) has the mask −1, as the reference's kernel leaves it.
+``max_unpool2d`` scatters values back to those positions.
+
+A channels-last ``data_format`` raises ``NotImplementedError``: the JAX
+package has no channels-last path.
 """
 from __future__ import annotations
 
@@ -35,10 +48,12 @@ __all__ = [
     "max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
     "avg_pool3d", "adaptive_max_pool1d", "adaptive_max_pool2d",
     "adaptive_max_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
-    "adaptive_avg_pool3d",
+    "adaptive_avg_pool3d", "max_unpool2d",
 ]
 
 _MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
+_ADAPTIVE_MAX = {1: TF.adaptive_max_pool1d, 2: TF.adaptive_max_pool2d,
+                 3: TF.adaptive_max_pool3d}
 _AVG = {2: TF.avg_pool2d, 3: TF.avg_pool3d}
 
 
@@ -84,6 +99,34 @@ def _max_pool(x, ksize, strides, pads, ceil_mode):
     return _MAX[len(ksize)](_pad(x, pads, low), ksize, strides)
 
 
+def _flat_mask(idx, padded, sizes, pads):
+    """torch's flat indices over the padded spatial axes → flat indices
+    over the unpadded ones, −1 where the maximum sits in the padding."""
+    valid = torch.ones_like(idx, dtype=torch.bool)
+    flat = torch.zeros_like(idx)
+    rem = idx
+    coords = []
+    for p in reversed(padded):
+        coords.append(rem % p)
+        rem = torch.div(rem, p, rounding_mode="floor")
+    for c, size, (lo, _) in zip(reversed(coords), sizes, pads):
+        r = c - lo
+        valid &= (r >= 0) & (r < size)
+        flat = flat * size + r
+    return torch.where(valid, flat, torch.full_like(flat, -1)).to(
+        torch.int32)
+
+
+def _max_pool_mask(x, ksize, strides, pads, ceil_mode):
+    pads, _ = _window_pads(x, ksize, strides, pads, ceil_mode)
+    low = (-math.inf if x.is_floating_point()
+           else torch.iinfo(x.dtype).min)
+    xp = _pad(x, pads, low)
+    vals, idx = _MAX[len(ksize)](xp, ksize, strides, return_indices=True)
+    return vals, _flat_mask(idx, tuple(xp.shape[2:]), tuple(x.shape[2:]),
+                            pads)
+
+
 def _window_sum(x, ksize, strides):
     return _AVG[len(ksize)](x, ksize, strides, divisor_override=1)
 
@@ -105,12 +148,6 @@ def _stride(stride, kernel_size, n):
     return _ntuple(stride if stride is not None else kernel_size, n)
 
 
-def _no_mask(return_mask):
-    if return_mask:
-        raise NotImplementedError("pooling with return_mask=True is not "
-                                  "ported to paddle_tpu_torch yet")
-
-
 def _channels_first(data_format, n):
     if data_format not in ("NCL", "NCHW", "NCDHW"):
         raise NotImplementedError(f"{n}-d pooling takes channels-first "
@@ -119,7 +156,10 @@ def _channels_first(data_format, n):
 
 
 def _as_2d(x, pool=None, **kw):
-    return pool(x.unsqueeze(2), **kw).squeeze(2)
+    out = pool(x.unsqueeze(2), **kw)
+    if isinstance(out, tuple):
+        return tuple(o.squeeze(2) for o in out)
+    return out.squeeze(2)
 
 
 def _pool1d(pool, x, kernel_size, stride, padding, ceil_mode, **kw):
@@ -135,15 +175,15 @@ def _pool1d(pool, x, kernel_size, stride, padding, ceil_mode, **kw):
 
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, name=None):
-    _no_mask(return_mask)
-    return _pool1d(_max_pool, x, kernel_size, stride, padding, ceil_mode)
+    return _pool1d(_max_pool_mask if return_mask else _max_pool, x,
+                   kernel_size, stride, padding, ceil_mode)
 
 
 def _max_poolnd(x, kernel_size, stride, padding, ceil_mode, return_mask,
                 data_format, n):
-    _no_mask(return_mask)
     _channels_first(data_format, n)
-    return apply_op(_max_pool, x, ksize=_ntuple(kernel_size, n),
+    return apply_op(_max_pool_mask if return_mask else _max_pool, x,
+                    ksize=_ntuple(kernel_size, n),
                     strides=_stride(stride, kernel_size, n),
                     pads=_pool_pads(padding, n), ceil_mode=bool(ceil_mode))
 
@@ -243,10 +283,17 @@ def _out_sizes(x, output_size, n):
                  for i, v in enumerate(o))
 
 
+def _adaptive_max_mask(x, out_sizes):
+    vals, idx = _ADAPTIVE_MAX[len(out_sizes)](x, out_sizes,
+                                              return_indices=True)
+    return vals, idx.to(torch.int32)
+
+
 def _adaptive(x, output_size, n, op, return_mask=False):
-    _no_mask(return_mask)
-    return apply_op(_adaptive_pool, x, out_sizes=_out_sizes(x, output_size,
-                                                            n), op=op)
+    sizes = _out_sizes(x, output_size, n)
+    if return_mask:
+        return apply_op(_adaptive_max_mask, x, out_sizes=sizes)
+    return apply_op(_adaptive_pool, x, out_sizes=sizes, op=op)
 
 
 def adaptive_avg_pool1d(x, output_size, name=None):
@@ -273,3 +320,31 @@ def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
 
 def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
     return _adaptive(x, output_size, 3, "max", return_mask)
+
+
+def _max_unpool2d(x, indices, out_h, out_w):
+    n, c = x.shape[:2]
+    flat = x.reshape(n, c, -1)
+    out = flat.new_zeros((n, c, out_h * out_w))
+    out = out.scatter(2, indices.reshape(n, c, -1).long(), flat)
+    return out.reshape(n, c, out_h, out_w)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+    """The inverse of ``max_pool2d(return_mask=True)``: each value
+    written at its mask's flat position of an (out_h, out_w) plane of
+    zeros, out = (in − 1)·stride − 2·padding + kernel unless
+    ``output_size`` says otherwise."""
+    _channels_first(data_format, 2)
+    k = _ntuple(kernel_size, 2)
+    s = _stride(stride, kernel_size, 2)
+    p = _ntuple(padding, 2)
+    ho, wo = x.shape[2:]
+    if output_size is None:
+        out_h = (ho - 1) * s[0] - 2 * p[0] + k[0]
+        out_w = (wo - 1) * s[1] - 2 * p[1] + k[1]
+    else:
+        out_h, out_w = (int(v) for v in tuple(output_size)[-2:])
+    return apply_op(_max_unpool2d, x, indices, out_h=int(out_h),
+                    out_w=int(out_w))

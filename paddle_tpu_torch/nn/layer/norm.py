@@ -1,4 +1,13 @@
-"""LayerNorm and the batch norms (``paddle_tpu/nn/layer/norm.py``).
+"""LayerNorm, the batch norms, GroupNorm, the instance norms,
+LocalResponseNorm and SpectralNorm (``paddle_tpu/nn/layer/norm.py``).
+
+``SpectralNorm(weight_shape)`` holds ``weight_u`` and ``weight_v``
+(drawn from the normal distribution, as the JAX package draws them) as
+persistable buffers under the JAX attribute names, so a JAX layer's
+vectors carry across by ``set_state_dict``. Its forward runs
+``power_iters`` power iterations from them on a copy (the buffers do not
+move, as in the reference's op) and divides the weight by σ = uᵀ W v;
+the gradient goes through the iterations, as the JAX package's does.
 
 ``_BatchNormBase`` holds ``weight`` (ones) and ``bias`` (zeros) and the
 buffers ``_mean`` (zeros) and ``_variance`` (ones), all f32, and calls
@@ -9,6 +18,8 @@ the cross-rank statistics are not ported yet.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ...device import current_device
@@ -18,7 +29,9 @@ from .. import initializer as I
 from .layers import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "SyncBatchNorm"]
+           "BatchNorm3D", "SyncBatchNorm", "GroupNorm", "InstanceNorm1D",
+           "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
+           "SpectralNorm"]
 
 
 class _BatchNormBase(Layer):
@@ -147,3 +160,120 @@ class LayerNorm(Layer):
 
     def extra_repr(self):
         return f"normalized_shape={self._normalized_shape}"
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._num_channels = num_channels
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            shape=[num_channels], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(shape=[num_channels],
+                                          attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class _InstanceNormBase(Layer):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self._data_format = data_format
+        if weight_attr is False or bias_attr is False:
+            self.scale = None
+            self.bias = None
+        else:
+            self.scale = self.create_parameter(
+                shape=[num_features], attr=weight_attr,
+                default_initializer=I.Constant(1.0))
+            self.bias = self.create_parameter(
+                shape=[num_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.scale, bias=self.bias,
+                               eps=self._epsilon,
+                               data_format=self._data_format)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 name=None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format)
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 name=None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format)
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=0.0001, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.local_response_norm(x, self.size, self.alpha, self.beta,
+                                     self.k, self.data_format)
+
+
+def _spectral_normalize(w, u, v, dim=0, power_iters=1, eps=1e-12):
+    perm = (dim,) + tuple(i for i in range(w.ndim) if i != dim)
+    mat = w.permute(perm).reshape(w.shape[dim], -1)
+    for _ in range(power_iters):
+        v = mat.T @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = mat @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    return w / (u @ mat @ v)
+
+
+class SpectralNorm(Layer):
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 dtype="float32"):
+        super().__init__()
+        from ...framework import dtype as dtypes
+        from ...framework import random as grandom
+
+        self._dim = dim
+        self._power_iters = power_iters
+        self._eps = eps
+        h = weight_shape[dim]
+        w = math.prod(s for i, s in enumerate(weight_shape) if i != dim)
+        dev = current_device()
+        dt = dtypes.convert_dtype(dtype)
+        gen = grandom.generator(dev)
+        self.register_buffer("weight_u", Tensor(torch.randn(
+            (h,), dtype=dt, device=dev, generator=gen)))
+        self.register_buffer("weight_v", Tensor(torch.randn(
+            (w,), dtype=dt, device=dev, generator=gen)))
+
+    def forward(self, weight):
+        from ...framework.core import apply_op
+
+        return apply_op(_spectral_normalize, weight, self.weight_u,
+                        self.weight_v, dim=self._dim,
+                        power_iters=self._power_iters, eps=self._eps)

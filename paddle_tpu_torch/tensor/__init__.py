@@ -1,5 +1,5 @@
 """paddle_tpu_torch.tensor — the op namespace (creation, math,
-manipulation, logic, search, linalg and ``einsum``), plus the Tensor
+manipulation, logic, search, linalg, random and ``einsum``), plus the Tensor
 methods and arithmetic operators (as ``paddle_tpu/tensor/__init__.py``
 attaches them: its ``_METHODS`` list, ``dim`` and ``rank``)."""
 from __future__ import annotations
@@ -7,17 +7,19 @@ from __future__ import annotations
 import torch
 
 from ..framework.core import Tensor, _unwrap, apply_op
-from . import creation, linalg, logic, manipulation, math, search  # noqa: F401
+from . import (creation, linalg, logic, manipulation, math,  # noqa: F401
+               random, search)
 from .creation import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
+from .random import *  # noqa: F401,F403
 from .search import *  # noqa: F401,F403
 
 __all__ = list(dict.fromkeys(
     creation.__all__ + math.__all__ + manipulation.__all__ + logic.__all__
-    + search.__all__ + linalg.__all__ + ["einsum"]))
+    + search.__all__ + linalg.__all__ + random.__all__ + ["einsum"]))
 
 
 def _einsum(*ops, equation):

@@ -1677,3 +1677,134 @@ def test_failed_capture_leaves_the_generator_usable(cuda_device):
     step = paddle.jit.TrainStep(net, lambda run, a: run(a).mean(), opt)
     losses = [float(step(x)) for _ in range(4)]
     assert step.captures == 1 and all(map(math.isfinite, losses))
+
+
+def _seeded(layer, seed):
+    """numpy weights from ``seed`` under the layer's state names, so the
+    card's and the CPU's layers hold the same numbers."""
+    rng = np.random.default_rng(seed)
+    layer.set_state_dict({k: (rng.normal(size=v.shape) * 0.3).astype(
+        "float32") for k, v in layer.state_dict().items()})
+    return layer
+
+
+def test_lstm_with_sequence_length_on_card_matches_cpu(cuda_device):
+    """A 2-layer bidirectional LSTM over padded rows with
+    sequence_length on the card against the CPU port: outputs and final
+    states 1e-5 of the largest (f32 sums in another order), the padded
+    outputs 0 on both."""
+    x = np.random.default_rng(50).normal(size=(4, 9, 8)).astype("float32")
+    lens = np.array([9, 5, 1, 7], "int64")
+
+    def run(p, t, n):
+        out, (h, c) = _seeded(p.nn.LSTM(8, 16, 2, direction="bidirect"),
+                              51)(t, sequence_length=n)
+        return out, h, c
+
+    card, cpu = _card_and_cpu(run, x, lens)
+    for c, h in zip(card, cpu):
+        np.testing.assert_allclose(c, h, rtol=1e-5,
+                                   atol=1e-5 * np.abs(h).max())
+    assert not card[0][1, 5:].any() and not card[0][2, 1:].any()
+
+
+def test_beam_decode_on_card_matches_cpu(cuda_device):
+    """BeamSearchDecoder over a GRU cell with peaked output weights (no
+    near ties): the same tokens and lengths on the card as on the CPU,
+    scores within 1e-5."""
+    h0 = np.random.default_rng(52).normal(size=(3, 16)).astype("float32")
+
+    def run(p, h):
+        cell = _seeded(p.nn.GRUCell(16, 16), 53)
+        emb = _seeded(p.nn.Embedding(30, 16), 54)
+        proj = _seeded(p.nn.Linear(16, 30), 55)
+        with p.no_grad():
+            proj.weight.set_value(proj.weight * 10.0)
+        dec = p.nn.BeamSearchDecoder(cell, 0, 1, 4, embedding_fn=emb,
+                                     output_fn=proj)
+        return p.nn.dynamic_decode(dec, inits=h, max_step_num=10)
+
+    (cs, csc, cl), (hs, hsc, hl) = _card_and_cpu(run, h0)
+    np.testing.assert_array_equal(cs, hs)
+    np.testing.assert_array_equal(cl, hl)
+    np.testing.assert_allclose(csc, hsc, rtol=1e-5, atol=1e-5)
+
+
+def test_conv_transpose_on_card_matches_cpu(cuda_device):
+    """conv2d_transpose (stride 2, unequal pads, output_padding, groups)
+    in f32 on the card, TF32 off, against the CPU: output and both
+    gradients 1e-4 of the largest."""
+    import paddle_tpu_torch as paddle
+
+    rng = np.random.default_rng(56)
+    x = rng.normal(size=(2, 8, 9, 7)).astype("float32")
+    w = rng.normal(size=(8, 3, 3, 3)).astype("float32")
+    g = rng.normal(size=(2, 6, 19, 13)).astype("float32")
+    outs = []
+    try:
+        for where in ("gpu", "cpu"):
+            paddle.set_device(where)
+            xt = paddle.to_tensor(x, stop_gradient=False)
+            wt = paddle.to_tensor(w, stop_gradient=False)
+            y = paddle.nn.functional.conv2d_transpose(
+                xt, wt, stride=2, padding=[1, 0, 1, 2], output_padding=1,
+                groups=2)
+            (y * paddle.to_tensor(g)).sum().backward()
+            outs.append([y.numpy(), xt.grad.numpy(), wt.grad.numpy()])
+    finally:
+        paddle.set_device("gpu")
+    for c, h in zip(*outs):
+        assert c.shape == h.shape
+        np.testing.assert_allclose(c, h, rtol=1e-4,
+                                   atol=1e-4 * np.abs(h).max())
+
+
+def test_pool_masks_on_card_match_cpu(cuda_device):
+    """Pool masks (ceil mode, 3-d, adaptive) and max_unpool2d on the card
+    equal the CPU's exactly."""
+    rng = np.random.default_rng(57)
+    x4 = rng.normal(size=(2, 3, 13, 11)).astype("float32")
+    x5 = rng.normal(size=(1, 2, 7, 6, 5)).astype("float32")
+
+    def run(p, a, b):
+        F = p.nn.functional
+        v, m = F.max_pool2d(a, 3, 2, 1, ceil_mode=True, return_mask=True)
+        v2, m2 = F.max_pool2d(a, 2, 2, return_mask=True)
+        return [v, m, F.max_pool3d(b, 2, 2, return_mask=True)[1],
+                F.adaptive_max_pool2d(a, [4, 3], return_mask=True)[1],
+                F.max_unpool2d(v2, m2, 2, 2, output_size=[13, 11])]
+
+    card, cpu = _card_and_cpu(run, x4, x5)
+    for c, h in zip(card, cpu):
+        np.testing.assert_array_equal(c, h)
+
+
+def test_captured_step_draws_from_tensor_random(cuda_device):
+    """A TrainStep whose loss adds noise from paddle.randn and
+    paddle.rand: the captured step registers the device's generator, so
+    its first 3 losses equal the uncaptured step's from the same
+    generator state (1e-6), and replays at learning rate 0 on one batch
+    draw fresh noise (distinct losses)."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    x = paddle.to_tensor(np.random.default_rng(58).normal(
+        size=(64, 16)).astype("float32"))
+
+    def loss_fn(run, a):
+        noisy = a + 0.1 * paddle.randn(a.shape) * paddle.rand([1])
+        return (run(noisy) ** 2).mean()
+
+    losses = {}
+    for capture in (True, False):
+        paddle.seed(5)
+        net = _seeded(paddle.nn.Linear(16, 4), 59)
+        opt = paddle.optimizer.SGD(0.05, parameters=net.parameters())
+        step = paddle.jit.TrainStep(net, loss_fn, opt, capture=capture)
+        losses[capture] = [float(step(x)) for _ in range(3)]
+        if capture:
+            assert step.captures == 1
+            step.scale_lr(0.0)
+            fresh = [float(step(x)) for _ in range(4)]
+            assert len(set(fresh)) == 4
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-6)
