@@ -349,7 +349,48 @@ stamped with the card's name and power limit):
     the full causal pass, on both devices), the extension and sequence
     functions, ``PyLayer``, a beam decode; the random functions' moments
     on 10⁶ draws within 5 standard errors and their draws repeated after
-    ``paddle.seed``; the worst error of each kind and the seconds.
+    ``paddle.seed``; the worst error of each kind and the seconds;
+47a. rows 4-7 at the shapes and dtypes of phase 47's fused O2 step
+    against their plain versions: the post-LN LN-MLP (bf16, R 16,384,
+    H 768, M 3072, no input LayerNorm, no residual) forward, backward
+    and dW2; its add-LN (bf16 x, f32 scale); AdamW over BERT-base's bf16
+    parameters with f32 moments and bf16 gradients (bit-identical);
+    errors, kernel / plain / bound times;
+47. phase 24's BERT-base and batch under amp O2 (``decorate`` +
+    ``auto_cast``, bf16, the LayerNorms f32) through ``jit.TrainStep``
+    with ``AdamW(multi_precision=True)``, composed (both flags 0) and
+    fused (``FLAGS_fused_kernels=1``, ``FLAGS_fused_optimizer=1``):
+    replayed step ms, samples/s, the graph pool and peak memory, one
+    profiled replay's top device items and idle share, the first losses
+    against phase 24's f32 ones, and the launches of rows 1 and 3-7 (each
+    above 0 on the fused path);
+47b. the same at 2 layers and batch 2, card against CPU: the first
+    step's gradients per leaf in f32 norms (each side within 2^-5 of the
+    CPU's f32 gradients, the card within 2^-4 of the CPU), the first
+    moments and the parameters after the first TrainStep call, and 3
+    TrainStep losses within one bf16 step;
+48. PaddleDetection's YOLOv3-R50vd-DCN (``yolov3_model``: ResNet-50-vd
+    with DCNv2 in res5, YOLOv3FPN, 80 classes) at batch 8 of 608x608 f32
+    with up to 50 seeded gt boxes an image: eager steps, then
+    ``jit.TrainStep`` captured and replayed 20 times (Momentum 0.9, L2
+    5e-4, linear warm-up into PiecewiseDecay): eager and replay ms,
+    images/s, graph pool and peak memory, the profiled replay's top
+    items and idle share, captured against uncaptured losses; then eval
+    mode, ``yolo_box`` per level, the 22,743 boxes an image and
+    ``multiclass_nms`` on the card: each stage's ms and the boxes kept;
+48b. the same detector narrow (width 8, one block a stage, two levels)
+    at batch 2, card against CPU: the loss (1e-5), every gradient (the
+    deformable convolutions' offsets and mask included; phase 38's rule
+    against the CPU's f64 run), one Momentum step, and the detections,
+    equal but for near ties (within 1e-5) that the row names;
+49. the other ``vision.ops`` functions card against CPU at realistic
+    sizes (roi_align with 512 RoIs on a (2, 256, 200, 272) FPN level,
+    prior_box / box_coder / ssd_loss over SSD300's 8,732 priors,
+    generate_proposals to 2,000 RoIs, rpn_target_assign and
+    generate_proposal_labels with their seeded samples equal,
+    matrix_nms at SOLOv2's widths; roi_align also against the CPU's f64
+    run), and a ResNet-style transforms
+    ``Compose`` over an ``ImageFolder`` of seeded .npy images (images/s).
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -578,7 +619,18 @@ def hopper_report(_build):
     return {"sass_checked": cuobjdump is not None, "hopper_kernels": kernels}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's row also carries ``t_s``, the seconds
+    since the script started, so each phase's share of the run shows,
+    ``cpu_s``, the process's CPU seconds (all threads) so far, and
+    ``threads``, its live Python threads."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START,
+                   cpu_s=time.process_time(),
+                   threads=threading.active_count())
     print(json.dumps(obj), flush=True)
 
 
@@ -2231,21 +2283,33 @@ def bert_fused_model(paddle, composed):
     heads = composed.encoder.layers[0].self_attn.num_heads
 
     class FusedEncoderLayer(nn.Layer):
+        """The LayerNorm scales and biases live in ``nn.LayerNorm``
+        sublayers, as the composed layer's do, so ``amp.decorate(level=
+        "O2")`` keeps them f32 in both models."""
+
         def __init__(self, src):
             super().__init__()
-            for name, value in fused_layer_params(paddle, src).items():
-                p = self.create_parameter(value.shape,
-                                          is_bias=len(value.shape) == 1)
+            params = fused_layer_params(paddle, src)
+            hidden = params["ln1_w"].shape[0]
+            self.norm1, self.norm2 = nn.LayerNorm(hidden), nn.LayerNorm(hidden)
+            for name, value in params.items():
+                if name.startswith("ln"):
+                    norm = self.norm1 if name[2] == "1" else self.norm2
+                    p = norm.weight if name.endswith("w") else norm.bias
+                else:
+                    p = self.create_parameter(value.shape,
+                                              is_bias=len(value.shape) == 1)
+                    setattr(self, name, p)
                 p.set_value(value)
-                setattr(self, name, p)
 
         def forward(self, x):
+            n1, n2 = self.norm1, self.norm2
             x = paddle.ops.fused_multi_head_attention(
                 x, self.qkv_w, self.qkv_b, self.out_w, self.out_b,
-                self.ln1_w, self.ln1_b, heads, pre_layer_norm=False)
+                n1.weight, n1.bias, heads, pre_layer_norm=False)
             return paddle.ops.fused_feedforward(
-                x, self.w1, self.b1, self.w2, self.b2, self.ln2_w,
-                self.ln2_b, pre_layer_norm=False, activation="gelu")
+                x, self.w1, self.b1, self.w2, self.b2, n2.weight, n2.bias,
+                pre_layer_norm=False, activation="gelu")
 
     class FusedBertLM(nn.Layer):
         def __init__(self):
@@ -2702,14 +2766,14 @@ def spec_identity_phase(dev, stamp):
     return rows
 
 
-def _launches_per_tick(make_engine, prompts, ticks=10):
+def _launches_per_tick(make_engine, prompts, ticks=4):
     """Device kernels launched per decode tick of a live engine, from
     torch.profiler over ``ticks`` ticks once every request has its first
     token (prefill done): every kernel of the tick, the PyTorch ones
-    included. The profiler starts and stops on the scheduler thread,
-    around its own ticks (profiling it from another thread while it
-    launches crashed the process on the card). None when the trace holds
-    no device kernel."""
+    included, averaged over the ticks. The profiler starts and stops on
+    the scheduler thread, around its own ticks (profiling it from
+    another thread while it launches crashed the process on the card).
+    None when the trace holds no device kernel."""
     from paddle_tpu_torch.tools.profile_decode import _device_us
 
     eng = make_engine()
@@ -3179,7 +3243,7 @@ def watchdog_phase(dev, cfg, params, mods, stamp, flight_dir):
     # memory beside the paged restart's
     tick = {"armed": [], "unarmed": []}
     unarmed_peak = []
-    for armed in (False, True, True, False, False, True):
+    for armed in (False, True, True, False):
         _fresh_peak(dev)
         h0 = get_histogram("serving_decode_tick_ms").snapshot()
         eng = InferenceEngine(cfg, params, n_slots=8, paged=True, seed=5,
@@ -7182,6 +7246,1339 @@ def fleet_process_phase(dev, stamp):
     return row
 
 
+# --------------------------------------------------------------------------
+# phases 47-49: BERT-base under amp O2 through jit.TrainStep;
+# PaddleDetection's YOLOv3-R50vd-DCN trained through jit.TrainStep and
+# decoded on the card; the vision.ops sweep and the transforms pipeline
+# --------------------------------------------------------------------------
+
+# PaddleDetection release/2.x configs/yolov3/yolov3_r50vd_dcn_270e_coco.yml
+# (_base_/yolov3_r50vd_dcn.yml, optimizer_270e.yml): the anchors, each
+# level's mask and stride (deepest first), the loss's ignore threshold,
+# the decode's yolo_box and MultiClassNMS settings, the optimizer
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_MASKS = [[6, 7, 8], [3, 4, 5], [0, 1, 2]]
+YOLO_DOWNSAMPLE = [32, 16, 8]
+YOLO_IGNORE = 0.7
+YOLO_DECODE = {"conf_thresh": 0.005, "score_threshold": 0.01,
+               "nms_top_k": 1000, "keep_top_k": 100, "nms_threshold": 0.45}
+# a detection row kept on both sides: (label, score, corners) within this
+# of the row's largest value (the corners are pixels up to the image side)
+DETECTION_ROW_REL = 1e-4
+YOLO_LR = {"base": 1e-3, "warmup_steps": 4000, "milestones": [216, 243],
+           "momentum": 0.9, "l2": 5e-4}
+
+
+# phase 48b (and tests/test_torch_yolov3.py): the same network narrow
+# (width 8), one block a stage, two levels (strides 32 and 16), four
+# classes, batch 2 at 64x64 with up to 6 gt boxes an image; the
+# deformable convolutions' offset convolutions get seeded weights (std
+# YOLO_SMALL_OFFSET_STD) in place of their zero initialisation, so the
+# sampling points move (by 0.6 px on average, 2.4 at most, on the
+# test's batch) and their gradients are exercised. At std 0.5 the
+# offsets reach tens of pixels, and the f32 gradients then differ from
+# an f64 run by up to 13% of a leaf's largest value at 128x128 (5.6e-5
+# at std 0.05)
+YOLO_SMALL = {"num_classes": 4, "width": 8, "depth": (1, 1, 1, 1),
+              "levels": 2}
+YOLO_SMALL_BATCH = {"batch": 2, "side": 64, "max_boxes": 6}
+YOLO_SMALL_OFFSET_STD = 0.05
+
+
+def yolov3_small_state(model, seed):
+    """``model``'s state dict as numpy, the offset convolutions' weights
+    and biases drawn from a seeded normal (YOLO_SMALL_OFFSET_STD)."""
+    rng = np.random.default_rng(seed)
+    state = {k: np.asarray(v.numpy()) for k, v in model.state_dict().items()}
+    for k, v in state.items():
+        if "conv_offset" in k:
+            state[k] = (rng.normal(size=v.shape)
+                        * YOLO_SMALL_OFFSET_STD).astype(v.dtype)
+    return state
+
+
+def yolov3_model(paddle, num_classes=80, width=64, depth=(3, 4, 6, 3),
+                 levels=3):
+    """PaddleDetection's YOLOv3 with a ResNet-50-vd-DCN backbone, built
+    from the Paddle surface of either package (``paddle_tpu`` or
+    ``paddle_tpu_torch``). Backbone: the deep stem (3x3 convolutions of
+    width/2, width/2 and width channels, then a 3x3 max pool), bottleneck
+    stages of ``depth`` blocks with stride 2 on the 3x3 (variant d: a
+    downsampling shortcut is AvgPool2D(2, 2, ceil_mode=True) then a 1x1
+    convolution), the last stage's 3x3s DCNv2 (``vision.ops
+    .DeformConv2D`` with a mask; offsets and mask from a 3x3 convolution
+    with 27 outputs, zero-initialised); BatchNorm2D for sync_bn, with no
+    L2 decay on its scale and bias (norm_decay 0). The last ``levels``
+    stages feed YOLOv3FPN: detection blocks of 8·width/2^i channels
+    alternating 1x1 and 3x3 convolutions (batch norm, leaky ReLU 0.1),
+    each route a 1x1 convolution upsampled x2 (nearest) and concatenated
+    before the next finer level; each level's head a 1x1 convolution to
+    3·(5 + num_classes) channels. ``forward`` returns the heads' outputs,
+    deepest level first. Full size: width 64, depth (3, 4, 6, 3), 3
+    levels."""
+    nn = paddle.nn
+    F = nn.functional
+    no_decay = lambda: paddle.ParamAttr(
+        regularizer=paddle.regularizer.L2Decay(0.0))
+
+    class ConvBN(nn.Layer):
+        def __init__(self, cin, cout, k, stride=1, act="relu"):
+            super().__init__()
+            self.conv = nn.Conv2D(cin, cout, k, stride=stride,
+                                  padding=(k - 1) // 2, bias_attr=False)
+            self.bn = nn.BatchNorm2D(cout, weight_attr=no_decay(),
+                                     bias_attr=no_decay())
+            self.act = act
+
+        def forward(self, x):
+            y = self.bn(self.conv(x))
+            if self.act == "relu":
+                return F.relu(y)
+            return F.leaky_relu(y, 0.1) if self.act == "leaky" else y
+
+    class DeformBN(nn.Layer):
+        """DeformableConvV2 + batch norm + ReLU."""
+
+        def __init__(self, cin, cout, stride):
+            super().__init__()
+            zero = paddle.ParamAttr(
+                initializer=paddle.nn.initializer.Constant(0.0))
+            self.conv_offset = nn.Conv2D(cin, 27, 3, stride=stride,
+                                         padding=1, weight_attr=zero,
+                                         bias_attr=zero)
+            self.conv = paddle.vision.ops.DeformConv2D(
+                cin, cout, 3, stride=stride, padding=1, bias_attr=False)
+            self.bn = nn.BatchNorm2D(cout, weight_attr=no_decay(),
+                                     bias_attr=no_decay())
+
+        def forward(self, x):
+            offset, mask = paddle.split(self.conv_offset(x), [18, 9], axis=1)
+            return F.relu(self.bn(self.conv(x, offset, F.sigmoid(mask))))
+
+    class Bottleneck(nn.Layer):
+        def __init__(self, cin, planes, stride, dcn):
+            super().__init__()
+            self.conv1 = ConvBN(cin, planes, 1)
+            self.conv2 = (DeformBN(planes, planes, stride) if dcn
+                          else ConvBN(planes, planes, 3, stride))
+            self.conv3 = ConvBN(planes, planes * 4, 1, act=None)
+            self.pool = (nn.AvgPool2D(2, 2, ceil_mode=True) if stride == 2
+                         else None)
+            self.short = (ConvBN(cin, planes * 4, 1, act=None)
+                          if cin != planes * 4 or stride != 1 else None)
+
+        def forward(self, x):
+            y = self.conv3(self.conv2(self.conv1(x)))
+            if self.short is not None:
+                x = self.short(x if self.pool is None else self.pool(x))
+            return F.relu(y + x)
+
+    class DetBlock(nn.Layer):
+        def __init__(self, cin, ch):
+            super().__init__()
+            self.convs = nn.LayerList([
+                ConvBN(cin, ch, 1, act="leaky"),
+                ConvBN(ch, 2 * ch, 3, act="leaky"),
+                ConvBN(2 * ch, ch, 1, act="leaky"),
+                ConvBN(ch, 2 * ch, 3, act="leaky"),
+                ConvBN(2 * ch, ch, 1, act="leaky")])
+            self.tip = ConvBN(ch, 2 * ch, 3, act="leaky")
+
+        def forward(self, x):
+            for conv in self.convs:
+                x = conv(x)
+            return x, self.tip(x)
+
+    class YOLOv3(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.stem = nn.Sequential(
+                ConvBN(3, width // 2, 3, stride=2),
+                ConvBN(width // 2, width // 2, 3),
+                ConvBN(width // 2, width, 3),
+                nn.MaxPool2D(3, 2, padding=1))
+            stages, cin = [], width
+            for s, n in enumerate(depth):
+                planes = width * 2 ** s
+                blocks = []
+                for b in range(n):
+                    blocks.append(Bottleneck(
+                        cin, planes, 2 if (b == 0 and s > 0) else 1,
+                        dcn=s == len(depth) - 1))
+                    cin = planes * 4
+                stages.append(nn.Sequential(*blocks))
+            self.stages = nn.LayerList(stages)
+            chans = [width * 4 * 2 ** s for s in range(len(depth))][::-1]
+            self.blocks, self.routes, self.heads = (
+                nn.LayerList(), nn.LayerList(), nn.LayerList())
+            for i in range(levels):
+                ch = 8 * width // 2 ** i
+                cin = chans[i] + (ch if i else 0)
+                self.blocks.append(DetBlock(cin, ch))
+                self.heads.append(nn.Conv2D(2 * ch, 3 * (5 + num_classes),
+                                            1))
+                if i < levels - 1:
+                    self.routes.append(ConvBN(ch, ch // 2, 1, act="leaky"))
+
+        def forward(self, x):
+            x = self.stem(x)
+            feats = []
+            for stage in self.stages:
+                x = stage(x)
+                feats.append(x)
+            outs, route = [], None
+            for i, feat in enumerate(feats[::-1][:levels]):
+                if i:
+                    feat = paddle.concat([route, feat], axis=1)
+                route, tip = self.blocks[i](feat)
+                outs.append(self.heads[i](tip))
+                if i < levels - 1:
+                    route = F.interpolate(self.routes[i](route),
+                                          scale_factor=2, mode="nearest")
+            return outs
+
+    return YOLOv3()
+
+
+def yolov3_loss(paddle, outs, gt_box, gt_label, num_classes):
+    """YOLOv3Loss over the levels (deepest first): ``vision.ops
+    .yolo_loss`` per level with the config's anchors, masks, strides and
+    ignore threshold, no label smoothing, summed over the levels and
+    averaged over the images."""
+    total = None
+    for i, out in enumerate(outs):
+        loss = paddle.vision.ops.yolo_loss(
+            out, gt_box, gt_label, YOLO_ANCHORS, YOLO_MASKS[i], num_classes,
+            YOLO_IGNORE, YOLO_DOWNSAMPLE[i], use_label_smooth=False)
+        total = loss if total is None else total + loss
+    return paddle.mean(total)
+
+
+def yolov3_boxes(paddle, outs, im_size, num_classes):
+    """The heads' outputs decoded by ``yolo_box`` per level (the config's
+    conf_thresh, clip_bbox) and concatenated: (boxes [N, M, 4], scores
+    [N, num_classes, M])."""
+    boxes, scores = [], []
+    for i, out in enumerate(outs):
+        anchors = [a for k in YOLO_MASKS[i]
+                   for a in YOLO_ANCHORS[2 * k:2 * k + 2]]
+        b, s = paddle.vision.ops.yolo_box(
+            out, im_size, anchors, num_classes, YOLO_DECODE["conf_thresh"],
+            YOLO_DOWNSAMPLE[i], clip_bbox=True)
+        boxes.append(b)
+        scores.append(s)
+    return (paddle.concat(boxes, axis=1),
+            paddle.transpose(paddle.concat(scores, axis=1), [0, 2, 1]))
+
+
+def yolov3_nms(paddle, boxes, scores):
+    """MultiClassNMS with the config's settings (no background class):
+    (rows [K, 6], kept per image [N], flat indices [K])."""
+    d = YOLO_DECODE
+    return paddle.vision.ops.multiclass_nms(
+        boxes, scores, score_threshold=d["score_threshold"],
+        nms_top_k=d["nms_top_k"], keep_top_k=d["keep_top_k"],
+        nms_threshold=d["nms_threshold"], background_label=-1,
+        return_index=True)
+
+
+def yolov3_batch(rng, batch, side, num_classes, max_boxes=50):
+    """A seeded batch: images [N, 3, side, side] f32, up to ``max_boxes``
+    gt boxes an image (cx, cy, w, h in [0, 1]; the unused rows zero),
+    labels [N, max_boxes] int32 and im_size [N, 2] int32."""
+    images = rng.normal(size=(batch, 3, side, side)).astype("float32")
+    boxes = np.zeros((batch, max_boxes, 4), np.float32)
+    labels = np.zeros((batch, max_boxes), np.int32)
+    for n in range(batch):
+        k = int(rng.integers(max_boxes // 5, max_boxes + 1))
+        wh = rng.uniform(0.02, 0.6, (k, 2))
+        cxy = rng.uniform(wh / 2, 1 - wh / 2)
+        boxes[n, :k] = np.concatenate([cxy, wh], 1)
+        labels[n, :k] = rng.integers(0, num_classes, k)
+    im_size = np.full((batch, 2), side, np.int32)
+    return images, boxes, labels, im_size
+
+
+def detections_agree(want, got, boxes_want, scores_want, tol=1e-5):
+    """Two ``yolov3_nms`` results for the same image batch: equal where
+    no near tie decides them. ``want``/``got`` are (rows, nums, index)
+    numpy triples; ``boxes_want`` [N, M, 4] and ``scores_want`` [N, C, M]
+    the reference side's decoded candidates. Rows kept on both sides
+    agree within ``tol`` (max |Δ| over the row's score and corners, the
+    corners relative to the image side); a row kept on one side only, or
+    a change of order, is admitted only at a near tie that the result
+    names: its score within ``tol`` of another kept score, of the score
+    threshold or of the last kept score of its image, or its IoU with a
+    kept box of its class within ``tol`` of the NMS threshold. Returns
+    (ok, ties, the rows' largest difference relative to the row's
+    largest value, which must be at most DETECTION_ROW_REL)."""
+    (wr, wn, wi), (gr, gn, gi) = want, got
+    d = YOLO_DECODE
+    ties, err, ok = [], 0.0, True
+    wstart = np.concatenate([[0], np.cumsum(wn)])
+    gstart = np.concatenate([[0], np.cumsum(gn)])
+    M = boxes_want.shape[1]
+    for n in range(len(wn)):
+        a = {(int(r[0]), int(i)): r for r, i in zip(
+            wr[wstart[n]:wstart[n + 1]], wi[wstart[n]:wstart[n + 1]])}
+        b = {(int(r[0]), int(i)): r for r, i in zip(
+            gr[gstart[n]:gstart[n + 1]], gi[gstart[n]:gstart[n + 1]])}
+        for key in a.keys() & b.keys():
+            err = max(err, float(np.abs(a[key] - b[key]).max()
+                                 / max(1.0, np.abs(a[key]).max())))
+        kept = sorted(a.values(), key=lambda r: -r[1])
+        last = kept[-1][1] if kept else d["score_threshold"]
+        scores = np.asarray([r[1] for r in kept])
+        for key in a.keys() ^ b.keys():
+            c, flat = key
+            i = flat - n * M
+            s = float(scores_want[n, c, i])
+            near = (abs(s - d["score_threshold"]) <= tol
+                    or abs(s - last) <= tol
+                    or np.sum(np.abs(scores - s) <= tol) > 1)
+            same = [r for r in kept if int(r[0]) == c]
+            for r in same:
+                x1 = np.maximum(r[2:4], boxes_want[n, i, :2])
+                x2 = np.minimum(r[4:6], boxes_want[n, i, 2:])
+                inter = np.prod(np.clip(x2 - x1, 0, None))
+                area = lambda q: np.prod(q[2:] - q[:2])
+                iou = inter / (area(r[2:6]) + area(boxes_want[n, i])
+                               - inter + 1e-10)
+                near = near or abs(iou - d["nms_threshold"]) <= tol
+            ties.append({"image": n, "class": c, "box": int(i),
+                         "score": s, "near_tie": bool(near)})
+            ok = ok and near
+        order_a = [k for k in sorted(a, key=lambda k: -a[k][1]) if k in b]
+        order_b = [k for k in sorted(b, key=lambda k: -b[k][1]) if k in a]
+        for ka, kb in zip(order_a, order_b):
+            if ka != kb:
+                near = abs(a[ka][1] - a[kb][1]) <= tol
+                ties.append({"image": n, "swapped": [list(ka), list(kb)],
+                             "scores": [float(a[ka][1]), float(a[kb][1])],
+                             "near_tie": bool(near)})
+                ok = ok and near
+    return ok and err <= DETECTION_ROW_REL, ties, err
+
+
+# phase 47a: rows 4-7 at the shapes and dtypes phase 47's fused O2 step
+# gives them, against their plain versions on the same inputs: the
+# post-LN feed-forward's LN-MLP (bf16, R 32 x 512, H 768, M 3072, gelu,
+# no input LayerNorm, no residual) forward, backward and dW2 within
+# FMLP_TOL; its add-LN (bf16 x and y, the f32 scale and bias that O2
+# keeps) within ADDLN_TOL; AdamW over a bucket of BERT-base's bf16
+# parameters with f32 moments and bf16 gradients (the multi_precision
+# bucket, in fused_update_from_slots' eager form) bit-identical
+BERT_O2_R = BERT_BATCH * 512
+# phase 47: phase 24's BERT-base, inputs and seed under amp O2 (decorate +
+# auto_cast, bf16; the LayerNorms f32), AdamW(1e-4, weight_decay 0.01,
+# multi_precision=True) through jit.TrainStep: BERT_O2_WARM calls (the
+# first eager, then the capture), BERT_O2_K replays with one host read,
+# one profiled replay. The first 3 losses against phase 24's f32 losses
+# from the same weights, relative: the O2 loss is a bf16 value of ~10.4,
+# where one bf16 step is 0.0625 (6.0e-3 of it); the bound is that step
+# and the activations' rounding through 12 layers (the first card run
+# read 1.8e-3). The loss at initialization sits near ln(vocab) whatever
+# the hidden states, so this is a sanity check: phase 47a holds the
+# kernels and phase 47b the gradients
+BERT_O2_WARM, BERT_O2_K = 3, 10
+BERT_O2_LOSS_REL = 1e-2
+# phase 47b: the same at 2 layers and batch 2, card against CPU. (1) The
+# first step's gradients (read from the f32 first moments after the
+# first TrainStep call, eager and row 7 on the card: m1 = (1 - β1) g;
+# the CPU's f32 gradients from one forward and backward of the f32
+# model), per leaf in f32 norms: ||g - g_ref|| over the larger of
+# ||g_ref|| and BERT_O2_GRAD_FLOOR of the whole gradient's norm (the key
+# projections' biases have an exact gradient of 0: softmax does not see
+# a shift shared by every key). The card's and the CPU's O2 gradients
+# each within BERT_O2_GRAD_REL of the CPU's f32 gradients: bf16's unit
+# roundoff is 2^-9 and the bound is 16 of them (the CPU's O2 run read
+# 1.4e-2 of its f32 run at this width and tests/test_torch_bert_o2.py
+# 1.5e-2 at hidden 64); card against CPU within twice that. (2) After
+# the first TrainStep call, each parameter within one rounding of its
+# value (torch.finfo's eps: 2^-7 bf16, 2^-23 f32, at least one ulp over
+# the value) plus lr, or 2 lr where the two first moments differ in
+# sign: the first AdamW step moves a parameter by lr m/(sqrt(v) + eps)
+# = lr g/(|g| + 3.2e-7), between 0 and lr in the sign of g. (3) The 3
+# TrainStep losses (the card's second call is its capture, its third a
+# replay) within 2^-7 relative: one bf16 step at ~10.4
+BERT_O2_GRAD_REL, BERT_O2_GRAD_FLOOR = 2.0 ** -5, 2e-2
+BERT_O2_CHECK_REL = 2.0 ** -7
+# phase 48: PaddleDetection's YOLOv3-R50vd-DCN at its published input,
+# batch 8 per card at 608x608 f32 (fixed, not multi-scale), 50 gt boxes
+# an image at most; YOLO_EAGER uncaptured steps, then YOLO_WARM calls of
+# the captured step (the first eager, then the capture) and YOLO_K
+# replays; the first captured losses against the uncaptured ones from
+# the same weights, relative (the same kernels on the same inputs; only
+# cuDNN's choice of algorithm may differ between the two)
+YOLO_BATCH, YOLO_SIDE = 8, 608
+YOLO_EAGER, YOLO_WARM, YOLO_K = 3, 3, 20
+YOLO_CAPTURE_LOSS_REL = 1e-4
+# the lr schedule's milestones in iterations: 216 and 243 epochs of
+# COCO train2017 (117,266 images) at 8 cards x 8 images
+YOLO_ITERS_PER_EPOCH = 117266 // 64
+# phase 48b: the small detector card against CPU: the loss relative; each
+# gradient (the deformable convolutions' offsets and mask included) held
+# by phase 38's rule against the CPU's f64 run (the card within
+# "grad_vs_f64" times the CPU f32 run's distance from f64, or within
+# "grad_floor" of the leaf's largest value); each parameter after one
+# Momentum step within "step" of its largest value plus lr times the
+# gradient's difference
+YOLO_CHECK_TOL = {"loss": 1e-5, "grad_vs_f64": 3.0, "grad_floor": 1e-5,
+                  "step": 1e-5}
+# phase 49: every other vision.ops function card against CPU from the
+# same numpy inputs: f32 outputs and gradients as max |Δ| / max |CPU|
+# within 1e-5 (the same formulas, summed in another order); host ops
+# (prior boxes, proposals, the samplers) and index outputs exactly.
+# roi_align is also run on the CPU in f64 (on the RoIs whose sample
+# counts f32 and f64 agree on; its gradients only where they read over
+# 1e-5): its output or its gradient holds if the card's distance from
+# that f64 run is within VISION_OPS_VS_F64 times the CPU f32 run's
+# (phase 48b's rule). Its sampling points lie up to 272 px from the
+# origin, where an f32 coordinate's last bit is 3e-5 px, so a coordinate
+# rounded another way moves a sample by the feature's slope times that:
+# three card runs read its output 1.77e-5 from the CPU's (its gradients
+# 9.9e-6), and the witness read the card's and the CPU's f32 outputs
+# each 1.64e-5 from the f64 run's (gradients 1.02e-5 both): both f32
+# runs round, neither is the odd one
+VISION_OPS_TOL = 1e-5
+VISION_OPS_VS_F64 = 3.0
+# roi_align on one FPN P2 level of an 800x1088 image (stride 4): RoIs of
+# sqrt(area) below 112 px (the sizes distribute_fpn_proposals sends to
+# P2; each side at most 112 px, so at most 4x4 samples a bin), 7x7,
+# adaptive sampling (PaddleDetection's sampling_ratio 0)
+ROI_SHAPE, ROI_COUNT = (2, 256, 200, 272), 512
+# SSD300 (PaddleDetection ssd_vgg16_300_240e_voc): six feature maps, 8732
+# priors, 21 classes, batch 8
+SSD_FEATS = (38, 19, 10, 5, 3, 1)
+SSD_MIN = (30.0, 60.0, 111.0, 162.0, 213.0, 264.0)
+SSD_MAX = (60.0, 111.0, 162.0, 213.0, 264.0, 315.0)
+SSD_RATIOS = ((2.0,), (2.0, 3.0), (2.0, 3.0), (2.0, 3.0), (2.0,), (2.0,))
+SSD_STEPS = (8.0, 16.0, 32.0, 64.0, 100.0, 300.0)
+SSD_BATCH, SSD_CLASSES = 8, 21
+# Faster R-CNN's RPN (C4, stride 16) on an 800x1088 image: 15 anchors a
+# cell, 12000 pre-NMS and 2000 post-NMS proposals (training), 256 anchors
+# sampled an image, 512 RoIs sampled an image
+RPN_FEAT, RPN_SIZES, RPN_RATIOS = (50, 68), (32.0, 64.0, 128.0, 256.0,
+                                             512.0), (0.5, 1.0, 2.0)
+RPN_PRE, RPN_POST = 12000, 2000
+# SOLOv2's matrix NMS widths: 500 candidates an image, 80 classes,
+# gaussian decay (sigma 2), update threshold 0.05, 100 kept
+MATRIX_NMS = {"M": 500, "C": 80, "N": 2}
+# the transforms pipeline: a ResNet-style train Compose over an
+# ImageFolder of seeded 375x500 .npy images (ImageNet's typical size)
+PIPE_IMAGES, PIPE_HW = 64, (375, 500)
+
+
+def _bert_o2_leaves(cfg):
+    """The shapes of BERT-base's parameters that amp O2 casts to bf16 (all
+    but the LayerNorms'), as ``bert_model`` holds them."""
+    V, H, M, S = cfg["vocab"], cfg["hidden"], cfg["ffn"], cfg["seq"]
+    layer = [(H, H), (H,)] * 4 + [(H, M), (M,), (M, H), (H,)]
+    return [(V, H), (S, H)] + layer * cfg["layers"] + [(H, V), (V,)]
+
+
+def bert_o2_kernels_phase(dev, fk, fo, stamp):
+    """Phase 47a: rows 4-7 at phase 47's fused O2 shapes and dtypes
+    against their plain versions (``BERT_O2_R`` above)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(147)
+    n = lambda *sh, sc=1.0: torch.randn(sh, generator=gen, device=dev) * sc
+    bf = torch.bfloat16
+    R, H, M = BERT_O2_R, BERT_BASE["hidden"], BERT_BASE["ffn"]
+    x, dy = n(R, H).to(bf), n(R, H).to(bf)
+    w1, w2 = n(H, M, sc=0.02).to(bf), n(M, H, sc=0.02).to(bf)
+    b1, b2 = n(M, sc=0.02).to(bf), n(H, sc=0.02).to(bf)
+    # fused_ln_mlp(ln_scale=None) passes an f32 unit scale and zero bias
+    lns = torch.ones(H, device=dev)
+    lnb = torch.zeros(H, device=dev)
+    fargs = (x, lns, lnb, w1, b1, w2, b2, None, None, "gelu", False, False,
+             1e-5)
+    y, _, _ = fk._fmlp_forward(*fargs)
+    y_ref, mu, rstd = fk._fmlp_forward_reference(*fargs)
+    bargs = (x, lns, lnb, w1, b1, w2, None, None, mu, rstd, dy, "gelu",
+             False, False)
+    names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+    got = dict(zip(names, fk._fmlp_backward(*bargs)))
+    want = dict(zip(names, fk._fmlp_backward_reference(*bargs)))
+    a = fk._act(fk._mm32(x, w1) + b1.float(), "gelu").to(bf)
+    dw2, dw2_ref = fk._launch_dw2(a, dy), fk._mm32(a.t(), dy)
+    torch.cuda.synchronize()
+    rhm = R * H * M
+    # no LayerNorm: read x, W1, b1, W2, b2; write y. Backward: read x, dy,
+    # W1, b1, W2; write dx, dW1, dW2 (f32), db1, db2
+    fb = bound(4 * rhm, (2 * R * H + 2 * H * M + M + H) * 2, bf)
+    bb = bound(8 * rhm, (3 * R * H + 2 * H * M + M) * 2
+               + 4 * (2 * H * M + M + H), bf)
+    db = bound(2 * rhm, (R * M + R * H) * 2 + 4 * M * H, bf)
+    mlp = {"R": R, "H": H, "M": M, "dtype": "bfloat16", "act": "gelu",
+           "ln": False, "residual": False,
+           "max_rel_err_y": _rel(y, y_ref),
+           "max_abs_err_y": (y.float() - y_ref.float()).abs().max().item(),
+           "max_rel_err_grads": {k: _rel(got[k], want[k]) for k in
+                                 ("dx", "dw1", "db1", "dw2", "db2")},
+           "max_abs_err_grads": {k: (got[k].float() - want[k].float())
+                                 .abs().max().item() for k in
+                                 ("dx", "dw1", "db1", "dw2", "db2")},
+           "max_rel_err_dw2": _rel(dw2, dw2_ref),
+           "max_abs_err_dw2": (dw2 - dw2_ref).abs().max().item(),
+           "tol_rel": FMLP_TOL[bf],
+           "fwd_ms": time_ms(lambda: fk._fmlp_forward(*fargs)),
+           "fwd_plain_ms": time_ms(
+               lambda: fk._fmlp_forward_reference(*fargs), max_reps=10),
+           "fwd_bound_ms": fb[0], "fwd_bound_by": fb[1],
+           "bwd_ms": time_ms(lambda: fk._fmlp_backward(*bargs)),
+           "bwd_plain_ms": time_ms(
+               lambda: fk._fmlp_backward_reference(*bargs), max_reps=10),
+           "bwd_bound_ms": bb[0], "bwd_bound_by": bb[1],
+           "dw2_ms": time_ms(lambda: fk._launch_dw2(a, dy)),
+           "dw2_plain_ms": time_ms(lambda: fk._mm32(a.t(), dy)),
+           "dw2_bound_ms": db[0], "dw2_bound_by": db[1]}
+    del got, want, dw2, dw2_ref, a
+    # the add-LN after it: LN(x + mlp) with the O2 LayerNorm's f32 params
+    s, b = 1.0 + n(H, sc=0.1), n(H, sc=0.1)
+    out, mu, rstd = fk._addln_launch_fwd(x, y, s, b, 1e-5)
+    out_ref, mu_ref, rstd_ref = fk._addln_forward_reference(x, y, s, b, 1e-5)
+    g_b = fk._addln_launch_bwd(x, y, s, mu_ref, rstd_ref, dy)
+    w_b = fk._addln_backward_reference(x, y, s, mu_ref, rstd_ref, dy)
+    torch.cuda.synchronize()
+    addln = {"R": R, "H": H, "dtype": "bfloat16", "scale_dtype": "float32",
+             "max_rel_err": {k: _rel(g, w) for k, g, w in zip(
+                 ("out", "mu", "rstd", "dx", "ds", "db"),
+                 (out, mu, rstd) + g_b, (out_ref, mu_ref, rstd_ref) + w_b)},
+             "max_abs_err_out": (out.float() - out_ref.float()).abs()
+             .max().item(),
+             "max_abs_err_dx": (g_b[0].float() - w_b[0].float()).abs()
+             .max().item(), "tol_rel": ADDLN_TOL[bf]}
+    del x, dy, y, y_ref, out, out_ref, g_b, w_b
+    torch.cuda.empty_cache()
+    # AdamW over the multi_precision bucket: bf16 params, bf16 grads, f32
+    # moments, at step 3's bias corrections
+    ps = [n(*sh, sc=0.02).to(bf) for sh in _bert_o2_leaves(BERT_BASE)]
+    gs = [n(*p.shape, sc=0.01).to(bf) for p in ps]
+    ms = [n(*p.shape, sc=1e-3) for p in ps]
+    vs = [torch.rand(p.shape, generator=gen, device=dev) * 1e-5 for p in ps]
+    sc = torch.tensor([1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    akw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, l2=0.0,
+               eager_form=True)
+    cp, cm, cv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    fo._bucket_adamw(cp, gs, cm, cv, sc, **akw)
+    torch.cuda.synchronize()
+    err, identical = 0.0, True
+    for i in range(len(ps)):
+        ref = fo._adamw_flat_reference(ps[i], gs[i], ms[i], vs[i], sc[0],
+                                       sc[1], sc[2], **akw)
+        for g, w in zip((cp[i], cm[i], cv[i]), ref):
+            identical &= bool(torch.equal(g, w))
+            err = max(err, (g.float() - w.float()).abs().max().item())
+    nparam = sum(p.numel() for p in ps)
+
+    def plain():
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            fo._adamw_flat_reference(p, g, m, v, sc[0], sc[1], sc[2], **akw)
+
+    # read p, g (bf16), m, v (f32); write p, m, v: 20 B a param
+    ab = bound(15 * nparam, 20 * nparam, torch.float32)
+    adamw = {"leaves": len(ps), "params": nparam, "param_dtype": "bfloat16",
+             "grad_dtype": "bfloat16", "moment_dtype": "float32",
+             "bit_identical": identical, "max_abs_err": err,
+             "ms": time_ms(lambda: fo._bucket_adamw(cp, gs, cm, cv, sc,
+                                                    **akw)),
+             "plain_ms": time_ms(plain, max_reps=3), "bound_ms": ab[0],
+             "bound_by": ab[1]}
+    del ps, gs, ms, vs, cp, cm, cv
+    torch.cuda.empty_cache()
+    ok = {"fused_ln_mlp": max([mlp["max_rel_err_y"], mlp["max_rel_err_dw2"],
+                               *mlp["max_rel_err_grads"].values()])
+          <= FMLP_TOL[bf],
+          "fused_add_ln": max(addln["max_rel_err"].values()) <= ADDLN_TOL[bf],
+          "fused_adamw": identical}
+    row = {"phase": "paddle_bert_o2_kernels", "fused_ln_mlp": mlp,
+           "fused_add_ln": addln, "fused_adamw": adamw, "checks": ok,
+           "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"a kernel disagrees at the O2 shapes: {ok}")
+    return row
+
+
+def _bert_o2_loss_fn(paddle):
+    def loss_fn(run, ids, labels):
+        with paddle.amp.auto_cast(enable=True, level="O2"):
+            out = run(ids)
+        return paddle.nn.functional.cross_entropy(out, labels)
+
+    return loss_fn
+
+
+def bert_o2_phase(dev, mods, stamp, f32_runs):
+    """Phase 47: phase 24's BERT-base (seed 24, batch 32 x 512) under amp
+    O2 through jit.TrainStep, (a) composed with both flags 0 and (b)
+    fused with FLAGS_fused_kernels=1 and FLAGS_fused_optimizer=1 (row 7
+    takes the bf16-param / f32-moment bucket inside the replay)."""
+    import paddle_tpu_torch as paddle
+
+    cfg = BERT_BASE
+    B, S = BERT_BATCH, cfg["seq"]
+    paddle.set_device("gpu")
+    paddle.seed(24)
+    composed = bert_model(paddle, **cfg)
+    fused = bert_fused_model(paddle, composed)
+    rng = np.random.default_rng(24)
+    ids = paddle.to_tensor(rng.integers(0, cfg["vocab"], (B, S)))
+    labels = paddle.to_tensor(rng.integers(0, cfg["vocab"], (B, S)))
+    flags = ("FLAGS_fused_kernels", "FLAGS_fused_optimizer")
+    runs = {}
+    for name, model, on in (("composed", composed, 0), ("fused", fused, 1)):
+        paddle.set_flags({f: on for f in flags})
+        try:
+            paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+            dtypes_ = sorted({str(p.dtype)[6:] for p in model.parameters()})
+            opt = paddle.optimizer.AdamW(
+                learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True)
+            moments = sorted({str(opt._get_slots(p)[0].dtype)[6:]
+                              for p in model.parameters()})
+            _fresh_peak(dev)
+            base_reserved = torch.cuda.memory_reserved(dev)
+            _reset_vision_counts(mods)
+            step = paddle.jit.TrainStep(model, _bert_o2_loss_fn(paddle), opt)
+            t0 = time.perf_counter()
+            warm = [float(step(ids, labels)) for _ in range(BERT_O2_WARM)]
+            warm_s = time.perf_counter() - t0
+            pool_gib = (torch.cuda.memory_reserved(dev)
+                        - base_reserved) / 2**30
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = float(step.steps(BERT_O2_K, ids, labels))
+            replay_ms = (time.perf_counter() - t0) / BERT_O2_K * 1e3
+            prof = _profiled_step(lambda: step(ids, labels), replay_ms)
+            launches = _vision_counts(mods)
+            steps_run = BERT_O2_WARM + BERT_O2_K + 1
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            captures = step.captures
+            del step, opt
+        finally:
+            paddle.set_flags({f: 0 for f in flags})
+        want = f32_runs[name]["losses"][:3]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(warm, want))
+        runs[name] = {
+            "phase": f"train_paddle_bert_o2_{name}", "model": "bert_base",
+            "layers": cfg["layers"], "hidden": cfg["hidden"],
+            "batch": [B, S], "amp": "O2 bfloat16 (LayerNorms f32)",
+            "param_dtypes": dtypes_, "moment_dtypes": moments,
+            "optimizer": "AdamW(lr=1e-4, weight_decay=0.01, "
+                         "multi_precision=True)",
+            "flags": {f: on for f in flags}, "warm_calls": BERT_O2_WARM,
+            "warm_s": warm_s, "k": BERT_O2_K, "replay_ms": replay_ms,
+            "samples_per_s": B / replay_ms * 1e3,
+            "tokens_per_s": B * S / replay_ms * 1e3, **prof,
+            "captures": captures, "graph_pool_gib": pool_gib,
+            "peak_mem_gib": peak, "first_losses": warm,
+            "first_losses_f32_phase24": want, "first_loss_rel_to_f32": rel,
+            "tol_loss_rel": BERT_O2_LOSS_REL, "last_loss": last,
+            "launches": launches, "steps_run": steps_run,
+            "launches_per_step": {k: v / steps_run
+                                  for k, v in launches.items()}}
+        torch.cuda.empty_cache()
+    a, b = runs["composed"], runs["fused"]
+    rows = ("flash_attention_fwd", "flash_attention_bwd",
+            "fused_ln_mlp_fwd", "fused_ln_mlp_bwd", "fused_ln_mlp_bwd_dw2",
+            "fused_add_ln_fwd", "fused_add_ln_bwd", "fused_adamw")
+    ok = {"losses_finite": all(map(math.isfinite, a["first_losses"]
+                                   + b["first_losses"]
+                                   + [a["last_loss"], b["last_loss"]])),
+          "one_capture_each": a["captures"] == b["captures"] == 1,
+          "bf16_params_f32_moments": all(
+              r["param_dtypes"] == ["bfloat16", "float32"]
+              and r["moment_dtypes"] == ["float32"] for r in (a, b)),
+          "first_losses_vs_f32": max(a["first_loss_rel_to_f32"],
+                                     b["first_loss_rel_to_f32"])
+          <= BERT_O2_LOSS_REL,
+          "fused_rows_launched": all(b["launches"][k] > 0 for k in rows),
+          "adamw_each_fused_step": b["launches"]["fused_adamw"]
+          >= b["steps_run"],
+          "composed_takes_flash_only": a["launches"]["flash_attention_fwd"]
+          > 0 and a["launches"]["fused_add_ln_fwd"] == 0
+          and a["launches"]["fused_adamw"] == 0}
+    for run in (a, b):
+        run.update({"checks": ok, "ok": all(ok.values()), **stamp})
+        emit(run)
+    if not all(ok.values()):
+        raise AssertionError(f"BERT O2 phase failed: {ok}")
+    del composed, fused
+    _fresh_peak(dev)
+    return runs
+
+
+def _f32_grads(paddle, model, ids, labels):
+    """One f32 forward and backward of ``model``: each parameter's
+    gradient as an f64 CPU tensor, by name."""
+    paddle.nn.functional.cross_entropy(model(ids), labels).backward()
+    return {k: p.grad._data.detach().double().cpu()
+            for k, p in model.named_parameters()}
+
+
+def _leaf_errs(got, want):
+    """Per leaf ||got - want|| over the larger of ||want|| and
+    BERT_O2_GRAD_FLOOR of the norm of all of ``want``."""
+    total = math.sqrt(sum(float(t.square().sum()) for t in want.values()))
+    floor = BERT_O2_GRAD_FLOOR * total
+    return {k: float((got[k] - w).norm()) / max(float(w.norm()), floor)
+            for k, w in want.items()}
+
+
+def bert_o2_check_phase(dev, stamp, layers=2, batch=2):
+    """Phase 47b: phase 47's O2 model at ``layers`` blocks and ``batch``
+    x 512, composed and fused (flags 1), card (kernels) against the CPU
+    port (plain versions) from the same weights: the first step's
+    gradients (read from the first moments after the first TrainStep
+    call; the CPU's f32 gradients their yardstick), the parameters after
+    that call, and 3 TrainStep losses (the card captured from its second
+    call)."""
+    import paddle_tpu_torch as paddle
+
+    cfg = dict(BERT_BASE, layers=layers)
+    rng = np.random.default_rng(47)
+    ids_np = rng.integers(0, cfg["vocab"], (batch, cfg["seq"]))
+    labels_np = rng.integers(0, cfg["vocab"], (batch, cfg["seq"]))
+    flags = ("FLAGS_fused_kernels", "FLAGS_fused_optimizer")
+    lr = 1e-4
+    out, err = {}, {}
+    try:
+        for form in ("composed", "fused"):
+            paddle.set_flags({f: int(form == "fused") for f in flags})
+            paddle.set_device("cpu")
+            paddle.seed(47)
+            base = bert_model(paddle, **cfg)
+            f32 = base if form == "composed" else bert_fused_model(paddle,
+                                                                   base)
+            state = {k: v.numpy() for k, v in f32.state_dict().items()}
+            t0 = time.perf_counter()
+            g32 = _f32_grads(paddle, f32, paddle.to_tensor(ids_np),
+                             paddle.to_tensor(labels_np))
+            f32_s = time.perf_counter() - t0
+            del base, f32
+            for where in ("cpu", "gpu"):
+                paddle.set_device(where)
+                model = bert_model(paddle, **cfg)
+                if form == "fused":
+                    model = bert_fused_model(paddle, model)
+                model.set_state_dict(state)
+                paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+                opt = paddle.optimizer.AdamW(
+                    learning_rate=lr, weight_decay=0.01,
+                    parameters=model.parameters(), multi_precision=True)
+                t0 = time.perf_counter()
+                ids, labels = (paddle.to_tensor(ids_np),
+                               paddle.to_tensor(labels_np))
+                step = paddle.jit.TrainStep(model, _bert_o2_loss_fn(paddle),
+                                            opt)
+                losses = [float(step(ids, labels))]
+                # each parameter, its first moment and its dtype's
+                # rounding (2^-7 bf16, 2^-23 f32) after one step
+                after = {k: (p._data.detach().double().cpu(),
+                             opt._get_slots(p)[0].detach().double().cpu(),
+                             torch.finfo(p._data.dtype).eps)
+                         for k, p in model.named_parameters()}
+                losses += [float(step(ids, labels)) for _ in range(2)]
+                out[(form, where)] = (losses, time.perf_counter() - t0,
+                                      step.captures, after)
+                del model, opt, step
+            (_, _, _, ac), (_, _, _, ag) = (out[(form, "cpu")],
+                                            out[(form, "gpu")])
+            # the first step's gradients from the first moments,
+            # m1 = (1 - β1) g: row 7 takes (1 - β1) in f32, the eager
+            # update first rounds it to a bf16 gradient's dtype
+            c = {k: 0.1 if form == "fused" or eps < 2.0 ** -7 else float(
+                torch.tensor(0.1).bfloat16()) for k, (_, _, eps) in ac.items()}
+            gc = {k: v[1] / c[k] for k, v in ac.items()}
+            gg = {k: v[1] / c[k] for k, v in ag.items()}
+            step_err, flips, total = 0.0, 0, 0
+            for k, (pc, mc, eps) in ac.items():
+                flip = ag[k][1].sign() != mc.sign()
+                d = ((ag[k][0] - pc).abs() - eps * pc.abs()) / lr \
+                    - flip.double()
+                step_err = max(step_err, float(d.max()))
+                flips += int(flip.sum())
+                total += flip.numel()
+            err[form] = {
+                "losses_rel": max(abs(a - b) / abs(a) for a, b in zip(
+                    out[(form, "cpu")][0], out[(form, "gpu")][0])),
+                "grads_cpu_vs_f32": max(_leaf_errs(gc, g32).values()),
+                "grads_card_vs_f32": max(_leaf_errs(gg, g32).values()),
+                "grads_card_vs_cpu": max(_leaf_errs(gg, gc).values()),
+                # the largest |card - CPU| over all parameters, less one
+                # rounding of |CPU| and, where the two first moments
+                # differ in sign, less lr; in units of lr (at most 1)
+                "params_step1_excess_lr": step_err,
+                "moment1_sign_flips": flips / total,
+                "f32_grads_s": f32_s}
+            del g32
+    finally:
+        paddle.set_flags({f: 0 for f in flags})
+        paddle.set_device("gpu")
+    worst = lambda key: max(e[key] for e in err.values())
+    ok = {"losses": worst("losses_rel") <= BERT_O2_CHECK_REL,
+          "grads_cpu_vs_f32": worst("grads_cpu_vs_f32") <= BERT_O2_GRAD_REL,
+          "grads_card_vs_f32": worst("grads_card_vs_f32")
+          <= BERT_O2_GRAD_REL,
+          "grads_card_vs_cpu": worst("grads_card_vs_cpu")
+          <= 2 * BERT_O2_GRAD_REL,
+          "params_step1": worst("params_step1_excess_lr") <= 1.0,
+          "card_captured": all(out[(f, "gpu")][2] == 1
+                               for f in ("composed", "fused"))}
+    row = {"phase": "paddle_bert_o2_card_vs_cpu", "model": "bert_base",
+           "layers": layers, "batch": [batch, cfg["seq"]],
+           "amp": "O2 bfloat16", "losses": {f"{f}_{w}": v[0]
+                                            for (f, w), v in out.items()},
+           "seconds": {f"{f}_{w}": v[1] for (f, w), v in out.items()},
+           "errors": err, "tol_loss_rel": BERT_O2_CHECK_REL,
+           "tol_grad_rel": BERT_O2_GRAD_REL,
+           "grad_floor_of_total": BERT_O2_GRAD_FLOOR,
+           "checks": ok, "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"BERT O2 card and CPU disagree: {row}")
+    return row
+
+
+def _yolo_optimizer(paddle, model):
+    """optimizer_270e.yml: Momentum 0.9, L2 5e-4, base lr 1e-3 under
+    PiecewiseDecay (x0.1 at epochs 216 and 243) after a linear warm-up
+    from 0 over 4000 iterations."""
+    lr = YOLO_LR
+    sched = paddle.optimizer.lr.LinearWarmup(
+        paddle.optimizer.lr.PiecewiseDecay(
+            [m * YOLO_ITERS_PER_EPOCH for m in lr["milestones"]],
+            [lr["base"], lr["base"] * 0.1, lr["base"] * 0.01]),
+        lr["warmup_steps"], 0.0, lr["base"])
+    opt = paddle.optimizer.Momentum(
+        learning_rate=sched, momentum=lr["momentum"],
+        parameters=model.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(lr["l2"]))
+    return opt, sched
+
+
+def _timed_cuda(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def yolov3_phase(dev, mods, stamp):
+    """Phase 48: PaddleDetection's YOLOv3-R50vd-DCN at full size (80
+    classes, batch 8 at 608x608 f32, random weights and data from seed
+    48) trained through jit.TrainStep with the config's loss and
+    optimizer: YOLO_EAGER uncaptured steps, then from the same weights
+    YOLO_WARM calls of the captured step and YOLO_K replays, one
+    profiled replay; then the model in eval mode on the batch, yolo_box
+    per level, the 22,743 boxes an image concatenated, multiclass_nms."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    paddle.seed(48)
+    C = 80
+    model = yolov3_model(paddle, num_classes=C)
+    n_params = sum(p.size for p in model.parameters())
+    batch = yolov3_batch(np.random.default_rng(48), YOLO_BATCH, YOLO_SIDE, C)
+    images, gt_box, gt_label, im_size = (paddle.to_tensor(a) for a in batch)
+    n_gt = int((batch[1][..., 2] > 0).sum())
+    state = {k: v._data.detach().clone()
+             for k, v in model.state_dict().items()}
+
+    def loss_fn(run, x, gb, gl):
+        return yolov3_loss(paddle, run(x), gb, gl, C)
+
+    _fresh_peak(dev)
+    _reset_vision_counts(mods)
+    opt, sched = _yolo_optimizer(paddle, model)
+    ref = paddle.jit.TrainStep(model, loss_fn, opt, capture=False)
+    ref_losses, eager_ms = [], []
+    for _ in range(YOLO_EAGER):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_losses.append(float(ref(images, gt_box, gt_label)))
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        sched.step()
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del ref, opt, sched
+    model.set_state_dict(state)
+    _fresh_peak(dev)
+    base_reserved = torch.cuda.memory_reserved(dev)
+    opt, sched = _yolo_optimizer(paddle, model)
+    step = paddle.jit.TrainStep(model, loss_fn, opt)
+    t0 = time.perf_counter()
+    warm = []
+    for _ in range(YOLO_WARM):
+        warm.append(float(step(images, gt_box, gt_label)))
+        sched.step()
+    warm_s = time.perf_counter() - t0
+    pool_gib = (torch.cuda.memory_reserved(dev) - base_reserved) / 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = float(step.steps(YOLO_K, images, gt_box, gt_label))
+    replay_ms = (time.perf_counter() - t0) / YOLO_K * 1e3
+    prof = _profiled_step(lambda: step(images, gt_box, gt_label), replay_ms)
+    launches = _vision_counts(mods)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    captures = step.captures
+    rel = max(abs(a - b) / abs(b) for a, b in zip(warm, ref_losses))
+    del step, opt, sched
+    _fresh_peak(dev)
+
+    # inference: eval mode, yolo_box per level, multiclass_nms
+    model.eval()
+    with paddle.no_grad():
+        _timed_cuda(lambda: model(images))              # warm
+        outs, fwd_ms = _timed_cuda(lambda: model(images))
+        (boxes, scores), box_ms = _timed_cuda(
+            lambda: yolov3_boxes(paddle, outs, im_size, C))
+        yolov3_nms(paddle, boxes, scores)               # warm
+        (rows, nums, idx), nms_ms = _timed_cuda(
+            lambda: yolov3_nms(paddle, boxes, scores))
+    model.train()
+    r, nm = rows.numpy(), nums.numpy()
+    M = int(boxes.shape[1])
+    ok = {"losses_finite": all(map(math.isfinite,
+                                   ref_losses + warm + [last])),
+          "one_capture": captures == 1,
+          "first_losses_vs_uncaptured": rel <= YOLO_CAPTURE_LOSS_REL,
+          "no_kernel_row_launched": not any(launches.values()),
+          "boxes_an_image": M == 3 * sum(
+              (YOLO_SIDE // d) ** 2 for d in YOLO_DOWNSAMPLE),
+          "kept_rows": r.shape == (int(nm.sum()), 6)
+          and bool(np.isfinite(r).all())
+          and bool((nm <= YOLO_DECODE["keep_top_k"]).all())
+          and int(nm.sum()) > 0,
+          "labels_in_range": bool(((r[:, 0] >= 0) & (r[:, 0] < C)).all())}
+    row = {"phase": "train_yolov3_r50vd_dcn_trainstep",
+           "model": "PaddleDetection yolov3_r50vd_dcn_270e_coco",
+           "source": "PaddleDetection release/2.x configs/yolov3/"
+                     "yolov3_r50vd_dcn_270e_coco.yml (+ _base_/"
+                     "yolov3_r50vd_dcn.yml, optimizer_270e.yml)",
+           "reduced": ["fixed 608x608 input (not multi-scale 320-608)",
+                       "no mixup or other augmentation",
+                       "random weights and data from seed 48 (no COCO, "
+                       "no ResNet50_vd_ssld weights)"],
+           "params": n_params, "batch": [YOLO_BATCH, 3, YOLO_SIDE,
+                                         YOLO_SIDE],
+           "dtype": "float32", "gt_boxes": n_gt,
+           "optimizer": "Momentum(0.9, L2 5e-4), LinearWarmup(0 -> 1e-3, "
+                        "4000) over PiecewiseDecay",
+           "eager_step_ms": eager_ms,
+           "eager_step_ms_median": float(np.median(eager_ms)),
+           "eager_peak_mem_gib": eager_peak, "warm_calls": YOLO_WARM,
+           "warm_s": warm_s, "k": YOLO_K, "replay_ms": replay_ms,
+           "images_per_s": YOLO_BATCH / replay_ms * 1e3,
+           "graph_pool_gib": pool_gib, "peak_mem_gib": peak, **prof,
+           "captures": captures, "first_losses": warm,
+           "first_losses_uncaptured": ref_losses, "first_loss_rel": rel,
+           "tol_loss_rel": YOLO_CAPTURE_LOSS_REL, "last_loss": last,
+           "launches": launches,
+           "inference": {"forward_ms": fwd_ms, "yolo_box_ms": box_ms,
+                         "boxes_an_image": M, "multiclass_nms_ms": nms_ms,
+                         "nms_where": "device (the candidates' IoU "
+                                      "among each class's nms_top_k)",
+                         "kept_an_image": nm.tolist(),
+                         **{k: YOLO_DECODE[k] for k in YOLO_DECODE}},
+           "checks": ok, "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"YOLOv3 phase failed: {ok}")
+    del model, state, outs, boxes, scores
+    _fresh_peak(dev)
+    return row
+
+
+def yolov3_check_phase(dev, stamp):
+    """Phase 48b: the small detector (YOLO_SMALL, seeded offsets) at
+    batch 2, card against CPU from the same weights and batch (and the
+    CPU in f64 as the gradients' yardstick): the loss, every gradient,
+    each parameter after one Momentum step, and the detections of that
+    forward, equal but for near ties that the row names."""
+    import paddle_tpu_torch as paddle
+
+    C = YOLO_SMALL["num_classes"]
+    batch = yolov3_batch(np.random.default_rng(481), num_classes=C,
+                         **YOLO_SMALL_BATCH)
+    out = {}
+    paddle.set_device("cpu")
+    try:
+        paddle.seed(481)
+        state = yolov3_small_state(yolov3_model(paddle, **YOLO_SMALL), 481)
+        for run, where, dt in (("cpu", "cpu", "float32"),
+                               ("cpu_f64", "cpu", "float64"),
+                               ("card", "gpu", "float32")):
+            paddle.set_device(where)
+            model = yolov3_model(paddle, **YOLO_SMALL)
+            model.set_state_dict(state)
+            model.to(dtype=dt)
+            images, gt_box, gt_label, im_size = (
+                paddle.to_tensor(a, dtype=dt if a.dtype == np.float32
+                                 else None) for a in batch)
+            t0 = time.perf_counter()
+            outs = model(images)
+            loss = yolov3_loss(paddle, outs, gt_box, gt_label, C)
+            loss.backward()
+            grads = {n: p.grad._data.cpu().double()
+                     for n, p in model.named_parameters()}
+            with paddle.no_grad():
+                boxes, scores = yolov3_boxes(paddle, outs, im_size, C)
+                dets = tuple(t.numpy() for t in yolov3_nms(paddle, boxes,
+                                                            scores))
+            opt = paddle.optimizer.Momentum(
+                learning_rate=YOLO_LR["base"], momentum=YOLO_LR["momentum"],
+                parameters=model.parameters(),
+                weight_decay=paddle.regularizer.L2Decay(YOLO_LR["l2"]))
+            opt.step()
+            stepped = {n: p._data.detach().cpu().double()
+                       for n, p in model.named_parameters()}
+            out[run] = {"loss": float(loss), "grads": grads,
+                        "stepped": stepped, "dets": dets,
+                        "boxes": boxes.numpy(), "scores": scores.numpy(),
+                        "s": time.perf_counter() - t0}
+            del model, opt
+    finally:
+        paddle.set_device("gpu")
+    cpu, f64, card = out["cpu"], out["cpu_f64"], out["card"]
+    tol = YOLO_CHECK_TOL
+    g_card = {n: _rel(card["grads"][n], g) for n, g in f64["grads"].items()}
+    g_cpu = {n: _rel(cpu["grads"][n], g) for n, g in f64["grads"].items()}
+    grad_ok = {n: g_card[n] <= max(tol["grad_vs_f64"] * g_cpu[n],
+                                   tol["grad_floor"]) for n in g_card}
+    step_err = {}
+    for n, p in cpu["stepped"].items():
+        lim = (tol["step"] * p.abs().max()
+               + YOLO_LR["base"] * (card["grads"][n]
+                                    - cpu["grads"][n]).abs().max())
+        step_err[n] = float((card["stepped"][n] - p).abs().max()
+                            / max(float(lim), 1e-30))
+    agree, ties, det_err = detections_agree(cpu["dets"], card["dets"],
+                                            cpu["boxes"], cpu["scores"])
+    offsets = [n for n in g_card if "conv_offset" in n]
+    ok = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+          <= tol["loss"],
+          "grads": all(grad_ok.values()),
+          "offset_grads_nonzero": bool(offsets) and all(
+              float(card["grads"][n].abs().max()) > 0 for n in offsets),
+          "momentum_step": max(step_err.values()) <= 1.0,
+          "detections": agree and int(cpu["dets"][1].sum()) > 0}
+    row = {"phase": "yolov3_small_card_vs_cpu", "config": {
+               **YOLO_SMALL, **YOLO_SMALL_BATCH,
+               "offset_std": YOLO_SMALL_OFFSET_STD},
+           "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+           "loss_f64": f64["loss"],
+           "grad_card_vs_f64_max": max(g_card.values()),
+           "grad_cpu_vs_f64_max": max(g_cpu.values()),
+           "grad_card_vs_f64_offsets": {n: g_card[n] for n in offsets},
+           "grad_cpu_vs_f64_offsets": {n: g_cpu[n] for n in offsets},
+           "grads_failing": [n for n, v in grad_ok.items() if not v],
+           "step_err_over_limit_max": max(step_err.values()),
+           "kept_cpu": cpu["dets"][1].tolist(),
+           "kept_card": card["dets"][1].tolist(),
+           "detection_row_rel_err": det_err, "near_ties": ties,
+           "tol": {**tol, "detection_row_rel": DETECTION_ROW_REL},
+           "seconds": {k: v["s"] for k, v in out.items()},
+           "checks": ok, "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"YOLOv3 card and CPU disagree: {ok}")
+    return row
+
+
+def _both(paddle, fn, arrays, grad=(), places=("gpu", "cpu"), f64=False):
+    """``fn(*tensors)`` on the card and on the CPU port from the same
+    numpy arrays: ({"gpu"|"cpu": (outputs as CPU tensors, gradients,
+    ms)}). With ``grad``, the gradients of sum(out[0] · w) for a seeded
+    w with respect to those inputs. ``places`` names where it runs;
+    ``f64`` makes every floating input f64."""
+    res = {}
+    try:
+        for where in places:
+            paddle.set_device(where)
+            ts = [paddle.to_tensor(
+                a, stop_gradient=i not in grad,
+                **({"dtype": "float64"} if f64 and a.dtype.kind == "f"
+                   else {})) for i, a in enumerate(arrays)]
+            if where == "gpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = fn(*ts)
+            outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+            grads = []
+            if grad:
+                w = paddle.to_tensor(np.random.default_rng(49).normal(
+                    size=tuple(outs[0].shape)).astype("float32"))
+                (outs[0] * w).sum().backward()
+                grads = [ts[i].grad._data.cpu() for i in grad]
+            if where == "gpu":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            flat = []
+            for o in outs:
+                flat.extend(o if isinstance(o, list) else [o])
+            res[where] = ([o._data.detach().cpu() for o in flat], grads, ms)
+    finally:
+        paddle.set_device("gpu")
+    return res
+
+
+def _both_err(res, exact=()):
+    """Max |Δ| / max |CPU| over the floating outputs and, apart, over the
+    gradients; and whether the outputs at ``exact`` positions (and every
+    integer output) are equal."""
+    (co, cg, _), (go, gg, _) = res["cpu"], res["gpu"]
+    errs, equal = [0.0, 0.0], True
+    for i, (c, g) in enumerate(zip(co + cg, go + gg)):
+        if tuple(c.shape) != tuple(g.shape):
+            return math.inf, math.inf, False
+        if i in exact or not c.is_floating_point():
+            equal = equal and torch.equal(c, g)
+        elif c.numel():
+            k = int(i >= len(co))
+            errs[k] = max(errs[k], _rel(g, c))
+    return errs[0], errs[1], equal
+
+
+def _f64_dist(run, f64):
+    """Max |Δ| / max |f64| of a run's floating outputs and, apart, of its
+    gradients against the CPU's f64 run of the same function."""
+    (outs, grads, _), (o64, g64, _) = run, f64
+    dist = [0.0, 0.0]
+    for k, (a, b) in enumerate(((outs, o64), (grads, g64))):
+        for t, r in zip(a, b):
+            if t.is_floating_point() and t.numel():
+                dist[k] = max(dist[k], ((t.double() - r.double()).abs().max()
+                                        / r.double().abs().max()).item())
+    return dist
+
+
+def vision_ops_phase(dev, stamp):
+    """Phase 49: the vision.ops functions phases 48 and 48b do not run,
+    card against CPU at realistic sizes (roi_align on an FPN level;
+    prior_box, box_coder and ssd_loss over SSD300's priors;
+    generate_proposals, rpn_target_assign and generate_proposal_labels
+    at Faster R-CNN's training sizes; matrix_nms at SOLOv2's widths),
+    then the ResNet-style transforms pipeline over an ImageFolder."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import ops as V
+
+    rng = np.random.default_rng(49)
+    rows = {}
+
+    def record(name, res, exact=(), witness=None, **extra):
+        """``witness``: (card and CPU f32 runs, the CPU's f64 run) of the
+        same function, for the rule of VISION_OPS_VS_F64."""
+        err, grad_err, equal = _both_err(res, exact)
+        ok_out, ok_grad = err <= VISION_OPS_TOL, grad_err <= VISION_OPS_TOL
+        if witness is not None:
+            dist = {}
+            for side in ("gpu", "cpu"):
+                dist[side] = _f64_dist(witness[0][side], witness[1])
+            extra["vs_f64"] = {"card": dist["gpu"], "cpu_f32": dist["cpu"]}
+            ok_out |= dist["gpu"][0] <= VISION_OPS_VS_F64 * dist["cpu"][0]
+            ok_grad |= dist["gpu"][1] <= VISION_OPS_VS_F64 * dist["cpu"][1]
+        rows[name] = {"max_rel_err": err, "max_rel_err_grad": grad_err,
+                      "exact_equal": equal, "card_ms": res["gpu"][2],
+                      "cpu_ms": res["cpu"][2], "tol_rel": VISION_OPS_TOL,
+                      "ok": ok_out and ok_grad and equal, **extra}
+
+    # roi_align
+    x = rng.normal(size=ROI_SHAPE).astype("float32")
+    side = np.sqrt(rng.uniform(16.0 ** 2, 112.0 ** 2, ROI_COUNT))
+    ar = np.exp(rng.uniform(np.log(0.5), np.log(2.0), ROI_COUNT))
+    w = np.minimum(side * np.sqrt(ar), 112.0)
+    h = np.minimum(side / np.sqrt(ar), 112.0)
+    cx = rng.uniform(w / 2, ROI_SHAPE[3] * 4 - w / 2)
+    cy = rng.uniform(h / 2, ROI_SHAPE[2] * 4 - h / 2)
+    rois = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                    1).astype("float32")
+    num = np.asarray([ROI_COUNT // 2, ROI_COUNT - ROI_COUNT // 2], np.int32)
+
+    def align(x_, b_, n_):
+        return V.roi_align(x_, b_, n_, 7, spatial_scale=0.25,
+                           sampling_ratio=0, aligned=True)
+
+    res = _both(paddle, align, [x, rois, num], grad=(0,))
+    # the f64 witness, on the RoIs whose adaptive sample counts
+    # (ceil(bin size)) f32 and f64 agree on: a side clamped at 112 px
+    # makes a bin of 4 px exactly in f32 but 4 + 1e-7 in f64, 5 samples
+    # where f32 takes 4
+    def bins(dt):
+        b = rois.astype(dt) * dt(0.25) - dt(0.5)
+        return np.ceil((b[:, 2:] - b[:, :2]) / dt(7))
+
+    keep = (bins(np.float32) == bins(np.float64)).all(1)
+    sub = [x, rois[keep], np.asarray([keep[:ROI_COUNT // 2].sum(),
+                                      keep[ROI_COUNT // 2:].sum()],
+                                     np.int32)]
+    # the outputs are per RoI, so the witness takes the kept rows of the
+    # runs above; the gradients sum over every RoI, so their witness runs
+    # the kept RoIs again, only where the gradients need it
+    grad_witness = _both_err(res)[1] > VISION_OPS_TOL
+    if grad_witness:
+        wit = _both(paddle, align, sub, grad=(0,))
+    else:
+        rows_kept = torch.from_numpy(keep)
+        wit = {side: ([r[0][0][rows_kept]], [], r[2])
+               for side, r in res.items()}
+    record("roi_align", res, witness=(wit, _both(
+        paddle, align, sub, grad=(0,) if grad_witness else (),
+        places=("cpu",), f64=True)["cpu"]),
+           rois=ROI_COUNT, input=list(ROI_SHAPE),
+           witness_rois=int(keep.sum()), grad_witness=grad_witness)
+
+    # SSD300: priors, box_coder and ssd_loss
+    img = np.zeros((1, 3, 300, 300), np.float32)
+
+    def priors():
+        boxes, vars_ = [], []
+        for f, lo, hi, r, s in zip(SSD_FEATS, SSD_MIN, SSD_MAX, SSD_RATIOS,
+                                   SSD_STEPS):
+            b, v = V.prior_box(paddle.to_tensor(np.zeros((1, 1, f, f),
+                                                         np.float32)),
+                               paddle.to_tensor(img), [lo], [hi], r,
+                               flip=True, clip=True, steps=[s, s])
+            boxes.append(b.reshape([-1, 4]))
+            vars_.append(v.reshape([-1, 4]))
+        return paddle.concat(boxes), paddle.concat(vars_)
+
+    res = _both(paddle, priors, [])
+    n_priors = int(res["cpu"][0][0].shape[0])
+    record("prior_box", res, exact=(0, 1), priors=n_priors)
+    pb, pv = (t.numpy() for t in res["cpu"][0])
+    gt = []
+    for _ in range(SSD_BATCH):
+        k = int(rng.integers(1, 9))
+        wh = rng.uniform(0.05, 0.6, (k, 2))
+        xy = rng.uniform(0, 1 - wh)
+        gt.append(np.concatenate([xy, xy + wh], 1))
+    gmax = max(len(g) for g in gt)
+    gt_box = np.zeros((SSD_BATCH, gmax, 4), np.float32)
+    gt_lab = np.zeros((SSD_BATCH, gmax, 1), np.int32)
+    for n, g in enumerate(gt):
+        gt_box[n, :len(g)] = g
+        gt_lab[n, :len(g), 0] = rng.integers(1, SSD_CLASSES, len(g))
+    deltas = (rng.normal(size=(SSD_BATCH, n_priors, 4)) * 0.2).astype(
+        "float32")
+    record("box_coder", _both(paddle, lambda p_, v_, g_, d_: (
+        V.box_coder(p_, v_, g_, "encode_center_size"),
+        V.box_coder(p_, v_, d_, "decode_center_size", axis=0)),
+        [pb, pv, gt_box[0], deltas]))
+    conf = rng.normal(size=(SSD_BATCH, n_priors, SSD_CLASSES)).astype(
+        "float32")
+    record("ssd_loss", _both(paddle, lambda l_, c_, g_, gl_, p_, v_:
+                             V.ssd_loss(l_, c_, g_, gl_, p_, v_),
+                             [deltas, conf, gt_box, gt_lab, pb, pv],
+                             grad=(0, 1)), batch=SSD_BATCH,
+           classes=SSD_CLASSES)
+
+    # Faster R-CNN: proposals and the two samplers
+    fh, fw = RPN_FEAT
+    A = len(RPN_SIZES) * len(RPN_RATIOS)
+    feat = np.zeros((1, 1, fh, fw), np.float32)
+    anchors, avar = (t.numpy() for t in V.anchor_generator(
+        paddle.to_tensor(feat), RPN_SIZES, RPN_RATIOS,
+        stride=[16.0, 16.0]))
+    anchors, avar = anchors.reshape(-1, 4), avar.reshape(-1, 4)
+    scores = rng.permutation(2 * A * fh * fw).reshape(2, A, fh, fw).astype(
+        "float32") / (2 * A * fh * fw)
+    deltas = (rng.normal(size=(2, 4 * A, fh, fw)) * 0.1).astype("float32")
+    info = np.asarray([[800, 1088, 1.0], [800, 1088, 1.0]], np.float32)
+    res = _both(paddle, lambda s_, d_, i_, a_, v_: V.generate_proposals(
+        s_, d_, i_, a_, v_, pre_nms_top_n=RPN_PRE, post_nms_top_n=RPN_POST,
+        nms_thresh=0.7, min_size=0.0), [scores, deltas, info, anchors,
+                                         avar])
+    record("generate_proposals", res, exact=(0, 1, 2),
+           rois_an_image=res["cpu"][0][2].tolist())
+    props, props_num = res["cpu"][0][0].numpy(), res["cpu"][0][2].numpy()
+    gtb = np.zeros((2, 20, 4), np.float32)
+    gtc = np.zeros((2, 20), np.int32)
+    for n in range(2):
+        k = int(rng.integers(5, 21))
+        wh = rng.uniform(32, 400, (k, 2))
+        xy = rng.uniform(0, np.asarray([1088, 800]) - wh)
+        gtb[n, :k] = np.concatenate([xy, xy + wh], 1)
+        gtc[n, :k] = rng.integers(1, 81, k)
+    crowd = np.zeros((2, 20), np.int32)
+    bp = rng.normal(size=(2, len(anchors), 4)).astype("float32")
+    cl = rng.normal(size=(2, len(anchors), 1)).astype("float32")
+
+    def seeded(fn):
+        def run(*ts):
+            paddle.seed(49)
+            return fn(*ts)
+        return run
+
+    record("rpn_target_assign", _both(paddle, seeded(
+        lambda b_, c_, a_, v_, g_, cr_, i_: V.rpn_target_assign(
+            b_, c_, a_, v_, g_, cr_, i_, rpn_batch_size_per_im=256)),
+        [bp, cl, anchors, avar, gtb, crowd, info]), exact=tuple(range(5)))
+    record("generate_proposal_labels", _both(paddle, seeded(
+        lambda r_, c_, cr_, g_, i_, n_: V.generate_proposal_labels(
+            r_, c_, cr_, g_, i_, batch_size_per_im=512, class_nums=81,
+            rois_num=n_)), [props, gtc, crowd, gtb, info, props_num]),
+        exact=tuple(range(6)))
+
+    # matrix NMS at SOLOv2's widths
+    Mn, Cn, Nn = MATRIX_NMS["M"], MATRIX_NMS["C"], MATRIX_NMS["N"]
+    wh = rng.uniform(20, 300, (Nn, Mn, 2))
+    xy = rng.uniform(0, 800 - wh)
+    mboxes = np.concatenate([xy, xy + wh], -1).astype("float32")
+    mscores = (rng.permutation(Nn * Cn * Mn).reshape(Nn, Cn, Mn)
+               / (Nn * Cn * Mn)).astype("float32")
+    res = _both(paddle, lambda b_, s_: V.matrix_nms(
+        b_, s_, 0.1, post_threshold=0.05, nms_top_k=Mn, keep_top_k=100,
+        use_gaussian=True, gaussian_sigma=2.0, background_label=-1,
+        normalized=False, return_index=True), [mboxes, mscores])
+    record("matrix_nms", res, exact=(1, 2), candidates=Mn, classes=Cn)
+
+    # the transforms pipeline over an ImageFolder of .npy images
+    import tempfile
+
+    from paddle_tpu_torch.vision import datasets, transforms as T
+
+    with tempfile.TemporaryDirectory() as root:
+        for i in range(PIPE_IMAGES):
+            np.save(os.path.join(root, f"{i:03d}.npy"), rng.integers(
+                0, 256, PIPE_HW + (3,), dtype=np.uint8))
+        pipe = T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                          T.Normalize([123.675, 116.28, 103.53],
+                                      [58.395, 57.12, 57.375],
+                                      data_format="HWC"),
+                          T.ToTensor()])
+        folder = datasets.ImageFolder(root, transform=pipe)
+        paddle.set_device("cpu")
+        try:
+            np.random.seed(49)
+            folder[0]
+            t0 = time.perf_counter()
+            shapes = {tuple(folder[i][0].shape) for i in range(len(folder))}
+            pipe_s = time.perf_counter() - t0
+        finally:
+            paddle.set_device("gpu")
+    pipeline = {"images": PIPE_IMAGES, "source_hw": list(PIPE_HW),
+                "compose": "RandomResizedCrop(224), RandomHorizontalFlip, "
+                           "Normalize(HWC), ToTensor (CPU tensors)",
+                "seconds": pipe_s, "images_per_s": PIPE_IMAGES / pipe_s,
+                "output_shapes": sorted(shapes),
+                "ok": shapes == {(3, 224, 224)}}
+    ok = {k: v["ok"] for k, v in rows.items()}
+    ok["pipeline"] = pipeline["ok"]
+    ok["ssd_priors"] = n_priors == 8732
+    row = {"phase": "vision_ops_card_vs_cpu", "tol_rel": VISION_OPS_TOL,
+           "vs_f64_factor": VISION_OPS_VS_F64, "ops": rows,
+           "transforms_pipeline": pipeline, "checks": ok,
+           "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"vision.ops sweep failed: {ok}")
+    return row
+
+
 def _kernel(name, source, replaces, launches, row, err, keys, library):
     ms, plain, bnd, by = keys
     return {"name": name, "route": "cuda", "source": source,
@@ -7386,6 +8783,25 @@ def main():
     t = time.perf_counter()
     sweep46 = slice_sweep_phase(dev, vision_mods, stamp)
     nn_s["nn_sweep"] = time.perf_counter() - t
+    det_s = {}                         # phases 47-49's seconds each
+    t = time.perf_counter()
+    bert_o2_k = bert_o2_kernels_phase(dev, fk, fo, stamp)
+    det_s["bert_o2_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    bert_o2 = bert_o2_phase(dev, vision_mods, stamp, bert)
+    det_s["bert_o2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    bert_o2_check_phase(dev, stamp)
+    det_s["bert_o2_check"] = time.perf_counter() - t
+    t = time.perf_counter()
+    yolo = yolov3_phase(dev, vision_mods, stamp)
+    det_s["yolov3"] = time.perf_counter() - t
+    t = time.perf_counter()
+    yolov3_check_phase(dev, stamp)
+    det_s["yolov3_check"] = time.perf_counter() - t
+    t = time.perf_counter()
+    vision_ops_phase(dev, stamp)
+    det_s["vision_ops"] = time.perf_counter() - t
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -7400,6 +8816,14 @@ def main():
     gr = gather[("training", torch.bfloat16)]
     al = addln[(16384, 768, torch.float32)]    # BERT-base's shape and dtype
     bl = bert["fused"]["launches"]
+    om, oa = bert_o2_k["fused_ln_mlp"], bert_o2_k["fused_add_ln"]
+    oo = bert_o2_k["fused_adamw"]
+
+    def o2(pre, err):
+        """Phase 47a's row at the O2 BERT's shape: error, times, bound."""
+        return {"shape": [om["R"], om["H"], om["M"]], "max_abs_err": err,
+                **{k: om[f"{pre}_{k}"] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")}}
     plain = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [
         # the Hopper flash and fp8 kernels also carry their and the
@@ -7454,7 +8878,8 @@ def main():
                      ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
                       "fwd_bound_by"), None),
              composed_ms=fm["composed_cublas_fwd_ms"],
-             kernels_ms=fm["fwd_kernels_ms"]),
+             kernels_ms=fm["fwd_kernels_ms"],
+             o2_bert_shape=o2("fwd", om["max_abs_err_y"])),
         # no single PyTorch call computes the MLP's backward: the composed
         # cuBLAS backward is the yardstick ("composed_ms"); "kernels_ms" is
         # each of its kernels' own device time (torch.profiler)
@@ -7466,13 +8891,16 @@ def main():
                      ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
                       "bwd_bound_by"), None),
              composed_ms=fm["composed_cublas_bwd_ms"],
-             kernels_ms=fm["bwd_kernels_ms"]),
-        _kernel("fused_ln_mlp_bwd_dw2",
-                "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
-                "paddle_tpu/ops/fused_kernels.py:220",
-                tl["fused_ln_mlp_bwd_dw2"], fm, fm["max_abs_err_dw2"],
-                ("dw2_ms", "dw2_plain_ms", "dw2_bound_ms", "dw2_bound_by"),
-                None),
+             kernels_ms=fm["bwd_kernels_ms"],
+             o2_bert_shape=o2("bwd", max(
+                 om["max_abs_err_grads"].values()))),
+        dict(_kernel("fused_ln_mlp_bwd_dw2",
+                     "paddle_tpu_torch/csrc/fused_ln_mlp.cu",
+                     "paddle_tpu/ops/fused_kernels.py:220",
+                     tl["fused_ln_mlp_bwd_dw2"], fm, fm["max_abs_err_dw2"],
+                     ("dw2_ms", "dw2_plain_ms", "dw2_bound_ms",
+                      "dw2_bound_by"), None),
+             o2_bert_shape=o2("dw2", om["max_abs_err_dw2"])),
         # "captured_launches": phase 41's, replayed inside the captured
         # TrainStep of paddle.Model.fit (one a step)
         dict(_kernel("fused_adamw",
@@ -7483,7 +8911,11 @@ def main():
                      ("adamw_ms", "adamw_plain_ms", "adamw_bound_ms",
                       "adamw_bound_by"), "adamw_library_ms"),
              captured_launches=lenet_m["launches"]["fused_adamw"],
-             seq2seq_captured_launches=s2s["launches"]["fused_adamw"]),
+             seq2seq_captured_launches=s2s["launches"]["fused_adamw"],
+             # phase 47a: BERT-base's bf16 params, f32 moments
+             o2_bert_bucket={k: oo[k] for k in (
+                 "params", "max_abs_err", "bit_identical", "ms", "plain_ms",
+                 "bound_ms", "bound_by")}),
         _kernel("fused_lamb", "paddle_tpu_torch/csrc/fused_optimizer.cu",
                 "paddle_tpu/ops/fused_optimizer.py:209",
                 lamb["launches"]["fused_lamb"], ob, ob["lamb_max_abs_err"],
@@ -7527,14 +8959,16 @@ def main():
                      bl["fused_add_ln_fwd"], al, al["max_abs_err_out"],
                      ("fwd_kernel_ms" if al["fwd_kernel_ms"] else "fwd_ms",
                       "fwd_plain_ms", "fwd_bound_ms", "fwd_bound_by"), None),
-             call_ms=al["fwd_ms"], composed_ms=al["fwd_composed_ms"]),
+             call_ms=al["fwd_ms"], composed_ms=al["fwd_composed_ms"],
+             o2_bert_max_abs_err=oa["max_abs_err_out"]),
         dict(_kernel("fused_add_ln_bwd",
                      "paddle_tpu_torch/csrc/fused_add_ln.cu",
                      "paddle_tpu/ops/fused_kernels.py:512",
                      bl["fused_add_ln_bwd"], al, al["max_abs_err_dx"],
                      ("bwd_kernel_ms" if al["bwd_kernel_ms"] else "bwd_ms",
                       "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by"), None),
-             call_ms=al["bwd_ms"], composed_ms=al["bwd_composed_ms"]),
+             call_ms=al["bwd_ms"], composed_ms=al["bwd_composed_ms"],
+             o2_bert_max_abs_err=oa["max_abs_err_dx"]),
     ]
     # launches on each path, every count set to 0 just before its run
     paths = {"serving_fixed": runs[False]["launches"],
@@ -7574,6 +9008,14 @@ def main():
              # phase 45: row 7 inside the captured seq2seq step
              "training_paddle_trainstep_seq2seq": s2s["launches"],
              "paddle_nn_sweep": sweep46["launches"],
+             # phase 47: rows 1 and 3-7 inside the captured O2 BERT-base
+             # step (composed: flash only)
+             "training_paddle_bert_o2_composed":
+                 bert_o2["composed"]["launches"],
+             "training_paddle_bert_o2_fused": bert_o2["fused"]["launches"],
+             # phase 48: the detector's convolutions, deformable gathers
+             # and Momentum step launch no kernel row (all 0)
+             "training_yolov3_r50vd_dcn": yolo["launches"],
              "serving_fleet_f32_host_loss":
                  fleet["f32_host_loss"]["launches"],
              "serving_fleet_f32_partition":
@@ -7603,6 +9045,8 @@ def main():
           "surface_phases_s": surface_s,
           "surface_total_s": sum(surface_s.values()),
           "nn_phases_s": nn_s, "nn_total_s": sum(nn_s.values()),
+          "detection_phases_s": det_s,
+          "detection_total_s": sum(det_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

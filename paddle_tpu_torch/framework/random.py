@@ -16,10 +16,14 @@ import torch
 from ..device import current_device
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "generator",
-           "renew_generator"]
+           "renew_generator", "seed_key"]
 
 _lock = threading.Lock()
 _seed = [0]
+# bumped by every seed(): a consumer that derives its own generator from
+# the seed (the detection samplers' numpy generator) keys on
+# (seed, epoch), so seeding again with the same value restarts its stream
+_epoch = [0]
 _generators: dict = {}
 
 
@@ -60,8 +64,16 @@ def seed(s: int):
     """paddle.seed parity: reseed every device's generator."""
     with _lock:
         _seed[0] = int(s)
+        _epoch[0] += 1
         for gen in _generators.values():
             gen.manual_seed(_seed[0])
+
+
+def seed_key():
+    """(seed, epoch): the last :func:`seed`'s value and how many seeds
+    came before it."""
+    with _lock:
+        return _seed[0], _epoch[0]
 
 
 def get_rng_state():

@@ -90,7 +90,8 @@ __all__ = ["GPTConfig", "gpt_init", "gpt_forward", "gpt_loss", "gpt_tiny",
            "gpt_small", "gpt_1p3b", "gpt_nano", "gpt_prefill",
            "gpt_decode_step", "gpt_decode_step_paged", "gpt_prefill_chunk",
            "gpt_truncate", "gpt_verify_step", "gpt_verify_step_paged",
-           "gpt_prefill_prefix", "params_from_jax", "quantize_gpt_weights"]
+           "gpt_prefill_prefix", "params_from_jax", "quantize_gpt_weights",
+           "bert_base_config"]
 
 
 @dataclasses.dataclass
@@ -164,6 +165,14 @@ def gpt_small(**kw):
 def gpt_1p3b(**kw):
     # GPT-3 1.3B: the reference Fleet hybrid benchmark config
     d = dict(hidden=2048, n_layers=24, n_heads=16, seq_len=2048)
+    d.update(kw)
+    return GPTConfig(**d)
+
+
+def bert_base_config(**kw):
+    # BERT-base shapes as an encoder-sized LM config of the GPT model
+    d = dict(vocab_size=30592, hidden=768, n_layers=12, n_heads=12,
+             seq_len=512)
     d.update(kw)
     return GPTConfig(**d)
 

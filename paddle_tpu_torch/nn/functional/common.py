@@ -366,6 +366,51 @@ def bilinear(x1, x2, weight, bias=None, name=None):
 
 # -- grid sampling ---------------------------------------------------------------
 
+def _bilinear_batch(feat, ys, xs, bounds="zero_corner", index=None):
+    """The bilinear gather that RoI align, PS-RoI pool and deformable
+    convolution share (``paddle_tpu/nn/functional/common.py:353``), over
+    a batch: feat [N, C, H, W], ys/xs [B, ...] float coordinates ->
+    [B, C, ...], row b reading feature map ``index[b]`` (default b).
+    The JAX function gathers one [C, H, W] map and its callers vmap it;
+    the four corners here are one advanced-index gather each from the
+    [N, H·W, C] view, so the backward is one index_put with
+    accumulation.
+
+    - bounds="zero_corner": an out-of-range corner contributes zero (the
+      reference's grid_sampler zeros mode, deformable_conv_op.h
+      DmcnIm2colBilinear).
+    - bounds="clamp_sample": corner indices clamp to the edge; only whole
+      samples outside [-1, H]x[-1, W] are zeroed (roi_align_op.h
+      bilinear_interpolate).
+    """
+    N, C, H, W = feat.shape
+    B, shape = ys.shape[0], ys.shape[1:]
+    ys, xs = ys.reshape(B, -1), xs.reshape(B, -1)
+    flat = feat.permute(0, 2, 3, 1).reshape(N, H * W, C)
+    rows = (index if index is not None
+            else torch.arange(B, device=feat.device)).reshape(B, 1)
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    wy1, wx1 = (ys - y0)[..., None], (xs - x0)[..., None]
+
+    def at(yy, xx):
+        yi = yy.clamp(0, H - 1).long()
+        xi = xx.clamp(0, W - 1).long()
+        v = flat[rows, yi * W + xi]                       # [B, P, C]
+        if bounds == "clamp_sample":
+            return v
+        ok = (yy >= 0) & (yy <= H - 1) & (xx >= 0) & (xx <= W - 1)
+        return torch.where(ok[..., None], v, 0.0)
+
+    out = (at(y0, x0) * (1 - wy1) * (1 - wx1)
+           + at(y0, x0 + 1) * (1 - wy1) * wx1
+           + at(y0 + 1, x0) * wy1 * (1 - wx1)
+           + at(y0 + 1, x0 + 1) * wy1 * wx1)
+    if bounds == "clamp_sample":
+        ok = (ys >= -1) & (ys <= H) & (xs >= -1) & (xs <= W)
+        out = torch.where(ok[..., None], out, 0.0)
+    return out.transpose(1, 2).reshape(B, C, *shape)
+
+
 def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True, name=None):
     """Sample x [N,C,H,W] at the normalized grid [N,Ho,Wo,2] (Paddle's

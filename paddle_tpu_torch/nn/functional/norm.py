@@ -85,6 +85,17 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 
 
 def _layer_norm(x, w=None, b=None, shape=(), epsilon=1e-5):
+    """Paddle's layer_norm rule: the output takes x's dtype. A bf16 or
+    f16 x beside an f32 scale or bias (amp O2 keeps LayerNorm's f32) is
+    normalized and scaled in f32 and rounded once (torch's CUDA
+    layer_norm takes one dtype for all three); otherwise the parameters
+    are cast to x's dtype. The JAX package returns f32 for that pair
+    (``paddle_tpu/nn/functional/norm.py:106-115``)."""
+    if x.dtype in (torch.bfloat16, torch.float16) and any(
+            t is not None and t.dtype == torch.float32 for t in (w, b)):
+        f32 = lambda t: None if t is None else t.float()
+        return TF.layer_norm(x.float(), shape, f32(w), f32(b),
+                             epsilon).to(x.dtype)
     cast = lambda t: None if t is None else t.to(x.dtype)
     return TF.layer_norm(x, shape, cast(w), cast(b), epsilon)
 

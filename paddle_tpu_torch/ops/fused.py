@@ -9,9 +9,11 @@ feed-forward runs the fused kernels of ``ops/fused_kernels.py``: pre-LN
 as one ``fused_ln_mlp(ln_scale=..., residual=True)``; post-LN as
 ``fused_ln_mlp(ln_scale=None, residual=False)`` followed by
 ``fused_add_layernorm(x, mlp, ln_w, ln_b)``. Unset, it is the composed
-math. Both forms use the tanh form of gelu (``jax.nn.gelu``'s default,
-which the JAX package's fused ops call), where ``F.gelu`` and the
-composed ``TransformerEncoderLayer`` default to the exact erf form.
+math. The LayerNorms of both ops are ``F.layer_norm``'s, which returns
+x's dtype, so a bf16 block stays bf16 beside f32 LayerNorm parameters,
+as in Paddle. Both forms use the tanh form of gelu (``jax.nn.gelu``'s
+default, which the JAX package's fused ops call), where ``F.gelu`` and
+the composed ``TransformerEncoderLayer`` default to the exact erf form.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch.nn.functional as TF
 from ..core import flags
 from ..framework.core import apply_op
 from ..monitor.stats import FUSED_KERNEL_CALLS
+from ..nn.functional.norm import _layer_norm as _functional_layer_norm
 from .flash_attention import flash_attention_arrays
 from .fused_kernels import fused_add_layernorm, fused_ln_mlp
 
@@ -28,9 +31,7 @@ __all__ = ["fused_multi_head_attention", "fused_feedforward"]
 
 
 def _layer_norm(x, w, b, eps):
-    mu = x.mean(-1, keepdim=True)
-    var = (x - mu).square().mean(-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * w + b
+    return _functional_layer_norm(x, w, b, (x.shape[-1],), eps)
 
 
 def _fused_mha(x, qkv_w, qkv_b, out_w, out_b, ln_w, ln_b, num_heads,

@@ -24,6 +24,7 @@ import pytest
 import paddle_tpu
 import paddle_tpu_torch
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_ATOL = 1e-5          # of the largest gradient

@@ -34,6 +34,7 @@ from paddle_tpu.core import native as jnative
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.monitor import stat_get
 from paddle_tpu_torch.ops import fused_kernels as tfk
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the modules (paddle_tpu.ops re-exports functions of the same names)
 jfk = importlib.import_module("paddle_tpu.ops.fused_kernels")

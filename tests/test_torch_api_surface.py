@@ -4,7 +4,8 @@ namespaces): each name looked up on the port's matching module.
 
 The port must resolve at least 212 of the 224 names of ``paddle``, and
 all of ``paddle.nn`` (109), ``paddle.nn.functional`` (96),
-``paddle.vision.models`` and ``paddle.linalg``; and the names it lacks
+``paddle.vision.models``, ``paddle.vision.ops`` (12),
+``paddle.vision.transforms`` (32) and ``paddle.linalg``; and the names it lacks
 must be exactly those listed here, so a later slice can only shrink the
 lists (and must shrink them here when it ports a name). This file
 imports neither JAX nor paddle_tpu."""
@@ -29,6 +30,8 @@ MISSING = {
     "paddle.nn": (109, set()),
     "paddle.nn.functional": (96, set()),
     "paddle.vision.models": (25, set()),
+    "paddle.vision.ops": (12, set()),
+    "paddle.vision.transforms": (32, set()),
     "paddle.linalg": (16, set()),
 }
 
@@ -53,4 +56,5 @@ def test_inventory_counts_are_the_reference_surface():
     inv = _inventory()
     assert {k: len(inv[k]) for k in MISSING} == {
         "paddle": 224, "paddle.nn": 109, "paddle.nn.functional": 96,
-        "paddle.vision.models": 25, "paddle.linalg": 16}
+        "paddle.vision.models": 25, "paddle.vision.ops": 12,
+        "paddle.vision.transforms": 32, "paddle.linalg": 16}

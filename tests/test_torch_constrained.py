@@ -26,6 +26,7 @@ from paddle_tpu_torch.serving import InferenceEngine
 from paddle_tpu_torch.serving import constrained as tcon
 from paddle_tpu_torch.serving import tokenizer as ttok
 from torch_jax_util import scaled_params
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MERGES = ["the ", "ing", "yes", ", ", "é"]
 TEXTS = ["hello", "the thing, the ring", "naïve café — 東京 🚀", "",

@@ -1808,3 +1808,135 @@ def test_captured_step_draws_from_tensor_random(cuda_device):
             fresh = [float(step(x)) for _ in range(4)]
             assert len(set(fresh)) == 4
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-6)
+
+
+def test_yolo_loss_inside_a_captured_step(cuda_device):
+    """A 1x1 conv head under ``yolo_loss`` through ``TrainStep``: the
+    captured step (one graph; the loss reads nothing on the host) against
+    ``capture=False`` from the same weights, 3 steps of Momentum: losses
+    and weights within 1e-6 of the largest value."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119]
+    rng = np.random.default_rng(60)
+    x = rng.normal(size=(2, 8, 8, 8)).astype("float32")
+    box = np.concatenate([rng.uniform(0.2, 0.8, (2, 5, 2)),
+                          rng.uniform(0.05, 0.4, (2, 5, 2))], -1)
+    box[:, 3:] = 0.0
+    label = rng.integers(0, 4, (2, 5)).astype("int32")
+
+    def run(capture):
+        net = _seeded(paddle.nn.Conv2D(8, 3 * 9, 1), 61)
+        opt = paddle.optimizer.Momentum(0.01, 0.9,
+                                        parameters=net.parameters())
+        step = paddle.jit.TrainStep(
+            net, lambda run_model, x_, b_, l_: paddle.mean(
+                paddle.vision.ops.yolo_loss(run_model(x_), b_, l_, anchors,
+                                            [0, 1, 2], 4, 0.5, 16)),
+            opt, capture=capture)
+        ts = [paddle.to_tensor(a) for a in (x, box.astype("float32"),
+                                            label)]
+        losses = [float(step(*ts)) for _ in range(3)]
+        return losses, step.captures, net.weight.numpy()
+
+    la, ca, wa = run(True)
+    lb, cb, wb = run(False)
+    assert (ca, cb) == (1, 0)
+    np.testing.assert_allclose(la, lb, rtol=1e-6)
+    assert np.abs(wa - wb).max() <= 1e-6 * np.abs(wb).max()
+
+
+@pytest.mark.parametrize("masked,dg", [(False, 1), (True, 2)])
+def test_deform_conv2d_on_card_matches_cpu(cuda_device, masked, dg):
+    """deform_conv2d (v1, and v2 with a mask and 2 deformable groups)
+    in f32 on the card against the CPU port: output and the gradients of
+    x, offset, mask and weight within 1e-5 of the largest (f32 sums in
+    another order; the gathers' backward accumulates with atomics)."""
+    rng = np.random.default_rng(62)
+    N, C, H, W, k = 2, 8, 12, 10, 3
+    x = rng.normal(size=(N, C, H, W)).astype("float32")
+    off = (rng.normal(size=(N, 2 * dg * k * k, H, W)) * 2).astype("float32")
+    w = rng.normal(size=(6, C, k, k)).astype("float32")
+    m = rng.uniform(size=(N, dg * k * k, H, W)).astype("float32")
+
+    def run(p, x_, off_, w_, m_):
+        for t in (x_, off_, w_, m_):
+            t.stop_gradient = False
+        out = p.vision.ops.deform_conv2d(x_, off_, w_, padding=1,
+                                         deformable_groups=dg,
+                                         mask=m_ if masked else None)
+        (out * out).sum().backward()
+        grads = [x_.grad, off_.grad, w_.grad] + ([m_.grad] if masked
+                                                 else [])
+        return [out] + grads
+
+    card, cpu = _card_and_cpu(run, x, off, w, m)
+    for c, h in zip(card, cpu):
+        assert np.abs(c - h).max() <= 1e-5 * np.abs(h).max()
+
+
+def test_multiclass_nms_on_card_matches_cpu(cuda_device):
+    """multiclass_nms on the card (the candidates' IoU and the greedy
+    sweep on the device) against the CPU port: equal rows, counts and
+    indices, with nms_eta < 1 and keep_top_k; scores a permutation of
+    distinct values (no ties)."""
+    rng = np.random.default_rng(63)
+    N, C, M = 3, 6, 300
+    xy = rng.uniform(0, 200, (N, M, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(5, 60, (N, M, 2))],
+                           -1).astype("float32")
+    scores = (rng.permutation(N * C * M).reshape(N, C, M)
+              / (N * C * M)).astype("float32")
+
+    def run(p, b, s):
+        return p.vision.ops.multiclass_nms(
+            b, s, score_threshold=0.05, nms_top_k=100, keep_top_k=50,
+            nms_threshold=0.5, nms_eta=0.95, normalized=False,
+            background_label=-1, return_index=True)
+
+    card, cpu = _card_and_cpu(run, boxes, scores)
+    for c, h in zip(card, cpu):
+        np.testing.assert_array_equal(c, h)
+    assert card[1].sum() == len(card[0]) > 0
+
+
+def test_o2_fused_feedforward_on_card(cuda_device):
+    """``fused_feedforward`` under amp O2 on the card: bf16 x and
+    weights beside f32 LayerNorm scales (the kernels take the scale in
+    f32), post-LN and pre-LN, FLAGS_fused_kernels=1 (rows 4-6: the
+    launch counts rise) against the same op with the flag 0 (the
+    composed math): bf16 outputs within 2e-2 of the largest (the kernels
+    round where the composed path rounds after every op)."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    rng = np.random.default_rng(64)
+    B, S, H, M = 2, 64, 256, 1024
+    arrays = [rng.normal(size=(B, S, H)) * 0.5,
+              rng.normal(size=(H, M)) * 0.05, rng.normal(size=(M,)) * 0.1,
+              rng.normal(size=(M, H)) * 0.05, rng.normal(size=(H,)) * 0.1]
+    x, w1, b1, w2, b2 = (paddle.to_tensor(a.astype("float32")).astype(
+        "bfloat16") for a in arrays)
+    ln_w = paddle.to_tensor((1 + rng.normal(size=(H,)) * 0.1).astype(
+        "float32"))
+    ln_b = paddle.to_tensor((rng.normal(size=(H,)) * 0.1).astype("float32"))
+    old = paddle.get_flags("FLAGS_fused_kernels")["FLAGS_fused_kernels"]
+    try:
+        for pre in (False, True):
+            outs = []
+            for flag in (1, 0):
+                paddle.set_flags({"FLAGS_fused_kernels": flag})
+                n0 = (tfk.FWD_LAUNCHES, tfk.ADDLN_FWD_LAUNCHES)
+                y = paddle.ops.fused_feedforward(
+                    x, w1, b1, w2, b2, ln_w, ln_b, pre_layer_norm=pre,
+                    activation="gelu")
+                assert str(y.dtype) == "torch.bfloat16"
+                if flag:
+                    assert tfk.FWD_LAUNCHES > n0[0]
+                    assert (tfk.ADDLN_FWD_LAUNCHES > n0[1]) == (not pre)
+                outs.append(y.astype("float32").numpy())
+            assert np.abs(outs[0] - outs[1]).max() <= 2e-2 * np.abs(
+                outs[1]).max()
+    finally:
+        paddle.set_flags({"FLAGS_fused_kernels": old})

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as tfa
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F32_TOL = 1e-5
 BF16_TOL_O = 2e-2

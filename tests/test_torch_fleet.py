@@ -50,6 +50,7 @@ from paddle_tpu_torch.serving import (FleetRouter, InferenceEngine,
                                       ReplicaSupervisor, pod as tpod)
 from paddle_tpu_torch.serving.engine import GenerationRequest
 from torch_jax_util import scaled_params
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_J = jg.gpt_nano(dtype=jnp.float32, seq_len=128)

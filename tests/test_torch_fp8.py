@@ -43,6 +43,7 @@ from paddle_tpu_torch.monitor.stats import stat_get
 from paddle_tpu_torch.ops import fp8_matmul as tfm
 from paddle_tpu_torch.parallel import train_step as tts
 from paddle_tpu_torch.serving import InferenceEngine
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CFG_J = jg.gpt_tiny(dtype=jnp.float32, fp8=True)
 CFG_T = tg.gpt_tiny(dtype=torch.float32, fp8=True)

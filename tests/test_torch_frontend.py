@@ -55,6 +55,7 @@ from paddle_tpu_torch.serving import (ByteTokenizer, EngineRouter,
 from paddle_tpu_torch.serving.overload import RUNG_SHED_BRONZE
 from chip_smoke import prom_families
 from torch_jax_util import scaled_params
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = ByteTokenizer().vocab_size

@@ -25,6 +25,7 @@ import torch
 
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import fused_kernels as tfk
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the module (paddle_tpu.ops re-exports a function of the same name)
 jfk = importlib.import_module("paddle_tpu.ops.fused_kernels")

@@ -38,6 +38,7 @@ from paddle_tpu_torch.monitor.stats import stat_get
 from paddle_tpu_torch.ops import fused_optimizer as tfo
 from paddle_tpu_torch.parallel import DistributedTrainStep
 from paddle_tpu_torch.parallel import train_step as tts
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the module (paddle_tpu.ops may re-export names of it)
 jfo = importlib.import_module("paddle_tpu.ops.fused_optimizer")

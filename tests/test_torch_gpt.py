@@ -27,6 +27,7 @@ from paddle_tpu.serving import PagedKVCache as JPagedKVCache
 from paddle_tpu.serving import cache_insert as j_cache_insert
 from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.serving import KVCache, PagedKVCache, cache_insert
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F32_TOL = 1e-4
 F32_LOGITS_TOL = 5e-4

@@ -38,6 +38,7 @@ from paddle_tpu_torch.monitor.stats import stat_get
 from paddle_tpu_torch.ops import int8_matmul as ti
 from paddle_tpu_torch.serving import (InferenceEngine, KVCache,
                                       PagedKVCache, cache_insert)
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F32_LOGITS_TOL = 5e-4
 BF16_REL = 3e-2

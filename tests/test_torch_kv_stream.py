@@ -46,6 +46,7 @@ from paddle_tpu_torch.monitor import flight
 from paddle_tpu_torch.resilience import faults as tfaults
 from paddle_tpu_torch.serving import InferenceEngine
 from torch_jax_util import scaled_params
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CFG_J = jg.gpt_nano(dtype=jnp.float32, seq_len=128)
 CFG = tg.gpt_nano(dtype=torch.float32, seq_len=128)

@@ -50,6 +50,7 @@ from paddle_tpu_torch.serving import lifecycle as tlife
 from paddle_tpu_torch.serving.overload import (RUNG_HEALTHY, RUNG_NO_SPEC,
                                                RUNG_SMALL_CHUNKS)
 from torch_jax_util import scaled_params
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CFG_J = jg.gpt_nano(dtype=jnp.float32, seq_len=128)
 CFG = tg.gpt_nano(dtype=torch.float32, seq_len=128)

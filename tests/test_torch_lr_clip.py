@@ -22,6 +22,7 @@ import torch
 import paddle_tpu
 import paddle_tpu_torch
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-6
 

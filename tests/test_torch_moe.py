@@ -45,6 +45,7 @@ from paddle_tpu_torch.parallel import DistributedTrainStep
 from paddle_tpu_torch.parallel import train_step as tts
 from paddle_tpu_torch.serving import (InferenceEngine, KVCache,
                                       PagedKVCache, cache_insert)
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MOE = dict(moe_experts=4, moe_top_k=2, moe_every=2)
 CFG_J = jg.gpt_tiny(dtype=jnp.float32, **MOE)

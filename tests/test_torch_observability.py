@@ -41,6 +41,7 @@ from paddle_tpu_torch.monitor import flight as tflight
 from paddle_tpu_torch.monitor import stats as tstats
 from paddle_tpu_torch.monitor import trace as ttrace
 from paddle_tpu_torch.serving import InferenceEngine
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

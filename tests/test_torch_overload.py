@@ -18,6 +18,7 @@ from paddle_tpu.serving import overload as jover
 from paddle_tpu_torch import monitor as tmonitor
 from paddle_tpu_torch.resilience import faults as tfaults
 from paddle_tpu_torch.serving import overload as tover
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

@@ -31,6 +31,7 @@ import paddle_tpu_torch
 from paddle_tpu.core import native as jnative
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.core import flags as tflags
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SMALL = dict(vocab=512, hidden=128, layers=2, heads=4, ffn=512, seq=64)
 _rng = np.random.default_rng(7)

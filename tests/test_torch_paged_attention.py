@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import paged_attention as tpa
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the module (paddle_tpu.ops re-exports a function of the same name)
 jpa = importlib.import_module("paddle_tpu.ops.paged_attention")

@@ -18,6 +18,7 @@ import pytest
 import paddle_tpu
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 N = 10**5
 SE = 5.0

@@ -23,6 +23,7 @@ import pytest
 import paddle_tpu
 import paddle_tpu_torch
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 GRAD_TOL = 1e-4            # of the largest gradient

@@ -32,6 +32,7 @@ from paddle_tpu.serving import rpc as jrpc
 from paddle_tpu_torch import monitor
 from paddle_tpu_torch.resilience import faults as tfaults
 from paddle_tpu_torch.serving import rpc as trpc
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

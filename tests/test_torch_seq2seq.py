@@ -23,6 +23,7 @@ import chip_smoke
 import paddle_tpu
 import paddle_tpu_torch
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SMALL = {"src_vocab": 50, "trg_vocab": 40, "hidden": 32, "layers": 2,
          "dropout": 0.0, "init_scale": 0.1}

@@ -32,6 +32,7 @@ from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.monitor.stats import stat_get
 from paddle_tpu_torch.serving import InferenceEngine, sampling
 from torch_jax_util import scaled_params
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CFG_J = jg.gpt_tiny(dtype=jnp.float32, seq_len=64)
 CFG = tg.gpt_tiny(dtype=torch.float32, seq_len=64)

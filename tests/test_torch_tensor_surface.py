@@ -32,6 +32,7 @@ import pytest
 import paddle_tpu
 import paddle_tpu_torch
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ELEM = (1e-5, 1e-6)
 RED = (1e-4, 1e-5)

@@ -36,6 +36,7 @@ from paddle_tpu_torch.monitor.stats import stat_get
 from paddle_tpu_torch.ops import fused_optimizer as tfo
 from paddle_tpu_torch.parallel import DistributedTrainStep
 from paddle_tpu_torch.parallel import train_step as tts
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -18,6 +18,7 @@ import pytest
 import paddle_tpu
 import paddle_tpu_torch
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 D, NH, FF, L, B, TGT, SRC = 16, 2, 32, 2, 2, 5, 7
 TOL, GRAD_TOL = 1e-5, 1e-4

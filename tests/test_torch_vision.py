@@ -33,6 +33,7 @@ import pytest
 import paddle_tpu
 import paddle_tpu_torch
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LOSS_REL = 1e-5
 STATE_TOL = 1e-3

@@ -37,6 +37,7 @@ import pytest
 import paddle_tpu
 import paddle_tpu_torch
 from paddle_tpu_torch import device as tdevice
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LOGIT_TOL = 5e-4
 LOSS_REL = 1e-4

@@ -12,3 +12,18 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU (run on the card with "
                     "`python -m pytest tests/test_torch_*.py -m cuda`)")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread for the module that imports this.
+    The suite runs in six worker processes on eight cores, and each
+    worker's default pool (a thread per core) oversubscribes the
+    machine: a test of many small ops then slows ten times (the fused
+    AdamW trajectory of test_torch_fused_optimizer.py: 157 s with the
+    default pool in a six-worker run of six port files, 15.5 s with one
+    thread; those six files 243 s against 135 s)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
