@@ -390,7 +390,30 @@ stamped with the card's name and power limit):
     generate_proposal_labels with their seeded samples equal,
     matrix_nms at SOLOv2's widths; roi_align also against the CPU's f64
     run), and a ResNet-style transforms
-    ``Compose`` over an ``ImageFolder`` of seeded .npy images (images/s).
+    ``Compose`` over an ``ImageFolder`` of seeded .npy images (images/s);
+50. rows 7 and 8 with the sentinel's skip flag on phase 11's buckets
+    (every gpt_1p3b leaf, f32 and bf16 moments; the ragged bucket): flag
+    True leaves params, moments (and a tree update's count) bit-identical
+    to the inputs, flag False is bit-identical to the plain version; each
+    kernel's ms with the flag False and True beside phase 11's;
+51. phase 12's gpt_1p3b (fused AdamW, full width and depth) through
+    ``DistributedTrainStep(sentinel=True)`` under a ``TrainGuardian``
+    (checkpoints in a temporary directory, async snapshots, the
+    watchdog) driven by ``RES_FAULTS``: a skipped NaN step (three leaves,
+    their moments and the count bit-identical), a rollback to the step-8
+    snapshot at half the lr, a stall the watchdog reports (stack dump),
+    a preemption's priority checkpoint, a fresh step restored from it bit
+    for bit, and 3 more steps on each within TRAIN_LOSS_REL; the step ms
+    with the sentinel against phase 12's, the snapshot's D2H GB/s, the
+    save and restore GB/s, MemAvailable and free disk first (short of
+    either, the phase fails);
+52. Paddle's ``fit(resilience=...)`` with ``callbacks=[Monitor()]`` and
+    ``FIT_FAULTS`` on LeNet (Adam, FLAGS_fused_optimizer=1: row 7 in the
+    replay) and ResNet-50 O2 b256 (Momentum: batch norm's buffers): 3
+    trips, 1 rollback, one capture, the tripped step's params, slots and
+    statistics bit-identical, Monitor's keys in every step's logs; the
+    guarded replay's ms against phases 41 and 42's, step_async_syncs a
+    step.
 
 Then the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line with every kernel's numbers, and last
@@ -8579,6 +8602,555 @@ def vision_ops_phase(dev, stamp):
     return row
 
 
+# --------------------------------------------------------------------------
+# phases 50-52: training resilience: rows 7 and 8 with the skip flag, the
+# guarded gpt_1p3b step (skip, rollback, stall, preemption, restore) and
+# Paddle's fit(resilience=...) with a captured step
+# --------------------------------------------------------------------------
+
+# phase 51: the fault script on the guarded gpt_1p3b loop (skip_limit 1:
+# the second consecutive trip rolls back), the watchdog's timeout (above
+# every legitimate gap between two steps' heartbeats, below the stall),
+# and the steps each side runs after the restore
+RES_FAULTS = ("nan_grad@step=3,nan_grad@step=9:repeat=2,"
+              "stall@step=13:secs=3.2,preempt@step=15")
+RES_WATCHDOG_S = 2.0
+RES_SNAPSHOT_EVERY = 4
+RES_AFTER_STEPS = 3
+# host RAM and disk the phase needs beyond the training state's bytes x
+# this many copies: the snapshot ring and the writer's buffer in pinned
+# memory (then the restore's ring and its read), two checkpoints on disk
+RES_RAM_COPIES, RES_DISK_COPIES, RES_MARGIN_GIB = 2, 2, 4.0
+# phase 52: the faults inside fit (a skip at 4; 7 skips, 8 rolls back to
+# the step-6 snapshot), the guardian's knobs, the data (batches of the
+# phase's batch size) and epochs
+FIT_FAULTS = "nan_grad@step=4,nan_grad@step=7:repeat=2"
+FIT_RES = {"snapshot_every": 2, "skip_limit": 1, "max_rollbacks": 2}
+FIT_BATCHES, FIT_EPOCHS, FIT_K = 6, 3, 10
+
+
+def _mem_available_gib():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def skip_flag_phase(dev, fo, stamp, opt_rows):
+    """Phase 50: rows 7 and 8 with the skip flag (the sentinel's verdict,
+    a device bool) on phase 11's buckets: every gpt_1p3b leaf with f32
+    and with bf16 moments, and the ragged bucket (an unaligned leaf
+    among them). Flag True first: params and moments bit-identical to the
+    inputs, LAMB's m and v too, and a tree-level fused update leaves the
+    count; then flag False on the same copies: bit-identical to the plain
+    version (which phase 11 holds the null flag to). Each kernel's ms with
+    the flag False and True beside phase 11's."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.parallel import train_step as TS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(50)
+    full = [t for _, t in TS._paths(G.gpt_init(G.gpt_1p3b(), seed=0,
+                                               device=dev))]
+    ragged = [torch.randn(n, generator=gen, device=dev)
+              for n in (1, 3, 1000, 4099, 20000)]
+    ragged.append(torch.randn(1001, generator=gen, device=dev)[1:])
+    sc = torch.tensor([1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    akw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, l2=0.0,
+               eager_form=False)
+    lkw = dict(b1=0.9, b2=0.999, eps=1e-6, wd=0.01)
+    no = torch.tensor(False, device=dev)
+    yes = torch.tensor(True, device=dev)
+    rows = {}
+    for bucket in ("gpt_1p3b_f32", "gpt_1p3b_bf16_moments", "ragged_f32"):
+        leaves = full if bucket.startswith("gpt") else ragged
+        mdt = torch.bfloat16 if "bf16" in bucket else torch.float32
+        name, ps, gs, ms, vs = _opt_bucket(bucket, leaves, mdt, gen)
+        n = sum(p.numel() for p in ps)
+        cp = [t.clone() for t in ps]
+        cm = [t.clone() for t in ms]
+        cv = [t.clone() for t in vs]
+        fo._bucket_adamw(cp, gs, cm, cv, sc, skip=yes, **akw)
+        torch.cuda.synchronize()
+        a_true = all(torch.equal(a, b) for a, b in
+                     zip(cp + cm + cv, ps + ms + vs))
+        fo._bucket_adamw(cp, gs, cm, cv, sc, skip=no, **akw)
+        torch.cuda.synchronize()
+        a_false = True
+        for i in range(len(ps)):
+            want = fo._adamw_flat_reference(ps[i], gs[i], ms[i], vs[i],
+                                            sc[0], sc[1], sc[2], **akw)
+            a_false &= all(torch.equal(got, w) for got, w in
+                           zip((cp[i], cm[i], cv[i]), want))
+            del want
+        a_ms_false = time_ms(lambda: fo._bucket_adamw(
+            cp, gs, cm, cv, sc, skip=no, **akw))
+        a_ms_true = time_ms(lambda: fo._bucket_adamw(
+            cp, gs, cm, cv, sc, skip=yes, **akw))
+        del cp
+        # LAMB: m and v, and r group by group against the plain version
+        for t, m, v in zip(cm, ms, vs):
+            t.copy_(m)
+        for t, v in zip(cv, vs):
+            t.copy_(v)
+        list(fo._bucket_lamb(ps, gs, cm, cv, sc, skip=yes, **lkw))
+        torch.cuda.synchronize()
+        l_true = all(torch.equal(a, b) for a, b in zip(cm + cv, ms + vs))
+        l_false = True
+        for idx, rs in fo._bucket_lamb(ps, gs, cm, cv, sc, skip=no, **lkw):
+            for j, r in zip(idx, rs):
+                want = fo._lamb_flat_reference(ps[j], gs[j], ms[j], vs[j],
+                                               sc[1], sc[2], **lkw)
+                l_false &= all(torch.equal(got, w) for got, w in
+                               zip((cm[j], cv[j], r), want))
+                del want
+        l_ms_false = time_ms(lambda: list(fo._bucket_lamb(
+            ps, gs, cm, cv, sc, skip=no, **lkw)))
+        l_ms_true = time_ms(lambda: list(fo._bucket_lamb(
+            ps, gs, cm, cv, sc, skip=yes, **lkw)))
+        del cm, cv
+        count_kept = None
+        if not bucket.startswith("gpt"):
+            # the tree-level update keeps its count on a skipped step
+            tree = {f"l{i}": p.clone() for i, p in enumerate(ps)}
+            grads = {f"l{i}": g for i, g in enumerate(gs)}
+            st = TS.pure_adamw_init(tree)
+            fo.fused_adamw_update(tree, grads, st, 1e-4, skip=yes)
+            kept = int(st["count"]) == 0 and all(
+                torch.equal(tree[f"l{i}"], p) for i, p in enumerate(ps))
+            fo.fused_adamw_update(tree, grads, st, 1e-4, skip=no)
+            count_kept = kept and int(st["count"]) == 1
+        p11 = opt_rows.get(name, {})
+        checks = {"adamw_true_unchanged": a_true,
+                  "adamw_false_bit_identical_to_plain": a_false,
+                  "lamb_true_unchanged": l_true,
+                  "lamb_false_bit_identical_to_plain": l_false}
+        if count_kept is not None:
+            checks["tree_count_kept_on_skip"] = count_kept
+        row = {"phase": "fused_optimizer_skip_flag", "bucket": name,
+               "leaves": len(ps), "params": n, "moments": str(mdt)[6:],
+               "adamw_ms_flag_false": a_ms_false,
+               "adamw_ms_flag_true": a_ms_true,
+               "adamw_ms_phase11": p11.get("adamw_ms"),
+               "adamw_bound_ms": p11.get("adamw_bound_ms"),
+               "lamb_ms_flag_false": l_ms_false,
+               "lamb_ms_flag_true": l_ms_true,
+               "lamb_ms_phase11": p11.get("lamb_ms"),
+               "checks": checks, "ok": all(checks.values()), **stamp}
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"skip flag phase failed: {row}")
+        rows[name] = row
+        del ps, gs, ms, vs
+        torch.cuda.empty_cache()
+    del full, ragged
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _res_batch(cfg, i, B=4):
+    """Step i's batch: tokens, labels and a float per-token loss weight
+    of ones (the int ids give nan_grad nothing to poison)."""
+    rng = np.random.default_rng(5100 + i)
+    S = cfg.seq_len
+    return (torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))),
+            torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))),
+            torch.ones(B, S))
+
+
+def _res_probe(step, layer=3):
+    """Clones of three leaves and their moments (the embedding, one
+    layer's qkv weight, the final LayerNorm's scale) and the count."""
+    out = {}
+    for key, sl in ((("wte",), None), (("blocks", "qkv_w"), layer),
+                    (("lnf_s",), None)):
+        for tree, tag in ((step.params, "p"), (step.opt_state["m"], "m"),
+                          (step.opt_state["v"], "v")):
+            t = tree
+            for k in key:
+                t = t[k]
+            out[("/".join(key), tag)] = (t[sl] if sl is not None
+                                         else t).detach().clone()
+    out["count"] = step.opt_state["count"].clone()
+    return out
+
+
+def _same(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def resilience_train_phase(dev, fa, fk, fo, stamp, ref):
+    """Phase 51: phase 12's gpt_1p3b (remat, fused MLP,
+    FLAGS_fused_optimizer=1, 4 x 2048, seeded weights) through
+    ``DistributedTrainStep(sentinel=True)`` under a ``TrainGuardian``
+    (checkpoints in a temporary directory on local disk, removed at the
+    end; snapshot every 4 steps, one kept; async on-disk snapshots;
+    skip_limit 1, 2 rollbacks, lr backoff 0.5, the watchdog) driven by
+    RES_FAULTS in the guardian's loop. Held: step 3 is skipped (three
+    leaves, their moments and the count bit-identical across it); steps 9
+    and 10 trip and roll back to the step-8 snapshot (bit-identical) at
+    half the lr; the stall fires the watchdog once (stack dump written);
+    the preemption writes a priority checkpoint and the loop stops with
+    "preempt"; a fresh step restored by ``restore_latest`` equals the
+    saved state leaf by leaf, bit for bit; RES_AFTER_STEPS more steps on
+    each keep every loss within TRAIN_LOSS_REL. Printed: the step ms
+    with the sentinel against phase 12's, the snapshot's D2H ms and GB/s,
+    the save and restore s and GB/s, MemAvailable and the free disk
+    before the phase. Short of RAM or disk, the phase fails with the
+    numbers. It expects a process whose first training step has run
+    (phase 12's): a cold first step (~12 s) is a stall to the watchdog
+    too."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.monitor.flight import disarm_flight_recorder
+    from paddle_tpu_torch.parallel import DistributedTrainStep
+    from paddle_tpu_torch.parallel import train_step as TS
+    from paddle_tpu_torch.resilience import TrainGuardian, configure_faults
+    from paddle_tpu_torch.resilience.guardian import host_pin_failures
+
+    t_phase = time.perf_counter()
+    cfg = G.gpt_1p3b(remat=True, fused_mlp=True)
+    chunk = 256
+    loss_fn = (lambda p, b: G.gpt_loss(cfg, p, (b[0], b[1]),
+                                       loss_chunk=chunk) * b[2].mean())
+    root = tempfile.mkdtemp(prefix="smoke_resilience_")
+    mem_gib = _mem_available_gib()
+    disk_gib = shutil.disk_usage(root).free / 2**30
+
+    def build(seed):
+        old = flags.fused_optimizer[0]
+        flags.fused_optimizer[0] = True
+        try:
+            return DistributedTrainStep(
+                loss_fn, G.gpt_init(cfg, seed=seed, device=dev),
+                optimizer="adamw", lr=1e-4, device=dev, sentinel=True)
+        finally:
+            flags.fused_optimizer[0] = old
+
+    step = build(0)
+    state_gib = sum(t.numel() * t.element_size() for tree in (
+        step.params, step.opt_state) for _, t in TS._paths(tree)) / 2**30
+    need = {"ram_gib": RES_RAM_COPIES * state_gib + RES_MARGIN_GIB,
+            "disk_gib": RES_DISK_COPIES * state_gib + RES_MARGIN_GIB}
+    room = {"mem_available_gib": mem_gib, "disk_free_gib": disk_gib,
+            "state_gib": state_gib, **need}
+    if mem_gib < need["ram_gib"] or disk_gib < need["disk_gib"]:
+        shutil.rmtree(root, ignore_errors=True)
+        emit({"phase": "train_resilience_gpt_1p3b", "ok": False, **room,
+              **stamp})
+        raise AssertionError(f"phase 51 needs more host RAM or disk: {room}")
+    names = ("sentinel_trips", "rollbacks", "watchdog_stalls",
+             "preempt_saves", "faults_injected")
+    g0 = {k: monitor.stat_get(k) for k in names}
+    pin0 = host_pin_failures()
+    t0 = time.perf_counter()
+    g = TrainGuardian(step, ckpt_dir=root, snapshot_every=RES_SNAPSHOT_EVERY,
+                      keep_snapshots=1, async_snapshot=True, skip_limit=1,
+                      max_rollbacks=2, lr_backoff=0.5,
+                      watchdog_timeout=RES_WATCHDOG_S,
+                      save_interval_steps=1000, max_to_keep=2)
+    attach_s = time.perf_counter() - t0
+    handler = g.install_preemption_handler()
+    _reset_training_counts(fa, fk)
+    fo.ADAMW_LAUNCHES = 0
+    configure_faults(RES_FAULTS)
+    log, checks, meas = [], {"preemption_handler": handler}, {}
+    before3 = after8 = None
+    i = 0
+    t_loop = time.monotonic()
+    try:
+        while i < 40:
+            if i == 3 and before3 is None:
+                before3 = _res_probe(step)
+            if i == 9 and after8 is None:
+                after8 = _res_probe(step)
+            if i == 14 and "async_save_s" not in meas:
+                # the step-0 checkpoint the snapshot thread wrote
+                t0 = time.perf_counter()
+                g.drain_snapshots()
+                meas.update(async_drain_wait_s=time.perf_counter() - t0,
+                            async_save_s=g._ckpt.last_save_s,
+                            async_save_bytes=g._ckpt.last_save_bytes)
+            t0 = time.perf_counter()
+            t_start = time.monotonic() - t_loop
+            loss = step(_res_batch(cfg, i))
+            lv = float(loss)
+            t1 = time.perf_counter()
+            action = g.after_step(i, loss)
+            t2 = time.perf_counter()
+            log.append({"i": i, "t": t_start, "loss": lv,
+                        "trip": bool(loss.health["trip"]),
+                        "action": action, "step_ms": (t1 - t0) * 1e3,
+                        "after_step_ms": (t2 - t1) * 1e3,
+                        "lr": step.current_lr()})
+            if i == 3 and "skip_bit_identical" not in checks:
+                checks["skip_bit_identical"] = (
+                    action == "skip" and _same(before3, _res_probe(step)))
+            if i == RES_SNAPSHOT_EVERY and action == "ok" \
+                    and "snapshot_d2h_s" not in meas:
+                buf = g._snaps[i]
+                buf.wait()
+                d2h = time.perf_counter() - buf.t_issue
+                meas.update(snapshot_d2h_s=d2h, snapshot_bytes=buf.nbytes,
+                            snapshot_d2h_gb_s=buf.nbytes / d2h / 1e9)
+            if action == "rollback":
+                checks["rollback_at_step_10_to_8"] = (
+                    i == 10 and g.resume_step == 9)
+                checks["rollback_bit_identical"] = _same(after8,
+                                                         _res_probe(step))
+                checks["lr_halved"] = step.current_lr() == 0.5e-4
+                i = g.resume_step
+                continue
+            if action == "preempt":
+                break
+            i += 1
+    finally:
+        configure_faults("")
+        launches = _training_counts(fa, fk)
+        launches["fused_adamw"] = fo.ADAMW_LAUNCHES
+        g.drain_snapshots()
+        ps = g.last_priority_save
+        g.close()
+        # each report: (seconds into the loop, silence it saw, "step" or
+        # the guardian's I/O wait)
+        meas["stall_reports"] = [(t - t_loop, s, k)
+                                 for t, s, k in g.stall_log]
+        disarm_flight_recorder()
+    d = {k: monitor.stat_get(k) - g0[k] for k in names}
+    d["host_pin_failures"] = host_pin_failures() - pin0
+    d["io_stall_reports"] = sum(k != "step" for _, _, k in g.stall_log)
+    dump = os.path.join(root, "watchdog_stall.txt")
+    flights = sorted(f for f in os.listdir(root) if f.startswith("flight_"))
+    checks.update({
+        "trips_3": d["sentinel_trips"] == 3,
+        "one_rollback": d["rollbacks"] == 1,
+        "one_watchdog_stall": d["watchdog_stalls"] == 1,
+        "snapshot_buffers_pinned": d["host_pin_failures"] == 0,
+        "stack_dump_written": os.path.exists(dump)
+        and "watchdog stall" in open(dump).read(),
+        "flight_dump_written": len(flights) >= 1,
+        "stopped_with_preempt": log[-1]["action"] == "preempt"
+        and log[-1]["i"] == 15,
+        "one_priority_save": d["preempt_saves"] == 1 and ps is not None
+        and ps["step"] == 15,
+        "launches": all(v > 0 for v in launches.values()),
+        "healthy_losses_finite": all(math.isfinite(r["loss"]) for r in log
+                                     if not r["trip"])})
+    # a fresh step (other weights) restored from the priority save
+    fresh = build(1)
+    g2 = TrainGuardian(fresh, ckpt_dir=root, snapshot_every=1000)
+    t0 = time.perf_counter()
+    start = g2.restore_latest()
+    restore_s = time.perf_counter() - t0
+    g2.close()
+    same = all(torch.equal(TS._get(fresh.params, p), t)
+               for p, t in TS._paths(step.params)) and all(
+        torch.equal(TS._get(fresh.opt_state, p), t)
+        for p, t in TS._paths(step.opt_state)) and all(
+        torch.equal(fresh.sentinel_state[k], v)
+        for k, v in step.sentinel_state.items())
+    checks["restored_bit_identical"] = bool(same) and start == 16 \
+        and fresh._step_count == step._step_count
+    # the lr scale is the loop's, not the checkpoint's (as in JAX)
+    fresh.scale_lr(step._lr_scale)
+    cont = []
+    for j in range(RES_AFTER_STEPS):
+        b = _res_batch(cfg, start + j)
+        cont.append((float(step(b)), float(fresh(b))))
+    rel = [abs(a - b) / abs(a) for a, b in cont]
+    checks["continuation_within_tol"] = max(rel) <= TRAIN_LOSS_REL
+    del fresh, step
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    healthy = [r["step_ms"] for r in log if r["action"] == "ok"
+               and r["i"] > 0 and r["i"] % RES_SNAPSHOT_EVERY != 1]
+    ckpt_bytes = ps["bytes"] if ps else 0
+    row = {"phase": "train_resilience_gpt_1p3b", "model": "gpt_1p3b",
+           "layers": cfg.n_layers, "hidden": cfg.hidden, "batch": [4, 2048],
+           "faults": RES_FAULTS, "watchdog_timeout_s": RES_WATCHDOG_S,
+           **room, "attach_s": attach_s,
+           "step_ms_median_sentinel": float(np.median(healthy)),
+           "step_ms_phase12": ref["step_ms_median_last3"],
+           **meas,
+           "priority_save": ps,
+           "save_gb_s": (ckpt_bytes / ps["write_s"] / 1e9) if ps else None,
+           "restore_s": restore_s,
+           "restore_gb_s": ckpt_bytes / restore_s / 1e9,
+           "continuation_losses": cont, "continuation_rel": rel,
+           "tol_rel": TRAIN_LOSS_REL, "stats": d, "launches": launches,
+           "log": log, "seconds": time.perf_counter() - t_phase,
+           "checks": checks, "ok": all(checks.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 51 (guarded gpt_1p3b) failed: {checks}")
+    return row
+
+
+def _o2_net(paddle, inner):
+    """A Layer whose forward runs ``inner`` under auto_cast O2 (phase 42's
+    loss, written for paddle.Model's loss_fn)."""
+    class O2(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x):
+            with paddle.amp.auto_cast(enable=True, level="O2"):
+                return self.inner(x)
+
+    return O2()
+
+
+def _step_state(st, net):
+    return ([p._data.clone() for p in st._params.values()]
+            + [t.clone() for v in st._slot_values.values() for t in v]
+            + [b._data.clone() for _, b in net.named_buffers()])
+
+
+def _fit_resilience(paddle, name, net, opt, x, y, mods, stamp, ref_ms):
+    """One guarded fit: the data (FIT_BATCHES batches of x's size, seeded),
+    FIT_EPOCHS epochs, FIT_FAULTS, callbacks=[Monitor(), the checker]."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.resilience.guardian import host_pin_failures
+
+    fo = mods["fo"]
+    bs = x.shape[0]
+    rng = np.random.default_rng(52)
+    xs = rng.standard_normal((FIT_BATCHES * bs,) + tuple(x.shape[1:]),
+                             dtype=np.float32)
+    ys = rng.integers(0, int(y.max()) + 1, (FIT_BATCHES * bs,))
+    data = paddle.io.TensorDataset([paddle.to_tensor(xs, place="cpu"),
+                                    paddle.to_tensor(ys, place="cpu")])
+    model = paddle.Model(net)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss())
+    logs, seen = [], {}
+
+    class Check(paddle.callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            st = model._train_step
+            if st._step_count == 4 and "before" not in seen:
+                seen["before"] = _step_state(st, net)
+
+        def on_train_batch_end(self, step, logs_=None):
+            logs.append(dict(logs_ or {}))
+            st = model._train_step
+            if st._step_count == 5 and "after" not in seen:
+                seen["after"] = _step_state(st, net)
+
+    mon = paddle.callbacks.Monitor()
+    names = ("sentinel_trips", "rollbacks", "train_steps",
+             "step_async_syncs")
+    g0 = {k: monitor.stat_get(k) for k in names}
+    pin0 = host_pin_failures()
+    _reset_vision_counts(mods)
+    paddle.resilience.configure_faults(FIT_FAULTS)
+    t0 = time.perf_counter()
+    try:
+        model.fit(data, batch_size=bs, epochs=FIT_EPOCHS, shuffle=True,
+                  verbose=0, log_freq=50, callbacks=[mon, Check()],
+                  resilience=dict(FIT_RES))
+    finally:
+        paddle.resilience.configure_faults("")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    d = {k: monitor.stat_get(k) - g0[k] for k in names}
+    d["host_pin_failures"] = host_pin_failures() - pin0
+    launches = _vision_counts(mods)
+    st = model._train_step
+    captures = st.captures
+    # the guarded step's replays, back to back
+    xb, yb = paddle.to_tensor(xs[:bs]), paddle.to_tensor(ys[:bs])
+    float(st(xb, yb))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = float(st.steps(FIT_K, xb, yb))
+    replay_ms = (time.perf_counter() - t0) / FIT_K * 1e3
+    bit = ("before" in seen and "after" in seen
+           and all(torch.equal(a, b) for a, b in zip(seen["before"],
+                                                     seen["after"])))
+    n_bufs = sum(1 for _ in net.named_buffers())
+    checks = {"trips_3": d["sentinel_trips"] == 3,
+              "one_rollback": d["rollbacks"] == 1,
+              "one_capture": captures == 1,
+              "snapshot_buffers_pinned": d["host_pin_failures"] == 0,
+              "tripped_step_bit_identical": bit,
+              "monitor_keys": all({"step_time_s", "examples_per_sec"}
+                                  <= set(r) for r in logs),
+              "last_loss_finite": math.isfinite(last)}
+    if opt.__class__.__name__ in ("Adam", "AdamW"):
+        checks["row7_once_a_step"] = launches["fused_adamw"] \
+            == d["train_steps"]
+    row = {"phase": f"train_paddle_fit_resilience_{name}", "model": name,
+           "batch": list(x.shape), "faults": FIT_FAULTS,
+           "resilience": FIT_RES, "batches_per_epoch": FIT_BATCHES,
+           "epochs": FIT_EPOCHS, "steps": d["train_steps"], "fit_s": fit_s,
+           "captures": captures, "stats": d,
+           "step_async_syncs_per_step": d["step_async_syncs"]
+           / max(d["train_steps"], 1),
+           "monitor_step_time_s_median": float(np.median(
+               [r["step_time_s"] for r in logs])),
+           "monitor_summary": mon.summary(),
+           "replay_ms_sentinel": replay_ms, "replay_ms_unguarded": ref_ms,
+           "buffers": n_bufs, "launches": launches, "checks": checks,
+           "ok": all(checks.values()), **stamp}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"phase 52 ({name}) failed: {checks}")
+    return row
+
+
+def resilience_fit_phase(dev, mods, stamp, lenet_row, resnet_row):
+    """Phase 52: Paddle's ``fit(resilience=...)`` with
+    ``callbacks=[Monitor()]`` on the card, FIT_FAULTS inside: (a) LeNet
+    through paddle.Model with Adam and FLAGS_fused_optimizer=1 (phase
+    41's configuration: row 7 inside the replayed graph), (b) ResNet-50
+    O2 bf16 batch 256 with Momentum (phase 42's configuration: batch
+    norm's buffers). Held: 3 trips and 1 rollback; one capture (the
+    faults never recapture); params, slots and batch-norm statistics
+    bit-identical across the tripped step; row 7 once a step (LeNet);
+    Monitor's step_time_s and examples_per_sec in every step's logs.
+    Printed: the guarded replay's ms against phases 41 and 42's, and
+    step_async_syncs a step."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.resilience  # noqa: F401 (paddle.resilience)
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+
+    paddle.set_device("gpu")
+    old = paddle.get_flags(["FLAGS_fused_optimizer", "FLAGS_fast_step"])
+    rows = {}
+    try:
+        paddle.set_flags({"FLAGS_fused_optimizer": 1, "FLAGS_fast_step": 1})
+        paddle.seed(0)
+        net = LeNet()
+        x = torch.zeros(LENET_BATCH, 1, 28, 28, device=dev)
+        y = torch.full((LENET_BATCH,), 9, device=dev)
+        rows["lenet"] = _fit_resilience(
+            paddle, "lenet", net, paddle.optimizer.Adam(
+                1e-3, parameters=net.parameters()), x, y, mods, stamp,
+            lenet_row["device_k_s"] / MODEL_K * 1e3)
+        del net
+        _fresh_peak(dev)
+        paddle.seed(0)
+        inner = paddle.amp.decorate(resnet50(num_classes=1000), level="O2",
+                                    dtype="bfloat16")
+        net = _o2_net(paddle, inner)
+        x = torch.zeros(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE,
+                        device=dev)
+        y = torch.full((RESNET_BATCH,), 999, device=dev)
+        rows["resnet50_o2"] = _fit_resilience(
+            paddle, "resnet50_o2", net, paddle.optimizer.Momentum(
+                learning_rate=0.1, momentum=0.9,
+                parameters=net.parameters()), x, y, mods, stamp,
+            resnet_row["replay_ms"])
+        del net, inner
+    finally:
+        paddle.set_flags(old)
+        _fresh_peak(dev)
+    return rows
+
+
 def _kernel(name, source, replaces, launches, row, err, keys, library):
     ms, plain, bnd, by = keys
     return {"name": name, "route": "cuda", "source": source,
@@ -8802,6 +9374,17 @@ def main():
     t = time.perf_counter()
     vision_ops_phase(dev, stamp)
     det_s["vision_ops"] = time.perf_counter() - t
+    res_train_s = {}                   # phases 50-52's seconds each
+    t = time.perf_counter()
+    skip = skip_flag_phase(dev, fo, stamp, opt)
+    res_train_s["skip_flag"] = time.perf_counter() - t
+    t = time.perf_counter()
+    guarded = resilience_train_phase(dev, fa, fk, fo, stamp, train_f)
+    res_train_s["guarded_gpt_1p3b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fit_res = resilience_fit_phase(dev, vision_mods, stamp, lenet_m,
+                                   resnet_ts)
+    res_train_s["fit_resilience"] = time.perf_counter() - t
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -8912,15 +9495,25 @@ def main():
                       "adamw_bound_by"), "adamw_library_ms"),
              captured_launches=lenet_m["launches"]["fused_adamw"],
              seq2seq_captured_launches=s2s["launches"]["fused_adamw"],
+             # phase 50: the kernel with the sentinel's skip flag False
+             # and True, beside phase 11's (no flag), per bucket
+             skip_flag={b: {k: r[k] for k in (
+                 "adamw_ms_flag_false", "adamw_ms_flag_true",
+                 "adamw_ms_phase11")} for b, r in skip.items()},
              # phase 47a: BERT-base's bf16 params, f32 moments
              o2_bert_bucket={k: oo[k] for k in (
                  "params", "max_abs_err", "bit_identical", "ms", "plain_ms",
                  "bound_ms", "bound_by")}),
-        _kernel("fused_lamb", "paddle_tpu_torch/csrc/fused_optimizer.cu",
-                "paddle_tpu/ops/fused_optimizer.py:209",
-                lamb["launches"]["fused_lamb"], ob, ob["lamb_max_abs_err"],
-                ("lamb_ms", "lamb_plain_ms", "lamb_bound_ms",
-                 "lamb_bound_by"), None),
+        dict(_kernel("fused_lamb",
+                     "paddle_tpu_torch/csrc/fused_optimizer.cu",
+                     "paddle_tpu/ops/fused_optimizer.py:209",
+                     lamb["launches"]["fused_lamb"], ob,
+                     ob["lamb_max_abs_err"],
+                     ("lamb_ms", "lamb_plain_ms", "lamb_bound_ms",
+                      "lamb_bound_by"), None),
+             skip_flag={b: {k: r[k] for k in (
+                 "lamb_ms_flag_false", "lamb_ms_flag_true",
+                 "lamb_ms_phase11")} for b, r in skip.items()}),
         # "kernel_ms": the kernel's own device time; "fused_quant": the
         # entry that quantizes bf16 activations on the card (the
         # engine's), beside the composed quantization plus the kernel
@@ -9016,6 +9609,12 @@ def main():
              # phase 48: the detector's convolutions, deformable gathers
              # and Momentum step launch no kernel row (all 0)
              "training_yolov3_r50vd_dcn": yolo["launches"],
+             # phases 51-52: the guarded steps (row 7 with the skip flag)
+             "training_resilience_gpt_1p3b": guarded["launches"],
+             "training_paddle_fit_resilience_lenet":
+                 fit_res["lenet"]["launches"],
+             "training_paddle_fit_resilience_resnet50_o2":
+                 fit_res["resnet50_o2"]["launches"],
              "serving_fleet_f32_host_loss":
                  fleet["f32_host_loss"]["launches"],
              "serving_fleet_f32_partition":
@@ -9047,6 +9646,8 @@ def main():
           "nn_phases_s": nn_s, "nn_total_s": sum(nn_s.values()),
           "detection_phases_s": det_s,
           "detection_total_s": sum(det_s.values()),
+          "resilience_training_phases_s": res_train_s,
+          "resilience_training_total_s": sum(res_train_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -72,7 +72,8 @@ from .framework.param_attr import ParamAttr  # noqa: E402
 from .hapi import callbacks  # noqa: E402
 from .hapi.model import Model  # noqa: E402
 from .jit import to_static  # noqa: E402
-from .framework.random import get_rng_state, seed, set_rng_state  # noqa: E402
+from .framework.random import (get_cuda_rng_state, get_rng_state,  # noqa: E402
+                               seed, set_cuda_rng_state, set_rng_state)
 from .tensor import *  # noqa: E402,F401,F403
 from . import linalg  # noqa: E402  (after the star import: paddle.linalg)
 
@@ -121,4 +122,5 @@ __all__ = ["resolve_device", "__version__", "amp", "autograd", "device",
            "bfloat16", "float32", "float64", "complex64", "complex128",
            "dtype", "linalg", "set_default_dtype",
            "get_default_dtype", "ParamAttr", "seed", "get_rng_state",
-           "set_rng_state"] + tensor.__all__
+           "set_rng_state", "get_cuda_rng_state",
+           "set_cuda_rng_state"] + tensor.__all__

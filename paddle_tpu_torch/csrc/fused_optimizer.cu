@@ -28,6 +28,15 @@
 // 8-byte (bf16) vector load where a leaf's pointers are aligned, scalar
 // loads otherwise, with enough blocks in flight to cover the card.
 //
+// Skip flag. Both entry points take an optional device bool (a null
+// pointer for none): when it reads true, every block returns before it
+// writes, so params, moments and r stay as they were. The training
+// sentinel's verdict and a future dynamic loss scale gate the update
+// through it without a host read (a captured step included); the step
+// gates its own beta-pow pair or count. The TPU reference selects the old
+// tree after the update instead; in place, that would need a second copy
+// of the params and moments.
+//
 // Built with -fmad=false (ops/_build.py EXTRA_FLAGS): no multiply and add
 // are contracted, so each operation rounds as the plain PyTorch version's
 // separate operations do, and the outputs are bit-identical to it.
@@ -114,7 +123,8 @@ template <typename TP, typename TG, typename TM, bool LAMB>
 __global__ void __launch_bounds__(NT)
 fused_opt_kernel(const Leaf* __restrict__ leaves, int n_leaves,
                  long long total_chunks, const float* __restrict__ sc,
-                 Hyper h) {
+                 const bool* __restrict__ skip, Hyper h) {
+  if (skip != nullptr && *skip) return;
   const float lr = sc[0], bc1 = sc[1], bc2 = sc[2];
   const float sbc = sqrtf(bc2) / bc1;     // eager form's scalar
   const float decay = 1.0f - lr * h.wd;   // decoupled decay factor
@@ -180,6 +190,7 @@ struct Args {
   int n_leaves;
   long long total_chunks;
   const float* sc;
+  const bool* skip;
   Hyper h;
   int grid;
   cudaStream_t s;
@@ -188,7 +199,7 @@ struct Args {
 template <typename TP, typename TG, typename TM, bool LAMB>
 int launch(const Args& a) {
   fused_opt_kernel<TP, TG, TM, LAMB><<<a.grid, NT, 0, a.s>>>(
-      a.leaves, a.n_leaves, a.total_chunks, a.sc, a.h);
+      a.leaves, a.n_leaves, a.total_chunks, a.sc, a.skip, a.h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,10 +235,12 @@ extern "C" long long fused_opt_chunk() { return CHUNK; }
 // leaf's first chunk, in increasing order; total_chunks = sum of
 // ceil(n / CHUNK). sc: device f32 [lr, bc1, bc2]. omb1/omb2 are 1 - b1 and
 // 1 - b2 as the caller computed them. dtypes: 0 f32, 1 bf16 (g may be
-// f32 or p's dtype; m and v share one). Updates p, m, v in place.
+// f32 or p's dtype; m and v share one). skip: a device bool, or null;
+// true leaves everything unwritten. Updates p, m, v in place.
 // Returns cudaGetLastError() after the launch.
 extern "C" int fused_adamw(const void* table, int n_leaves,
-                           long long total_chunks, const float* sc, float b1,
+                           long long total_chunks, const float* sc,
+                           const bool* skip, float b1,
                            float omb1, float b2, float omb2, float eps,
                            float wd, float l2, int use_l2, int eager,
                            int p_dt, int g_dt, int m_dt, int grid,
@@ -235,23 +248,25 @@ extern "C" int fused_adamw(const void* table, int n_leaves,
   if (n_leaves <= 0 || total_chunks <= 0) return 0;
   if (!dtypes_ok(p_dt, g_dt, m_dt) || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{static_cast<const Leaf*>(table), n_leaves, total_chunks, sc,
+  Args a{static_cast<const Leaf*>(table), n_leaves, total_chunks, sc, skip,
          Hyper{b1, omb1, b2, omb2, eps, wd, l2, use_l2, eager}, grid,
          static_cast<cudaStream_t>(stream)};
   return dispatch<false>(p_dt, g_dt, m_dt, a);
 }
 
 // As fused_adamw, for LAMB: updates m and v in place and writes r (f32,
-// at each leaf's r pointer); p is read only. lr in sc is unused.
+// at each leaf's r pointer); p is read only. lr in sc is unused. A true
+// skip leaves m, v and r unwritten.
 extern "C" int fused_lamb(const void* table, int n_leaves,
-                          long long total_chunks, const float* sc, float b1,
+                          long long total_chunks, const float* sc,
+                          const bool* skip, float b1,
                           float omb1, float b2, float omb2, float eps,
                           float wd, int p_dt, int g_dt, int m_dt, int grid,
                           void* stream) {
   if (n_leaves <= 0 || total_chunks <= 0) return 0;
   if (!dtypes_ok(p_dt, g_dt, m_dt) || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{static_cast<const Leaf*>(table), n_leaves, total_chunks, sc,
+  Args a{static_cast<const Leaf*>(table), n_leaves, total_chunks, sc, skip,
          Hyper{b1, omb1, b2, omb2, eps, wd, 0.0f, 0, 0}, grid,
          static_cast<cudaStream_t>(stream)};
   return dispatch<true>(p_dt, g_dt, m_dt, a);

@@ -276,11 +276,14 @@ class AsyncLoss(Tensor):
     ``numpy()``, ``item()``, ``bool()``...) is the sync point, counted
     once per handle by the ``step_async_syncs`` gauge."""
 
-    __slots__ = ("_synced",)
+    __slots__ = ("_synced", "health")
 
     def __init__(self, data, name=None):
         super().__init__(data, stop_gradient=True, name=name)
         self._synced = False
+        # the step's health verdict ({"trip", "trips"}, device scalars)
+        # when its sentinel is armed: reading them is a sync too
+        self.health = None
 
     def _materialize(self):
         if not self._synced:

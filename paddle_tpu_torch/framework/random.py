@@ -16,7 +16,8 @@ import torch
 from ..device import current_device
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "generator",
-           "renew_generator", "seed_key"]
+           "renew_generator", "seed_key", "get_cuda_rng_state",
+           "set_cuda_rng_state"]
 
 _lock = threading.Lock()
 _seed = [0]
@@ -76,10 +77,31 @@ def seed_key():
         return _seed[0], _epoch[0]
 
 
-def get_rng_state():
-    """The current device's generator state."""
-    return generator().get_state()
+def get_rng_state(device=None):
+    """The generator state of ``device`` (default: the current device), a
+    CPU uint8 tensor."""
+    return generator(device).get_state()
 
 
-def set_rng_state(state):
-    generator().set_state(state)
+def set_rng_state(state, device=None):
+    """Set the generator of ``device`` (default: the current device) to
+    ``state``, in place: a generator registered with a captured CUDA
+    graph stays the one its replays advance, so replay k + 1 after a
+    restore draws what it drew after the state was taken."""
+    generator(device).set_state(state)
+
+
+def get_cuda_rng_state():
+    """paddle.get_cuda_rng_state: one generator state a visible card (an
+    empty list without one)."""
+    if not torch.cuda.is_available():
+        return []
+    return [generator(torch.device("cuda", i)).get_state()
+            for i in range(torch.cuda.device_count())]
+
+
+def set_cuda_rng_state(state_list):
+    """paddle.set_cuda_rng_state: set each visible card's generator from
+    :func:`get_cuda_rng_state`'s list, in place."""
+    for i, state in enumerate(state_list):
+        generator(torch.device("cuda", i)).set_state(state)

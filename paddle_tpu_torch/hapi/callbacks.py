@@ -210,13 +210,36 @@ class LRScheduler(Callback):
 
 
 class Monitor(Callback):
-    """Per-step training telemetry (the JAX package's TrainerMonitor
-    bridge): not ported yet."""
+    """Per-step training telemetry (the bridge to
+    ``monitor.TrainerMonitor``): puts ``step_time_s``, ``recompiles``
+    (captured step graphs made) and ``examples_per_sec`` into each step's
+    logs, so ProgBarLogger prints them and VisualDL keeps them.
+    ``config_callbacks`` puts Monitor first, so its entries are in the
+    logs before the loggers read them."""
 
     def __init__(self):
-        raise NotImplementedError(
-            "hapi.callbacks.Monitor needs monitor.TrainerMonitor, which is "
-            "not ported to paddle_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
+        super().__init__()
+        from ..monitor import TrainerMonitor
+
+        self.telemetry = TrainerMonitor()
+
+    def on_train_begin(self, logs=None):
+        self.telemetry.reset()
+
+    def on_train_batch_begin(self, step, logs=None):
+        self.telemetry.step_begin()
+
+    def on_train_batch_end(self, step, logs=None):
+        tele = self.telemetry.step_end(
+            examples=self.params.get("batch_size"))
+        if logs is not None and tele:
+            logs["step_time_s"] = tele["step_time_s"]
+            logs["recompiles"] = tele["recompiles"]
+            if "examples_per_sec" in tele:
+                logs["examples_per_sec"] = tele["examples_per_sec"]
+
+    def summary(self):
+        return self.telemetry.summary()
 
 
 class VisualDL(Callback):

@@ -11,9 +11,17 @@ step ahead (``io.DevicePrefetcher``) and keeps each step's loss as an
 un-read ``AsyncLoss``: it reads one every ``log_freq`` steps and at the
 epoch's end.
 
+``fit(resilience=...)`` wraps the step in a ``TrainGuardian``
+(``resilience/guardian.py``): a guardian, a dict of its arguments, or
+True for its defaults. The step is built with the guardian's sentinel,
+so a poisoned step skips its update on the card; ``fit`` resumes from
+the guardian's newest checkpoint first, restarts the epoch (a fresh
+batch order when shuffling) after a rollback, stops cleanly after a
+preemption's priority save, and closes a guardian it made (one passed
+in is drained, and stays open).
+
 Not ported yet, and raising: the static-graph adapter (a Model prepared
-under ``paddle.enable_static()``, ROADMAP.md Queue 1 item 8 step 7),
-``fit(resilience=...)`` (the TrainGuardian, item 9) and
+under ``paddle.enable_static()``, ROADMAP.md Queue 1 item 8 step 7) and
 ``accumulate_grad_batches`` above 1 (which the JAX package takes and
 ignores; the port refuses it rather than ignore it). The JAX package's
 fleet.auto route needs ``distributed.fleet``, which the port does not
@@ -90,7 +98,7 @@ class Model:
         self._train_step = None
 
     # -- core steps ----------------------------------------------------------
-    def _build_train_step(self):
+    def _build_train_step(self, sentinel=None):
         from ..jit import TrainStep
 
         loss_layer = self._loss
@@ -100,7 +108,8 @@ class Model:
             *ins, label = batch
             return loss_layer(run_model(*ins), label)
 
-        return TrainStep(self.network, loss_fn, self._optimizer)
+        return TrainStep(self.network, loss_fn, self._optimizer,
+                         sentinel=sentinel)
 
     def train_batch(self, inputs, labels=None, update=True, sync=True):
         """One training step. ``sync=False`` (fit's fast path) returns the
@@ -158,10 +167,6 @@ class Model:
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
             accumulate_grad_batches=1, num_iters=None, resilience=None):
-        if resilience is not None and resilience is not False:
-            raise NotImplementedError(
-                "Model.fit(resilience=...): the TrainGuardian is not ported "
-                "to paddle_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
         if accumulate_grad_batches != 1:
             raise NotImplementedError(
                 "Model.fit(accumulate_grad_batches > 1) is not ported to "
@@ -180,15 +185,35 @@ class Model:
             metrics=["loss"] + [n for m in self._metrics
                                 for n in _to_list(m.name())])
         self.stop_training = False
+        guardian, guardian_owned = None, False
+        if resilience is not None and resilience is not False \
+                and self._use_jit:
+            from ..resilience.guardian import TrainGuardian
+
+            if isinstance(resilience, TrainGuardian):
+                guardian = resilience
+            else:
+                kwargs = {} if resilience is True else dict(resilience)
+                guardian = TrainGuardian(**kwargs)
+                guardian_owned = True     # fit made it: fit closes it
+            if self._train_step is None:
+                self._train_step = self._build_train_step(
+                    sentinel=guardian.sentinel_config)
+            if guardian.step is None:
+                guardian.attach(self._train_step)
+            guardian.install_preemption_handler()
+            guardian.restore_latest()
         cbks.on_train_begin({})
         fast = flags.fast_step[0]
         loss_val = None
         logs = {}
-        for epoch in range(epochs):
+        epoch = 0
+        while epoch < epochs:
             cbks.on_epoch_begin(epoch, {})
             epoch_iter = (DevicePrefetcher(train_loader, size=2) if fast
                           else train_loader)
             pending = None
+            restart_epoch = False
             for step, batch in enumerate(epoch_iter):
                 cbks.on_train_batch_begin(step, {})
                 *ins, label = (batch if isinstance(batch, (list, tuple))
@@ -203,8 +228,22 @@ class Model:
                     loss_val = raw
                 logs = {"loss": loss_val}
                 cbks.on_train_batch_end(step, logs)
+                if guardian is not None:
+                    action = guardian.after_step(
+                        self._train_step._step_count - 1, raw)
+                    if action == "rollback":
+                        # state rewound to the snapshot: replay the epoch
+                        # with a fresh batch order
+                        pending = None
+                        restart_epoch = True
+                        break
+                    if action == "preempt":
+                        self.stop_training = True
+                        break
                 if num_iters is not None and step + 1 >= num_iters:
                     break
+            if restart_epoch:
+                continue
             if pending is not None:  # the epoch's end logs the real value
                 loss_val = float(pending)
                 logs = {"loss": loss_val}
@@ -216,7 +255,15 @@ class Model:
                               verbose=verbose, callbacks=cbks)
             if self.stop_training:
                 break
+            epoch += 1
         self._sync_train_step()
+        if guardian is not None:
+            # the snapshot thread must not outlive the fit that started
+            # it; a guardian passed in stays open (its loop may go on)
+            if guardian_owned:
+                guardian.close()
+            else:
+                guardian.drain_snapshots()
         cbks.on_train_end({})
 
     def _sync_train_step(self):

@@ -18,6 +18,9 @@ Gauges (``monitor/stats.py``): ``prefetch_queue_depth`` (batches staged
 ahead: a queue that stays empty means the step waits for input) and
 ``h2d_copy_ms`` (host ms spent issuing the copies). While tracing is on,
 ``prefetch.h2d_copy`` and ``prefetch.wait`` spans land in the trace.
+Under ``FLAGS_fault_inject`` the producer calls the ``input_stall`` hook
+(``resilience/faults.py``) with each batch's index before staging it: a
+sleeping producer starves the consumer as a wedged storage read would.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from ..framework.core import Tensor
 from ..monitor import stats as _mstats
 from ..monitor.trace import TRACING as _TRACING
 from ..monitor.trace import get_writer as _trace_writer
+from ..resilience import faults as _faults
 
 __all__ = ["DevicePrefetcher", "prefetch_to_device"]
 
@@ -102,7 +106,9 @@ class DevicePrefetcher:
 
         def producer():
             try:
-                for batch in self._it:
+                for idx, batch in enumerate(self._it):
+                    if _faults.ENABLED[0]:
+                        _faults.FAULTS.on_input(idx)
                     t0 = time.perf_counter()
                     if cuda:
                         with torch.cuda.stream(side):

@@ -32,6 +32,20 @@ captures that step into one ``torch.cuda.CUDAGraph`` and replays it:
   counts back after the capture and adds them at every replay, which is
   where the kernels run.
 
+``sentinel=True`` (or a config dict, ``resilience/sentinel.py``) arms
+the in-step health verdict, as the JAX step does: the sentinel state is
+made with the step, before any capture, and updated in place inside the
+graph from the loss and the raw f32 global grad norm (after
+``grad_postprocess``, before the clip). A tripped step changes nothing
+and needs no host read: row 7 reads the verdict as its skip flag, a
+non-fused optimizer's new params and slots are selected against copies
+taken before its update, and the buffers against copies taken BEFORE
+the forward (batch norm writes its running statistics there, before any
+verdict exists). An ``AsyncLoss`` then carries ``.health``. Under
+``FLAGS_fault_inject`` the call runs the train-step fault hook with its
+step index first; ``nan_grad`` corrupts the batch before it is copied
+into the graph's static inputs, so a fault never recaptures.
+
 On the CPU, or with ``capture=False``, the same step runs uncaptured at
 every call. ``steps(k,
 *batch)`` runs k steps on one batch with no host read between them (the
@@ -68,6 +82,8 @@ import torch
 from ..core import flags
 from ..framework.core import AsyncLoss, Tensor
 from ..nn.layer.layers import Layer
+from ..resilience import faults as _faults
+from ..resilience import sentinel as _sentinel
 
 __all__ = ["to_static", "TrainStep", "not_to_static", "ProgramTranslator",
            "StaticFunction", "TracedLayer", "TranslatedLayer", "InputSpec",
@@ -248,10 +264,6 @@ class TrainStep:
                  donate: bool = True,
                  grad_postprocess: Optional[Callable] = None,
                  sentinel=None, capture: bool = True):
-        if sentinel:
-            raise NotImplementedError(
-                "TrainStep(sentinel=...): the health sentinel is not ported "
-                "to paddle_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -289,6 +301,12 @@ class TrainStep:
                                    device=self.device)
         self._lr_value = None
         self._graphs: Dict[Any, _Graph] = {}
+        # the health sentinel's state: made here, before any capture, and
+        # updated in place by every step (replays included)
+        self._sentinel_cfg = (_sentinel.normalize_config(sentinel)
+                              if sentinel else None)
+        self.sentinel_state = (_sentinel.init_state(self.device)
+                               if self._sentinel_cfg is not None else None)
 
     # -- the step itself ----------------------------------------------------
     def _run(self, batch, tables=None):
@@ -298,6 +316,11 @@ class TrainStep:
         was = [(m, m.training) for m in model.sublayers(include_self=True)]
         bufs = {k: b for k, b in model.named_buffers() if b is not None}
         held = {k: b._data for k, b in bufs.items()}
+        sent = self.sentinel_state
+        # the buffers as they were: the forward writes batch norm's
+        # running statistics before any verdict exists
+        bufs_before = ({k: t.clone() for k, t in held.items()}
+                       if sent is not None else None)
         try:
             for m, _ in was:
                 m.training = True
@@ -320,6 +343,15 @@ class TrainStep:
         with torch.no_grad():
             if self.grad_postprocess is not None:
                 grads = self.grad_postprocess(grads)
+            trip = None
+            if sent is not None:
+                # the raw norm, before the clip (which would cap spikes)
+                _sentinel.update(sent, loss,
+                                 _sentinel.global_grad_norm(
+                                     {k: getattr(g, "_data", g)
+                                      for k, g in grads.items()}),
+                                 self._sentinel_cfg)
+                trip = sent["last_trip"]
             pg = [(self._params[k], grads[k]) for k in names]
             if opt._grad_clip is not None:
                 pg = opt._grad_clip(pg)
@@ -331,7 +363,15 @@ class TrainStep:
                     opt, names, self._params,
                     {k: getattr(g, "_data", g) for k, (_, g) in
                      zip(names, pg)},
-                    self._slot_values, self._lr_dev, self._hyper, tables)
+                    self._slot_values, self._lr_dev, self._hyper, tables,
+                    skip=trip)
+            elif trip is not None:
+                state = ([self._params[k]._data for k in names]
+                         + [t for k in names for t in self._slot_values[k]
+                            if isinstance(t, torch.Tensor)])
+                olds = [t.clone() for t in state]
+                opt._apply(pg, self._lr_dev)
+                _sentinel.gate_(trip, state, olds)
             else:
                 opt._apply(pg, self._lr_dev)
             # a buffer rebound (not updated in place) goes back into its
@@ -340,6 +380,9 @@ class TrainStep:
                 if b._data is not held[k]:
                     held[k].copy_(b._data)
                     b._data = held[k]
+            if trip is not None:
+                _sentinel.gate_(trip, [held[k] for k in held],
+                                [bufs_before[k] for k in held])
         return loss.detach()
 
     # -- calls ----------------------------------------------------------------
@@ -360,11 +403,10 @@ class TrainStep:
             self._lr_value = lr
 
     def __call__(self, *batch):
-        if flags.fault_inject[0]:
-            raise NotImplementedError(
-                "TrainStep under FLAGS_fault_inject: the train-step fault "
-                "hooks are not ported to paddle_tpu_torch yet (ROADMAP.md "
-                "Queue 1 item 9)")
+        if _faults.ENABLED[0]:
+            # crash / stall / preempt, or a NaN batch (nan_grad) copied
+            # into the same graph's static inputs as any other
+            batch = _faults.FAULTS.on_train_step(self._step_count, batch)
         self._count()
         self.optimizer._fused_state = None
         self._write_lr()
@@ -388,7 +430,13 @@ class TrainStep:
 
     def _result(self, loss):
         if flags.fast_step[0]:
-            return AsyncLoss(loss)
+            out = AsyncLoss(loss)
+            if self.sentinel_state is not None:
+                # this step's verdict (the state is updated in place)
+                out.health = {
+                    "trip": self.sentinel_state["last_trip"].clone(),
+                    "trips": self.sentinel_state["trips"].clone()}
+            return out
         return Tensor(loss)
 
     def _call_captured(self, spec, leaves):
@@ -451,6 +499,9 @@ class TrainStep:
                 f"unregistered RNG generator breaks capture; the step does "
                 f"not fall back to the uncaptured one") from e
         g.tables.finalize()
+        from ..monitor.stats import JIT_COMPILE
+
+        JIT_COMPILE.add()
         # the capture launched nothing: each replay launches what it holds
         g.launches = []
         for (m, c), b in zip(counters, before):
@@ -514,9 +565,11 @@ class TrainStep:
         return out if loss is None else self._result(loss)
 
     def scale_lr(self, scale: float) -> None:
-        """Set the absolute learning-rate multiplier; it enters the step
-        as the device scalar, so a captured step keeps its graph."""
+        """Set the absolute learning-rate multiplier; it is written into
+        the step's device scalar at once (in place), so a captured step
+        keeps its graph."""
         self._lr_scale = float(scale)
+        self._write_lr()
 
     def sync(self):
         """The JAX package's lazy slot-mirror flush. The port's step

@@ -9,15 +9,20 @@ constrained-decoding stats, its watchdog and brownout stats, the
 injected-fault counter, the router's, replica supervisor's and HTTP front
 end's stats, the cross-host fleet's and its RPC transport's stats, and
 the latency histograms of the engine, the fleet's KV stream, its
-arrivals and its RPC round trips (a subset of
-``paddle_tpu/monitor/stats.py``, with its names).
+arrivals and its RPC round trips, the training resilience gauges
+(sentinel trips, rollbacks, preemption saves, watchdog stalls, the
+guardian's heartbeat, the pod's live hosts and resizes) and the memory
+gauges (a subset of ``paddle_tpu/monitor/stats.py``, with its names).
 
 A :class:`Stat` is a named int64 gauge; a :class:`Histogram` a
 fixed-bucket (log2) latency histogram with count and sum;
 :class:`StatRegistry` the process-wide thread-safe registry of both.
 :func:`prometheus_text` renders the registry as the front end's
-``GET /metrics`` serves it, under the reference's metric names. The
-memory gauges are not ported.
+``GET /metrics`` serves it, under the reference's metric names.
+:func:`update_memory_stats` refreshes ``host_memory_bytes`` (the
+process's peak RSS) and ``device_memory_bytes`` (the bytes the caching
+allocator holds in use on every visible card, from
+``torch.cuda.memory_stats``).
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ __all__ = ["Stat", "StatRegistry", "stat_get", "stat_add", "stat_reset",
            "stat_names", "stat_snapshot", "reset_all_stats", "Histogram",
            "DEFAULT_HISTOGRAMS", "hist_observe", "get_histogram",
            "histogram_snapshot", "hist_delta", "hist_quantile",
-           "prometheus_text"]
+           "prometheus_text", "update_memory_stats"]
 
 
 class Stat:
@@ -252,6 +257,9 @@ KV_BLOCKS_FREE = _registry.get_stat("kv_blocks_free")
 KV_BLOCKS_USED = _registry.get_stat("kv_blocks_used")
 KV_FRAGMENTATION = _registry.get_stat("kv_fragmentation")
 TRAIN_STEPS = _registry.get_stat("train_steps")
+# captured train-step graphs made (jit.TrainStep: one a new batch
+# signature, the port's counterpart of a recompile)
+JIT_COMPILE = _registry.get_stat("jit_compile")
 FUSED_OPTIMIZER_STEPS = _registry.get_stat("fused_optimizer_steps")
 INT8_MATMUL_CALLS = _registry.get_stat("int8_matmul_calls")
 FP8_MATMUL_CALLS = _registry.get_stat("fp8_matmul_calls")
@@ -344,6 +352,52 @@ FLEET_KV_CHUNKS_STREAMED = _registry.get_stat("fleet_kv_chunks_streamed")
 FLEET_KV_RESUME_TAILS = _registry.get_stat("fleet_kv_resume_tails")
 # fleet-wide flight-recorder collection sweeps
 FLIGHT_COLLECTS = _registry.get_stat("flight_collects")
+
+# training resilience (resilience/guardian.py, resilience/pod.py): the
+# sentinel's verdict trips the guardian has read, snapshot rollbacks,
+# preemption priority saves, watchdog-detected stalled steps, the last
+# guardian heartbeat (monotonic ms, gauge), the pod's live hosts (gauge)
+# and elastic resizes
+SENTINEL_TRIPS = _registry.get_stat("sentinel_trips")
+ROLLBACKS = _registry.get_stat("rollbacks")
+PREEMPT_SAVES = _registry.get_stat("preempt_saves")
+WATCHDOG_STALLS = _registry.get_stat("watchdog_stalls")
+GUARDIAN_HEARTBEAT_MS = _registry.get_stat("guardian_heartbeat_ms")
+POD_HOSTS_ALIVE = _registry.get_stat("pod_hosts_alive")
+ELASTIC_RESIZES = _registry.get_stat("elastic_resizes")
+# memory gauges (update_memory_stats): the process's peak RSS and the
+# caching allocator's in-use bytes over the visible cards
+HOST_MEMORY_BYTES = _registry.get_stat("host_memory_bytes")
+DEVICE_MEMORY_BYTES = _registry.get_stat("device_memory_bytes")
+
+
+def update_memory_stats() -> dict:
+    """Refresh the host and device memory gauges and return them
+    ({name: bytes}). The host side reads the process's peak RSS; the
+    device side sums ``allocated_bytes.all.current`` of
+    ``torch.cuda.memory_stats`` over the visible cards (nothing is read,
+    and the gauge keeps its value, where no card is initialised)."""
+    try:
+        import resource
+
+        rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        HOST_MEMORY_BYTES.set(int(rss_kb) * 1024)
+    except Exception:  # noqa: BLE001 - a platform without getrusage
+        pass
+    try:
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            total = 0
+            for i in range(torch.cuda.device_count()):
+                st = torch.cuda.memory_stats(i)
+                total += int(st.get("allocated_bytes.all.current", 0))
+            DEVICE_MEMORY_BYTES.set(total)
+    except Exception:  # noqa: BLE001 - a card that cannot be read
+        pass
+    return {"host_memory_bytes": HOST_MEMORY_BYTES.get(),
+            "device_memory_bytes": DEVICE_MEMORY_BYTES.get()}
+
 
 # the engine's latency histograms, recorded at the source (ms)
 DEFAULT_HISTOGRAMS = (

@@ -22,6 +22,14 @@ copied into the leaf.
 for one flat buffer; :func:`flatten_bucket` / :func:`unflatten_bucket`
 are the JAX helpers, for callers that want one.
 
+Every entry takes an optional ``skip``: a 0-dim bool tensor on the
+leaves' device (the training sentinel's verdict). When it holds True the
+kernel's blocks return before writing (``csrc/fused_optimizer.cu``) and
+the plain versions select the old values with ``torch.where``, so params,
+moments and the step's count or beta-pow pair stay bit-identical; False,
+or no flag, gives the update as before. No host read decides it, so a
+captured step keeps its one graph.
+
 :func:`fused_eager_step` is the eager entry of the Paddle optimizers
 (``optimizer/optimizer.py``: ``Adam``/``AdamW``/``Lamb.step()`` with
 ``FLAGS_fused_optimizer=1``): the optimizer's own per-parameter slots
@@ -81,9 +89,10 @@ def unflatten_bucket(flat, shapes, dtype=None):
 # -- plain versions (the JAX references' op sequences) -----------------------
 
 def _adamw_flat_reference(p, g, m, v, lr, bc1, bc2, *, b1, b2, eps, wd, l2,
-                          eager_form):
+                          eager_form, skip=None):
     """Plain version: the same op sequence the kernel runs, f32 math,
-    results in the storage dtypes. lr, bc1, bc2 are f32 0-dim tensors."""
+    results in the storage dtypes. lr, bc1, bc2 are f32 0-dim tensors;
+    a True ``skip`` gives back p, m and v as they were."""
     p32, g32, m32, v32 = p.float(), g.float(), m.float(), v.float()
     if l2:
         g32 = g32 + l2 * p32
@@ -94,16 +103,25 @@ def _adamw_flat_reference(p, g, m, v, lr, bc1, bc2, *, b1, b2, eps, wd, l2,
     else:
         step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
     p32 = p32 * (1.0 - lr * wd) - lr * step
-    return p32.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+    out = p32.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+    if skip is None:
+        return out
+    return tuple(torch.where(skip, old, new)
+                 for old, new in zip((p, m, v), out))
 
 
-def _lamb_flat_reference(p, g, m, v, bc1, bc2, *, b1, b2, eps, wd):
-    """Plain version of the LAMB moment pass → (m, v, r f32)."""
+def _lamb_flat_reference(p, g, m, v, bc1, bc2, *, b1, b2, eps, wd,
+                         skip=None):
+    """Plain version of the LAMB moment pass → (m, v, r f32); a True
+    ``skip`` gives back m and v as they were (r is then not used)."""
     p32, g32 = p.float(), g.float()
     m32 = b1 * m.float() + (1.0 - b1) * g32
     v32 = b2 * v.float() + (1.0 - b2) * (g32 * g32)
     r = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps) + wd * p32
-    return m32.to(m.dtype), v32.to(v.dtype), r
+    nm, nv = m32.to(m.dtype), v32.to(v.dtype)
+    if skip is not None:
+        nm, nv = torch.where(skip, m, nm), torch.where(skip, v, nv)
+    return nm, nv, r
 
 
 # -- the kernels ---------------------------------------------------------------
@@ -114,9 +132,10 @@ def _load():
         lib = _build.load("fused_optimizer")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ll = ctypes.c_longlong
-        lib.fused_adamw.argtypes = [p, i, ll, p] + [f] * 7 + [i] * 6 + [p]
+        lib.fused_adamw.argtypes = [p, i, ll, p, p] + [f] * 7 + [i] * 6 \
+            + [p]
         lib.fused_adamw.restype = i
-        lib.fused_lamb.argtypes = [p, i, ll, p] + [f] * 6 + [i] * 4 + [p]
+        lib.fused_lamb.argtypes = [p, i, ll, p, p] + [f] * 6 + [i] * 4 + [p]
         lib.fused_lamb.restype = i
         lib.fused_opt_chunk.argtypes = []
         lib.fused_opt_chunk.restype = ll
@@ -168,8 +187,19 @@ def _grid(dev, chunks):
     return max(1, min(chunks, sms * 8))
 
 
+def _skip_ptr(skip, dev):
+    """The kernel's skip pointer: 0 (null) for no flag, else the address
+    of a 0-dim bool on the leaves' device."""
+    if skip is None:
+        return 0
+    if skip.dtype != torch.bool or skip.numel() != 1 or skip.device != dev:
+        raise ValueError("skip must be a one-element bool tensor on the "
+                         "leaves' device")
+    return skip.data_ptr()
+
+
 def _launch_adamw(ps, gs, ms, vs, sc, *, b1, b2, eps, wd, l2, eager_form,
-                  tables=None, key=None):
+                  tables=None, key=None, skip=None):
     global ADAMW_LAUNCHES
     dts = _check_leaves(ps, gs, ms, vs, "fused AdamW")
     lib = _load()
@@ -184,14 +214,15 @@ def _launch_adamw(ps, gs, ms, vs, sc, *, b1, b2, eps, wd, l2, eager_form,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_adamw(
-            table.data_ptr(), len(ps), chunks, sc.data_ptr(), b1, 1.0 - b1,
+            table.data_ptr(), len(ps), chunks, sc.data_ptr(),
+            _skip_ptr(skip, dev), b1, 1.0 - b1,
             b2, 1.0 - b2, eps, wd, l2, int(bool(l2)), int(bool(eager_form)),
             *dts, _grid(dev, chunks), stream)
     _build.check(lib, err, "fused_adamw")
     ADAMW_LAUNCHES += 1
 
 
-def _launch_lamb(ps, gs, ms, vs, rs, sc, *, b1, b2, eps, wd):
+def _launch_lamb(ps, gs, ms, vs, rs, sc, *, b1, b2, eps, wd, skip=None):
     global LAMB_LAUNCHES
     dts = _check_leaves(ps, gs, ms, vs, "fused LAMB")
     for p, r in zip(ps, rs):
@@ -207,7 +238,8 @@ def _launch_lamb(ps, gs, ms, vs, rs, sc, *, b1, b2, eps, wd):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_lamb(
-            table.data_ptr(), len(ps), chunks, sc.data_ptr(), b1, 1.0 - b1,
+            table.data_ptr(), len(ps), chunks, sc.data_ptr(),
+            _skip_ptr(skip, dev), b1, 1.0 - b1,
             b2, 1.0 - b2, eps, wd, *dts, _grid(dev, chunks), stream)
     _build.check(lib, err, "fused_lamb")
     LAMB_LAUNCHES += 1
@@ -226,18 +258,19 @@ def _scalars(lr, bc1, bc2, dev):
 # -- bucket executors (in place) ----------------------------------------------
 
 def _bucket_adamw(ps, gs, ms, vs, sc, *, b1, b2, eps, wd, l2=0.0,
-                  eager_form=False, tables=None, key=None):
+                  eager_form=False, tables=None, key=None, skip=None):
     """AdamW over one bucket's leaves, in place: one kernel launch on the
     card (its leaf table from ``tables`` under ``key`` when given, else
     made for the call), the plain version leaf by leaf on the CPU."""
     kw = dict(b1=float(b1), b2=float(b2), eps=float(eps), wd=float(wd),
               l2=float(l2), eager_form=bool(eager_form))
     if ps[0].device.type == "cuda":
-        _launch_adamw(ps, gs, ms, vs, sc, tables=tables, key=key, **kw)
+        _launch_adamw(ps, gs, ms, vs, sc, tables=tables, key=key,
+                      skip=skip, **kw)
         return
     for p, g, m, v in zip(ps, gs, ms, vs):
         np_, nm, nv = _adamw_flat_reference(p, g, m, v, sc[0], sc[1], sc[2],
-                                            **kw)
+                                            skip=skip, **kw)
         p.copy_(np_)
         m.copy_(nm)
         v.copy_(nv)
@@ -258,18 +291,22 @@ def _lamb_groups(ps):
     return groups, cap
 
 
-def _apply_trust(p, r, lr):
+def _apply_trust(p, r, lr, skip=None):
     """LAMB's per-leaf step, in place: p -= lr · ‖p‖/‖r‖ · r (the ratio
-    is 1 when either norm is 0)."""
+    is 1 when either norm is 0); a True ``skip`` keeps p (r is then
+    whatever the buffer held)."""
     p32 = p.float()
     p_norm = torch.sqrt(torch.sum(torch.square(p32)))
     r_norm = torch.sqrt(torch.sum(torch.square(r)))
     trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
                         torch.ones_like(p_norm))
-    p.copy_(p32 - lr * trust * r)
+    new = p32 - lr * trust * r
+    if skip is not None:
+        new = torch.where(skip, p32, new)
+    p.copy_(new)
 
 
-def _bucket_lamb(ps, gs, ms, vs, sc, *, b1, b2, eps, wd):
+def _bucket_lamb(ps, gs, ms, vs, sc, *, b1, b2, eps, wd, skip=None):
     """LAMB moments over one bucket, in place; yields (leaf indices, their
     r tensors) group by group. On the card every group is one launch into
     one reused f32 buffer, so a group's r is valid only until the next
@@ -277,7 +314,8 @@ def _bucket_lamb(ps, gs, ms, vs, sc, *, b1, b2, eps, wd):
     kw = dict(b1=float(b1), b2=float(b2), eps=float(eps), wd=float(wd))
     if ps[0].device.type != "cuda":
         for i, (p, g, m, v) in enumerate(zip(ps, gs, ms, vs)):
-            nm, nv, r = _lamb_flat_reference(p, g, m, v, sc[1], sc[2], **kw)
+            nm, nv, r = _lamb_flat_reference(p, g, m, v, sc[1], sc[2],
+                                             skip=skip, **kw)
             m.copy_(nm)
             v.copy_(nv)
             yield [i], [r]
@@ -292,30 +330,33 @@ def _bucket_lamb(ps, gs, ms, vs, sc, *, b1, b2, eps, wd):
             rs.append(buf[off:off + n].view(ps[i].shape))
             off += n
         _launch_lamb([ps[i] for i in idx], [gs[i] for i in idx],
-                     [ms[i] for i in idx], [vs[i] for i in idx], rs, sc, **kw)
+                     [ms[i] for i in idx], [vs[i] for i in idx], rs, sc,
+                     skip=skip, **kw)
         yield idx, rs
 
 
 # -- flat entry points (the JAX signatures) -----------------------------------
 
 def adamw_flat(p, g, m, v, lr, bc1, bc2, *, b1=0.9, b2=0.999, eps=1e-8,
-               wd=0.0, l2=0.0, eager_form=False):
+               wd=0.0, l2=0.0, eager_form=False, skip=None):
     """One AdamW pass over a flat 1-D bucket, IN PLACE; returns (p, m, v).
     lr/bc1/bc2 are floats or 0-dim tensors. CUDA tensors launch the
-    kernel; CPU tensors run the plain version."""
+    kernel; CPU tensors run the plain version. A True ``skip`` (0-dim
+    bool on p's device) leaves p, m and v unwritten."""
     sc = _scalars(lr, bc1, bc2, p.device)
     _bucket_adamw([p], [g], [m], [v], sc, b1=b1, b2=b2, eps=eps, wd=wd,
-                  l2=l2, eager_form=eager_form)
+                  l2=l2, eager_form=eager_form, skip=skip)
     return p, m, v
 
 
 def lamb_moments_flat(p, g, m, v, bc1, bc2, *, b1=0.9, b2=0.999, eps=1e-6,
-                      wd=0.0):
+                      wd=0.0, skip=None):
     """The LAMB moment pass over a flat bucket: m and v IN PLACE; returns
-    (m, v, r) with r the trust-ratio dividend in f32."""
+    (m, v, r) with r the trust-ratio dividend in f32. A True ``skip``
+    leaves m and v unwritten (and r undefined)."""
     sc = _scalars(0.0, bc1, bc2, p.device)
     (_, (r,)), = list(_bucket_lamb([p], [g], [m], [v], sc, b1=b1, b2=b2,
-                                   eps=eps, wd=wd))
+                                   eps=eps, wd=wd, skip=skip))
     return m, v, r
 
 
@@ -360,8 +401,13 @@ def _flat_state(params, grads, state, weight_decay, decay_mask):
     return paths, flat_p, flat_g, flat_m, flat_v, flat_wd
 
 
-def _bias_corrections(state, beta1, beta2):
-    state["count"] += 1
+def _bias_corrections(state, beta1, beta2, skip=None):
+    """Advance the count (not where ``skip`` holds True) and return the
+    bias corrections at it."""
+    if skip is None:
+        state["count"] += 1
+    else:
+        state["count"] += (~skip).to(state["count"].dtype)
     c = state["count"].float()
     return 1.0 - beta1 ** c, 1.0 - beta2 ** c
 
@@ -369,12 +415,13 @@ def _bias_corrections(state, beta1, beta2):
 @torch.no_grad()
 def fused_adamw_update(params, grads, state, lr, beta1=0.9, beta2=0.999,
                        eps=1e-8, weight_decay=0.01, l2_coeff=0.0,
-                       mv_dtype=None, decay_mask=None):
+                       mv_dtype=None, decay_mask=None, skip=None):
     """pure_adamw_update drop-in, in place: one fused pass per (dtype,
     decay) bucket. ``mv_dtype`` different from the moments' dtype first
     casts them to it (as the JAX fused update does) and stores the cast
-    moments in ``state``."""
-    bc1, bc2 = _bias_corrections(state, beta1, beta2)
+    moments in ``state``. A True ``skip`` leaves params, moments and the
+    count as they were."""
+    bc1, bc2 = _bias_corrections(state, beta1, beta2, skip)
     paths, flat_p, flat_g, flat_m, flat_v, flat_wd = _flat_state(
         params, grads, state, weight_decay, decay_mask)
     if mv_dtype is not None:
@@ -387,18 +434,21 @@ def fused_adamw_update(params, grads, state, lr, beta1=0.9, beta2=0.999,
     for (_, _, wd), idx in _bucket_indices(flat_p, flat_m, flat_wd).items():
         _bucket_adamw([flat_p[i] for i in idx], [flat_g[i] for i in idx],
                       [flat_m[i] for i in idx], [flat_v[i] for i in idx], sc,
-                      b1=beta1, b2=beta2, eps=eps, wd=wd, l2=l2_coeff)
+                      b1=beta1, b2=beta2, eps=eps, wd=wd, l2=l2_coeff,
+                      skip=skip)
     FUSED_OPTIMIZER_STEPS.add()
     return params, state
 
 
 @torch.no_grad()
 def fused_lamb_update(params, grads, state, lr, beta1=0.9, beta2=0.999,
-                      eps=1e-6, weight_decay=0.01, decay_mask=None, **_):
+                      eps=1e-6, weight_decay=0.01, decay_mask=None,
+                      skip=None, **_):
     """pure_lamb_update drop-in, in place: the fused moment/direction pass
     per bucket, then the per-leaf trust ratio ‖p‖/‖r‖ (1 when either norm
-    is 0) applied leaf by leaf."""
-    bc1, bc2 = _bias_corrections(state, beta1, beta2)
+    is 0) applied leaf by leaf. A True ``skip`` leaves params, moments
+    and the count as they were."""
+    bc1, bc2 = _bias_corrections(state, beta1, beta2, skip)
     _, flat_p, flat_g, flat_m, flat_v, flat_wd = _flat_state(
         params, grads, state, weight_decay, decay_mask)
     sc = _scalars(lr, bc1, bc2, flat_p[0].device)
@@ -407,9 +457,9 @@ def fused_lamb_update(params, grads, state, lr, beta1=0.9, beta2=0.999,
         for group, rs in _bucket_lamb(
                 ps, [flat_g[i] for i in idx], [flat_m[i] for i in idx],
                 [flat_v[i] for i in idx], sc, b1=beta1, b2=beta2, eps=eps,
-                wd=wd):
+                wd=wd, skip=skip):
             for j, r in zip(group, rs):
-                _apply_trust(ps[j], r, lr)
+                _apply_trust(ps[j], r, lr, skip)
     FUSED_OPTIMIZER_STEPS.add()
     return params, state
 
@@ -479,7 +529,7 @@ class SlotTables:
 
 @torch.no_grad()
 def fused_update_from_slots(opt, param_names, params, grads, slots, lr,
-                            hyper, tables=None):
+                            hyper, tables=None, skip=None):
     """Fused Adam/AdamW over ``jit.TrainStep``'s named state, in place
     (``paddle_tpu/ops/fused_optimizer.py:421``).
 
@@ -493,7 +543,8 @@ def fused_update_from_slots(opt, param_names, params, grads, slots, lr,
     gives the bias corrections, and every leaf's pair becomes that pair
     times β after the update, as in JAX. One kernel launch per bucket on
     the card, its leaf table from ``tables`` (:class:`SlotTables`) when
-    given; on the CPU each leaf runs the plain version."""
+    given; on the CPU each leaf runs the plain version. A True ``skip``
+    leaves params and every slot (beta pows included) as they were."""
     k0 = param_names[0]
     b1p, b2p = slots[k0][2], slots[k0][3]
     h0 = dict(hyper[k0])
@@ -519,11 +570,15 @@ def fused_update_from_slots(opt, param_names, params, grads, slots, lr,
                       [grads[k].contiguous() for k in keys],
                       [slots[k][0] for k in keys], [slots[k][1] for k in keys],
                       sc, b1=b1, b2=b2, eps=eps, wd=wd, l2=l2,
-                      eager_form=True, tables=tables, key=key)
+                      eager_form=True, tables=tables, key=key, skip=skip)
     nb1, nb2 = b1p * b1, b2p * b2
     for k in param_names:
-        slots[k][2].copy_(nb1)
-        slots[k][3].copy_(nb2)
+        if skip is None:
+            slots[k][2].copy_(nb1)
+            slots[k][3].copy_(nb2)
+        else:
+            slots[k][2].copy_(torch.where(skip, slots[k][2], nb1))
+            slots[k][3].copy_(torch.where(skip, slots[k][3], nb2))
 
 
 # -- eager Optimizer.step (the Paddle surface) --------------------------------

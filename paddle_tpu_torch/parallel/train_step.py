@@ -15,10 +15,23 @@ JAX step sets ``zero_level = 0`` when the sharding degree is 1): loss and
 grads by autograd, the optional global-norm clip, the optimizer update.
 With ``FLAGS_fused_optimizer`` set, ``"adamw"`` and ``"lamb"`` take the
 fused kernels' updates (``ops/fused_optimizer.py``), with the same state
-layout, as the JAX step does. A mesh of more than one device, ``aux``
-state, dynamic loss scaling, the sentinel and fault injection raise
-``NotImplementedError`` until the multi-GPU slice (ROADMAP.md Queue 1
-item 7).
+layout, as the JAX step does.
+
+``sentinel=True`` (or a config dict, ``resilience/sentinel.py``) arms
+the in-step health verdict: the raw f32 global grad norm (taken before
+any clip; the clip reuses it) and the loss update a device-resident
+sentinel state, and a tripped step changes nothing: the fused kernels
+read the verdict as their skip flag, the pure optimizers' new values are
+selected against copies taken before the update (``torch.where``), and
+the count stays. No host read decides it. The step's loss carries
+``.health`` (``{"trip", "trips"}``, device scalars). Under
+``FLAGS_fault_inject`` the step calls the registry's train-step hook
+(``resilience/faults.py``) with its step index before it runs.
+
+A mesh of more than one device, ``aux`` state and dynamic loss scaling
+raise ``NotImplementedError`` until the multi-GPU slice (ROADMAP.md
+Queue 1 item 7); dynamic loss scaling will gate through the same skip
+flag.
 """
 from __future__ import annotations
 
@@ -29,8 +42,11 @@ import torch
 
 from .. import resolve_device
 from ..core import flags
+from ..framework import random as _random
 from ..monitor.stats import TRAIN_STEPS
 from ..ops.fused_optimizer import fused_adamw_update, fused_lamb_update
+from ..resilience import faults as _faults
+from ..resilience import sentinel as _sentinel
 
 __all__ = ["DistributedTrainStep", "pure_adamw_init", "pure_adamw_update",
            "pure_sgd_init", "pure_sgd_update", "pure_momentum_init",
@@ -228,11 +244,14 @@ def pure_momentum_update(params, grads, state, lr, momentum=0.9,
 
 
 @torch.no_grad()
-def global_norm_clip(grads, clip_norm: float):
+def global_norm_clip(grads, clip_norm: float, norm=None):
     """Global-norm clip across the whole param set: (clipped grads, norm).
-    Returns a new tree; the grads given are not changed."""
-    sq = sum(torch.sum(torch.square(g.float())) for _, g in _paths(grads))
-    norm = torch.sqrt(sq)
+    Returns a new tree; the grads given are not changed. ``norm``: the
+    grads' global norm when the caller has it already (the sentinel's)."""
+    if norm is None:
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for _, g in _paths(grads))
+        norm = torch.sqrt(sq)
     scale = torch.clamp(clip_norm / (norm + 1e-6), max=1.0)
     return _map(lambda g: (g * scale).to(g.dtype), grads), norm
 
@@ -303,8 +322,6 @@ class DistributedTrainStep:
             _unported("aux (non-trainable state threaded through the step)")
         if dynamic_scale:
             _unported("dynamic loss scaling")
-        if sentinel:
-            _unported("the health sentinel")
         if isinstance(optimizer, str):
             init_fn, update_fn = _OPTS[optimizer]
             if flags.fused_optimizer[0] and optimizer in ("adamw", "lamb"):
@@ -330,6 +347,14 @@ class DistributedTrainStep:
             self.opt_state = init_fn(self.params)
         self._step_count = 0
         self._lr_scale = 1.0
+        # the fused updates gate themselves on the verdict (the kernel's
+        # skip flag); a pure update is gated against copies
+        self._gates_itself = update_fn in (fused_adamw_update,
+                                           fused_lamb_update)
+        self._sentinel_cfg = (_sentinel.normalize_config(sentinel)
+                              if sentinel else None)
+        self.sentinel_state = (_sentinel.init_state(self.device)
+                               if self._sentinel_cfg is not None else None)
 
     def current_lr(self) -> float:
         if callable(self._lr):
@@ -343,9 +368,11 @@ class DistributedTrainStep:
 
     def __call__(self, batch):
         """One step; returns the loss (a detached 0-dim tensor on the
-        device, not synchronised)."""
-        if flags.fault_inject[0]:
-            _unported("fault injection (FLAGS_fault_inject)")
+        device, not synchronised; with the sentinel armed it carries
+        ``.health``)."""
+        if _faults.ENABLED[0]:
+            # crash / stall / preempt, or a NaN batch (nan_grad)
+            batch = _faults.FAULTS.on_train_step(self._step_count, batch)
         lr = self.current_lr()
         batch = _to_device(batch, self.device)
         leaves = list(_paths(self.params))
@@ -356,32 +383,73 @@ class DistributedTrainStep:
         for (path, p), g in zip(leaves, grads):
             _put(gtree, path, torch.zeros_like(p) if g is None else g)
         del grads
+        trip = None
+        norm = None
+        if self.sentinel_state is not None:
+            # the raw norm: a clip would cap the spikes the verdict reads
+            norm = _sentinel.global_grad_norm(gtree)
+            _sentinel.update(self.sentinel_state, loss, norm,
+                             self._sentinel_cfg)
+            trip = self.sentinel_state["last_trip"]
         if self._clip is not None:
-            gtree, _ = global_norm_clip(gtree, self._clip)
+            gtree, _ = global_norm_clip(gtree, self._clip, norm)
         with torch.no_grad():
+            kw = dict(self._opt_kwargs)
+            olds = None
+            if trip is not None and self._gates_itself:
+                kw["skip"] = trip
+            elif trip is not None:
+                olds = {"p": [p.detach().clone() for _, p in leaves],
+                        "s": [(path, t.clone())
+                              for path, t in _paths(self.opt_state)]}
             new_params, self.opt_state = self._update_fn(
-                self.params, gtree, self.opt_state, lr, **self._opt_kwargs)
+                self.params, gtree, self.opt_state, lr, **kw)
             if new_params is not self.params:
                 # a functional (init, update) pair returns new leaves
                 for path, p in leaves:
                     p.copy_(_get(new_params, path))
+            if olds is not None:
+                _sentinel.gate_(trip, [p for _, p in leaves], olds["p"])
+                for path, old in olds["s"]:
+                    new = _get(self.opt_state, path)
+                    if new.dtype == old.dtype:
+                        new.copy_(torch.where(trip, old, new))
+                    else:
+                        _put(self.opt_state, path,
+                             torch.where(trip, old.to(new.dtype), new))
         self._step_count += 1
         TRAIN_STEPS.add()
-        return loss.detach()
+        out = loss.detach()
+        if self.sentinel_state is not None:
+            # this step's verdict (the state itself is updated in place)
+            out.health = {"trip": self.sentinel_state["last_trip"].clone(),
+                          "trips": self.sentinel_state["trips"].clone()}
+        return out
 
     def state_dict(self) -> dict:
-        """Host snapshot {params, opt_state, step} (CPU tensors)."""
+        """Host snapshot {params, opt_state, step, rng} (CPU tensors; rng
+        the step device's generator state), with ``sentinel`` when the
+        sentinel is armed."""
         host = lambda tree: _map(lambda t: t.detach().cpu().clone(), tree)
-        return {"params": host(self.params),
-                "opt_state": host(self.opt_state),
-                "step": self._step_count}
+        out = {"params": host(self.params),
+               "opt_state": host(self.opt_state),
+               "step": self._step_count,
+               "rng": _random.get_rng_state(self.device)}
+        if self.sentinel_state is not None:
+            out["sentinel"] = host(self.sentinel_state)
+        return out
 
     def set_state_dict(self, state: dict) -> None:
         """Restore a state_dict: values are copied into the step's own
-        device tensors."""
+        device tensors (never rebound)."""
         with torch.no_grad():
             for path, p in _paths(self.params):
                 p.copy_(torch.as_tensor(_get(state["params"], path)))
             for path, t in _paths(self.opt_state):
                 t.copy_(torch.as_tensor(_get(state["opt_state"], path)))
+            if self.sentinel_state is not None and "sentinel" in state:
+                for k, t in self.sentinel_state.items():
+                    t.copy_(torch.as_tensor(state["sentinel"][k]))
+        if "rng" in state:
+            _random.set_rng_state(state["rng"], self.device)
         self._step_count = int(state.get("step", self._step_count))

@@ -1,24 +1,43 @@
-"""Deterministic fault injection (``FLAGS_fault_inject``), the serving
-part of ``paddle_tpu/resilience/faults.py``.
+"""Deterministic fault injection (``FLAGS_fault_inject``), the port of
+``paddle_tpu/resilience/faults.py``.
 
 Spec grammar (comma- or semicolon-separated), the reference's whole
 grammar, so that every spec string it accepts parses here too::
 
+    FLAGS_fault_inject="nan_grad@step=50:repeat=3,crash@step=120"
+    FLAGS_fault_inject="ckpt_io_error@p=0.5:seed=7:repeat=4"
+    FLAGS_fault_inject="stall@step=80:secs=2,preempt@step=200"
+    FLAGS_fault_inject="host_loss@step=40:host=h2,kv_partition@step=10:secs=0.5"
     FLAGS_fault_inject="serving_nan@step=3"
     FLAGS_fault_inject="replica_crash@step=30:replica=0,slow_tick@step=5:secs=0.2:repeat=3"
 
 Each fault is ``kind@trigger[:opt=value]*``: the trigger is ``step=N``
 (fires on the first ``repeat`` encounters with index >= N, then never
-again), ``p=F`` (per encounter with probability F from a private
-``seed``-ed generator), ``restart=N`` or ``call=N`` (the lifecycle and
-rpc kinds). Options: ``repeat`` (``times`` is its alias), ``secs``,
-``seed``, ``host``, ``replica``, ``method``, ``hosts``.
+again, so a rollback replay of the same step indices runs clean),
+``p=F`` (per encounter with probability F from a private ``seed``-ed
+generator), ``restart=N`` or ``call=N`` (the lifecycle and rpc kinds).
+Options: ``repeat`` (``times`` is its alias), ``secs``, ``seed``,
+``host``, ``replica``, ``method``, ``hosts``.
 
-Kinds with a hook in the port:
+Kinds and their hook points:
 
 =============  ==========================================  ===============
 kind           effect                                      hook point
 =============  ==========================================  ===============
+nan_grad       float leaves of the batch become NaN (on    train steps
+               their device, before a captured step's
+               static inputs take them)
+crash          raises :class:`InjectedCrash`               train steps
+preempt        ``signal.raise_signal(SIGTERM)``            train steps
+stall          ``time.sleep(secs)`` inside the step        train steps
+host_loss      tombstones ``host`` in the pod's store      resilience/pod.py
+kv_partition   :class:`~paddle_tpu_torch.distributed.      resilience/pod.py
+               elastic.FileKVStore` raises ``OSError``     (``step=N``) +
+               for ``secs`` (a shared-store partition)     distributed/
+                                                           elastic.py
+input_stall    ``time.sleep(secs)`` in the prefetcher      io/prefetch.py
+ckpt_io_error  raises ``OSError`` during a checkpoint      framework/
+               save attempt                                checkpoint.py
 serving_nan    NaNs one slot's K/V at the first decode     serving/engine.py
                tick of request id >= N (keyed by the
                REQUEST id)
@@ -52,26 +71,29 @@ net_partition  every RPC between host groups               serving/rpc.py
                fails fast for ``secs``, both directions
                (``step=N``: the client call index that
                opens the window)
-kv_partition   :class:`~paddle_tpu_torch.distributed.      distributed/
-               elastic.FileKVStore` raises ``OSError``     elastic.py
-               while the window (:func:`begin_kv_partition`)
-               is open
 =============  ==========================================  ===============
 
-The train-step, input and checkpoint kinds parse, but their hooks wait
-for the modules that consume them (``kv_partition``'s ``step=N``
-trigger is the training pod's, so only its window is ported).
+The train-step hooks live in ``parallel/train_step.py`` and
+``jit.TrainStep``; the registry evaluates each step index ONCE and hands
+each fired fault to the first hook that claims it. A step index
+revisited after a rollback is evaluated again, so a fault with budget
+left fires again and a spent one stays quiet.
 
 Cost when idle: every hook site guards on ``ENABLED[0]`` (one list
-index); with the flag unset nothing is touched.
+index); with the flag unset no batch is touched.
 """
 from __future__ import annotations
 
 import random as _random
+import signal
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+
 from ..core import flags as _flags
+from ..monitor import stats as _mstats
 
 __all__ = ["FaultSpec", "FaultRegistry", "InjectedCrash", "FAULTS",
            "ENABLED", "configure_faults", "parse_spec",
@@ -262,12 +284,45 @@ def parse_spec(text: str) -> List[FaultSpec]:
     return out
 
 
+def _corrupt_batch(batch):
+    """NaN the float leaves of a batch (lists, tuples and dicts of
+    Tensors, torch tensors or numpy arrays): each is multiplied by NaN on
+    its own device, so a card batch stays on the card. Integer leaves are
+    untouched (NaN has no integer encoding), so nan_grad needs at least
+    one float input."""
+    from ..framework.core import Tensor
+
+    def walk(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, Tensor):
+            return Tensor(walk(x._data), stop_gradient=x.stop_gradient,
+                          name=x.name)
+        if isinstance(x, torch.Tensor):
+            return x * float("nan") if x.is_floating_point() else x
+        dt = getattr(x, "dtype", None)
+        if dt is not None and np.issubdtype(np.dtype(dt), np.floating):
+            return x * float("nan")
+        return x
+
+    return walk(batch)
+
+
 class FaultRegistry:
-    """Holds the configured faults and evaluates them at the serving hook
-    points (request-id, tick, restart and connection keyed)."""
+    """Holds the configured faults and evaluates them at the hook points.
+
+    Step-keyed faults are evaluated once per step INDEX (the first hook
+    to see a new index computes which faults fire; asking again for the
+    same index hands each fired fault out only once). A step index
+    revisited after a rollback is evaluated again, so a fault with budget
+    left fires again and a spent one stays quiet."""
 
     def __init__(self):
         self.faults: List[FaultSpec] = []
+        self._cur_step: Optional[int] = None
+        self._cur_fired: Dict[str, FaultSpec] = {}
         self._cur_rid: Optional[int] = None
         self._rid_fired: Dict[str, FaultSpec] = {}
 
@@ -275,6 +330,8 @@ class FaultRegistry:
         if str(text).strip().lower() in ("", "0", "false", "none", "off"):
             text = ""
         self.faults = parse_spec(text or "")
+        self._cur_step = None
+        self._cur_fired = {}
         self._cur_rid = None
         self._rid_fired = {}
         _PARTITION_UNTIL[0] = 0.0
@@ -288,6 +345,23 @@ class FaultRegistry:
         if f.step is not None:
             return step is not None and step >= f.step
         return f._rng.random() < f.p
+
+    def _eval_step(self, step: int) -> None:
+        if step == self._cur_step:
+            return
+        self._cur_step = step
+        self._cur_fired = {}
+        for f in self.faults:
+            if f.kind in _STEP_KINDS and f.step is not None \
+                    and self._fires(f, step):
+                f.consume()
+                self._cur_fired[f.kind] = f
+
+    def take(self, kind: str, step: int) -> Optional[FaultSpec]:
+        """Claim a step-keyed fault for this step index (None: not
+        firing, or already claimed by another hook)."""
+        self._eval_step(step)
+        return self._cur_fired.pop(kind, None)
 
     def take_request(self, kind: str, rid: int) -> Optional[FaultSpec]:
         """Claim a REQUEST-id-keyed fault (serving hooks). Each request id
@@ -374,6 +448,62 @@ class FaultRegistry:
                 f.consume()
                 return f
         return None
+
+    def chance(self, kind: str) -> Optional[FaultSpec]:
+        """Per-encounter (p=...) fault draw."""
+        for f in self.faults:
+            if f.kind == kind and f.p is not None and self._fires(f, None):
+                f.consume()
+                return f
+        return None
+
+    # -- the training hooks -------------------------------------------------
+    def on_train_step(self, step: int, batch):
+        """The train-step hook: crash, stall, preempt, nan_grad, in that
+        order. Returns the (possibly corrupted) batch."""
+        f = self.take("crash", step)
+        if f is not None:
+            _mstats.FAULTS_INJECTED.add()
+            raise InjectedCrash(f"injected crash at step {step}")
+        f = self.take("stall", step)
+        if f is not None:
+            _mstats.FAULTS_INJECTED.add()
+            time.sleep(f.secs)
+        f = self.take("preempt", step)
+        if f is not None:
+            _mstats.FAULTS_INJECTED.add()
+            signal.raise_signal(signal.SIGTERM)
+        f = self.take("nan_grad", step)
+        if f is not None:
+            _mstats.FAULTS_INJECTED.add()
+            batch = _corrupt_batch(batch)
+        return batch
+
+    def on_input(self, index: int) -> None:
+        """Input-pipeline hook (io/prefetch.py's producer, keyed by the
+        batch index)."""
+        for f in self.faults:
+            if f.kind != "input_stall" or f.spent():
+                continue
+            if (f.step is not None and index >= f.step) or \
+                    (f.p is not None and f._rng.random() < f.p):
+                f.consume()
+                _mstats.FAULTS_INJECTED.add()
+                time.sleep(f.secs)
+
+    def on_ckpt_io(self) -> None:
+        """Checkpoint-save hook: raises a transient OSError."""
+        f = self.chance("ckpt_io_error")
+        if f is None:
+            for g in self.faults:
+                if g.kind == "ckpt_io_error" and g.step is not None \
+                        and not g.spent():
+                    g.consume()
+                    f = g
+                    break
+        if f is not None:
+            _mstats.FAULTS_INJECTED.add()
+            raise OSError("injected transient checkpoint I/O error")
 
 
 FAULTS = FaultRegistry()

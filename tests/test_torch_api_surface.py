@@ -2,7 +2,7 @@
 ``tests/ref_api_inventory.json`` (every public name of the reference's
 namespaces): each name looked up on the port's matching module.
 
-The port must resolve at least 212 of the 224 names of ``paddle``, and
+The port must resolve at least 214 of the 224 names of ``paddle``, and
 all of ``paddle.nn`` (109), ``paddle.nn.functional`` (96),
 ``paddle.vision.models``, ``paddle.vision.ops`` (12),
 ``paddle.vision.transforms`` (32) and ``paddle.linalg``; and the names it lacks
@@ -19,13 +19,13 @@ INVENTORY = pathlib.Path(__file__).with_name("ref_api_inventory.json")
 
 # namespace -> (least count resolved, the names still missing)
 MISSING = {
-    "paddle": (212, {
+    "paddle": (214, {
         # places, data parallelism, the reader batcher
         "CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "NPUPlace",
         "DataParallel", "batch",
-        # static-mode, rng-state and print toggles, flops
+        # static-mode and print toggles, flops
         "disable_signal_handler", "disable_static", "flops",
-        "get_cuda_rng_state", "set_cuda_rng_state", "set_printoptions",
+        "set_printoptions",
     }),
     "paddle.nn": (109, set()),
     "paddle.nn.functional": (96, set()),

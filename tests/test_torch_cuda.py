@@ -1940,3 +1940,139 @@ def test_o2_fused_feedforward_on_card(cuda_device):
                 outs[1]).max()
     finally:
         paddle.set_flags({"FLAGS_fused_kernels": old})
+
+
+@pytest.mark.parametrize("pdt,mdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_fused_optimizer_skip_flag(cuda_device, pdt, mdt):
+    """Rows 7 and 8 with the skip flag: False (and null) bit-identical to
+    the plain version; True leaves params, moments (and LAMB's params
+    through the trust step) bit-identical to the inputs."""
+    sc = torch.tensor([3e-3, 1 - 0.9 ** 3, 1 - 0.999 ** 3],
+                      device=cuda_device)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05, l2=0.0, eager_form=True)
+    for flag in (None, False, True):
+        ps, gs, ms, vs = _opt_leaves(pdt, mdt, cuda_device, 31)
+        before = [t.clone() for t in ps + ms + vs]
+        skip = None if flag is None else torch.tensor(flag,
+                                                      device=cuda_device)
+        want = [tfo._adamw_flat_reference(p, g, m, v, sc[0], sc[1], sc[2],
+                                          skip=skip, **kw)
+                for p, g, m, v in zip(ps, gs, ms, vs)]
+        tfo._bucket_adamw(ps, gs, ms, vs, sc, skip=skip, **kw)
+        torch.cuda.synchronize()
+        for (wp, wm, wv), p, m, v in zip(want, ps, ms, vs):
+            assert torch.equal(p, wp) and torch.equal(m, wm) \
+                and torch.equal(v, wv)
+        if flag:
+            assert all(torch.equal(a, b)
+                       for a, b in zip(ps + ms + vs, before))
+    lkw = dict(b1=0.9, b2=0.999, eps=1e-6, wd=0.01)
+    for flag in (False, True):
+        ps, gs, ms, vs = _opt_leaves(pdt, mdt, cuda_device, 32)
+        before = [t.clone() for t in ps + ms + vs]
+        skip = torch.tensor(flag, device=cuda_device)
+        want = [tfo._lamb_flat_reference(p, g, m, v, sc[1], sc[2], **lkw)
+                for p, g, m, v in zip(ps, gs, ms, vs)]
+        got = {}
+        for idx, rs in tfo._bucket_lamb(ps, gs, ms, vs, sc, skip=skip,
+                                        **lkw):
+            got.update({i: r.clone() for i, r in zip(idx, rs)})
+            for i, r in zip(idx, rs):
+                tfo._apply_trust(ps[i], r, 1e-2, skip)
+        torch.cuda.synchronize()
+        if flag:
+            assert all(torch.equal(a, b)
+                       for a, b in zip(ps + ms + vs, before))
+        else:
+            for i, (wm, wv, wr) in enumerate(want):
+                assert torch.equal(ms[i], wm) and torch.equal(vs[i], wv)
+                assert torch.equal(got[i], wr)
+
+
+def test_captured_step_trips_without_recapture(cuda_device):
+    """A captured ``TrainStep(sentinel=True)`` (fused Adam: row 7 in the
+    graph; batch norm's buffers) fed a NaN batch through
+    ``FLAGS_fault_inject``: the replay trips, params, slots (beta pows
+    included) and the running statistics stay bit-identical, no graph is
+    captured again, and the next batch trains."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.resilience import configure_faults
+
+    paddle.set_device("gpu")
+    paddle.seed(4)
+    old = paddle.get_flags("FLAGS_fused_optimizer")["FLAGS_fused_optimizer"]
+    paddle.set_flags({"FLAGS_fused_optimizer": 1})
+    try:
+        net = paddle.nn.Sequential(
+            paddle.nn.Conv2D(3, 8, 3, padding=1), paddle.nn.BatchNorm2D(8),
+            paddle.nn.ReLU(), paddle.nn.Flatten(),
+            paddle.nn.Linear(8 * 8 * 8, 5))
+        opt = paddle.optimizer.Adam(1e-2, parameters=net.parameters())
+        step = paddle.jit.TrainStep(
+            net, lambda run, x, y: paddle.nn.functional.cross_entropy(
+                run(x), y), opt, sentinel=True)
+        rng = np.random.default_rng(6)
+        batch = lambda: (paddle.to_tensor(rng.normal(size=(4, 3, 8, 8))
+                                          .astype("float32")),
+                         paddle.to_tensor(rng.integers(0, 5, (4,))))
+        for _ in range(3):
+            step(*batch())
+        state = lambda: [t.clone() for t in (
+            [p._data for p in net.parameters()]
+            + [t for v in step._slot_values.values() for t in v]
+            + [b._data for _, b in net.named_buffers()])]
+        before, n0 = state(), tfo.ADAMW_LAUNCHES
+        configure_faults("nan_grad@step=3")
+        try:
+            loss = step(*batch())
+        finally:
+            configure_faults("")
+        assert bool(loss.health["trip"]) and int(loss.health["trips"]) == 1
+        assert step.captures == 1 and tfo.ADAMW_LAUNCHES == n0 + 1
+        assert all(torch.equal(a, b) for a, b in zip(state(), before))
+        loss = step(*batch())
+        assert math.isfinite(float(loss)) and not bool(loss.health["trip"])
+        assert not all(torch.equal(a, b) for a, b in zip(state(), before))
+    finally:
+        paddle.set_flags({"FLAGS_fused_optimizer": old})
+
+
+def test_snapshot_copy_precedes_the_next_in_place_update(cuda_device):
+    """The guardian's host copy runs on a side stream; the step's stream
+    waits for it, so an in-place update queued right after the fill
+    cannot reach the copy."""
+    from paddle_tpu_torch.resilience.guardian import _HostCopy
+
+    src = {"a": torch.randn(64 << 20, device=cuda_device),
+           "n": torch.tensor(3, dtype=torch.int64)}
+    want = src["a"].cpu()
+    buf = _HostCopy(src)
+    try:
+        buf.fill(src)
+        src["a"].mul_(2.0)
+        got = buf.tree()
+        assert torch.equal(got["a"], want) and int(got["n"]) == 3
+    finally:
+        buf.release()
+
+
+def test_a_refused_pinning_is_counted_and_leaves_no_error(cuda_device):
+    """Page-locking a range that is already registered is refused: the
+    guardian warns and counts it (``host_pin_failures()``), and the CUDA
+    runtime has no error left over for the next, unrelated launch."""
+    from paddle_tpu_torch.resilience import guardian
+
+    buf = guardian._HostCopy({"a": torch.zeros(1 << 20, device=cuda_device)})
+    try:
+        assert buf.pinned
+        n0 = guardian.host_pin_failures()
+        with pytest.warns(UserWarning, match="page-locking"):
+            assert not guardian._pin(buf.host[0].data_ptr(), 4096,
+                                     cuda_device)
+        assert guardian.host_pin_failures() - n0 == 1
+        x = torch.full((8,), 2.0, device=cuda_device)
+        assert float(x.sum()) == 16.0
+    finally:
+        buf.release()

@@ -21,6 +21,7 @@ within 1e-4.
 """
 import functools
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from paddle_tpu_torch.monitor.stats import stat_get
 from paddle_tpu_torch.ops import fused_optimizer as tfo
 from paddle_tpu_torch.parallel import DistributedTrainStep
 from paddle_tpu_torch.parallel import train_step as tts
+from paddle_tpu_torch.resilience import InjectedCrash, configure_faults
 from torch_port_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -278,7 +280,8 @@ def test_train_step_lr_schedule_state_dict_and_copy():
 
 @pytest.mark.parametrize("kw", [dict(aux={"s": torch.zeros(1)}),
                                 dict(dynamic_scale={"init_scale": 2.0}),
-                                dict(sentinel=True)])
+                                dict(mesh=types.SimpleNamespace(
+                                    devices=np.zeros(2)))])
 def test_unported_train_step_options_raise(kw):
     cfg = tg.gpt_nano(dtype=torch.float32)
     params = tg.gpt_init(cfg, seed=0, device="cpu")
@@ -289,8 +292,9 @@ def test_unported_train_step_options_raise(kw):
 
 def test_fused_optimizer_and_fault_flags_raise():
     """FLAGS_fused_optimizer now builds a fused step (adamw and lamb; the
-    other optimizers keep their pure update); fault injection still
-    raises."""
+    other optimizers keep their pure update); under FLAGS_fault_inject
+    the step runs the train-step hook: a crash raises, and nan_grad
+    leaves an all-integer batch as it is (as in the reference)."""
     cfg = tg.gpt_nano(dtype=torch.float32)
     params = tg.gpt_init(cfg, seed=0, device="cpu")
     loss_fn = lambda p, b: tg.gpt_loss(cfg, p, b)
@@ -309,11 +313,13 @@ def test_fused_optimizer_and_fault_flags_raise():
         assert stat_get("fused_optimizer_steps") == before + 1
         flags.fused_optimizer[0] = False
         ts = DistributedTrainStep(loss_fn, params, device="cpu")
-        flags.fault_inject[0] = "nan_grad@step=0"
-        with pytest.raises(NotImplementedError, match="fault"):
+        configure_faults("nan_grad@step=0,crash@step=1")
+        assert math.isfinite(float(ts(_batch(8, (1, 16)))))
+        with pytest.raises(InjectedCrash):
             ts(_batch(8, (1, 16)))
     finally:
-        flags.fused_optimizer[0], flags.fault_inject[0] = old
+        configure_faults("")
+        flags.fused_optimizer[0] = old[0]
 
 
 def test_train_step_defaults_to_the_card():

@@ -324,12 +324,14 @@ def test_unported_entry_points_raise():
     P = paddle_tpu_torch
     m = P.nn.Linear(2, 2)
     opt = P.optimizer.SGD(0.1, parameters=m.parameters())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        P.jit.TrainStep(m, _ce(P), opt, sentinel=True)
-    step = P.jit.TrainStep(m, lambda r, x: r(x).mean(), opt)
-    P.set_flags({"FLAGS_fault_inject": "input_stall@step=1"})
+    # the sentinel and the fault hooks are ported: a crash fault raises
+    # from the step's hook
+    from paddle_tpu_torch.resilience import InjectedCrash
+
+    step = P.jit.TrainStep(m, lambda r, x: r(x).mean(), opt, sentinel=True)
+    P.set_flags({"FLAGS_fault_inject": "crash@step=0"})
     try:
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(InjectedCrash):
             step(P.to_tensor(np.ones((1, 2), "float32")))
     finally:
         P.set_flags({"FLAGS_fault_inject": ""})
