@@ -9151,6 +9151,1125 @@ def resilience_fit_phase(dev, mods, stamp, lenet_row, resnet_row):
     return rows
 
 
+# --------------------------------------------------------------------------
+# phases 53-55: the static-graph world (Program, Executor.run as a
+# captured CUDA graph, minimize, static.nn, control flow, fluid 1.x)
+# --------------------------------------------------------------------------
+
+# phase 53: timed replays a form, and the gate of its first 3 losses
+# against phase 24's eager losses from the same seed, relative (the same
+# f32 kernels; autograd.grad and the captured update against backward()
+# and the eager update sum in the same order, but the flash backward's
+# dQ reduce-adds land in any order)
+STATIC_BERT_K = 10
+STATIC_BERT_LOSS_REL = 1e-5
+# phase 53b: both runs' losses relative, each leaf's appended-backward
+# gradient as max |Δ| / max |CPU| of that leaf (phase 25's tolerance),
+# and the parameters after the two runs as max |Δ| / max |p| over every
+# parameter
+STATIC_CHECK_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
+STATIC_LR = 1e-4
+# phase 54: BASELINE config 1 in fluid 1.x spelling, batch 256 over a
+# seeded in-memory 60,000-image reader; replays timed with device feeds;
+# phase 41's LeNet through a static paddle.Model for MODEL_STATIC_BATCHES
+FLUID_K = 50
+MODEL_STATIC_BATCHES = 20
+FLUID_CHECK_TOL = 1e-5
+# phase 55: card against CPU, each case a program run by the Executor on
+# either side; f32 elementwise and reductions as phase 44's sweep holds
+# them (a conv or matmul of realistic width sums 10^3-10^4 terms)
+STATIC_SWEEP_TOL = {"elem": 1e-5, "reduce": 1e-4}
+
+
+def _static_program(paddle, build):
+    """``build()`` recorded into a fresh (main, startup) pair under
+    ``paddle.enable_static()``; returns (main, startup, build's result)."""
+    from paddle_tpu_torch import static
+
+    paddle.enable_static()
+    main, startup = static.Program(), static.Program()
+    try:
+        with static.program_guard(main, startup):
+            out = build()
+    finally:
+        paddle.disable_static()
+    return main, startup, out
+
+
+def _bert_static_build(paddle, cfg, batch, fused, lr=1e-4, backward=False):
+    """Phase 24's BERT built as a static program from paddle.seed(24):
+    feeds ids / labels, the cross-entropy loss, AdamW.minimize; returns
+    (loss, model, grads) with the appended backward's grads if asked."""
+    from paddle_tpu_torch import static
+
+    def build():
+        paddle.seed(24)
+        model = bert_model(paddle, **cfg)
+        if fused:
+            model = bert_fused_model(paddle, model)
+        ids = static.data("ids", [batch, cfg["seq"]], "int64")
+        labels = static.data("labels", [batch, cfg["seq"]], "int64")
+        loss = paddle.nn.functional.cross_entropy(model(ids), labels)
+        grads = static.append_backward(loss) if backward else None
+        paddle.optimizer.AdamW(lr, weight_decay=0.01).minimize(loss)
+        return loss, model, grads
+
+    return _static_program(paddle, build)
+
+
+def static_bert_phase(dev, mods, stamp, eager_runs):
+    """Phase 53: phase 24's BERT-base (hidden 768, 12 layers, batch 32 x
+    512, f32) built as a static program and trained through
+    ``Executor.run``, (a) composed with both flags 0 and (b) fused with
+    FLAGS_fused_kernels=1 and FLAGS_fused_optimizer=1. Reported: the
+    program's build ms, the first run's ms (the eager warm-up and the
+    capture), ms a replay with the loss fetched, samples/s, the graph
+    pool, peak memory, one profiled replay, the launches of one replay.
+    Gated: one capture, every later run a replay, the first 3 losses
+    within STATIC_BERT_LOSS_REL of phase 24's, and on the fused run rows
+    1 and 3-7 launched inside the replay."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+
+    cfg = BERT_BASE
+    B, S = BERT_BATCH, cfg["seq"]
+    paddle.set_device("gpu")
+    rng = np.random.default_rng(24)
+    feed = {"ids": rng.integers(0, cfg["vocab"], (B, S)),
+            "labels": rng.integers(0, cfg["vocab"], (B, S))}
+    flags = ("FLAGS_fused_kernels", "FLAGS_fused_optimizer")
+    runs = {}
+    for name, on in (("composed", 0), ("fused", 1)):
+        paddle.set_flags({f: on for f in flags})
+        try:
+            _fresh_peak(dev)
+            t0 = time.perf_counter()
+            main, startup, (loss, model, _) = _bert_static_build(
+                paddle, cfg, B, on)
+            build_ms = (time.perf_counter() - t0) * 1e3
+            n_ops = len(main.ops)
+            exe = static.Executor(paddle.CUDAPlace(0))
+            exe.run(startup)
+            base_reserved = torch.cuda.memory_reserved(dev)
+            _reset_vision_counts(mods)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [float(exe.run(main, feed=feed, fetch_list=[loss])[0])]
+            first_ms = (time.perf_counter() - t0) * 1e3
+            pool_gib = (torch.cuda.memory_reserved(dev)
+                        - base_reserved) / 2**30
+            _reset_vision_counts(mods)
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=[loss])[0]))
+            replay_launches = _vision_counts(mods)
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=[loss])[0]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STATIC_BERT_K):
+                last = float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+            replay_ms = (time.perf_counter() - t0) / STATIC_BERT_K * 1e3
+            prof = _profiled_step(
+                lambda: exe.run(main, feed=feed, fetch_list=[loss]),
+                replay_ms)
+            launches = _vision_counts(mods)
+            runs_made = 2 + STATIC_BERT_K + 1
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            counts = {"captures": exe.captures, "replays": exe.replays,
+                      "uncaptured_runs": exe.uncaptured_runs,
+                      "last_run": exe.last_run}
+            del exe, main, startup, loss, model
+            gc.collect()
+        finally:
+            paddle.set_flags({f: 0 for f in flags})
+        want = eager_runs[name]["losses"][:3]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        runs[name] = {
+            "phase": f"train_static_bert_{name}", "model": "bert_base",
+            "layers": cfg["layers"], "hidden": cfg["hidden"],
+            "batch": [B, S], "dtype": "float32",
+            "optimizer": "AdamW(lr=1e-4, weight_decay=0.01).minimize",
+            "flags": {f: on for f in flags}, "program_ops": n_ops,
+            "build_ms": build_ms, "first_run_ms": first_ms, **counts,
+            "k": STATIC_BERT_K, "replay_ms": replay_ms,
+            "samples_per_s": B / replay_ms * 1e3,
+            "tokens_per_s": B * S / replay_ms * 1e3,
+            "eager_step_ms_phase24":
+                eager_runs[name]["step_ms_median_last3"], **prof,
+            "graph_pool_gib": pool_gib, "peak_mem_gib": peak,
+            "first_losses": losses, "first_losses_phase24": want,
+            "first_loss_rel_to_phase24": rel,
+            "tol_loss_rel": STATIC_BERT_LOSS_REL, "last_loss": last,
+            "launches_per_replay": replay_launches, "launches": launches,
+            "runs": runs_made}
+        torch.cuda.empty_cache()
+    a, b = runs["composed"], runs["fused"]
+    rows = ("flash_attention_fwd", "flash_attention_bwd",
+            "fused_ln_mlp_fwd", "fused_ln_mlp_bwd", "fused_ln_mlp_bwd_dw2",
+            "fused_add_ln_fwd", "fused_add_ln_bwd", "fused_adamw")
+    ok = {"losses_finite": all(map(math.isfinite, a["first_losses"]
+                                   + b["first_losses"]
+                                   + [a["last_loss"], b["last_loss"]])),
+          "one_capture_each": a["captures"] == b["captures"] == 1,
+          "every_later_run_replayed": all(
+              r["replays"] == r["runs"] and r["uncaptured_runs"] == 0
+              and r["last_run"]["captured"] for r in (a, b)),
+          "first_losses_vs_phase24": max(a["first_loss_rel_to_phase24"],
+                                         b["first_loss_rel_to_phase24"])
+          <= STATIC_BERT_LOSS_REL,
+          "fused_rows_in_the_replay": all(
+              b["launches_per_replay"][k] > 0 for k in rows),
+          "composed_takes_flash_only":
+              a["launches_per_replay"]["flash_attention_fwd"] > 0
+              and a["launches_per_replay"]["fused_add_ln_fwd"] == 0
+              and a["launches_per_replay"]["fused_adamw"] == 0}
+    for run in (a, b):
+        run.update({"checks": ok, "ok": all(ok.values()), **stamp})
+        emit(run)
+    if not all(ok.values()):
+        raise AssertionError(f"static BERT phase failed: {ok}")
+    _fresh_peak(dev)
+    return runs
+
+
+def _leaf_values(main, fetches):
+    """Every tensor the program captures (parameters, buffers, build-time
+    constants such as nce's negatives), in discovery order, copied as
+    they are now: taken right after the CPU program's build, before any
+    run updates them."""
+    from paddle_tpu_torch.static import collect_leaves
+
+    _, ts = collect_leaves(_program_exprs(main, fetches))
+    return [t._data.detach().clone() for t in ts]
+
+
+def _carry_leaves(values, main, fetches):
+    """``values`` (:func:`_leaf_values` of the CPU program) into the
+    card program's own captured tensors: both start from one state."""
+    from paddle_tpu_torch.static import collect_leaves
+
+    _, td = collect_leaves(_program_exprs(main, fetches))
+    if len(values) != len(td):
+        raise AssertionError(f"programs capture {len(values)} and "
+                             f"{len(td)} tensors")
+    with torch.no_grad():
+        for a, b in zip(values, td):
+            if tuple(a.shape) != tuple(b._data.shape):
+                raise AssertionError("captured tensors differ in shape")
+            b._data.copy_(a.to(b._data.device))
+
+
+def _program_exprs(main, fetches):
+    from paddle_tpu_torch.static import SymExpr
+
+    return ([f._expr if getattr(f, "_symbolic", False)
+             else SymExpr("tensor", tensor=f) for f in fetches]
+            + [loss._expr for _, loss in main.train_specs]
+            + [SymExpr("op", op=op, index=0) for op in main.ops])
+
+
+def static_bert_check_phase(dev, stamp, layers=2, batch=2, card="gpu"):
+    """Phase 53b: phase 53's program at full width, ``layers`` blocks,
+    batch ``batch``, fused, on the card against the port on the CPU
+    (weights carried from the CPU program): two runs each, fetching the
+    loss and every appended-backward gradient (the values before that
+    run's update), then every parameter."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+
+    cfg = dict(BERT_BASE, layers=layers)
+    rng = np.random.default_rng(53)
+    feed = {"ids": rng.integers(0, cfg["vocab"], (batch, cfg["seq"])),
+            "labels": rng.integers(0, cfg["vocab"], (batch, cfg["seq"]))}
+    flags = ("FLAGS_fused_kernels", "FLAGS_fused_optimizer")
+    paddle.set_flags({f: 1 for f in flags})
+    out = {}
+    try:
+        for where in ("cpu", card):
+            paddle.set_device(where)
+            main, startup, (loss, model, grads) = _bert_static_build(
+                paddle, cfg, batch, True, lr=STATIC_LR, backward=True)
+            fetch = [loss] + [g for _, g in grads]
+            if where == "cpu":
+                start = _leaf_values(main, fetch)
+            else:
+                _carry_leaves(start, main, fetch)
+            exe = static.Executor(paddle.CPUPlace() if where == "cpu"
+                                  else paddle.CUDAPlace(0))
+            t0 = time.perf_counter()
+            vals = [exe.run(main, feed=feed, fetch_list=fetch)
+                    for _ in range(2)]
+            secs = time.perf_counter() - t0
+            names = {id(p): n for n, p in model.named_parameters()}
+            out[where] = {
+                "losses": [float(v[0]) for v in vals],
+                "grads": [{names[id(p)]: v for (p, _), v in
+                           zip(grads, run[1:])} for run in vals],
+                "params": {n: p.numpy() for n, p in
+                           model.named_parameters()},
+                "s": secs, "captured": exe.last_run["captured"]}
+    finally:
+        paddle.set_flags({f: 0 for f in flags})
+        paddle.set_device("gpu" if card == "gpu" else "cpu")
+    c, g = out["cpu"], out[card]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(g["losses"],
+                                                          c["losses"]))
+    grad_rel = {}
+    for i in range(2):
+        for n, want in c["grads"][i].items():
+            got = g["grads"][i][n]
+            grad_rel[f"{n}@run{i}"] = float(
+                np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    # parameters after the two runs: max |Δ| over every parameter / max
+    # |p| over every parameter (phase 41's measure); each leaf's own
+    # ratio is printed beside (a bias that started at 0 holds only the
+    # two updates, where AdamW's g / (|g| + eps) amplifies the gradients'
+    # last bits on its near-zero elements)
+    param_err = {}
+    worst_d = worst_p = 0.0
+    for n, want in c["params"].items():
+        d = np.abs(g["params"][n] - want)
+        worst_d = max(worst_d, float(d.max()))
+        worst_p = max(worst_p, float(np.abs(want).max()))
+        param_err[n] = float(d.max() / max(np.abs(want).max(), 1e-30))
+    param_rel = worst_d / max(worst_p, 1e-30)
+    ok = {"loss": loss_rel <= STATIC_CHECK_TOL["loss"],
+          "grads": max(grad_rel.values()) <= STATIC_CHECK_TOL["grad"],
+          "params": param_rel <= STATIC_CHECK_TOL["param"],
+          "card_replayed": card == "cpu" or g["captured"]}
+    row = {"phase": "static_bert_card_vs_cpu", "model": "bert_base",
+           "layers": layers, "batch": [batch, cfg["seq"]], "fused": True,
+           "losses_card": g["losses"], "losses_cpu": c["losses"],
+           "loss_rel_err": loss_rel,
+           "max_rel_err_grad": max(grad_rel.values()),
+           "worst_grads": dict(sorted(grad_rel.items(),
+                                      key=lambda kv: -kv[1])[:5]),
+           "param_rel_err": param_rel,
+           "worst_leaf_param_rel_err": dict(sorted(
+               param_err.items(), key=lambda kv: -kv[1])[:5]),
+           "tol": STATIC_CHECK_TOL,
+           "lr": STATIC_LR, "card_run_s": g["s"], "cpu_run_s": c["s"],
+           "checks": ok, "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not all(ok.values()):
+        raise AssertionError(f"static BERT card and CPU disagree: {row}")
+    return row
+
+
+def _fluid_lenet(fluid):
+    """BASELINE config 1 (phase 41's LeNet) in fluid 1.x spelling: conv
+    6@3x3 pad 1 + relu, max pool 2, conv 16@5x5 + relu, max pool 2, fc
+    120, fc 84, fc 10 + softmax; cross_entropy on the probabilities +
+    mean; fluid.optimizer.Adam(1e-3).minimize. Returns (img, label,
+    loss, prob)."""
+    img = fluid.data(name="img", shape=[-1, 1, 28, 28], dtype="float32")
+    label = fluid.data(name="label", shape=[-1, 1], dtype="int64")
+    x = fluid.layers.conv2d(img, num_filters=6, filter_size=3, padding=1,
+                            act="relu")
+    x = fluid.layers.pool2d(x, pool_size=2, pool_type="max", pool_stride=2)
+    x = fluid.layers.conv2d(x, num_filters=16, filter_size=5, act="relu")
+    x = fluid.layers.pool2d(x, pool_size=2, pool_type="max", pool_stride=2)
+    x = fluid.layers.fc(x, size=120)
+    x = fluid.layers.fc(x, size=84)
+    prob = fluid.layers.fc(x, size=10, act="softmax")
+    loss = fluid.layers.mean(fluid.layers.cross_entropy(prob, label))
+    fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return img, label, loss, prob
+
+
+def _mnist_reader(n, seed):
+    """A seeded in-memory reader of ``n`` (image, label) items of
+    MNIST's shape (the reference's paddle.dataset.mnist reader form):
+    each image is its class's fixed pattern plus noise, so there is
+    something to learn and the losses fall."""
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(0, 10, (n, 1)).astype("int64")
+    patterns = rng.normal(size=(10, 1, 28, 28)).astype("float32")
+    xs = (0.5 * patterns[ys[:, 0]]
+          + rng.normal(size=(n, 1, 28, 28)).astype("float32"))
+
+    def reader():
+        for i in range(n):
+            yield xs[i], ys[i]
+
+    return reader
+
+
+def fluid_lenet_phase(dev, mods, stamp, card="gpu"):
+    """Phase 54: (a) BASELINE config 1 in fluid 1.x spelling (fluid.data,
+    layers.conv2d / pool2d / fc, cross_entropy + mean, fluid.optimizer.
+    Adam, fluid.Executor(fluid.CUDAPlace(0)), DataFeeder) over
+    paddle.batch of a seeded in-memory 60,000-image reader at batch 256:
+    one epoch with the feeder (the last batch of 96 a second capture),
+    then FLUID_K replays with device-resident feeds; samples/s of each,
+    losses falling, row 7 in the replay. (b) The same net at batch 2,
+    card against CPU. (c) Phase 41's LeNet through a paddle.Model
+    prepared under enable_static(): MODEL_STATIC_BATCHES batches, losses
+    against the dynamic Model's from the same weights."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.vision.models import LeNet
+
+    place = fluid.CUDAPlace(0) if card == "gpu" else fluid.CPUPlace()
+    old = paddle.get_flags(["FLAGS_fused_optimizer"])
+    paddle.set_flags({"FLAGS_fused_optimizer": 1})
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) the epoch
+        paddle.set_device(card)
+        paddle.seed(54)
+        main, startup, (img, label, loss, _) = _static_program(
+            paddle, lambda: _fluid_lenet(fluid))
+        exe = fluid.Executor(place)
+        exe.run(startup)
+        feeder = fluid.DataFeeder(feed_list=[img, label], place=place)
+        reader = paddle.batch(_mnist_reader(MNIST_TRAIN, 54),
+                              batch_size=LENET_BATCH)
+        _reset_vision_counts(mods)
+        losses = []
+        t0 = time.perf_counter()
+        for data in reader():
+            losses.append(exe.run(main, feed=feeder.feed(data),
+                                  fetch_list=[loss])[0])
+        losses = [float(v) for v in losses]
+        epoch_s = time.perf_counter() - t0
+        epoch_launches = _vision_counts(mods)
+        epoch_captures = exe.captures
+        batch0 = feeder.feed(next(iter(reader())))
+        dfeed = {k: torch.as_tensor(v).to("cuda" if card == "gpu" else card)
+                 for k, v in batch0.items()}
+        exe.run(main, feed=dfeed, fetch_list=[])          # its own capture
+        if card == "gpu":
+            torch.cuda.synchronize()
+        _reset_vision_counts(mods)
+        t0 = time.perf_counter()
+        for _ in range(FLUID_K):
+            exe.run(main, feed=dfeed, fetch_list=[])
+        if card == "gpu":
+            torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) / FLUID_K * 1e3
+        replay_launches = _vision_counts(mods)
+        a = {"epoch_steps": len(losses), "epoch_s": epoch_s,
+             "samples_per_s_with_feeder": MNIST_TRAIN / epoch_s,
+             "replay_ms": replay_ms,
+             "samples_per_s_replay": LENET_BATCH / replay_ms * 1e3,
+             "captures": exe.captures, "epoch_captures": epoch_captures,
+             "first_losses": losses[:3], "last_losses": losses[-3:],
+             "loss_first10_mean": float(np.mean(losses[:10])),
+             "loss_last10_mean": float(np.mean(losses[-10:])),
+             "epoch_launches": epoch_launches,
+             "replay_launches": replay_launches}
+        del exe, main, startup
+        # (b) batch 2, card against CPU
+        rng = np.random.default_rng(55)
+        feed = {"img": rng.normal(size=(2, 1, 28, 28)).astype("float32"),
+                "label": rng.integers(0, 10, (2, 1)).astype("int64")}
+        got = {}
+        for where in ("cpu", card):
+            paddle.set_device(where)
+            main, startup, (img, label, loss, prob) = _static_program(
+                paddle, lambda: _fluid_lenet(fluid))
+            if where == "cpu":
+                start = _leaf_values(main, [loss, prob])
+            else:
+                _carry_leaves(start, main, [loss, prob])
+            exe = fluid.Executor(fluid.CPUPlace() if where == "cpu"
+                                 else place)
+            got[where] = [exe.run(main, feed=feed, fetch_list=[loss, prob])
+                          for _ in range(2)]
+        errs = [float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+                for rc, rg in zip(got["cpu"], got[card])
+                for x, y in zip(rg, rc)]
+        b = {"batch2_max_rel_err": max(errs),
+             "batch2_losses_card": [float(r[0]) for r in got[card]],
+             "batch2_losses_cpu": [float(r[0]) for r in got["cpu"]]}
+        # (c) phase 41's LeNet through a static paddle.Model
+        paddle.set_device(card)
+        rng = np.random.default_rng(41)
+        n = MODEL_STATIC_BATCHES * LENET_BATCH
+        xs = rng.normal(size=(n, 1, 28, 28)).astype("float32")
+        ys = rng.integers(0, 10, (n,)).astype("int64")
+        paddle.seed(0)
+        state = {k: v.numpy() for k, v in LeNet().state_dict().items()}
+        model_losses = {}
+        for mode in ("dynamic", "static"):
+            net = LeNet()
+            net.set_state_dict(state)
+            if mode == "static":
+                paddle.enable_static()
+            try:
+                model = paddle.Model(
+                    net, inputs=[paddle.static.InputSpec(
+                        [None, 1, 28, 28], "float32", "image")],
+                    labels=[paddle.static.InputSpec([None], "int64",
+                                                    "label")])
+                model.prepare(paddle.optimizer.Adam(
+                    1e-3, parameters=net.parameters()),
+                    paddle.nn.CrossEntropyLoss())
+            finally:
+                paddle.disable_static()
+            out = []
+            for i in range(MODEL_STATIC_BATCHES):
+                sl = slice(i * LENET_BATCH, (i + 1) * LENET_BATCH)
+                out.append(model.train_batch([paddle.to_tensor(xs[sl])],
+                                             [paddle.to_tensor(ys[sl])])[0])
+            model_losses[mode] = [float(v) for v in out]
+        dl, sl_ = model_losses["dynamic"], model_losses["static"]
+        c = {"model_losses_dynamic": dl[:3] + dl[-2:],
+             "model_losses_static": sl_[:3] + sl_[-2:],
+             "model_max_loss_rel": max(abs(x - y) / abs(y)
+                                       for x, y in zip(sl_, dl))}
+    finally:
+        paddle.set_flags(old)
+        torch.backends.cudnn.deterministic = old_det
+        paddle.set_device("gpu" if card == "gpu" else "cpu")
+    ok = {"epoch_steps": a["epoch_steps"] == -(-MNIST_TRAIN // LENET_BATCH),
+          "losses_finite": all(map(math.isfinite, losses)),
+          "losses_fall": a["loss_last10_mean"] < a["loss_first10_mean"],
+          "two_epoch_captures": a["epoch_captures"] == 2
+          or card == "cpu",
+          "row7_in_the_replay": card == "cpu"
+          or a["replay_launches"]["fused_adamw"] == FLUID_K,
+          "batch2_card_vs_cpu": b["batch2_max_rel_err"] <= FLUID_CHECK_TOL,
+          "static_model_vs_dynamic": c["model_max_loss_rel"]
+          <= FLUID_CHECK_TOL}
+    row = {"phase": "train_fluid_lenet", "config": "BASELINE.json config 1",
+           "batch": LENET_BATCH, "images": MNIST_TRAIN, "dtype": "float32",
+           "optimizer": "fluid.optimizer.Adam(1e-3), FLAGS_fused_optimizer=1",
+           **a, **b, **c, "tol": FLUID_CHECK_TOL, "checks": ok,
+           "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not all(ok.values()):
+        raise AssertionError(f"fluid LeNet phase failed: {ok}")
+    return row
+
+
+def _sweep_cases(paddle, static, fluid):
+    """Phase 55's cases: (name, tolerance kind, build) where ``build()``
+    returns (fetches, feed). Every static.nn function, control flow, the
+    fluid.layers functions with code of their own, text's Viterbi and
+    CRF, distribution's densities; realistic widths."""
+    F = paddle.nn.functional
+    L = fluid.layers
+    nn_ = static.nn
+    rng = np.random.default_rng(55)
+
+    def data(name, arr):
+        feed[name] = arr
+        return static.data(name, list(arr.shape), str(arr.dtype))
+
+    def f32(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype("float32")
+
+    def ints(hi, *shape):
+        return rng.integers(0, hi, shape).astype("int64")
+
+    def lengths(B, T):
+        return rng.integers(T // 2, T + 1, (B,)).astype("int64")
+
+    feed = {}
+    cases = []
+
+    def case(name, kind="elem"):
+        def deco(fn):
+            cases.append((name, kind, fn))
+            return fn
+        return deco
+
+    # -- static.nn: layers with parameters -------------------------------
+    @case("fc", "reduce")
+    def _():
+        return [nn_.fc(data("x", f32(256, 1024)), 512, activation="relu")]
+
+    @case("conv2d", "reduce")
+    def _():
+        return [nn_.conv2d(data("x", f32(16, 64, 56, 56)), 64, 3, padding=1,
+                           act="relu")]
+
+    @case("conv3d", "reduce")
+    def _():
+        return [nn_.conv3d(data("x", f32(2, 16, 16, 32, 32)), 32, 3,
+                           padding=1)]
+
+    @case("conv2d_transpose", "reduce")
+    def _():
+        return [nn_.conv2d_transpose(data("x", f32(8, 64, 28, 28)), 32,
+                                     filter_size=4, stride=2, padding=1)]
+
+    @case("conv3d_transpose", "reduce")
+    def _():
+        return [nn_.conv3d_transpose(data("x", f32(2, 16, 8, 16, 16)), 8,
+                                     filter_size=3, stride=2, padding=1)]
+
+    @case("batch_norm", "reduce")
+    def _():
+        return [nn_.batch_norm(data("x", f32(16, 64, 56, 56)), act="relu")]
+
+    @case("layer_norm", "reduce")
+    def _():
+        return [nn_.layer_norm(data("x", f32(16, 128, 768)),
+                               begin_norm_axis=2)]
+
+    @case("group_norm", "reduce")
+    def _():
+        return [nn_.group_norm(data("x", f32(16, 64, 28, 28)), 8)]
+
+    @case("instance_norm", "reduce")
+    def _():
+        return [nn_.instance_norm(data("x", f32(16, 64, 28, 28)))]
+
+    @case("data_norm")
+    def _():
+        return [nn_.data_norm(data("x", f32(256, 512)))]
+
+    @case("spectral_norm", "reduce")
+    def _():
+        return [nn_.spectral_norm(data("w", f32(512, 256)), power_iters=2)]
+
+    @case("embedding")
+    def _():
+        return [nn_.embedding(data("ids", ints(30000, 32, 128)),
+                              [30000, 256])]
+
+    @case("sparse_embedding")
+    def _():
+        return [nn_.sparse_embedding(data("ids", ints(30000, 32, 128)),
+                                     [30000, 256])]
+
+    @case("prelu")
+    def _():
+        x = data("x", f32(16, 64, 28, 28))
+        return [nn_.prelu(x, "channel"), nn_.prelu(x, "element")]
+
+    @case("bilinear_tensor_product", "reduce")
+    def _():
+        return [nn_.bilinear_tensor_product(data("x", f32(256, 64)),
+                                            data("y", f32(256, 32)), 16)]
+
+    @case("row_conv", "reduce")
+    def _():
+        return [nn_.row_conv(data("x", f32(16, 100, 256)), 4)]
+
+    @case("crf_decoding", "exact")
+    def _():
+        trans = static.create_parameter([22, 20], "float32")
+        return [nn_.crf_decoding(data("e", f32(16, 64, 20, scale=3.0)),
+                                 trans)]
+
+    @case("nce", "reduce")
+    def _():
+        return [nn_.nce(data("x", f32(256, 128)),
+                        data("y", ints(10000, 256, 1)), 10000,
+                        num_neg_samples=32)]
+
+    @case("multi_box_head", "reduce")
+    def _():
+        f1, f2 = data("f1", f32(2, 64, 19, 19)), data("f2", f32(2, 128, 10, 10))
+        img = data("img", f32(2, 3, 300, 300))
+        return list(nn_.multi_box_head([f1, f2], img, 300, 21,
+                                       [[2.0], [2.0, 3.0]], min_ratio=20,
+                                       max_ratio=90))
+
+    @case("deform_conv2d", "reduce")
+    def _():
+        return [nn_.deform_conv2d(data("x", f32(2, 32, 28, 28)),
+                                  data("o", f32(2, 18, 28, 28, scale=0.5)),
+                                  data("m", rng.random((2, 9, 28, 28))
+                                       .astype("float32")), 32, 3,
+                                  padding=1)]
+
+    @case("py_func")
+    def _():
+        x = data("x", f32(64, 64))
+        tmpl = paddle.zeros([64, 64], "float32")
+        return [nn_.py_func(lambda a: np.tanh(a) * 2.0, x, tmpl)]
+
+    # -- static.nn: the sequence ops (lengths fed where the output shape
+    # does not depend on them, constants where it does) ------------------
+    B, T, D = 16, 64, 128
+    seq_len = lengths(B, T)
+
+    @case("sequence_pool", "reduce")
+    def _():
+        x, n = data("x", f32(B, T, D)), data("n", seq_len)
+        return [nn_.sequence_pool(x, n, p) for p in
+                ("sum", "average", "max", "sqrt", "first", "last")]
+
+    @case("sequence_first_step")
+    def _():
+        return [nn_.sequence_first_step(data("x", f32(B, T, D)),
+                                        data("n", seq_len))]
+
+    @case("sequence_last_step")
+    def _():
+        return [nn_.sequence_last_step(data("x", f32(B, T, D)),
+                                       data("n", seq_len))]
+
+    @case("sequence_softmax")
+    def _():
+        return [nn_.sequence_softmax(data("x", f32(B, T)),
+                                     data("n", seq_len))]
+
+    @case("sequence_reverse")
+    def _():
+        return [nn_.sequence_reverse(data("x", f32(B, T, D)),
+                                     data("n", seq_len))]
+
+    @case("sequence_conv", "reduce")
+    def _():
+        w = static.create_parameter([3 * D, 96], "float32")
+        return [nn_.sequence_conv(data("x", f32(B, T, D)),
+                                  data("n", seq_len), w)]
+
+    @case("sequence_enumerate", "exact")
+    def _():
+        return [nn_.sequence_enumerate(data("x", ints(1000, B, T)), 3)]
+
+    @case("sequence_scatter")
+    def _():
+        return [nn_.sequence_scatter(data("x", f32(T, D)),
+                                     data("i", ints(T, B, 8)),
+                                     data("u", f32(B, 8, D)),
+                                     data("n", lengths(B, 8)))]
+
+    const_len = paddle.to_tensor(seq_len)
+
+    @case("sequence_pad")
+    def _():
+        return list(nn_.sequence_pad(data("x", f32(B, T, D)), 0.0,
+                                     lengths=const_len))
+
+    @case("sequence_unpad")
+    def _():
+        return list(nn_.sequence_unpad(data("x", f32(B, T, D)), const_len))
+
+    @case("sequence_expand")
+    def _():
+        return [nn_.sequence_expand(data("x", f32(B, D)),
+                                    paddle.to_tensor(lengths(B, 4)))]
+
+    @case("sequence_expand_as")
+    def _():
+        return [nn_.sequence_expand_as(data("x", f32(B, D)),
+                                       paddle.to_tensor(lengths(B, 4)))]
+
+    @case("sequence_concat")
+    def _():
+        out = nn_.sequence_concat([data("a", f32(B, T, D)),
+                                   data("b", f32(B, T, D))],
+                                  [const_len, const_len])
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    @case("sequence_reshape")
+    def _():
+        return [nn_.sequence_reshape(
+            data("x", f32(B, T, D)), paddle.to_tensor(
+                np.full(B, T, "int64")), D // 2)]
+
+    @case("sequence_slice")
+    def _():
+        return [nn_.sequence_slice(
+            data("x", f32(B, T, D)),
+            paddle.to_tensor(np.full((B, 1), 4, "int64")),
+            paddle.to_tensor(np.full((B, 1), 16, "int64")))]
+
+    # -- control flow: cond / case / switch_case captured, while_loop not
+    @case("cond")
+    def _():
+        x = data("x", f32(1024, 1024))
+        s = paddle.mean(x)
+        return [nn_.cond(s > 0.0, lambda: paddle.tanh(x),
+                         lambda: paddle.exp(-x * x))]
+
+    @case("case")
+    def _():
+        x = data("x", f32(1024, 1024))
+        s = paddle.mean(x)
+        return [nn_.case([(s > 1.0, lambda: x + 1.0),
+                          (s > -1.0, lambda: x * 2.0)],
+                         default=lambda: x - 1.0)]
+
+    @case("switch_case")
+    def _():
+        x, i = data("x", f32(1024, 1024)), data("i", np.array([1]))
+        return [nn_.switch_case(i, [lambda: x * 3.0, lambda: paddle.sin(x),
+                                    lambda: x * 5.0])]
+
+    @case("while_loop", "reduce")
+    def _():
+        x = data("x", f32(512, 512, scale=0.01))
+        n = paddle.zeros([1], "float32")
+        i, y = nn_.while_loop(lambda i, y: paddle.sum(i) < 8.0,
+                              lambda i, y: [i + 1.0, paddle.tanh(y @ x + y)],
+                              [n, x])
+        return [y]
+
+    # -- fluid.layers functions with code of their own --------------------
+    @case("fluid.mul", "reduce")
+    def _():
+        return [L.mul(data("x", f32(64, 8, 128)), data("y", f32(1024, 256)),
+                      x_num_col_dims=1)]
+
+    @case("fluid.matmul", "reduce")
+    def _():
+        return [L.matmul(data("x", f32(64, 256)), data("y", f32(128, 256)),
+                         transpose_y=True, alpha=0.5)]
+
+    @case("fluid.cross_entropy", "reduce")
+    def _():
+        p = F.softmax(data("z", f32(256, 1000)))
+        return [L.cross_entropy(p, data("y", ints(1000, 256, 1))),
+                L.cross_entropy(p, F.softmax(data("s", f32(256, 1000))),
+                                soft_label=True)]
+
+    @case("fluid.reduce_*", "reduce")
+    def _():
+        x = data("x", f32(64, 128, 32))
+        b = x > 0.0
+        return ([getattr(L, f"reduce_{k}")(x, dim=[1], keep_dim=k == "sum")
+                 for k in ("sum", "mean", "max", "min", "prod")]
+                + [L.reduce_all(b, dim=1), L.reduce_any(b, dim=2),
+                   L.mean(x)])
+
+    @case("fluid.elementwise_*")
+    def _():
+        x, y = data("x", f32(32, 64, 16, 16)), data("y", f32(64, 16))
+        ops = ("add", "sub", "mul", "div", "max", "min")
+        out = [getattr(L, f"elementwise_{k}")(x, y, axis=1) for k in ops]
+        xp = data("xp", np.abs(f32(32, 64)) + 0.5)
+        yp = data("yp", np.abs(f32(64)) + 0.5)
+        return out + [L.elementwise_pow(xp, yp, axis=1),
+                      L.elementwise_mod(xp, yp, axis=1),
+                      L.elementwise_floordiv(xp, yp, axis=1)]
+
+    @case("fluid.losses", "reduce")
+    def _():
+        x, y = data("x", f32(256, 64)), data("y", f32(256, 64))
+        lab = data("l", rng.integers(0, 2, (256, 64)).astype("float32"))
+        z, c = data("z", f32(256, 1)), data("c", rng.choice(
+            [-2.0, -1.0, 0.3, 1.4], (256, 1)).astype("float32"))
+        r = data("r", rng.random((256, 1)).astype("float32"))
+        return [L.smooth_l1(x, y, sigma=2.0),
+                L.sigmoid_cross_entropy_with_logits(x, lab, normalize=True),
+                L.huber_loss(x, y, 0.7), L.rank_loss(r, z, -z),
+                L.margin_rank_loss(r * 2 - 1, z, -z),
+                L.bpr_loss(data("s", f32(256, 100)),
+                           data("t", ints(100, 256, 1))),
+                L.teacher_student_sigmoid_loss(z, c)]
+
+    @case("fluid.activations")
+    def _():
+        x = data("x", f32(256, 1024, scale=3.0))
+        return [L.hard_sigmoid(x), L.brelu(x, 0.0, 2.0), L.soft_relu(x),
+                L.relu_clipped(x, 1.5), L.clip_by_norm(x, 10.0),
+                L.l2_normalize(x, 1), L.has_nan(x), L.has_inf(x),
+                L.isfinite(x)]
+
+    @case("fluid.shape_ops")
+    def _():
+        x = data("x", f32(16, 32, 28, 28))
+        return [L.flatten(x, 2), L.reshape(x, [16, -1]),
+                L.expand(data("e", f32(4, 1, 8)), [2, 5, 1]),
+                L.expand_as(data("a", f32(4, 1)), data("b", f32(4, 6))),
+                L.pad(data("p", f32(8, 16)), [1, 2, 3, 4], 0.5),
+                L.pad2d(x, [1, 1, 2, 2]),
+                L.pad_constant_like(x, data("q", f32(16, 32, 20, 20)), 1.0),
+                L.shuffle_channel(x, 4)]
+
+    @case("fluid.pool_resize", "reduce")
+    def _():
+        x = data("x", f32(16, 32, 28, 28))
+        v = data("v", f32(4, 8, 8, 16, 16))
+        return [L.pool2d(x, 3, "max", 2, 1), L.pool2d(x, 2, "avg", 2),
+                L.pool2d(x, global_pooling=True, pool_type="avg"),
+                L.pool3d(v, 2, "max", 2), L.pool3d(v, 2, "avg", 2),
+                L.resize_bilinear(x, [56, 56]), L.resize_nearest(x, [14, 14]),
+                L.resize_linear(data("l", f32(8, 16, 50)), [100]),
+                L.resize_trilinear(v, [16, 32, 32]),
+                L.image_resize_short(x, 56)]
+
+    @case("fluid.metric_like", "reduce")
+    def _():
+        p = data("p", ints(21, 8, 64, 64))
+        g = data("g", ints(21, 8, 64, 64))
+        miou, wrong, correct = L.mean_iou(p, g, 21)
+        return [miou, wrong, correct,
+                L.cos_sim(data("x", f32(256, 128)), data("y", f32(256, 128)))]
+
+    @case("fluid.misc", "reduce")
+    def _():
+        x = data("x", f32(16, 32, 28, 28))
+        return [L.affine_channel(x, data("s", f32(32)), data("b", f32(32))),
+                L.add_position_encoding(data("e", f32(16, 64, 128)), 0.8, 0.2),
+                L.fsp_matrix(x, data("y", f32(16, 48, 28, 28))),
+                L.fill_constant_batch_size_like(x, [1, 7], "float32", 3.0)]
+
+    @case("fluid.sampled_softmax", "reduce")
+    def _():
+        return [L.sampled_softmax_with_cross_entropy(
+            data("z", f32(256, 5000)), data("y", ints(5000, 256, 1)), 64)]
+
+    @case("fluid.center_loss", "reduce")
+    def _():
+        return [L.center_loss(data("x", f32(256, 128)),
+                              data("y", ints(10, 256, 1)), 10, 0.1,
+                              param_attr="phase55_centers")]
+
+    @case("fluid.hsigmoid", "reduce")
+    def _():
+        return [L.hsigmoid(data("x", f32(256, 128)),
+                           data("y", ints(1000, 256, 1)), 1000)]
+
+    @case("fluid.rnn", "reduce")
+    def _():
+        x = data("x", f32(16, 32, 64))
+        cell = paddle.nn.GRUCell(64, 128)
+        out, _ = L.rnn(cell, x)
+        fw, bw = paddle.nn.LSTMCell(64, 96), paddle.nn.LSTMCell(64, 96)
+        bout, _ = L.birnn(fw, bw, x)
+        h0 = data("h0", f32(1, 16, 128))
+        c0 = data("c0", f32(1, 16, 128))
+        lout, lh, lc = L.lstm(data("t", f32(32, 16, 64)), h0, c0, 32, 128, 1)
+        g = L.gru_unit(data("gx", f32(16, 384)), data("gh", f32(16, 128)),
+                       384)
+        uh, uc = L.lstm_unit(data("ux", f32(16, 64)), data("uh", f32(16, 96)),
+                             data("uc", f32(16, 96)))
+        return [out, bout, lout, lh, lc, *g, uh, uc]
+
+    # -- text and distribution --------------------------------------------
+    @case("text.viterbi_decode", "exact")
+    def _():
+        s, path = paddle.text.viterbi_decode(
+            data("e", f32(16, 64, 20, scale=3.0)), data("t", f32(20, 20)),
+            data("n", np.full(16, 64, "int64")))
+        return [path]
+
+    @case("text.linear_chain_crf", "reduce")
+    def _():
+        trans = static.create_parameter([22, 20], "float32")
+        return [paddle.text.linear_chain_crf(
+            data("e", f32(16, 64, 20)), data("y", ints(20, 16, 64)), trans,
+            length=data("n", seq_len))]
+
+    @case("distribution", "reduce")
+    def _():
+        loc, scale = data("m", f32(4096)), data("s", np.abs(f32(4096)) + 0.1)
+        nrm = paddle.distribution.Normal(loc, scale)
+        oth = paddle.distribution.Normal(loc * 0.5, scale * 2.0)
+        v = data("v", f32(4096))
+        uni = paddle.distribution.Uniform(loc - 1.0, loc + scale)
+        lg = data("lg", f32(256, 1000))
+        cat = paddle.distribution.Categorical(lg)
+        cat2 = paddle.distribution.Categorical(lg * 0.5)
+        return [nrm.log_prob(v), nrm.entropy(), nrm.kl_divergence(oth),
+                uni.log_prob(v), uni.entropy(),
+                cat.log_prob(data("k", ints(1000, 256))), cat.entropy(),
+                cat.kl_divergence(cat2)]
+
+    return cases, feed
+
+
+# fluid.layers functions with code of their own that phase 55 leaves out,
+# and why: a host-side helper, a draw from a generator (the two devices'
+# generators differ), or an output whose shape depends on the data
+FLUID_SWEEP_LEFT = {
+    "fill_constant": "a build-time constant", "assign": "a copy",
+    "create_tensor": "a build-time constant",
+    "array_write": "host list", "array_read": "host list",
+    "array_length": "host list", "create_array": "host list",
+    "tensor_array_to_tensor": "host list",
+    "uniform_random": "random", "gaussian_random": "random",
+    "uniform_random_batch_size_like": "random",
+    "gaussian_random_batch_size_like": "random",
+    "sampling_id": "random", "dropout": "random",
+    "random_crop": "random, host-side",
+    "range": "a build-time constant", "linspace": "a build-time constant",
+    "where": "data-dependent shape", "unique_with_counts":
+        "data-dependent shape", "is_empty": "host-side",
+    "ctc_greedy_decoder": "data-dependent shape",
+    "detection_output": "data-dependent shape (NMS)",
+    "Assert": "host read", "chunk_eval": "host-side metric",
+    "autoincreased_step_counter": "a build-time counter",
+    "exponential_decay": "an LR scheduler", "natural_exp_decay":
+        "an LR scheduler", "inverse_time_decay": "an LR scheduler",
+    "polynomial_decay": "an LR scheduler", "piecewise_decay":
+        "an LR scheduler", "cosine_decay": "an LR scheduler",
+    "noam_decay": "an LR scheduler", "linear_lr_warmup": "an LR scheduler",
+    "templatedoc": "a decorator", "autodoc": "a decorator",
+    "generate_layer_fn": "a refusal",
+    "generate_activation_fn": "a refusal",
+    "generate_inplace_fn": "a refusal",
+    "similarity_focus": "a refusal", "inplace_abn": "a refusal",
+}
+# each covered fluid.layers function and the case that runs it
+FLUID_SWEEP_CASES = {
+    "fc": "fc", "mul": "fluid.mul", "matmul": "fluid.matmul",
+    "cross_entropy": "fluid.cross_entropy", "mean": "fluid.reduce_*",
+    **{f"reduce_{k}": "fluid.reduce_*" for k in (
+        "sum", "mean", "max", "min", "prod", "all", "any")},
+    **{f"elementwise_{k}": "fluid.elementwise_*" for k in (
+        "add", "sub", "mul", "div", "max", "min", "pow", "mod",
+        "floordiv")},
+    **{k: "fluid.losses" for k in (
+        "smooth_l1", "sigmoid_cross_entropy_with_logits", "huber_loss",
+        "rank_loss", "margin_rank_loss", "bpr_loss",
+        "teacher_student_sigmoid_loss")},
+    **{k: "fluid.activations" for k in (
+        "hard_sigmoid", "brelu", "soft_relu", "relu_clipped",
+        "clip_by_norm", "l2_normalize", "has_nan", "has_inf", "isfinite")},
+    **{k: "fluid.shape_ops" for k in (
+        "flatten", "reshape", "expand", "expand_as", "pad", "pad2d",
+        "pad_constant_like", "shuffle_channel")},
+    **{k: "fluid.pool_resize" for k in (
+        "pool2d", "pool3d", "resize_bilinear", "resize_nearest",
+        "resize_linear", "resize_trilinear", "image_resize_short")},
+    "mean_iou": "fluid.metric_like", "cos_sim": "fluid.metric_like",
+    **{k: "fluid.misc" for k in (
+        "affine_channel", "add_position_encoding", "fsp_matrix",
+        "fill_constant_batch_size_like")},
+    "sampled_softmax_with_cross_entropy": "fluid.sampled_softmax",
+    "center_loss": "fluid.center_loss", "hsigmoid": "fluid.hsigmoid",
+    **{k: "fluid.rnn" for k in ("rnn", "birnn", "lstm", "gru_unit",
+                                "lstm_unit")},
+}
+
+
+def _fluid_own_functions(fluid):
+    """The public functions defined in fluid/layers.py itself (not
+    re-exported), less the guided refusals."""
+    import inspect
+
+    L = fluid.layers
+    return sorted(
+        n for n, f in vars(L).items()
+        if inspect.isfunction(f) and f.__module__ == L.__name__
+        and not n.startswith("_")
+        and f.__code__.co_name not in ("fn",))
+
+
+def _flat_fetches(out):
+    """A case's outputs (Tensors in nested lists / tuples) as a flat
+    list."""
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat_fetches(o)]
+    return [out]
+
+
+def _sweep_case(paddle, static, fluid, idx, card, vals, uncaptured, times):
+    """Case ``idx`` built under ``set_device`` of the CPU and of ``card``
+    (the card's program carrying the CPU program's captured tensors as
+    they were built) and run by each side's Executor; the outputs into
+    ``vals``, an uncaptured card run's reason into ``uncaptured``."""
+    for where in ("cpu", card):
+        paddle.set_device(where)
+        paddle.seed(55)
+        # the same draws on both sides: only this case's build runs
+        cases, feed = _sweep_cases(paddle, static, fluid)
+        name, kind, build = cases[idx]
+        main, startup, fetch = _static_program(paddle, build)
+        fetch = _flat_fetches(fetch)
+        if where == "cpu":
+            start = _leaf_values(main, fetch)
+        else:
+            _carry_leaves(start, main, fetch)
+        exe = static.Executor(paddle.CPUPlace() if where == "cpu"
+                              else paddle.CUDAPlace(0))
+        t0 = time.perf_counter()
+        vals[where] = exe.run(main, feed=feed, fetch_list=fetch)
+        times["cpu" if where == "cpu" else "card"] += \
+            time.perf_counter() - t0
+        if where != "cpu" and not exe.last_run["captured"]:
+            uncaptured[name] = exe.last_run["reason"]
+
+
+def static_sweep_phase(dev, stamp, card="gpu"):
+    """Phase 55: every case of ``_sweep_cases`` built as a program under
+    ``set_device`` of each side and run by the Executor on the CPU and on
+    the card (the card's program carrying the CPU program's parameters
+    and constants), outputs compared. Reported: the cases and functions
+    covered, which ran uncaptured on the card and why, the worst errors,
+    the seconds. Fails if a case disagrees, if a static.nn name or a
+    fluid.layers function with code of its own is neither covered nor
+    listed in FLUID_SWEEP_LEFT, or if a case other than while_loop and
+    py_func ran uncaptured on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fluid, static
+
+    t_phase = time.perf_counter()
+    results, failures, uncaptured, errors = {}, [], {}, {}
+    times = {"cpu": 0.0, "card": 0.0}
+    torch.backends.cudnn.deterministic = True
+    paddle.set_device(card)
+    try:
+        for idx in range(len(_sweep_cases(paddle, static, fluid)[0])):
+            vals = {}
+            name = _sweep_cases(paddle, static, fluid)[0][idx][0]
+            try:
+                _sweep_case(paddle, static, fluid, idx, card, vals,
+                            uncaptured, times)
+            except Exception as e:  # noqa: BLE001 — the phase fails below
+                failures.append(name)
+                errors[name] = f"{type(e).__name__}: {e}"[:300]
+                continue
+            kind = _sweep_cases(paddle, static, fluid)[0][idx][1]
+            errs = []
+            for g, c in zip(vals[card], vals["cpu"]):
+                g, c = np.asarray(g, np.float64), np.asarray(c, np.float64)
+                fin = np.isfinite(c)
+                # the same non-finite values (a log-density outside its
+                # support is -inf on both sides), the rest compared
+                if g.shape != c.shape or not np.array_equal(
+                        np.isfinite(g), fin) or not np.array_equal(
+                        g[~fin], c[~fin]):
+                    errs.append(float("inf"))
+                    continue
+                d = float(np.abs(g[fin] - c[fin]).max(initial=0.0))
+                errs.append(d if kind == "exact" else d / max(
+                    float(np.abs(c[fin]).max(initial=0.0)), 1e-30))
+            tol = 0.0 if kind == "exact" else STATIC_SWEEP_TOL[kind]
+            results[name] = {"kind": kind, "outputs": len(errs),
+                             "max_err": max(errs)}
+            if not max(errs) <= tol:
+                failures.append(name)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        paddle.set_device("gpu" if card == "gpu" else "cpu")
+    names = {n for n, _, _ in _sweep_cases(paddle, static, fluid)[0]}
+    paddle.disable_static()
+    missing_nn = sorted(n for n in static.nn.__all__ if n not in names)
+    own = _fluid_own_functions(fluid)
+    missing_fluid = sorted(n for n in own if n not in FLUID_SWEEP_CASES
+                           and n not in FLUID_SWEEP_LEFT)
+    # the host loop, the host function, and the sequence ops whose
+    # output shape comes from constant lengths read on the host
+    expected_uncaptured = {"while_loop", "py_func"} | {
+        f"sequence_{k}" for k in ("unpad", "expand", "expand_as",
+                                  "concat", "reshape", "slice")}
+    ok = {"cases_agree": not failures, "static_nn_covered": not missing_nn,
+          "fluid_covered": not missing_fluid,
+          "only_host_reads_uncaptured": card == "cpu"
+          or set(uncaptured) == expected_uncaptured}
+    worst = sorted(results.items(), key=lambda kv: -kv[1]["max_err"]
+                   if kv[1]["kind"] != "exact" else 0)[:6]
+    row = {"phase": "static_sweep_card_vs_cpu", "cases": len(results),
+           "static_nn_names": len(static.nn.__all__),
+           "fluid_functions_covered": len(FLUID_SWEEP_CASES),
+           "fluid_functions_left": len(FLUID_SWEEP_LEFT),
+           "uncaptured_on_card": uncaptured,
+           "worst": {k: v["max_err"] for k, v in worst},
+           "failures": failures, "missing_static_nn": missing_nn,
+           "missing_fluid": missing_fluid, "tol": STATIC_SWEEP_TOL,
+           "errors": errors, "card_run_s": times["card"],
+           "cpu_run_s": times["cpu"],
+           "seconds": time.perf_counter() - t_phase, "checks": ok,
+           "ok": all(ok.values()), **stamp}
+    emit(row)
+    if not all(ok.values()):
+        raise AssertionError(f"static sweep failed: {ok}, {failures}")
+    return row
+
+
 def _kernel(name, source, replaces, launches, row, err, keys, library):
     ms, plain, bnd, by = keys
     return {"name": name, "route": "cuda", "source": source,
@@ -9385,6 +10504,31 @@ def main():
     fit_res = resilience_fit_phase(dev, vision_mods, stamp, lenet_m,
                                    resnet_ts)
     res_train_s["fit_resilience"] = time.perf_counter() - t
+    static_s = {}                      # phases 53-55's seconds each
+    t = time.perf_counter()
+    static_bert = static_bert_phase(dev, vision_mods, stamp, bert)
+    static_s["static_bert"] = time.perf_counter() - t
+    t = time.perf_counter()
+    static_bert_check_phase(dev, stamp)
+    static_s["static_bert_check"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fluid_lenet = fluid_lenet_phase(dev, vision_mods, stamp)
+    static_s["fluid_lenet"] = time.perf_counter() - t
+    t = time.perf_counter()
+    static_sweep_phase(dev, stamp)
+    static_s["static_sweep"] = time.perf_counter() - t
+    from paddle_tpu_torch.framework import core as tcore
+
+    # the eager steps ran with no recording hook installed: one list
+    # read a dispatch (tools/eager_dispatch_ab.py times them against
+    # another checkout in turns)
+    emit({"phase": "eager_dispatch", "hook_installed_now":
+          tcore._symbolic_dispatch_hook[0] is not None,
+          "bert_eager_step_ms_phase24": {
+              k: bert[k]["step_ms_median_last3"] for k in bert},
+          "seq2seq_eager_step_ms_phase45": s2s["eager_step_ms_median"],
+          "static_replay_ms_phase53": {
+              k: v["replay_ms"] for k, v in static_bert.items()}, **stamp})
 
     f = flash[("gpt_1p3b", 2048, torch.bfloat16)]
     ft = flash[("gpt_1p3b_train", 2048, torch.bfloat16)]
@@ -9615,6 +10759,13 @@ def main():
                  fit_res["lenet"]["launches"],
              "training_paddle_fit_resilience_resnet50_o2":
                  fit_res["resnet50_o2"]["launches"],
+             # phases 53-54: rows 1 and 3-7 inside the captured static
+             # program's replays (composed: flash only), row 7 in the
+             # fluid LeNet's epoch
+             "static_bert_base_f32_composed":
+                 static_bert["composed"]["launches"],
+             "static_bert_base_f32_fused": static_bert["fused"]["launches"],
+             "fluid_lenet": fluid_lenet["epoch_launches"],
              "serving_fleet_f32_host_loss":
                  fleet["f32_host_loss"]["launches"],
              "serving_fleet_f32_partition":
@@ -9648,6 +10799,8 @@ def main():
           "detection_total_s": sum(det_s.values()),
           "resilience_training_phases_s": res_train_s,
           "resilience_training_total_s": sum(res_train_s.values()),
+          "static_phases_s": static_s,
+          "static_total_s": sum(static_s.values()),
           "smoke_s": time.perf_counter() - t_main, **stamp})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -25,7 +25,10 @@ as paddle``): ``paddle.to_tensor``, ``Tensor``, ``nn``,
 and ``callbacks``, ``summary``, ``save`` / ``load``), the tensor ops at
 the top level (creation, math, manipulation, logic, search, linalg,
 ``einsum``, random sampling) and ``linalg``, ``seed``, ``set_flags`` / ``get_flags`` and
-``set_device``. Its tensors and
+``set_device``; and the static-graph world (``enable_static``,
+``static``: ``Program``, ``Executor``, ``append_backward``,
+``minimize``; ``static.nn``), the fluid 1.x surface (``fluid``),
+``text``, ``distribution`` and ``batch``. Its tensors and
 parameters go to the card unless ``paddle.set_device("cpu")`` was
 called. Importing it builds nothing.
 """
@@ -58,7 +61,8 @@ from . import (amp, autograd, device, io, jit, metric, nn,  # noqa: E402
                ops, optimizer, regularizer, tensor, vision)
 from .core.flags import get_flag as _get_flag  # noqa: E402
 from .core.flags import set_flag as _set_flag  # noqa: E402
-from .device import (device_count, get_device,  # noqa: E402
+from .device import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: E402
+                     NPUPlace, XPUPlace, device_count, get_device,
                      is_compiled_with_cuda, set_device)
 from .framework.core import (Parameter, Tensor, enable_grad,  # noqa: E402
                              grad, is_grad_enabled, no_grad,
@@ -76,6 +80,9 @@ from .framework.random import (get_cuda_rng_state, get_rng_state,  # noqa: E402
                                seed, set_cuda_rng_state, set_rng_state)
 from .tensor import *  # noqa: E402,F401,F403
 from . import linalg  # noqa: E402  (after the star import: paddle.linalg)
+from .batch import batch  # noqa: E402
+from . import distribution, static, text  # noqa: E402
+from . import fluid  # noqa: E402  (after static: it re-exports it)
 
 
 def set_flags(flags):
@@ -86,14 +93,25 @@ def set_flags(flags):
 
 
 def in_dynamic_mode() -> bool:
-    """The port runs eagerly: always True (no static mode yet)."""
-    return True
+    """False between ``enable_static()`` and ``disable_static()``."""
+    from .static import _static_mode
+
+    return not _static_mode[0]
 
 
 def enable_static():
-    raise NotImplementedError(
-        "paddle_tpu_torch has no static-graph mode yet (ROADMAP.md Queue 1 "
-        "item 8 step 7)")
+    """The static-graph world (``static/``): ops on placeholders record
+    into the default program, ``static.Executor`` runs it."""
+    from .static import enable_static as _on
+
+    _on()
+
+
+def disable_static(place=None):
+    """Back to eager mode (the default)."""
+    from .static import disable_static as _off
+
+    _off()
 
 
 def summary(net, input_size=None, dtypes=None, input=None):  # noqa: A002
@@ -114,7 +132,9 @@ __all__ = ["resolve_device", "__version__", "amp", "autograd", "device",
            "metric", "nn", "ops", "optimizer", "regularizer", "tensor",
            "vision", "set_flags", "get_flags", "Model", "callbacks",
            "summary", "save", "load", "to_static", "in_dynamic_mode",
-           "enable_static",
+           "enable_static", "disable_static", "static", "fluid", "text",
+           "distribution", "batch", "CPUPlace", "CUDAPlace",
+           "CUDAPinnedPlace", "NPUPlace", "XPUPlace",
            "set_device", "get_device", "device_count",
            "is_compiled_with_cuda", "Tensor", "Parameter", "no_grad",
            "enable_grad", "grad", "is_grad_enabled", "set_grad_enabled",

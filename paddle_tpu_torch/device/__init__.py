@@ -14,7 +14,63 @@ import torch
 from .. import resolve_device
 
 __all__ = ["set_device", "get_device", "device_count",
-           "is_compiled_with_cuda"]
+           "is_compiled_with_cuda", "CPUPlace", "CUDAPlace",
+           "CUDAPinnedPlace", "NPUPlace", "XPUPlace"]
+
+
+class _Place:
+    """A Paddle place (``paddle_tpu/device/__init__.py``'s ``_Place``):
+    where ``Executor(place)`` runs a program. ``torch_device`` is its
+    torch device; an accelerator place (CUDA, and as the JAX package
+    maps them to its accelerator, NPU and XPU) is the card."""
+
+    device_type = "unknown"
+
+    def __init__(self, device_id: int = 0):
+        self.device_id = int(device_id)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.device_id})"
+
+    def __eq__(self, other):
+        return (isinstance(other, _Place)
+                and self.device_type == other.device_type
+                and self.device_id == other.device_id)
+
+    def __hash__(self):
+        return hash((self.device_type, self.device_id))
+
+    def get_device_id(self):
+        return self.device_id
+
+    @property
+    def torch_device(self) -> torch.device:
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        return resolve_device(torch.device("cuda", self.device_id))
+
+
+class CPUPlace(_Place):
+    device_type = "cpu"
+
+    def __init__(self, device_id: int = 0):
+        super().__init__(device_id)
+
+
+class CUDAPlace(_Place):
+    device_type = "gpu"
+
+
+class XPUPlace(CUDAPlace):
+    pass
+
+
+class NPUPlace(CUDAPlace):
+    pass
+
+
+class CUDAPinnedPlace(CPUPlace):
+    pass
 
 # the device set by set_device; None = the card
 _current = [None]

@@ -1,0 +1,5 @@
+"""fluid.regularizer: the 1.x names of the regularizers."""
+from ..regularizer import L1Decay, L2Decay  # noqa: F401
+
+L1DecayRegularizer = L1Decay
+L2DecayRegularizer = L2Decay

@@ -24,8 +24,19 @@ from . import dtype as dtypes
 __all__ = [
     "Tensor", "Parameter", "apply_op", "backward", "grad", "no_grad",
     "enable_grad", "is_grad_enabled", "set_grad_enabled", "to_tensor",
-    "AsyncLoss", "inplace_apply",
+    "AsyncLoss", "inplace_apply", "records", "set_symbolic_dispatch",
 ]
+
+# the static world's recording hook (static/graph.py): None while no
+# program is being built
+_symbolic_dispatch_hook = [None]
+
+
+def set_symbolic_dispatch(hook) -> None:
+    """Install (or, with None, remove) the static world's recording
+    hook: ``hook(fn, args, attrs, op_name)`` returns the recorded result,
+    or ``NotImplemented`` to run the op."""
+    _symbolic_dispatch_hook[0] = hook
 
 
 # --------------------------------------------------------------------------
@@ -85,6 +96,10 @@ def _as_torch(data, dtype=None, device=None) -> torch.Tensor:
     current device). A Python/numpy float64 becomes the default float
     dtype unless ``dtype`` says otherwise, as in Paddle."""
     dev = device if device is not None else current_device()
+    if dev.type == "meta":
+        # a constant made beside a placeholder: it lives where the
+        # program's parameters do
+        dev = current_device()
     arr = np.asarray(data)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         # ml_dtypes bfloat16 (the JAX package's numpy arrays)
@@ -108,6 +123,8 @@ class Tensor:
 
     # let Tensor win in  np_array * tensor
     __array_priority__ = 100
+    # True on a static program's placeholders (static/graph.py)
+    _symbolic = False
 
     def __init__(self, data, stop_gradient: bool = True,
                  name: Optional[str] = None):
@@ -206,13 +223,22 @@ class Tensor:
         return self.numpy().tolist()
 
     def clone(self):
+        if self._symbolic:
+            return apply_op(torch.clone, self, op_name="clone")
         return Tensor._wrap(self._data.clone())
 
     def astype(self, dtype):
-        return Tensor._wrap(self._data.to(dtypes.convert_dtype(dtype)))
+        dt = dtypes.convert_dtype(dtype)
+        if self._symbolic:
+            return apply_op(_cast, self, dtype=dt, op_name="cast")
+        return Tensor._wrap(self._data.to(dt))
 
     # -- value mutation (state loading) --------------------------------------
     def set_value(self, value):
+        if self._symbolic or getattr(value, "_symbolic", False):
+            raise TypeError("set_value of a static program's placeholder "
+                            "has no value to write: feed it through "
+                            "Executor.run")
         value = _unwrap(value)
         if not isinstance(value, torch.Tensor):
             value = _as_torch(value, device=self._data.device)
@@ -346,14 +372,125 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
 # dispatch and autograd
 # --------------------------------------------------------------------------
 
+def _cast(x, dtype):
+    return x.to(dtype)
+
+
 def apply_op(fn: Callable, *args, op_name: Optional[str] = None, **attrs):
     """Run ``fn(*torch_tensors, **attrs)`` on the unwrapped arguments and
     wrap the result (a Tensor, or a tuple of them for a tuple). torch
-    autograd records the op when an input needs a gradient."""
+    autograd records the op when an input needs a gradient. While a
+    static program is being built, an op with a placeholder argument is
+    recorded into it instead (``static/graph.py``)."""
+    hook = _symbolic_dispatch_hook[0]
+    if hook is not None:
+        res = hook(fn, args, attrs, op_name)
+        if res is not NotImplemented:
+            return res
     out = fn(*(_unwrap(a) for a in args), **attrs)
     if isinstance(out, (tuple, list)):
         return tuple(Tensor._wrap(o) for o in out)
     return Tensor._wrap(out)
+
+
+def _has_symbolic(v) -> bool:
+    if isinstance(v, (list, tuple)):
+        return any(_has_symbolic(x) for x in v)
+    if isinstance(v, dict):
+        return any(_has_symbolic(x) for x in v.values())
+    return getattr(v, "_symbolic", False)
+
+
+def _swap_tensors(v, out):
+    """``v`` with every Tensor (in lists, tuples and dicts too) replaced
+    by its index in ``out``, where it is appended."""
+    if isinstance(v, Tensor):
+        out.append(v)
+        return _Slot(len(out) - 1)
+    if isinstance(v, (list, tuple)):
+        return type(v)(_swap_tensors(x, out) for x in v)
+    if isinstance(v, dict):
+        return {k: _swap_tensors(x, out) for k, x in v.items()}
+    return v
+
+
+def _fill_tensors(v, values):
+    if isinstance(v, _Slot):
+        return values[v.index]
+    if isinstance(v, (list, tuple)):
+        return type(v)(_fill_tensors(x, values) for x in v)
+    if isinstance(v, dict):
+        return {k: _fill_tensors(x, values) for k, x in v.items()}
+    return v
+
+
+class _Slot:
+    __slots__ = ("index",)
+
+    def __init__(self, index):
+        self.index = index
+
+
+class _Whole:
+    """A Tensor-level function as one op on torch tensors: the arrays
+    are wrapped as Tensors, the function runs eagerly on them, and its
+    Tensors are unwrapped."""
+
+    def __init__(self, fn, args, kwargs, tensors):
+        self.fn = fn
+        self.args = args
+        self.kwargs = kwargs
+        self.__name__ = getattr(fn, "__name__", "op")
+
+    def __call__(self, *arrays):
+        return self._run([Tensor._wrap(a) for a in arrays])
+
+    def infer(self, metas, tensors):
+        """The output's shapes at recording, from meta tensors; where
+        that fails, from the placeholders' meta tensors and every other
+        Tensor's value as it is (a constant lengths argument then gives
+        the shape it holds)."""
+        try:
+            return self._run([Tensor._wrap(m) for m in metas])
+        except Exception:  # noqa: BLE001 — retried with the constants
+            if all(getattr(t, "_symbolic", False) for t in tensors):
+                raise
+        # the function reads its constants on the host: so will every
+        # run, and a program holding it runs uncaptured
+        self.host_read = True
+        return self._run([Tensor._wrap(m) if getattr(t, "_symbolic", False)
+                          else t for m, t in zip(metas, tensors)])
+
+    def _run(self, values):
+        out = self.fn(*_fill_tensors(self.args, values),
+                      **_fill_tensors(self.kwargs, values))
+        if isinstance(out, (tuple, list)):
+            return tuple(_unwrap(o) for o in out)
+        return _unwrap(out)
+
+
+def records(fn: Callable) -> Callable:
+    """Decorator of a Tensor-level function that builds its result
+    outside :func:`apply_op` (or updates a Tensor in place): while a
+    static program is being built, a call with a placeholder argument
+    is recorded as one op that runs the whole function at replay, on
+    the values (a random draw is then drawn at every run, an in-place
+    update of a captured buffer done at every run). A function whose
+    output shape depends on the data cannot be recorded: the recording
+    raises."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _symbolic_dispatch_hook[0] is not None and (
+                _has_symbolic(args) or _has_symbolic(kwargs)):
+            tensors: list = []
+            a = _swap_tensors(args, tensors)
+            k = _swap_tensors(kwargs, tensors)
+            return apply_op(_Whole(fn, a, k, tensors), *tensors,
+                            op_name=fn.__name__)
+        return fn(*args, **kwargs)
+
+    return wrapper
 
 
 def inplace_apply(x: Tensor, fn: Callable, *args, **kwargs) -> Tensor:
@@ -362,6 +499,11 @@ def inplace_apply(x: Tensor, fn: Callable, *args, **kwargs) -> Tensor:
     result, so a non-leaf keeps its graph through the op. A leaf that
     needs a gradient is refused, as the reference's ``inplace_apply``
     refuses it (``paddle_tpu/framework/core.py``)."""
+    if x._symbolic:
+        # a placeholder is rebound to the recorded op's output
+        out = fn(x, *args, **kwargs)
+        x._data, x._expr = out._data, out._expr
+        return x
     if torch.is_grad_enabled() and x._data.requires_grad \
             and x._data.is_leaf:
         raise ValueError(

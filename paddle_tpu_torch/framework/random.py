@@ -32,6 +32,9 @@ def generator(device=None) -> torch.Generator:
     """The generator of ``device`` (default: the current device), made
     and seeded on first use."""
     dev = torch.device(device) if device is not None else current_device()
+    if dev.type == "meta":
+        # a static program's shape inference draws nothing
+        return None
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     with _lock:

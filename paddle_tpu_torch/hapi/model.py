@@ -20,9 +20,12 @@ batch order when shuffling) after a rollback, stops cleanly after a
 preemption's priority save, and closes a guardian it made (one passed
 in is drained, and stays open).
 
-Not ported yet, and raising: the static-graph adapter (a Model prepared
-under ``paddle.enable_static()``, ROADMAP.md Queue 1 item 8 step 7) and
-``accumulate_grad_batches`` above 1 (which the JAX package takes and
+A Model prepared under ``paddle.enable_static()`` takes the
+static-graph adapter: ``Model(net, inputs, labels)``'s InputSpecs build
+a program (the network, the loss, ``optimizer.minimize``) that the
+steps run through ``static.Executor``.
+
+Not ported yet, and raising: ``accumulate_grad_batches`` above 1 (which the JAX package takes and
 ignores; the port refuses it rather than ignore it). The JAX package's
 fleet.auto route needs ``distributed.fleet``, which the port does not
 have (item 7): ``fit`` always builds the one-card ``TrainStep``.
@@ -77,17 +80,13 @@ class Model:
         self.stop_training = False
         self._train_step = None
         self._use_jit = True
+        self._static = None
 
     # -- configuration -------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit_compile=True):
         from .. import in_dynamic_mode
 
-        if not in_dynamic_mode():
-            raise NotImplementedError(
-                "hapi.Model in static mode (the StaticGraphAdapter) is not "
-                "ported to paddle_tpu_torch yet (ROADMAP.md Queue 1 item 8 "
-                "step 7)")
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
@@ -96,6 +95,67 @@ class Model:
                 raise TypeError(f"metrics must be Metric instances, got {m}")
         self._use_jit = jit_compile
         self._train_step = None
+        self._static = None
+        if not in_dynamic_mode():
+            self._prepare_static()
+
+    # -- static-graph adapter (reference hapi/model.py:247) ------------------
+    def _prepare_static(self):
+        """Prepared under ``paddle.enable_static()``: the network, the loss
+        and ``optimizer.minimize`` are recorded into a program from the
+        declared ``inputs`` / ``labels`` InputSpecs, which the steps run
+        through ``static.Executor`` (a captured CUDA graph a signature on
+        the card). The Executor's place is where the network's
+        parameters live."""
+        from .. import static
+
+        if not self._inputs:
+            raise ValueError(
+                "hapi.Model in static mode needs input InputSpecs: "
+                "Model(net, inputs=[InputSpec(...)], labels=[...]); the "
+                "program is built from the declared shapes")
+
+        def as_data(spec, i, prefix):
+            name = getattr(spec, "name", None) or f"{prefix}{i}"
+            return static.data(name, list(spec.shape),
+                               dtype=getattr(spec, "dtype", "float32"))
+
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            ins = [as_data(sp, i, "x") for i, sp in
+                   enumerate(_to_list(self._inputs))]
+            labels = [as_data(sp, i, "label") for i, sp in
+                      enumerate(_to_list(self._labels))]
+            outs = self.network(*ins)
+            loss_var = None
+            if self._loss is not None and labels:
+                loss_var = self._loss(outs, *labels)
+                if self._optimizer is not None:
+                    self._optimizer.minimize(loss_var)
+        first = next(iter(self.network.parameters()), None)
+        on_cpu = first is not None and first._data.device.type == "cpu"
+        self._static = {
+            "main": main,
+            "eval": main.clone(for_test=True),
+            "exe": static.Executor(static.CPUPlace() if on_cpu
+                                   else static.CUDAPlace(
+                                       first._data.device.index or 0
+                                       if first is not None else 0)),
+            "in_names": [t.name for t in ins],
+            "label_names": [t.name for t in labels],
+            "outs": outs,
+            "loss": loss_var,
+        }
+
+    def _static_feed(self, inputs, labels):
+        st = self._static
+        feed = dict(zip(st["in_names"], inputs))
+        feed.update(zip(st["label_names"], labels))
+        return feed
+
+    def _static_outs(self):
+        outs = self._static["outs"]
+        return list(outs) if isinstance(outs, (list, tuple)) else [outs]
 
     # -- core steps ----------------------------------------------------------
     def _build_train_step(self, sentinel=None):
@@ -119,6 +179,13 @@ class Model:
 
     def _train_batch_impl(self, inputs, labels=None, update=True, sync=True):
         self.network.train()
+        if self._static is not None:
+            st = self._static
+            (loss,) = st["exe"].run(
+                st["main"] if update else st["eval"],
+                feed=self._static_feed(_to_list(inputs), _to_list(labels)),
+                fetch_list=[st["loss"]])
+            return [float(loss)]
         inputs = _on_device(_to_list(inputs))
         labels = _on_device(_to_list(labels))
         if self._use_jit and update and len(labels) == 1:
@@ -139,6 +206,8 @@ class Model:
     @torch.no_grad()
     def eval_batch(self, inputs, labels=None):
         self.network.eval()
+        if self._static is not None:
+            return self._static_eval(_to_list(inputs), _to_list(labels))
         inputs = _on_device(_to_list(inputs))
         labels = _on_device(_to_list(labels))
         outputs = self.network(*inputs)
@@ -149,9 +218,29 @@ class Model:
             metric.update(metric.compute(outputs, *labels))
         return metrics
 
+    def _static_eval(self, inputs, labels):
+        st = self._static
+        has_loss = st["loss"] is not None and bool(labels)
+        fetch = ([st["loss"]] if has_loss else []) + self._static_outs()
+        vals = st["exe"].run(st["eval"],
+                             feed=self._static_feed(inputs, labels),
+                             fetch_list=fetch, return_numpy=False)
+        metrics = [float(vals[0])] if has_loss else []
+        outs = vals[1:] if has_loss else vals
+        outs = outs[0] if len(outs) == 1 else outs
+        labels = _on_device(labels)
+        for metric in self._metrics:
+            metric.update(metric.compute(outs, *labels))
+        return metrics
+
     @torch.no_grad()
     def predict_batch(self, inputs):
         self.network.eval()
+        if self._static is not None:
+            st = self._static
+            return st["exe"].run(st["eval"],
+                                 feed=self._static_feed(_to_list(inputs), []),
+                                 fetch_list=self._static_outs())
         out = self.network(*_on_device(_to_list(inputs)))
         if isinstance(out, (list, tuple)):
             return [o.numpy() for o in out]
@@ -187,7 +276,7 @@ class Model:
         self.stop_training = False
         guardian, guardian_owned = None, False
         if resilience is not None and resilience is not False \
-                and self._use_jit:
+                and self._use_jit and self._static is None:
             from ..resilience.guardian import TrainGuardian
 
             if isinstance(resilience, TrainGuardian):
@@ -204,7 +293,7 @@ class Model:
             guardian.install_preemption_handler()
             guardian.restore_latest()
         cbks.on_train_begin({})
-        fast = flags.fast_step[0]
+        fast = flags.fast_step[0] and self._static is None
         loss_val = None
         logs = {}
         epoch = 0

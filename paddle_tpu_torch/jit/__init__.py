@@ -86,6 +86,7 @@ from ..resilience import faults as _faults
 from ..resilience import sentinel as _sentinel
 
 __all__ = ["to_static", "TrainStep", "not_to_static", "ProgramTranslator",
+           "set_code_level", "set_verbosity",
            "StaticFunction", "TracedLayer", "TranslatedLayer", "InputSpec",
            "save", "load"]
 
@@ -166,6 +167,21 @@ def to_static(function=None, input_spec=None, build_strategy=None, **kwargs):
 
 def not_to_static(fn):
     return fn
+
+
+def set_code_level(level=100, also_to_stdout=False):
+    """The reference's dy2static logging knob. The port converts no code
+    (a StaticFunction runs the forward as it is): the level is kept on
+    the ``paddle_tpu_torch.dy2static`` logger, as the JAX package keeps
+    it on its own."""
+    import logging
+
+    logging.getLogger("paddle_tpu_torch.dy2static").setLevel(
+        logging.DEBUG if level else logging.WARNING)
+
+
+def set_verbosity(level=0, also_to_stdout=False):
+    set_code_level(level, also_to_stdout)
 
 
 def _needs_export(what):

@@ -16,7 +16,7 @@ import torch.nn.functional as TF
 
 from ...framework import dtype as dtypes
 from ...framework import random as grandom
-from ...framework.core import apply_op, inplace_apply
+from ...framework.core import apply_op, inplace_apply, records
 
 __all__ = [
     "relu", "relu6", "gelu", "sigmoid", "tanh", "softmax", "log_softmax",
@@ -197,6 +197,7 @@ def _rrelu_apply(x, slope):
     return torch.where(x >= 0, x, slope * x)
 
 
+@records
 def rrelu(x, lower=0.125, upper=0.3333333333333333, training=True,
           name=None):
     """Leaky ReLU whose negative slope is drawn from U(lower, upper) per
@@ -228,6 +229,7 @@ def _gumbel_softmax(x, g, temperature=1.0, hard=False, axis=-1):
     return y
 
 
+@records
 def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
     """softmax((x + g) / temperature) with g standard Gumbel noise
     (−log of an Exp(1) draw from the device's seeded generator); ``hard``

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as TF
 
 from ...framework import random as grandom
-from ...framework.core import Tensor, apply_op
+from ...framework.core import Tensor, apply_op, records
 from ...tensor.creation import one_hot  # noqa: F401
 from ...tensor.manipulation import pad  # noqa: F401
 
@@ -67,6 +67,7 @@ def _scale_by(x, factor):
     return x * factor
 
 
+@records
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None):
     if not training or p == 0.0:
@@ -128,6 +129,7 @@ def _alpha_dropout_apply(x, keep, alpha_p, a, b):
             + b).to(x.dtype)
 
 
+@records
 def alpha_dropout(x, p=0.5, training=True, name=None):
     """Dropout for SELU nets: dropped elements take SELU's negative
     saturation value, and an affine map keeps mean and variance."""
@@ -333,6 +335,7 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     return apply_op(_label_smooth, label, prior_dist, epsilon=float(epsilon))
 
 
+@records
 def class_center_sample(label, num_classes, num_samples, group=None):
     """(remapped label, sampled class centres): every class of ``label``
     (sorted) followed by other classes drawn without replacement from

@@ -37,7 +37,7 @@ import math
 import torch
 import torch.nn.functional as TF
 
-from ...framework.core import apply_op
+from ...framework.core import apply_op, records
 
 __all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
            "local_response_norm"]
@@ -52,6 +52,7 @@ def _bn(x, mean, var, w=None, b=None, training=False, epsilon=1e-5,
     return y.movedim(1, axis) if axis != 1 else y
 
 
+@records
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-05,
                data_format="NCHW", use_global_stats=None, name=None):

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ...framework import dtype as dtypes
-from ...framework.core import Tensor, _as_torch, _unwrap, apply_op
+from ...framework.core import Tensor, _as_torch, _unwrap, apply_op, records
 
 __all__ = ["sequence_mask", "sequence_pad", "sequence_unpad",
            "sequence_reverse", "sequence_softmax", "sequence_expand",
@@ -39,6 +39,7 @@ def _mask(lengths, maxlen, dtype):
     return (r[None, :] < lengths.reshape(-1, 1)).to(dtype)
 
 
+@records
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):
     """[b] lengths → [b, maxlen] 0/1 mask (reference sequence_mask_op)."""
     if maxlen is None:
@@ -48,6 +49,7 @@ def sequence_mask(x, maxlen=None, dtype="int64", name=None):
                     dtype=dtypes.convert_dtype(dtype))
 
 
+@records
 def sequence_pad(x, pad_value, maxlen=None, lengths=None, name=None):
     """A list of variable-length rows → (padded [b, maxlen, ...],
     lengths [b] int64); a padded tensor with ``lengths`` passes
@@ -72,6 +74,7 @@ def sequence_pad(x, pad_value, maxlen=None, lengths=None, name=None):
     return x, lengths
 
 
+@records
 def sequence_unpad(x, length, name=None):
     """Padded [b, maxlen, ...] + lengths → a list of per-row Tensors."""
     arr = _data(x)
@@ -88,6 +91,7 @@ def _seq_reverse(x, lengths):
     return torch.gather(x, 1, rev)
 
 
+@records
 def sequence_reverse(x, lengths=None, name=None):
     """Reverse each row's first ``lengths[i]`` steps, padding in place
     (``lengths=None`` reverses whole rows)."""
@@ -116,6 +120,7 @@ def _take_rows(a, idx):
     return a.index_select(0, idx)
 
 
+@records
 def sequence_expand(x, ref_lengths, name=None):
     """Row i repeated ``ref_lengths[i]`` times (lengths read on the
     host)."""
@@ -145,6 +150,7 @@ def _edit_distance(hyp, hyp_len, ref, ref_len):
     return prev.gather(1, ref_len.long().reshape(-1, 1))
 
 
+@records
 def edit_distance(input, label, normalized=True, ignored_tokens=None,  # noqa: A002
                   input_length=None, label_length=None, name=None):
     """Levenshtein distance between padded token rows: (distances [B, 1]
@@ -219,6 +225,7 @@ def sequence_last_step(x, lengths, name=None):
     return sequence_pool(x, lengths, "last")
 
 
+@records
 def sequence_concat(inputs, lengths_list, name=None):
     """Each row's valid steps of every input, concatenated and padded to
     the longest total (lengths read on the host); returns (padded,
@@ -291,6 +298,7 @@ def _seq_reshape(x, lengths, new_dim):
     return x.reshape(B, T * D // new_dim, new_dim), lengths * D // new_dim
 
 
+@records
 def sequence_reshape(x, lengths, new_dim, name=None):
     """Each row's payload re-chunked to rows of ``new_dim``; every
     length·D must divide by it (checked on the host)."""
@@ -334,6 +342,7 @@ def _seq_slice(x, offset, length, out_t):
     return torch.where(valid, g, torch.zeros_like(g))
 
 
+@records
 def sequence_slice(x, offset, length, name=None):
     """Each row's steps [offset, offset + length), padded to the longest
     (read on the host); returns (sliced, length)."""

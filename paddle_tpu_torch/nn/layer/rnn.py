@@ -37,12 +37,19 @@ def _uniform_std(hidden_size):
     return I.Uniform(-std, std)
 
 
+def _full_state(ref, lead=(), width=1, batch_dim=0, value=0.0,
+                dtype=None):
+    """``lead + (batch, width)`` of ``value`` on ``ref``'s device, the
+    batch read from ``ref`` (an op, so a static program reads it from
+    the fed batch at every run)."""
+    return torch.full(tuple(lead) + (ref.shape[batch_dim], width), value,
+                      dtype=dtype or ref.dtype, device=ref.device)
+
+
 def _zeros_like_batch(ref, hidden_size):
     """A [batch, hidden] zero state on ``ref``'s device, in its float
     dtype."""
-    d = _unwrap(ref)
-    return Tensor(torch.zeros((d.shape[0], hidden_size), dtype=d.dtype,
-                              device=d.device))
+    return apply_op(_full_state, ref, width=int(hidden_size))
 
 
 def _simple_rnn_step(x, h, wih, whh, bih, bhh, act="tanh", xg=None):
@@ -78,13 +85,12 @@ class RNNCellBase(Layer):
         structure)."""
         from ...framework import dtype as dtypes
 
-        d = _unwrap(batch_ref)
         if shape is None:
             shape = (self.hidden_size,)
         dt = dtypes.convert_dtype(dtype) or dtypes.default_float_dtype()
-        return Tensor(torch.full(
-            (d.shape[batch_dim_idx],) + tuple(shape)[-1:], init_value,
-            dtype=dt, device=d.device))
+        return apply_op(_full_state, batch_ref, width=int(tuple(shape)[-1]),
+                        batch_dim=int(batch_dim_idx),
+                        value=float(init_value), dtype=dt)
 
 
 class SimpleRNNCell(RNNCellBase):
@@ -281,8 +287,8 @@ class RNN(Layer):
         batch = xd.shape[1 if self.time_major else 0]
         hidden = self.cell.hidden_size
         if initial_states is None:
-            z = Tensor(torch.zeros((batch, hidden), dtype=xd.dtype,
-                                   device=xd.device))
+            z = apply_op(_full_state, inputs, width=int(hidden),
+                         batch_dim=1 if self.time_major else 0)
             initial_states = (z, z) if mode == "LSTM" else z
         mask = (None if sequence_length is None
                 else _step_mask(sequence_length, T, xd.device))
@@ -403,8 +409,9 @@ class _RNNBase(Layer):
         batch = xd.shape[1 if self.time_major else 0]
         is_lstm = self.mode == "LSTM"
         if initial_states is None:
-            z = Tensor(torch.zeros((L * D, batch, self.hidden_size),
-                                   dtype=xd.dtype, device=xd.device))
+            z = apply_op(_full_state, inputs, lead=(L * D,),
+                         width=int(self.hidden_size),
+                         batch_dim=1 if self.time_major else 0)
             initial_states = (z, z) if is_lstm else z
         mask = (None if sequence_length is None
                 else _step_mask(sequence_length, T, xd.device))

@@ -166,9 +166,29 @@ class Optimizer:
             self._update(p._data, g, rates[key], self._get_slots(p),
                          **self._hyper(p))
 
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """On a static program's loss: a training directive appended to
+        the program that owns the loss (the reference appends grad and
+        update ops to that ProgramDesc; ``Executor.run`` performs them
+        every run). Eagerly: the reference's dygraph minimize harvests
+        the gradients ``loss.backward()`` left and steps, never running
+        autograd itself."""
+        if getattr(loss, "_symbolic", False):
+            from ..static import default_main_program
+
+            prog = getattr(getattr(loss._expr, "op", None), "program",
+                           None) or default_main_program()
+            prog.train_specs.append((self, loss))
+            return None, []
+        self.step()
+        return None, [(p, p.grad) for p in (self._parameter_list or [])]
+
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list or []:
             p.clear_grad()
+
+    clear_gradients = clear_grad
 
     def state_dict(self):
         if self._fused_state is not None and self._slots_stale:

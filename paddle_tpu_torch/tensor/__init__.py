@@ -46,7 +46,20 @@ def _tensor_getitem(self, idx):
     return apply_op(_getitem, self, idx=_index(idx))
 
 
+def _setitem(x, value, idx):
+    out = x.clone()
+    out[idx] = value.to(x.dtype) if isinstance(value, torch.Tensor) \
+        else value
+    return out
+
+
 def _tensor_setitem(self, idx, value):
+    if self._symbolic or getattr(value, "_symbolic", False):
+        # a placeholder is rebound to the recorded assignment's output
+        out = apply_op(_setitem, self, value, idx=_index(idx),
+                       op_name="setitem")
+        self._data, self._expr = out._data, out._expr
+        return
     value = _unwrap(value)
     self._data[_index(idx)] = (value.to(self.dtype)
                                if isinstance(value, torch.Tensor) else value)

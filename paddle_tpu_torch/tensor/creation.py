@@ -12,7 +12,7 @@ import torch.nn.functional as TF
 from ..device import current_device
 from ..framework import dtype as dtypes
 from ..framework.core import Parameter, Tensor, _as_torch, apply_op, \
-    to_tensor
+    records, to_tensor
 
 __all__ = [
     "to_tensor", "zeros", "ones", "full", "zeros_like", "ones_like",
@@ -63,6 +63,7 @@ def empty(shape, dtype=None, name=None):
     return zeros(shape, dtype)
 
 
+@records
 def full_like(x, fill_value, dtype=None, name=None):
     return Tensor(torch.full_like(_data(x), _scalar(fill_value),
                                   dtype=dtypes.convert_dtype(dtype)))
@@ -159,6 +160,7 @@ def clone(x, name=None):
     return apply_op(torch.clone, x)
 
 
+@records
 def numel(x, name=None):
     n = x.size if isinstance(x, Tensor) else int(np.size(x))
     dev = x._data.device if isinstance(x, Tensor) else current_device()
@@ -188,6 +190,10 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
     init = default_initializer
     trainable = True
     attr = ParamAttr._to_attr(attr)
+    if getattr(attr, "weight_norm_dim", None) is not None:
+        raise NotImplementedError(
+            "WeightNormParamAttr: apply nn.utils.weight_norm(layer) "
+            "instead — the reparameterization is a layer hook here")
     if isinstance(attr, ParamAttr):
         if attr.initializer is not None:
             init = attr.initializer

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from ..framework.core import Tensor, apply_op
+from ..framework.core import Tensor, apply_op, records
 from .math import dot, matmul  # noqa: F401
 
 __all__ = [
@@ -191,6 +191,7 @@ def matrix_rank(x, tol=None, hermitian=False, name=None):
                     hermitian=bool(hermitian))
 
 
+@records
 def histogram(input, bins=100, min=0, max=0, name=None):  # noqa: A002
     """Counts of ``bins`` equal bins over [min, max] (the data's range
     when both are 0), as int64; the last bin holds max."""
@@ -203,6 +204,7 @@ def histogram(input, bins=100, min=0, max=0, name=None):  # noqa: A002
     return Tensor(torch.histc(xf, bins=int(bins), min=lo, max=hi).long())
 
 
+@records
 def bincount(x, weights=None, minlength=0, name=None):
     xa = x._data.detach().long()
     wa = None if weights is None else weights._data.detach()
@@ -213,6 +215,7 @@ def mv(x, vec, name=None):
     return apply_op(torch.matmul, x, vec)
 
 
+@records
 def lu(x, pivot=True, get_infos=False, name=None):
     """The packed LU factors and LAPACK's 1-based pivots (int32)."""
     out, piv, info = torch.linalg.lu_factor_ex(x._data.detach(),

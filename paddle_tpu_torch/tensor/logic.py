@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..framework.core import Tensor, apply_op
+from ..framework.core import Tensor, apply_op, records
 from .math import _operand
 
 __all__ = ["equal", "not_equal", "less_than", "less_equal", "greater_than",
@@ -72,6 +72,7 @@ def bitwise_not(x, name=None):
     return apply_op(torch.bitwise_not, _tensor(x, None))
 
 
+@records
 def is_empty(x, name=None):
     """A 0-d bool tensor: whether ``x`` has no elements."""
     return Tensor(torch.tensor(x.size == 0, device=x._data.device))

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..framework import dtype as dtypes
-from ..framework.core import Tensor, _as_torch, apply_op, inplace_apply
+from ..framework.core import Tensor, _as_torch, apply_op, inplace_apply, records
 
 __all__ = [
     "reshape", "transpose", "concat", "stack", "split", "chunk", "squeeze",
@@ -247,6 +247,7 @@ def scatter_nd_add(x, index, updates, name=None):
     return apply_op(_scatter_nd_add, x, _index(index, x), updates)
 
 
+@records
 def scatter_nd(index, updates, shape, name=None):  # noqa: A002
     """``updates`` summed into zeros of ``shape`` at ``index``."""
     zero = Tensor(torch.zeros(_ints(shape), dtype=updates.dtype,
@@ -350,6 +351,7 @@ def _first_positions(inverse, n_unique, n):
     return first.scatter_reduce(0, inverse.reshape(-1), pos, "amin")
 
 
+@records
 def unique(x, return_index=False, return_inverse=False, return_counts=False,
            axis=None, dtype="int64", name=None):
     """The sorted unique values (of the flattened tensor, or slices along
@@ -371,6 +373,7 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
     return res[0] if len(res) == 1 else tuple(res)
 
 
+@records
 def unique_consecutive(x, return_inverse=False, return_counts=False,
                        axis=None, dtype="int64", name=None):
     """Each run of equal values once (of the flattened tensor for
@@ -422,6 +425,7 @@ def _put_along_axis(x, indices, values, axis, reduce="assign"):  # noqa: A002
     raise ValueError(f"unknown reduce {reduce}")
 
 
+@records
 def put_along_axis(arr, indices, values, axis, reduce="assign", name=None):
     if not isinstance(values, Tensor):
         values = Tensor(torch.as_tensor(values, dtype=arr.dtype,
@@ -543,12 +547,14 @@ def tolist(x):
     return x.tolist()
 
 
+@records
 def shape(input, name=None):  # noqa: A002
     """The shape as a 1-D int32 tensor."""
     return Tensor(torch.tensor(list(input.shape), dtype=torch.int32,
                                device=input._data.device))
 
 
+@records
 def rank(input, name=None):  # noqa: A002
     """The number of dimensions as a 0-d int32 tensor."""
     return Tensor(torch.tensor(input.ndim, dtype=torch.int32,

@@ -21,7 +21,7 @@ import builtins
 import torch
 
 from ..framework import dtype as dtypes
-from ..framework.core import Tensor, _as_torch, apply_op, inplace_apply
+from ..framework.core import Tensor, _as_torch, apply_op, inplace_apply, records
 
 __all__ = [
     "add", "subtract", "multiply", "divide", "floor_divide", "remainder",
@@ -61,10 +61,12 @@ def _tensor(v, like=None):
 
 
 def _binary(fn, name=None):
-    def op(x, y, name=None):
-        return apply_op(fn, _operand(x, y), _operand(y, x))
+    label = name or fn.__name__
 
-    op.__name__ = op.__qualname__ = name or fn.__name__
+    def op(x, y, name=None):
+        return apply_op(fn, _operand(x, y), _operand(y, x), op_name=label)
+
+    op.__name__ = op.__qualname__ = label
     return op
 
 
@@ -78,18 +80,22 @@ def _binary_tensors(fn, name):
             y = torch.as_tensor(y, device=x.device)
         return fn(x, y)
 
-    def op(x, y, name=None):
-        return apply_op(both, _operand(x, y), _operand(y, x))
+    label = name
 
-    op.__name__ = op.__qualname__ = name
+    def op(x, y, name=None):
+        return apply_op(both, _operand(x, y), _operand(y, x), op_name=label)
+
+    op.__name__ = op.__qualname__ = label
     return op
 
 
 def _unary(fn, name):
-    def op(x, name=None):
-        return apply_op(fn, _tensor(x))
+    label = name
 
-    op.__name__ = op.__qualname__ = name
+    def op(x, name=None):
+        return apply_op(fn, _tensor(x), op_name=label)
+
+    op.__name__ = op.__qualname__ = label
     return op
 
 
@@ -467,6 +473,8 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None, name=None):
 def increment(x, value=1.0, name=None):
     """``x + value`` written back into ``x`` (the Tensor is rebound; its
     graph, if any, is kept)."""
+    if x._symbolic:
+        return inplace_apply(x, lambda t: t + value)
     x._data = x._data + value
     return x
 
@@ -566,6 +574,7 @@ def _lerp(x, y, weight):
     return x + weight * (y - x)
 
 
+@records
 def lerp(x, y, weight, name=None):
     if not isinstance(weight, Tensor):
         like = x if isinstance(x, Tensor) else y

@@ -20,7 +20,7 @@ import torch
 from ..device import current_device
 from ..framework import dtype as dtypes
 from ..framework import random as grandom
-from ..framework.core import Tensor, _unwrap
+from ..framework.core import Tensor, _unwrap, records
 
 __all__ = [
     "rand", "randn", "randint", "randint_like", "randperm", "uniform",
@@ -68,6 +68,7 @@ def randint(low=0, high=None, shape=(1,), dtype="int64", name=None):
                                 generator=grandom.generator(dev)))
 
 
+@records
 def randint_like(x, low=0, high=None, dtype=None, name=None):
     """As the JAX package: int64 unless ``dtype`` says otherwise, on
     ``x``'s device."""
@@ -99,6 +100,7 @@ def uniform(shape, dtype=None, min=-1.0, max=1.0, seed=0, name=None):  # noqa: A
                                                    generator=gen))
 
 
+@records
 def normal(mean=0.0, std=1.0, shape=None, name=None):
     """N(mean, std²): Tensor ``mean`` / ``std`` broadcast together (the
     draw on their device), else ``shape`` on the current device."""
@@ -116,6 +118,7 @@ def normal(mean=0.0, std=1.0, shape=None, name=None):
     return Tensor(z * std + mean)
 
 
+@records
 def multinomial(x, num_samples=1, replacement=False, name=None):
     """``num_samples`` category indices a row of the weights ``x`` (1-D
     or 2-D, need not sum to 1), int64; without replacement each row's
@@ -126,6 +129,7 @@ def multinomial(x, num_samples=1, replacement=False, name=None):
                                     generator=grandom.generator(d.device)))
 
 
+@records
 def bernoulli(x, name=None):
     d = _unwrap(x)
     u = torch.rand(d.shape, dtype=torch.float32, device=d.device,
@@ -133,6 +137,7 @@ def bernoulli(x, name=None):
     return Tensor((u < d).to(d.dtype))
 
 
+@records
 def poisson(x, name=None):
     d = _unwrap(x)
     return Tensor(torch.poisson(
@@ -140,6 +145,9 @@ def poisson(x, name=None):
 
 
 def uniform_(x, min=-1.0, max=1.0, name=None):  # noqa: A002
+    if x._symbolic:
+        raise TypeError("uniform_ draws into a Tensor in place: a static "
+                        "program's placeholder has no storage to fill")
     with torch.no_grad():
         x._data.uniform_(float(min), float(max),
                          generator=grandom.generator(x._data.device))
@@ -147,6 +155,9 @@ def uniform_(x, min=-1.0, max=1.0, name=None):  # noqa: A002
 
 
 def normal_(x, mean=0.0, std=1.0, name=None):
+    if x._symbolic:
+        raise TypeError("normal_ draws into a Tensor in place: a static "
+                        "program's placeholder has no storage to fill")
     with torch.no_grad():
         x._data.normal_(float(mean), float(std),
                         generator=grandom.generator(x._data.device))
@@ -154,6 +165,9 @@ def normal_(x, mean=0.0, std=1.0, name=None):
 
 
 def exponential_(x, lam=1.0, name=None):
+    if x._symbolic:
+        raise TypeError("exponential_ draws into a Tensor in place: a static "
+                        "program's placeholder has no storage to fill")
     with torch.no_grad():
         x._data.exponential_(float(lam),
                              generator=grandom.generator(x._data.device))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..framework import dtype as dtypes
-from ..framework.core import Tensor, apply_op
+from ..framework.core import Tensor, apply_op, records
 from .manipulation import _index
 from .manipulation import index_select, masked_select, where  # noqa: F401
 
@@ -76,6 +76,7 @@ def topk(x, k, axis=-1, largest=True, sorted=True, name=None):  # noqa: A002
                     sorted=bool(sorted))
 
 
+@records
 def nonzero(x, as_tuple=False):
     """The indices of the nonzero elements: an (n, ndim) int64 tensor, or
     one (n, 1) tensor a dimension with ``as_tuple``."""
@@ -137,6 +138,7 @@ def _mode(x, axis=-1, keepdim=False):
     return vals, idx
 
 
+@records
 def mode(x, axis=-1, keepdim=False, name=None):
     xa = x._data.detach()
     vals, idx = _mode(xa, int(axis), bool(keepdim))

@@ -2076,3 +2076,192 @@ def test_a_refused_pinning_is_counted_and_leaves_no_error(cuda_device):
         assert float(x.sum()) == 16.0
     finally:
         buf.release()
+
+
+# -- the static-graph world: Executor.run as a captured CUDA graph ------------
+
+def _static_net_program(paddle, batch, opt_name, fused):
+    """A small conv + batch-norm + linear net as a static program with a
+    ``minimize`` spec, its parameters made on the current device."""
+    from paddle_tpu_torch import static
+
+    paddle.enable_static()
+    main = static.Program()
+    try:
+        with static.program_guard(main, static.Program()):
+            paddle.seed(3)
+            conv = paddle.nn.Conv2D(3, 8, 3, padding=1)
+            bn = paddle.nn.BatchNorm2D(8)
+            fc = paddle.nn.Linear(8 * 4 * 4, 5)
+            x = static.data("x", [batch, 3, 8, 8])
+            y = static.data("y", [batch], "int64")
+            h = paddle.nn.functional.relu(bn(conv(x)))
+            logits = fc(paddle.flatten(
+                paddle.nn.functional.max_pool2d(h, 2), 1))
+            loss = paddle.nn.functional.cross_entropy(logits, y)
+            opt = (paddle.optimizer.Adam(1e-2) if opt_name == "adam"
+                   else paddle.optimizer.Momentum(1e-2, 0.9))
+            opt.minimize(loss)
+    finally:
+        paddle.disable_static()
+    return main, loss, [conv, bn, fc]
+
+
+@pytest.mark.parametrize("opt_name,fused", [("adam", 1), ("adam", 0),
+                                             ("momentum", 0)])
+def test_static_captured_run_matches_uncaptured(cuda_device, opt_name,
+                                                fused):
+    """The same static training program on the card: ``Executor.run`` as
+    a captured CUDA graph (one capture, then replays) against the same
+    runs with the capture turned off (the plan's step called eagerly),
+    4 runs from the same weights: losses, parameters and batch-norm
+    buffers within 1e-6 of the largest value; the fused Adam's launches
+    come from the replays."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+
+    paddle.set_device("gpu")
+    old = paddle.get_flags("FLAGS_fused_optimizer")["FLAGS_fused_optimizer"]
+    paddle.set_flags({"FLAGS_fused_optimizer": fused})
+    try:
+        rng = np.random.default_rng(5)
+        feeds = [{"x": rng.normal(size=(6, 3, 8, 8)).astype("float32"),
+                  "y": rng.integers(0, 5, (6,)).astype("int64")}
+                 for _ in range(4)]
+        runs = {}
+        for captured in (True, False):
+            main, loss, layers = _static_net_program(paddle, 6, opt_name,
+                                                     fused)
+            exe = static.Executor(paddle.CUDAPlace(0))
+            n0 = tfo.ADAMW_LAUNCHES
+            losses = []
+            for feed in feeds:
+                if captured:
+                    out = exe.run(main, feed=feed, fetch_list=[loss])[0]
+                else:
+                    plan = static._Plan(main, [loss._expr], cuda_device)
+                    for spec in plan.specs:
+                        spec.write_lr()
+                    out = plan.step({k: torch.as_tensor(v).to(cuda_device)
+                                     for k, v in feed.items()})[0]
+                losses.append(float(out))
+            state = [v.numpy() for m in layers
+                     for v in m.state_dict().values()]
+            runs[captured] = (losses, state, exe.captures, exe.replays,
+                              tfo.ADAMW_LAUNCHES - n0)
+        (la, sa, ca, ra, na), (lb, sb, _, _, nb) = runs[True], runs[False]
+        assert ca == 1 and ra == 3
+        if fused:
+            assert na == 4 and nb == 4
+        np.testing.assert_allclose(la, lb, rtol=1e-6)
+        for va, vb in zip(sa, sb):
+            assert np.abs(va - vb).max() <= 1e-6 * max(np.abs(vb).max(),
+                                                       1e-3)
+    finally:
+        paddle.set_flags({"FLAGS_fused_optimizer": old})
+
+
+def test_static_new_feed_shape_captures_anew(cuda_device):
+    """A feed of another shape or dtype is another signature: a new
+    graph, never a stale replay; the old signature replays again."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+
+    paddle.set_device("gpu")
+    paddle.enable_static()
+    main = static.Program()
+    try:
+        with static.program_guard(main, static.Program()):
+            lin = paddle.nn.Linear(16, 4)
+            x = static.data("x", [-1, 16])
+            y = paddle.tanh(lin(x))
+    finally:
+        paddle.disable_static()
+    exe = static.Executor(paddle.CUDAPlace(0))
+    rng = np.random.default_rng(1)
+    w = lin.weight.numpy()
+    b = lin.bias.numpy()
+    for n, captures in ((3, 1), (3, 1), (5, 2), (3, 2), (5, 2)):
+        xs = rng.normal(size=(n, 16)).astype("float32")
+        (got,) = exe.run(main, feed={"x": xs}, fetch_list=[y])
+        np.testing.assert_allclose(got, np.tanh(xs @ w + b), rtol=1e-5,
+                                   atol=1e-6)
+        assert exe.captures == captures and exe.last_run["captured"]
+    # f64 numpy is fed as the placeholder's f32: the same signature
+    exe.run(main, feed={"x": rng.normal(size=(5, 16))}, fetch_list=[y])
+    assert exe.captures == 2
+
+
+def test_static_while_loop_runs_uncaptured(cuda_device):
+    """A program holding a while_loop (a host loop) runs uncaptured on the
+    card, says so, and computes what the loop computes."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+
+    paddle.set_device("gpu")
+    paddle.enable_static()
+    main = static.Program()
+    try:
+        with static.program_guard(main, static.Program()):
+            x = static.data("x", [4])
+            n = paddle.zeros([1], "float32")
+            i, v = static.nn.while_loop(lambda i, v: paddle.sum(i) < 5.0,
+                                        lambda i, v: [i + 1.0, v * 2.0],
+                                        [n, x])
+    finally:
+        paddle.disable_static()
+    exe = static.Executor(paddle.CUDAPlace(0))
+    xs = np.arange(4, dtype="float32")
+    for _ in range(2):
+        got = exe.run(main, feed={"x": xs}, fetch_list=[i, v])
+        np.testing.assert_array_equal(got[1], xs * 32.0)
+        assert not exe.last_run["captured"]
+        assert "host" in exe.last_run["reason"]
+    assert exe.captures == 0 and exe.uncaptured_runs == 2
+
+
+def test_kernel_wrappers_on_meta_launch_nothing(cuda_device):
+    """Shape inference runs an op on meta tensors: the kernel wrappers
+    take their plain path there (shapes only) and launch nothing."""
+    q = torch.empty(2, 4, 128, 64, device="meta")
+    counts = (tfa.LAUNCHES, tfa.BWD_LAUNCHES, tfk.FWD_LAUNCHES,
+              tfk.ADDLN_FWD_LAUNCHES)
+    o = tfa.flash_attention_arrays(q, q, q)
+    x = torch.empty(256, 64, device="meta")
+    w1 = torch.empty(64, 128, device="meta")
+    b1 = torch.empty(128, device="meta")
+    w2 = torch.empty(128, 64, device="meta")
+    b2 = torch.empty(64, device="meta")
+    s = torch.empty(64, device="meta")
+    y = tfk.fused_ln_mlp(x, w1, b1, w2, b2, ln_scale=s, ln_bias=s)
+    z = tfk.fused_add_layernorm(x, x, s, s)
+    assert o.shape == q.shape and o.is_meta
+    assert y.shape == x.shape and y.is_meta and z.is_meta
+    assert (tfa.LAUNCHES, tfa.BWD_LAUNCHES, tfk.FWD_LAUNCHES,
+            tfk.ADDLN_FWD_LAUNCHES) == counts
+
+
+def test_static_captured_dropout_draws_every_replay(cuda_device):
+    """Dropout recorded into a program draws from the device's generator,
+    registered with the captured graph: each replay a fresh mask at the
+    keep rate."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+
+    paddle.set_device("gpu")
+    paddle.enable_static()
+    main = static.Program()
+    try:
+        with static.program_guard(main, static.Program()):
+            x = static.data("x", [100000])
+            y = paddle.nn.functional.dropout(x, p=0.3)
+    finally:
+        paddle.disable_static()
+    exe = static.Executor(paddle.CUDAPlace(0))
+    ones = np.ones(100000, "float32")
+    masks = [exe.run(main, feed={"x": ones}, fetch_list=[y])[0] != 0
+             for _ in range(3)]
+    assert exe.captures == 1 and exe.replays == 2
+    assert not np.array_equal(masks[1], masks[2])
+    for m in masks:
+        assert abs(m.mean() - 0.7) <= 5 * np.sqrt(0.21 / 100000)

@@ -43,6 +43,7 @@ from paddle_tpu.resilience.guardian import TrainGuardian as JGuardian
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.models import gpt as tg
+from paddle_tpu_torch.monitor import flight as tflight
 from paddle_tpu_torch.monitor import stat_get
 from paddle_tpu_torch.parallel import DistributedTrainStep
 from paddle_tpu_torch.parallel import train_step as tts
@@ -68,9 +69,14 @@ ADAM_KW = {"eps": 1e-4}
 @pytest.fixture(autouse=True)
 def on_cpu():
     old = tdevice._current[0]
+    # a watchdog guardian arms the process-wide flight recorder, which
+    # stays armed: put back what the test found, so a later test on the
+    # same worker (test_torch_observability.py) sees it as it was
+    recorder = tflight.get_flight_recorder()
     paddle_tpu_torch.set_device("cpu")
     yield
     tdevice._current[0] = old
+    tflight.FLIGHT[0] = recorder
     configure_faults("")
     jconfigure("")
 

@@ -340,5 +340,12 @@ def test_unported_entry_points_raise():
                  lambda: P.jit.TranslatedLayer("x")):
         with pytest.raises(NotImplementedError, match="item 11"):
             call()
-    with pytest.raises(NotImplementedError, match="item 8 step 7"):
-        P.enable_static()
+    # static mode is ported (item 8 step 7): it switches on and off
+    P.enable_static()
+    try:
+        assert not P.in_dynamic_mode()
+    finally:
+        P.disable_static()
+    assert P.in_dynamic_mode()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        P.static.save_inference_model("x", [], [], None)
